@@ -31,274 +31,28 @@
 // Exactness. Integer and decimal lanes are exact in any order (64-bit
 // two's-complement adds wrap the same way). Float sums are atomics, so
 // their order changes from run to run; callers compare them within a
-// relative tolerance. There is no signed 64-bit atomicAdd: the value is
-// added through unsigned long long, which wraps identically. There are no
-// float64 atomic min and max: a compare-and-swap loop does them; NaN never
-// reaches them (it is masked out and counted in a NANCNT lane).
+// relative tolerance. The interpreter and the lane folds live in
+// program.cuh, shared with the hash group-by kernel.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "program.cuh"
 
 namespace {
 
-typedef long long i64;
-typedef unsigned long long u64;
-
-// opcodes: datafusion_tpu_torch/device/lower.py
-enum {
-  OP_COL = 1, OP_ICONST = 2, OP_FCONST = 3, OP_NULL = 4,
-  OP_ADD_I = 10, OP_SUB_I = 11, OP_MUL_I = 12,
-  OP_ADD_F = 13, OP_SUB_F = 14, OP_MUL_F = 15,
-  OP_NEG_I = 16, OP_NEG_F = 17,
-  OP_MULC_I = 20, OP_DIVC_F = 22, OP_I2F = 23, OP_F32 = 24,
-  OP_WRAP32 = 25,
-  OP_CMP_I = 30, OP_CMP_F = 31, OP_STRCMP = 32, OP_DECCMP = 33, OP_LUT = 34,
-  OP_IN_I = 35, OP_IN_F = 36,
-  OP_AND = 40, OP_OR = 41, OP_NOT = 42, OP_ISNULL = 43, OP_ISNOTNULL = 44,
-};
-enum { CMP_EQ, CMP_NE, CMP_LT, CMP_LE, CMP_GT, CMP_GE };
-
-// lane kinds: datafusion_tpu_torch/device/groupby.py
-enum {
-  LANE_ROWS = 0, LANE_CNT = 1, LANE_SUM_I64 = 2, LANE_SUM_F64 = 3,
-  LANE_MIN_I64 = 4, LANE_MAX_I64 = 5, LANE_MIN_F64 = 6, LANE_MAX_F64 = 7,
-  LANE_NANCNT = 8,
-};
-
-// column dtype codes: datafusion_tpu_torch/device/groupby.py
-enum { DT_BOOL, DT_I32, DT_I64, DT_F32, DT_F64 };
-
-// descriptor header words
-enum { H_NCOLS, H_NLANES, H_G, H_NKEYS, H_PRED, H_OFF_COLS, H_OFF_PROGS,
-       H_OFF_CODE, H_OFF_ICONST, H_OFF_FCONST, H_OFF_KEYS, H_OFF_LANES };
-
-constexpr int kMaxStack = 16;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ double as_f(i64 b) { return __longlong_as_double(b); }
-__device__ __forceinline__ i64 as_i(double d) { return __double_as_longlong(d); }
-
-// wrapping integer arithmetic (signed overflow is undefined in C++)
-__device__ __forceinline__ i64 wadd(i64 a, i64 b) { return (i64)((u64)a + (u64)b); }
-__device__ __forceinline__ i64 wsub(i64 a, i64 b) { return (i64)((u64)a - (u64)b); }
-__device__ __forceinline__ i64 wmul(i64 a, i64 b) { return (i64)((u64)a * (u64)b); }
-
-template <typename T>
-__device__ __forceinline__ bool cmp(int code, T a, T b) {
-  switch (code) {
-    case CMP_EQ: return a == b;
-    case CMP_NE: return a != b;
-    case CMP_LT: return a < b;
-    case CMP_LE: return a <= b;
-    case CMP_GT: return a > b;
-    default: return a >= b;
-  }
-}
-
-__device__ __forceinline__ i64 load(const i64* col, i64 row) {
-  const void* p = (const void*)col[0];
-  switch ((int)col[2]) {
-    case DT_BOOL: return ((const unsigned char*)p)[row] != 0;
-    case DT_I32: return ((const int*)p)[row];
-    case DT_F32: return as_i((double)((const float*)p)[row]);
-    default: return ((const i64*)p)[row];  // DT_I64, DT_F64 (bits)
-  }
-}
-
-// Run program `prog` for one row. Returns the valid bit; the value
-// (int64, or float64 bits) goes to *out.
-__device__ bool run(const i64* meta, const i64* aux, int prog, i64 row,
-                    i64* out) {
-  const i64* cols = meta + meta[H_OFF_COLS];
-  const i64* code = meta + meta[H_OFF_CODE];
-  const i64* ic = meta + meta[H_OFF_ICONST];
-  const i64* fc = meta + meta[H_OFF_FCONST];
-  const i64 start = meta[meta[H_OFF_PROGS] + 2 * prog];
-  const i64 len = meta[meta[H_OFF_PROGS] + 2 * prog + 1];
-  i64 v[kMaxStack];
-  unsigned ok = 0;   // valid bit of stack entry i is bit i
-  int sp = 0;        // number of entries
-#define OK(i) ((ok >> (i)) & 1u)
-#define SET_OK(i, b) (ok = (ok & ~(1u << (i))) | ((unsigned)(b) << (i)))
-  for (i64 pc = start; pc < start + len; ++pc) {
-    const int op = (int)code[3 * pc];
-    const i64 a = code[3 * pc + 1];
-    const i64 b = code[3 * pc + 2];
-    switch (op) {
-      case OP_COL: {
-        const i64* c = cols + 3 * a;
-        v[sp] = load(c, row);
-        const unsigned char* vp = (const unsigned char*)c[1];
-        SET_OK(sp, vp == nullptr || vp[row] != 0);
-        ++sp;
-        break;
-      }
-      case OP_ICONST: v[sp] = ic[a]; SET_OK(sp, 1); ++sp; break;
-      case OP_FCONST: v[sp] = fc[a]; SET_OK(sp, 1); ++sp; break;
-      case OP_NULL: v[sp] = 0; SET_OK(sp, 0); ++sp; break;
-      case OP_ADD_I: case OP_SUB_I: case OP_MUL_I:
-      case OP_ADD_F: case OP_SUB_F: case OP_MUL_F:
-      case OP_CMP_I: case OP_CMP_F: {
-        const i64 x = v[sp - 2], y = v[sp - 1];
-        const bool valid = OK(sp - 2) && OK(sp - 1);
-        i64 r;
-        switch (op) {
-          case OP_ADD_I: r = wadd(x, y); break;
-          case OP_SUB_I: r = wsub(x, y); break;
-          case OP_MUL_I: r = wmul(x, y); break;
-          case OP_ADD_F: r = as_i(as_f(x) + as_f(y)); break;
-          case OP_SUB_F: r = as_i(as_f(x) - as_f(y)); break;
-          case OP_MUL_F: r = as_i(as_f(x) * as_f(y)); break;
-          case OP_CMP_I: r = cmp<i64>((int)a, x, y); break;
-          default: r = cmp<double>((int)a, as_f(x), as_f(y)); break;
-        }
-        --sp;
-        v[sp - 1] = r;
-        SET_OK(sp - 1, valid);
-        break;
-      }
-      case OP_AND: case OP_OR: {
-        const bool x = v[sp - 2] != 0, y = v[sp - 1] != 0;
-        const bool xv = OK(sp - 2), yv = OK(sp - 1);
-        bool d, valid;
-        if (op == OP_AND) {  // Kleene: false wins over NULL
-          d = (x || !xv) && (y || !yv);
-          valid = (xv && yv) || (xv && !x) || (yv && !y);
-        } else {             // Kleene: true wins over NULL
-          const bool tl = xv && x, tr = yv && y;
-          d = tl || tr;
-          valid = (xv && yv) || tl || tr;
-        }
-        --sp;
-        v[sp - 1] = d;
-        SET_OK(sp - 1, valid);
-        break;
-      }
-      case OP_NEG_I: v[sp - 1] = wsub(0, v[sp - 1]); break;
-      case OP_NEG_F: v[sp - 1] = as_i(-as_f(v[sp - 1])); break;
-      case OP_MULC_I: v[sp - 1] = wmul(v[sp - 1], ic[a]); break;
-      case OP_DIVC_F: v[sp - 1] = as_i(as_f(v[sp - 1]) / as_f(fc[a])); break;
-      case OP_I2F: v[sp - 1] = as_i((double)v[sp - 1]); break;
-      case OP_F32:
-        v[sp - 1] = as_i((double)__double2float_rn(as_f(v[sp - 1])));
-        break;
-      case OP_WRAP32: v[sp - 1] = (i64)(int)v[sp - 1]; break;
-      case OP_STRCMP: {
-        const i64* s = aux + aux[2 * b];
-        const i64 x = v[sp - 1], pos = s[0], exact = s[1];
-        bool d;
-        switch ((int)a) {
-          case CMP_EQ: d = x == exact; break;
-          case CMP_NE: d = x != exact; break;
-          case CMP_LT: d = x < pos; break;
-          case CMP_LE: d = x < pos || x == exact; break;
-          case CMP_GT: d = x >= pos && x != exact; break;
-          default: d = x >= pos; break;
-        }
-        v[sp - 1] = d;
-        break;
-      }
-      case OP_DECCMP: {
-        const i64 x = v[sp - 1], t_ge = ic[b], t_gt = ic[b + 1];
-        bool d;
-        switch ((int)a) {
-          case CMP_EQ: d = x >= t_ge && x < t_gt; break;
-          case CMP_NE: d = x < t_ge || x >= t_gt; break;
-          case CMP_LT: d = x < t_ge; break;
-          case CMP_LE: d = x < t_gt; break;
-          case CMP_GT: d = x >= t_gt; break;
-          default: d = x >= t_ge; break;
-        }
-        v[sp - 1] = d;
-        break;
-      }
-      case OP_LUT: {
-        const i64* lut = aux + aux[2 * a];
-        const i64 n = aux[2 * a + 1];
-        i64 x = v[sp - 1];
-        x = x < 0 ? 0 : (x > n - 1 ? n - 1 : x);
-        v[sp - 1] = lut[x];
-        break;
-      }
-      case OP_IN_I: case OP_IN_F: {
-        const i64 x = v[sp - 1];
-        bool hit = false;
-        for (i64 k = 0; k < b; ++k) {
-          hit |= op == OP_IN_I ? x == ic[a + k] : as_f(x) == as_f(fc[a + k]);
-        }
-        v[sp - 1] = hit;
-        break;
-      }
-      case OP_NOT: v[sp - 1] = v[sp - 1] == 0; break;
-      case OP_ISNULL: case OP_ISNOTNULL: {
-        const bool valid = OK(sp - 1);
-        v[sp - 1] = op == OP_ISNOTNULL ? valid : !valid;
-        SET_OK(sp - 1, 1);
-        break;
-      }
-      default: break;  // the host compiler emits no other opcode
-    }
-  }
-  *out = v[0];
-  return OK(0);
-#undef OK
-#undef SET_OK
-}
-
-__device__ __forceinline__ i64 identity(int kind) {
-  switch (kind) {
-    case LANE_MIN_I64: return INT64_MAX;
-    case LANE_MAX_I64: return INT64_MIN;
-    case LANE_MIN_F64: return as_i(INFINITY);
-    case LANE_MAX_F64: return as_i(-INFINITY);
-    default: return 0;
-  }
-}
-
-__device__ __forceinline__ void atomic_min_f64(u64* addr, double x) {
-  u64 old = *addr;
-  while (x < as_f((i64)old)) {
-    const u64 seen = atomicCAS(addr, old, (u64)as_i(x));
-    if (seen == old) break;
-    old = seen;
-  }
-}
-
-__device__ __forceinline__ void atomic_max_f64(u64* addr, double x) {
-  u64 old = *addr;
-  while (x > as_f((i64)old)) {
-    const u64 seen = atomicCAS(addr, old, (u64)as_i(x));
-    if (seen == old) break;
-    old = seen;
-  }
-}
-
-// fold value x of a lane of kind `kind` into *cell (shared or global)
-__device__ __forceinline__ void fold(int kind, u64* cell, i64 x) {
-  switch (kind) {
-    case LANE_SUM_F64: atomicAdd((double*)cell, as_f(x)); break;
-    case LANE_MIN_I64: atomicMin((long long*)cell, x); break;
-    case LANE_MAX_I64: atomicMax((long long*)cell, x); break;
-    case LANE_MIN_F64: atomic_min_f64(cell, as_f(x)); break;
-    case LANE_MAX_F64: atomic_max_f64(cell, as_f(x)); break;
-    default: atomicAdd(cell, (u64)x); break;  // counts and int64 sums
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 fused_dense_aggregate_kernel(const i64* __restrict__ meta_g, int meta_len,
                              const i64* __restrict__ aux, i64 n_rows,
                              u64* __restrict__ table_g) {
   extern __shared__ i64 smem[];
-  for (int i = threadIdx.x; i < meta_len; i += blockDim.x) smem[i] = meta_g[i];
-  __syncthreads();
+  stage_meta(smem, meta_g, meta_len);
   const i64* meta = smem;
   const int n_lanes = (int)meta[H_NLANES];
   const int groups = (int)meta[H_G];
   const int n_keys = (int)meta[H_NKEYS];
   const i64* keys = meta + meta[H_OFF_KEYS];
   const i64* lanes = meta + meta[H_OFF_LANES];
+  const RowColumns cols{meta + meta[H_OFF_COLS]};
   u64* tab = (u64*)(smem + meta_len);
   const int cells = (n_lanes + 1) * groups;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
@@ -310,40 +64,16 @@ fused_dense_aggregate_kernel(const i64* __restrict__ meta_g, int meta_len,
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
        row += stride) {
-    i64 x;
     if (meta[H_PRED] >= 0) {
-      const bool valid = run(meta, aux, (int)meta[H_PRED], row, &x);
+      i64 x;
+      const bool valid = run(meta, aux, (int)meta[H_PRED], row, cols, &x);
       if (!(valid && x != 0)) continue;
     }
-    i64 slot = 0;
-    for (int k = 0; k < n_keys; ++k) {
-      const bool valid = run(meta, aux, (int)keys[3 * k], row, &x);
-      const i64 code = valid ? wadd(wsub(x, keys[3 * k + 1]), 1) : 0;
-      slot |= code << keys[3 * k + 2];
-    }
+    i64 slot = pack_key(meta, aux, keys, n_keys, row, cols);
     slot = slot < 0 ? 0 : (slot >= groups ? groups - 1 : slot);
     atomicAdd(&tab[slot], 1ull);
-    for (int l = 0; l < n_lanes; ++l) {
-      const int prog = (int)lanes[2 * l];
-      const int kind = (int)lanes[2 * l + 1];
-      u64* cell = &tab[(l + 1) * groups + slot];
-      if (prog < 0) {  // count(*)
-        atomicAdd(cell, 1ull);
-        continue;
-      }
-      const bool valid = run(meta, aux, prog, row, &x);
-      if (!valid) continue;
-      switch (kind) {
-        case LANE_CNT: atomicAdd(cell, 1ull); break;
-        case LANE_NANCNT:
-          if (isnan(as_f(x))) atomicAdd(cell, 1ull);
-          break;
-        case LANE_MIN_F64: case LANE_MAX_F64:
-          if (!isnan(as_f(x))) fold(kind, cell, x);
-          break;
-        default: fold(kind, cell, x); break;
-      }
-    }
+    fold_lanes(meta, aux, lanes, n_lanes, row, cols,
+               [&](int l) { return &tab[(l + 1) * groups + slot]; });
   }
   __syncthreads();
 

@@ -1,22 +1,36 @@
-"""Dense-slot grouped aggregation fused with filter, key packing and lanes.
+"""Grouped aggregation fused with filter, key packing and lanes: dense slots,
+a hash table, and the compaction and top-k selection of the group table.
 
-Counterpart of `datafusion_tpu/device/groupby.py:70-111`
+Dense path. Counterpart of `datafusion_tpu/device/groupby.py:70-111`
 (`_dense_group_aggregate`) fused with its prologue
 `DeviceGroupAggregateExec._make_step.prepare`
-(`datafusion_tpu/physical/plan/device_aggregate.py:679-769`), and of the
-emit packer `_fetch_state` (`:1017-1098`): the group table is one
-`[lanes + 1, G]` int64 tensor (float lanes hold float64 bits), so a
-single `.cpu()` copy brings it to the host.
+(`datafusion_tpu/physical/plan/device_aggregate.py:679-769`): the group
+table is one `[lanes + 1, G]` int64 tensor (float lanes hold float64
+bits), G <= 64. Per row: the predicate program decides whether the row
+counts; each key program packs `(v - offset + 1) << shift` into the slot
+(0 = NULL); each lane program is evaluated and folded into the slot under
+the rules of `prepare` (NaN is masked out of float min/max and counted in
+a NANCNT lane). Lane 0 counts the rows of each slot; a slot with a nonzero
+count is a group. Every batch accumulates into the same table.
 
-Per row: the predicate program decides whether the row counts; each key
-program packs `(v - offset + 1) << shift` into the slot (0 = NULL); each
-lane program is evaluated and folded into the slot under the rules of
-`prepare` (NaN is masked out of float min/max and counted in a NANCNT
-lane). Lane 0 counts the rows of each slot; a slot with a nonzero count
-is a group. Every batch accumulates into the same table.
+Hash path. For key spaces above 64 slots: the same programs, with the
+packed key inserted into an open-addressing table of `[lanes + 2, cap]`
+int64 (row 0 the keys, EMPTY = -1; row 1 the row counts; then the lanes).
+It stands for the JAX sort path (`device/groupby.py:159`, `:117`), its
+row-space path (`:292`, `:356`), the chunk merge and overflow marker
+(`device_aggregate.py:973`, `:97`) and the unbounded path (`:393`): the
+caller sizes `cap` from the input, so the table never fills and every
+batch folds into it. Float32 sums keep a float32 accumulator (SUM_F32), as
+the JAX sparse path does (`device_aggregate.py:725-728`).
 
-`dense_group_aggregate` is the wrapper: CPU tensors take the plain
-PyTorch version, CUDA tensors launch `csrc/fused_dense_aggregate.cu`.
+Emit. `compact_groups` keeps the occupied slots of a `[lanes + 2, cap]`
+table, optionally those that pass a HAVING program over the finalised
+output columns (`_apply_post_filter`, `device_aggregate.py:1279`), or the
+slots of a list that `group_topk` chose (`_emit_topk`, `:1127`). One
+`.cpu()` of its `[lanes + 2, ng]` output brings the groups to the host.
+
+Each wrapper runs its plain PyTorch version on CPU tensors and launches
+its CUDA kernel (`csrc/`) on CUDA tensors, or raises.
 """
 from __future__ import annotations
 
@@ -31,21 +45,34 @@ from .lower import LoweringError, Pools, Program, evaluate
 fused_dense_aggregate = kernels.register(kernels.Kernel(
     "fused_dense_aggregate", "datafusion_tpu_torch/csrc/fused_dense_aggregate.cu",
     "datafusion_tpu/physical/plan/device_aggregate.py:679"))
+hash_group_aggregate_kernel = kernels.register(kernels.Kernel(
+    "hash_group_aggregate", "datafusion_tpu_torch/csrc/hash_group_aggregate.cu",
+    "datafusion_tpu/device/groupby.py:159"))
+compact_groups_kernel = kernels.register(kernels.Kernel(
+    "compact_groups", "datafusion_tpu_torch/csrc/compact_groups.cu",
+    "datafusion_tpu/physical/plan/device_aggregate.py:1279"))
+group_topk_kernel = kernels.register(kernels.Kernel(
+    "group_topk", "datafusion_tpu_torch/csrc/group_topk.cu",
+    "datafusion_tpu/physical/plan/device_aggregate.py:1127"))
 
-# lane kinds (mirrored in csrc/fused_dense_aggregate.cu)
+# lane kinds (mirrored in csrc/program.cuh)
 LANE_ROWS = 0        # +1 per row that passed the predicate (count(*))
 LANE_CNT = 1         # +1 per row whose argument is valid
 LANE_SUM_I64 = 2
-LANE_SUM_F64 = 3     # float32 arguments too: the dense path widens them
+LANE_SUM_F64 = 3     # float32 arguments too on the dense path: it widens them
 LANE_MIN_I64 = 4
 LANE_MAX_I64 = 5
 LANE_MIN_F64 = 6     # NaN masked out
 LANE_MAX_F64 = 7
 LANE_NANCNT = 8      # +1 per valid NaN argument
+LANE_SUM_F32 = 9     # hash path: a float32 sum in the cell's low word
 
-MAX_GROUPS = 64      # dense slots; larger key spaces are not on this path
+MAX_GROUPS = 64      # dense slots; larger key spaces take the hash path
 MAX_LANES = 32
-SMEM_BYTES = 48 * 1024   # the kernel's shared table + program
+SMEM_BYTES = 48 * 1024   # a kernel's shared descriptor (+ the dense table)
+EMPTY = -1           # key of a free hash slot
+MAX_TOPK = 1 << 16
+COMPACT_TILE = 2048  # slots per block of csrc/compact_groups.cu
 
 _I64_MAX = np.iinfo(np.int64).max
 _I64_MIN = np.iinfo(np.int64).min
@@ -56,7 +83,7 @@ _IDENTITY = {
 }
 _FLOAT_LANES = (LANE_SUM_F64, LANE_MIN_F64, LANE_MAX_F64)
 
-# column dtype codes of the kernel's loads
+# column dtype codes of the kernels' loads
 _DTYPE_CODE = {torch.bool: 0, torch.int32: 1, torch.int64: 2,
                torch.float32: 3, torch.float64: 4}
 _NP_TO_TORCH = {np.dtype(np.bool_): torch.bool,
@@ -65,7 +92,7 @@ _NP_TO_TORCH = {np.dtype(np.bool_): torch.bool,
                 np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
 
-# meta header: int64 words at the start of the kernel's descriptor
+# meta header: int64 words at the start of a kernel's descriptor
 (H_NCOLS, H_NLANES, H_G, H_NKEYS, H_PRED, H_OFF_COLS, H_OFF_PROGS,
  H_OFF_CODE, H_OFF_ICONST, H_OFF_FCONST, H_OFF_KEYS, H_OFF_LANES) = range(12)
 HEADER = 12
@@ -73,13 +100,16 @@ HEADER = 12
 Columns = Dict[int, Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
 
-def lane_kind(cat: str, prog: Optional[Program]) -> int:
+def lane_kind(cat: str, prog: Optional[Program], f32_sums: bool = False) -> int:
     """The lane kind of a slot category of `DeviceGroupAggregateExec`
-    (`sum`, `cnt`, `min`, `max`, `nancnt`) over `prog`'s values."""
+    (`sum`, `cnt`, `min`, `max`, `nancnt`) over `prog`'s values. With
+    `f32_sums` (the hash path) a float32 sum keeps a float32 lane."""
     if prog is None:
         return LANE_ROWS
     f = prog.is_float
-    kinds = {"cnt": LANE_CNT, "sum": LANE_SUM_F64 if f else LANE_SUM_I64,
+    fsum = LANE_SUM_F32 if f32_sums and prog.out_dtype == np.float32 \
+        else LANE_SUM_F64
+    kinds = {"cnt": LANE_CNT, "sum": fsum if f else LANE_SUM_I64,
              "min": LANE_MIN_F64 if f else LANE_MIN_I64,
              "max": LANE_MAX_F64 if f else LANE_MAX_I64}
     if cat == "nancnt":
@@ -87,14 +117,40 @@ def lane_kind(cat: str, prog: Optional[Program]) -> int:
             raise LoweringError("nancnt over an integer lane")
         return LANE_NANCNT
     if cat not in kinds:
-        raise LoweringError(f"slot {cat} not on the dense path")
+        raise LoweringError(f"slot {cat} not on the device path")
     return kinds[cat]
 
 
-class AggregateSpec:
-    """Predicate, packed keys and lanes of one dense aggregate, with the
-    kernel's descriptor laid out once; only column pointers change per
-    batch."""
+def _descriptor(head: Dict[int, int], sections: Sequence[np.ndarray]
+                ) -> np.ndarray:
+    """Header words `head` plus the sections, whose offsets fill
+    H_OFF_COLS .. H_OFF_LANES in order."""
+    out = np.zeros(HEADER, np.int64)
+    for h, v in head.items():
+        out[h] = v
+    sections = [np.asarray(s, np.int64).reshape(-1) for s in sections]
+    off = HEADER
+    for h, sec in zip((H_OFF_COLS, H_OFF_PROGS, H_OFF_CODE, H_OFF_ICONST,
+                       H_OFF_FCONST, H_OFF_KEYS, H_OFF_LANES), sections):
+        out[h] = off
+        off += len(sec)
+    return np.concatenate([out, *sections])
+
+
+def _program_sections(progs: Sequence[Program], pools: Pools):
+    """The programs, code, iconst and fconst sections of a descriptor."""
+    code, starts = [], []
+    for p in progs:
+        starts.append((len(code), len(p.code)))
+        code.extend(p.code)
+    return [np.asarray(starts, np.int64), np.asarray(code, np.int64),
+            np.asarray(pools.iconst, np.int64),
+            np.asarray(pools.fconst, np.float64).view(np.int64)]
+
+
+class _ProgramSpec:
+    """Predicate, packed keys and lanes of one aggregate, with the kernel's
+    descriptor laid out once; only column pointers change per batch."""
 
     def __init__(self, pools: Pools, pred: Optional[Program],
                  keys: Sequence[Tuple[Program, int, int]],
@@ -107,23 +163,14 @@ class AggregateSpec:
                 raise LoweringError("float group key")
             self.keys.append((prog, int(offset), shift))
             shift += int(bits)
-        self.groups = 1 << shift
+        self.key_bits = shift
         self.lanes = list(lanes)
-        if self.groups > MAX_GROUPS:
-            raise LoweringError(f"{self.groups} slots > {MAX_GROUPS}")
         if len(self.lanes) > MAX_LANES:
             raise LoweringError(f"{len(self.lanes)} lanes > {MAX_LANES}")
         for prog in self.programs():
             if prog.pools is not pools:
                 raise ValueError("programs of one aggregate share one pool")
         self.ncols = max(pools.columns, default=-1) + 1
-        self.meta = self._layout()
-        if (len(self.meta) + self.table_words) * 8 > SMEM_BYTES:
-            raise LoweringError("aggregate program too large for the kernel")
-
-    @property
-    def table_words(self) -> int:
-        return (len(self.lanes) + 1) * self.groups
 
     def programs(self) -> List[Program]:
         out = [self.pred] if self.pred is not None else []
@@ -131,66 +178,130 @@ class AggregateSpec:
         out += [p for p, _k in self.lanes if p is not None]
         return out
 
-    def _layout(self) -> np.ndarray:
+    def _layout(self, slots: int) -> np.ndarray:
         progs = self.programs()
         index = {id(p): i for i, p in enumerate(progs)}
-        code, starts = [], []
-        for p in progs:
-            starts.append((len(code), len(p.code)))
-            code.extend(p.code)
-        fconst = np.asarray(self.pools.fconst, np.float64).view(np.int64)
-        sections = [
+        head = {H_NCOLS: self.ncols, H_NLANES: len(self.lanes), H_G: slots,
+                H_NKEYS: len(self.keys),
+                H_PRED: 0 if self.pred is not None else -1}
+        return _descriptor(head, [
             np.zeros(3 * self.ncols, np.int64),                  # columns
-            np.asarray(starts, np.int64).reshape(-1),            # programs
-            np.asarray(code, np.int64).reshape(-1),              # code
-            np.asarray(self.pools.iconst, np.int64),             # iconst
-            fconst,                                              # fconst
+            *_program_sections(progs, self.pools),
             np.asarray([(index[id(p)], o, s) for p, o, s in self.keys],
-                       np.int64).reshape(-1),                    # keys
+                       np.int64),                                # keys
             np.asarray([(-1 if p is None else index[id(p)], k)
-                        for p, k in self.lanes], np.int64).reshape(-1),
-        ]
-        head = np.zeros(HEADER, np.int64)
-        head[H_NCOLS] = self.ncols
-        head[H_NLANES] = len(self.lanes)
-        head[H_G] = self.groups
-        head[H_NKEYS] = len(self.keys)
-        head[H_PRED] = 0 if self.pred is not None else -1
-        off = HEADER
-        for h, sec in zip((H_OFF_COLS, H_OFF_PROGS, H_OFF_CODE, H_OFF_ICONST,
-                           H_OFF_FCONST, H_OFF_KEYS, H_OFF_LANES), sections):
-            head[h] = off
-            off += len(sec)
-        return np.concatenate([head, *sections])
+                        for p, k in self.lanes], np.int64)])     # lanes
 
     def identity(self) -> np.ndarray:
-        """Each table row's identity: 0 for counts and sums, the extreme
-        of the lane's type for min and max."""
-        return np.asarray([0] + [_IDENTITY.get(k, 0) for _p, k in self.lanes],
+        """Each lane's identity: 0 for counts and sums, the extreme of the
+        lane's type for min and max."""
+        return np.asarray([_IDENTITY.get(k, 0) for _p, k in self.lanes],
                           np.int64)
 
-    def new_table(self, device: torch.device) -> torch.Tensor:
-        ident = torch.from_numpy(self.identity()).to(device)
-        table = torch.empty((len(self.lanes) + 1, self.groups),
-                            dtype=torch.int64, device=device)
-        table.copy_(ident[:, None].expand_as(table))
+    def _table(self, head: Sequence[int], device: torch.device
+               ) -> torch.Tensor:
+        """A table of `table_shape`: the rows `head`, then each lane at its
+        identity."""
+        ident = torch.from_numpy(
+            np.concatenate([np.asarray(head, np.int64), self.identity()]))
+        table = torch.empty(self.table_shape, dtype=torch.int64,
+                            device=device)
+        table.copy_(ident.to(device)[:, None].expand_as(table))
         return table
 
-    def lane_arrays(self, host_table: np.ndarray) -> List[np.ndarray]:
-        """Per lane, the host values as int64 or float64."""
-        return [host_table[1 + i].view(np.float64) if k in _FLOAT_LANES
-                else host_table[1 + i] for i, (_p, k) in enumerate(self.lanes)]
+    def lane_arrays(self, host_table: np.ndarray,
+                    first: int = 1) -> List[np.ndarray]:
+        """Per lane, the host values (lanes from row `first` on: 1 in a
+        dense table, 2 in the hash layout) as int64, float64 or float32."""
+        out = []
+        for i, (_p, k) in enumerate(self.lanes):
+            row = host_table[first + i]
+            if k == LANE_SUM_F32:
+                out.append(np.ascontiguousarray(row).view(np.float32)[0::2])
+            else:
+                out.append(row.view(np.float64) if k in _FLOAT_LANES else row)
+        return out
 
     def column_dtype(self, idx: int) -> torch.dtype:
         return _NP_TO_TORCH[self.pools.columns[idx]]
 
+    def device_meta(self, cols: Columns, device: torch.device) -> torch.Tensor:
+        """The descriptor with the batch's column pointers, on `device`."""
+        meta = self.meta.copy()
+        base = int(meta[H_OFF_COLS])
+        for idx, (data, valid) in cols.items():
+            if idx in self.pools.columns:
+                meta[base + 3 * idx] = data.data_ptr()
+                meta[base + 3 * idx + 1] = 0 if valid is None else valid.data_ptr()
+                meta[base + 3 * idx + 2] = _DTYPE_CODE[data.dtype]
+        return torch.from_numpy(meta).to(device)
 
-def _check(spec: AggregateSpec, cols: Columns, aux: torch.Tensor,
+
+class AggregateSpec(_ProgramSpec):
+    """A dense aggregate: G = 2^key bits <= 64 slots, each slot its own
+    packed key."""
+
+    def __init__(self, pools, pred, keys, lanes):
+        super().__init__(pools, pred, keys, lanes)
+        self.groups = 1 << self.key_bits
+        if self.groups > MAX_GROUPS:
+            raise LoweringError(f"{self.groups} slots > {MAX_GROUPS}")
+        self.meta = self._layout(self.groups)
+        if (len(self.meta) + self.table_words) * 8 > SMEM_BYTES:
+            raise LoweringError("aggregate program too large for the kernel")
+
+    @property
+    def table_shape(self) -> Tuple[int, int]:
+        return len(self.lanes) + 1, self.groups
+
+    @property
+    def table_words(self) -> int:
+        return (len(self.lanes) + 1) * self.groups
+
+    def new_table(self, device: torch.device) -> torch.Tensor:
+        """[lanes + 1, G]: counts 0, lanes their identity."""
+        return self._table([0], device)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+class HashSpec(_ProgramSpec):
+    """A hash aggregate over a key space above 64 slots.
+
+    The table has `cap` slots, a power of two at least twice the number
+    of groups there can be: min(key space, `rows`), `rows` being the
+    total input rows. When the key space itself fits in `cap`, the packed
+    key is the slot (`identity_slots`: no probe, no CAS) and `cap` is the
+    key space; otherwise the kernel probes a hashed table."""
+
+    def __init__(self, pools, pred, keys, lanes, rows: int):
+        super().__init__(pools, pred, keys, lanes)
+        key_space = 1 << self.key_bits
+        cap = _next_pow2(2 * min(key_space, max(int(rows), 1)))
+        self.identity_slots = key_space <= cap
+        self.cap = key_space if self.identity_slots else cap
+        self.meta = self._layout(self.cap)
+        if len(self.meta) * 8 > SMEM_BYTES:
+            raise LoweringError("aggregate program too large for the kernel")
+
+    @property
+    def table_shape(self) -> Tuple[int, int]:
+        return len(self.lanes) + 2, self.cap
+
+    def new_table(self, device: torch.device) -> torch.Tensor:
+        """[lanes + 2, cap]: keys EMPTY, counts 0, lanes their identity."""
+        return self._table([EMPTY, 0], device)
+
+
+def _check(spec: _ProgramSpec, cols: Columns, aux: torch.Tensor,
            n_rows: int, table: torch.Tensor) -> None:
     dev = table.device
     if table.dtype != torch.int64 or not table.is_contiguous() or \
-            tuple(table.shape) != (len(spec.lanes) + 1, spec.groups):
-        raise ValueError("table must be a contiguous int64 [lanes + 1, G]")
+            tuple(table.shape) != spec.table_shape:
+        raise ValueError(f"table must be a contiguous int64 "
+                         f"{list(spec.table_shape)}")
     if aux.device != dev or aux.dtype != torch.int64 or \
             not aux.is_contiguous():
         raise ValueError("aux must be a contiguous int64 tensor on the "
@@ -213,6 +324,19 @@ def _check(spec: AggregateSpec, cols: Columns, aux: torch.Tensor,
             raise ValueError(f"column {idx}: bad validity")
 
 
+def _cuda(table: torch.Tensor) -> bool:
+    """False for a CPU table (run the plain version), True for CUDA."""
+    if table.device.type == "cpu":
+        return False
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    return True
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def dense_group_aggregate(spec: AggregateSpec, cols: Columns,
                           aux: torch.Tensor, n_rows: int,
                           table: torch.Tensor) -> torch.Tensor:
@@ -221,53 +345,46 @@ def dense_group_aggregate(spec: AggregateSpec, cols: Columns,
     On CPU tensors this runs `dense_group_aggregate_plain`; on CUDA
     tensors it launches the `fused_dense_aggregate` kernel or raises."""
     _check(spec, cols, aux, n_rows, table)
-    if table.device.type == "cpu":
+    if not _cuda(table):
         return dense_group_aggregate_plain(spec, cols, aux, n_rows, table)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
     if n_rows == 0:
         return table
     lib = kernels.library()
-    meta = spec.meta.copy()
-    base = int(meta[H_OFF_COLS])
-    for idx, (data, valid) in cols.items():
-        if idx in spec.pools.columns:
-            meta[base + 3 * idx] = data.data_ptr()
-            meta[base + 3 * idx + 1] = 0 if valid is None else valid.data_ptr()
-            meta[base + 3 * idx + 2] = _DTYPE_CODE[data.dtype]
     with torch.cuda.device(table.device):
-        meta_d = torch.from_numpy(meta).to(table.device)
-        stream = torch.cuda.current_stream(table.device).cuda_stream
+        meta_d = spec.device_meta(cols, table.device)
         rc = lib.dft_fused_dense_aggregate(
-            meta_d.data_ptr(), len(meta), len(spec.lanes), spec.groups,
-            aux.data_ptr(), n_rows, table.data_ptr(), stream)
+            meta_d.data_ptr(), len(spec.meta), len(spec.lanes), spec.groups,
+            aux.data_ptr(), n_rows, table.data_ptr(), _stream(table.device))
     kernels.check(rc, fused_dense_aggregate)
     fused_dense_aggregate.launches += 1
     return table
 
 
-def dense_group_aggregate_plain(spec: AggregateSpec, cols: Columns,
-                                aux: torch.Tensor, n_rows: int,
-                                table: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: the programs interpreted over whole
-    tensors, then `index_add_` / `scatter_reduce_` into the slots."""
-    n = n_rows
-    dev = table.device
-    if n == 0:
-        return table
+def _rows_and_keys(spec: _ProgramSpec, cols: Columns, aux: torch.Tensor,
+                   n: int):
+    """The plain versions' prologue: (rows that pass the predicate, the
+    packed key of every row)."""
+    dev = aux.device
     row_valid = torch.ones(n, dtype=torch.bool, device=dev)
     if spec.pred is not None:
         d, v = evaluate(spec.pred, cols, aux, n)
         row_valid &= (d != 0) & v
-    slot = torch.zeros(n, dtype=torch.int64, device=dev)
+    packed = torch.zeros(n, dtype=torch.int64, device=dev)
     for prog, offset, shift in spec.keys:
         d, v = evaluate(prog, cols, aux, n)
-        slot |= torch.where(v, d - offset + 1, 0) << shift
-    slot = slot.clamp(0, spec.groups - 1)[row_valid]
+        packed |= torch.where(v, d - offset + 1, 0) << shift
+    return row_valid, packed
+
+
+def _fold_plain(spec: _ProgramSpec, cols: Columns, aux: torch.Tensor, n: int,
+                row_valid: torch.Tensor, slot: torch.Tensor,
+                counts: torch.Tensor, lane_rows: torch.Tensor) -> None:
+    """Fold the rows `row_valid` selects into `slot` of the count row and
+    the lane rows, under the rules of `prepare`."""
     ones = torch.ones_like(slot)
-    table[0].index_add_(0, slot, ones)
+    counts.index_add_(0, slot, ones)
     for i, (prog, kind) in enumerate(spec.lanes):
-        row = table[1 + i]
+        row = lane_rows[i]
         if prog is None:
             row.index_add_(0, slot, ones)
             continue
@@ -279,6 +396,9 @@ def dense_group_aggregate_plain(spec: AggregateSpec, cols: Columns,
             row.index_add_(0, slot, torch.where(v, d, 0))
         elif kind == LANE_SUM_F64:
             row.view(torch.float64).index_add_(0, slot, torch.where(v, d, 0.0))
+        elif kind == LANE_SUM_F32:
+            low = row.view(torch.float32)[0::2]     # little-endian low words
+            low.index_add_(0, slot, torch.where(v, d, 0.0).to(torch.float32))
         elif kind == LANE_NANCNT:
             row.index_add_(0, slot, (v & d.isnan()).to(torch.int64))
         elif kind in (LANE_MIN_I64, LANE_MAX_I64):
@@ -293,4 +413,320 @@ def dense_group_aggregate_plain(spec: AggregateSpec, cols: Columns,
                 0, slot, torch.where(avail, d, ident), red)
         else:
             raise ValueError(f"bad lane kind {kind}")
+
+
+def dense_group_aggregate_plain(spec: AggregateSpec, cols: Columns,
+                                aux: torch.Tensor, n_rows: int,
+                                table: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: the programs interpreted over whole
+    tensors, then `index_add_` / `scatter_reduce_` into the slots."""
+    if n_rows == 0:
+        return table
+    row_valid, packed = _rows_and_keys(spec, cols, aux, n_rows)
+    slot = packed.clamp(0, spec.groups - 1)[row_valid]
+    _fold_plain(spec, cols, aux, n_rows, row_valid, slot, table[0], table[1:])
     return table
+
+
+def dense_group_table(table: torch.Tensor) -> torch.Tensor:
+    """A dense `[lanes + 1, G]` table in the hash layout `[lanes + 2, G]`:
+    row 0 the packed key (the slot) of each group, EMPTY elsewhere."""
+    slots = torch.arange(table.shape[1], dtype=torch.int64,
+                         device=table.device)
+    keys = torch.where(table[0] > 0, slots, EMPTY)
+    return torch.cat([keys[None], table])
+
+
+def _check_overflow(overflow: torch.Tensor, device: torch.device) -> None:
+    if overflow.device != device or overflow.dtype != torch.int32 or \
+            overflow.numel() != 1:
+        raise ValueError("overflow must be one int32 on the table's device")
+
+
+def hash_group_aggregate(spec: HashSpec, cols: Columns, aux: torch.Tensor,
+                         n_rows: int, table: torch.Tensor,
+                         overflow: torch.Tensor) -> torch.Tensor:
+    """Fold the first `n_rows` rows of `cols` into the hash `table` in
+    place; `overflow` (one int32) is set to 1 if a row found no slot.
+
+    On CPU tensors this runs `hash_group_aggregate_plain`; on CUDA tensors
+    it launches the `hash_group_aggregate` kernel or raises."""
+    _check(spec, cols, aux, n_rows, table)
+    _check_overflow(overflow, table.device)
+    if not _cuda(table):
+        return hash_group_aggregate_plain(spec, cols, aux, n_rows, table,
+                                          overflow)
+    if n_rows == 0:
+        return table
+    lib = kernels.library()
+    with torch.cuda.device(table.device):
+        meta_d = spec.device_meta(cols, table.device)
+        rc = lib.dft_hash_group_aggregate(
+            meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
+            spec.cap, int(spec.identity_slots), table.data_ptr(),
+            overflow.data_ptr(), _stream(table.device))
+    kernels.check(rc, hash_group_aggregate_kernel)
+    hash_group_aggregate_kernel.launches += 1
+    return table
+
+
+def _plain_slots(spec: HashSpec, table: torch.Tensor, packed: torch.Tensor,
+                 overflow: torch.Tensor) -> torch.Tensor:
+    """The slot of each packed key, claiming free slots for new keys (in
+    key order, at the lowest free slots); -1 and the overflow flag where
+    none is left."""
+    keys = table[0]
+    if spec.identity_slots:
+        bad = (packed < 0) | (packed >= spec.cap)
+        slot = torch.where(bad, -1, packed)
+        keys[slot[~bad]] = packed[~bad]
+    else:
+        uk, inv = torch.unique(packed, return_inverse=True)
+        live = (keys != EMPTY).nonzero().squeeze(1)
+        lkeys, order = keys[live].sort()
+        uslot = torch.full_like(uk, -1)
+        if lkeys.numel():
+            pos = torch.searchsorted(lkeys, uk).clamp(max=lkeys.numel() - 1)
+            hit = lkeys[pos] == uk
+            uslot[hit] = live[order[pos[hit]]]
+        new = (uslot < 0).nonzero().squeeze(1)
+        free = (keys == EMPTY).nonzero().squeeze(1)[:new.numel()]
+        uslot[new[:free.numel()]] = free
+        keys[free] = uk[new[:free.numel()]]
+        slot = uslot[inv]
+        bad = slot < 0
+    if bool(bad.any()):
+        overflow.fill_(1)
+    return slot
+
+
+def hash_group_aggregate_plain(spec: HashSpec, cols: Columns,
+                               aux: torch.Tensor, n_rows: int,
+                               table: torch.Tensor,
+                               overflow: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: the programs interpreted over whole
+    tensors, the keys interned with `torch.unique` against the keys
+    already in the table, then `index_add_` / `scatter_reduce_`."""
+    if n_rows == 0:
+        return table
+    row_valid, packed = _rows_and_keys(spec, cols, aux, n_rows)
+    slot = torch.full_like(packed, -1)
+    slot[row_valid] = _plain_slots(spec, table, packed[row_valid], overflow)
+    row_valid &= slot >= 0
+    _fold_plain(spec, cols, aux, n_rows, row_valid, slot[row_valid],
+                table[1], table[2:])
+    return table
+
+
+# finaliser kinds (mirrored in csrc/compact_groups.cu)
+FIN_KEY, FIN_COUNT, FIN_SUM, FIN_AVG, FIN_MIN, FIN_MAX = range(6)
+FIN_WORDS = 6
+
+
+class Finaliser:
+    """One output column of an aggregate read from its group table, as
+    `_apply_post_filter` (`device_aggregate.py:1301-1352`) reads it:
+    - FIN_KEY (shift, bits, offset, is_bool): `((k >> shift) & mask) - 1 +
+      offset` (bool: != 0), valid when that field is not 0;
+    - FIN_COUNT (count row);
+    - FIN_SUM / FIN_AVG (sum row, count row, sum lane kind): valid when the
+      count is above 0; avg is `s / c` in float64;
+    - FIN_MIN / FIN_MAX (value row, count row, lane kind, nancnt row or
+      -1): NaN restored, for min where every value was NaN, for max where
+      any was."""
+
+    def __init__(self, kind: int, *words: int):
+        self.kind = kind
+        self.words = tuple(int(w) for w in words)
+
+    def descriptor(self) -> List[int]:
+        return [self.kind, *self.words,
+                *[0] * (FIN_WORDS - 1 - len(self.words))]
+
+
+def _sum_value(row: torch.Tensor, kind: int) -> torch.Tensor:
+    if kind == LANE_SUM_F64:
+        return row.view(torch.float64)
+    if kind == LANE_SUM_F32:          # the low word (little-endian)
+        return row.contiguous().view(torch.float32)[0::2].to(torch.float64)
+    return row
+
+
+def finalise(table: torch.Tensor, fins: Dict[int, Finaliser]):
+    """The plain PyTorch version of the finalisers: output column index ->
+    (data, valid) over every slot of `table`, as `evaluate` reads them."""
+    out = {}
+    for idx, f in fins.items():
+        w = f.words
+        if f.kind == FIN_KEY:
+            shift, bits, offset, is_bool = w[:4]
+            raw = (table[0] >> shift) & ((1 << bits) - 1)
+            code = raw - 1 + offset
+            out[idx] = ((code != 0).to(torch.int64) if is_bool else code,
+                        raw != 0)
+        elif f.kind == FIN_COUNT:
+            out[idx] = (table[w[0]], torch.ones_like(table[w[0]],
+                                                     dtype=torch.bool))
+        else:
+            cnt = table[w[1]]
+            has = cnt > 0
+            if f.kind == FIN_SUM:
+                out[idx] = (_sum_value(table[w[0]], w[2]), has)
+            elif f.kind == FIN_AVG:
+                s = _sum_value(table[w[0]], w[2]).to(torch.float64)
+                out[idx] = (s / torch.where(has, cnt, 1), has)
+            else:
+                x = table[w[0]]
+                if w[2] in (LANE_MIN_F64, LANE_MAX_F64):
+                    x = x.view(torch.float64)
+                if w[3] >= 0:
+                    nn = table[w[3]]
+                    nan = has & ((nn == cnt) if f.kind == FIN_MIN
+                                 else (nn > 0))
+                    x = torch.where(nan, torch.nan, x)
+                out[idx] = (x, has)
+    return out
+
+
+class HavingSpec:
+    """A HAVING program over an aggregate's output columns, each read from
+    the group table through a `Finaliser`, laid out as the descriptor of
+    `csrc/compact_groups.cu`."""
+
+    def __init__(self, prog: Program, fins: Dict[int, Finaliser]):
+        self.prog = prog
+        self.fins = fins
+        ncols = max(fins, default=-1) + 1
+        words = np.zeros((ncols, FIN_WORDS), np.int64)
+        for idx, f in fins.items():
+            words[idx] = f.descriptor()
+        self.meta = _descriptor({H_NCOLS: ncols, H_PRED: 0}, [
+            words, *_program_sections([prog], prog.pools)])
+        if len(self.meta) * 8 > SMEM_BYTES:
+            raise LoweringError("HAVING program too large for the kernel")
+
+    def mask(self, table: torch.Tensor) -> torch.Tensor:
+        """The plain version: the program over every slot of `table`."""
+        n = table.shape[1]
+        empty = torch.zeros(0, dtype=torch.int64, device=table.device)
+        d, v = evaluate(self.prog, finalise(table, self.fins), empty, n)
+        return (d != 0) & v
+
+
+_NO_HAVING = _descriptor({H_PRED: -1}, [])
+
+
+def _check_group_table(table: torch.Tensor) -> None:
+    if table.dtype != torch.int64 or not table.is_contiguous() or \
+            table.dim() != 2 or table.shape[0] < 2:
+        raise ValueError("group table must be a contiguous int64 "
+                         "[lanes + 2, cap]")
+
+
+def _check_slots(slots: Optional[torch.Tensor], table: torch.Tensor) -> None:
+    if slots is not None and (slots.device != table.device or
+                              slots.dtype != torch.int64 or
+                              slots.dim() != 1 or not slots.is_contiguous()):
+        raise ValueError("slots must be a contiguous int64 [k] on the "
+                         "table's device")
+
+
+def compact_groups(table: torch.Tensor, having: Optional[HavingSpec] = None,
+                   slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The occupied slots of `table` (`[lanes + 2, cap]`, row 0 keys) that
+    pass `having`, in slot order, or, with `slots`, the occupied ones among
+    those slots in their order: a `[lanes + 2, ng]` tensor.
+
+    On CPU tensors this runs `compact_groups_plain`; on CUDA tensors it
+    launches the `compact_groups` kernels or raises. It reads ng back to
+    size the output: one synchronisation."""
+    _check_group_table(table)
+    _check_slots(slots, table)
+    if not _cuda(table):
+        return compact_groups_plain(table, having, slots)
+    lib = kernels.library()
+    dev = table.device
+    rows, cap = table.shape
+    n = cap if slots is None else slots.numel()
+    meta = _NO_HAVING if having is None else having.meta
+    slots_ptr = None if slots is None else slots.data_ptr()
+    with torch.cuda.device(dev):
+        meta_d = torch.from_numpy(meta).to(dev)
+        offsets = torch.empty(max(-(-n // COMPACT_TILE), 1),
+                              dtype=torch.int64, device=dev)
+        ng_d = torch.empty(1, dtype=torch.int64, device=dev)
+        stream = _stream(dev)
+        rc = lib.dft_compact_count(meta_d.data_ptr(), len(meta),
+                                   table.data_ptr(), cap, slots_ptr, n,
+                                   offsets.data_ptr(), ng_d.data_ptr(),
+                                   stream)
+        kernels.check(rc, compact_groups_kernel)
+        ng = int(ng_d.item())
+        out = torch.empty((rows, ng), dtype=torch.int64, device=dev)
+        if ng:
+            rc = lib.dft_compact_scatter(meta_d.data_ptr(), len(meta),
+                                         table.data_ptr(), cap, rows,
+                                         slots_ptr, n, offsets.data_ptr(),
+                                         out.data_ptr(), ng, stream)
+            kernels.check(rc, compact_groups_kernel)
+    compact_groups_kernel.launches += 1
+    return out
+
+
+def compact_groups_plain(table: torch.Tensor,
+                         having: Optional[HavingSpec] = None,
+                         slots: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """The plain PyTorch version: a keep mask, `nonzero` and a gather."""
+    keep = table[0] != EMPTY
+    if having is not None:
+        keep &= having.mask(table)
+    if slots is None:
+        return table[:, keep.nonzero().squeeze(1)]
+    picked = slots[slots >= 0]
+    return table[:, picked[keep[picked]]]
+
+
+def group_topk(table: torch.Tensor, lane_row: int, asc: bool,
+               k: int) -> torch.Tensor:
+    """The slots of the k best occupied groups of `table` by its int64 row
+    `lane_row`, ascending or descending: an int64 `[k]` list, -1 past the
+    number of groups. Which of the groups tied at the k-th value are kept
+    is unspecified.
+
+    On CPU tensors this runs `group_topk_plain`; on CUDA tensors it
+    launches the `group_topk` kernels or raises."""
+    _check_group_table(table)
+    if not 0 < k <= MAX_TOPK:
+        raise ValueError(f"k = {k} outside 1..{MAX_TOPK}")
+    if not 1 <= lane_row < table.shape[0]:
+        raise ValueError(f"lane row {lane_row} outside the table")
+    if not _cuda(table):
+        return group_topk_plain(table, lane_row, asc, k)
+    lib = kernels.library()
+    dev = table.device
+    with torch.cuda.device(dev):
+        state = torch.tensor([0, k, 0, 0, 0, 0, 0, 0], dtype=torch.int64,
+                             device=dev)
+        hist = torch.zeros(256, dtype=torch.int64, device=dev)
+        out = torch.full((k,), -1, dtype=torch.int64, device=dev)
+        rc = lib.dft_group_topk(table.data_ptr(), table.shape[1], lane_row,
+                                int(asc), k, state.data_ptr(),
+                                hist.data_ptr(), out.data_ptr(), _stream(dev))
+    kernels.check(rc, group_topk_kernel)
+    group_topk_kernel.launches += 1
+    return out
+
+
+def group_topk_plain(table: torch.Tensor, lane_row: int, asc: bool,
+                     k: int) -> torch.Tensor:
+    """The plain PyTorch version: `torch.topk` over the occupied slots
+    (ascending through the bitwise complement, which reverses int64 order
+    without overflow)."""
+    live = (table[0] != EMPTY).nonzero().squeeze(1)
+    w = table[lane_row][live]
+    kk = min(k, live.numel())
+    _vals, idx = torch.topk(~w if asc else w, kk)
+    out = torch.full((k,), -1, dtype=torch.int64, device=table.device)
+    out[:kk] = live[idx]
+    return out

@@ -594,3 +594,41 @@ def evaluate(prog: Program, cols: Dict[int, Tuple[torch.Tensor, Optional[torch.T
             raise ValueError(f"bad opcode {op}")
     (d, v), = st
     return d, v
+
+
+# --- HAVING: programs over a grouped aggregate's output columns -------------
+#
+# Counterpart of `_apply_post_filter` (datafusion_tpu/physical/plan/
+# device_aggregate.py:1279-1364). The predicate is an ordinary program; its
+# column index i names output column i of the aggregate (keys, then
+# aggregates). `device/groupby.py` finalises each such column from the group
+# table (`HavingSpec`).
+
+def check_having(pred: PE.PhysicalExpr, key_types, aggs) -> Program:
+    """Compile a HAVING over an aggregate with keys of `key_types` and
+    aggregates `aggs` (its output columns, in order), or raise
+    LoweringError where the reference rule refuses
+    (datafusion_tpu/physical/physical_optimizer.py:1304-1327): dictionary
+    or string keys, aggregates other than count/sum/min/max/avg, decimal
+    avg (it rounds in host bigint), any aux input."""
+    n_keys = len(key_types)
+    pools = Pools()
+    prog = compile_expr(pred, pools)
+    for i in pools.columns:
+        if i < n_keys:
+            t = key_types[i]
+            if t.is_dict_coded or t.is_string:
+                raise LoweringError("HAVING over a dictionary key")
+            continue
+        if i - n_keys >= len(aggs):
+            raise LoweringError(f"HAVING reads column {i}")
+        a = aggs[i - n_keys]
+        if a.name not in ("count", "sum", "min", "max", "avg", "mean"):
+            raise LoweringError(f"HAVING over {a.name}")
+        if getattr(a, "distinct", False) and a.name != "count":
+            raise LoweringError("HAVING over a DISTINCT aggregate")
+        if a.name in ("avg", "mean") and a.out_type.is_decimal:
+            raise LoweringError("HAVING over a decimal avg")
+    if pools.aux:
+        raise LoweringError("HAVING needs host aux inputs")
+    return prog

@@ -1,9 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 At first use every `csrc/*.cu` source is compiled with `nvcc` for Hopper
-(`sm_90a`) into one shared library with a plain C interface,
-`_build/libdftorch.so`, and loaded with `ctypes`. The library is rebuilt
-when the hash of the sources or flags changes. There is no fallback: if
+(`sm_90a`), one `nvcc` process per source, all started together, and the
+objects are linked into one shared library with a plain C interface,
+`_build/libdftorch.so`, loaded with `ctypes`. The library is rebuilt when
+the hash of the sources, the shared headers (`csrc/*.cuh`) or the flags
+changes. There is no fallback: if
 `nvcc` is missing or the build fails, `library()` raises, and a wrapper
 given a CUDA tensor either launches its kernel or raises.
 
@@ -27,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 LIB = BUILD / "libdftorch.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -36,6 +38,10 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes; each returns cudaGetLastError()
 _SIGNATURES = {
     "dft_fused_dense_aggregate": [_P, _I, _I, _I, _P, _LL, _P, _P],
+    "dft_hash_group_aggregate": [_P, _I, _P, _LL, _LL, _I, _P, _P, _P],
+    "dft_compact_count": [_P, _I, _P, _LL, _P, _LL, _P, _P, _P],
+    "dft_compact_scatter": [_P, _I, _P, _LL, _I, _P, _LL, _P, _P, _LL, _P],
+    "dft_group_topk": [_P, _LL, _I, _I, _LL, _P, _P, _P, _P],
 }
 
 
@@ -99,16 +105,41 @@ def _digest(sources) -> str:
     return h.hexdigest()
 
 
+def _inputs(csrc: Path):
+    """The sources to compile, and the digest of every file the build reads
+    (the sources and the shared headers) and of the flags."""
+    sources = sorted(csrc.glob("*.cu"))
+    return sources, _digest(sources + sorted(csrc.glob("*.cuh")))
+
+
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the output of any that fail."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n-> {proc.returncode}\n{out}")
+    if failed:
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
+
+
 def _build(sources, digest: str) -> None:
     global build_seconds
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD / f"libdftorch.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [BUILD / f"{s.stem}.{tag}.o" for s in sources]
+    tmp = BUILD / f"libdftorch.{tag}.so"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(sources, objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     os.replace(tmp, LIB)
     (BUILD / "libdftorch.sha256").write_text(digest)
@@ -120,8 +151,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        sources = sorted(CSRC.glob("*.cu"))
-        digest = _digest(sources)
+        sources, digest = _inputs(CSRC)
         stamp = BUILD / "libdftorch.sha256"
         if not (LIB.exists() and stamp.exists()
                 and stamp.read_text() == digest):

@@ -1,20 +1,30 @@
-"""TorchGroupAggregateExec — filter, key packing and dense-slot grouped
-aggregation in one kernel launch per batch.
+"""TorchGroupAggregateExec — filter, key packing and grouped aggregation in
+one kernel launch per batch, then one compaction of the group table.
 
-Counterpart of the dense path of
-`datafusion_tpu.physical.plan.device_aggregate.DeviceGroupAggregateExec`
-(`_execute_device` with `dense_keys` true, `:251-511`). The subclass
+Counterpart of `datafusion_tpu.physical.plan.device_aggregate.
+DeviceGroupAggregateExec` (`_execute_device`, `:251-511`). The subclass
 reuses the reference's host halves, which are numpy: key packing
-(`_plan_key_packing`), the subtree cache key, deferred-scalar binding and
-the finalisation `_emit_arrays` (exact decimal avg, NaN restoration, the
-one-row result of an ungrouped aggregate over empty input).
+(`_plan_key_packing`), the subtree cache key, deferred-scalar binding,
+the top-k lane choice (`_topk_lane`) and the finalisation `_emit_arrays`
+(exact decimal avg, NaN restoration, the one-row result of an ungrouped
+aggregate over empty input).
 
-Every batch folds into the same `[lanes + 1, G]` group table, so there
-is no merge program and no chunk loop; one `.cpu()` copy brings the table
-to the host. Shapes outside this slice raise `DeviceLoweringUnsupported`
-and run `self.fallback`, the host `AggregateExec`, as the reference does
-for SQL it cannot lower: key spaces above 64 slots, count DISTINCT, top-k
-and HAVING fusion. Each such fallback adds one to `self.fallbacks`.
+Two routes, by the packed key space:
+- up to 64 slots, the dense kernel (`fused_dense_aggregate`) folds every
+  batch into one `[lanes + 1, G]` table;
+- above, the hash kernel (`hash_group_aggregate`) folds every batch into
+  one `[lanes + 2, cap]` hash table, `cap` sized from the input so that
+  it cannot fill. This stands for the reference's sort, row-space, merge,
+  overflow and unbounded paths; the result is the same.
+Then `compact_groups` keeps the live groups (those that pass the fused
+HAVING, `post_filter`), or `group_topk` picks the fused `ORDER BY count
+LIMIT k` (`topk`) and `compact_groups` gathers those slots. One `.cpu()`
+of the compacted table feeds `_emit_arrays`.
+
+Shapes outside this slice raise `DeviceLoweringUnsupported` and run
+`self.fallback`, the host `AggregateExec`, as the reference does for SQL
+it cannot lower: count DISTINCT, FILTER clauses, string min/max. Each
+such fallback adds one to `self.fallbacks`.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from datafusion_tpu.physical.plan.base import execute_stream
 from datafusion_tpu.physical.plan.device_aggregate import (
@@ -29,34 +40,47 @@ from datafusion_tpu.physical.plan.device_aggregate import (
 from datafusion_tpu.runtime import BaselineMetrics
 
 from ...common.column import DeviceColumnCache, to_device
-from ...device.groupby import AggregateSpec, dense_group_aggregate, lane_kind
-from ...device.lower import LoweringError, Pools, compile_expr
+from ...device.groupby import (
+    FIN_AVG, FIN_COUNT, FIN_KEY, FIN_MAX, FIN_MIN, FIN_SUM, MAX_GROUPS,
+    AggregateSpec, Finaliser, HashSpec, HavingSpec, compact_groups,
+    dense_group_aggregate, dense_group_table, group_topk,
+    hash_group_aggregate, lane_kind)
+from ...device.lower import (LoweringError, Pools, check_having,
+                             compile_expr)
 
 _AGGS = {"count", "sum", "min", "max", "avg", "mean"}
+
+
+class GroupTableOverflow(RuntimeError):
+    """A row found no slot in the hash table. The table is sized so that
+    this cannot happen; nothing carries on if it does."""
 
 
 class TorchGroupAggregateExec(DeviceGroupAggregateExec):
 
     def __init__(self, source, predicate, group_exprs, aggs, schema,
                  fallback, device: torch.device,
-                 cache: Optional[DeviceColumnCache] = None):
+                 cache: Optional[DeviceColumnCache] = None,
+                 max_groups: int = 1 << 22, topk: Optional[tuple] = None,
+                 post_filter=None):
         super().__init__(source, predicate, group_exprs, aggs, schema,
-                         fallback)
+                         fallback, max_groups, topk, post_filter)
         self.device = device
         self.cache = cache
         self.fallbacks = 0
 
     def with_children(self, c):
-        return TorchGroupAggregateExec(c[0], self.predicate, self.group_exprs,
-                                       self.aggs, self._schema, self.fallback,
-                                       self.device, self.cache)
+        return TorchGroupAggregateExec(
+            c[0], self.predicate, self.group_exprs, self.aggs, self._schema,
+            self.fallback, self.device, self.cache, self.max_groups,
+            self.topk, self.post_filter)
 
     # ------------------------------------------------------------------
     def compile(self, batches):
-        """Lower this aggregate for `batches`: (spec, pack plan, slot map).
-        Raises DeviceLoweringUnsupported for shapes outside the slice."""
-        if self.topk is not None or self.post_filter is not None:
-            raise DeviceLoweringUnsupported("top-k / HAVING fusion")
+        """Lower this aggregate for `batches`: (spec, pack plan, lane names,
+        slot map). The spec is an `AggregateSpec` for key spaces up to 64
+        slots, a `HashSpec` above. Raises DeviceLoweringUnsupported for
+        shapes outside the slice."""
         pools = Pools()
         try:
             pred = compile_expr(self.predicate, pools) \
@@ -83,7 +107,7 @@ class TorchGroupAggregateExec(DeviceGroupAggregateExec):
             for a in self.aggs:
                 kind = "avg" if a.name == "mean" else a.name
                 if kind not in _AGGS or a.distinct or a.filter is not None:
-                    raise LoweringError(f"{kind} not on the dense path")
+                    raise LoweringError(f"{kind} not on the device path")
                 if kind in ("min", "max") and a.out_type.is_dict_coded:
                     raise LoweringError("string min/max on device TBD")
                 if len(a.args) > 1 or getattr(a, "order_by", None):
@@ -102,16 +126,56 @@ class TorchGroupAggregateExec(DeviceGroupAggregateExec):
                         m["nn"] = slot("nancnt", a, "#nn")
                 slot_map[a.display] = m
             plan = self._plan_key_packing(batches, keys)
-            spec = AggregateSpec(
-                pools, pred,
-                [(k, off, bits) for k, off, bits in
-                 zip(keys, plan.offsets, plan.bits)],
-                [(p, lane_kind(cat, p)) for cat, p in slot_defs.values()])
+            key_progs = [(k, off, bits) for k, off, bits in
+                         zip(keys, plan.offsets, plan.bits)]
+            dense = (1 << sum(plan.bits)) <= MAX_GROUPS
+            lanes = [(p, lane_kind(cat, p, f32_sums=not dense))
+                     for cat, p in slot_defs.values()]
+            if dense:
+                spec = AggregateSpec(pools, pred, key_progs, lanes)
+            else:
+                rows = sum(b.num_rows for b in batches)
+                spec = HashSpec(pools, pred, key_progs, lanes, rows)
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
         return spec, plan, list(slot_defs), slot_map
 
-    def stage(self, spec: AggregateSpec, batch, cache: bool = True):
+    def having(self, spec, plan, names, slot_map) -> Optional[HavingSpec]:
+        """The fused HAVING as a compaction program: each output column it
+        reads is finalised from its row of the group table, as
+        `_apply_post_filter` (`device_aggregate.py:1301-1352`) does."""
+        if self.post_filter is None:
+            return None
+        row = {n: 2 + i for i, n in enumerate(names)}
+        kind = {n: k for n, (_p, k) in zip(names, spec.lanes)}
+        fins = {}
+        shift = 0
+        for i, t in enumerate(plan.key_types):
+            fins[i] = Finaliser(FIN_KEY, shift, plan.bits[i], plan.offsets[i],
+                                t.is_boolean)
+            shift += plan.bits[i]
+        for j, a in enumerate(self.aggs):
+            s = slot_map[a.display]
+            c = row[s["c"]]
+            if a.name == "count":
+                f = Finaliser(FIN_COUNT, c)
+            elif a.name in ("sum", "avg", "mean"):
+                f = Finaliser(FIN_SUM if a.name == "sum" else FIN_AVG,
+                              row[s["s"]], c, kind[s["s"]])
+            else:
+                v = s["n"] if a.name == "min" else s["x"]
+                f = Finaliser(FIN_MIN if a.name == "min" else FIN_MAX,
+                              row[v], c, kind[v], row.get(s.get("nn"), -1))
+            fins[len(plan.key_types) + j] = f
+        try:
+            prog = check_having(self.post_filter,
+                                [e.out_type for e, _ in self.group_exprs],
+                                self.aggs)
+            return HavingSpec(prog, {i: fins[i] for i in prog.pools.columns})
+        except LoweringError as e:
+            raise DeviceLoweringUnsupported(str(e))
+
+    def stage(self, spec, batch, cache: bool = True):
         """The batch's columns that the programs read, on the device, and
         its aux inputs."""
         cols = {}
@@ -136,28 +200,58 @@ class TorchGroupAggregateExec(DeviceGroupAggregateExec):
     def _execute_device(self, partition: int, ctx):
         # the inherited `execute` runs `self.fallback` on this exception
         try:
-            return self._execute_dense(partition, ctx)
+            return self._execute_port(partition, ctx)
         except DeviceLoweringUnsupported:
             self.fallbacks += 1
             raise
 
-    def _execute_dense(self, partition: int, ctx):
-        m = BaselineMetrics(self.metrics, partition)
-        batches = self.input_batches(ctx)
-        spec, plan, names, slot_map = self.compile(batches)
-        # only registered tables keep their device copies across queries
-        keep = self._source_is_scan()
-        with m.elapsed_compute:
-            table = spec.new_table(self.device)
+    def group_table(self, spec, batches, keep: bool) -> torch.Tensor:
+        """Every batch folded into one group table, in the hash layout
+        `[lanes + 2, slots]` (row 0 keys, EMPTY = -1; row 1 row counts)."""
+        table = spec.new_table(self.device)
+        if isinstance(spec, AggregateSpec):
             for b in batches:
                 cols, aux = self.stage(spec, b, cache=keep)
                 dense_group_aggregate(spec, cols, aux, b.num_rows, table)
-            host = table.cpu().numpy()
-        counts = host[0]
-        valid = counts > 0
-        keys = np.where(valid, np.arange(spec.groups, dtype=np.int64), -1)
-        aggs = dict(zip(names, spec.lane_arrays(host)))
-        out = self._emit_arrays(keys, valid, aggs, plan, slot_map, m)
+            return dense_group_table(table)
+        overflow = torch.zeros(1, dtype=torch.int32, device=self.device)
+        for b in batches:
+            cols, aux = self.stage(spec, b, cache=keep)
+            hash_group_aggregate(spec, cols, aux, b.num_rows, table, overflow)
+        # the port of _overflow_poison: one read after the last batch
+        if int(overflow.item()):
+            raise GroupTableOverflow(
+                f"hash group table of {spec.cap} slots overflowed")
+        return table
+
+    def _execute_port(self, partition: int, ctx):
+        m = BaselineMetrics(self.metrics, partition)
+        batches = self.input_batches(ctx)
+        with record_function("dft.compile"):
+            spec, plan, names, slot_map = self.compile(batches)
+            having = self.having(spec, plan, names, slot_map)
+        # only registered tables keep their device copies across queries
+        keep = self._source_is_scan()
+        with m.elapsed_compute:
+            with record_function("dft.aggregate"):
+                table = self.group_table(spec, batches, keep)
+            slots = None
+            pick = self._topk_lane(slot_map) if self.topk else None
+            if pick is not None and isinstance(spec, HashSpec):
+                # a dense table of <= 64 groups goes out whole, as in the
+                # reference: the SortExec above orders and cuts it
+                lane, asc, k = pick
+                with record_function("dft.topk"):
+                    slots = group_topk(table, 2 + names.index(lane), asc, k)
+            with record_function("dft.compact"):
+                groups = compact_groups(table, having, slots)
+            del table   # a hash table can take gigabytes: free it now
+            with record_function("dft.d2h"):
+                host = groups.cpu().numpy()
+        with record_function("dft.emit"):
+            aggs = dict(zip(names, spec.lane_arrays(host, first=2)))
+            out = self._emit_arrays(host[0], np.ones(host.shape[1], bool),
+                                    aggs, plan, slot_map, m)
         if out is not None:
             m.record_output(out.num_rows)
         return out

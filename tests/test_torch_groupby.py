@@ -166,3 +166,47 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(ValueError):
         dense_group_aggregate(spec, cols, aux, 100,
                               torch.zeros(3, 64, dtype=torch.int64))
+
+
+def test_ungrouped_q6_matches_device_filter_reduce():
+    """TPC-H Q6 has no keys: the port runs it as a dense aggregate of one
+    slot. It must equal the JAX package's `device_filter_reduce` (fused
+    AND of predicates + scalar sum) over the same seeded columns."""
+    import datetime
+
+    import bench
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu.device.groupby import device_filter_reduce
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        TorchGroupAggregateExec)
+    batch = bench.make_lineitem(40_000, seed=3)
+    ctx = dft.SessionContext(torch.device("cpu"))
+    ctx.register_table("lineitem", dft.MemTable(batch.schema, [[batch]]))
+    q6 = ("select sum(l_extendedprice * l_discount) as revenue "
+          "from lineitem where l_shipdate >= date '1994-01-01' "
+          "and l_shipdate < date '1995-01-01' "
+          "and l_discount between 0.05 and 0.07 and l_quantity < 24")
+    node = ctx.sql(q6).create_physical_plan()
+    while not isinstance(node, TorchGroupAggregateExec):
+        node = node.children()[0]
+    (src,) = node.input_batches(ctx.task_context())
+    spec, _p, names, _s = node.compile([src])
+    assert isinstance(spec, AggregateSpec) and spec.groups == 1
+    cpu = torch.device("cpu")
+    cols, aux = node.stage(spec, src)
+    table = dense_group_aggregate(spec, cols, aux, src.num_rows,
+                                  spec.new_table(cpu)).numpy()
+    got = int(table[1 + names.index([n for n in names
+                                     if n.endswith("#s")][0])][0])
+
+    def day(y, m, d):
+        return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+    qty, price, disc, ship = (jnp.asarray(batch.columns[i].data_host())
+                              for i in (0, 1, 2, 6))
+    want = int(device_filter_reduce(
+        [ship >= day(1994, 1, 1), ship < day(1995, 1, 1),
+         disc / 100.0 >= 0.05, disc / 100.0 <= 0.07, qty < 2400],
+        price * disc))
+    assert got == want and got > 0
+    assert ctx.sql(q6).collect_batch().columns[0].data_host()[0] == want
+    assert node.fallbacks == 0

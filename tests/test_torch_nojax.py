@@ -1,8 +1,10 @@
 """The PyTorch port runs without JAX.
 
 A fresh interpreter (this one has imported JAX already) blocks `jax`,
-runs TPC-H Q1 through the port on the CPU and compares it with the JAX
-package's host path, which needs no JAX either. It also checks that none
+runs TPC-H Q1, TPC-H Q18's subquery (the hash path with a fused HAVING)
+and ClickBench Q16 (the hash path with a fused top-k) through the port on
+the CPU and compares them with the JAX package's host path, which needs
+no JAX either. It also checks that none
 of the JAX package's device or multi-device modules was loaded, and that
 asking for CUDA where there is none raises.
 """
@@ -33,6 +35,20 @@ assert got == host.sql(bench.Q1).to_pydict(), got
 assert len(got["l_returnflag"]) == 4
 plan = "\n".join(port.sql("EXPLAIN " + bench.Q1).to_pydict()["plan"])
 assert "TorchGroupAggregateExec" in plan, plan
+from datafusion_tpu.clickbench.workload import QUERIES as CB, register_hits
+from datafusion_tpu.tpch.datagen import register_tpch
+for c in (port, host):
+    register_tpch(c, sf=0.01)
+    register_hits(c, n=20_000)
+q18s = ("select l_orderkey from lineitem group by l_orderkey "
+        "having sum(l_quantity) > 300 order by l_orderkey")
+got = port.sql(q18s).to_pydict()
+assert got == host.sql(q18s).to_pydict() and got["l_orderkey"], got
+got, want = port.sql(CB[16]).to_pydict(), host.sql(CB[16]).to_pydict()
+assert got["count(*)"] == want["count(*)"], (got, want)
+for q, fused in ((q18s, "having="), (CB[16], "topk=[count(*) DESC LIMIT 10]")):
+    plan = "\n".join(port.sql("EXPLAIN " + q).to_pydict()["plan"])
+    assert "TorchGroupAggregateExec" in plan and fused in plan, plan
 loaded = sorted(m for m in sys.modules
                 if m.startswith(("datafusion_tpu.device",
                                  "datafusion_tpu.parallel"))

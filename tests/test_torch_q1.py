@@ -64,9 +64,8 @@ def test_q1_matches_jax_package(seed):
     assert ex is not None and ex.fallbacks == 0
 
 
-# which test_device.py queries the port's dense path takes; the others
-# have key spaces above 64 slots and run the host AggregateExec
-ON_PORT = [True, False, True, False, True, True]
+# every test_device.py query runs on the port: the dense path up to 64
+# slots, the hash path above
 
 
 @pytest.mark.parametrize("i", range(len(QUERIES)))
@@ -84,7 +83,7 @@ def test_device_queries_match_jax_package(i):
     _assert_same(port.sql(q).to_pydict(), ref.sql(q).to_pydict())
     ex = _port_exec(port, q)
     assert ex is not None
-    assert ex.fallbacks == (0 if ON_PORT[i] else 1)
+    assert ex.fallbacks == 0
 
 
 def test_null_keys_match_jax_package():
@@ -131,7 +130,8 @@ def test_explain_shows_the_port_exec():
 def test_count_distinct_matches_jax_package():
     """The logical optimizer turns count(DISTINCT x) into two aggregates
     (group by g, x; then count by g): the inner one's key space is too
-    wide for dense slots and falls back, the outer one runs on the port."""
+    wide for dense slots and runs on the hash path, the outer one on the
+    dense path."""
     rng = np.random.default_rng(5)
     data = {"g": rng.integers(0, 4, 500), "x": rng.integers(0, 50, 500)}
     port, ref = _pair(lambda c: c.register_arrays("t", data))
@@ -139,7 +139,7 @@ def test_count_distinct_matches_jax_package():
     assert port.sql(q).to_pydict() == ref.sql(q).to_pydict()
     outer = _port_exec(port, q)
     (inner,) = outer.children()
-    assert (outer.fallbacks, inner.fallbacks) == (0, 1)
+    assert (outer.fallbacks, inner.fallbacks) == (0, 0)
 
 
 def test_device_copies_are_cached_until_the_catalog_changes():
