@@ -4,36 +4,42 @@
     python3 chip_smoke.py
 
 Drives the port's main paths through
-`datafusion_tpu_torch.SessionContext(torch.device("cuda"))`:
+`datafusion_tpu_torch.SessionContext(torch.device("cuda"))`. It imports
+nothing of JAX, of the JAX package `datafusion_tpu` or of `bench`; every
+query is held against a numpy oracle on the same data.
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from `datafusion_tpu_torch/csrc` (one nvcc per
    source, all at once) and prints the build seconds;
-3. dense path, TPC-H Q1 over `bench.make_lineitem` at SF10 (60,012,150
-   rows): `fused_dense_aggregate` against its plain PyTorch version
-   (int64 lanes exactly; float64 lanes with NULLs and NaNs, sums within
-   rel 1e-9), Q1 end to end (warm median of 5), Q1 at SF1 against the
-   JAX package's host path, and TPC-H Q6 (G = 1) end to end against a
-   numpy oracle;
-4. hash path over a TPC-H-shaped lineitem at SF10 (15,000,000 orders,
-   about 60.0M rows, made here from a seed): `hash_group_aggregate`
-   against its plain version on Q18's and Q15's subqueries (equal group
-   tables), `compact_groups` with Q18's HAVING against its plain version
-   (equal), then both subqueries end to end against numpy oracles, and at
-   SF1 against the host path;
+3. dense path, TPC-H Q1 over a Q1-shaped lineitem at SF10 (60,012,150
+   rows, `make_lineitem`): `fused_dense_aggregate` against its plain
+   PyTorch version (int64 lanes exactly; float64 lanes with NULLs and
+   NaNs, sums within rel 1e-9), Q1 end to end (warm median of 5) against
+   numpy, and TPC-H Q6 (G = 1) end to end against numpy;
+4. TPC-H at SF10, made here from a seed by the rules of the port's
+   `tpch/datagen.py` (`tpch_tables`: region, nation, 100,000 suppliers,
+   1,500,000 customers, 15,000,000 orders, about 60.0M lineitems):
+   - hash path: `hash_group_aggregate` against its plain version on Q18's
+     and Q15's subqueries (equal group tables), `compact_groups` with
+     Q18's HAVING against its plain version (equal), then both subqueries
+     end to end against numpy;
+   - join chains: `chain_build` against its plain version on every build
+     side of Q5 (equal tables) and `chain_aggregate` against its plain
+     version on Q5's walk (equal group tables), the same on Q3 (the hash
+     fold) and Q4 (the SEMI build over lineitem), then Q3, Q4 and Q5 end
+     to end against numpy, each with a breakdown of its time;
 5. ClickBench's `UserID` and `SearchPhrase` at 99,997,497 rows (the
    public `hits` row count), drawn as `generate_hits` draws them:
    `group_topk` against its plain version on Q16, `hash_group_aggregate`
    against its plain version on Q17 (42-bit keys: the probing table), Q16
-   and Q17 end to end against numpy oracles, and at 10,000,000 rows
-   against the host path.
+   and Q17 end to end against numpy.
 
 Each end-to-end path sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of the path was not launched or the
-exec fell back to the host. Any failure raises and exits non-zero. JAX is
-never imported. The last line is `{"ok": true, "device": {...}}`; the
-line before it is the card's name and power limit, and before that one
-JSON line lists every kernel.
+exec fell back to the host. Any failure raises and exits non-zero. The
+last line is `{"ok": true, "device": {...}}`; the line before it is the
+card's name and power limit, and before that one JSON line lists every
+kernel with its time, its plain version's time and its bound.
 """
 import datetime
 import json
@@ -43,18 +49,36 @@ import subprocess
 import sys
 import time
 
-SF1_ROWS = 6_001_215
 SF10_ROWS = 60_012_150       # TPC-H SF10 lineitem, DataFusion's `bench.sh tpch10`
 FLOAT_ROWS = 10_000_000
 FLOAT_QUERY = ("SELECT g, count(*) c, sum(v) s, avg(v) a, min(v) mn, "
                "max(v) mx FROM t GROUP BY g")
-ORDERS_PER_SF = 1_500_000    # TPC-H: 15,000,000 orders at SF10
 HITS_ROWS = 99_997_497       # the public ClickBench hits.parquet
-HITS_PARITY_ROWS = 10_000_000
 REPS = 5
 DEVICE = "cuda"
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 outside the tensor
+# cores (the interpreter's 64-bit integer ops have no published peak)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
-# TPC-H Q6 (tpch/queries.py), Q18's subquery and Q15's revenue0 body
+# TPC-H Q1 (the port's `tpch/queries.py` has it too, over the full table)
+Q1 = """
+select
+    l_returnflag, l_linestatus,
+    sum(l_quantity) as sum_qty,
+    sum(l_extendedprice) as sum_base_price,
+    sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+    sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+    avg(l_quantity) as avg_qty,
+    avg(l_extendedprice) as avg_price,
+    avg(l_discount) as avg_disc,
+    count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-09-02'
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+"""
+# TPC-H Q6, Q18's subquery and Q15's revenue0 body
 Q6 = """select sum(l_extendedprice * l_discount) as revenue
 from lineitem
 where l_shipdate >= date '1994-01-01'
@@ -119,9 +143,293 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
+# ---- bounds -----------------------------------------------------------------
+
+def col_bytes(cols, idxs, n: int) -> int:
+    """Bytes of `n` rows of the columns `idxs` of `cols` ({index: (data,
+    validity)}): each value and each validity byte read once."""
+    total = 0
+    for i in idxs:
+        data, valid = cols[i]
+        total += n * (data.element_size() + (valid is not None))
+    return total
+
+
+def prog_ops(spec, n: int) -> int:
+    """Interpreter ops of `n` rows: every program's instructions once a
+    row (an upper bound for rows that a predicate drops early)."""
+    return n * sum(len(p.code) for p in spec.programs())
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: bytes over the HBM rate or ops
+    over the float32 rate, whichever is larger."""
+    b = nbytes / PEAK_BYTES_PER_S * 1e3
+    o = ops / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o
+            else "operations", "bytes": int(nbytes), "ops": int(ops)}
+
+
+def entry(err, ms, plain_ms, bnd, library_ms=None) -> dict:
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+            "library_ms": library_ms}
+
+
+# ---- data -------------------------------------------------------------------
+
+def dict_column(pool, codes):
+    """A dictionary string column of `pool[codes]`, its dictionary sorted
+    as the port's `Dictionary` requires."""
+    import numpy as np
+    from datafusion_tpu_torch.common import dt
+    from datafusion_tpu_torch.common.column import Column, Dictionary
+    values = np.asarray(pool, dtype=object)
+    order = np.argsort(values.astype(str), kind="stable")
+    rank = np.empty(len(order), np.int32)
+    rank[order] = np.arange(len(order), dtype=np.int32)
+    return Column(dt.STRING, rank[np.asarray(codes)], None,
+                  Dictionary(values[order]))
+
+
+def make_batch(cols):
+    """A Batch of [(name, column)], no column nullable."""
+    from datafusion_tpu_torch.common.batch import Batch
+    from datafusion_tpu_torch.common.schema import Field, Schema
+    schema = Schema([Field(n, c.dtype, False) for n, c in cols])
+    return Batch(schema, [c for _n, c in cols], len(cols[0][1].data_host()))
+
+
+def make_lineitem(n: int, seed: int = 0):
+    """Vectorised SF1-shaped lineitem with exactly Q1's columns."""
+    import numpy as np
+    from datafusion_tpu_torch.common import dt
+    from datafusion_tpu_torch.common.column import Column
+    rng = np.random.default_rng(seed)
+    dec2 = dt.decimal(15, 2)      # TPC-H money: scaled int64, exact
+    qty = (rng.integers(1, 51, n) * 100).astype(np.int64)
+    price = rng.integers(90_000, 10_500_000, n).astype(np.int64)
+    disc = (rng.integers(0, 11, n)).astype(np.int64)        # 0.00..0.10
+    tax = (rng.integers(0, 9, n)).astype(np.int64)          # 0.00..0.08
+    ship = rng.integers(8035, 10471, n).astype(np.int32)  # 1992..1998-08 days
+    today = 9298  # 1995-06-17
+    receipt = ship + rng.integers(1, 31, n)
+    # returnflag from receiptdate, linestatus from shipdate (spec): rows with
+    # ship <= today < receipt land in the (N, F) group
+    rf = np.where(receipt <= today, np.where(rng.random(n) < 0.5, 0, 2), 1)
+    ls = np.where(ship > today, 1, 0)   # F=0, O=1
+    return make_batch([
+        ("l_quantity", Column(dec2, qty)),
+        ("l_extendedprice", Column(dec2, price)),
+        ("l_discount", Column(dec2, disc)),
+        ("l_tax", Column(dec2, tax)),
+        ("l_returnflag", dict_column(["A", "N", "R"], rf)),
+        ("l_linestatus", dict_column(["F", "O"], ls)),
+        ("l_shipdate", Column(dt.DATE, ship))])
+
+
+def float_batch(n: int, seed: int):
+    import numpy as np
+    from datafusion_tpu_torch.common import dt
+    from datafusion_tpu_torch.common.batch import Batch
+    from datafusion_tpu_torch.common.column import Column
+    from datafusion_tpu_torch.common.schema import Field, Schema
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 8, n).astype(np.int32)
+    v = rng.normal(size=n) * 100
+    v[rng.random(n) < 0.01] = np.nan
+    valid = rng.random(n) >= 0.01
+    schema = Schema([Field("g", dt.STRING, False),
+                     Field("v", dt.FLOAT64, True)])
+    return Batch(schema, [dict_column(list("abcdefgh"), g),
+                          Column(dt.FLOAT64, v, valid)], n)
+
+
+def tpch_tables(sf: int, seed: int):
+    """The TPC-H tables by the rules of the port's `tpch/datagen.py:98-257`,
+    vectorised, with the columns that Q3, Q4, Q5, Q15 and Q18 read:
+    `o_orderkey` is 4i - 3 and `l_orderkey` repeats it 1-7 times (so it is
+    sorted), foreign keys are uniform, `l_suppkey` is one of the 4
+    suppliers of a uniform part, money is Decimal(15,2), dates are Date32,
+    `c_mktsegment`, `o_orderpriority`, `n_name` and `r_name` are dictionary
+    strings. Returns {table: Batch}."""
+    import numpy as np
+    from datafusion_tpu_torch.common import dt
+    from datafusion_tpu_torch.common.column import Column
+    from datafusion_tpu_torch.tpch import datagen as G
+    rng = np.random.default_rng(seed)
+    n_supp, n_part = int(10_000 * sf), int(200_000 * sf)
+    n_cust, n_ord, per_part = int(150_000 * sf), int(1_500_000 * sf), 4
+    i64, dec2 = dt.INT64, dt.decimal(15, 2)
+    out = {
+        "region": make_batch([
+            ("r_regionkey", Column(i64, np.arange(5, dtype=np.int64))),
+            ("r_name", dict_column(G._REGIONS, np.arange(5)))]),
+        "nation": make_batch([
+            ("n_nationkey", Column(i64, np.arange(25, dtype=np.int64))),
+            ("n_name", dict_column([n for n, _ in G._NATIONS],
+                                   np.arange(25))),
+            ("n_regionkey", Column(i64, np.array(
+                [r for _, r in G._NATIONS], np.int64)))]),
+        "supplier": make_batch([
+            ("s_suppkey", Column(i64, np.arange(1, n_supp + 1,
+                                                dtype=np.int64))),
+            ("s_nationkey", Column(i64, rng.integers(0, 25, n_supp)))]),
+        "customer": make_batch([
+            ("c_custkey", Column(i64, np.arange(1, n_cust + 1,
+                                                dtype=np.int64))),
+            ("c_nationkey", Column(i64, rng.integers(0, 25, n_cust))),
+            ("c_mktsegment", dict_column(G._SEGMENTS,
+                                         rng.integers(0, 5, n_cust)))]),
+    }
+    ok = np.arange(1, n_ord + 1, dtype=np.int64) * 4 - 3
+    o_date = rng.integers(G._days(1992, 1, 1), G._days(1998, 8, 2) - 151,
+                          n_ord).astype(np.int32)
+    out["orders"] = make_batch([
+        ("o_orderkey", Column(i64, ok)),
+        ("o_custkey", Column(i64, rng.integers(1, n_cust + 1, n_ord))),
+        ("o_orderdate", Column(dt.DATE, o_date)),
+        ("o_orderpriority", dict_column(G._PRIORITIES,
+                                        rng.integers(0, 5, n_ord))),
+        ("o_shippriority", Column(dt.INT32, np.zeros(n_ord, np.int32)))])
+    n_lines = rng.integers(1, 8, n_ord)
+    l_odate = np.repeat(o_date, n_lines)
+    n = len(l_odate)
+    part = rng.integers(1, n_part + 1, n).astype(np.int64)
+    which = rng.integers(0, per_part, n)
+    supp = ((part - 1 + which * (n_supp // per_part + 1)) % n_supp) + 1
+    qty = rng.integers(1, 51, n).astype(np.int64)
+    price = np.rint(qty * (90000 + (part % 20001) / 10 +
+                           100 * (part % 1000))).astype(np.int64)
+    del part, which
+    ship = (l_odate + rng.integers(1, 122, n)).astype(np.int32)
+    commit = (l_odate + rng.integers(30, 91, n)).astype(np.int32)
+    receipt = (ship + rng.integers(1, 31, n)).astype(np.int32)
+    del l_odate
+    out["lineitem"] = make_batch([
+        ("l_orderkey", Column(i64, np.repeat(ok, n_lines))),
+        ("l_suppkey", Column(i64, supp)),
+        ("l_quantity", Column(dec2, qty * 100)),
+        ("l_extendedprice", Column(dec2, price)),
+        ("l_discount", Column(dec2, rng.integers(0, 11, n))),
+        ("l_shipdate", Column(dt.DATE, ship)),
+        ("l_commitdate", Column(dt.DATE, commit)),
+        ("l_receiptdate", Column(dt.DATE, receipt))])
+    return out
+
+
+def hits(n: int, seed: int = 0):
+    """`UserID` and `SearchPhrase` as `generate_hits` draws them (its first
+    three draws: zipf(1.3), random, zipf(1.5); `clickbench/workload.py:
+    15-26`), with the dictionary sorted as `register_hits` sorts it."""
+    import numpy as np
+    from datafusion_tpu_torch.common import dt
+    from datafusion_tpu_torch.common.column import Column
+    rng = np.random.default_rng(seed)
+    n_users = max(n // 6, 10)
+    user = (rng.zipf(1.3, n) % n_users).astype(np.int64)
+    n_phrases = max(n // 800, 997)
+    phrases = np.concatenate([
+        np.array([""], dtype=object),
+        np.char.add("search phrase ",
+                    np.arange(n_phrases).astype(str)).astype(object)])
+    idx = np.where(rng.random(n) < 0.6, 0,
+                   rng.zipf(1.5, n) % len(phrases)).astype(np.int32)
+    return make_batch([("UserID", Column(dt.INT64, user)),
+                       ("SearchPhrase", dict_column(phrases, idx))])
+
+
+def col(batch, name):
+    return batch.column_by_name(name).data_host()
+
+
+# ---- the main path ----------------------------------------------------------
+
+def run_path(ctx, sql, expect, card, label, rows, cls=None):
+    """The main path: launch counts set to 0, a warm-up and REPS timed
+    runs, counts read. Fails unless every kernel of `expect` launched and
+    no exec of `cls` (by default TorchGroupAggregateExec) fell back.
+    Returns (result batch, launches, ms)."""
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        TorchGroupAggregateExec)
+    cls = cls or TorchGroupAggregateExec
+    kernels.reset_launch_counts()
+    out = ctx.sql(sql).collect_batch()                # warm-up
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        out = ctx.sql(sql).collect_batch()
+        times.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    # the plan is cached: this is the exec that ran
+    ex = find_exec(ctx.sql(sql).create_physical_plan(), cls)
+    if ex is None or ex.fallbacks != 0:
+        raise AssertionError(f"{label} fell back to the host aggregate")
+    missing = [k for k in expect if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"{label} did not launch {missing}")
+    med = statistics.median(times) * 1e3
+    per_query = {k: launches[k] / (REPS + 1) for k in expect}
+    print(f"{label} end to end: warm median of {REPS} {med:.3f} ms, "
+          f"{rows / (med / 1e3):.1f} rows/s, launches per query "
+          f"{per_query}, fallbacks {ex.fallbacks} [{card}]", flush=True)
+    return out, launches, med
+
+
+def breakdown(ctx, sql, card, label, cls=None):
+    """Where one warm run's time goes: for a grouped aggregate the host
+    scan of the key columns' bounds (host clock); per span of the exec
+    (`dft.*`, host time, which waits for the card where a span reads a
+    result back) and per kernel (device time) from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        TorchGroupAggregateExec)
+    cls = cls or TorchGroupAggregateExec
+    ex = find_exec(ctx.sql(sql).create_physical_plan(), cls)
+    bounds = "in dft.compile"
+    if cls is TorchGroupAggregateExec:
+        batches = ex.input_batches(ctx.task_context())
+        t0 = time.perf_counter()
+        for e, _n in ex.group_exprs:
+            ex._phys_int_bounds(e, batches)
+        bounds = f"{(time.perf_counter() - t0) * 1e3:.3f} ms host"
+    ctx.sql(sql).collect_batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctx.sql(sql).collect_batch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, device = {}, {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("dft.") and ev.device_type == DeviceType.CPU:
+            spans[ev.key] = round(ev.cpu_time_total / 1e3, 3)
+        elif getattr(ev, "device_type", None) == DeviceType.CUDA and \
+                not ev.key.startswith("dft."):
+            us = getattr(ev, "self_device_time_total", 0)
+            key = ev.key.replace("(anonymous namespace)::", "")
+            device[key.split("(")[0][-48:]] = round(us / 1e3, 3)
+    busy = sum(device.values())
+    # a trace that lost the fold kernel's event cannot give the share
+    main = "chain_" if cls is not TorchGroupAggregateExec else \
+        "aggregate_kernel"
+    whole = any(main in k for k in device)
+    print(f"{label} breakdown (one warm run, {wall:.3f} ms wall): key-bounds "
+          f"scan {bounds}; spans ms {spans}; device ms {device}; "
+          f"device busy {busy:.3f} ms, idle share "
+          f"{(1 - busy / wall) if whole else 'not measured'} [{card}]",
+          flush=True)
+
+
+# ---- kernels against their plain versions -----------------------------------
+
 def kernel_vs_plain(ctx, sql, table_name, float_rel):
     """Kernel and plain version of the query's dense aggregate on the same
-    staged inputs. Returns (max_abs_err, kernel ms, plain ms)."""
+    staged inputs. Returns the kernel's report entry."""
     import numpy as np
     import torch
     from datafusion_tpu_torch.device.groupby import (
@@ -160,177 +468,17 @@ def kernel_vs_plain(ctx, sql, table_name, float_rel):
     t_p = spec.new_table(dev)
     plain_ms = cuda_ms(
         lambda: dense_group_aggregate_plain(spec, cols, aux, n, t_p), 3)
-    return err, ms, plain_ms
-
-
-def float_batch(n: int, seed: int):
-    import numpy as np
-    from datafusion_tpu.common import dt
-    from datafusion_tpu.common.batch import Batch
-    from datafusion_tpu.common.column import Column, Dictionary
-    from datafusion_tpu.common.schema import Field, Schema
-    rng = np.random.default_rng(seed)
-    g = rng.integers(0, 8, n).astype(np.int32)
-    v = rng.normal(size=n) * 100
-    v[rng.random(n) < 0.01] = np.nan
-    valid = rng.random(n) >= 0.01
-    schema = Schema([Field("g", dt.STRING, False),
-                     Field("v", dt.FLOAT64, True)])
-    dic = Dictionary(np.array(list("abcdefgh"), dtype=object))
-    return Batch(schema, [Column(dt.STRING, g, None, dic),
-                          Column(dt.FLOAT64, v, valid)], n)
-
-
-def tpch_lineitem(sf: int, seed: int):
-    """The lineitem columns of Q15 and Q18 by the rules of
-    `datafusion_tpu/tpch/datagen.py:186-219`, vectorised: `l_orderkey` is
-    4i - 3 repeated 1-7 times (so sorted), `l_suppkey` one of the 4
-    suppliers of a uniform part, Decimal(15,2) quantity, price and
-    discount, Date32 ship dates."""
-    import numpy as np
-    from datafusion_tpu.common import dt
-    from datafusion_tpu.common.batch import Batch
-    from datafusion_tpu.common.column import Column
-    from datafusion_tpu.common.schema import Field, Schema
-    rng = np.random.default_rng(seed)
-    n_orders = ORDERS_PER_SF * sf
-    n_part, n_supp, per_part = 200_000 * sf, 10_000 * sf, 4
-    ok = np.arange(1, n_orders + 1, dtype=np.int64) * 4 - 3
-    o_date = rng.integers(days(1992, 1, 1), days(1998, 8, 2) - 151, n_orders)
-    n_lines = rng.integers(1, 8, n_orders)
-    l_order = np.repeat(ok, n_lines)
-    n = len(l_order)
-    part = rng.integers(1, n_part + 1, n).astype(np.int64)
-    which = rng.integers(0, per_part, n)
-    supp = ((part - 1 + which * (n_supp // per_part + 1)) % n_supp) + 1
-    qty = rng.integers(1, 51, n).astype(np.int64)
-    price = np.rint(qty * (90000 + (part % 20001) / 10 +
-                           100 * (part % 1000))).astype(np.int64)
-    disc = rng.integers(0, 11, n).astype(np.int64)
-    ship = (np.repeat(o_date, n_lines) + rng.integers(1, 122, n)
-            ).astype(np.int32)
-    dec2 = dt.decimal(15, 2)
-    schema = Schema([Field("l_orderkey", dt.INT64, False),
-                     Field("l_suppkey", dt.INT64, False),
-                     Field("l_quantity", dec2, False),
-                     Field("l_extendedprice", dec2, False),
-                     Field("l_discount", dec2, False),
-                     Field("l_shipdate", dt.DATE, False)])
-    return Batch(schema, [Column(dt.INT64, l_order), Column(dt.INT64, supp),
-                          Column(dec2, qty * 100), Column(dec2, price),
-                          Column(dec2, disc), Column(dt.DATE, ship)], n)
-
-
-def hits(n: int, seed: int = 0):
-    """`UserID` and `SearchPhrase` as `generate_hits` draws them (its first
-    three draws: zipf(1.3), random, zipf(1.5); `clickbench/workload.py:
-    15-26`), with the dictionary sorted as `register_hits` sorts it."""
-    import numpy as np
-    from datafusion_tpu.common import dt
-    from datafusion_tpu.common.batch import Batch
-    from datafusion_tpu.common.column import Column, Dictionary
-    from datafusion_tpu.common.schema import Field, Schema
-    rng = np.random.default_rng(seed)
-    n_users = max(n // 6, 10)
-    user = (rng.zipf(1.3, n) % n_users).astype(np.int64)
-    n_phrases = max(n // 800, 997)
-    phrases = np.concatenate([
-        np.array([""], dtype=object),
-        np.char.add("search phrase ",
-                    np.arange(n_phrases).astype(str)).astype(object)])
-    idx = np.where(rng.random(n) < 0.6, 0,
-                   rng.zipf(1.5, n) % len(phrases)).astype(np.int32)
-    order = np.argsort(phrases.astype(str), kind="stable")
-    rank = np.empty(len(order), np.int32)
-    rank[order] = np.arange(len(order), dtype=np.int32)
-    schema = Schema([Field("UserID", dt.INT64, False),
-                     Field("SearchPhrase", dt.STRING, False)])
-    return Batch(schema, [Column(dt.INT64, user),
-                          Column(dt.STRING, rank[idx], None,
-                                 Dictionary(phrases[order]))], n)
-
-
-def run_path(ctx, sql, expect, card, label, rows):
-    """The main path: launch counts set to 0, a warm-up and REPS timed
-    runs, counts read. Fails unless every kernel of `expect` launched and
-    the exec did not fall back. Returns (result batch, launches, ms)."""
-    from datafusion_tpu_torch import kernels
-    from datafusion_tpu_torch.physical.plan.device_aggregate import (
-        TorchGroupAggregateExec)
-    kernels.reset_launch_counts()
-    out = ctx.sql(sql).collect_batch()                # warm-up
-    times = []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        out = ctx.sql(sql).collect_batch()
-        times.append(time.perf_counter() - t0)
-    launches = kernels.launch_counts()
-    ex = find_exec(ctx.sql(sql).create_physical_plan(),
-                   TorchGroupAggregateExec)
-    if ex is None or ex.fallbacks != 0:
-        raise AssertionError(f"{label} fell back to the host aggregate")
-    missing = [k for k in expect if launches[k] < 1]
-    if missing:
-        raise AssertionError(f"{label} did not launch {missing}")
-    med = statistics.median(times) * 1e3
-    print(f"{label} end to end: warm median of {REPS} {med:.3f} ms, "
-          f"{rows / (med / 1e3):.1f} rows/s, launches "
-          f"{ {k: launches[k] for k in expect} }, fallbacks {ex.fallbacks} "
-          f"[{card}]", flush=True)
-    return out, launches, med
-
-
-def breakdown(ctx, sql, card, label):
-    """Where one warm run's time goes: the host scan of the key columns'
-    bounds (host clock), and per span of the exec (`dft.*`, host time,
-    which waits for the card where a span reads a result back) and per
-    kernel (device time) from torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from datafusion_tpu_torch.physical.plan.device_aggregate import (
-        TorchGroupAggregateExec)
-    ex = find_exec(ctx.sql(sql).create_physical_plan(),
-                   TorchGroupAggregateExec)
-    batches = ex.input_batches(ctx.task_context())
-    t0 = time.perf_counter()
-    for e, _n in ex.group_exprs:
-        ex._phys_int_bounds(e, batches)
-    bounds = (time.perf_counter() - t0) * 1e3
-    ctx.sql(sql).collect_batch()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ctx.sql(sql).collect_batch()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    spans, device = {}, {}
-    for ev in prof.key_averages():
-        if ev.key.startswith("dft.") and ev.device_type == DeviceType.CPU:
-            spans[ev.key] = round(ev.cpu_time_total / 1e3, 3)
-        elif getattr(ev, "device_type", None) == DeviceType.CUDA and \
-                not ev.key.startswith("dft."):
-            us = getattr(ev, "self_device_time_total", 0)
-            key = ev.key.replace("(anonymous namespace)::", "")
-            device[key.split("(")[0][-48:]] = round(us / 1e3, 3)
-    busy = sum(device.values())
-    # a trace that lost the aggregate kernel's event cannot give the share
-    whole = any(k.endswith("aggregate_kernel") for k in device)
-    print(f"{label} breakdown (one warm run, {wall:.3f} ms wall): key-bounds "
-          f"scan {bounds:.3f} ms host; spans ms {spans}; device ms {device}; "
-          f"device busy {busy:.3f} ms, idle share "
-          f"{(1 - busy / wall) if whole else 'not measured'} [{card}]",
-          flush=True)
+    bnd = bound(col_bytes(cols, spec.pools.columns, n) + t_k.numel() * 8,
+                prog_ops(spec, n))
+    return entry(err, ms, plain_ms, bnd)
 
 
 def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
     """`hash_group_aggregate` against its plain version on the query's
     staged inputs (equal group tables, ordered by key), and with `having`
     `compact_groups` with the query's HAVING against its plain version
-    (equal, column for column). Returns ((max_abs_err, ms, plain_ms) of
-    kernel 2, the same of kernel 3 or None, the kernel's table, spec,
-    lane names)."""
+    (equal, column for column). Returns (kernel 2's report entry, kernel
+    3's or None, the kernel's table, spec, lane names)."""
     import numpy as np
     import torch
     from datafusion_tpu_torch.device.groupby import (
@@ -369,16 +517,23 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
         spec, cols, aux, n, scratch, overflow), 2,
         setup=lambda: scratch.copy_(pristine))
     del scratch, pristine, tables[1]
-    print(f"hash_group_aggregate {label}: {n} rows, {got.shape[1]} groups, "
+    groups, rows = got.shape[1], got.shape[0]
+    # inputs read once, each live group's slot written once
+    b2 = bound(col_bytes(cols, spec.pools.columns, n) + groups * rows * 8,
+               prog_ops(spec, n))
+    print(f"hash_group_aggregate {label}: {n} rows, {groups} groups, "
           f"{spec.cap} slots ({'identity' if spec.identity_slots else 'hashed'})"
-          f": kernel {ms2:.6f} ms, plain {plain2:.6f} ms, max_abs_err "
-          f"{err2} [{card}]", flush=True)
+          f": kernel {ms2:.6f} ms, plain {plain2:.6f} ms, bound "
+          f"{b2['bound_ms']:.6f} ms, max_abs_err {err2} [{card}]", flush=True)
     table = tables[0]
     ms3 = cuda_ms(lambda: compact_groups(table), 10)
     plain3 = cuda_ms(lambda: compact_groups_plain(table), 3)
-    print(f"compact_groups {label}, no HAVING: {got.shape[1]} of {spec.cap} "
-          f"slots: kernel {ms3:.6f} ms, plain {plain3:.6f} ms [{card}]",
-          flush=True)
+    # the key row read once, the rest of each live slot read once and
+    # written once
+    b3 = bound(spec.cap * 8 + groups * (2 * rows - 1) * 8, spec.cap)
+    print(f"compact_groups {label}, no HAVING: {groups} of {spec.cap} "
+          f"slots: kernel {ms3:.6f} ms, plain {plain3:.6f} ms, bound "
+          f"{b3['bound_ms']:.6f} ms [{card}]", flush=True)
     k3 = None
     if having:
         hv = ex.having(spec, plan, names, slot_map)
@@ -388,17 +543,24 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
             raise AssertionError(f"{label}: kernel 3's HAVING output differs")
         ms3 = cuda_ms(lambda: compact_groups(table, hv), 10)
         plain3 = cuda_ms(lambda: compact_groups_plain(table, hv), 3)
-        k3 = (0.0, ms3, plain3)
+        # the key row read once, the rest of each live slot read once, the
+        # kept groups written once
+        b3 = bound(spec.cap * 8 + groups * (rows - 1) * 8 +
+                   g3.shape[1] * rows * 8, groups * len(hv.prog.code))
+        k3 = entry(0.0, ms3, plain3, b3)
         print(f"compact_groups {label} with HAVING: {g3.shape[1]} of "
-              f"{got.shape[1]} groups kept: kernel {ms3:.6f} ms, plain "
-              f"{plain3:.6f} ms, max_abs_err 0.0 [{card}]", flush=True)
-    return (err2, ms2, plain2), k3, tables[0], spec, names
+              f"{groups} groups kept: kernel {ms3:.6f} ms, plain "
+              f"{plain3:.6f} ms, bound {b3['bound_ms']:.6f} ms, max_abs_err "
+              f"0.0 [{card}]", flush=True)
+    return entry(err2, ms2, plain2, b2), k3, table, spec, names
 
 
-def topk_vs_plain(table, spec, names, lane, card, label):
+def topk_vs_plain(table, lane, names, card, label):
     """`group_topk` against its plain version (the order column exactly,
-    the key set beyond the k-th value). Returns (0.0, ms, plain_ms)."""
+    the key set beyond the k-th value), and `torch.topk` over the same row
+    as the library yardstick. Returns the kernel's report entry."""
     import numpy as np
+    import torch
     from datafusion_tpu_torch.device.groupby import (
         compact_groups_plain, group_topk, group_topk_plain)
     row = 2 + names.index(lane)
@@ -413,41 +575,187 @@ def topk_vs_plain(table, spec, names, lane, card, label):
         raise AssertionError(f"{label}: kernel 4's top 10 differs")
     ms = cuda_ms(lambda: group_topk(table, row, False, 10), 10)
     plain = cuda_ms(lambda: group_topk_plain(table, row, False, 10), 3)
+    lane_row = table[row]
+    library = cuda_ms(lambda: torch.topk(lane_row, 10), 10)
+    cap = table.shape[1]
+    bnd = bound(cap * 8 * 2 + 10 * 8, cap)   # the key and lane rows once
     print(f"group_topk {label}: top 10 counts {wv[::-1].tolist()}: kernel "
-          f"{ms:.6f} ms, plain {plain:.6f} ms, max_abs_err 0.0 [{card}]",
+          f"{ms:.6f} ms, plain {plain:.6f} ms, torch.topk {library:.6f} ms, "
+          f"bound {bnd['bound_ms']:.6f} ms, max_abs_err 0.0 [{card}]",
           flush=True)
-    return 0.0, ms, plain
+    return entry(0.0, ms, plain, bnd, library)
 
 
-def top_counts_agree(label, got_keys, got_counts, all_keys, all_counts):
-    """A top-10 result against the full group counts: the counts exactly,
-    the keys exactly for counts beyond the 10th."""
+def chain_builds_vs_plain(ex, tctx, card, label):
+    """`chain_build` against its plain version on every build side of the
+    chain exec `ex` (the same kind, ranges, shifts, live rows and
+    duplicate flag, the same keys, and for an INNER build the same row of
+    each key). Returns the report entry of the largest build side."""
     import numpy as np
-    want = np.sort(all_counts)[::-1][:10]
-    if list(got_counts) != want.tolist():
-        raise AssertionError(f"{label}: counts {list(got_counts)} != "
-                             f"{want.tolist()}")
-    kth = want[-1]
-    beyond = {k for k, c in zip(got_keys, got_counts) if c > kth}
-    if beyond != set(np.asarray(all_keys)[all_counts > kth].tolist()):
-        raise AssertionError(f"{label}: groups beyond the 10th count differ")
+    from datafusion_tpu_torch.device.join_chain import (
+        TAB_HASH, chain_build, chain_build_plain)
+    best = None
+    for h, bi in enumerate(ex.build_inputs(tctx)):
+        n = bi.batch.num_rows
+        got = chain_build(bi.spec, bi.cols, bi.aux, n, bi.unique)
+        want = chain_build_plain(bi.spec, bi.cols, bi.aux, n, bi.unique)
+
+        def shape(t):
+            return (t.kind, t.los, t.his, t.shifts, t.size, t.live,
+                    t.duplicate)
+        gk, gr = got.entries()
+        wk, wr = want.entries()
+        # a SEMI or ANTI build stores presence: of a key's rows, either
+        # version may keep any one
+        if shape(got) != shape(want) or not np.array_equal(gk, wk) or \
+                (bi.unique and not np.array_equal(gr, wr)):
+            raise AssertionError(f"{label} build {h}: chain_build differs "
+                                 f"from its plain version: {shape(got)} "
+                                 f"{shape(want)}")
+        ms = cuda_ms(lambda: chain_build(bi.spec, bi.cols, bi.aux, n,
+                                         bi.unique), 5)
+        plain = cuda_ms(lambda: chain_build_plain(bi.spec, bi.cols, bi.aux,
+                                                  n, bi.unique), 2)
+        # inputs read once, the table written once
+        nbytes = col_bytes(bi.cols, bi.spec.pools.columns, n) + \
+            got.size * (4 + 8 * (got.kind == TAB_HASH))
+        bnd = bound(nbytes, prog_ops(bi.spec, n))
+        kind = ["direct", "hashed", "empty"][got.kind]
+        print(f"chain_build {label} build {h}: {n} rows, {got.live} live, "
+              f"{kind} table of {got.size} slots: kernel {ms:.6f} ms, plain "
+              f"{plain:.6f} ms, bound {bnd['bound_ms']:.6f} ms, max_abs_err "
+              f"0 [{card}]", flush=True)
+        if best is None or n > best[0]:
+            best = (n, entry(0.0, ms, plain, bnd))
+    return best[1]
 
 
-def same_top(label, got, want, key_cols, count_col):
-    """Two top-10 results: the counts exactly, the keys beyond the 10th."""
-    if got[count_col] != want[count_col]:
-        raise AssertionError(f"{label}: {got[count_col]} != {want[count_col]}")
-    kth = want[count_col][-1]
+def chain_walk_vs_plain(ex, tctx, card, label):
+    """`chain_aggregate` against its plain version on the chain's staged
+    builds and spine (equal group tables, compacted and ordered by key;
+    every lane of Q3 and Q5 is an exact decimal sum or a count). The bound
+    counts the spine columns read once, then for each hop a table read per
+    row that reaches it and its payload read per row that survives it.
+    Returns the kernel's report entry."""
+    import numpy as np
+    import torch
+    from datafusion_tpu_torch.device.groupby import (
+        AggregateSpec, compact_groups_plain, dense_group_table)
+    from datafusion_tpu_torch.device.join_chain import (
+        TAB_HASH, chain_aggregate, chain_aggregate_plain)
+    spec, _plan, _names, _slots, inputs, staged = ex.prepare(tctx)
+    ((cols, aux, n),) = inputs
+    dev = aux.device
+    dense = isinstance(spec, AggregateSpec)
+    hop_rows = []
+    tables = []
+    for fold in (chain_aggregate, chain_aggregate_plain):
+        table = spec.new_table(dev)
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        kw = {"hop_rows": hop_rows} if fold is chain_aggregate_plain else {}
+        fold(spec, cols, aux, n, table, overflow, **kw)
+        torch.cuda.synchronize()
+        if int(overflow.item()):
+            raise AssertionError(f"{label}: {fold.__name__} overflowed")
+        tables.append(dense_group_table(table) if dense else table)
+    got, want = (compact_groups_plain(t).cpu().numpy() for t in tables)
+    got, want = (t[:, np.argsort(t[0], kind="stable")] for t in (got, want))
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"{label}: chain_aggregate's group table "
+                             f"differs from its plain version")
+    del tables
+    scratch = spec.new_table(dev)
+    pristine = scratch.clone()
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: chain_aggregate(spec, cols, aux, n, scratch,
+                                         overflow), 5,
+                 setup=lambda: scratch.copy_(pristine))
+    plain = cuda_ms(lambda: chain_aggregate_plain(spec, cols, aux, n,
+                                                  scratch, overflow), 2,
+                    setup=lambda: scratch.copy_(pristine))
+    del scratch, pristine
+    hop_of = spec.chain.hop_of
+    nbytes = col_bytes(cols, [i for i in spec.pools.columns
+                              if i not in hop_of], n)
+    for h, (hop, (reach, alive)) in enumerate(zip(spec.chain.hops,
+                                                  hop_rows)):
+        payload = [i for i in spec.pools.columns if hop_of.get(i) == h]
+        nbytes += reach * (4 + 8 * (hop.table.kind == TAB_HASH)) + \
+            col_bytes(cols, payload, alive)
+    nbytes += got.shape[1] * got.shape[0] * 8    # live groups written once
+    bnd = bound(nbytes, prog_ops(spec, n))
+    print(f"chain_aggregate {label}: {n} spine rows, {len(spec.chain.hops)} "
+          f"hops, rows reaching/surviving each hop {hop_rows}, "
+          f"{'dense' if dense else 'hash'} fold, {got.shape[1]} groups: "
+          f"kernel {ms:.6f} ms, plain {plain:.6f} ms, bound "
+          f"{bnd['bound_ms']:.6f} ms ({bnd['bytes']} bytes), max_abs_err 0 "
+          f"[{card}]", flush=True)
+    return entry(0.0, ms, plain, bnd)
 
-    def beyond(r):
-        return {tuple(r[c][i] for c in key_cols)
-                for i, n in enumerate(r[count_col]) if n > kth}
-    if beyond(got) != beyond(want):
-        raise AssertionError(f"{label}: groups beyond the 10th count differ")
+
+# ---- numpy oracles of the join chains ---------------------------------------
+
+def oracle_q3(t):
+    """(l_orderkey, revenue at scale 4, o_orderdate) of Q3's top 10."""
+    import numpy as np
+    cust, orders, li = t["customer"], t["orders"], t["lineitem"]
+    seg = cust.column_by_name("c_mktsegment")
+    building = col(cust, "c_mktsegment") == seg.dictionary.lookup("BUILDING")
+    o_date = col(orders, "o_orderdate")
+    o_ok = (o_date < days(1995, 3, 15)) & \
+        building[col(orders, "o_custkey") - 1]
+    oi = (col(li, "l_orderkey") + 3) // 4 - 1
+    m = o_ok[oi] & (col(li, "l_shipdate") > days(1995, 3, 15))
+    oim = oi[m]
+    rev = col(li, "l_extendedprice")[m] * (100 - col(li, "l_discount")[m])
+    starts = np.flatnonzero(np.r_[True, oim[1:] != oim[:-1]])
+    sums = np.add.reduceat(rev, starts)
+    keys = oim[starts]
+    top = np.lexsort((o_date[keys], -sums))[:10]
+    return keys[top] * 4 + 1, sums[top], o_date[keys[top]], len(keys)
+
+
+def oracle_q4(t):
+    """Q4's order count of each priority, in priority order."""
+    import numpy as np
+    orders, li = t["orders"], t["lineitem"]
+    late = col(li, "l_commitdate") < col(li, "l_receiptdate")
+    has = np.zeros(orders.num_rows, bool)
+    has[(col(li, "l_orderkey")[late] + 3) // 4 - 1] = True
+    o_date = col(orders, "o_orderdate")
+    m = (o_date >= days(1993, 7, 1)) & (o_date < days(1993, 10, 1)) & has
+    prio = orders.column_by_name("o_orderpriority")
+    counts = np.bincount(col(orders, "o_orderpriority")[m],
+                         minlength=len(prio.dictionary))
+    return list(prio.dictionary.values[counts > 0]), counts[counts > 0]
+
+
+def oracle_q5(t):
+    """Q5's (nation name, revenue at scale 4), by revenue descending."""
+    import numpy as np
+    cust, orders, li = t["customer"], t["orders"], t["lineitem"]
+    nation, region, supp = t["nation"], t["region"], t["supplier"]
+    asia = region.column_by_name("r_name").dictionary.lookup("ASIA")
+    r_asia = col(region, "r_regionkey")[col(region, "r_name") == asia]
+    n_in = np.isin(col(nation, "n_regionkey"), r_asia)
+    o_date = col(orders, "o_orderdate")
+    o_ok = (o_date >= days(1994, 1, 1)) & (o_date < days(1995, 1, 1))
+    oi = (col(li, "l_orderkey") + 3) // 4 - 1
+    s_nat = col(supp, "s_nationkey")[col(li, "l_suppkey") - 1]
+    c_nat = col(cust, "c_nationkey")[col(orders, "o_custkey")[oi] - 1]
+    m = o_ok[oi] & (c_nat == s_nat) & n_in[s_nat]
+    rev = col(li, "l_extendedprice")[m] * (100 - col(li, "l_discount")[m])
+    nat = s_nat[m]
+    names = nation.column_by_name("n_name")
+    out = [(names.dictionary.values[col(nation, "n_name")[k]],
+            int(rev[nat == k].sum())) for k in np.flatnonzero(n_in)
+           if (nat == k).any()]
+    return sorted(out, key=lambda r: -r[1])
 
 
 def main() -> int:
-    sys.modules["jax"] = None   # the port must run without JAX
+    for blocked in ("jax", "datafusion_tpu", "bench"):
+        sys.modules[blocked] = None     # the port stands alone
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -456,10 +764,11 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    import bench
-    import datafusion_tpu as ref
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainAggregateExec)
+    from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
 
     card = smi()
     print(card, flush=True)
@@ -472,7 +781,7 @@ def main() -> int:
           f"(nvcc {kernels.build_seconds} s)", flush=True)
 
     dev = torch.device(DEVICE)
-    report = {}        # kernel -> (max_abs_err, ms, plain_ms)
+    report = {}        # kernel -> its entry of the kernels line
     launched = {k: 0 for k in kernels.KERNELS}
 
     def add(counts):
@@ -481,41 +790,54 @@ def main() -> int:
 
     # == dense path: Q1 and Q6 ===============================================
     t0 = time.perf_counter()
-    sf10 = bench.make_lineitem(SF10_ROWS, seed=0)
+    sf10 = make_lineitem(SF10_ROWS, seed=0)
     print(f"lineitem SF10: {SF10_ROWS} rows made in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     ctx = dft.SessionContext(dev)
     ctx.register_table("lineitem", dft.MemTable(sf10.schema, [[sf10]]))
-    err, ms, plain_ms = kernel_vs_plain(ctx, bench.Q1, "lineitem", None)
-    report["fused_dense_aggregate"] = (err, ms, plain_ms)
-    print(f"fused_dense_aggregate Q1 SF10 lanes: kernel {ms:.6f} ms, plain "
-          f"{plain_ms:.6f} ms, max_abs_err {err} [{card}]", flush=True)
+    k1 = kernel_vs_plain(ctx, Q1, "lineitem", None)
+    report["fused_dense_aggregate"] = k1
+    print(f"fused_dense_aggregate Q1 SF10 lanes: kernel {k1['ms']:.6f} ms, "
+          f"plain {k1['plain_ms']:.6f} ms, bound {k1['bound_ms']:.6f} ms, "
+          f"max_abs_err {k1['max_abs_err']} [{card}]", flush=True)
     fctx = dft.SessionContext(dev)
     fb = float_batch(FLOAT_ROWS, seed=1)
     fctx.register_table("t", dft.MemTable(fb.schema, [[fb]]))
-    ferr, fms, fplain = kernel_vs_plain(fctx, FLOAT_QUERY, "t", 1e-9)
+    kf = kernel_vs_plain(fctx, FLOAT_QUERY, "t", 1e-9)
     print(f"fused_dense_aggregate f64 lanes ({FLOAT_ROWS} rows, NULLs and "
-          f"NaNs): kernel {fms:.6f} ms, plain {fplain:.6f} ms, "
-          f"max_abs_err {ferr} (sums within rel 1e-9) [{card}]", flush=True)
+          f"NaNs): kernel {kf['ms']:.6f} ms, plain {kf['plain_ms']:.6f} ms, "
+          f"max_abs_err {kf['max_abs_err']} (sums within rel 1e-9) [{card}]",
+          flush=True)
     del fctx, fb
 
-    out, counts, _ = run_path(ctx, bench.Q1, ["fused_dense_aggregate",
-                                              "compact_groups"],
+    out, counts, _ = run_path(ctx, Q1, ["fused_dense_aggregate",
+                                        "compact_groups"],
                               card, "Q1 SF10", SF10_ROWS)
     add(counts)
-    ship = sf10.columns[6].data_host()
-    got_count = out.columns[9].data_host()
+    ship = col(sf10, "l_shipdate")
+    got_count = col(out, "count_order")
     if out.num_rows != 4 or int(got_count.sum()) != int(
             np.count_nonzero(ship <= days(1998, 9, 2))):
         raise AssertionError("Q1 SF10 disagrees with numpy")
+    qty, price, disc, tax = (col(sf10, c) for c in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    m = ship <= days(1998, 9, 2)
+    g = (col(sf10, "l_returnflag") * 2 + col(sf10, "l_linestatus"))[m]
+    charge = (price * (100 - disc) * (100 + tax))[m]
+    got_g = col(out, "l_returnflag") * 2 + col(out, "l_linestatus")
+    want_charge = [int(charge[g == k].sum()) for k in got_g]
+    if col(out, "sum_charge").tolist() != want_charge:
+        raise AssertionError("Q1 SF10 sum_charge disagrees with numpy")
+    print(f"Q1 SF10 equals numpy: count_order {got_count.tolist()}, "
+          f"sum_charge exactly (scale 6)", flush=True)
 
-    qerr, qms, qplain = kernel_vs_plain(ctx, Q6, "lineitem", None)
-    print(f"fused_dense_aggregate Q6 SF10 (G = 1): kernel {qms:.6f} ms, "
-          f"plain {qplain:.6f} ms, max_abs_err {qerr} [{card}]", flush=True)
+    q6 = kernel_vs_plain(ctx, Q6, "lineitem", None)
+    print(f"fused_dense_aggregate Q6 SF10 (G = 1): kernel {q6['ms']:.6f} ms, "
+          f"plain {q6['plain_ms']:.6f} ms, bound {q6['bound_ms']:.6f} ms, "
+          f"max_abs_err {q6['max_abs_err']} [{card}]", flush=True)
     out, counts, _ = run_path(ctx, Q6, ["fused_dense_aggregate"], card,
                               "Q6 SF10", SF10_ROWS)
     add(counts)
-    qty, price, disc = (sf10.columns[i].data_host() for i in range(3))
     m = ((ship >= days(1994, 1, 1)) & (ship < days(1995, 1, 1)) &
          (disc / 100.0 >= 0.05) & (disc / 100.0 <= 0.07) & (qty < 2400))
     want_q6 = int((price[m] * disc[m]).sum())
@@ -524,37 +846,30 @@ def main() -> int:
                              f"{want_q6}")
     print(f"Q6 SF10 revenue equals numpy exactly: {want_q6} (scale 4), "
           f"{int(m.sum())} rows pass", flush=True)
-    del ctx, sf10, ship, qty, price, disc, m
+    del ctx, sf10, ship, qty, price, disc, tax, m, g, charge
 
-    sf1 = bench.make_lineitem(SF1_ROWS, seed=0)
-    port = dft.SessionContext(dev)
-    port.register_table("lineitem", dft.MemTable(sf1.schema, [[sf1]]))
-    host = ref.SessionContext()
-    host.config.set("datafusion.tpu.device_aggregate", False)
-    host.register_table("lineitem", ref.MemTable(sf1.schema, [[sf1]]))
-    got, want = port.sql(bench.Q1).to_pydict(), host.sql(bench.Q1).to_pydict()
-    if got != want:
-        raise AssertionError(f"Q1 SF1 differs from the host path:\n{got}\n"
-                             f"{want}")
-    print(f"Q1 SF1 matches the host reference exactly: {len(got['l_returnflag'])}"
-          f" rows, count_order {got['count_order']}", flush=True)
-    del port, host, sf1
-
-    # == hash path: TPC-H Q18's and Q15's subqueries at SF10 =================
+    # == TPC-H SF10: hash path (Q18's and Q15's subqueries) ==================
     t0 = time.perf_counter()
-    li = tpch_lineitem(10, seed=0)
-    print(f"TPC-H-shaped lineitem SF10: {li.num_rows} rows made in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    tables = tpch_tables(10, seed=0)
+    li = tables["lineitem"]
+    print(f"TPC-H SF10: " + ", ".join(
+        f"{k} {v.num_rows}" for k, v in tables.items()) +
+        f" rows made in {time.perf_counter() - t0:.3f} s", flush=True)
     ctx = dft.SessionContext(dev)
-    ctx.register_table("lineitem", dft.MemTable(li.schema, [[li]]))
-    k2, k3, _t, _s, _n = hash_kernel_vs_plain(ctx, Q18_SUB, "Q18 sub SF10",
-                                              card, having=True)
-    del _t
+    for tname, b in tables.items():
+        ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
+    k2, k3, table, _s, _n = hash_kernel_vs_plain(ctx, Q18_SUB, "Q18 sub SF10",
+                                                 card, having=True)
+    del table
     report["hash_group_aggregate"] = k2
     report["compact_groups"] = k3
-    hash_kernel_vs_plain(ctx, Q15_SUB, "Q15 sub SF10", card)
+    _k2, _k3, table, _s, _n = hash_kernel_vs_plain(ctx, Q15_SUB,
+                                                   "Q15 sub SF10", card)
+    del table
 
-    ok_, supp, qty, price, disc, ship = (c.data_host() for c in li.columns)
+    ok_, supp, qty, price, disc, ship = (col(li, c) for c in (
+        "l_orderkey", "l_suppkey", "l_quantity", "l_extendedprice",
+        "l_discount", "l_shipdate"))
     out, counts, _ = run_path(ctx, Q18_SUB, ["hash_group_aggregate",
                                              "compact_groups"],
                               card, "Q18 sub SF10", li.num_rows)
@@ -585,23 +900,63 @@ def main() -> int:
     print(f"Q15 sub SF10 equals numpy exactly: {int(m.sum())} rows pass, "
           f"{out.num_rows} groups", flush=True)
     breakdown(ctx, Q15_SUB, card, "Q15 sub SF10")
-    del ctx, li, ok_, supp, qty, price, disc, ship, m
+    del ok_, supp, qty, price, disc, ship, m, rev, live, starts, sums
 
-    small = tpch_lineitem(1, seed=1)
-    port = dft.SessionContext(dev)
-    port.register_table("lineitem", dft.MemTable(small.schema, [[small]]))
-    host = ref.SessionContext()
-    host.config.set("datafusion.tpu.device_aggregate", False)
-    host.register_table("lineitem", ref.MemTable(small.schema, [[small]]))
-    for label, sql, key in (("Q18 sub", Q18_SUB, "l_orderkey"),
-                            ("Q15 sub", Q15_SUB, "supplier_no")):
-        got, want = (c.sql(f"select * from ({sql}) order by {key}")
-                     .to_pydict() for c in (port, host))
-        if got != want:
-            raise AssertionError(f"{label} SF1 differs from the host path")
-        print(f"{label} SF1 ({small.num_rows} rows) matches the host "
-              f"reference exactly: {len(got[key])} rows", flush=True)
-    del port, host, small
+    # == TPC-H SF10: join chains (Q3, Q4, Q5) =================================
+    chain = ["chain_build", "chain_aggregate"]
+    tctx = ctx.task_context()
+    for q in (5, 3, 4):
+        ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
+                       TorchJoinChainAggregateExec)
+        if ex is None:
+            raise AssertionError(f"Q{q} plans no TorchJoinChainAggregateExec")
+        print(f"Q{q} SF10 plans {ex.display_line()}", flush=True)
+        kb = chain_builds_vs_plain(ex, tctx, card, f"Q{q} SF10")
+        kw = chain_walk_vs_plain(ex, tctx, card, f"Q{q} SF10")
+        if q == 5:
+            report["chain_build"], report["chain_aggregate"] = kb, kw
+    torch.cuda.empty_cache()
+
+    out, counts, _ = run_path(ctx, TPCH[3], chain + ["compact_groups"], card,
+                              "Q3 SF10", li.num_rows,
+                              TorchJoinChainAggregateExec)
+    add(counts)
+    keys, revs, dates, n_groups = oracle_q3(tables)
+    if not (np.array_equal(col(out, "l_orderkey"), keys) and
+            np.array_equal(col(out, "revenue"), revs) and
+            np.array_equal(col(out, "o_orderdate"), dates) and
+            not col(out, "o_shippriority").any()):
+        raise AssertionError(f"Q3 SF10 disagrees with numpy:\n"
+                             f"{out.to_pydict()}\n{keys} {revs} {dates}")
+    print(f"Q3 SF10 equals numpy exactly: {n_groups} groups, top revenue "
+          f"{revs[:3].tolist()} (scale 4)", flush=True)
+    breakdown(ctx, TPCH[3], card, "Q3 SF10", TorchJoinChainAggregateExec)
+
+    out, counts, _ = run_path(ctx, TPCH[4], chain + ["compact_groups"],
+                              card, "Q4 SF10", tables["orders"].num_rows,
+                              TorchJoinChainAggregateExec)
+    add(counts)
+    prios, want4 = oracle_q4(tables)
+    got4 = out.to_pydict()
+    if got4 != {"o_orderpriority": prios, "order_count": want4.tolist()}:
+        raise AssertionError(f"Q4 SF10 disagrees with numpy: {got4} "
+                             f"{prios} {want4}")
+    print(f"Q4 SF10 equals numpy exactly: {want4.tolist()}", flush=True)
+    breakdown(ctx, TPCH[4], card, "Q4 SF10", TorchJoinChainAggregateExec)
+
+    out, counts, _ = run_path(ctx, TPCH[5], chain + ["compact_groups"],
+                              card, "Q5 SF10",
+                              li.num_rows, TorchJoinChainAggregateExec)
+    add(counts)
+    want5 = oracle_q5(tables)
+    got5 = list(zip(out.columns[0].to_pylist(),
+                    col(out, "revenue").tolist()))
+    if got5 != want5:
+        raise AssertionError(f"Q5 SF10 disagrees with numpy: {got5} {want5}")
+    print(f"Q5 SF10 equals numpy exactly: {got5}", flush=True)
+    breakdown(ctx, TPCH[5], card, "Q5 SF10", TorchJoinChainAggregateExec)
+    del ctx, tables, li, tctx, ex, out
+    torch.cuda.empty_cache()
 
     # == hash path: ClickBench Q16 and Q17 at 99,997,497 rows ================
     t0 = time.perf_counter()
@@ -610,19 +965,19 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     ctx = dft.SessionContext(dev)
     ctx.register_table("hits", dft.MemTable(hb.schema, [[hb]]))
-    _k2, _k3, table, spec, names = hash_kernel_vs_plain(
+    _k2, _k3, table, _spec, names = hash_kernel_vs_plain(
         ctx, CB_Q16.split(" ORDER BY")[0], "CB Q16 SF100M", card)
-    report["group_topk"] = topk_vs_plain(table, spec, names, names[0], card,
+    report["group_topk"] = topk_vs_plain(table, names[0], names, card,
                                          "CB Q16")
     del table
-    _k2, _k3, table, spec, names = hash_kernel_vs_plain(
+    _k2, _k3, table, _spec, names = hash_kernel_vs_plain(
         ctx, CB_Q17.split(" ORDER BY")[0], "CB Q17 SF100M", card)
-    topk_vs_plain(table, spec, names, names[0], card, "CB Q17")
+    topk_vs_plain(table, names[0], names, card, "CB Q17")
     del table
 
-    user = hb.columns[0].data_host()
-    code = hb.columns[1].data_host()
-    dic = hb.columns[1].dictionary.values
+    user = col(hb, "UserID")
+    code = col(hb, "SearchPhrase")
+    n_dic = len(hb.column_by_name("SearchPhrase").dictionary)
     out, counts, _ = run_path(ctx, CB_Q16, ["hash_group_aggregate",
                                             "group_topk", "compact_groups"],
                               card, "CB Q16", HITS_ROWS)
@@ -640,8 +995,8 @@ def main() -> int:
                                             "group_topk", "compact_groups"],
                               card, "CB Q17", HITS_ROWS)
     add(counts)
-    pair, pair_n = np.unique(user * len(dic) + code, return_counts=True)
-    got_pair = (out.columns[0].data_host() * len(dic) +
+    pair, pair_n = np.unique(user * n_dic + code, return_counts=True)
+    got_pair = (out.columns[0].data_host() * n_dic +
                 out.columns[1].data_host())
     top_counts_agree("CB Q17", got_pair, out.columns[2].data_host(), pair,
                      pair_n)
@@ -651,37 +1006,36 @@ def main() -> int:
     breakdown(ctx, CB_Q17, card, "CB Q17")
     del ctx, hb, user, code, pair, pair_n, per_user
 
-    hp = hits(HITS_PARITY_ROWS, seed=0)
-    port = dft.SessionContext(dev)
-    port.register_table("hits", dft.MemTable(hp.schema, [[hp]]))
-    host = ref.SessionContext()
-    host.config.set("datafusion.tpu.device_aggregate", False)
-    host.register_table("hits", ref.MemTable(hp.schema, [[hp]]))
-    for label, sql, keys_, cnt in (
-            ("CB Q16", CB_Q16, ["UserID"], "count(*)"),
-            ("CB Q17", CB_Q17, ["UserID", "SearchPhrase"], "count(*)")):
-        got, want = (c.sql(sql).to_pydict() for c in (port, host))
-        same_top(f"{label} at {HITS_PARITY_ROWS} rows", got, want, keys_, cnt)
-        print(f"{label} at {HITS_PARITY_ROWS} rows matches the host reference:"
-              f" counts {got[cnt]}", flush=True)
-    del port, host, hp
-
     loaded = [m for m, v in sys.modules.items()
-              if (m == "jax" or m.startswith("jax.")) and v is not None]
+              if m.split(".")[0] in ("jax", "datafusion_tpu", "bench")
+              and v is not None]
     if loaded:
-        raise AssertionError(f"JAX was imported: {loaded}")
+        raise AssertionError(f"imported: {loaded}")
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": k.name, "route": "cuda", "source": k.source,
-        "replaces": k.replaces, "launches": launched[k.name],
-        "max_abs_err": report[k.name][0], "ms": report[k.name][1],
-        "plain_ms": report[k.name][2]} for k in kernels.KERNELS.values()]}))
+    print(json.dumps({"kernels": [dict(
+        name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+        launches=launched[k.name], **report[k.name])
+        for k in kernels.KERNELS.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def top_counts_agree(label, got_keys, got_counts, all_keys, all_counts):
+    """A top-10 result against the full group counts: the counts exactly,
+    the keys exactly for counts beyond the 10th."""
+    import numpy as np
+    want = np.sort(all_counts)[::-1][:10]
+    if list(got_counts) != want.tolist():
+        raise AssertionError(f"{label}: counts {list(got_counts)} != "
+                             f"{want.tolist()}")
+    kth = want[-1]
+    beyond = {k for k, c in zip(got_keys, got_counts) if c > kth}
+    if beyond != set(np.asarray(all_keys)[all_counts > kth].tolist()):
+        raise AssertionError(f"{label}: groups beyond the 10th count differ")
 
 
 if __name__ == "__main__":

@@ -1,44 +1,43 @@
 """datafusion_tpu_torch — the PyTorch/CUDA port of datafusion_tpu.
 
-The port imports `torch` and never `jax`. It reuses the JAX package's
-neutral layers (SQL front end, logical optimizer, catalog, data sources,
-numpy host operators) and owns the device half: column residency
-(`common/column.py`), expression programs (`device/lower.py`), the
-fused dense group-aggregate kernel (`device/groupby.py`,
-`csrc/fused_dense_aggregate.cu`) and its physical operator and rules.
+The port stands alone: it imports `torch` and never `jax`, and nothing of
+the JAX package. It keeps its own copy of the neutral host layers (SQL
+front end, logical optimizer, catalog, data sources, numpy host
+operators) at the reference's relative paths, and owns the device half:
+column residency (`common/column.py`), expression programs
+(`device/lower.py`), the group-aggregate and join-chain kernels
+(`device/groupby.py`, `device/join_chain.py`, `csrc/*.cu`) and their
+physical operators and rules.
 
     import torch, datafusion_tpu_torch as dft
     ctx = dft.SessionContext(torch.device("cuda"))
     ctx.register_table("lineitem", dft.MemTable(batch.schema, [[batch]]))
     ctx.sql("SELECT ... GROUP BY ...").to_pydict()
-    dft.launch_counts()    # {"fused_dense_aggregate": N}
+    dft.launch_counts()    # {"fused_dense_aggregate": N, ...}
 """
 from __future__ import annotations
 
-import sys
+__version__ = "0.1.0"
 
-
-def _import_reference_without_jax():
-    """`datafusion_tpu/__init__.py` imports JAX whenever it is installed
-    (to switch on 64-bit mode); the port needs none of it. Hide JAX while
-    that package initialises, then restore the import system as it was."""
-    if "datafusion_tpu" in sys.modules or "jax" in sys.modules:
-        return
-    sys.modules["jax"] = None
-    try:
-        import datafusion_tpu  # noqa: F401
-    finally:
-        del sys.modules["jax"]
-
-
-_import_reference_without_jax()
-
-from datafusion_tpu.datasource.memory import MemTable  # noqa: F401,E402
-
-from .api.context import SessionContext  # noqa: F401,E402
-from .device import groupby as _groupby  # noqa: F401,E402  registers the kernel
+from .api.context import SessionConfig, SessionContext  # noqa: F401,E402
+from .api.dataframe import DataFrame  # noqa: F401,E402
+from .catalog import (CatalogProvider, MemoryCatalogProvider,  # noqa: F401,E402
+                      MemorySchemaProvider, SchemaProvider)
+from .common import (Batch, Column, ConfigOptions,  # noqa: F401,E402
+                     DataFusionError, DataType, Field, ScalarValue, Schema,
+                     dt)
+from .datasource import MemTable, StreamTable, TableProvider  # noqa: F401,E402
+from .device import groupby as _groupby  # noqa: F401,E402  registers kernels
+from .device import join_chain as _join_chain  # noqa: F401,E402
+from .expr.expr_fns import col, lit  # noqa: F401,E402
 from .kernels import (KERNELS, launch_counts,  # noqa: F401,E402
                       reset_launch_counts)
+from .sql.unparser import expr_to_sql, plan_to_sql  # noqa: F401,E402
 
-__all__ = ["SessionContext", "MemTable", "KERNELS", "launch_counts",
+__all__ = ["SessionContext", "SessionConfig", "DataFrame", "MemTable",
+           "StreamTable", "TableProvider", "CatalogProvider",
+           "SchemaProvider", "MemoryCatalogProvider", "MemorySchemaProvider",
+           "Batch", "Column", "ConfigOptions", "DataFusionError", "DataType",
+           "Field", "ScalarValue", "Schema", "dt", "col", "lit",
+           "plan_to_sql", "expr_to_sql", "KERNELS", "launch_counts",
            "reset_launch_counts"]

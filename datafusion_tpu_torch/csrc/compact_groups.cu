@@ -40,7 +40,6 @@ constexpr int kThreads = 256;
 constexpr int kPer = 8;                 // slots per thread
 constexpr int kTile = kThreads * kPer;  // slots per block (groupby.py)
 constexpr int kScanThreads = 1024;
-constexpr i64 kEmpty = -1;
 
 // finaliser kinds: datafusion_tpu_torch/device/groupby.py
 enum { FIN_KEY = 0, FIN_COUNT = 1, FIN_SUM = 2, FIN_AVG = 3, FIN_MIN = 4,

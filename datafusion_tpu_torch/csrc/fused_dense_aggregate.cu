@@ -31,8 +31,9 @@
 // Exactness. Integer and decimal lanes are exact in any order (64-bit
 // two's-complement adds wrap the same way). Float sums are atomics, so
 // their order changes from run to run; callers compare them within a
-// relative tolerance. The interpreter and the lane folds live in
-// program.cuh, shared with the hash group-by kernel.
+// relative tolerance. The interpreter, the lane folds and the row body
+// (`dense_fold`) live in program.cuh, shared with the hash group-by and the
+// join-chain kernels.
 
 #include "program.cuh"
 
@@ -46,43 +47,8 @@ fused_dense_aggregate_kernel(const i64* __restrict__ meta_g, int meta_len,
                              u64* __restrict__ table_g) {
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
-  const i64* meta = smem;
-  const int n_lanes = (int)meta[H_NLANES];
-  const int groups = (int)meta[H_G];
-  const int n_keys = (int)meta[H_NKEYS];
-  const i64* keys = meta + meta[H_OFF_KEYS];
-  const i64* lanes = meta + meta[H_OFF_LANES];
-  const RowColumns cols{meta + meta[H_OFF_COLS]};
-  u64* tab = (u64*)(smem + meta_len);
-  const int cells = (n_lanes + 1) * groups;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int lane = i / groups;
-    tab[i] = (u64)(lane == 0 ? 0 : identity((int)lanes[2 * (lane - 1) + 1]));
-  }
-  __syncthreads();
-
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
-       row += stride) {
-    if (meta[H_PRED] >= 0) {
-      i64 x;
-      const bool valid = run(meta, aux, (int)meta[H_PRED], row, cols, &x);
-      if (!(valid && x != 0)) continue;
-    }
-    i64 slot = pack_key(meta, aux, keys, n_keys, row, cols);
-    slot = slot < 0 ? 0 : (slot >= groups ? groups - 1 : slot);
-    atomicAdd(&tab[slot], 1ull);
-    fold_lanes(meta, aux, lanes, n_lanes, row, cols,
-               [&](int l) { return &tab[(l + 1) * groups + slot]; });
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int lane = i / groups;
-    const int kind = lane == 0 ? LANE_ROWS : (int)lanes[2 * (lane - 1) + 1];
-    const i64 x = (i64)tab[i];
-    if (x != identity(kind)) fold(kind, &table_g[i], x);
-  }
+  dense_fold(smem, aux, n_rows, (u64*)(smem + meta_len), table_g,
+             PlainRows{smem, aux});
 }
 
 }  // namespace
@@ -96,15 +62,8 @@ extern "C" int dft_fused_dense_aggregate(const void* meta, int meta_len,
                                          const void* aux, long long n_rows,
                                          void* table, void* stream) {
   const size_t smem = (size_t)(meta_len + (n_lanes + 1) * groups) * 8;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (n_rows + kThreads - 1) / kThreads;
-  const long long cap = (long long)(sms > 0 ? sms : 132) * 8;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  fused_dense_aggregate_kernel<<<(unsigned)blocks, kThreads, smem,
-                                 (cudaStream_t)stream>>>(
+  fused_dense_aggregate_kernel<<<grid_blocks(n_rows, kThreads), kThreads,
+                                 smem, (cudaStream_t)stream>>>(
       (const i64*)meta, meta_len, (const i64*)aux, n_rows, (u64*)table);
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBins = 256;
-constexpr i64 kEmpty = -1;
 
 // state words (groupby.py fills S_KREM with k, the rest with 0)
 enum { S_PREFIX, S_KREM, S_ALL, S_GT, S_EQ, S_WORDS = 8 };
@@ -129,21 +128,15 @@ topk_gather_kernel(const i64* __restrict__ table, i64 cap, int lane_row,
 extern "C" int dft_group_topk(const void* table, long long cap, int lane_row,
                               int asc, long long k, void* state, void* hist,
                               void* out, void* stream) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (cap + kThreads - 1) / kThreads;
-  const long long most = (long long)(sms > 0 ? sms : 132) * 8;
-  if (blocks > most) blocks = most;
-  if (blocks < 1) blocks = 1;
+  const unsigned blocks = grid_blocks(cap, kThreads);
   cudaStream_t st = (cudaStream_t)stream;
   for (int pass = 0; pass < 8; ++pass) {
-    topk_hist_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+    topk_hist_kernel<<<blocks, kThreads, 0, st>>>(
         (const i64*)table, cap, lane_row, asc, pass, (const i64*)state,
         (u64*)hist);
     topk_select_kernel<<<1, 1, 0, st>>>(pass, (i64*)state, (u64*)hist);
   }
-  topk_gather_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+  topk_gather_kernel<<<blocks, kThreads, 0, st>>>(
       (const i64*)table, cap, lane_row, asc, k, (i64*)state, (i64*)out);
   return (int)cudaGetLastError();
 }

@@ -94,8 +94,11 @@ _NP_TO_TORCH = {np.dtype(np.bool_): torch.bool,
 
 # meta header: int64 words at the start of a kernel's descriptor
 (H_NCOLS, H_NLANES, H_G, H_NKEYS, H_PRED, H_OFF_COLS, H_OFF_PROGS,
- H_OFF_CODE, H_OFF_ICONST, H_OFF_FCONST, H_OFF_KEYS, H_OFF_LANES) = range(12)
-HEADER = 12
+ H_OFF_CODE, H_OFF_ICONST, H_OFF_FCONST, H_OFF_KEYS, H_OFF_LANES,
+ H_OFF_CHAIN) = range(13)
+HEADER = 13
+_SECTIONS = (H_OFF_COLS, H_OFF_PROGS, H_OFF_CODE, H_OFF_ICONST, H_OFF_FCONST,
+             H_OFF_KEYS, H_OFF_LANES, H_OFF_CHAIN)
 
 Columns = Dict[int, Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
@@ -124,14 +127,13 @@ def lane_kind(cat: str, prog: Optional[Program], f32_sums: bool = False) -> int:
 def _descriptor(head: Dict[int, int], sections: Sequence[np.ndarray]
                 ) -> np.ndarray:
     """Header words `head` plus the sections, whose offsets fill
-    H_OFF_COLS .. H_OFF_LANES in order."""
+    H_OFF_COLS .. H_OFF_CHAIN in order."""
     out = np.zeros(HEADER, np.int64)
     for h, v in head.items():
         out[h] = v
     sections = [np.asarray(s, np.int64).reshape(-1) for s in sections]
     off = HEADER
-    for h, sec in zip((H_OFF_COLS, H_OFF_PROGS, H_OFF_CODE, H_OFF_ICONST,
-                       H_OFF_FCONST, H_OFF_KEYS, H_OFF_LANES), sections):
+    for h, sec in zip(_SECTIONS, sections):
         out[h] = off
         off += len(sec)
     return np.concatenate([out, *sections])
@@ -178,6 +180,11 @@ class _ProgramSpec:
         out += [p for p, _k in self.lanes if p is not None]
         return out
 
+    def _chain_section(self, index: Dict[int, int]) -> np.ndarray:
+        """The join-chain section of the descriptor (`device/join_chain.py`);
+        empty for a plain aggregate."""
+        return np.zeros(0, np.int64)
+
     def _layout(self, slots: int) -> np.ndarray:
         progs = self.programs()
         index = {id(p): i for i, p in enumerate(progs)}
@@ -190,7 +197,8 @@ class _ProgramSpec:
             np.asarray([(index[id(p)], o, s) for p, o, s in self.keys],
                        np.int64),                                # keys
             np.asarray([(-1 if p is None else index[id(p)], k)
-                        for p, k in self.lanes], np.int64)])     # lanes
+                        for p, k in self.lanes], np.int64),      # lanes
+            self._chain_section(index)])
 
     def identity(self) -> np.ndarray:
         """Each lane's identity: 0 for counts and sums, the extreme of the
@@ -225,9 +233,11 @@ class _ProgramSpec:
     def column_dtype(self, idx: int) -> torch.dtype:
         return _NP_TO_TORCH[self.pools.columns[idx]]
 
-    def device_meta(self, cols: Columns, device: torch.device) -> torch.Tensor:
-        """The descriptor with the batch's column pointers, on `device`."""
-        meta = self.meta.copy()
+    def device_meta(self, cols: Columns, device: torch.device,
+                    meta: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The descriptor (`self.meta`, or `meta` of the same layout) with
+        the batch's column pointers, on `device`."""
+        meta = (self.meta if meta is None else meta).copy()
         base = int(meta[H_OFF_COLS])
         for idx, (data, valid) in cols.items():
             if idx in self.pools.columns:
@@ -361,11 +371,12 @@ def dense_group_aggregate(spec: AggregateSpec, cols: Columns,
 
 
 def _rows_and_keys(spec: _ProgramSpec, cols: Columns, aux: torch.Tensor,
-                   n: int):
-    """The plain versions' prologue: (rows that pass the predicate, the
-    packed key of every row)."""
+                   n: int, rows: Optional[torch.Tensor] = None):
+    """The plain versions' prologue: (rows that pass the predicate, among
+    `rows` when it is given, and the packed key of every row)."""
     dev = aux.device
-    row_valid = torch.ones(n, dtype=torch.bool, device=dev)
+    row_valid = torch.ones(n, dtype=torch.bool, device=dev) if rows is None \
+        else rows.clone()
     if spec.pred is not None:
         d, v = evaluate(spec.pred, cols, aux, n)
         row_valid &= (d != 0) & v
@@ -417,12 +428,15 @@ def _fold_plain(spec: _ProgramSpec, cols: Columns, aux: torch.Tensor, n: int,
 
 def dense_group_aggregate_plain(spec: AggregateSpec, cols: Columns,
                                 aux: torch.Tensor, n_rows: int,
-                                table: torch.Tensor) -> torch.Tensor:
+                                table: torch.Tensor,
+                                rows: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """The plain PyTorch version: the programs interpreted over whole
-    tensors, then `index_add_` / `scatter_reduce_` into the slots."""
+    tensors, then `index_add_` / `scatter_reduce_` into the slots. Only
+    the rows that `rows` selects count, when it is given."""
     if n_rows == 0:
         return table
-    row_valid, packed = _rows_and_keys(spec, cols, aux, n_rows)
+    row_valid, packed = _rows_and_keys(spec, cols, aux, n_rows, rows)
     slot = packed.clamp(0, spec.groups - 1)[row_valid]
     _fold_plain(spec, cols, aux, n_rows, row_valid, slot, table[0], table[1:])
     return table
@@ -503,13 +517,16 @@ def _plain_slots(spec: HashSpec, table: torch.Tensor, packed: torch.Tensor,
 def hash_group_aggregate_plain(spec: HashSpec, cols: Columns,
                                aux: torch.Tensor, n_rows: int,
                                table: torch.Tensor,
-                               overflow: torch.Tensor) -> torch.Tensor:
+                               overflow: torch.Tensor,
+                               rows: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """The plain PyTorch version: the programs interpreted over whole
     tensors, the keys interned with `torch.unique` against the keys
-    already in the table, then `index_add_` / `scatter_reduce_`."""
+    already in the table, then `index_add_` / `scatter_reduce_`. Only the
+    rows that `rows` selects count, when it is given."""
     if n_rows == 0:
         return table
-    row_valid, packed = _rows_and_keys(spec, cols, aux, n_rows)
+    row_valid, packed = _rows_and_keys(spec, cols, aux, n_rows, rows)
     slot = torch.full_like(packed, -1)
     slot[row_valid] = _plain_slots(spec, table, packed[row_valid], overflow)
     row_valid &= slot >= 0

@@ -25,10 +25,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from datafusion_tpu.common.datatypes import TypeId
-from datafusion_tpu.expr.operator import Op
-from datafusion_tpu.physical import expressions as PE
-from datafusion_tpu.physical import kernels as K
+from ..common.datatypes import TypeId
+from ..expr.operator import Op
+from ..physical import expressions as PE
+from ..physical import kernels as K
 
 # --- opcodes (mirrored in csrc/fused_dense_aggregate.cu) -------------------
 OP_COL = 1        # a = column index: push (value, validity)

@@ -42,6 +42,9 @@ _SIGNATURES = {
     "dft_compact_count": [_P, _I, _P, _LL, _P, _LL, _P, _P, _P],
     "dft_compact_scatter": [_P, _I, _P, _LL, _I, _P, _LL, _P, _P, _LL, _P],
     "dft_group_topk": [_P, _LL, _I, _I, _LL, _P, _P, _P, _P],
+    "dft_chain_build_range": [_P, _I, _P, _LL, _P, _P],
+    "dft_chain_build_insert": [_P, _I, _P, _LL, _I, _LL, _P, _P, _P, _P],
+    "dft_chain_aggregate": [_P, _I, _I, _I, _P, _LL, _LL, _I, _P, _P, _P],
 }
 
 

@@ -14,10 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from datafusion_tpu.common import dt
-from datafusion_tpu.common.batch import Batch
-from datafusion_tpu.common.column import Column, Dictionary
-from datafusion_tpu.common.schema import Field, Schema
+from datafusion_tpu_torch.common import dt
+from datafusion_tpu_torch.common.batch import Batch
+from datafusion_tpu_torch.common.column import Column, Dictionary
+from datafusion_tpu_torch.common.schema import Field, Schema
 
 pytestmark = pytest.mark.cuda
 
@@ -297,4 +297,130 @@ def test_cuda_hash_path_end_to_end_matches_cpu(cuda):
             ctx.register_table("t", dft.MemTable(batch.schema, [[batch]]))
             out.append(ctx.sql(q).to_pydict())
             assert _exec(ctx, q).fallbacks == 0
+        assert out[0] == out[1], q
+
+
+# --- the join chain: chain_build, chain_aggregate --------------------------
+
+def _tpch_ctx(device, sf):
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.tpch.datagen import register_tpch
+    ctx = dft.SessionContext(device)
+    register_tpch(ctx, sf=sf, seed=1)
+    return ctx
+
+
+def _chain_exec(ctx, q):
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainAggregateExec)
+    node = ctx.sql(q).create_physical_plan()
+    while not isinstance(node, TorchJoinChainAggregateExec):
+        node = node.children()[0]
+    return node
+
+
+def _build_inputs(n, seed, sparse, nulls):
+    """An int64 key column (unique unless `sparse` draws from a wide range
+    with repeats), a NULL mask, and a filter column."""
+    rng = np.random.default_rng(seed)
+    if sparse:
+        keys = rng.integers(0, 1 << 40, n)
+    else:
+        keys = rng.permutation(n).astype(np.int64) * 3 + 7
+    valid = rng.random(n) > 0.05 if nulls else None
+    f = rng.integers(0, 100, n).astype(np.int32)
+    return keys, valid, f
+
+
+@pytest.mark.parametrize("sparse,unique", [(False, True), (True, True),
+                                           (True, False)])
+def test_chain_build_matches_plain(cuda, sparse, unique):
+    """Direct and hashed build tables, INNER (duplicates flagged) and
+    SEMI (presence), from the kernel and from its plain version."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.common.column import to_device
+    from datafusion_tpu_torch.common.scalar import ScalarValue
+    from datafusion_tpu_torch.device.join_chain import (
+        TAB_DIRECT, TAB_HASH, BuildSpec, chain_build, chain_build_plain)
+    from datafusion_tpu_torch.device.lower import Pools, compile_expr
+    from datafusion_tpu_torch.expr.operator import Op
+    from datafusion_tpu_torch.physical.expressions import (
+        BinaryPhysExpr, ColumnExpr, LiteralExpr)
+    n = 500_000
+    keys, valid, f = _build_inputs(n, 21, sparse, nulls=True)
+    if not unique:
+        keys[::7] = keys[1::7][:len(keys[::7])]
+    cols_h = [Column(dt.INT64, keys, valid), Column(dt.INT32, f)]
+    pools = Pools()
+    pred = compile_expr(BinaryPhysExpr(
+        ColumnExpr(1, "f", dt.INT32), Op.LT,
+        LiteralExpr(ScalarValue(dt.INT32, 60)), dt.BOOL), pools)
+    spec = BuildSpec(pools, pred, [compile_expr(ColumnExpr(0, "k", dt.INT64),
+                                                pools)])
+    cols = {i: to_device(cols_h[i], cuda) for i in pools.columns}
+    aux = torch.zeros(0, dtype=torch.int64, device=cuda)
+    before = dft.launch_counts()["chain_build"]
+    got = chain_build(spec, cols, aux, n, unique=True)
+    assert dft.launch_counts()["chain_build"] == before + 1
+    want = chain_build_plain(spec, cols, aux, n, unique=True)
+    assert got.kind == want.kind == (TAB_HASH if sparse else TAB_DIRECT)
+    assert (got.los, got.his, got.live, got.duplicate) == \
+        (want.los, want.his, want.live, want.duplicate)
+    assert got.duplicate == (not unique)
+    gk, gr = got.entries()
+    wk, wr = want.entries()
+    np.testing.assert_array_equal(gk, wk)
+    if unique:       # with duplicates any one of a key's rows may stay
+        np.testing.assert_array_equal(gr, wr)
+
+
+@pytest.mark.parametrize("q", [3, 4, 5])
+def test_chain_aggregate_matches_plain(cuda, q):
+    """TPC-H Q3 (hash fold), Q4 (SEMI) and Q5 (five hops, a residual, a
+    payload string key): the kernel's group table against its plain
+    version's, on the same staged builds and spine."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        LANE_SUM_F32, LANE_SUM_F64, AggregateSpec, compact_groups,
+        dense_group_table)
+    from datafusion_tpu_torch.device.join_chain import (
+        chain_aggregate, chain_aggregate_plain)
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    ctx = _tpch_ctx(cuda, 0.1)
+    ex = _chain_exec(ctx, QUERIES[q])
+    spec, _plan, _names, _slots, inputs, _staged = ex.prepare(
+        ctx.task_context())
+    ((cols, aux, rows),) = inputs
+    tables = []
+    for fold in (chain_aggregate, chain_aggregate_plain):
+        table = spec.new_table(cuda)
+        overflow = torch.zeros(1, dtype=torch.int32, device=cuda)
+        before = dft.launch_counts()["chain_aggregate"]
+        fold(spec, cols, aux, rows, table, overflow)
+        assert dft.launch_counts()["chain_aggregate"] == \
+            before + (fold is chain_aggregate)
+        torch.cuda.synchronize()
+        assert int(overflow.item()) == 0
+        if isinstance(spec, AggregateSpec):
+            table = dense_group_table(table)
+        tables.append(compact_groups(table).cpu().numpy())
+    got, want = (t[:, np.argsort(t[0], kind="stable")] for t in tables)
+    assert got.shape == want.shape and got.shape[1] > 0
+    np.testing.assert_array_equal(got[:2], want[:2])
+    for (_p, kind), a, b in zip(spec.lanes, spec.lane_arrays(got, first=2),
+                                spec.lane_arrays(want, first=2)):
+        if kind in (LANE_SUM_F64, LANE_SUM_F32):
+            np.testing.assert_allclose(a, b, rtol=1e-9)
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cuda_join_chain_end_to_end_matches_cpu(cuda):
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    for q in (3, 4, 5):
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            ctx = _tpch_ctx(dev, 0.05)
+            out.append(ctx.sql(QUERIES[q]).to_pydict())
+            assert _chain_exec(ctx, QUERIES[q]).fallbacks == 0
         assert out[0] == out[1], q

@@ -28,6 +28,7 @@ from datafusion_tpu_torch.common.column import to_device
 from datafusion_tpu_torch.device.groupby import (
     LANE_SUM_F64, AggregateSpec, dense_group_aggregate, lane_kind)
 from datafusion_tpu_torch.device.lower import Pools, compile_expr
+from torch_twin import twin
 
 K = ColumnExpr(0, "k", dt.INT64)            # int key in [-2, 2], NULLs
 G = ColumnExpr(1, "g", dt.STRING)           # 3-value dictionary key
@@ -88,13 +89,16 @@ def _jax(batch, pred):
 
 
 def _port(batch, pred):
+    """The port's side, on the twins (its own classes) of the JAX
+    package's batch and expressions."""
+    batch, pred = twin(batch), twin(pred)
     pools = Pools()
     pred_p = compile_expr(pred, pools) if pred is not None else None
-    keys = [(compile_expr(e, pools), o, b) for e, o, b in
+    keys = [(compile_expr(twin(e), pools), o, b) for e, o, b in
             zip((K, G), OFFSETS, BITS)]
     lanes = []
     for _name, cat, e in SLOTS:
-        prog = compile_expr(e, pools) if e is not None else None
+        prog = compile_expr(twin(e), pools) if e is not None else None
         lanes.append((prog, lane_kind(cat, prog)))
     spec = AggregateSpec(pools, pred_p, keys, lanes)
     cpu = torch.device("cpu")
@@ -180,8 +184,10 @@ def test_ungrouped_q6_matches_device_filter_reduce():
     from datafusion_tpu_torch.physical.plan.device_aggregate import (
         TorchGroupAggregateExec)
     batch = bench.make_lineitem(40_000, seed=3)
+    port_batch = twin(batch)
     ctx = dft.SessionContext(torch.device("cpu"))
-    ctx.register_table("lineitem", dft.MemTable(batch.schema, [[batch]]))
+    ctx.register_table("lineitem", dft.MemTable(port_batch.schema,
+                                                [[port_batch]]))
     q6 = ("select sum(l_extendedprice * l_discount) as revenue "
           "from lineitem where l_shipdate >= date '1994-01-01' "
           "and l_shipdate < date '1995-01-01' "

@@ -38,6 +38,7 @@ from datafusion_tpu.physical.plan.device_aggregate import (
 from datafusion_tpu_torch.common.column import to_device
 from datafusion_tpu_torch.device import groupby as G
 from datafusion_tpu_torch.device.lower import Pools, compile_expr
+from torch_twin import twin
 
 CPU = torch.device("cpu")
 K = ColumnExpr(0, "k", dt.INT64)            # int key, NULLs
@@ -133,14 +134,16 @@ def _jax_map(keys, valid, out):
 
 
 def _spec(batch, pred, width, slots, rows, both=True):
+    """The port's spec, compiled from the twins (its own classes) of the
+    JAX package's expressions."""
     pools = Pools()
-    pred_p = compile_expr(pred, pools) if pred is not None else None
+    pred_p = compile_expr(twin(pred), pools) if pred is not None else None
     off, bits = KEYS[width]
-    keys = [(compile_expr(K, pools), off, bits),
-            (compile_expr(S, pools), 0, 3)][:2 if both else 1]
+    keys = [(compile_expr(twin(K), pools), off, bits),
+            (compile_expr(twin(S), pools), 0, 3)][:2 if both else 1]
     lanes = []
     for _name, cat, e in slots:
-        prog = compile_expr(e, pools) if e is not None else None
+        prog = compile_expr(twin(e), pools) if e is not None else None
         lanes.append((prog, G.lane_kind(cat, prog, f32_sums=True)))
     return G.HashSpec(pools, pred_p, keys, lanes, rows)
 
@@ -303,6 +306,17 @@ def _pair(data):
     return port
 
 
+def _ref_exec(data, q):
+    """The JAX package's DeviceGroupAggregateExec for `q` over `data`."""
+    import datafusion_tpu as df
+    ref = df.SessionContext()
+    ref.register_arrays("t", data)
+    node = ref.sql(q).create_physical_plan()
+    while type(node) is not DeviceGroupAggregateExec:
+        node = node.children()[0]
+    return node
+
+
 def _port_exec(ctx, q):
     from datafusion_tpu_torch.physical.plan.device_aggregate import (
         TorchGroupAggregateExec)
@@ -337,7 +351,8 @@ def _group_table(ex, ctx):
 def test_having_compaction_matches_apply_post_filter(having):
     """The port's HAVING program over the group table keeps the groups
     that the reference's `_apply_post_filter` keeps, on the same table."""
-    ctx = _pair(_table_data(6_000, 7))
+    data = _table_data(6_000, 7)
+    ctx = _pair(data)
     q = (f"SELECT k, sum(x) s, count(*) c, count(x) cx, min(v) mn, "
          f"max(v) mx, avg(v) a FROM t GROUP BY k HAVING {having}")
     ex = _port_exec(ctx, q)
@@ -349,7 +364,8 @@ def test_having_compaction_matches_apply_post_filter(having):
     lanes = spec.lane_arrays(host, first=2)
     state = (jnp.asarray(host[0]), jnp.asarray(host[0] != G.EMPTY),
              {n: jnp.asarray(a) for n, a in zip(names, lanes)})
-    _k, keep, _a = ex._apply_post_filter(state, plan, slot_map)
+    _k, keep, _a = _ref_exec(data, q)._apply_post_filter(state, plan,
+                                                          slot_map)
     np.testing.assert_array_equal(got, host[:, np.asarray(keep)])
     assert 0 < got.shape[1] < int((host[0] != G.EMPTY).sum())
 
@@ -360,7 +376,8 @@ def test_topk_matches_emit_topk(asc, k):
     """`group_topk` + `compact_groups` against the reference's `_emit_topk`
     (lax.top_k) on the same table. Ties at the k-th count may keep other
     groups: the counts must be equal, and the groups beyond the k-th."""
-    ctx = _pair(_table_data(6_000, 8))
+    data = _table_data(6_000, 8)
+    ctx = _pair(data)
     q = (f"SELECT k, count(*) c, sum(x) s FROM t GROUP BY k "
          f"ORDER BY c {'ASC' if asc else 'DESC'} LIMIT {k}")
     ex = _port_exec(ctx, q)
@@ -374,7 +391,7 @@ def test_topk_matches_emit_topk(asc, k):
                           plan, slot_map, None)
     full = table.numpy()
     valid = full[0] != G.EMPTY
-    want = ex._emit_topk(
+    want = _ref_exec(data, q)._emit_topk(
         jnp.asarray(full[0]), jnp.asarray(valid),
         {n: jnp.asarray(a) for n, a in
          zip(names, spec.lane_arrays(full, first=2))},
@@ -401,5 +418,6 @@ def test_kernel_digest_covers_shared_headers(tmp_path):
     assert [s.name for s in sources] == ["k.cu"]
     assert kernels._inputs(tmp_path)[1] != before
     assert [s.name for s in kernels._inputs(kernels.CSRC)[0]] == [
-        "compact_groups.cu", "fused_dense_aggregate.cu", "group_topk.cu",
+        "chain_aggregate.cu", "chain_build.cu", "compact_groups.cu",
+        "fused_dense_aggregate.cu", "group_topk.cu",
         "hash_group_aggregate.cu"]

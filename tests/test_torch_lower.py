@@ -5,8 +5,9 @@ For the predicate, group keys and aggregate arguments of TPC-H Q1 and of
 the dense-path queries of `test_device.py`, the JAX package's
 `lower_expr(e).trace` (on the CPU backend, as its own tests run it) and
 the port's plain interpreter of `compile_expr(e)` evaluate the same
-numpy-seeded batch. Data and validity must be equal exactly: the port
-reproduces JAX's dtypes with explicit wrap and float32 rounding steps.
+numpy-seeded batch (the port gets the expression and the batch as its own
+classes, `torch_twin.twin`). Data and validity must be equal exactly: the
+port reproduces JAX's dtypes with explicit wrap and float32 rounding steps.
 """
 import sys
 
@@ -30,6 +31,7 @@ from datafusion_tpu.physical.plan.device_aggregate import (  # noqa: E402
 from datafusion_tpu_torch.common.column import to_device  # noqa: E402
 from datafusion_tpu_torch.device.lower import (  # noqa: E402
     LoweringError, compile_expr, evaluate)
+from torch_twin import twin  # noqa: E402
 
 
 def _wide_batch(n=5_000, seed=11):
@@ -142,6 +144,7 @@ def _jax_eval(e, batch):
 
 
 def _port_eval(e, batch):
+    e, batch = twin(e), twin(batch)
     prog = compile_expr(e)
     cols = {i: to_device(batch.columns[i], torch.device("cpu"))
             for i in prog.pools.columns}
@@ -175,4 +178,4 @@ def test_outside_the_slice_raises_lowering_error(q):
     exprs, _batch = _exprs(_wide_ctx(), q)
     with pytest.raises(LoweringError):
         for e in exprs:
-            compile_expr(e)
+            compile_expr(twin(e))

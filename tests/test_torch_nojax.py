@@ -1,58 +1,98 @@
-"""The PyTorch port runs without JAX.
+"""The PyTorch port stands alone.
 
-A fresh interpreter (this one has imported JAX already) blocks `jax`,
-runs TPC-H Q1, TPC-H Q18's subquery (the hash path with a fused HAVING)
-and ClickBench Q16 (the hash path with a fused top-k) through the port on
-the CPU and compares them with the JAX package's host path, which needs
-no JAX either. It also checks that none
-of the JAX package's device or multi-device modules was loaded, and that
-asking for CUDA where there is none raises.
+A fresh interpreter (this one has imported JAX already) blocks `jax`, the
+JAX package `datafusion_tpu` with every module under it, and `bench`, then
+runs through the port on the CPU: TPC-H Q1 (the dense path), Q18's
+subquery (the hash path with a fused HAVING), ClickBench Q16 (the hash
+path with a fused top-k) and TPC-H Q3, Q4 and Q5 (fanout-1 join chains).
+It prints the rows as JSON, and this process holds them against the JAX
+package on the same seeded data. A second interpreter blocks nothing and
+checks that running the port loads neither JAX nor the JAX package. The
+last two tests read the port's sources: no import of `jax`,
+`datafusion_tpu` or `bench` anywhere in `datafusion_tpu_torch/` or
+`chip_smoke.py`.
 """
+import ast
+import json
 import pathlib
 import re
 import subprocess
 import sys
 
+import numpy as np
+import pytest
+
+import datafusion_tpu as df
+from datafusion_tpu.clickbench.workload import QUERIES as CB, generate_hits
+from datafusion_tpu.tpch.datagen import register_tpch
+from datafusion_tpu.tpch.queries import QUERIES as TPCH
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "datafusion_tpu", "bench")
+HITS_ROWS = 20_000
+Q18_SUB = ("select l_orderkey from lineitem group by l_orderkey "
+           "having sum(l_quantity) > 300 order by l_orderkey")
+QUERIES = {"q1": TPCH[1], "q18_sub": Q18_SUB, "cb_q16": CB[16],
+           "q3": TPCH[3], "q4": TPCH[4], "q5": TPCH[5]}
+# the exec each query must plan in the port, with what its display shows
+PLANS = {"q1": ("TorchGroupAggregateExec", ""),
+         "q18_sub": ("TorchGroupAggregateExec", "having="),
+         "cb_q16": ("TorchGroupAggregateExec",
+                    "topk=[count(*) DESC LIMIT 10]"),
+         "q3": ("TorchJoinChainAggregateExec", "INNER["),
+         "q4": ("TorchJoinChainAggregateExec", "LEFTSEMI["),
+         "q5": ("TorchJoinChainAggregateExec", "INNER[")}
+
+BLOCK = r"""
+import sys
+BLOCKED = %r
+for _name in BLOCKED:
+    sys.modules[_name] = None
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+""" % (BLOCKED,)
 
 SCRIPT = r"""
+import json
 import sys
-sys.modules["jax"] = None
+
 import numpy as np
 import torch
-import datafusion_tpu_torch as dft
-import bench
-import datafusion_tpu as df
 
-batch = bench.make_lineitem(20_000, seed=2)
+import datafusion_tpu_torch as dft
+from datafusion_tpu_torch.tpch.datagen import register_tpch
+
+queries, plans = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 port = dft.SessionContext(torch.device("cpu"))
-port.register_table("lineitem", dft.MemTable(batch.schema, [[batch]]))
-host = df.SessionContext()
-host.config.set("datafusion.tpu.device_aggregate", False)
-host.register_table("lineitem", df.MemTable(batch.schema, [[batch]]))
-got = port.sql(bench.Q1).to_pydict()
-assert got == host.sql(bench.Q1).to_pydict(), got
-assert len(got["l_returnflag"]) == 4
-plan = "\n".join(port.sql("EXPLAIN " + bench.Q1).to_pydict()["plan"])
-assert "TorchGroupAggregateExec" in plan, plan
-from datafusion_tpu.clickbench.workload import QUERIES as CB, register_hits
-from datafusion_tpu.tpch.datagen import register_tpch
-for c in (port, host):
-    register_tpch(c, sf=0.01)
-    register_hits(c, n=20_000)
-q18s = ("select l_orderkey from lineitem group by l_orderkey "
-        "having sum(l_quantity) > 300 order by l_orderkey")
-got = port.sql(q18s).to_pydict()
-assert got == host.sql(q18s).to_pydict() and got["l_orderkey"], got
-got, want = port.sql(CB[16]).to_pydict(), host.sql(CB[16]).to_pydict()
-assert got["count(*)"] == want["count(*)"], (got, want)
-for q, fused in ((q18s, "having="), (CB[16], "topk=[count(*) DESC LIMIT 10]")):
-    plan = "\n".join(port.sql("EXPLAIN " + q).to_pydict()["plan"])
-    assert "TorchGroupAggregateExec" in plan and fused in plan, plan
-loaded = sorted(m for m in sys.modules
-                if m.startswith(("datafusion_tpu.device",
-                                 "datafusion_tpu.parallel"))
-                or (m.startswith("jax") and sys.modules[m] is not None))
+register_tpch(port, sf=0.01, seed=1)
+port.register_arrays("hits", {"UserID": np.load(sys.argv[3])})
+
+
+def execs(node):
+    yield node
+    for c in node.children():
+        yield from execs(c)
+
+
+rows = {}
+for label, sql in queries.items():
+    rows[label] = port.sql(sql).to_pydict()
+    cls, shown = plans[label]
+    found = [n for n in execs(port.sql(sql).create_physical_plan())
+             if type(n).__name__ == cls]
+    assert found and shown in found[0].display_line(), (label, found)
+    port.sql(sql).collect()
+    assert all(n.fallbacks == 0 for n in found), label
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and
+                m.split(".")[0] in ("jax", "datafusion_tpu", "bench"))
 assert not loaded, loaded
 if not torch.cuda.is_available():
     try:
@@ -61,25 +101,67 @@ if not torch.cuda.is_available():
         pass
     else:
         raise AssertionError("a CUDA context without CUDA did not raise")
-print("OK")
+print(json.dumps(rows, default=str))
 """
 
 
-def test_port_runs_q1_without_jax():
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
-                          capture_output=True, text=True, timeout=240)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    assert proc.stdout.strip().endswith("OK")
+@pytest.fixture(scope="module")
+def hits_file(tmp_path_factory):
+    path = tmp_path_factory.mktemp("hits") / "user_id.npy"
+    np.save(path, generate_hits(HITS_ROWS, 0)["UserID"])
+    return path
 
 
-def test_port_does_not_load_jax_where_it_is_installed():
-    """Without blocking anything: importing and running the port leaves
-    JAX unloaded, though `datafusion_tpu/__init__.py` would import it."""
-    script = SCRIPT.replace('sys.modules["jax"] = None', "")
-    script += 'assert "jax" not in sys.modules, "JAX was imported"\n'
-    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                          capture_output=True, text=True, timeout=240)
+def _run(script, hits_file):
+    proc = subprocess.run(
+        [sys.executable, "-c", script, json.dumps(QUERIES),
+         json.dumps(PLANS), str(hits_file)],
+        cwd=ROOT, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _reference(hits_file):
+    host = df.SessionContext()
+    register_tpch(host, sf=0.01, seed=1)
+    host.register_arrays("hits", {"UserID": np.load(hits_file)})
+    return {label: json.loads(json.dumps(host.sql(sql).to_pydict(),
+                                         default=str))
+            for label, sql in QUERIES.items()}
+
+
+def _same(got, want):
+    """Equal rows in order: strings (decimals and dates too) and integers
+    exactly, floats within rel 1e-9 (the two packages sum in different
+    orders)."""
+    assert list(got) == list(want)
+    for name in want:
+        assert len(got[name]) == len(want[name]), name
+        for a, b in zip(got[name], want[name]):
+            if isinstance(b, float):
+                assert a == pytest.approx(b, rel=1e-9), (name, a, b)
+            else:
+                assert a == b, (name, a, b)
+
+
+def test_port_runs_without_jax_or_the_jax_package(hits_file):
+    got = _run(BLOCK + SCRIPT, hits_file)
+    want = _reference(hits_file)
+    for label in QUERIES:
+        if label == "cb_q16":
+            # ties at the 10th count may pick other users: counts only
+            assert got[label]["count(*)"] == want[label]["count(*)"]
+        else:
+            _same(got[label], want[label])
+    assert got["q18_sub"]["l_orderkey"] and len(got["q1"]["l_returnflag"]) == 4
+    assert got["q3"]["l_orderkey"] and got["q5"]["n_name"]
+
+
+def test_port_does_not_load_jax_where_it_is_installed(hits_file):
+    """Without blocking anything: running the port leaves JAX and the JAX
+    package unloaded (the script asserts it)."""
+    got = _run(SCRIPT, hits_file)
+    assert len(got["q4"]["o_orderpriority"]) == 5
 
 
 def test_port_sources_never_import_jax():
@@ -88,4 +170,36 @@ def test_port_sources_never_import_jax():
                  if pattern.search(p.read_text())]
     offenders += [str(ROOT / "chip_smoke.py")] \
         if pattern.search((ROOT / "chip_smoke.py").read_text()) else []
+    assert not offenders, offenders
+
+
+def _imports(path):
+    """(line, module) of every import in `path`, relative ones resolved
+    against the module's package."""
+    package = list(path.relative_to(ROOT).parts[:-1])
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name, False
+        elif isinstance(node, ast.ImportFrom):
+            mod = node.module or ""
+            if node.level:
+                base = package[:max(len(package) - node.level + 1, 0)]
+                mod = ".".join(base + ([mod] if mod else []))
+            yield node.lineno, mod, bool(node.level)
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    """Every import, at any depth (inside functions too), of every module
+    of the port and of `chip_smoke.py`: none names `jax`, `datafusion_tpu`
+    (bare or dotted) or `bench`, and no relative import climbs out of the
+    port's package."""
+    files = sorted((ROOT / "datafusion_tpu_torch").rglob("*.py"))
+    assert len(files) > 80
+    offenders = []
+    for path in files + [ROOT / "chip_smoke.py"]:
+        for line, mod, relative in _imports(path):
+            top = mod.split(".")[0]
+            if top in BLOCKED or (relative and top != "datafusion_tpu_torch"):
+                offenders.append(f"{path.relative_to(ROOT)}:{line}: {mod}")
     assert not offenders, offenders

@@ -4,7 +4,8 @@
 kernel's plain PyTorch version; the JAX package runs its device path on
 the CPU backend. Same numpy-seeded tables, same SQL, same rows: exact for
 integers, decimals, keys and counts, rel 1e-9 for float aggregates (as
-`test_device.py` compares the JAX package's two paths).
+`test_device.py` compares the JAX package's two paths). The port gets the
+tables as its own classes (`torch_twin`).
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from datafusion_tpu.common.schema import Field, Schema
 from datafusion_tpu_torch.physical.plan.device_aggregate import (
     TorchGroupAggregateExec)
 from test_device import QUERIES
+from torch_twin import register_both, twin
 
 CPU = torch.device("cpu")
 
@@ -55,8 +57,8 @@ def _assert_same(a, b):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_q1_matches_jax_package(seed):
     batch = bench.make_lineitem(50_000, seed=seed)
-    port, ref = _pair(lambda c: c.register_table(
-        "lineitem", df.MemTable(batch.schema, [[batch]])))
+    port, ref = dft.SessionContext(CPU), df.SessionContext()
+    register_both(port, ref, "lineitem", batch)
     got = port.sql(bench.Q1).to_pydict()
     assert got == ref.sql(bench.Q1).to_pydict()
     assert len(got["l_returnflag"]) == 4
@@ -93,8 +95,8 @@ def test_null_keys_match_jax_package():
                np.array([True, False, True, True, True]))
     b = Batch(Schema([Field("g", dt.INT64, True),
                       Field("v", dt.FLOAT64, True)]), [g, v])
-    port, ref = _pair(lambda c: c.register_table(
-        "t", df.MemTable(b.schema, [[b]])))
+    port, ref = dft.SessionContext(CPU), df.SessionContext()
+    register_both(port, ref, "t", b)
     q = ("SELECT g, count(*) c, count(v) cv, sum(v) s FROM t "
          "GROUP BY g ORDER BY g NULLS FIRST")
     out = port.sql(q).to_pydict()
@@ -119,9 +121,9 @@ def test_ungrouped_aggregate_over_empty_input(where):
 
 
 def test_explain_shows_the_port_exec():
-    batch = bench.make_lineitem(1_000, seed=0)
+    batch = twin(bench.make_lineitem(1_000, seed=0))
     port = dft.SessionContext(CPU)
-    port.register_table("lineitem", df.MemTable(batch.schema, [[batch]]))
+    port.register_table("lineitem", dft.MemTable(batch.schema, [[batch]]))
     plan = "\n".join(port.sql("EXPLAIN " + bench.Q1).to_pydict()["plan"])
     assert "TorchGroupAggregateExec" in plan
     assert "DeviceGroupAggregateExec" not in plan
@@ -143,9 +145,9 @@ def test_count_distinct_matches_jax_package():
 
 
 def test_device_copies_are_cached_until_the_catalog_changes():
-    batch = bench.make_lineitem(2_000, seed=0)
+    batch = twin(bench.make_lineitem(2_000, seed=0))
     port = dft.SessionContext(CPU)
-    port.register_table("lineitem", df.MemTable(batch.schema, [[batch]]))
+    port.register_table("lineitem", dft.MemTable(batch.schema, [[batch]]))
     first = port.sql(bench.Q1).to_pydict()
     assert len(port.device_cache) == 7          # Q1 reads 7 columns
     port.sql(bench.Q1).to_pydict()

@@ -5,7 +5,8 @@ against the JAX package's device path.
 path's plain PyTorch versions (`hash_group_aggregate`, `compact_groups`,
 `group_topk`); the JAX package runs its sort, row-space, unbounded and
 top-k routes on the CPU backend. Same seeded tables (`register_tpch` at
-SF 0.01, `register_hits` at 50,000 rows), same SQL. Rows must be equal;
+SF 0.01, `register_hits` at 50,000 rows, each built with its own
+package's classes by `torch_twin`), same SQL. Rows must be equal;
 where a LIMIT cuts among groups tied at the k-th count, the counts must
 be equal and so must the groups beyond the k-th count.
 """
@@ -16,16 +17,15 @@ import torch
 import datafusion_tpu as df
 import datafusion_tpu_torch as dft
 from datafusion_tpu.clickbench.workload import QUERIES as CB
-from datafusion_tpu.clickbench.workload import register_hits
 from datafusion_tpu.common import dt
 from datafusion_tpu.common.batch import Batch
 from datafusion_tpu.common.column import Column
 from datafusion_tpu.common.schema import Field, Schema
-from datafusion_tpu.physical.plan.base import collect
-from datafusion_tpu.tpch.datagen import register_tpch
 from datafusion_tpu.tpch.queries import QUERIES as TPCH
+from datafusion_tpu_torch.physical.plan.base import collect
 from datafusion_tpu_torch.physical.plan.device_aggregate import (
     TorchGroupAggregateExec)
+from torch_twin import register_both, register_hits_both, register_tpch_both
 
 CPU = torch.device("cpu")
 Q18_SUB = ("select l_orderkey from lineitem group by l_orderkey "
@@ -41,16 +41,14 @@ group by l_suppkey"""
 @pytest.fixture(scope="module")
 def tpch():
     port, ref = dft.SessionContext(CPU), df.SessionContext()
-    for c in (port, ref):
-        register_tpch(c, sf=0.01)
+    register_tpch_both(port, ref, sf=0.01)
     return port, ref
 
 
 @pytest.fixture(scope="module")
 def hits():
     port, ref = dft.SessionContext(CPU), df.SessionContext()
-    for c in (port, ref):
-        register_hits(c, n=50_000)
+    register_hits_both(port, ref, n=50_000)
     return port, ref
 
 
@@ -207,8 +205,7 @@ def test_float32_sum_keeps_a_float32_lane():
     schema = Schema([Field("k", dt.INT64, False), Field("f", dt.FLOAT32, False)])
     batch = Batch(schema, [Column(dt.INT64, k), Column(dt.FLOAT32, f)], n)
     port, ref = dft.SessionContext(CPU), df.SessionContext()
-    for c in (port, ref):
-        c.register_table("t", df.MemTable(schema, [[batch]]))
+    register_both(port, ref, "t", batch)
     q = "SELECT k, sum(f) s, count(*) c FROM t GROUP BY k ORDER BY k"
     got, want = port.sql(q).to_pydict(), ref.sql(q).to_pydict()
     uk, inv = np.unique(k, return_inverse=True)
