@@ -28,16 +28,28 @@ query is held against a numpy oracle on the same data.
      version on Q5's walk (equal group tables), the same on Q3 (the hash
      fold) and Q4 (the SEMI build over lineitem), then Q3, Q4 and Q5 end
      to end against numpy, each with a breakdown of its time;
-5. ClickBench's `UserID` and `SearchPhrase` at 99,997,497 rows (the
-   public `hits` row count), drawn as `generate_hits` draws them:
-   `group_topk` against its plain version on Q16, `hash_group_aggregate`
-   against its plain version on Q17 (42-bit keys: the probing table), Q16
-   and Q17 end to end against numpy.
+   - window functions over the SF10 lineitem (with `l_returnflag`):
+     W1 (top 3 by price per supplier beside each order's quantity, a
+     WindowExec over two PARTITION BYs), W2 (a global row_number and lag)
+     and W3 (a 7-row moving sum in 3 partition runs, a BoundedWindowExec
+     over its partition-key sort): `radix_sort`, `gather_lanes` and
+     `window_scan` against their plain versions on each window
+     evaluation's inputs (equal), then each query end to end against
+     numpy, with a breakdown;
+5. ClickBench's `UserID`, `SearchPhrase` and `EventTime` at 99,997,497
+   rows (the public `hits` row count), drawn as `generate_hits` draws
+   them: `group_topk` against its plain version on Q16,
+   `hash_group_aggregate` against its plain version on Q17 (42-bit keys:
+   the probing table), Q16 and Q17 end to end against numpy; then
+   `radix_sort` against its plain version on Q25's and Q27's order words
+   over the rows with a search phrase (equal permutations; stable
+   `torch.sort` as the yardstick), and Q25, Q26 and Q27 end to end
+   against numpy, with a breakdown.
 
 Each end-to-end path sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of the path was not launched or the
-exec fell back to the host. Any failure raises and exits non-zero. The
-last line is `{"ok": true, "device": {...}}`; the line before it is the
+exec fell back to the host (for a window, a function evaluated on the
+host). Any failure raises and exits non-zero. The last line is `{"ok": true, "device": {...}}`; the line before it is the
 card's name and power limit, and before that one JSON line lists every
 kernel with its time, its plain version's time and its bound.
 """
@@ -55,6 +67,7 @@ FLOAT_QUERY = ("SELECT g, count(*) c, sum(v) s, avg(v) a, min(v) mn, "
                "max(v) mx FROM t GROUP BY g")
 HITS_ROWS = 99_997_497       # the public ClickBench hits.parquet
 REPS = 5
+WINDOW_REPS = 1              # W1-W3 each gather 60M rows on the host
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 outside the tensor
 # cores (the interpreter's 64-bit integer ops have no published peak)
@@ -98,6 +111,31 @@ CB_Q16 = ('SELECT "UserID", COUNT(*) FROM hits GROUP BY "UserID" '
           'ORDER BY COUNT(*) DESC LIMIT 10')
 CB_Q17 = ('SELECT "UserID", "SearchPhrase", COUNT(*) FROM hits GROUP BY '
           '"UserID", "SearchPhrase" ORDER BY COUNT(*) DESC LIMIT 10')
+# ClickBench Q25-Q27: a top 10 over the rows with a search phrase
+CB_SORTS = {
+    25: ('SELECT "SearchPhrase" FROM hits WHERE "SearchPhrase" <> \'\' '
+         'ORDER BY to_timestamp_seconds("EventTime") LIMIT 10'),
+    26: ('SELECT "SearchPhrase" FROM hits WHERE "SearchPhrase" <> \'\' '
+         'ORDER BY "SearchPhrase" LIMIT 10'),
+    27: ('SELECT "SearchPhrase" FROM hits WHERE "SearchPhrase" <> \'\' '
+         'ORDER BY to_timestamp_seconds("EventTime"), "SearchPhrase" '
+         'LIMIT 10')}
+# Window queries over lineitem. W1: top 3 per group, the shape of TPC-DS
+# Q67's rank() ... where rk <= 100, two PARTITION BYs (a WindowExec over
+# all rows); W2: a global running row number and previous value, the shape
+# of TPC-DS Q51's cumulative window; W3: a moving 7-row sum in 3 partition
+# runs (a BoundedWindowExec over its partition-key SortExec).
+W1 = ("SELECT l_suppkey, l_orderkey, l_extendedprice, rk, order_qty FROM "
+      "(SELECT l_suppkey, l_orderkey, l_extendedprice, rank() OVER "
+      "(PARTITION BY l_suppkey ORDER BY l_extendedprice DESC) AS rk, "
+      "sum(l_quantity) OVER (PARTITION BY l_orderkey) AS order_qty "
+      "FROM lineitem) WHERE rk <= 3")
+W2 = ("SELECT l_orderkey, l_shipdate, l_extendedprice, row_number() OVER "
+      "(ORDER BY l_shipdate, l_orderkey) AS rn, lag(l_extendedprice) OVER "
+      "(ORDER BY l_shipdate, l_orderkey) AS prev_price FROM lineitem")
+W3 = ("SELECT l_returnflag, l_shipdate, l_orderkey, sum(l_quantity) OVER "
+      "(PARTITION BY l_returnflag ORDER BY l_shipdate, l_orderkey ROWS "
+      "BETWEEN 6 PRECEDING AND CURRENT ROW) AS qty7 FROM lineitem")
 
 
 def days(y, m, d) -> int:
@@ -247,12 +285,13 @@ def float_batch(n: int, seed: int):
 
 def tpch_tables(sf: int, seed: int):
     """The TPC-H tables by the rules of the port's `tpch/datagen.py:98-257`,
-    vectorised, with the columns that Q3, Q4, Q5, Q15 and Q18 read:
+    vectorised, with the columns that Q3, Q4, Q5, Q15, Q18 and W1-W3 read:
     `o_orderkey` is 4i - 3 and `l_orderkey` repeats it 1-7 times (so it is
     sorted), foreign keys are uniform, `l_suppkey` is one of the 4
     suppliers of a uniform part, money is Decimal(15,2), dates are Date32,
-    `c_mktsegment`, `o_orderpriority`, `n_name` and `r_name` are dictionary
-    strings. Returns {table: Batch}."""
+    `c_mktsegment`, `o_orderpriority`, `n_name`, `r_name` and
+    `l_returnflag` (`datagen.py:223`, drawn after the other columns) are
+    dictionary strings. Returns {table: Batch}."""
     import numpy as np
     from datafusion_tpu_torch.common import dt
     from datafusion_tpu_torch.common.column import Column
@@ -314,14 +353,19 @@ def tpch_tables(sf: int, seed: int):
         ("l_discount", Column(dec2, rng.integers(0, 11, n))),
         ("l_shipdate", Column(dt.DATE, ship)),
         ("l_commitdate", Column(dt.DATE, commit)),
-        ("l_receiptdate", Column(dt.DATE, receipt))])
+        ("l_receiptdate", Column(dt.DATE, receipt)),
+        ("l_returnflag", dict_column(["A", "N", "R"], np.where(
+            receipt <= G._days(1995, 6, 17),
+            np.where(rng.random(n) < 0.5, 2, 0), 1)))])
     return out
 
 
 def hits(n: int, seed: int = 0):
     """`UserID` and `SearchPhrase` as `generate_hits` draws them (its first
     three draws: zipf(1.3), random, zipf(1.5); `clickbench/workload.py:
-    15-26`), with the dictionary sorted as `register_hits` sorts it."""
+    15-26`), with the dictionary sorted as `register_hits` sorts it, and
+    then `EventTime` as it draws it (`:81`: 2013-07-01 plus up to 31 days
+    of seconds)."""
     import numpy as np
     from datafusion_tpu_torch.common import dt
     from datafusion_tpu_torch.common.column import Column
@@ -335,8 +379,10 @@ def hits(n: int, seed: int = 0):
                     np.arange(n_phrases).astype(str)).astype(object)])
     idx = np.where(rng.random(n) < 0.6, 0,
                    rng.zipf(1.5, n) % len(phrases)).astype(np.int32)
+    event = (1372636800 + rng.integers(0, 31 * 86400, n)).astype(np.int64)
     return make_batch([("UserID", Column(dt.INT64, user)),
-                       ("SearchPhrase", dict_column(phrases, idx))])
+                       ("SearchPhrase", dict_column(phrases, idx)),
+                       ("EventTime", Column(dt.INT64, event))])
 
 
 def col(batch, name):
@@ -345,8 +391,8 @@ def col(batch, name):
 
 # ---- the main path ----------------------------------------------------------
 
-def run_path(ctx, sql, expect, card, label, rows, cls=None):
-    """The main path: launch counts set to 0, a warm-up and REPS timed
+def run_path(ctx, sql, expect, card, label, rows, cls=None, reps=REPS):
+    """The main path: launch counts set to 0, a warm-up and `reps` timed
     runs, counts read. Fails unless every kernel of `expect` launched and
     no exec of `cls` (by default TorchGroupAggregateExec) fell back.
     Returns (result batch, launches, ms)."""
@@ -357,31 +403,36 @@ def run_path(ctx, sql, expect, card, label, rows, cls=None):
     kernels.reset_launch_counts()
     out = ctx.sql(sql).collect_batch()                # warm-up
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         out = ctx.sql(sql).collect_batch()
         times.append(time.perf_counter() - t0)
     launches = kernels.launch_counts()
     # the plan is cached: this is the exec that ran
     ex = find_exec(ctx.sql(sql).create_physical_plan(), cls)
-    if ex is None or ex.fallbacks != 0:
-        raise AssertionError(f"{label} fell back to the host aggregate")
+    fallbacks = getattr(ex, "fallbacks", 0)
+    if ex is None or fallbacks != 0:
+        raise AssertionError(f"{label} fell back to the host")
+    if getattr(ex, "device", ctx.device) != ctx.device:
+        raise AssertionError(f"{label}: {type(ex).__name__} has no device")
     missing = [k for k in expect if launches[k] < 1]
     if missing:
         raise AssertionError(f"{label} did not launch {missing}")
     med = statistics.median(times) * 1e3
-    per_query = {k: launches[k] / (REPS + 1) for k in expect}
-    print(f"{label} end to end: warm median of {REPS} {med:.3f} ms, "
+    per_query = {k: launches[k] / (reps + 1) for k in expect}
+    print(f"{label} end to end: warm median of {reps} {med:.3f} ms, "
           f"{rows / (med / 1e3):.1f} rows/s, launches per query "
-          f"{per_query}, fallbacks {ex.fallbacks} [{card}]", flush=True)
+          f"{per_query}, fallbacks {fallbacks} [{card}]", flush=True)
     return out, launches, med
 
 
-def breakdown(ctx, sql, card, label, cls=None):
+def breakdown(ctx, sql, card, label, cls=None, main=None, host=None):
     """Where one warm run's time goes: for a grouped aggregate the host
-    scan of the key columns' bounds (host clock); per span of the exec
-    (`dft.*`, host time, which waits for the card where a span reads a
-    result back) and per kernel (device time) from torch.profiler."""
+    scan of the key columns' bounds (host clock; `host` names other host
+    work measured by the caller); per span of the exec (`dft.*`, host
+    time, which waits for the card where a span reads a result back) and
+    per kernel (device time) from torch.profiler. The idle share needs
+    the trace to hold a kernel whose name contains `main`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -389,7 +440,7 @@ def breakdown(ctx, sql, card, label, cls=None):
         TorchGroupAggregateExec)
     cls = cls or TorchGroupAggregateExec
     ex = find_exec(ctx.sql(sql).create_physical_plan(), cls)
-    bounds = "in dft.compile"
+    bounds = host or "in dft.compile"
     if cls is TorchGroupAggregateExec:
         batches = ex.input_batches(ctx.task_context())
         t0 = time.perf_counter()
@@ -415,11 +466,12 @@ def breakdown(ctx, sql, card, label, cls=None):
             device[key.split("(")[0][-48:]] = round(us / 1e3, 3)
     busy = sum(device.values())
     # a trace that lost the fold kernel's event cannot give the share
-    main = "chain_" if cls is not TorchGroupAggregateExec else \
-        "aggregate_kernel"
+    main = main or ("chain_" if cls is not TorchGroupAggregateExec else
+                    "aggregate_kernel")
     whole = any(main in k for k in device)
-    print(f"{label} breakdown (one warm run, {wall:.3f} ms wall): key-bounds "
-          f"scan {bounds}; spans ms {spans}; device ms {device}; "
+    print(f"{label} breakdown (one warm run, {wall:.3f} ms wall): "
+          f"{'host' if host else 'key-bounds scan'} {bounds}; spans ms "
+          f"{spans}; device ms {device}; "
           f"device busy {busy:.3f} ms, idle share "
           f"{(1 - busy / wall) if whole else 'not measured'} [{card}]",
           flush=True)
@@ -693,6 +745,203 @@ def chain_walk_vs_plain(ex, tctx, card, label):
     return entry(0.0, ms, plain, bnd)
 
 
+def sort_input(ctx, sql):
+    """The query's SortExec, the rows it sorts (its input run alone on the
+    host: the filter and projection), the host seconds that took, and its
+    order words as the main path encodes them."""
+    from datafusion_tpu_torch.physical.plan.base import collect_batch
+    from datafusion_tpu_torch.physical.plan.sort import SortExec, order_keys
+    ex = find_exec(ctx.sql(sql).create_physical_plan(), SortExec)
+    t0 = time.perf_counter()
+    batch = collect_batch(ex.input, ctx.task_context())
+    secs = time.perf_counter() - t0
+    words = [w for se in ex.sort_exprs
+             for w in order_keys(se.expr.evaluate(batch), se.asc,
+                                 se.nulls_first)]
+    return ex, batch, secs, words
+
+
+def radix_vs_plain(words, dev, card, label, library=False):
+    """`radix_sort` against its plain version on the order words (equal
+    permutations), both timed; with `library` a stable `torch.sort` of the
+    first value word (as int64 order) as the yardstick. The bound counts
+    each word read once and the permutation written once. Returns (the
+    kernel's report entry, its permutation)."""
+    import torch
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.physical.plan.device_sort import (
+        radix_sort, radix_sort_plain, to_word)
+    staged = [to_word(w).to(dev) for w in words]
+    n = len(words[0])
+    before = kernels.launch_counts()["radix_sort"]
+    got = radix_sort(staged)
+    launches = kernels.launch_counts()["radix_sort"] - before
+    want = radix_sort_plain(staged)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: radix_sort differs from its plain "
+                             f"version")
+    del want
+    ms = cuda_ms(lambda: radix_sort(staged), 5)
+    plain = cuda_ms(lambda: radix_sort_plain(staged), 2)
+    lib = None
+    if library:
+        key = staged[1] ^ (-2**63)
+        lib = cuda_ms(lambda: torch.sort(key, stable=True), 5)
+        del key
+    bnd = bound(sum(n * w.dtype.itemsize for w in words) + n * 8,
+                n * len(words))
+    print(f"radix_sort {label}: {n} rows, {len(words)} words, {launches} "
+          f"launches a sort: kernel {ms:.6f} ms, plain {plain:.6f} ms, "
+          f"torch.sort {lib} ms, bound {bnd['bound_ms']:.6f} ms, "
+          f"max_abs_err 0 [{card}]", flush=True)
+    return entry(0.0, ms, plain, bnd, lib), got.cpu().numpy()
+
+
+def oracle_first(keys, k=10):
+    """Row indices of the first k rows in the stable order of `keys` (most
+    significant first): the candidates at or below the k-th smallest first
+    key, ordered by np.lexsort."""
+    import numpy as np
+    kth = np.partition(keys[0], k - 1)[k - 1]
+    cand = np.flatnonzero(keys[0] <= kth)
+    return cand[np.lexsort(tuple(x[cand] for x in reversed(keys)))[:k]]
+
+
+def window_kernels_vs_plain(ctx, sql, card, label):
+    """For each window function of the query's WindowExec, on the inputs
+    of one evaluation of the main path (a BoundedWindowExec's first
+    partition run): `radix_sort`, `gather_lanes` and `window_scan` against
+    their plain versions (equal, all of them: W1-W3 sum only decimals).
+    Bounds: the gather reads the index once and each lane once and writes
+    each lane once; the scan reads the sorted words, lanes and the
+    permutation once and writes each output once. Returns the report
+    entries (gather, scan) of the first function."""
+    import numpy as np
+    import torch
+    from datafusion_tpu_torch.device.groupby import (
+        reorder_rows, reorder_rows_plain)
+    from datafusion_tpu_torch.device.window import (
+        stage_window, window_scan, window_scan_plain)
+    from datafusion_tpu_torch.physical.plan.base import collect_batch
+    from datafusion_tpu_torch.physical.plan.device_sort import (
+        radix_sort, radix_sort_plain)
+    from datafusion_tpu_torch.physical.plan.window import (
+        BoundedWindowExec, WindowExec, _plan_window_evaluation,
+        device_window_inputs)
+    ex = find_exec(ctx.sql(sql).create_physical_plan(), WindowExec)
+    batch = collect_batch(ex.input, ctx.task_context())
+    if isinstance(ex, BoundedWindowExec):
+        key = ex.window_exprs[0].partition_by[0].evaluate(batch).data_host()
+        cut = int(np.argmax(key != key[0])) or batch.num_rows
+        batch = batch.take_host(np.arange(cut))
+    n, first = batch.num_rows, None
+    for w in _plan_window_evaluation(ex.window_exprs,
+                                     ex.input.output_ordering()):
+        inputs = device_window_inputs(w, batch)
+        if inputs is None:
+            raise AssertionError(f"{label}: {w.name} is outside the device "
+                                 f"family")
+        spec, pw, ow, lanes, _arg_col = inputs
+        words, lanes = stage_window(pw, ow, n, spec, **lanes,
+                                    device=ctx.device)
+        perm = radix_sort(words)
+        if not torch.equal(perm, radix_sort_plain(words)):
+            raise AssertionError(f"{label} {spec}: radix_sort differs")
+        extras = [x for x in lanes if x is not None]
+        moved = reorder_rows(perm, words + extras)
+        for g, p in zip(moved, reorder_rows_plain(perm, words + extras)):
+            if not torch.equal(g, p):
+                raise AssertionError(f"{label} {spec}: gather_lanes differs")
+        sw, rest = moved[:len(words)], iter(moved[len(words):])
+        sl = [None if x is None else next(rest) for x in lanes]
+        got = window_scan(sw, len(pw), perm, spec, *sl)
+        want = window_scan_plain(sw, len(pw), perm, spec, *sl)
+        torch.cuda.synchronize()
+        for k in want:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"{label} {spec}: window_scan's {k} "
+                                     f"differs")
+        del want
+        ms_g = cuda_ms(lambda: reorder_rows(perm, words + extras), 5)
+        plain_g = cuda_ms(lambda: reorder_rows_plain(perm, words + extras), 2)
+        width = sum(t.element_size() for t in words + extras)
+        b_g = bound(n * 8 + 2 * n * width, 0)
+        ms_s = cuda_ms(lambda: window_scan(sw, len(pw), perm, spec, *sl), 5)
+        plain_s = cuda_ms(
+            lambda: window_scan_plain(sw, len(pw), perm, spec, *sl), 2)
+        read = n * (8 + sum(t.element_size() for t in sw) +
+                    sum(t.element_size() for t in sl if t is not None))
+        wrote = sum(v.numel() * v.element_size() for v in got.values())
+        b_s = bound(read + wrote, n)
+        print(f"{label} {spec}: {n} rows, {len(words)} words, {len(extras)} "
+              f"lanes; gather_lanes kernel {ms_g:.6f} ms, plain "
+              f"{plain_g:.6f} ms, bound {b_g['bound_ms']:.6f} ms; "
+              f"window_scan kernel {ms_s:.6f} ms, plain {plain_s:.6f} ms, "
+              f"bound {b_s['bound_ms']:.6f} ms; every output equal "
+              f"[{card}]", flush=True)
+        if first is None:
+            first = (entry(0.0, ms_g, plain_g, b_g),
+                     entry(0.0, ms_s, plain_s, b_s))
+        del words, lanes, extras, perm, moved, sw, sl, got
+        torch.cuda.empty_cache()
+    return first
+
+
+# ---- numpy oracles of the window queries -------------------------------------
+
+def oracle_w1(li):
+    """W1's rows as columns: rank() by price descending in each supplier
+    (one stable argsort of a packed key), each order's quantity sum
+    (l_orderkey is sorted here), rows with rank <= 3."""
+    import numpy as np
+    supp, ok, price, qty = (col(li, c) for c in (
+        "l_suppkey", "l_orderkey", "l_extendedprice", "l_quantity"))
+    if price.max() >= 1 << 24 or supp.max() >= 1 << 38:
+        raise AssertionError("W1's packed key does not fit")
+    n = len(supp)
+    key = (supp << 24) | ((1 << 24) - 1 - price)
+    order = np.argsort(key, kind="stable")
+    ks, ss = key[order], supp[order]
+    idx = np.arange(n)
+    first_val = np.maximum.accumulate(
+        np.where(np.r_[True, ks[1:] != ks[:-1]], idx, 0))
+    first_part = np.maximum.accumulate(
+        np.where(np.r_[True, ss[1:] != ss[:-1]], idx, 0))
+    rk = np.empty(n, np.int64)
+    rk[order] = first_val - first_part + 1
+    del key, order, ks, ss, idx, first_val, first_part
+    starts = np.flatnonzero(np.r_[True, ok[1:] != ok[:-1]])
+    order_qty = np.repeat(np.add.reduceat(qty, starts),
+                          np.diff(np.r_[starts, n]))
+    m = rk <= 3
+    return [supp[m], ok[m], price[m], rk[m], order_qty[m]]
+
+
+def same_rows(got, want):
+    """Equal rows in any order: both sets of columns sorted by all
+    columns."""
+    import numpy as np
+    og = np.lexsort(tuple(reversed(got)))
+    ow = np.lexsort(tuple(reversed(want)))
+    return all(np.array_equal(g[og], w[ow]) for g, w in zip(got, want))
+
+
+def window_order(li, cols):
+    """The stable order of lineitem by `cols`, nonnegative integers packed
+    into one int64 key."""
+    import numpy as np
+    key, bits = np.zeros(li.num_rows, np.int64), 0
+    for c in cols:
+        v = col(li, c).astype(np.int64)
+        width = max(int(v.max()).bit_length(), 1)
+        bits += width
+        if v.min() < 0 or bits > 63:
+            raise AssertionError(f"{cols} do not fit one packed key")
+        key = (key << width) | v
+    return np.argsort(key, kind="stable")
+
+
 # ---- numpy oracles of the join chains ---------------------------------------
 
 def oracle_q3(t):
@@ -955,7 +1204,75 @@ def main() -> int:
         raise AssertionError(f"Q5 SF10 disagrees with numpy: {got5} {want5}")
     print(f"Q5 SF10 equals numpy exactly: {got5}", flush=True)
     breakdown(ctx, TPCH[5], card, "Q5 SF10", TorchJoinChainAggregateExec)
-    del ctx, tables, li, tctx, ex, out
+    del tctx, ex, out
+    torch.cuda.empty_cache()
+
+    # == TPC-H SF10: window functions (W1, W2, W3) ============================
+    from datafusion_tpu_torch.physical.plan.window import WindowExec
+    window = ["radix_sort", "gather_lanes", "window_scan"]
+    n_li = li.num_rows
+    for label, sql in (("W1", W1), ("W2", W2), ("W3", W3)):
+        kg, ks = window_kernels_vs_plain(ctx, sql, card, f"{label} SF10")
+        if label == "W1":
+            report["gather_lanes"], report["window_scan"] = kg, ks
+
+    out, counts, _ = run_path(ctx, W1, window, card, "W1 SF10", n_li,
+                              WindowExec, reps=WINDOW_REPS)
+    add(counts)
+    want = oracle_w1(li)
+    got = [col(out, c).astype(np.int64) for c in (
+        "l_suppkey", "l_orderkey", "l_extendedprice", "rk", "order_qty")]
+    if not same_rows(got, want):
+        raise AssertionError("W1 SF10 disagrees with numpy")
+    print(f"W1 SF10 equals numpy exactly: {out.num_rows} rows of rank <= 3 "
+          f"over {len(np.unique(want[0]))} suppliers", flush=True)
+    breakdown(ctx, W1, card, "W1 SF10", WindowExec, main="eval_kernel",
+              host="none (no filter below the window)")
+    del out, got, want
+
+    out, counts, _ = run_path(ctx, W2, window, card, "W2 SF10", n_li,
+                              WindowExec, reps=WINDOW_REPS)
+    add(counts)
+    order = window_order(li, ["l_shipdate", "l_orderkey"])
+    price = col(li, "l_extendedprice")[order]
+    prev = out.column_by_name("prev_price")
+    if not (np.array_equal(col(out, "rn"), np.arange(1, n_li + 1)) and
+            np.array_equal(col(out, "l_orderkey"),
+                           col(li, "l_orderkey")[order]) and
+            np.array_equal(col(out, "l_shipdate"),
+                           col(li, "l_shipdate")[order]) and
+            np.array_equal(col(out, "l_extendedprice"), price) and
+            np.array_equal(prev.data_host()[1:], price[:-1]) and
+            np.array_equal(prev.validity_host(), np.arange(n_li) > 0)):
+        raise AssertionError("W2 SF10 disagrees with numpy")
+    print(f"W2 SF10 equals numpy exactly: {n_li} rows, row_number and lag "
+          f"in (l_shipdate, l_orderkey) order", flush=True)
+    breakdown(ctx, W2, card, "W2 SF10", WindowExec, main="eval_kernel",
+              host="none (no filter below the window)")
+    del out, order, price, prev
+
+    out, counts, _ = run_path(ctx, W3, window, card, "W3 SF10", n_li,
+                              WindowExec, reps=WINDOW_REPS)
+    add(counts)
+    order = window_order(li, ["l_returnflag", "l_shipdate", "l_orderkey"])
+    flag = col(li, "l_returnflag")[order]
+    sums = np.cumsum(col(li, "l_quantity")[order])
+    idx = np.arange(n_li)
+    lo = np.maximum(idx - 6, np.maximum.accumulate(
+        np.where(np.r_[True, flag[1:] != flag[:-1]], idx, 0)))
+    qty7 = sums - np.where(lo >= 1, sums[np.maximum(lo - 1, 0)], 0)
+    if not (np.array_equal(col(out, "l_returnflag"), flag) and
+            np.array_equal(col(out, "l_shipdate"),
+                           col(li, "l_shipdate")[order]) and
+            np.array_equal(col(out, "l_orderkey"),
+                           col(li, "l_orderkey")[order]) and
+            np.array_equal(col(out, "qty7"), qty7)):
+        raise AssertionError("W3 SF10 disagrees with numpy")
+    print(f"W3 SF10 equals numpy exactly: {n_li} rows in "
+          f"{len(np.unique(flag))} partition runs", flush=True)
+    breakdown(ctx, W3, card, "W3 SF10", WindowExec, main="eval_kernel",
+              host="none (no filter below the window)")
+    del ctx, tables, li, out, order, flag, sums, idx, lo, qty7
     torch.cuda.empty_cache()
 
     # == hash path: ClickBench Q16 and Q17 at 99,997,497 rows ================
@@ -1004,7 +1321,46 @@ def main() -> int:
           f"{out.columns[2].data_host().tolist()}, {len(pair)} groups",
           flush=True)
     breakdown(ctx, CB_Q17, card, "CB Q17")
-    del ctx, hb, user, code, pair, pair_n, per_user
+    del pair, pair_n, per_user
+
+    # == sort: ClickBench Q25, Q26 and Q27 ====================================
+    from datafusion_tpu_torch.physical.plan.sort import SortExec
+    event = col(hb, "EventTime")
+    rows = np.flatnonzero(code != hb.column_by_name(
+        "SearchPhrase").dictionary.lookup(""))
+    phrases = hb.column_by_name("SearchPhrase").dictionary.values
+    oracle_keys = {25: [event[rows]], 26: [code[rows]],
+                   27: [event[rows], code[rows]]}
+    host_ms = {}
+    for q in (25, 26, 27):
+        ex, batch, secs, words = sort_input(ctx, CB_SORTS[q])
+        host_ms[q] = secs * 1e3
+        print(f"CB Q{q} plans {ex.display_line()} over {batch.num_rows} "
+              f"rows; its input (host filter and projection) took "
+              f"{host_ms[q]:.3f} ms on its own", flush=True)
+        kr, perm = radix_vs_plain(words, dev, card, f"CB Q{q}",
+                                  library=q == 25)
+        first = rows[oracle_first(oracle_keys[q])]
+        if not np.array_equal(rows[perm[:10]], first):
+            raise AssertionError(f"CB Q{q}: the sort's first rows differ "
+                                 f"from numpy's")
+        if q == 25:
+            report["radix_sort"] = kr
+        del batch, words, perm
+    for q in (25, 26, 27):
+        out, counts, _ = run_path(ctx, CB_SORTS[q], ["radix_sort"], card,
+                                  f"CB Q{q}", HITS_ROWS, SortExec)
+        add(counts)
+        want = phrases[code[rows[oracle_first(oracle_keys[q])]]].tolist()
+        if out.columns[0].to_pylist() != want:
+            raise AssertionError(f"CB Q{q} disagrees with numpy: "
+                                 f"{out.columns[0].to_pylist()} {want}")
+        print(f"CB Q{q} equals numpy exactly: {want[:3]}... of "
+              f"{len(rows)} rows with a search phrase", flush=True)
+        breakdown(ctx, CB_SORTS[q], card, f"CB Q{q}", SortExec,
+                  main="scatter_kernel",
+                  host=f"filter and projection {host_ms[q]:.3f} ms run alone")
+    del ctx, hb, user, code, event, rows, oracle_keys
 
     loaded = [m for m, v in sys.modules.items()
               if m.split(".")[0] in ("jax", "datafusion_tpu", "bench")

@@ -5,9 +5,10 @@ the JAX package. It keeps its own copy of the neutral host layers (SQL
 front end, logical optimizer, catalog, data sources, numpy host
 operators) at the reference's relative paths, and owns the device half:
 column residency (`common/column.py`), expression programs
-(`device/lower.py`), the group-aggregate and join-chain kernels
-(`device/groupby.py`, `device/join_chain.py`, `csrc/*.cu`) and their
-physical operators and rules.
+(`device/lower.py`), the group-aggregate, join-chain, sort and window
+kernels (`device/groupby.py`, `device/join_chain.py`,
+`physical/plan/device_sort.py`, `device/window.py`, `csrc/*.cu`) and
+their physical operators and rules.
 
     import torch, datafusion_tpu_torch as dft
     ctx = dft.SessionContext(torch.device("cuda"))
@@ -29,6 +30,7 @@ from .common import (Batch, Column, ConfigOptions,  # noqa: F401,E402
 from .datasource import MemTable, StreamTable, TableProvider  # noqa: F401,E402
 from .device import groupby as _groupby  # noqa: F401,E402  registers kernels
 from .device import join_chain as _join_chain  # noqa: F401,E402
+from .device import window as _window  # noqa: F401,E402  (and device_sort)
 from .expr.expr_fns import col, lit  # noqa: F401,E402
 from .kernels import (KERNELS, launch_counts,  # noqa: F401,E402
                       reset_launch_counts)

@@ -3,8 +3,9 @@
 Reference parity: `ConfigOptions` + `config_namespace!`
 (`datafusion/common/src/config.rs:106,638`). Keys mirror the reference's
 names (``datafusion.execution.batch_size`` etc.) so SET / SHOW ALL behave the
-same; the port's own knob, ``datafusion.tpu.device_aggregate``, keeps the
-JAX package's name so that one SET script drives both.
+same; the port's own knobs under ``datafusion.tpu.*`` (``device_aggregate``,
+``device_sort_min_rows``, ``device_window_min_rows``) keep the JAX package's
+names so that one SET script drives both.
 """
 from __future__ import annotations
 
@@ -97,6 +98,15 @@ _OPTIONS: List[Tuple[str, Any, type, str]] = [
      "Run filter/project/group-aggregate pipelines and fanout-1 join "
      "chains under them as CUDA kernels on the card (falls back to the "
      "host path per query when unsupported)."),
+    ("datafusion.tpu.device_sort_min_rows", 1 << 17, int,
+     "Row-count threshold at or above which ORDER BY, top-k and window "
+     "ordering sorts run as the stable radix sort kernel on the session's "
+     "device instead of host np.lexsort (physical/plan/device_sort.py)."),
+    ("datafusion.tpu.device_window_min_rows", 1 << 17, int,
+     "Row-count threshold at or above which window functions of the "
+     "supported family (ranks, ntile, lag/lead, sum/count/avg frames) "
+     "evaluate on the session's device: radix sort, lane gather and the "
+     "window-scan kernel (device/window.py)."),
 ]
 
 # Reference config surface (config.rs config_namespace! blocks): every key

@@ -29,11 +29,18 @@ output columns (`_apply_post_filter`, `device_aggregate.py:1279`), or the
 slots of a list that `group_topk` chose (`_emit_topk`, `:1127`). One
 `.cpu()` of its `[lanes + 2, ng]` output brings the groups to the host.
 
+Row permutation. `reorder_rows` moves many row-aligned lanes through one
+int64 permutation in one launch of `csrc/gather_lanes.cu`, the counterpart
+of `reorder_rows_packed` (`datafusion_tpu/device/groupby.py:237`) without
+its int32 lane packing. The window evaluation (`device/window.py`) carries
+its words and value lanes into sorted order with it.
+
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its CUDA kernel (`csrc/`) on CUDA tensors, or raises.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,6 +61,9 @@ compact_groups_kernel = kernels.register(kernels.Kernel(
 group_topk_kernel = kernels.register(kernels.Kernel(
     "group_topk", "datafusion_tpu_torch/csrc/group_topk.cu",
     "datafusion_tpu/physical/plan/device_aggregate.py:1127"))
+gather_lanes_kernel = kernels.register(kernels.Kernel(
+    "gather_lanes", "datafusion_tpu_torch/csrc/gather_lanes.cu",
+    "datafusion_tpu/device/groupby.py:237"))
 
 # lane kinds (mirrored in csrc/program.cuh)
 LANE_ROWS = 0        # +1 per row that passed the predicate (count(*))
@@ -73,6 +83,7 @@ SMEM_BYTES = 48 * 1024   # a kernel's shared descriptor (+ the dense table)
 EMPTY = -1           # key of a free hash slot
 MAX_TOPK = 1 << 16
 COMPACT_TILE = 2048  # slots per block of csrc/compact_groups.cu
+MAX_GATHER_LANES = 32   # lanes a launch of csrc/gather_lanes.cu moves
 
 _I64_MAX = np.iinfo(np.int64).max
 _I64_MIN = np.iinfo(np.int64).min
@@ -747,3 +758,51 @@ def group_topk_plain(table: torch.Tensor, lane_row: int, asc: bool,
     out = torch.full((k,), -1, dtype=torch.int64, device=table.device)
     out[:kk] = live[idx]
     return out
+
+
+def reorder_rows(order: torch.Tensor,
+                 lanes: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Every lane (a contiguous [n] tensor of 1, 2, 4 or 8 bytes a row)
+    read through `order` (int64 [m], row indices into the lanes): new
+    lanes of m rows, `lane[order]` each.
+
+    On CPU tensors this runs `reorder_rows_plain`; on CUDA tensors it
+    launches the `gather_lanes` kernel, once for up to 32 lanes, or
+    raises."""
+    if order.dtype != torch.int64 or order.dim() != 1 or \
+            not order.is_contiguous():
+        raise ValueError("order must be a contiguous int64 [m] tensor")
+    for lane in lanes:
+        if lane.device != order.device or lane.dim() != 1 or \
+                not lane.is_contiguous() or \
+                lane.element_size() not in (1, 2, 4, 8):
+            raise ValueError("lanes must be contiguous [n] tensors of 1, 2, 4 "
+                             "or 8 bytes on the order's device")
+    if not _cuda(order):
+        return reorder_rows_plain(order, lanes)
+    m, dev = order.numel(), order.device
+    outs = [torch.empty(m, dtype=lane.dtype, device=dev) for lane in lanes]
+    if m == 0 or not lanes:
+        return outs
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        for at in range(0, len(lanes), MAX_GATHER_LANES):
+            part = range(at, min(at + MAX_GATHER_LANES, len(lanes)))
+            srcs = (ctypes.c_void_p * len(part))(
+                *[lanes[i].data_ptr() for i in part])
+            dsts = (ctypes.c_void_p * len(part))(
+                *[outs[i].data_ptr() for i in part])
+            widths = (ctypes.c_int * len(part))(
+                *[lanes[i].element_size() for i in part])
+            kernels.check(lib.dft_gather_lanes(
+                order.data_ptr(), m, len(part), srcs, dsts, widths, stream),
+                gather_lanes_kernel)
+            gather_lanes_kernel.launches += 1
+    return outs
+
+
+def reorder_rows_plain(order: torch.Tensor,
+                       lanes: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The plain PyTorch version: one `index_select` a lane."""
+    return [lane.index_select(0, order) for lane in lanes]

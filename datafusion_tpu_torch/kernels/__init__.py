@@ -45,6 +45,15 @@ _SIGNATURES = {
     "dft_chain_build_range": [_P, _I, _P, _LL, _P, _P],
     "dft_chain_build_insert": [_P, _I, _P, _LL, _I, _LL, _P, _P, _P, _P],
     "dft_chain_aggregate": [_P, _I, _I, _I, _P, _LL, _LL, _I, _P, _P, _P],
+    "dft_radix_word_hist": [_P, _I, _LL, _P, _P],
+    "dft_radix_gather": [_P, _I, _P, _LL, _P, _P],
+    "dft_radix_pass": [_P, _I, _P, _LL, _I, _P, _P, _P, _P, _P],
+    "dft_gather_lanes": [_P, _LL, _I, _P, _P, _P, _P],
+    "dft_window_flags": [_P, _P, _I, _I, _LL, _P, _P],
+    "dft_window_scan": [_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                        _P],
+    "dft_window_eval": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _P, _P, _P],
 }
 
 

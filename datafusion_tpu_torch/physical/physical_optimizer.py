@@ -10,7 +10,9 @@ flattening of the chain fuser (`:454-893`). The device rules are the
 port's own, in the reference's order (`default_physical_rules`,
 `:1352`): `UseTorchAggregate` in place of `UseDeviceAggregate` (it tries
 the join-chain fusion first, as `:92-100` does), the host rules, then
-`FuseTopKIntoTorchAggregate` and `FuseFilterIntoTorchAggregate`. There is
+`FuseTopKIntoTorchAggregate` and `FuseFilterIntoTorchAggregate`, and last
+`UseTorchSort`, which hands the session's device to the sorts and windows
+(the JAX package reads its one device from module state instead). There is
 no mesh branch, no fanout-N join fusion and no row-returning chain.
 """
 from __future__ import annotations
@@ -29,7 +31,8 @@ from .plan.base import ExecutionPlan
 from .plan.device_aggregate import TorchAggregate, TorchGroupAggregateExec
 from .plan.projection import (CoalescePartitionsExec, FilterExec,
                               GlobalLimitExec, ProjectionExec)
-from .plan.sort import SortExec
+from .plan.sort import PartialSortExec, SortExec, SortPreservingMergeExec
+from .plan.window import WindowExec
 
 _DEVICE_AGG_NAMES = {"count", "sum", "min", "max", "avg", "mean"}
 
@@ -967,6 +970,31 @@ class FuseFilterIntoTorchAggregate:
         return plan.transform_up(f)
 
 
+class UseTorchSort:
+    """Give every sort and window of the plan (SortExec, PartialSortExec,
+    SortPreservingMergeExec, WindowExec and BoundedWindowExec) the
+    session's device. Each then sorts there once its input reaches
+    `datafusion.tpu.device_sort_min_rows` rows, and evaluates its window
+    functions there once it reaches `datafusion.tpu.device_window_min_rows`
+    (`plan/sort.py` `lexsort`, `plan/window.py` `_try_device_window`).
+    Runs last, so no later rule plans a sort without it."""
+    name = "use_torch_sort"
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+    def rewrite(self, plan: ExecutionPlan) -> ExecutionPlan:
+        kinds = (SortExec, PartialSortExec, SortPreservingMergeExec,
+                 WindowExec)
+
+        def f(node):
+            if isinstance(node, kinds) and node.device != self.device:
+                node = copy.copy(node)
+                node.device = self.device
+            return node
+        return plan.transform_up(f)
+
+
 def optimize_physical(plan: ExecutionPlan, config, device: torch.device,
                       cache: Optional[DeviceColumnCache] = None
                       ) -> ExecutionPlan:
@@ -974,6 +1002,6 @@ def optimize_physical(plan: ExecutionPlan, config, device: torch.device,
                  RemoveRedundantSort(config), UseSymmetricHashJoin(config),
                  RepartitionFileScans(config),
                  FuseTopKIntoTorchAggregate(config),
-                 FuseFilterIntoTorchAggregate(config)):
+                 FuseFilterIntoTorchAggregate(config), UseTorchSort(device)):
         plan = rule.rewrite(plan)
     return _pipeline_check(plan)

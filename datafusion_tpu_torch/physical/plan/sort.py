@@ -16,6 +16,7 @@ import dataclasses
 from typing import Iterator, List, Optional
 
 import numpy as np
+from torch.profiler import record_function
 
 from ...common.batch import Batch, concat_batches
 from ...common.column import Column
@@ -111,19 +112,31 @@ def order_keys(col, asc: bool, nulls_first: bool) -> List[np.ndarray]:
 
 
 def sort_indices(batch: Batch, sort_exprs: List[PhysSortExpr],
-                 limit: Optional[int] = None, metrics=None) -> np.ndarray:
-    """Row permutation realizing the sort order (stable), on the host."""
+                 limit: Optional[int] = None, metrics=None, device=None,
+                 config=None) -> np.ndarray:
+    """Row permutation realizing the sort order (stable). Large inputs
+    sort on the plan's device (`lexsort`), small ones on the host:
+    identical results."""
     keys = []
-    for se in sort_exprs:
-        col = se.expr.evaluate(batch)
-        keys.extend(order_keys(col, se.asc, se.nulls_first))
-    return lexsort(keys, batch.num_rows, limit=limit)
+    with record_function("dft.sort.encode"):
+        for se in sort_exprs:
+            col = se.expr.evaluate(batch)
+            keys.extend(order_keys(col, se.asc, se.nulls_first))
+    return lexsort(keys, batch.num_rows, limit=limit, device=device,
+                   config=config)
 
 
-def lexsort(keys: List[np.ndarray], n: int,
-            limit: Optional[int] = None) -> np.ndarray:
+def lexsort(keys: List[np.ndarray], n: int, limit: Optional[int] = None,
+            device=None, config=None) -> np.ndarray:
     """Stable ascending permutation over key words (most-significant
-    first): `np.lexsort` of the reversed words, cut to `limit`."""
+    first), cut to `limit`: the radix sort kernel on `device` (the plan's,
+    given by the `UseTorchSort` rule) when `n` reaches
+    `datafusion.tpu.device_sort_min_rows`, else `np.lexsort` of the
+    reversed words. The threshold is the JAX package's rule
+    (`device_sort.py:119`)."""
+    from .device_sort import device_lexsort, min_rows
+    if device is not None and n >= min_rows(config):
+        return device_lexsort(keys, n, limit, device)
     order = np.lexsort(tuple(reversed([k[:n] for k in keys])))
     if limit is not None:
         order = order[:limit]
@@ -135,12 +148,14 @@ class SortExec(ExecutionPlan):
     (reference: sorts/sort.rs:668 + topk/mod.rs:75)."""
 
     def __init__(self, sort_exprs: List[PhysSortExpr], input: ExecutionPlan,
-                 fetch: Optional[int] = None, preserve_partitioning: bool = False):
+                 fetch: Optional[int] = None,
+                 preserve_partitioning: bool = False, device=None):
         super().__init__()
         self.sort_exprs = sort_exprs
         self.input = input
         self.fetch = fetch
         self.preserve_partitioning = preserve_partitioning
+        self.device = device     # large sorts run there (None: the host)
 
     def schema(self):
         return self.input.schema()
@@ -150,7 +165,7 @@ class SortExec(ExecutionPlan):
 
     def with_children(self, c):
         return SortExec(self.sort_exprs, c[0], self.fetch,
-                        self.preserve_partitioning)
+                        self.preserve_partitioning, self.device)
 
     def output_partitioning(self):
         if self.preserve_partitioning:
@@ -210,14 +225,17 @@ class SortExec(ExecutionPlan):
                 pruned = []
                 for b in batches:
                     if b.num_rows > self.fetch:
-                        idx = sort_indices(b, self.sort_exprs, self.fetch, metrics=m)
+                        idx = sort_indices(b, self.sort_exprs, self.fetch,
+                                           metrics=m, device=self.device,
+                                           config=ctx.config)
                         b = b.take_host(idx)
                     pruned.append(b)
                 batches = pruned
             merged = concat_batches(self.schema(), batches)
             if merged.num_rows == 0:
                 return
-            idx = sort_indices(merged, self.sort_exprs, self.fetch, metrics=m)
+            idx = sort_indices(merged, self.sort_exprs, self.fetch, metrics=m,
+                               device=self.device, config=ctx.config)
             out = merged.take_host(idx)
         m.record_output(out.num_rows)
         yield out
@@ -285,13 +303,15 @@ class PartialSortExec(ExecutionPlan):
     bounded memory + streaming output (reference: sorts/partial_sort.rs)."""
 
     def __init__(self, sort_exprs: List[PhysSortExpr], input: ExecutionPlan,
-                 common_prefix_length: int, fetch: Optional[int] = None):
+                 common_prefix_length: int, fetch: Optional[int] = None,
+                 device=None):
         super().__init__()
         assert 0 < common_prefix_length < len(sort_exprs)
         self.sort_exprs = sort_exprs
         self.input = input
         self.common_prefix_length = common_prefix_length
         self.fetch = fetch
+        self.device = device     # large runs sort there (None: the host)
 
     def schema(self):
         return self.input.schema()
@@ -301,7 +321,8 @@ class PartialSortExec(ExecutionPlan):
 
     def with_children(self, c):
         return PartialSortExec(self.sort_exprs, c[0],
-                               self.common_prefix_length, self.fetch)
+                               self.common_prefix_length, self.fetch,
+                               self.device)
 
     def output_partitioning(self):
         return Partitioning.unknown(1)
@@ -335,7 +356,8 @@ class PartialSortExec(ExecutionPlan):
                 concat_batches(self.schema(), run_batches)
             idx = sort_indices(merged, suffix,
                                None if self.fetch is None
-                               else self.fetch - emitted)
+                               else self.fetch - emitted,
+                               device=self.device, config=ctx.config)
             out = merged.take_host(idx)
             emitted += out.num_rows
             return out
@@ -403,11 +425,12 @@ class SortPreservingMergeExec(ExecutionPlan):
     already-sorted runs is a later optimization)."""
 
     def __init__(self, sort_exprs: List[PhysSortExpr], input: ExecutionPlan,
-                 fetch: Optional[int] = None):
+                 fetch: Optional[int] = None, device=None):
         super().__init__()
         self.sort_exprs = sort_exprs
         self.input = input
         self.fetch = fetch
+        self.device = device     # large merges sort there (None: the host)
 
     def schema(self):
         return self.input.schema()
@@ -416,7 +439,8 @@ class SortPreservingMergeExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return SortPreservingMergeExec(self.sort_exprs, c[0], self.fetch)
+        return SortPreservingMergeExec(self.sort_exprs, c[0], self.fetch,
+                                       self.device)
 
     def output_partitioning(self):
         return Partitioning.unknown(1)
@@ -442,7 +466,9 @@ class SortPreservingMergeExec(ExecutionPlan):
                 merged = concat_batches(self.schema(), per_part)
                 if merged.num_rows == 0:
                     return
-                idx = sort_indices(merged, self.sort_exprs, self.fetch, metrics=m)
+                idx = sort_indices(merged, self.sort_exprs, self.fetch,
+                                   metrics=m, device=self.device,
+                                   config=ctx.config)
                 out = merged.take_host(idx)
         m.record_output(out.num_rows)
         yield out

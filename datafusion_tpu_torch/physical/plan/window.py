@@ -9,8 +9,15 @@ nth_value.rs, row_number.rs, cume_dist.rs, ntile.rs) and the frame spec
 Host path: the input is buffered, rows are ordered by (partition keys,
 order keys) once, every function is computed vectorized over that ordering
 (ranks via run-length/dedup scans, frame aggregates via prefix sums —
-the same scan-based formulation the TPU path uses with lax cumsums), and
-results are scattered back to original row order.
+the same scan-based formulation the device path uses), and results are
+scattered back to original row order.
+
+Device path: on the plan's device (given by the `UseTorchSort` rule), a
+window function of the supported family over at least
+`datafusion.tpu.device_window_min_rows` rows evaluates in
+`device/window.py` (radix sort, lane gather, window scan); other orderings
+of at least `datafusion.tpu.device_sort_min_rows` rows sort there
+(`sort.lexsort`).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import dataclasses
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
 from ...common import dt
 from ...common.batch import Batch
@@ -47,10 +55,14 @@ class PhysWindowExpr:
 
 class WindowExec(ExecutionPlan):
     def __init__(self, window_exprs: List[PhysWindowExpr], input: ExecutionPlan,
-                 linear: bool = False):
+                 linear: bool = False, device=None):
         super().__init__()
         self.window_exprs = window_exprs
         self.input = input
+        self.device = device     # large windows run there (None: the host)
+        # window evaluations that ran on the host though the device could
+        # have taken their input (a function outside the device family)
+        self.fallbacks = 0
         # Linear mode (reference: BoundedWindowAggExec mode=[Linear]):
         # partitions tracked by hash, no sort below, rows leave in INPUT
         # order — used when sorting is impossible (unbounded input)
@@ -67,7 +79,7 @@ class WindowExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return WindowExec(self.window_exprs, c[0], self.linear)
+        return WindowExec(self.window_exprs, c[0], self.linear, self.device)
 
     def output_partitioning(self):
         return Partitioning.unknown(1)
@@ -86,7 +98,8 @@ class WindowExec(ExecutionPlan):
             for w in _plan_window_evaluation(self.window_exprs,
                                              self.input.output_ordering()):
                 cols.append(_eval_window(w, batch, metrics=m,
-                                         config=ctx.config))
+                                         config=ctx.config,
+                                         device=self.device, owner=self))
             out = Batch(self._schema, cols, batch.num_rows)
             # the reference plans the postgres-style FIRST window group's
             # sort at the bottom and computes later groups in reversed /
@@ -97,7 +110,9 @@ class WindowExec(ExecutionPlan):
             key = None if self.linear else _output_sort_key(
                 self.window_exprs, self.input.output_ordering())
             if key:
-                out = out.take_host(_order_for_key(key, batch, metrics=m))
+                out = out.take_host(_order_for_key(
+                    key, batch, metrics=m, device=self.device,
+                    config=ctx.config))
         m.record_output(out.num_rows)
         yield out
 
@@ -157,15 +172,16 @@ class BoundedWindowExec(WindowExec):
     share the same non-empty PARTITION BY; the planner inserts the
     partition-key sort below."""
 
-    def __init__(self, window_exprs: List[PhysWindowExpr], input: ExecutionPlan):
-        super().__init__(window_exprs, input)
+    def __init__(self, window_exprs: List[PhysWindowExpr],
+                 input: ExecutionPlan, device=None):
+        super().__init__(window_exprs, input, device=device)
         pb = window_exprs[0].partition_by
         assert pb and all(
             [str(e) for e in w.partition_by] == [str(e) for e in pb]
             for w in window_exprs), "BoundedWindowExec needs a shared PARTITION BY"
 
     def with_children(self, c):
-        return BoundedWindowExec(self.window_exprs, c[0])
+        return BoundedWindowExec(self.window_exprs, c[0], self.device)
 
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[Batch]:
         from ...common.batch import concat_batches
@@ -182,13 +198,16 @@ class BoundedWindowExec(WindowExec):
             for w in _plan_window_evaluation(self.window_exprs,
                                              self.input.output_ordering()):
                 cols.append(_eval_window(w, merged, metrics=m,
-                                         config=ctx.config))
+                                         config=ctx.config,
+                                         device=self.device, owner=self))
             out = Batch(self._schema, cols, merged.num_rows)
             key = _output_sort_key(self.window_exprs,
                                    self.input.output_ordering())
             if key:   # rows leave in the primary group's ordering (see
                 # WindowExec.execute); partition keys are constant per run
-                out = out.take_host(_order_for_key(key, merged, metrics=m))
+                out = out.take_host(_order_for_key(
+                    key, merged, metrics=m, device=self.device,
+                    config=ctx.config))
             return out
 
         for b in execute_stream(self.input, ctx):
@@ -216,7 +235,7 @@ class BoundedWindowExec(WindowExec):
                 pending.append(b.take_host(np.arange(start, b.num_rows)))
                 last_i = b.num_rows - 1
                 pending_key = tuple(
-                    e.evaluate(b).to_pylist(b.num_rows)[last_i]
+                    e.evaluate(b).slice_host(last_i, 1).to_pylist(1)[0]
                     for e in pb_exprs)
             for o in outs:
                 m.record_output(o.num_rows)
@@ -428,20 +447,22 @@ def _plan_window_evaluation(window_exprs: List[PhysWindowExpr],
     return [out[i] for i in range(len(window_exprs))]
 
 
-def _order_for_key(key, batch: Batch, metrics=None):
-    """Stable lexsort order for a [(expr, asc, nulls_first, is_part)] key,
-    on the host."""
+def _order_for_key(key, batch: Batch, metrics=None, device=None,
+                   config=None):
+    """Stable lexsort order for a [(expr, asc, nulls_first, is_part)] key.
+    Large inputs sort on the plan's device (`sort.lexsort`)."""
     ks = []
     for e, asc, nf, _p in key:
         rank, kk = order_keys(e.evaluate(batch), asc, nf)
         ks.append(rank)
         ks.append(kk)
-    return lexsort(ks, batch.num_rows)
+    return lexsort(ks, batch.num_rows, device=device, config=config)
 
 
-def _window_order(w: PhysWindowExpr, batch: Batch, metrics=None):
-    """(order, pids): partition-major stable sort order for one window,
-    on the host."""
+def _window_order(w: PhysWindowExpr, batch: Batch, metrics=None,
+                  device=None, config=None):
+    """(order, pids): partition-major stable sort order for one window.
+    Large inputs sort on the plan's device (`sort.lexsort`)."""
     n = batch.num_rows
     if w.partition_by:
         pcols = [e.evaluate(batch) for e in w.partition_by]
@@ -454,13 +475,188 @@ def _window_order(w: PhysWindowExpr, batch: Batch, metrics=None):
                                se.nulls_first)
         keys.append(rank)
         keys.append(key)
-    return lexsort(keys, n), pids
+    return lexsort(keys, n, device=device, config=config), pids
+
+
+def device_window_inputs(w: PhysWindowExpr, batch: Batch):
+    """What `device/window.py` evaluates for `w` over `batch`: (spec,
+    partition words, order words, lanes {arg, arg_valid, default,
+    default_valid} as host arrays, the argument column), or None when the
+    function or its frame falls outside the device family (the JAX
+    package's `_try_device_window`, `plan/window.py:464-565`)."""
+    n = batch.num_rows
+    name = w.name
+    frame = w.frame
+
+    spec = None
+    arg = arg_valid = default = default_valid = None
+    arg_col = None
+    if name in ("row_number", "rank", "dense_rank", "percent_rank",
+                "cume_dist"):
+        spec = ("rank", name)
+    elif name == "ntile" and w.args:
+        from ..expressions import LiteralExpr
+        if isinstance(w.args[0], LiteralExpr):
+            k = int(w.args[0].evaluate(batch).to_pylist(1)[0])
+            if k <= 0:
+                raise ExecutionError("NTILE requires a positive integer")
+            spec = ("ntile", min(k, n))
+    elif name in ("lag", "lead") and not w.ignore_nulls and w.args:
+        from ..expressions import LiteralExpr
+        if all(isinstance(a, LiteralExpr) for a in w.args[1:2]):
+            off = 1
+            if len(w.args) > 1:
+                off = int(w.args[1].evaluate(batch).data_host()[0])
+            shift = -off if name == "lag" else off
+            arg_col = w.args[0].evaluate(batch)
+            if len(w.args) > 2:
+                d = w.args[2].evaluate(batch)
+                if arg_col.dtype.is_string and d.dtype.is_string:
+                    arg_col, d = K.unify_dictionaries(arg_col, d)
+                elif arg_col.dtype != d.dtype:
+                    return None
+                default = d.data_host()
+                default_valid = K.valid_mask(d)
+            spec = ("shift", shift)
+            arg = arg_col.data_host()
+            arg_valid = K.valid_mask(arg_col)
+    elif name in ("sum", "count", "avg", "mean"):
+        def bound(b, is_lo):
+            if b.kind == "UNBOUNDED_PRECEDING":
+                return ("part", 0)
+            if b.kind == "UNBOUNDED_FOLLOWING":
+                return ("part", 0)
+            if b.kind == "CURRENT":
+                if frame.units == "ROWS":
+                    return ("cur", 0)
+                return ("peer", 0)
+            if frame.units != "ROWS" or b.offset is None or \
+                    b.offset.value is None:
+                return None
+            off = int(b.offset.value)
+            return ("rows", -off if b.kind == "PRECEDING" else off)
+        if frame.units == "GROUPS":
+            return None
+        lo_b = bound(frame.start, True)
+        hi_b = bound(frame.end, False)
+        if lo_b is None or hi_b is None:
+            return None
+        if w.args:
+            arg_col = w.args[0].evaluate(batch)
+            if arg_col.dtype.is_string or arg_col.dtype.is_dict_coded:
+                return None
+            if name in ("sum", "avg", "mean") and w.out_type.is_decimal:
+                arg = arg_col.data_host().astype(np.int64)
+                agg_kind = "sum_i"
+            elif name == "count":
+                agg_kind = "cnt"      # reads only the validity
+            else:
+                arg = K.cast_column(arg_col, dt.FLOAT64).data_host()
+                agg_kind = "sum_f"
+            arg_valid = K.valid_mask(arg_col)
+        else:
+            if name != "count":
+                return None
+            arg_valid = np.ones(n, bool)
+            agg_kind = "cnt"
+        spec = ("agg", agg_kind, lo_b[0], lo_b[1], hi_b[0], hi_b[1])
+    if spec is None:
+        return None
+
+    part_words: List[np.ndarray] = []
+    for e in w.partition_by:
+        r, k = order_keys(e.evaluate(batch), True, False)
+        part_words.append(r)
+        part_words.append(k)
+    order_words: List[np.ndarray] = []
+    for se in w.order_by:
+        r, k = order_keys(se.expr.evaluate(batch), se.asc, se.nulls_first)
+        order_words.append(r)
+        order_words.append(k)
+    if not part_words and not order_words:
+        # one partition of peers: a constant word keeps the sort defined
+        part_words.append(np.zeros(n, np.uint8))
+    lanes = {"arg": arg, "arg_valid": arg_valid, "default": default,
+             "default_valid": default_valid}
+    return spec, part_words, order_words, lanes, arg_col
+
+
+def _try_device_window(w: PhysWindowExpr, batch: Batch, metrics=None,
+                       config=None, device=None) -> Optional[Column]:
+    """Device evaluation of the hot window family (`device/window.py`:
+    radix sort, lane gather, window scan on the plan's device), finalized
+    on the host as the host path finalizes. Returns None when there is no
+    device, the input is below `datafusion.tpu.device_window_min_rows`,
+    or the function or frame falls outside the family."""
+    from ...device.window import device_window_eval, min_rows
+    n = batch.num_rows
+    if device is None or n < min_rows(config):
+        return None
+    with record_function("dft.window.encode"):
+        inputs = device_window_inputs(w, batch)
+    if inputs is None:
+        return None
+    spec, part_words, order_words, lanes, arg_col = inputs
+    out = device_window_eval(part_words, order_words, n, spec, **lanes,
+                             device=device)
+    del part_words, order_words, lanes
+    with record_function("dft.window.finalize"):
+        return _finalize_device_window(w, spec, out, arg_col)
+
+
+def _finalize_device_window(w: PhysWindowExpr, spec, out, arg_col) -> Column:
+    """The device outputs of `w` as its column, as the host path builds
+    it: decimal averages rounded, validity from counts, lag/lead values
+    in the argument's type and dictionary."""
+    name = w.name
+    if spec[0] == "rank":
+        if name in ("percent_rank", "cume_dist"):
+            return Column(dt.FLOAT64, out["data"].astype(np.float64))
+        return Column(dt.UINT64, out["data"].astype(np.uint64))
+    if spec[0] == "ntile":
+        return Column(dt.UINT64, out["data"].astype(np.uint64))
+    if spec[0] == "shift":
+        v = out["valid"].astype(bool)
+        return Column(arg_col.dtype, out["data"],
+                      None if v.all() else v, arg_col.dictionary)
+    # agg: finalize sum / count / avg exactly like the host twin
+    cnt = out["cnt"].astype(np.int64)
+    if name == "count":
+        return Column(dt.INT64, cnt)
+    s = out["sum"]
+    has = cnt > 0
+    if name == "sum":
+        if w.out_type.is_decimal or w.out_type.is_integer:
+            return Column(w.out_type, s.astype(w.out_type.device_dtype()),
+                          None if has.all() else has)
+        return Column(dt.FLOAT64, s.astype(np.float64),
+                      None if has.all() else has)
+    safe = np.where(has, cnt, 1)
+    if w.out_type.is_decimal:
+        shift10 = 10 ** (w.out_type.scale - arg_col.dtype.scale)
+        num = s.astype(object) * int(shift10)
+        q = np.sign(num) * ((np.abs(num) + safe // 2) // safe)
+        return Column(w.out_type, q.astype(np.int64),
+                      None if has.all() else has)
+    return Column(dt.FLOAT64, s / safe, None if has.all() else has)
 
 
 def _eval_window(w: PhysWindowExpr, batch: Batch, metrics=None,
-                 config=None) -> Column:
+                 config=None, device=None, owner=None) -> Column:
+    """`w` over `batch`: on `device` when it can (`_try_device_window`),
+    else on the host. A window that a device could have taken (input at or
+    above the threshold) but that runs on the host adds one to
+    `owner.fallbacks`."""
+    from ...device.window import min_rows
     n = batch.num_rows
-    order, pids = _window_order(w, batch, metrics=metrics)
+    dev = _try_device_window(w, batch, metrics=metrics, config=config,
+                             device=device)
+    if dev is not None:
+        return dev
+    if owner is not None and device is not None and n >= min_rows(config):
+        owner.fallbacks += 1
+    order, pids = _window_order(w, batch, metrics=metrics, device=device,
+                                config=config)
     sp = pids[order]                       # sorted partition ids
     # partition boundaries in sorted space
     part_start_mask = np.empty(n, bool)

@@ -8,7 +8,10 @@ Needs an NVIDIA GPU and nvcc; skips elsewhere. On the GPU machine:
 machine does not need.) Each case runs one aggregate through
 `fused_dense_aggregate` and through `dense_group_aggregate_plain` on the
 same device tensors: counts, integer lanes and min/max must be equal,
-float sums within rel 1e-12 (atomic adds change the order).
+float sums within rel 1e-12 (atomic adds change the order). The later
+cases do the same for the other kernels: the hash path, compaction,
+top-k, the join chain, the radix sort, the lane gather and the window
+scan.
 """
 import numpy as np
 import pytest
@@ -424,3 +427,143 @@ def test_cuda_join_chain_end_to_end_matches_cpu(cuda):
             out.append(ctx.sql(QUERIES[q]).to_pydict())
             assert _chain_exec(ctx, QUERIES[q]).fallbacks == 0
         assert out[0] == out[1], q
+
+
+def _words(n, seed):
+    """Order words of every kind a sort meets: a uint8 null rank, a uint64
+    key over the whole range (both extremes), a uint64 key with many ties,
+    an all-zero rank."""
+    rng = np.random.default_rng(seed)
+    full = rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
+    full[: min(n, 2)] = [np.uint64(2**64 - 1), np.uint64(0)][: min(n, 2)]
+    return [(rng.random(n) < 0.3).astype(np.uint8),
+            rng.integers(0, 7, n).astype(np.uint64),
+            np.zeros(n, np.uint8), full]
+
+
+@pytest.mark.parametrize("n", [1, 2, 4097, 300_000])
+@pytest.mark.parametrize("limit", [None, 10])
+def test_radix_sort_matches_plain(cuda, n, limit):
+    """Kernel 19: the permutation equals its plain version's and
+    np.lexsort's, ties in row order, limits included."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.physical.plan.device_sort import (
+        radix_sort, radix_sort_plain, to_word)
+    host = _words(n, n)
+    words = [to_word(w).to(cuda) for w in host]
+    before = dft.launch_counts()["radix_sort"]
+    got = radix_sort(words, limit).cpu().numpy()
+    assert dft.launch_counts()["radix_sort"] > before or n == 1
+    want = radix_sort_plain(words, limit).cpu().numpy()
+    lex = np.lexsort(tuple(reversed(host)))[:limit]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, lex)
+
+
+def test_gather_lanes_matches_plain(cuda):
+    """Kernel 8: every lane dtype, more lanes than one launch takes, and an
+    index list with repeats (not a permutation)."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        reorder_rows, reorder_rows_plain)
+    rng = np.random.default_rng(8)
+    n = 100_003
+    kinds = [np.uint8, np.bool_, np.int16, np.int32, np.int64, np.float32,
+             np.float64]
+    lanes = [torch.from_numpy(
+        (rng.integers(0, 255, n) if k not in (np.float32, np.float64)
+         else rng.normal(size=n)).astype(k)).to(cuda)
+        for k in kinds * 6]
+    for order in (rng.permutation(n), rng.integers(0, n, 5000)):
+        o = torch.from_numpy(order.astype(np.int64)).to(cuda)
+        before = dft.launch_counts()["gather_lanes"]
+        got = reorder_rows(o, lanes)
+        assert dft.launch_counts()["gather_lanes"] == before + 2
+        for g, w in zip(got, reorder_rows_plain(o, lanes)):
+            assert g.dtype == w.dtype
+            assert torch.equal(g, w)
+
+
+WINDOW_SPECS = [("rank", f) for f in ("row_number", "rank", "dense_rank",
+                                      "percent_rank", "cume_dist")] + [
+    ("ntile", 7), ("shift", -1), ("shift", 3),
+    ("agg", "sum_i", "part", 0, "part", 0),
+    ("agg", "sum_i", "part", 0, "peer", 0),
+    ("agg", "sum_f", "part", 0, "cur", 0),
+    ("agg", "sum_f", "rows", -6, "cur", 0),
+    ("agg", "cnt", "peer", 0, "rows", 2),
+    ("agg", "cnt", "cur", 0, "part", 0)]
+
+
+@pytest.mark.parametrize("spec,with_default", [
+    (s, False) for s in WINDOW_SPECS] + [(("shift", -1), True),
+                                         (("shift", 2), True)])
+def test_window_matches_plain(cuda, spec, with_default):
+    """Kernels 19, 8 and 20 over one window evaluation against the plain
+    versions on the CPU: exact, but float64 frame sums (prefix sums taken
+    in another order) within rel 1e-9 of the prefix magnitude."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.window import window_eval
+    from datafusion_tpu_torch.physical.plan.device_sort import to_word
+    rng = np.random.default_rng(20)
+    n = 262_145
+    words = [np.zeros(n, np.uint8), rng.integers(0, 3, n).astype(np.uint64),
+             (rng.random(n) < 0.05).astype(np.uint8),
+             rng.integers(0, 5000, n).astype(np.uint64)]
+    valid = rng.random(n) > 0.1
+    arg = None
+    if spec[0] == "shift":
+        arg = rng.integers(-50, 50, n).astype(np.int64)
+    elif spec[0] == "agg" and spec[1] == "sum_i":
+        arg = rng.integers(-10**12, 10**12, n).astype(np.int64)
+    elif spec[0] == "agg" and spec[1] == "sum_f":
+        arg = rng.normal(size=n)
+    lanes = [arg, valid if spec[0] in ("shift", "agg") else None,
+             rng.integers(0, 9, n).astype(np.int64) if with_default else None,
+             rng.random(n) > 0.5 if with_default else None]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        staged = [None if x is None else torch.from_numpy(x).to(dev)
+                  for x in lanes]
+        before = dft.launch_counts()
+        outs.append({k: v.cpu().numpy() for k, v in window_eval(
+            [to_word(w).to(dev) for w in words], 2, spec, *staged).items()})
+        after = dft.launch_counts()
+        if dev.type == "cuda":
+            for k in ("radix_sort", "gather_lanes", "window_scan"):
+                assert after[k] > before[k], k
+    got, want = outs
+    assert set(got) == set(want)
+    for key in want:
+        if key == "sum" and spec[1] == "sum_f":
+            scale = np.abs(np.cumsum(arg)).max()
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-9,
+                                       atol=1e-9 * scale)
+        elif key == "data" and spec[0] == "shift":
+            m = want["valid"]
+            np.testing.assert_array_equal(got[key][m], want[key][m])
+        else:
+            np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_cuda_sort_and_window_end_to_end_matches_cpu(cuda):
+    """ORDER BY ... LIMIT and window functions through a CUDA session and a
+    CPU one, thresholds at 1: equal rows."""
+    import datafusion_tpu_torch as dft
+    rng = np.random.default_rng(5)
+    n = 50_000
+    data = {"g": rng.integers(0, 37, n), "v": rng.integers(0, 1000, n),
+            "x": rng.normal(size=n).round(3)}
+    sqls = ["SELECT g, v, x FROM t ORDER BY v DESC, x LIMIT 100",
+            "SELECT g, v, row_number() OVER (PARTITION BY g ORDER BY v) rn, "
+            "rank() OVER (ORDER BY v) rk, lag(x) OVER (ORDER BY v, x) lx, "
+            "sum(v) OVER (PARTITION BY g ORDER BY v ROWS BETWEEN 3 "
+            "PRECEDING AND CURRENT ROW) s FROM t ORDER BY g, v, rn"]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ctx = dft.SessionContext(dev)
+        ctx.sql("SET datafusion.tpu.device_sort_min_rows = 1")
+        ctx.sql("SET datafusion.tpu.device_window_min_rows = 1")
+        ctx.register_arrays("t", data)
+        out.append([ctx.sql(q).to_pydict() for q in sqls])
+    assert out[0] == out[1]

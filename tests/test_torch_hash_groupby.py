@@ -419,5 +419,5 @@ def test_kernel_digest_covers_shared_headers(tmp_path):
     assert kernels._inputs(tmp_path)[1] != before
     assert [s.name for s in kernels._inputs(kernels.CSRC)[0]] == [
         "chain_aggregate.cu", "chain_build.cu", "compact_groups.cu",
-        "fused_dense_aggregate.cu", "group_topk.cu",
-        "hash_group_aggregate.cu"]
+        "fused_dense_aggregate.cu", "gather_lanes.cu", "group_topk.cu",
+        "hash_group_aggregate.cu", "radix_sort.cu", "window_scan.cu"]

@@ -4,7 +4,9 @@ A fresh interpreter (this one has imported JAX already) blocks `jax`, the
 JAX package `datafusion_tpu` with every module under it, and `bench`, then
 runs through the port on the CPU: TPC-H Q1 (the dense path), Q18's
 subquery (the hash path with a fused HAVING), ClickBench Q16 (the hash
-path with a fused top-k) and TPC-H Q3, Q4 and Q5 (fanout-1 join chains).
+path with a fused top-k), TPC-H Q3, Q4 and Q5 (fanout-1 join chains), an
+ORDER BY ... LIMIT over lineitem (the radix sort) and a window query (the
+device window evaluation), with the sort and window thresholds at 1.
 It prints the rows as JSON, and this process holds them against the JAX
 package on the same seeded data. A second interpreter blocks nothing and
 checks that running the port loads neither JAX nor the JAX package. The
@@ -32,8 +34,16 @@ BLOCKED = ("jax", "datafusion_tpu", "bench")
 HITS_ROWS = 20_000
 Q18_SUB = ("select l_orderkey from lineitem group by l_orderkey "
            "having sum(l_quantity) > 300 order by l_orderkey")
+SORTED = ("select l_orderkey, l_linenumber, l_extendedprice from lineitem "
+          "order by l_extendedprice desc, l_orderkey limit 20")
+WINDOW = ("select l_orderkey, l_linenumber, rank() over (partition by "
+          "l_suppkey order by l_extendedprice desc) rk, sum(l_quantity) over "
+          "(partition by l_suppkey order by l_shipdate rows between 2 "
+          "preceding and current row) q3 from lineitem "
+          "order by l_orderkey, l_linenumber limit 50")
 QUERIES = {"q1": TPCH[1], "q18_sub": Q18_SUB, "cb_q16": CB[16],
-           "q3": TPCH[3], "q4": TPCH[4], "q5": TPCH[5]}
+           "q3": TPCH[3], "q4": TPCH[4], "q5": TPCH[5], "sorted": SORTED,
+           "window": WINDOW}
 # the exec each query must plan in the port, with what its display shows
 PLANS = {"q1": ("TorchGroupAggregateExec", ""),
          "q18_sub": ("TorchGroupAggregateExec", "having="),
@@ -41,7 +51,9 @@ PLANS = {"q1": ("TorchGroupAggregateExec", ""),
                     "topk=[count(*) DESC LIMIT 10]"),
          "q3": ("TorchJoinChainAggregateExec", "INNER["),
          "q4": ("TorchJoinChainAggregateExec", "LEFTSEMI["),
-         "q5": ("TorchJoinChainAggregateExec", "INNER[")}
+         "q5": ("TorchJoinChainAggregateExec", "INNER["),
+         "sorted": ("SortExec", "fetch=20"),
+         "window": ("BoundedWindowExec", "rank()")}
 
 BLOCK = r"""
 import sys
@@ -72,6 +84,8 @@ from datafusion_tpu_torch.tpch.datagen import register_tpch
 
 queries, plans = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 port = dft.SessionContext(torch.device("cpu"))
+port.sql("SET datafusion.tpu.device_sort_min_rows = 1")
+port.sql("SET datafusion.tpu.device_window_min_rows = 1")
 register_tpch(port, sf=0.01, seed=1)
 port.register_arrays("hits", {"UserID": np.load(sys.argv[3])})
 
@@ -90,7 +104,9 @@ for label, sql in queries.items():
              if type(n).__name__ == cls]
     assert found and shown in found[0].display_line(), (label, found)
     port.sql(sql).collect()
-    assert all(n.fallbacks == 0 for n in found), label
+    assert all(getattr(n, "fallbacks", 0) == 0 for n in found), label
+    assert all(getattr(n, "device", port.device) == port.device
+               for n in found), label
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and
                 m.split(".")[0] in ("jax", "datafusion_tpu", "bench"))
 assert not loaded, loaded
@@ -155,6 +171,8 @@ def test_port_runs_without_jax_or_the_jax_package(hits_file):
             _same(got[label], want[label])
     assert got["q18_sub"]["l_orderkey"] and len(got["q1"]["l_returnflag"]) == 4
     assert got["q3"]["l_orderkey"] and got["q5"]["n_name"]
+    assert len(got["sorted"]["l_orderkey"]) == 20
+    assert len(got["window"]["rk"]) == 50
 
 
 def test_port_does_not_load_jax_where_it_is_installed(hits_file):
