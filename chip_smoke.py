@@ -18,7 +18,8 @@ query is held against a numpy oracle on the same data.
    numpy, and TPC-H Q6 (G = 1) end to end against numpy;
 4. TPC-H at SF10, made here from a seed by the rules of the port's
    `tpch/datagen.py` (`tpch_tables`: region, nation, 100,000 suppliers,
-   1,500,000 customers, 15,000,000 orders, about 60.0M lineitems):
+   2,000,000 parts, 8,000,000 partsupp rows, 1,500,000 customers,
+   15,000,000 orders, about 60.0M lineitems):
    - hash path: `hash_group_aggregate` against its plain version on Q18's
      and Q15's subqueries (equal group tables), `compact_groups` with
      Q18's HAVING against its plain version (equal), then both subqueries
@@ -28,6 +29,15 @@ query is held against a numpy oracle on the same data.
      version on Q5's walk (equal group tables), the same on Q3 (the hash
      fold) and Q4 (the SEMI build over lineitem), then Q3, Q4 and Q5 end
      to end against numpy, each with a breakdown of its time;
+   - row-returning join chains: `chain_rows` against its plain version on
+     Q2's chain over partsupp (five INNER hops, the subquery's min as a
+     build, a decimal residual equality) and on Q20's inner chain (an
+     INNER hop on (partkey, suppkey) into the 1994 sum(l_quantity)
+     aggregate, a SEMI hop into the 'forest' parts, a residual), and
+     `group_emit` against its plain version on that aggregate's group
+     table (millions of groups, which stay on the card); then Q2 and Q20
+     end to end against numpy, with 0 fallbacks and Q20's aggregate
+     taking the resident emit, each with a breakdown;
    - window functions over the SF10 lineitem (with `l_returnflag`):
      W1 (top 3 by price per supplier beside each order's quantity, a
      WindowExec over two PARTITION BYs), W2 (a global row_number and lag)
@@ -46,8 +56,9 @@ query is held against a numpy oracle on the same data.
    `torch.sort` as the yardstick), and Q25, Q26 and Q27 end to end
    against numpy, with a breakdown.
 
-Each end-to-end path sets the launch counts to 0 just before it and reads
-them just after; it fails if a kernel of the path was not launched or the
+ClickBench Q25-Q27 take a warm median of SORT_REPS runs (each spends
+seconds in the host filter). Each end-to-end path sets the launch counts
+to 0 just before it and reads them just after; it fails if a kernel of the path was not launched or the
 exec fell back to the host (for a window, a function evaluated on the
 host). Any failure raises and exits non-zero. The last line is `{"ok": true, "device": {...}}`; the line before it is the
 card's name and power limit, and before that one JSON line lists every
@@ -68,6 +79,7 @@ FLOAT_QUERY = ("SELECT g, count(*) c, sum(v) s, avg(v) a, min(v) mn, "
 HITS_ROWS = 99_997_497       # the public ClickBench hits.parquet
 REPS = 5
 WINDOW_REPS = 1              # W1-W3 each gather 60M rows on the host
+SORT_REPS = 3                # CB Q25-Q27 each filter 100M rows on the host
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 outside the tensor
 # cores (the interpreter's 64-bit integer ops have no published peak)
@@ -199,6 +211,27 @@ def prog_ops(spec, n: int) -> int:
     return n * sum(len(p.code) for p in spec.programs())
 
 
+def walk_bytes(spec, cols, n: int, hop_rows) -> int:
+    """Bytes a chain walk over `n` spine rows must move: the spine columns
+    it reads, once; for each hop its build table and payload columns, each
+    entry at most once (as many as the rows that reach the hop, or survive
+    it for a payload, up to the whole table or column). `hop_rows` is the
+    plain walk's (rows reaching, rows surviving) of each hop."""
+    from datafusion_tpu_torch.device.join_chain import TAB_HASH
+    hop_of = spec.chain.hop_of
+    nbytes = col_bytes(cols, [i for i in spec.pools.columns
+                              if i not in hop_of], n)
+    for h, (hop, (reach, alive)) in enumerate(zip(spec.chain.hops,
+                                                  hop_rows)):
+        t = hop.table
+        nbytes += min(reach, t.size) * (4 + 8 * (t.kind == TAB_HASH))
+        for i in spec.pools.columns:
+            if hop_of.get(i) == h:
+                nbytes += col_bytes(cols, [i],
+                                    min(alive, cols[i][0].shape[0]))
+    return nbytes
+
+
 def bound(nbytes: int, ops: int) -> dict:
     """The least time the card could take: bytes over the HBM rate or ops
     over the float32 rate, whichever is larger."""
@@ -285,13 +318,16 @@ def float_batch(n: int, seed: int):
 
 def tpch_tables(sf: int, seed: int):
     """The TPC-H tables by the rules of the port's `tpch/datagen.py:98-257`,
-    vectorised, with the columns that Q3, Q4, Q5, Q15, Q18 and W1-W3 read:
-    `o_orderkey` is 4i - 3 and `l_orderkey` repeats it 1-7 times (so it is
-    sorted), foreign keys are uniform, `l_suppkey` is one of the 4
-    suppliers of a uniform part, money is Decimal(15,2), dates are Date32,
-    `c_mktsegment`, `o_orderpriority`, `n_name`, `r_name` and
-    `l_returnflag` (`datagen.py:223`, drawn after the other columns) are
-    dictionary strings. Returns {table: Batch}."""
+    vectorised, with the columns that Q2, Q3, Q4, Q5, Q15, Q18, Q20 and
+    W1-W3 read: `o_orderkey` is 4i - 3 and `l_orderkey` repeats it 1-7
+    times (so it is sorted), foreign keys are uniform, `l_suppkey` is one
+    of the 4 suppliers of a uniform `l_partkey` and `ps_suppkey` the
+    supplier of each of a part's 4 `partsupp` rows (`datagen.py:161`,
+    `:213`), money is Decimal(15,2), dates are Date32, `c_mktsegment`,
+    `o_orderpriority`, `n_name`, `r_name`, the supplier's and the part's
+    text columns (`datagen.py:115-150`) and `l_returnflag` (`datagen.py:
+    223`, drawn after the other columns) are dictionary strings. Returns
+    {table: Batch}."""
     import numpy as np
     from datafusion_tpu_torch.common import dt
     from datafusion_tpu_torch.common.column import Column
@@ -310,10 +346,7 @@ def tpch_tables(sf: int, seed: int):
                                    np.arange(25))),
             ("n_regionkey", Column(i64, np.array(
                 [r for _, r in G._NATIONS], np.int64)))]),
-        "supplier": make_batch([
-            ("s_suppkey", Column(i64, np.arange(1, n_supp + 1,
-                                                dtype=np.int64))),
-            ("s_nationkey", Column(i64, rng.integers(0, 25, n_supp)))]),
+        "supplier": supplier_batch(rng, n_supp),
         "customer": make_batch([
             ("c_custkey", Column(i64, np.arange(1, n_cust + 1,
                                                 dtype=np.int64))),
@@ -321,6 +354,8 @@ def tpch_tables(sf: int, seed: int):
             ("c_mktsegment", dict_column(G._SEGMENTS,
                                          rng.integers(0, 5, n_cust)))]),
     }
+    out["part"], out["partsupp"] = part_batches(rng, n_part, n_supp,
+                                                per_part)
     ok = np.arange(1, n_ord + 1, dtype=np.int64) * 4 - 3
     o_date = rng.integers(G._days(1992, 1, 1), G._days(1998, 8, 2) - 151,
                           n_ord).astype(np.int32)
@@ -340,13 +375,14 @@ def tpch_tables(sf: int, seed: int):
     qty = rng.integers(1, 51, n).astype(np.int64)
     price = np.rint(qty * (90000 + (part % 20001) / 10 +
                            100 * (part % 1000))).astype(np.int64)
-    del part, which
+    del which
     ship = (l_odate + rng.integers(1, 122, n)).astype(np.int32)
     commit = (l_odate + rng.integers(30, 91, n)).astype(np.int32)
     receipt = (ship + rng.integers(1, 31, n)).astype(np.int32)
     del l_odate
     out["lineitem"] = make_batch([
         ("l_orderkey", Column(i64, np.repeat(ok, n_lines))),
+        ("l_partkey", Column(i64, part)),
         ("l_suppkey", Column(i64, supp)),
         ("l_quantity", Column(dec2, qty * 100)),
         ("l_extendedprice", Column(dec2, price)),
@@ -358,6 +394,68 @@ def tpch_tables(sf: int, seed: int):
             receipt <= G._days(1995, 6, 17),
             np.where(rng.random(n) < 0.5, 2, 0), 1)))])
     return out
+
+
+def supplier_batch(rng, n_supp: int):
+    """`supplier` by `datagen.py:112-126`: names, addresses, phones and
+    comments numbered by key, a uniform nation, Decimal(15,2) balances."""
+    import numpy as np
+    from datafusion_tpu_torch.common import dt
+    from datafusion_tpu_torch.common.column import Column
+    from datafusion_tpu_torch.tpch import datagen as G
+    sk = np.arange(1, n_supp + 1, dtype=np.int64)
+    nation = rng.integers(0, 25, n_supp)
+    every = np.arange(n_supp)
+
+    def text(values):
+        return dict_column(values, every)
+    return make_batch([
+        ("s_suppkey", Column(dt.INT64, sk)),
+        ("s_name", text(G._numbered("Supplier#", sk, 9))),
+        ("s_address", text(G._numbered("addr", sk, 0))),
+        ("s_nationkey", Column(dt.INT64, nation.astype(np.int64))),
+        ("s_phone", text(G._phones(rng, nation, sk))),
+        ("s_acctbal", Column(dt.decimal(15, 2),
+                             rng.integers(-99_999, 1_000_000, n_supp))),
+        ("s_comment", text(G._numbered("supplier comment ", sk % 1000,
+                                       0)))])
+
+
+def part_batches(rng, n_part: int, n_supp: int, per_part: int):
+    """`part` and `partsupp` by `datagen.py:129-169`: a name of two colours,
+    a manufacturer, a type of three syllables and a size 1-50 for each
+    part; 4 suppliers a part, with an available quantity 1-9999 and a
+    Decimal(15,2) cost 1.00-1000.00."""
+    import numpy as np
+    from datafusion_tpu_torch.common import dt
+    from datafusion_tpu_torch.common.column import Column
+    from datafusion_tpu_torch.tpch import datagen as G
+    pk = np.arange(1, n_part + 1, dtype=np.int64)
+    nc = len(G._COLORS)
+    names = [f"{a} {b}" for a in G._COLORS for b in G._COLORS]
+    types = [f"{a} {b} {c}" for a in G._TYPE_S1 for b in G._TYPE_S2
+             for c in G._TYPE_S3]
+    part = make_batch([
+        ("p_partkey", Column(dt.INT64, pk)),
+        ("p_name", dict_column(names, rng.integers(0, nc, n_part) * nc +
+                               rng.integers(0, nc, n_part))),
+        ("p_mfgr", dict_column([f"Manufacturer#{m}" for m in range(1, 6)],
+                               rng.integers(0, 5, n_part))),
+        ("p_type", dict_column(types, rng.integers(0, len(types), n_part))),
+        ("p_size", Column(dt.INT32, rng.integers(1, 51, n_part)
+                          .astype(np.int32)))])
+    ps_part = np.repeat(pk, per_part)
+    n_ps = len(ps_part)
+    ps_supp = ((ps_part - 1 + (np.arange(n_ps) % per_part) *
+                (n_supp // per_part + 1)) % n_supp) + 1
+    partsupp = make_batch([
+        ("ps_partkey", Column(dt.INT64, ps_part)),
+        ("ps_suppkey", Column(dt.INT64, ps_supp)),
+        ("ps_availqty", Column(dt.INT32, rng.integers(1, 10_000, n_ps)
+                               .astype(np.int32))),
+        ("ps_supplycost", Column(dt.decimal(15, 2),
+                                 rng.integers(100, 100_001, n_ps)))])
+    return part, partsupp
 
 
 def hits(n: int, seed: int = 0):
@@ -424,6 +522,18 @@ def run_path(ctx, sql, expect, card, label, rows, cls=None, reps=REPS):
           f"{rows / (med / 1e3):.1f} rows/s, launches per query "
           f"{per_query}, fallbacks {fallbacks} [{card}]", flush=True)
     return out, launches, med
+
+
+def no_fallbacks(ctx, sql, label):
+    """Fails unless every device exec of the query's plan ran on the card."""
+    def walk(node):
+        yield node
+        for c in node.children():
+            yield from walk(c)
+    fell = [type(n).__name__ for n in walk(ctx.sql(sql).create_physical_plan())
+            if getattr(n, "fallbacks", 0)]
+    if fell:
+        raise AssertionError(f"{label}: {fell} fell back to the host")
 
 
 def breakdown(ctx, sql, card, label, cls=None, main=None, host=None):
@@ -686,15 +796,14 @@ def chain_walk_vs_plain(ex, tctx, card, label):
     """`chain_aggregate` against its plain version on the chain's staged
     builds and spine (equal group tables, compacted and ordered by key;
     every lane of Q3 and Q5 is an exact decimal sum or a count). The bound
-    counts the spine columns read once, then for each hop a table read per
-    row that reaches it and its payload read per row that survives it.
-    Returns the kernel's report entry."""
+    is `walk_bytes` and the live groups written once. Returns the kernel's
+    report entry."""
     import numpy as np
     import torch
     from datafusion_tpu_torch.device.groupby import (
         AggregateSpec, compact_groups_plain, dense_group_table)
     from datafusion_tpu_torch.device.join_chain import (
-        TAB_HASH, chain_aggregate, chain_aggregate_plain)
+        chain_aggregate, chain_aggregate_plain)
     spec, _plan, _names, _slots, inputs, staged = ex.prepare(tctx)
     ((cols, aux, n),) = inputs
     dev = aux.device
@@ -726,14 +835,7 @@ def chain_walk_vs_plain(ex, tctx, card, label):
                                                   scratch, overflow), 2,
                     setup=lambda: scratch.copy_(pristine))
     del scratch, pristine
-    hop_of = spec.chain.hop_of
-    nbytes = col_bytes(cols, [i for i in spec.pools.columns
-                              if i not in hop_of], n)
-    for h, (hop, (reach, alive)) in enumerate(zip(spec.chain.hops,
-                                                  hop_rows)):
-        payload = [i for i in spec.pools.columns if hop_of.get(i) == h]
-        nbytes += reach * (4 + 8 * (hop.table.kind == TAB_HASH)) + \
-            col_bytes(cols, payload, alive)
+    nbytes = walk_bytes(spec, cols, n, hop_rows)
     nbytes += got.shape[1] * got.shape[0] * 8    # live groups written once
     bnd = bound(nbytes, prog_ops(spec, n))
     print(f"chain_aggregate {label}: {n} spine rows, {len(spec.chain.hops)} "
@@ -743,6 +845,81 @@ def chain_walk_vs_plain(ex, tctx, card, label):
           f"{bnd['bound_ms']:.6f} ms ({bnd['bytes']} bytes), max_abs_err 0 "
           f"[{card}]", flush=True)
     return entry(0.0, ms, plain, bnd)
+
+
+def rows_vs_plain(ex, tctx, card, label):
+    """`chain_rows` against its plain version on the row-returning chain
+    `ex`'s staged builds and spine (every output column and its validity
+    equal, in spine order). The bound is `walk_bytes` and the output
+    columns written once. Returns (the kernel's report entry, the rows
+    kept)."""
+    import torch
+    from datafusion_tpu_torch.device.join_chain import (
+        _walk_plain, chain_rows, chain_rows_plain)
+    spec, inputs, _staged = ex.prepare_rows(tctx)
+    ((cols, aux, n, _view),) = inputs
+    got = chain_rows(spec, cols, aux, n)
+    want = chain_rows_plain(spec, cols, aux, n)
+    torch.cuda.synchronize()
+    for i, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
+        if not (torch.equal(gd, wd) and torch.equal(gv, wv)):
+            raise AssertionError(f"{label}: chain_rows output {i} differs "
+                                 f"from its plain version")
+    kept = got[0][0].numel()
+    ms = cuda_ms(lambda: chain_rows(spec, cols, aux, n), 5)
+    plain = cuda_ms(lambda: chain_rows_plain(spec, cols, aux, n), 2)
+    hop_rows = []
+    _walk_plain(spec, cols, aux, n, hop_rows)
+    nbytes = walk_bytes(spec, cols, n, hop_rows)
+    nbytes += sum(kept * (d.element_size() + 1) for d, _v in got)
+    bnd = bound(nbytes, prog_ops(spec, n))
+    print(f"chain_rows {label}: {n} spine rows, {len(spec.chain.hops)} hops, "
+          f"rows reaching/surviving each hop {hop_rows}, {kept} rows kept, "
+          f"{len(got)} output columns: kernel {ms:.6f} ms, plain "
+          f"{plain:.6f} ms, bound {bnd['bound_ms']:.6f} ms ({bnd['bytes']} "
+          f"bytes), max_abs_err 0 [{card}]", flush=True)
+    return entry(0.0, ms, plain, bnd), kept
+
+
+def emit_vs_plain(ctx, sql, card, label):
+    """`group_emit_columns` against its plain version on the compacted
+    group table of the query's large aggregate (every column and its
+    validity equal). The bound counts each row of the table that a field
+    reads once and each output written once. Returns (the kernel's report
+    entry, the groups)."""
+    import torch
+    from datafusion_tpu_torch.device.groupby import (
+        EMIT_SUM, compact_groups, group_emit_columns,
+        group_emit_columns_plain)
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        RESIDENT_EMIT_MIN_GROUPS, TorchGroupAggregateExec)
+    ex = find_exec(ctx.sql(sql).create_physical_plan(),
+                   TorchGroupAggregateExec)
+    batches = ex.input_batches(ctx.task_context())
+    spec, plan, names, slot_map = ex.compile(batches)
+    groups = compact_groups(ex.group_table(spec, batches, True))
+    ng = groups.shape[1]
+    if ng < RESIDENT_EMIT_MIN_GROUPS or not ex._emit_device_ok(plan):
+        raise AssertionError(f"{label}: {ng} groups do not stay on the card")
+    fields = ex.emit_fields(plan, names, slot_map)
+    got = group_emit_columns(groups, fields)
+    want = group_emit_columns_plain(groups, fields)
+    torch.cuda.synchronize()
+    for i, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
+        if not (torch.equal(gd, wd) and (gv is None) == (wv is None) and
+                (gv is None or torch.equal(gv, wv))):
+            raise AssertionError(f"{label}: group_emit column {i} differs")
+    ms = cuda_ms(lambda: group_emit_columns(groups, fields), 10)
+    plain = cuda_ms(lambda: group_emit_columns_plain(groups, fields), 3)
+    rows = {f.row for f in fields} | {f.count_row for f in fields
+                                      if f.kind == EMIT_SUM}
+    nbytes = ng * (8 * len(rows) + sum(
+        d.element_size() + (v is not None) for d, v in got))
+    bnd = bound(nbytes, ng * len(fields))
+    print(f"group_emit {label}: {ng} groups, {len(fields)} columns: kernel "
+          f"{ms:.6f} ms, plain {plain:.6f} ms, bound {bnd['bound_ms']:.6f} "
+          f"ms ({bnd['bytes']} bytes), max_abs_err 0 [{card}]", flush=True)
+    return entry(0.0, ms, plain, bnd), ng
 
 
 def sort_input(ctx, sql):
@@ -1002,6 +1179,79 @@ def oracle_q5(t):
     return sorted(out, key=lambda r: -r[1])
 
 
+def oracle_q2(t):
+    """Q2's 100 rows as {column: values}: EUROPE's suppliers of each part
+    of size 15 and a BRASS type at the part's least EUROPE cost, by
+    balance descending, nation, supplier and part."""
+    import numpy as np
+    supp, nation, region = t["supplier"], t["nation"], t["region"]
+    part, ps = t["part"], t["partsupp"]
+    europe = region.column_by_name("r_name").dictionary.lookup("EUROPE")
+    eu = np.isin(col(nation, "n_regionkey"),
+                 col(region, "r_regionkey")[col(region, "r_name") == europe])
+    s_nat = col(supp, "s_nationkey")
+    ps_p, ps_s = col(ps, "ps_partkey"), col(ps, "ps_suppkey")
+    cost = col(ps, "ps_supplycost")
+    m = eu[s_nat[ps_s - 1]]
+    least = np.full(part.num_rows + 1, np.iinfo(np.int64).max)
+    np.minimum.at(least, ps_p[m], cost[m])
+    types = part.column_by_name("p_type").dictionary.values
+    brass = np.array([str(v).endswith("BRASS") for v in types])
+    p_ok = (col(part, "p_size") == 15) & brass[col(part, "p_type")]
+    sel = np.flatnonzero(m & p_ok[ps_p - 1] & (cost == least[ps_p]))
+    s = ps_s[sel] - 1
+    out = {"s_acctbal": col(supp, "s_acctbal")[s],
+           "s_name": col(supp, "s_name")[s],
+           "n_name": col(nation, "n_name")[s_nat[s]],
+           "p_partkey": ps_p[sel],
+           "p_mfgr": col(part, "p_mfgr")[ps_p[sel] - 1],
+           "s_address": col(supp, "s_address")[s],
+           "s_phone": col(supp, "s_phone")[s],
+           "s_comment": col(supp, "s_comment")[s]}
+    # dictionary codes sort as their strings
+    order = np.lexsort((out["p_partkey"], out["s_name"], out["n_name"],
+                        -out["s_acctbal"]))[:100]
+    owner = {"n_name": nation, "p_mfgr": part, "s_name": supp,
+             "s_address": supp, "s_phone": supp, "s_comment": supp}
+    rows = {}
+    for c, v in out.items():
+        rows[c] = v[order].tolist() if c not in owner else \
+            list(owner[c].column_by_name(c).dictionary.values[v[order]])
+    return rows, len(sel)
+
+
+def oracle_q20(t):
+    """Q20's (s_name, s_address) of CANADA's suppliers that stock a
+    'forest' part above half the quantity they shipped of it in 1994, by
+    name; and the number of (part, supplier) groups shipped in 1994."""
+    import numpy as np
+    supp, nation, part, ps, li = (t[k] for k in (
+        "supplier", "nation", "part", "partsupp", "lineitem"))
+    names = part.column_by_name("p_name").dictionary.values
+    forest = np.r_[False, np.array([str(v).startswith("forest")
+                                    for v in names])[col(part, "p_name")]]
+    ship = col(li, "l_shipdate")
+    m = (ship >= days(1994, 1, 1)) & (ship < days(1995, 1, 1))
+    width = supp.num_rows + 1
+    key = col(li, "l_partkey")[m] * width + col(li, "l_suppkey")[m]
+    uk, inv = np.unique(key, return_inverse=True)
+    qty = np.bincount(inv, weights=col(li, "l_quantity")[m]).astype(np.int64)
+    ps_p, ps_s = col(ps, "ps_partkey"), col(ps, "ps_suppkey")
+    pos = np.minimum(np.searchsorted(uk, ps_p * width + ps_s), len(uk) - 1)
+    # availqty > 0.5 * sum(quantity), the quantity at scale 2
+    ok = (uk[pos] == ps_p * width + ps_s) & forest[ps_p] & \
+        (qty[pos] < 200 * col(ps, "ps_availqty").astype(np.int64))
+    canada = nation.column_by_name("n_name").dictionary.lookup("CANADA")
+    c_key = col(nation, "n_nationkey")[col(nation, "n_name") == canada]
+    s = np.unique(ps_s[ok]) - 1
+    s = s[np.isin(col(supp, "s_nationkey")[s], c_key)]
+    s = s[np.argsort(col(supp, "s_name")[s], kind="stable")]
+    dic = {c: supp.column_by_name(c).dictionary for c in ("s_name",
+                                                        "s_address")}
+    return ({c: list(dic[c].values[col(supp, c)[s]]) for c in dic},
+            len(uk))
+
+
 def main() -> int:
     for blocked in ("jax", "datafusion_tpu", "bench"):
         sys.modules[blocked] = None     # the port stands alone
@@ -1015,8 +1265,10 @@ def main() -> int:
     sys.path.insert(0, root)
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        TorchGroupAggregateExec)
     from datafusion_tpu_torch.physical.plan.device_join_chain import (
-        TorchJoinChainAggregateExec)
+        TorchJoinChainAggregateExec, TorchJoinChainRowsExec)
     from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
 
     card = smi()
@@ -1204,7 +1456,65 @@ def main() -> int:
         raise AssertionError(f"Q5 SF10 disagrees with numpy: {got5} {want5}")
     print(f"Q5 SF10 equals numpy exactly: {got5}", flush=True)
     breakdown(ctx, TPCH[5], card, "Q5 SF10", TorchJoinChainAggregateExec)
-    del tctx, ex, out
+    del ex, out
+    torch.cuda.empty_cache()
+
+    # == TPC-H SF10: row-returning join chains (Q2, Q20) ======================
+    ex2 = find_exec(ctx.sql(TPCH[2]).create_physical_plan(),
+                    TorchJoinChainRowsExec)
+    ex20 = find_exec(ctx.sql(TPCH[20]).create_physical_plan(),
+                     TorchJoinChainRowsExec)
+    if ex2 is None or ex20 is None:
+        raise AssertionError("Q2 or Q20 plans no TorchJoinChainRowsExec")
+    for q, ex in ((2, ex2), (20, ex20)):
+        print(f"Q{q} SF10 plans {ex.display_line()}", flush=True)
+    report["chain_rows"], _kept = rows_vs_plain(ex2, tctx, card, "Q2 SF10")
+    rows_vs_plain(ex20, tctx, card, "Q20 SF10 (inner chain)")
+    report["group_emit"], _ng = emit_vs_plain(ctx, TPCH[20], card,
+                                              "Q20 SF10")
+    del ex2, ex20
+    torch.cuda.empty_cache()
+
+    out, counts, _ = run_path(ctx, TPCH[2], chain + ["compact_groups",
+                                                     "chain_rows"],
+                              card, "Q2 SF10", tables["partsupp"].num_rows,
+                              TorchJoinChainRowsExec)
+    add(counts)
+    no_fallbacks(ctx, TPCH[2], "Q2 SF10")
+    want2, n2 = oracle_q2(tables)
+    got2 = {c: out.column_by_name(c).to_pylist()
+            if out.column_by_name(c).dictionary is not None
+            else col(out, c).tolist() for c in want2}
+    if got2 != want2:
+        raise AssertionError(f"Q2 SF10 disagrees with numpy:\n{got2}\n"
+                             f"{want2}")
+    print(f"Q2 SF10 equals numpy exactly: {n2} rows at their part's least "
+          f"EUROPE cost, the first {len(want2['s_name'])} by balance "
+          f"{want2['s_acctbal'][:3]}... (scale 2)", flush=True)
+    breakdown(ctx, TPCH[2], card, "Q2 SF10", TorchJoinChainRowsExec,
+              main="rows_mark")
+
+    out, counts, _ = run_path(ctx, TPCH[20], [
+        "hash_group_aggregate", "compact_groups", "group_emit",
+        "chain_build", "chain_rows"], card, "Q20 SF10", li.num_rows,
+        TorchJoinChainRowsExec)
+    add(counts)
+    no_fallbacks(ctx, TPCH[20], "Q20 SF10")
+    agg = find_exec(ctx.sql(TPCH[20]).create_physical_plan(),
+                    TorchGroupAggregateExec)
+    if agg.resident_emits < 1:
+        raise AssertionError("Q20 SF10: the aggregate left the card")
+    want20, groups20 = oracle_q20(tables)
+    got20 = {c: out.column_by_name(c).to_pylist() for c in want20}
+    if got20 != want20:
+        raise AssertionError(f"Q20 SF10 disagrees with numpy:\n{got20}\n"
+                             f"{want20}")
+    print(f"Q20 SF10 equals numpy exactly: {len(want20['s_name'])} "
+          f"suppliers; the aggregate's {groups20} groups stayed on the card "
+          f"({agg.resident_emits} resident emits)", flush=True)
+    breakdown(ctx, TPCH[20], card, "Q20 SF10", TorchJoinChainRowsExec,
+              main="rows_mark")
+    del tctx, out, agg
     torch.cuda.empty_cache()
 
     # == TPC-H SF10: window functions (W1, W2, W3) ============================
@@ -1349,7 +1659,8 @@ def main() -> int:
         del batch, words, perm
     for q in (25, 26, 27):
         out, counts, _ = run_path(ctx, CB_SORTS[q], ["radix_sort"], card,
-                                  f"CB Q{q}", HITS_ROWS, SortExec)
+                                  f"CB Q{q}", HITS_ROWS, SortExec,
+                                  reps=SORT_REPS)
         add(counts)
         want = phrases[code[rows[oracle_first(oracle_keys[q])]]].tolist()
         if out.columns[0].to_pylist() != want:

@@ -20,6 +20,15 @@ in a ``DeviceColumnCache`` keyed by the column's never-recycled ``_uid``
 is. Dictionary-coded strings stay int32 codes on the device; the
 dictionary stays on the host. There are no padded copies and no capacity
 buckets: PyTorch has no static shapes.
+
+A *device-born* column is one that a kernel wrote: its data and validity
+are torch tensors on the card and it has no host original (the output of
+the row-returning join chain, and a large group table's resident emit).
+``to_device`` hands its own tensors back with no copy and no cache entry;
+``data_host()`` and ``validity_host()`` make one ``.cpu()`` copy at first
+use and keep it, so host operators that read it many times pay one copy.
+It is the port's counterpart of a JAX-package ``Column`` holding a jax
+array.
 """
 from __future__ import annotations
 
@@ -110,6 +119,7 @@ class Column:
     """One column of a batch. See module docstring for the representation."""
 
     __slots__ = ("dtype", "_data", "_validity", "dictionary",
+                 "_host_cache", "_vhost_cache",
                  "_key_stats", "_uid", "_sorted_cache", "_unique_cache")
 
     _UID_COUNTER = [0]
@@ -211,11 +221,27 @@ class Column:
 
 
     # ---- host arrays ------------------------------------------------------------
+    @property
+    def device_born(self) -> bool:
+        """True when a kernel wrote this column on the card (its data is a
+        torch tensor with no host original)."""
+        return isinstance(self._data, torch.Tensor)
+
     def data_host(self) -> np.ndarray:
-        return self._data
+        if not self.device_born:
+            return self._data
+        host = getattr(self, "_host_cache", None)
+        if host is None:
+            host = self._host_cache = self._data.cpu().numpy()
+        return host
 
     def validity_host(self) -> Optional[np.ndarray]:
-        return self._validity
+        if self._validity is None or not self.device_born:
+            return self._validity
+        host = getattr(self, "_vhost_cache", None)
+        if host is None:
+            host = self._vhost_cache = self._validity.cpu().numpy()
+        return host
 
     # ---- constructors --------------------------------------------------------
     @staticmethod
@@ -299,11 +325,12 @@ class Column:
         codes = self.data_host()
         if len(remap) == 0:
             # all rows are NULL (empty source dictionary): any code is dead
-            return Column(self.dtype, np.zeros_like(codes), self._validity,
-                          new_dict)
+            return Column(self.dtype, np.zeros_like(codes),
+                          self.validity_host(), new_dict)
         # clamp dead codes under NULL rows so the gather stays in range
         codes = np.clip(codes, 0, len(remap) - 1)
-        return Column(self.dtype, remap[codes], self._validity, new_dict)
+        return Column(self.dtype, remap[codes], self.validity_host(),
+                      new_dict)
 
     # ---- host materialization -----------------------------------------------
     def to_pylist(self, n: Optional[int] = None):
@@ -442,7 +469,13 @@ class DeviceColumnCache:
 def to_device(col: Column, device: torch.device,
               cache: Optional[DeviceColumnCache] = None) -> DeviceColumn:
     """The column's (data, validity) on `device`; validity is None when
-    the column has no NULLs. Cached in `cache` when one is given."""
+    the column has no NULLs. Cached in `cache` when one is given. A
+    device-born column on `device` gives its own tensors: no copy, no
+    cache entry."""
+    if isinstance(col, Column) and col.device_born:
+        v = col._validity
+        return (col._data.to(device),
+                None if v is None else v.to(device))
     if cache is not None:
         hit = cache.get(col, device)
         if hit is not None:

@@ -4,8 +4,9 @@ Reference parity: `ConfigOptions` + `config_namespace!`
 (`datafusion/common/src/config.rs:106,638`). Keys mirror the reference's
 names (``datafusion.execution.batch_size`` etc.) so SET / SHOW ALL behave the
 same; the port's own knobs under ``datafusion.tpu.*`` (``device_aggregate``,
-``device_sort_min_rows``, ``device_window_min_rows``) keep the JAX package's
-names so that one SET script drives both.
+``device_join_rows_min_spine``, ``device_sort_min_rows``,
+``device_window_min_rows``) keep the JAX
+package's names so that one SET script drives both.
 """
 from __future__ import annotations
 
@@ -98,6 +99,11 @@ _OPTIONS: List[Tuple[str, Any, type, str]] = [
      "Run filter/project/group-aggregate pipelines and fanout-1 join "
      "chains under them as CUDA kernels on the card (falls back to the "
      "host path per query when unsupported)."),
+    ("datafusion.tpu.device_join_rows_min_spine", 200000, int,
+     "Minimum estimated spine rows before a row-returning join tree "
+     "(no aggregate above) runs as one chain kernel on the card that "
+     "emits the surviving rows as device-born columns "
+     "(TorchJoinChainRowsExec): small joins stay on the host."),
     ("datafusion.tpu.device_sort_min_rows", 1 << 17, int,
      "Row-count threshold at or above which ORDER BY, top-k and window "
      "ordering sorts run as the stable radix sort kernel on the session's "

@@ -29,6 +29,12 @@ output columns (`_apply_post_filter`, `device_aggregate.py:1279`), or the
 slots of a list that `group_topk` chose (`_emit_topk`, `:1127`). One
 `.cpu()` of its `[lanes + 2, ng]` output brings the groups to the host.
 
+Resident emit. `group_emit_columns` turns the live groups of a compacted
+table into typed device columns that never leave the card: each group
+key unpacked from the packed key word, each count, each non-float sum
+with its validity (`_emit_device_resident`, `device_aggregate.py:899`).
+A large group table's consumer (a join build) reads them in place.
+
 Row permutation. `reorder_rows` moves many row-aligned lanes through one
 int64 permutation in one launch of `csrc/gather_lanes.cu`, the counterpart
 of `reorder_rows_packed` (`datafusion_tpu/device/groupby.py:237`) without
@@ -64,6 +70,9 @@ group_topk_kernel = kernels.register(kernels.Kernel(
 gather_lanes_kernel = kernels.register(kernels.Kernel(
     "gather_lanes", "datafusion_tpu_torch/csrc/gather_lanes.cu",
     "datafusion_tpu/device/groupby.py:237"))
+group_emit_kernel = kernels.register(kernels.Kernel(
+    "group_emit", "datafusion_tpu_torch/csrc/group_emit.cu",
+    "datafusion_tpu/physical/plan/device_aggregate.py:899"))
 
 # lane kinds (mirrored in csrc/program.cuh)
 LANE_ROWS = 0        # +1 per row that passed the predicate (count(*))
@@ -758,6 +767,102 @@ def group_topk_plain(table: torch.Tensor, lane_row: int, asc: bool,
     out = torch.full((k,), -1, dtype=torch.int64, device=table.device)
     out[:kk] = live[idx]
     return out
+
+
+# resident emit field kinds (mirrored in csrc/group_emit.cu)
+EMIT_KEY, EMIT_DICT, EMIT_COUNT, EMIT_SUM = range(4)
+MAX_EMIT_FIELDS = 64
+
+
+class EmitField:
+    """One output column of the resident emit, read from a compacted
+    group table `[rows, ng]`:
+    - EMIT_KEY (shift, bits, offset): `raw = (k >> shift) & mask`, the
+      value `raw - 1 + offset` at `dtype`, valid where raw != 0;
+    - EMIT_DICT (shift, bits): the dictionary code `max(raw - 1, 0)`
+      (int32), valid where raw != 0;
+    - EMIT_COUNT (row): the count lane at `row`, int64, no validity;
+    - EMIT_SUM (row, count row): the sum lane at `row`, valid where the
+      count lane at `count_row` is above 0."""
+
+    def __init__(self, kind: int, dtype: torch.dtype, row: int = 0,
+                 shift: int = 0, bits: int = 0, offset: int = 0,
+                 count_row: int = 0):
+        if dtype not in (torch.int32, torch.int64):
+            raise LoweringError(f"resident emit of {dtype}")
+        if kind == EMIT_DICT and dtype != torch.int32:
+            raise ValueError("dictionary codes are int32")
+        self.kind, self.dtype, self.row = kind, dtype, int(row)
+        self.shift, self.bits, self.offset = int(shift), int(bits), int(offset)
+        self.count_row = int(count_row)
+
+    @property
+    def has_validity(self) -> bool:
+        return self.kind != EMIT_COUNT
+
+    def words(self, data: torch.Tensor,
+              valid: Optional[torch.Tensor]) -> List[int]:
+        """The kernel's 8 descriptor words of this field."""
+        aux = self.count_row if self.kind == EMIT_SUM else self.shift
+        return [self.kind, self.row, aux, self.bits, self.offset,
+                _DTYPE_CODE[self.dtype], data.data_ptr(),
+                0 if valid is None else valid.data_ptr()]
+
+
+def group_emit_columns(groups: torch.Tensor, fields: Sequence[EmitField]
+                       ) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """(data, validity or None) of every field over the `ng` groups of a
+    compacted table `groups` (`[rows, ng]`, `compact_groups`' output), on
+    its device.
+
+    On CPU tensors this runs `group_emit_columns_plain`; on CUDA tensors it
+    launches the `group_emit` kernel or raises."""
+    _check_group_table(groups)
+    if len(fields) > MAX_EMIT_FIELDS:
+        raise ValueError(f"{len(fields)} fields > {MAX_EMIT_FIELDS}")
+    for f in fields:
+        if not 0 <= f.row < groups.shape[0] or \
+                not 0 <= f.count_row < groups.shape[0]:
+            raise ValueError("an emit field reads outside the table")
+    if not _cuda(groups):
+        return group_emit_columns_plain(groups, fields)
+    dev, ng = groups.device, groups.shape[1]
+    outs = [(torch.empty(ng, dtype=f.dtype, device=dev),
+             torch.empty(ng, dtype=torch.bool, device=dev)
+             if f.has_validity else None) for f in fields]
+    if ng == 0 or not fields:
+        return outs
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        words = torch.tensor([w for f, (d, v) in zip(fields, outs)
+                              for w in f.words(d, v)],
+                             dtype=torch.int64).to(dev)
+        kernels.check(lib.dft_group_emit(groups.data_ptr(), ng, len(fields),
+                                         words.data_ptr(), _stream(dev)),
+                      group_emit_kernel)
+    group_emit_kernel.launches += 1
+    return outs
+
+
+def group_emit_columns_plain(groups: torch.Tensor,
+                             fields: Sequence[EmitField]
+                             ) -> List[Tuple[torch.Tensor,
+                                             Optional[torch.Tensor]]]:
+    """The plain PyTorch version: shifts, masks and casts over whole rows."""
+    outs = []
+    for f in fields:
+        word = groups[f.row]
+        if f.kind in (EMIT_KEY, EMIT_DICT):
+            # shift + bits <= 62, so the sign bits are masked away
+            raw = (word >> f.shift) & ((1 << f.bits) - 1)
+            data = (raw - 1).clamp(min=0) if f.kind == EMIT_DICT \
+                else raw - 1 + f.offset
+            outs.append((data.to(f.dtype), raw != 0))
+        elif f.kind == EMIT_SUM:
+            outs.append((word.to(f.dtype), groups[f.count_row] > 0))
+        else:
+            outs.append((word.to(f.dtype), None))
+    return outs
 
 
 def reorder_rows(order: torch.Tensor,

@@ -32,6 +32,17 @@ found, so no joined column is materialised. The walk feeds the grouped
 fold of `device/groupby.py` (dense slots or a hash table), whose output
 table `compact_groups` and the host emit take as they are.
 
+The row-returning walk (`chain_rows`, kernel `csrc/chain_rows.cu`).
+Counterpart of `DeviceJoinChainRowsExec`'s mask program (`:2312`, jit
+`:2339`) and emit program (`:2352`, jit `:2377`). The same walk, with no
+fold: a first pass marks the spine rows that survive the probe
+predicate, the hops and the residual, an exclusive scan gives each kept
+row its output slot, the wrapper reads the count (one synchronisation a
+spine batch, as `:2347`), and a second pass re-walks the kept rows and
+writes every output program's value and validity at the row's slot. The
+output is in spine order, as the reference's `searchsorted` compaction
+gives it.
+
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its CUDA kernel on CUDA tensors, or raises.
 """
@@ -43,8 +54,9 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .groupby import (EMPTY, H_OFF_KEYS, AggregateSpec, Columns, HashSpec,
-                      _cuda, _next_pow2, _ProgramSpec, _stream,
+from .groupby import (_DTYPE_CODE, _NP_TO_TORCH, EMPTY, H_OFF_KEYS,
+                      SMEM_BYTES, AggregateSpec, Columns, HashSpec, _cuda,
+                      _next_pow2, _ProgramSpec, _stream,
                       dense_group_aggregate_plain, hash_group_aggregate_plain)
 from .lower import LoweringError, Pools, Program, evaluate
 
@@ -54,6 +66,9 @@ chain_build_kernel = kernels.register(kernels.Kernel(
 chain_aggregate_kernel = kernels.register(kernels.Kernel(
     "chain_aggregate", "datafusion_tpu_torch/csrc/chain_aggregate.cu",
     "datafusion_tpu/physical/plan/device_join_chain.py:1597"))
+chain_rows_kernel = kernels.register(kernels.Kernel(
+    "chain_rows", "datafusion_tpu_torch/csrc/chain_rows.cu",
+    "datafusion_tpu/physical/plan/device_join_chain.py:2312"))
 
 # build table kinds and hop join types (mirrored in csrc/program.cuh)
 TAB_DIRECT, TAB_HASH, TAB_EMPTY = range(3)
@@ -69,6 +84,7 @@ MAX_HOPS = 8
 MAX_HOP_KEYS = 4
 HOP_WORDS = HOP_KEY0 + 4 * MAX_HOP_KEYS    # (prog, lo, hi, shift) per key
 
+SCAN_TILE = 8192          # words a block of csrc/scan.cuh scans
 DIRECT_FILL = 16          # a direct table spans at most 16 x its rows
 DIRECT_MAX = 1 << 26      # and at most 2^26 slots (256 MB of int32)
 
@@ -401,15 +417,21 @@ class ChainHashSpec(_ChainSpec, HashSpec):
 
 def _check_chain(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
                  table: torch.Tensor) -> None:
-    dev = table.device
     if table.dtype != torch.int64 or not table.is_contiguous() or \
             tuple(table.shape) != spec.table_shape:
         raise ValueError(f"table must be a contiguous int64 "
                          f"{list(spec.table_shape)}")
+    _check_pair(spec, cols, aux, n_rows, table.device)
+
+
+def _check_pair(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
+                dev: torch.device) -> None:
+    """The pair-space columns, aux inputs and build tables of a walk all
+    lie on `dev` at the dtypes the programs read."""
     if aux.device != dev or aux.dtype != torch.int64 or \
             not aux.is_contiguous():
         raise ValueError("aux must be a contiguous int64 tensor on the "
-                         "table's device")
+                         "walk's device")
     for hop in spec.chain.hops:
         for t in (hop.table.rows, hop.table.keys):
             if t is not None and t.device != dev:
@@ -467,6 +489,142 @@ def chain_aggregate(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
     return table
 
 
+class ChainRowsSpec(_ChainSpec, _ProgramSpec):
+    """A row-returning walk: the chain (its probe predicate and hops), the
+    residual predicate over the pair space (the descriptor's H_PRED) and
+    one output program per output column. The descriptor's lane section
+    holds the outputs as (program, dtype code of the output column); there
+    are no keys and no fold."""
+
+    def __init__(self, pools: Pools, residual: Optional[Program],
+                 outputs: Sequence[Program], chain: Chain):
+        self._init_chain(chain)
+        outs = []
+        for prog in outputs:
+            dtype = _NP_TO_TORCH.get(prog.out_dtype)
+            if dtype is None:
+                raise LoweringError(f"output of dtype {prog.out_dtype}")
+            outs.append((prog, _DTYPE_CODE[dtype]))
+        super().__init__(pools, residual, [], outs)
+        self.meta = self._layout(0)
+        if len(self.meta) * 8 > SMEM_BYTES:
+            raise LoweringError("join program too large for the kernel")
+
+    @property
+    def outputs(self) -> List[Program]:
+        return [p for p, _code in self.lanes]
+
+    def output_dtypes(self) -> List[torch.dtype]:
+        return [_NP_TO_TORCH[p.out_dtype] for p in self.outputs]
+
+
+def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
+               n_rows: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Walk the chain for the first `n_rows` spine rows and return, for
+    each output program, (data, validity) of the rows that survive, in
+    spine order. `cols` maps pair-space indices to (data, validity):
+    spine columns of the batch, payload columns of whole build batches.
+    Data under a NULL is 0.
+
+    On CPU tensors this runs `chain_rows_plain`; on CUDA tensors it
+    launches the `chain_rows` kernel's two passes or raises: the mark
+    pass with the three launches of its scan (four), then the emit (one)
+    when any row survives. It reads the number of surviving rows back
+    between them: one synchronisation."""
+    dev = aux.device
+    _check_pair(spec, cols, aux, n_rows, dev)
+    if not _cuda(aux):
+        return chain_rows_plain(spec, cols, aux, n_rows)
+    dtypes = spec.output_dtypes()
+    if n_rows == 0:
+        return [(torch.empty(0, dtype=d, device=dev),
+                 torch.empty(0, dtype=torch.bool, device=dev))
+                for d in dtypes]
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        meta_d = spec.device_meta(cols, dev)
+        # pos[i]: 1 where spine row i survives, then its exclusive prefix
+        # sum, the row's output slot; pos[n_rows] ends as the total
+        pos = torch.empty(n_rows + 1, dtype=torch.int64, device=dev)
+        sums = torch.empty(-(-(n_rows + 1) // SCAN_TILE), dtype=torch.int64,
+                           device=dev)
+        kernels.check(lib.dft_chain_rows_mark(
+            meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
+            pos.data_ptr(), sums.data_ptr(), stream), chain_rows_kernel)
+        chain_rows_kernel.launches += 4   # the mark, the scan's three
+        total = int(pos[n_rows].item())
+        outs = [(torch.empty(total, dtype=d, device=dev),
+                 torch.empty(total, dtype=torch.bool, device=dev))
+                for d in dtypes]
+        if total:
+            ptrs = torch.tensor([p for d, v in outs
+                                 for p in (d.data_ptr(), v.data_ptr())],
+                                dtype=torch.int64).to(dev)
+            kernels.check(lib.dft_chain_rows_emit(
+                meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
+                pos.data_ptr(), ptrs.data_ptr(), stream), chain_rows_kernel)
+            chain_rows_kernel.launches += 1
+    return outs
+
+
+def _walk_plain(spec, cols: Columns, aux: torch.Tensor, n: int,
+                hop_rows: Optional[list] = None):
+    """The plain walk: (rows that survive the probe predicate and every
+    hop, the pair space with each payload column gathered at the row its
+    hop found). With `hop_rows`, appends (rows that reach the hop, rows
+    still alive after it) for each hop."""
+    dev = aux.device
+    hop_of = spec.chain.hop_of
+    pair = {i: c for i, c in cols.items() if hop_of.get(i, -1) < 0}
+    rows = torch.ones(n, dtype=torch.bool, device=dev)
+    if spec.chain.ppred is not None:
+        d, v = evaluate(spec.chain.ppred, pair, aux, n)
+        rows &= (d != 0) & v
+    for hop in spec.chain.hops:
+        brow = _lookup_plain(hop, pair, aux, n)
+        found = brow >= 0
+        reach = int(rows.sum()) if hop_rows is not None else 0
+        rows &= ~found if hop.jtype == JT_ANTI else found
+        if hop_rows is not None:
+            hop_rows.append((reach, int(rows.sum())))
+        at = brow.clamp(min=0)
+        for p in hop.payload:
+            if p not in cols:
+                continue
+            data, valid = cols[p]
+            if data.numel() == 0:       # an empty build finds nothing
+                pair[p] = (torch.zeros(n, dtype=data.dtype, device=dev),
+                           torch.zeros(n, dtype=torch.bool, device=dev))
+                continue
+            ok = found if valid is None else found & valid[at]
+            pair[p] = (data[at], ok)
+    return rows, pair
+
+
+def chain_rows_plain(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
+                     n_rows: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The plain PyTorch version: the walk over whole tensors
+    (`_walk_plain`), the residual, then each output program over the pair
+    space, kept by `nonzero` in spine order."""
+    dev = aux.device
+    if n_rows == 0:
+        return [(torch.empty(0, dtype=d, device=dev),
+                 torch.empty(0, dtype=torch.bool, device=dev))
+                for d in spec.output_dtypes()]
+    rows, pair = _walk_plain(spec, cols, aux, n_rows)
+    if spec.pred is not None:
+        d, v = evaluate(spec.pred, pair, aux, n_rows)
+        rows &= (d != 0) & v
+    keep = rows.nonzero().squeeze(1)
+    outs = []
+    for prog, dtype in zip(spec.outputs, spec.output_dtypes()):
+        d, v = evaluate(prog, pair, aux, n_rows)
+        d, v = d[keep], v[keep]
+        outs.append((torch.where(v, d, 0).to(dtype), v))
+    return outs
+
+
 def _lookup_plain(hop: Hop, pair: Columns, aux: torch.Tensor,
                   n: int) -> torch.Tensor:
     """The build row each row finds in `hop`'s table, -1 for none."""
@@ -505,31 +663,7 @@ def chain_aggregate_plain(spec, cols: Columns, aux: torch.Tensor,
     n = n_rows
     if n == 0:
         return table
-    dev = aux.device
-    hop_of = spec.chain.hop_of
-    pair = {i: c for i, c in cols.items() if hop_of.get(i, -1) < 0}
-    rows = torch.ones(n, dtype=torch.bool, device=dev)
-    if spec.chain.ppred is not None:
-        d, v = evaluate(spec.chain.ppred, pair, aux, n)
-        rows &= (d != 0) & v
-    for hop in spec.chain.hops:
-        brow = _lookup_plain(hop, pair, aux, n)
-        found = brow >= 0
-        reach = int(rows.sum()) if hop_rows is not None else 0
-        rows &= ~found if hop.jtype == JT_ANTI else found
-        if hop_rows is not None:
-            hop_rows.append((reach, int(rows.sum())))
-        at = brow.clamp(min=0)
-        for p in hop.payload:
-            if p not in cols:
-                continue
-            data, valid = cols[p]
-            if data.numel() == 0:       # an empty build finds nothing
-                pair[p] = (torch.zeros(n, dtype=data.dtype, device=dev),
-                           torch.zeros(n, dtype=torch.bool, device=dev))
-                continue
-            ok = found if valid is None else found & valid[at]
-            pair[p] = (data[at], ok)
+    rows, pair = _walk_plain(spec, cols, aux, n, hop_rows)
     if isinstance(spec, AggregateSpec):
         return dense_group_aggregate_plain(spec, pair, aux, n, table, rows)
     return hash_group_aggregate_plain(spec, pair, aux, n, table, overflow,

@@ -9,11 +9,13 @@ The host rules are the port's copies of the JAX package's
 flattening of the chain fuser (`:454-893`). The device rules are the
 port's own, in the reference's order (`default_physical_rules`,
 `:1352`): `UseTorchAggregate` in place of `UseDeviceAggregate` (it tries
-the join-chain fusion first, as `:92-100` does), the host rules, then
-`FuseTopKIntoTorchAggregate` and `FuseFilterIntoTorchAggregate`, and last
-`UseTorchSort`, which hands the session's device to the sorts and windows
-(the JAX package reads its one device from module state instead). There is
-no mesh branch, no fanout-N join fusion and no row-returning chain.
+the count-over-LEFT-join rewrite, then the join-chain fusion, as `:88-100`
+does), `UseTorchJoinRows` in place of `UseDeviceJoinRows` (`:985`), the
+host rules, then `FuseTopKIntoTorchAggregate` and
+`FuseFilterIntoTorchAggregate`, and last `UseTorchSort`, which hands the
+session's device to the sorts and windows (the JAX package reads its one
+device from module state instead). There is no mesh branch and no fanout-N
+join fusion.
 """
 from __future__ import annotations
 
@@ -39,10 +41,12 @@ _DEVICE_AGG_NAMES = {"count", "sum", "min", "max", "avg", "mean"}
 
 class UseTorchAggregate:
     """Fuse AggregateExec(Single) with its input into a device exec, under
-    the admission checks of `UseDeviceAggregate` (`:42-61`): a tree of
-    hash joins under the aggregate becomes a TorchJoinChainAggregateExec
-    (`_try_fuse_join_chain`); otherwise the Filter / Projection chain
-    fuses into a TorchGroupAggregateExec."""
+    the admission checks of `UseDeviceAggregate` (`:42-61`): counts over a
+    LEFT join grouped by its left key become a LeftCountZeroFillExec over
+    a TorchGroupAggregateExec of the right side (`_try_fuse_left_count`);
+    a tree of hash joins under the aggregate becomes a
+    TorchJoinChainAggregateExec (`_try_fuse_join_chain`); otherwise the
+    Filter / Projection chain fuses into a TorchGroupAggregateExec."""
     name = "use_torch_aggregate"
 
     def __init__(self, config, device: torch.device,
@@ -78,6 +82,10 @@ class UseTorchAggregate:
             if unwrapped is None:
                 return node
             source, predicate, groups, aggs = unwrapped
+            fused = _try_fuse_left_count(node, source, predicate, groups,
+                                         aggs, self.device, self.cache)
+            if fused is not None:
+                return fused
             fused = _try_fuse_join_chain(node, source, predicate, groups,
                                          aggs, self.device, self.cache)
             if fused is not None:
@@ -86,6 +94,72 @@ class UseTorchAggregate:
                 source, predicate, groups, aggs, node.schema(),
                 fallback=node, device=self.device, cache=self.cache)
         return plan.transform_up(f)
+
+
+def _try_fuse_left_count(agg_node, source, predicate, groups, aggs,
+                         device: torch.device,
+                         cache: Optional[DeviceColumnCache] = None):
+    """The count-over-LEFT-join rewrite (TPC-H Q13; `:104-184`): an
+    aggregate that groups a LEFT equi join by its left key and only counts
+    non-null right columns gets nothing from the join but a zero row for
+    each unmatched left key. So the count runs as a device aggregate of
+    the right side grouped by its join key, and LeftCountZeroFillExec
+    fills in the unmatched left keys with 0. None when the shape differs."""
+    from .plan.aggregate import LeftCountZeroFillExec, PhysAggregateExpr
+    from .plan.joins import HashJoinExec
+
+    j = source
+    if not isinstance(j, HashJoinExec) or j.join_type != "LEFT" or \
+            predicate is not None or len(j.on) != 1 or len(groups) != 1:
+        return None
+    lk, rk = j.on[0]
+    if not isinstance(lk, ColumnExpr) or not isinstance(rk, ColumnExpr) \
+            or not lk.out_type.is_integer or not rk.out_type.is_integer:
+        return None
+    n_left = len(j.left.schema())
+    g0, gname = groups[0]
+    if not isinstance(g0, ColumnExpr) or g0.index != lk.index:
+        return None
+    for a in aggs:
+        if a.name != "count" or a.distinct or a.filter is not None or \
+                a.count_star or len(a.args) != 1:
+            return None
+        arg = a.args[0]
+        if not isinstance(arg, ColumnExpr) or arg.index < n_left:
+            return None
+    right_schema = j.right.schema()
+
+    def rebase(e):
+        return ColumnExpr(e.index - n_left,
+                          right_schema.field(e.index - n_left).name,
+                          e.out_type)
+
+    # rk indexes the right schema already (join `on` pairs are per side)
+    groups_r = [(ColumnExpr(rk.index, rk.name, rk.out_type), gname)]
+    aggs_r = [PhysAggregateExpr(a.name, [rebase(a.args[0])], a.out_type,
+                                a.display, distinct=False, filter=None,
+                                count_star=False)
+              for a in aggs]
+    pred_r = None
+    if j.filter is not None:
+        refs = set()
+        _collect_cols(j.filter, refs)
+        if any(r < n_left for r in refs):
+            return None   # the filter reads left columns
+        repl = [None] * n_left + [ColumnExpr(i, f.name, f.dtype)
+                                  for i, f in enumerate(right_schema)]
+        try:
+            pred_r = rewrite_columns(j.filter, repl)
+        except Exception:  # noqa: BLE001
+            return None
+    host_src = FilterExec(pred_r, j.right) if pred_r is not None \
+        else j.right
+    host_agg = AggregateExec(AggregateMode.SINGLE, groups_r, aggs_r,
+                             host_src)
+    dev = TorchGroupAggregateExec(j.right, pred_r, groups_r, aggs_r,
+                                  host_agg.schema(), fallback=host_agg,
+                                  device=device, cache=cache)
+    return LeftCountZeroFillExec(dev, j.left, lk, agg_node.schema())
 
 
 def _unwrap_chain(agg: AggregateExec):
@@ -579,57 +653,29 @@ def _flatten_and_order(source, min_spine_rows=0):
 
 
 
-def _try_fuse_join_chain(agg_node, source, predicate, groups, aggs,
-                         device: torch.device,
-                         cache: Optional[DeviceColumnCache] = None):
-    """When the aggregate sits on a tree of >= 2 INNER hash joins (plus
-    optional SEMI/ANTI), fuse the whole thing into one
-    TorchJoinChainAggregateExec: the largest relation becomes the probe
-    spine, every other relation a unique-key build table joined by
-    searchsorted, chain order re-derived from the equi-predicate graph
-    (join-order repair included — a build is only ever joined through
-    keys already available, so many-to-many dimension pairings become
-    residual masks instead of materialized intermediates)."""
+def _pair_chain(parts, exprs):
+    """The chain of `_flatten_and_order`'s `parts` over the pair space:
+    the spine's source columns, then each INNER build's payload columns in
+    chain order, a payload being every build column that `exprs` (the
+    exec's own global-space expressions: group keys and aggregate
+    arguments, or outputs), a residual, a SEMI key or a probe key reads.
+    Returns (the builds, the predicate over the pair space that ANDs
+    `extra` and the residuals, a rewrite of a global-space expression into
+    the pair space). Raises _Bail, or the rewrite's error, where an
+    expression does not map."""
     from ..common import dt
     from ..expr.operator import Op
-    from .expressions import BinaryPhysExpr, ColumnExpr
-    from .plan.aggregate import PhysAggregateExpr
-    from .plan.device_join_chain import ChainBuild, TorchJoinChainAggregateExec
+    from .expressions import BinaryPhysExpr
+    from .plan.device_join_chain import ChainBuild
 
-    parts = _flatten_and_order(source)
-    if parts is None:
-        return None
-    leaves = parts["leaves"]; gfields = parts["gfields"]
-    out = parts["out"]; residuals = parts["residuals"]
-    semis = parts["semis"]; widths = parts["widths"]
-    goffs = parts["goffs"]; total_g = parts["total_g"]
-    spine_src = parts["spine_src"]; spine_pred = parts["spine_pred"]
-    spine_exprs = parts["spine_exprs"]; order = parts["order"]
-    residual_equis = parts["residual_equis"]; spine_i = parts["spine_i"]
-
-    # ---- rewrite everything to the global space ------------------------
-    try:
-        groups_g = [(rewrite_columns(e, out), n) for e, n in groups]
-        aggs_g = [PhysAggregateExpr(
-            a.name, [rewrite_columns(x, out) for x in a.args],
-            a.out_type, a.display, a.distinct, None, a.count_star)
-            for a in aggs]
-        pred_g = rewrite_columns(predicate, out) \
-            if predicate is not None else None
-    except Exception:  # noqa: BLE001
-        return None
-    res_exprs = list(residuals) + [
-        BinaryPhysExpr(a, Op.EQ, b, dt.BOOL) for a, b in residual_equis]
-
+    leaves, gfields = parts["leaves"], parts["gfields"]
+    widths, goffs, order = parts["widths"], parts["goffs"], parts["order"]
+    spine_i, semis = parts["spine_i"], parts["semis"]
+    res_exprs = list(parts["residuals"]) + [
+        BinaryPhysExpr(a, Op.EQ, b, dt.BOOL)
+        for a, b in parts["residual_equis"]]
     needed = set()
-    for e, _n in groups_g:
-        _collect_cols(e, needed)
-    for a in aggs_g:
-        for x in a.args:
-            _collect_cols(x, needed)
-    if pred_g is not None:
-        _collect_cols(pred_g, needed)
-    for e in res_exprs:
+    for e in list(exprs) + res_exprs:
         _collect_cols(e, needed)
     for ks, _p, _rk, _anti, sf in semis:
         for k in ks:
@@ -640,11 +686,10 @@ def _try_fuse_join_chain(agg_node, source, predicate, groups, aggs,
         for pa, _pb in keys:
             _collect_cols(pa, needed)
 
-    # pair space: spine SOURCE columns, then build payloads in chain order
-    repl_global: List[Optional[PhysicalExpr]] = [None] * total_g
+    repl_global: List[Optional[PhysicalExpr]] = [None] * parts["total_g"]
     for j in range(widths[spine_i]):
-        repl_global[goffs[spine_i] + j] = spine_exprs[j]
-    pair_pos = len(spine_src.schema())
+        repl_global[goffs[spine_i] + j] = parts["spine_exprs"][j]
+    pair_pos = len(parts["spine_src"].schema())
     payloads = {}
     for pick, _keys in order:
         local = sorted(g - goffs[pick] for g in needed
@@ -663,25 +708,56 @@ def _try_fuse_join_chain(agg_node, source, predicate, groups, aggs,
             raise _Bail()    # invariant: `needed` covers every reference
         return rewrite_columns(e, repl_global)
 
-    try:
-        chain = []
-        for pick, keys in order:
-            chain.append(ChainBuild(
-                leaves[pick],
-                [to_pair(pa) for pa, _ in keys],
-                [pb for _, pb in keys],
-                payloads[pick], "INNER"))
-        for ks, p, rk, anti, sf in semis:
-            chain.append(ChainBuild(
-                p, [to_pair(k) for k in ks], rk, [],
-                "LEFTANTI" if anti else "LEFTSEMI",
-                sfilter=None if sf is None else
-                (sf[0], sf[1], to_pair(sf[2]))))
-        final_pred = None
-        for e in ([pred_g] if pred_g is not None else []) + res_exprs:
+    chain = [ChainBuild(leaves[pick], [to_pair(pa) for pa, _ in keys],
+                        [pb for _, pb in keys], payloads[pick], "INNER")
+             for pick, keys in order]
+    for ks, p, rk, anti, sf in semis:
+        chain.append(ChainBuild(
+            p, [to_pair(k) for k in ks], rk, [],
+            "LEFTANTI" if anti else "LEFTSEMI",
+            sfilter=None if sf is None else (sf[0], sf[1], to_pair(sf[2]))))
+
+    def conjoin(extra):
+        pred = None
+        for e in list(extra) + res_exprs:
             pe = to_pair(e)
-            final_pred = pe if final_pred is None else \
-                BinaryPhysExpr(final_pred, Op.AND, pe, dt.BOOL)
+            pred = pe if pred is None else \
+                BinaryPhysExpr(pred, Op.AND, pe, dt.BOOL)
+        return pred
+    return chain, conjoin, to_pair
+
+
+def _try_fuse_join_chain(agg_node, source, predicate, groups, aggs,
+                         device: torch.device,
+                         cache: Optional[DeviceColumnCache] = None):
+    """When the aggregate sits on a tree of >= 2 INNER hash joins (plus
+    optional SEMI/ANTI), fuse the whole thing into one
+    TorchJoinChainAggregateExec: the largest relation becomes the probe
+    spine, every other relation a unique-key build table joined by
+    searchsorted, chain order re-derived from the equi-predicate graph
+    (join-order repair included — a build is only ever joined through
+    keys already available, so many-to-many dimension pairings become
+    residual masks instead of materialized intermediates)."""
+    from .plan.aggregate import PhysAggregateExpr
+    from .plan.device_join_chain import TorchJoinChainAggregateExec
+
+    parts = _flatten_and_order(source)
+    if parts is None:
+        return None
+    out = parts["out"]
+    try:
+        # everything to the global space, then to the pair space
+        groups_g = [(rewrite_columns(e, out), n) for e, n in groups]
+        aggs_g = [PhysAggregateExpr(
+            a.name, [rewrite_columns(x, out) for x in a.args],
+            a.out_type, a.display, a.distinct, None, a.count_star)
+            for a in aggs]
+        pred_g = [rewrite_columns(predicate, out)] \
+            if predicate is not None else []
+        chain, conjoin, to_pair = _pair_chain(
+            parts, [e for e, _n in groups_g] +
+            [x for a in aggs_g for x in a.args] + pred_g)
+        final_pred = conjoin(pred_g)
         groups_p = [(to_pair(e), n) for e, n in groups_g]
         aggs_p = [PhysAggregateExpr(
             a.name, [to_pair(x) for x in a.args],
@@ -690,8 +766,69 @@ def _try_fuse_join_chain(agg_node, source, predicate, groups, aggs,
     except (_Bail, Exception):  # noqa: BLE001
         return None
     return TorchJoinChainAggregateExec(
-        spine_src, spine_pred, chain, final_pred, groups_p, aggs_p,
-        agg_node.schema(), fallback=agg_node, device=device, cache=cache)
+        parts["spine_src"], parts["spine_pred"], chain, final_pred, groups_p,
+        aggs_p, agg_node.schema(), fallback=agg_node, device=device,
+        cache=cache)
+
+
+def _try_fuse_join_rows(node, min_spine_rows: int, device: torch.device,
+                        cache: Optional[DeviceColumnCache] = None):
+    """A join tree whose output is read as rows (by a sort, a limit, a
+    projection or another join; no aggregate above it) as one
+    TorchJoinChainRowsExec that returns the surviving rows as device-born
+    columns (`_try_fuse_join_rows`, `:894-982`). Only when the spine is
+    estimated at `min_spine_rows` rows or more: smaller joins stay on the
+    host."""
+    from .plan.device_join_chain import TorchJoinChainRowsExec
+
+    parts = _flatten_and_order(node, min_spine_rows=min_spine_rows)
+    if parts is None:
+        return None
+    try:
+        chain, conjoin, to_pair = _pair_chain(parts, parts["out"])
+        final_pred = conjoin([])
+        out_p = [to_pair(e) for e in parts["out"]]
+    except (_Bail, Exception):  # noqa: BLE001
+        return None
+    return TorchJoinChainRowsExec(
+        parts["spine_src"], parts["spine_pred"], chain, final_pred, out_p,
+        node.schema(), fallback=node, device=device, cache=cache)
+
+
+class UseTorchJoinRows:
+    """Fuse row-returning join trees (no aggregate above them) into
+    TorchJoinChainRowsExec (`UseDeviceJoinRows`, `:985-1031`). Runs after
+    UseTorchAggregate, so trees under an aggregate are fused already;
+    walks top-down so the largest tree fuses whole, then recurses into the
+    fused exec's build sources (a SEMI member that is itself a join tree
+    gets its own exec: TPC-H Q20)."""
+    name = "use_torch_join_rows"
+
+    def __init__(self, config, device: torch.device,
+                 cache: Optional[DeviceColumnCache] = None):
+        self.config = config
+        self.device = device
+        self.cache = cache
+
+    def rewrite(self, plan: ExecutionPlan) -> ExecutionPlan:
+        min_rows = int(self.config.get(
+            "datafusion.tpu.device_join_rows_min_spine"))
+
+        def walk(node):
+            if _reaches_join(node):
+                fused = _try_fuse_join_rows(node, min_rows, self.device,
+                                            self.cache)
+                if fused is not None:
+                    node = fused
+            kids = node.children()
+            if not kids:
+                return node
+            new_kids = [walk(c) for c in kids]
+            if all(a is b for a, b in zip(kids, new_kids)):
+                return node
+            return node.with_children(new_kids)
+
+        return walk(plan)
 
 
 class RemoveRedundantSort:
@@ -999,6 +1136,7 @@ def optimize_physical(plan: ExecutionPlan, config, device: torch.device,
                       cache: Optional[DeviceColumnCache] = None
                       ) -> ExecutionPlan:
     for rule in (UseTorchAggregate(config, device, cache),
+                 UseTorchJoinRows(config, device, cache),
                  RemoveRedundantSort(config), UseSymmetricHashJoin(config),
                  RepartitionFileScans(config),
                  FuseTopKIntoTorchAggregate(config),

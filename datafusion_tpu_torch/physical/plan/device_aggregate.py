@@ -20,7 +20,13 @@ Two routes, by the packed key space:
 Then `compact_groups` keeps the live groups (those that pass the fused
 HAVING, `post_filter`), or `group_topk` picks the fused `ORDER BY count
 LIMIT k` (`topk`) and `compact_groups` gathers those slots. One `.cpu()`
-of the compacted table feeds `_emit_arrays`.
+of the compacted table feeds `_emit_arrays`. A table of at least
+RESIDENT_EMIT_MIN_GROUPS live groups with no HAVING and no top-k, whose
+keys are integers or dictionary codes and whose aggregates are counts and
+non-float sums (`_emit_device_ok`, the reference's gate at `:859-897`),
+stays on the card instead: `group_emit_columns` writes its output columns
+there as device-born columns (`_emit_device_resident`, `:899`), which a
+consumer reads through `to_device` with no copy, or `data_host()` once.
 
 Shapes outside this slice raise `DeviceLoweringUnsupported` and run
 `self.fallback`, the host `AggregateExec`, as the reference does for SQL
@@ -40,10 +46,11 @@ from ...common.batch import Batch
 from ...common.column import Column, DeviceColumnCache, to_device
 from ...common.datatypes import TypeId
 from ...device.groupby import (
-    FIN_AVG, FIN_COUNT, FIN_KEY, FIN_MAX, FIN_MIN, FIN_SUM, MAX_GROUPS,
-    AggregateSpec, Finaliser, HashSpec, HavingSpec, compact_groups,
-    dense_group_aggregate, dense_group_table, group_topk,
-    hash_group_aggregate, lane_kind)
+    _NP_TO_TORCH, EMIT_COUNT, EMIT_DICT, EMIT_KEY, EMIT_SUM, FIN_AVG,
+    FIN_COUNT, FIN_KEY, FIN_MAX, FIN_MIN, FIN_SUM, MAX_GROUPS,
+    AggregateSpec, EmitField, Finaliser, HashSpec, HavingSpec,
+    compact_groups, dense_group_aggregate, dense_group_table,
+    group_emit_columns, group_topk, hash_group_aggregate, lane_kind)
 from ...device.lower import (LoweringError, Pools, check_having,
                              compile_expr)
 from ...runtime import BaselineMetrics, TaskContext
@@ -51,6 +58,10 @@ from ..expressions import PhysicalExpr
 from .base import ExecutionPlan, Partitioning, execute_stream
 
 _AGGS = {"count", "sum", "min", "max", "avg", "mean"}
+
+# a group table of at least this many live groups stays on the card
+# (`device_aggregate.py:859`)
+RESIDENT_EMIT_MIN_GROUPS = 1 << 18
 
 
 def _fold_inputs(keys, plan, slot_defs):
@@ -83,39 +94,17 @@ class _PackPlan:
         self.key_dicts = key_dicts
 
 
-class TorchAggregate(ExecutionPlan):
-    """The host halves of a device aggregate, the port's copy of
-    `DeviceGroupAggregateExec`'s numpy code. Subclasses implement
-    `_execute_device`; `execute` runs `self.fallback` when it raises
-    DeviceLoweringUnsupported."""
-
-    post_filter: Optional[PhysicalExpr] = None
+class TorchDeviceExec(ExecutionPlan):
+    """What every exec of the port that runs on the card shares: one
+    output partition, deferred-scalar binding, and its input columns
+    staged on the device (cached across queries when they come from a
+    table scan)."""
 
     def schema(self):
         return self._schema
 
     def output_partitioning(self):
         return Partitioning.unknown(1)
-
-    # ------------------------------------------------------------------
-    def execute(self, partition: int, ctx: TaskContext):
-        self._attach_deferred_ctx(ctx)
-        key = self._subtree_key(partition)
-        cache = getattr(ctx, "subtree_cache", None)
-        if cache is not None and key is not None and key in cache:
-            out = cache[key]
-            if out is not None:
-                yield out
-            return
-        try:
-            out = self._execute_device(partition, ctx)
-        except DeviceLoweringUnsupported:
-            yield from self.fallback.execute(partition, ctx)
-            return
-        if cache is not None and key is not None:
-            cache[key] = out
-        if out is not None:
-            yield out
 
     def _attach_deferred_ctx(self, ctx):
         """Hand the query's TaskContext to every DeferredScalarExpr in
@@ -148,6 +137,70 @@ class TorchAggregate(ExecutionPlan):
             if b.sfilter is not None:
                 out.append(b.sfilter[2])
         return out
+
+    def _source_is_scan(self) -> bool:
+        """True when the exec's input descends through stateless
+        wrappers to table scans (whose columns cache their device copy
+        across queries); joins/windows/etc. produce fresh batches."""
+        from .projection import (CoalescePartitionsExec, FilterExec,
+                                 GlobalLimitExec, ProjectionExec)
+        from .scan import MemoryExec
+
+        def walk(node):
+            if isinstance(node, MemoryExec):
+                return True
+            if isinstance(node, (FilterExec, ProjectionExec,
+                                 GlobalLimitExec, CoalescePartitionsExec)):
+                return all(walk(c) for c in node.children())
+            t = getattr(node, "table", None)
+            return t is not None
+
+        return walk(self.source)
+
+    def _to_device(self, spec, columns: Dict[int, Column], cache: bool):
+        """{index: (data, validity)} on the device of the columns
+        `columns` gives by program column index, each at the dtype the
+        programs read; cached across queries when `cache`."""
+        cols = {}
+        for idx, c in columns.items():
+            try:
+                data, valid = to_device(c, self.device,
+                                        self.cache if cache else None)
+            except TypeError as e:
+                raise DeviceLoweringUnsupported(str(e))
+            if data.dtype != spec.column_dtype(idx):
+                raise DeviceLoweringUnsupported(
+                    f"column {idx} stored as {data.dtype}")
+            cols[idx] = (data, valid)
+        return cols
+
+
+class TorchAggregate(TorchDeviceExec):
+    """The host halves of a device aggregate, the port's copy of
+    `DeviceGroupAggregateExec`'s numpy code. Subclasses implement
+    `_execute_device`; `execute` runs `self.fallback` when it raises
+    DeviceLoweringUnsupported."""
+
+    post_filter: Optional[PhysicalExpr] = None
+
+    def execute(self, partition: int, ctx: TaskContext):
+        self._attach_deferred_ctx(ctx)
+        key = self._subtree_key(partition)
+        cache = getattr(ctx, "subtree_cache", None)
+        if cache is not None and key is not None and key in cache:
+            out = cache[key]
+            if out is not None:
+                yield out
+            return
+        try:
+            out = self._execute_device(partition, ctx)
+        except DeviceLoweringUnsupported:
+            yield from self.fallback.execute(partition, ctx)
+            return
+        if cache is not None and key is not None:
+            cache[key] = out
+        if out is not None:
+            yield out
 
     def _subtree_key(self, partition: int):
         """Structural identity of this subtree + leaf source identities —
@@ -185,25 +238,6 @@ class TorchAggregate(ExecutionPlan):
                     self.display_indent(), sig, tuple(tables))
         except Exception:  # noqa: BLE001
             return None
-
-    def _source_is_scan(self) -> bool:
-        """True when the aggregate's input descends through stateless
-        wrappers to table scans (whose columns cache their device copy
-        across queries); joins/windows/etc. produce fresh batches."""
-        from .projection import (CoalescePartitionsExec, FilterExec,
-                                 GlobalLimitExec, ProjectionExec)
-        from .scan import MemoryExec
-
-        def walk(node):
-            if isinstance(node, MemoryExec):
-                return True
-            if isinstance(node, (FilterExec, ProjectionExec,
-                                 GlobalLimitExec, CoalescePartitionsExec)):
-                return all(walk(c) for c in node.children())
-            t = getattr(node, "table", None)
-            return t is not None
-
-        return walk(self.source)
 
     # ---- shared by the port's device execs ---------------------------------
     def _compile_slots(self, pools: Pools):
@@ -249,23 +283,6 @@ class TorchAggregate(ExecutionPlan):
                     m["nn"] = slot("nancnt", a, "#nn")
             slot_map[a.display] = m
         return slot_defs, slot_map
-
-    def _to_device(self, spec, columns: Dict[int, Column], cache: bool):
-        """{index: (data, validity)} on the device of the columns
-        `columns` gives by program column index, each at the dtype the
-        programs read; cached across queries when `cache`."""
-        cols = {}
-        for idx, c in columns.items():
-            try:
-                data, valid = to_device(c, self.device,
-                                        self.cache if cache else None)
-            except TypeError as e:
-                raise DeviceLoweringUnsupported(str(e))
-            if data.dtype != spec.column_dtype(idx):
-                raise DeviceLoweringUnsupported(
-                    f"column {idx} stored as {data.dtype}")
-            cols[idx] = (data, valid)
-        return cols
 
     def _fetch_groups(self, table, having=None, slots=None) -> np.ndarray:
         """The live groups of a `[lanes + 2, slots]` table (those that pass
@@ -564,6 +581,7 @@ class TorchGroupAggregateExec(TorchAggregate):
         self.device = device
         self.cache = cache
         self.fallbacks = 0
+        self.resident_emits = 0   # runs whose output stayed on the card
 
     def children(self):
         return [self.source]
@@ -690,9 +708,77 @@ class TorchGroupAggregateExec(TorchAggregate):
                 lane, asc, k = pick
                 with record_function("dft.topk"):
                     slots = group_topk(table, 2 + names.index(lane), asc, k)
-            host = self._fetch_groups(table, having, slots)
+            with record_function("dft.compact"):
+                groups = compact_groups(table, having, slots)
             del table   # a hash table can take gigabytes: free it now
+            if having is None and slots is None and \
+                    groups.shape[1] >= RESIDENT_EMIT_MIN_GROUPS and \
+                    self._emit_device_ok(plan):
+                with record_function("dft.emit"):
+                    return self._emit_resident(groups, plan, names,
+                                               slot_map, m)
+            with record_function("dft.d2h"):
+                host = groups.cpu().numpy()
         return self._emit_groups(host, spec, plan, names, slot_map, m)
+
+    def _emit_device_ok(self, plan) -> bool:
+        """The resident emit's shapes (`_emit_device_ok`, `:884-897`):
+        integer, decimal, temporal or dictionary keys, count and non-float
+        sum aggregates, all stored in int32 or int64 lanes."""
+        def lane(t):
+            try:
+                return np.dtype(t.device_dtype()) in (np.int32, np.int64)
+            except NotImplementedError:
+                return False
+        if not all(lane(t) and not t.is_boolean and not t.is_float
+                   for t in plan.key_types):
+            return False
+        for a in self.aggs:
+            if a.name == "count" and not a.distinct:
+                continue
+            if a.name == "sum" and not a.out_type.is_float and \
+                    np.dtype(a.out_type.device_dtype()) == np.int64:
+                continue
+            return False
+        return True
+
+    def _emit_resident(self, groups, plan, names, slot_map, m) -> Batch:
+        """The output batch of the compacted `groups` as device-born
+        columns (`_emit_device_resident`, `:899-963`)."""
+        outs = group_emit_columns(groups,
+                                  self.emit_fields(plan, names, slot_map))
+        types = list(plan.key_types) + \
+            [dt.INT64 if a.name == "count" else a.out_type for a in self.aggs]
+        dicts = list(plan.key_dicts) + [None] * len(self.aggs)
+        cols = [Column(t, d, v, dic)
+                for t, (d, v), dic in zip(types, outs, dicts)]
+        ng = groups.shape[1]
+        self.resident_emits += 1
+        m.record_output(ng)
+        return Batch(self._schema, cols, ng)
+
+    def emit_fields(self, plan, names, slot_map) -> List[EmitField]:
+        """The resident emit's output columns, in schema order: each group
+        key unpacked from row 0, each count and sum from its lane row."""
+        fields, shift = [], 0
+        for t, bits, offset in zip(plan.key_types, plan.bits, plan.offsets):
+            if t.is_dict_coded:
+                fields.append(EmitField(EMIT_DICT, torch.int32, 0, shift,
+                                        bits))
+            else:
+                fields.append(EmitField(
+                    EMIT_KEY, _NP_TO_TORCH[np.dtype(t.device_dtype())], 0,
+                    shift, bits, offset))
+            shift += bits
+        row = {n: 2 + i for i, n in enumerate(names)}
+        for a in self.aggs:
+            s = slot_map[a.display]
+            if a.name == "count":
+                fields.append(EmitField(EMIT_COUNT, torch.int64, row[s["c"]]))
+            else:
+                fields.append(EmitField(EMIT_SUM, torch.int64, row[s["s"]],
+                                        count_row=row[s["c"]]))
+        return fields
 
     def display_line(self):
         gb = ", ".join(n for _, n in self.group_exprs)

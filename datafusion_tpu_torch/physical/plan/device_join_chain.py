@@ -23,6 +23,16 @@ DISTINCT, the SEMI min/max filter (`_mmx_exists` `:1325`, TPC-H Q21), an
 INNER build with a duplicate key (fanout > 1), string or float join keys
 (`:350-354`) and more than 8 hops. Each fallback adds one to
 `self.fallbacks`.
+
+TorchJoinChainRowsExec is the row-returning sibling
+(`DeviceJoinChainRowsExec`, `:2142-2397`), planned by `UseTorchJoinRows`
+for a join tree with no aggregate above it. Both extend TorchChainExec,
+which holds what they share: the builds and their staging, and the pair
+space. In the rows exec one `chain_rows` call per spine batch returns
+the surviving rows' output columns, which leave as device-born columns (one `Batch` a
+spine batch that keeps any row). A build side whose columns are
+device-born (a large aggregate's resident emit, TPC-H Q20) stages from
+them with no host round trip.
 """
 from __future__ import annotations
 
@@ -31,17 +41,19 @@ from typing import List, Optional
 import torch
 from torch.profiler import record_function
 
-from ...common.column import DeviceColumnCache
+from ...common.batch import Batch
+from ...common.column import Column, DeviceColumnCache
 from ...device.groupby import AggregateSpec, dense_group_table
-from ...device.join_chain import (ChainDenseSpec, ChainHashSpec, Chain,
-                                  BuildSpec, Hop, chain_aggregate,
-                                  chain_build)
-from ...device.lower import LoweringError, Pools, compile_expr
+from ...device.join_chain import (ChainDenseSpec, ChainHashSpec,
+                                  ChainRowsSpec, Chain, BuildSpec, Hop,
+                                  chain_aggregate, chain_build, chain_rows)
+from ...device.lower import (OP_COL, OP_NULL, LoweringError, Pools,
+                             compile_expr)
 from ...runtime import BaselineMetrics, TaskContext
 from ..expressions import ColumnExpr, PhysicalExpr
 from .base import ExecutionPlan, collect_batch, execute_stream
 from .device_aggregate import (DeviceLoweringUnsupported, GroupTableOverflow,
-                               TorchAggregate, _fold_inputs)
+                               TorchAggregate, TorchDeviceExec, _fold_inputs)
 from .scan import MemoryExec
 
 
@@ -104,26 +116,26 @@ class _BuildInput:
         self.table = None
 
 
-class TorchJoinChainAggregateExec(TorchAggregate):
+class TorchChainExec(TorchDeviceExec):
+    """The chain layer both chain execs share: the spine source and its
+    probe predicate, the builds and the residual; the builds staged on
+    the card (`chain_build`), the pair space of a spine batch and its
+    columns staged on the card. Subclasses implement `_execute_port`; a
+    DeviceLoweringUnsupported from it adds one to `fallbacks`."""
 
     def __init__(self, probe_source: ExecutionPlan,
                  probe_predicate: Optional[PhysicalExpr],
                  builds: List[ChainBuild],
-                 predicate: Optional[PhysicalExpr],
-                 group_exprs, aggs, schema, fallback: ExecutionPlan,
-                 device: torch.device,
-                 cache: Optional[DeviceColumnCache] = None,
-                 max_groups: int = 1 << 22):
+                 predicate: Optional[PhysicalExpr], schema,
+                 fallback: ExecutionPlan, device: torch.device,
+                 cache: Optional[DeviceColumnCache] = None):
         super().__init__()
         self.source = probe_source
         self.probe_predicate = probe_predicate
         self.builds = builds
         self.predicate = predicate
-        self.group_exprs = group_exprs
-        self.aggs = aggs
         self._schema = schema
         self.fallback = fallback
-        self.max_groups = max_groups
         self.device = device
         self.cache = cache
         self.fallbacks = 0
@@ -131,25 +143,19 @@ class TorchJoinChainAggregateExec(TorchAggregate):
     def children(self):
         return [self.source] + [b.source for b in self.builds]
 
-    def with_children(self, c):
-        builds = [ChainBuild(src, b.probe_keys, b.build_keys, b.payload,
-                             b.join_type, b.sfilter)
-                  for src, b in zip(c[1:], self.builds)]
-        return TorchJoinChainAggregateExec(
-            c[0], self.probe_predicate, builds, self.predicate,
-            self.group_exprs, self.aggs, self._schema, self.fallback,
-            self.device, self.cache, self.max_groups)
+    def _builds_over(self, sources) -> List[ChainBuild]:
+        """The chain's builds over new build sources (`with_children`)."""
+        return [ChainBuild(src, b.probe_keys, b.build_keys, b.payload,
+                           b.join_type, b.sfilter)
+                for src, b in zip(sources, self.builds)]
 
-    def display_line(self):
+    def chain_display(self) -> str:
         steps = ", ".join(
             f"{b.join_type}[{', '.join(str(k) for k in b.probe_keys)}]"
             + (f" filter=({b.sfilter[1]} {b.sfilter[0].value} "
                f"{b.sfilter[2]})" if b.sfilter is not None else "")
             for b in self.builds)
-        gb = ", ".join(n for _, n in self.group_exprs)
-        ag = ", ".join(a.display for a in self.aggs)
-        return (f"TorchJoinChainAggregateExec: chain=[{steps}], "
-                f"gby=[{gb}], aggr=[{ag}], device={self.device}")
+        return f"chain=[{steps}]"
 
     # ------------------------------------------------------------------
     @property
@@ -165,10 +171,9 @@ class TorchJoinChainAggregateExec(TorchAggregate):
             off += n
         return out
 
-    def lower(self):
-        """(pools, probe predicate, residual, group keys, slot defs, slot
-        map, probe keys of each build): every pair-space program of the
-        chain on one pool."""
+    def check_builds(self) -> None:
+        """Raise LoweringError for a build the walk cannot take: a SEMI
+        min/max filter, or a string or float join key (`:350-354`)."""
         for b in self.builds:
             if b.sfilter is not None:
                 raise LoweringError("SEMI min/max membership on device TBD")
@@ -176,16 +181,14 @@ class TorchJoinChainAggregateExec(TorchAggregate):
                 if pk.out_type.is_string or bk.out_type.is_string or \
                         pk.out_type.is_float or bk.out_type.is_float:
                     raise LoweringError("non-integer chain join key")
-        pools = Pools()
-        ppred = compile_expr(self.probe_predicate, pools) \
-            if self.probe_predicate is not None else None
-        pred = compile_expr(self.predicate, pools) \
-            if self.predicate is not None else None
-        keys = [compile_expr(e, pools) for e, _ in self.group_exprs]
-        slot_defs, slot_map = self._compile_slots(pools)
-        probe_keys = [[compile_expr(k, pools) for k in b.probe_keys]
-                      for b in self.builds]
-        return pools, ppred, pred, keys, slot_defs, slot_map, probe_keys
+
+    def chain(self, ppred, staged: List[_BuildInput], probe_keys) -> Chain:
+        """The walk over the staged builds: one hop a build, with its
+        lowered probe keys and its payload's pair-space indices."""
+        hops = [Hop(s.table, b.join_type, pk, payload)
+                for b, s, pk, payload in zip(self.builds, staged, probe_keys,
+                                             self.payload_ranges())]
+        return Chain(self.n_spine, ppred, hops)
 
     def build_inputs(self, ctx: TaskContext) -> List[_BuildInput]:
         """What `chain_build` takes for every build side. A Filter/Projection
@@ -251,28 +254,6 @@ class TorchJoinChainAggregateExec(TorchAggregate):
                 cols += [s.batch.columns[s.col_map[i]] for i in b.payload]
         return _PairView(cols, spine_batch.num_rows)
 
-    def compile(self, lowered, staged: List[_BuildInput], views):
-        """(spec, pack plan, lane names, slot map) of the chain over the
-        staged builds and the spine batches' pair views."""
-        pools, ppred, pred, keys, slot_defs, slot_map, probe_keys = lowered
-        plan = self._plan_key_packing(views, keys)
-        try:
-            key_progs, lanes, dense = _fold_inputs(keys, plan, slot_defs)
-            hops = [Hop(s.table, b.join_type, pk, payload)
-                    for b, s, pk, payload in zip(self.builds, staged,
-                                                 probe_keys,
-                                                 self.payload_ranges())]
-            chain = Chain(self.n_spine, ppred, hops)
-            if dense:
-                spec = ChainDenseSpec(pools, pred, key_progs, lanes, chain)
-            else:
-                rows = sum(v.num_rows for v in views)
-                spec = ChainHashSpec(pools, pred, key_progs, lanes, rows,
-                                     chain)
-        except LoweringError as e:
-            raise DeviceLoweringUnsupported(str(e))
-        return spec, plan, list(slot_defs), slot_map
-
     def stage(self, spec, spine_batch, view: _PairView,
               staged: List[_BuildInput], keep_spine: bool):
         """The pair-space columns the programs read, on the device (spine
@@ -290,12 +271,75 @@ class TorchJoinChainAggregateExec(TorchAggregate):
         return cols, aux
 
     def _execute_device(self, partition: int, ctx: TaskContext):
-        # the inherited `execute` runs `self.fallback` on this exception
+        # `execute` runs `self.fallback` on this exception
         try:
             return self._execute_port(partition, ctx)
         except DeviceLoweringUnsupported:
             self.fallbacks += 1
             raise
+
+
+class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
+
+    def __init__(self, probe_source: ExecutionPlan,
+                 probe_predicate: Optional[PhysicalExpr],
+                 builds: List[ChainBuild],
+                 predicate: Optional[PhysicalExpr],
+                 group_exprs, aggs, schema, fallback: ExecutionPlan,
+                 device: torch.device,
+                 cache: Optional[DeviceColumnCache] = None,
+                 max_groups: int = 1 << 22):
+        super().__init__(probe_source, probe_predicate, builds, predicate,
+                         schema, fallback, device, cache)
+        self.group_exprs = group_exprs
+        self.aggs = aggs
+        self.max_groups = max_groups
+
+    def with_children(self, c):
+        return TorchJoinChainAggregateExec(
+            c[0], self.probe_predicate, self._builds_over(c[1:]),
+            self.predicate, self.group_exprs, self.aggs, self._schema,
+            self.fallback, self.device, self.cache, self.max_groups)
+
+    def display_line(self):
+        gb = ", ".join(n for _, n in self.group_exprs)
+        ag = ", ".join(a.display for a in self.aggs)
+        return (f"TorchJoinChainAggregateExec: {self.chain_display()}, "
+                f"gby=[{gb}], aggr=[{ag}], device={self.device}")
+
+    def lower(self):
+        """(pools, probe predicate, residual, group keys, slot defs, slot
+        map, probe keys of each build): every pair-space program of the
+        chain on one pool."""
+        self.check_builds()
+        pools = Pools()
+        ppred = compile_expr(self.probe_predicate, pools) \
+            if self.probe_predicate is not None else None
+        pred = compile_expr(self.predicate, pools) \
+            if self.predicate is not None else None
+        keys = [compile_expr(e, pools) for e, _ in self.group_exprs]
+        slot_defs, slot_map = self._compile_slots(pools)
+        probe_keys = [[compile_expr(k, pools) for k in b.probe_keys]
+                      for b in self.builds]
+        return pools, ppred, pred, keys, slot_defs, slot_map, probe_keys
+
+    def compile(self, lowered, staged: List[_BuildInput], views):
+        """(spec, pack plan, lane names, slot map) of the chain over the
+        staged builds and the spine batches' pair views."""
+        pools, ppred, pred, keys, slot_defs, slot_map, probe_keys = lowered
+        plan = self._plan_key_packing(views, keys)
+        try:
+            key_progs, lanes, dense = _fold_inputs(keys, plan, slot_defs)
+            chain = self.chain(ppred, staged, probe_keys)
+            if dense:
+                spec = ChainDenseSpec(pools, pred, key_progs, lanes, chain)
+            else:
+                rows = sum(v.num_rows for v in views)
+                spec = ChainHashSpec(pools, pred, key_progs, lanes, rows,
+                                     chain)
+        except LoweringError as e:
+            raise DeviceLoweringUnsupported(str(e))
+        return spec, plan, list(slot_defs), slot_map
 
     def prepare(self, ctx: TaskContext):
         """Everything a run needs before the walk: the builds staged on the
@@ -336,3 +380,137 @@ class TorchJoinChainAggregateExec(TorchAggregate):
             host = self._fetch_groups(table)
             del table, inputs, staged
         return self._emit_groups(host, spec, plan, names, slot_map, m)
+
+
+def _nullable(prog, cols) -> bool:
+    """Whether a row the walk keeps can give `prog` a NULL: it pushes a
+    NULL or reads a column with a validity. (A kept row found a build row
+    at every INNER hop, so a payload column is NULL only where its build
+    column is.)"""
+    return any(op == OP_NULL or (op == OP_COL and cols[a][1] is not None)
+               for op, a, _b in prog.code)
+
+
+class TorchJoinChainRowsExec(TorchChainExec):
+    """A row-returning join chain on the card: the spine's rows that
+    survive the probe predicate, every hop and the residual, as one batch
+    of device-born output columns per spine batch that keeps any row.
+
+    Counterpart of `DeviceJoinChainRowsExec` (`device_join_chain.py:
+    2142-2397`). Builds stage as the aggregate chain's do
+    (`stage_builds`); each spine batch is one `chain_rows` call (the mark
+    pass with its scan, one read of the row count, the emit). A dictionary-coded
+    output column takes the dictionary of the pair-space column it reads
+    (`:2386-2390`): a build column's, for a payload. A shape the lowering
+    does not cover raises DeviceLoweringUnsupported, which runs the host
+    plan (`fallback`) and adds one to `fallbacks`; a kernel or build
+    failure raises."""
+
+    def __init__(self, probe_source: ExecutionPlan,
+                 probe_predicate: Optional[PhysicalExpr],
+                 builds: List[ChainBuild],
+                 predicate: Optional[PhysicalExpr],
+                 out_exprs: List[PhysicalExpr], schema,
+                 fallback: ExecutionPlan, device: torch.device,
+                 cache: Optional[DeviceColumnCache] = None):
+        super().__init__(probe_source, probe_predicate, builds, predicate,
+                         schema, fallback, device, cache)
+        self.out_exprs = out_exprs
+
+    def with_children(self, c):
+        return TorchJoinChainRowsExec(
+            c[0], self.probe_predicate, self._builds_over(c[1:]),
+            self.predicate, self.out_exprs, self._schema, self.fallback,
+            self.device, self.cache)
+
+    def display_line(self):
+        out = ", ".join(str(e) for e in self.out_exprs)
+        return (f"TorchJoinChainRowsExec: {self.chain_display()}, "
+                f"out=[{out}], device={self.device}")
+
+    def _deferred_expr_roots(self):
+        return super()._deferred_expr_roots() + list(self.out_exprs)
+
+    def execute(self, partition: int, ctx: TaskContext):
+        self._attach_deferred_ctx(ctx)
+        try:
+            outs = self._execute_device(partition, ctx)
+        except DeviceLoweringUnsupported:
+            yield from self.fallback.execute(partition, ctx)
+            return
+        yield from outs
+
+    def lower_rows(self):
+        """(pools, probe predicate, residual, outputs, probe keys of each
+        build): every pair-space program of the walk on one pool
+        (`:2226-2252`)."""
+        self.check_builds()
+        if not self.out_exprs:
+            raise LoweringError("a row-returning chain with no output")
+        pools = Pools()
+        ppred = compile_expr(self.probe_predicate, pools) \
+            if self.probe_predicate is not None else None
+        pred = compile_expr(self.predicate, pools) \
+            if self.predicate is not None else None
+        outs = []
+        for e in self.out_exprs:
+            if e.out_type.is_string and not isinstance(e, ColumnExpr):
+                raise LoweringError("computed string output on device")
+            prog = compile_expr(e, pools)
+            if prog.out_dtype != e.out_type.device_dtype():
+                raise LoweringError(f"output {e} computed as "
+                                    f"{prog.out_dtype}")
+            outs.append(prog)
+        probe_keys = [[compile_expr(k, pools) for k in b.probe_keys]
+                      for b in self.builds]
+        return pools, ppred, pred, outs, probe_keys
+
+    def prepare_rows(self, ctx: TaskContext):
+        """Everything a run needs before the walk: the builds staged on the
+        card, the walk's spec, and each spine batch's staged columns.
+        Returns (spec, [(cols, aux, rows, pair view) per spine batch],
+        staged builds)."""
+        with record_function("dft.compile"):
+            try:
+                pools, ppred, pred, outs, probe_keys = self.lower_rows()
+            except LoweringError as e:
+                raise DeviceLoweringUnsupported(str(e))
+        with record_function("dft.build"):
+            staged = self.stage_builds(ctx)
+        spine = [b for b in execute_stream(self.source, ctx) if b.num_rows]
+        try:
+            spec = ChainRowsSpec(pools, pred, outs,
+                                 self.chain(ppred, staged, probe_keys))
+        except LoweringError as e:
+            raise DeviceLoweringUnsupported(str(e))
+        keep_spine = self._source_is_scan()
+        inputs = []
+        for b in spine:
+            view = self.pair_view(b, staged)
+            cols, aux = self.stage(spec, b, view, staged, keep_spine)
+            inputs.append((cols, aux, b.num_rows, view))
+        return spec, inputs, staged
+
+    def _execute_port(self, partition: int, ctx: TaskContext):
+        m = BaselineMetrics(self.metrics, partition)
+        with m.elapsed_compute:
+            spec, inputs, staged = self.prepare_rows(ctx)
+            batches = []
+            for cols, aux, rows, view in inputs:
+                with record_function("dft.rows"):
+                    res = chain_rows(spec, cols, aux, rows)
+                total = res[0][0].shape[0]
+                if total == 0:
+                    continue
+                out_cols = []
+                for e, prog, (data, valid) in zip(self.out_exprs,
+                                                  spec.outputs, res):
+                    dic = view.columns[e.index].dictionary \
+                        if e.out_type.is_dict_coded else None
+                    out_cols.append(Column(
+                        e.out_type, data,
+                        valid if _nullable(prog, cols) else None, dic))
+                batches.append(Batch(self._schema, out_cols, total))
+                m.record_output(total)
+            del inputs, staged
+        return batches

@@ -364,7 +364,8 @@ def test_chain_build_matches_plain(cuda, sparse, unique):
     aux = torch.zeros(0, dtype=torch.int64, device=cuda)
     before = dft.launch_counts()["chain_build"]
     got = chain_build(spec, cols, aux, n, unique=True)
-    assert dft.launch_counts()["chain_build"] == before + 1
+    # two launches a build side: the range pass and the insert pass
+    assert dft.launch_counts()["chain_build"] == before + 2
     want = chain_build_plain(spec, cols, aux, n, unique=True)
     assert got.kind == want.kind == (TAB_HASH if sparse else TAB_DIRECT)
     assert (got.los, got.his, got.live, got.duplicate) == \
@@ -567,3 +568,134 @@ def test_cuda_sort_and_window_end_to_end_matches_cpu(cuda):
         ctx.register_arrays("t", data)
         out.append([ctx.sql(q).to_pydict() for q in sqls])
     assert out[0] == out[1]
+
+
+# --- the row-returning chain and the resident emit: chain_rows, group_emit ---
+
+def _rows_exec(ctx, q):
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainRowsExec)
+
+    def walk(node):
+        yield node
+        for c in node.children():
+            yield from walk(c)
+    return [n for n in walk(ctx.sql(q).create_physical_plan())
+            if isinstance(n, TorchJoinChainRowsExec)]
+
+
+def _star_ctx(device, n):
+    """A spine of `n` rows with NULL keys, two INNER hops (the second's
+    payload a dictionary string), all on `device`, row chains on at 1."""
+    import datafusion_tpu_torch as dft
+    rng = np.random.default_rng(8)
+    ctx = dft.SessionContext(device)
+    ctx.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
+    k1 = rng.integers(0, 320, n)
+    ctx.register_table("fact", dft.MemTable.from_batches([Batch(
+        Schema([Field("k1", dt.INT64, True), Field("q", dt.INT64, False),
+                Field("v", dt.FLOAT64, False)]),
+        [Column(dt.INT64, k1, rng.random(n) > 0.1),
+         Column(dt.INT64, rng.integers(0, 1000, n)),
+         Column(dt.FLOAT64, rng.normal(size=n))], n)]))
+    ctx.register_arrays("d1", {"id": np.arange(300),
+                               "k2": rng.integers(0, 40, 300),
+                               "w": rng.integers(1, 100, 300)})
+    ctx.register_arrays("d2", {"id": np.arange(40), "name": np.array(
+        [f"g{i % 7}" for i in range(40)], object)})
+    return ctx
+
+
+ROWS_SQL = ("SELECT f.q, f.v, d1.w, d2.name FROM fact f "
+            "JOIN d1 ON f.k1 = d1.id JOIN d2 ON d1.k2 = d2.id "
+            "WHERE f.q > d1.w * 3 AND f.k1 IN (SELECT id FROM d1 WHERE w > 20)")
+
+
+@pytest.mark.parametrize("n", [4097, 300_000])
+def test_chain_rows_matches_plain(cuda, n):
+    """INNER and SEMI hops, NULL probe keys, a residual, a float and a
+    dictionary output: the kernel's columns equal its plain version's, at
+    a spine that is not a multiple of the block."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.join_chain import (chain_rows,
+                                                        chain_rows_plain)
+    ctx = _star_ctx(cuda, n)
+    (ex,) = _rows_exec(ctx, ROWS_SQL)
+    spec, inputs, _staged = ex.prepare_rows(ctx.task_context())
+    ((cols, aux, rows, _view),) = inputs
+    before = dft.launch_counts()["chain_rows"]
+    got = chain_rows(spec, cols, aux, rows)
+    # the mark and its three-launch scan, then the emit
+    assert dft.launch_counts()["chain_rows"] == before + 5
+    want = chain_rows_plain(spec, cols, aux, rows)
+    torch.cuda.synchronize()
+    assert got[0][0].numel() > 0
+    for (gd, gv), (wd, wv) in zip(got, want):
+        assert gd.dtype == wd.dtype and gd.device.type == "cuda"
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("q", [2, 20])
+def test_tpch_chain_rows_matches_plain(cuda, q):
+    """TPC-H Q2's and Q20's row-returning chains at SF 0.1: the kernel
+    against its plain version on the same staged builds and spine."""
+    from datafusion_tpu_torch.device.join_chain import (chain_rows,
+                                                        chain_rows_plain)
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    ctx = _tpch_ctx(cuda, 0.1)
+    ctx.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
+    for ex in _rows_exec(ctx, QUERIES[q]):
+        spec, inputs, _staged = ex.prepare_rows(ctx.task_context())
+        for cols, aux, rows, _view in inputs:
+            got = chain_rows(spec, cols, aux, rows)
+            want = chain_rows_plain(spec, cols, aux, rows)
+            for (gd, gv), (wd, wv) in zip(got, want):
+                assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("ng", [1, 4097, 300_000])
+def test_group_emit_matches_plain(cuda, ng):
+    """Unpacked keys (a signed offset, a dictionary code, NULLs), counts and
+    sums with their validity: the kernel against its plain version."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        EMIT_COUNT, EMIT_DICT, EMIT_KEY, EMIT_SUM, EmitField,
+        group_emit_columns, group_emit_columns_plain)
+    rng = np.random.default_rng(ng)
+    a = rng.integers(0, 1 << 20, ng)
+    b = rng.integers(0, 9, ng)
+    c = rng.integers(0, 1 << 30, ng)
+    packed = a | (b << 20) | (c << 24)
+    cnt = rng.integers(0, 3, ng)
+    groups = torch.from_numpy(np.stack([
+        packed, cnt, rng.integers(-10**12, 10**12, ng), cnt])).to(cuda)
+    fields = [EmitField(EMIT_KEY, torch.int64, 0, 0, 20, -(1 << 19)),
+              EmitField(EMIT_DICT, torch.int32, 0, 20, 4),
+              EmitField(EMIT_KEY, torch.int32, 0, 24, 30, 7),
+              EmitField(EMIT_COUNT, torch.int64, 1),
+              EmitField(EMIT_SUM, torch.int64, 2, count_row=3)]
+    before = dft.launch_counts()["group_emit"]
+    got = group_emit_columns(groups, fields)
+    assert dft.launch_counts()["group_emit"] == before + 1
+    want = group_emit_columns_plain(groups, fields)
+    torch.cuda.synchronize()
+    for (gd, gv), (wd, wv) in zip(got, want):
+        assert gd.dtype == wd.dtype and torch.equal(gd, wd)
+        assert (gv is None) == (wv is None)
+        assert gv is None or torch.equal(gv, wv)
+
+
+def test_cuda_join_rows_end_to_end_matches_cpu(cuda):
+    """TPC-H Q2, Q13 and Q20 through a CUDA session and a CPU one, the
+    row-returning threshold at 1: equal rows, no fallback."""
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    for q in (2, 13, 20):
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            ctx = _tpch_ctx(dev, 0.05)
+            ctx.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
+            out.append(ctx.sql(QUERIES[q]).to_pydict())
+            execs = _rows_exec(ctx, QUERIES[q])
+            assert all(e.fallbacks == 0 for e in execs)
+            assert bool(execs) == (q != 13)
+        assert out[0] == out[1], q

@@ -4,9 +4,11 @@ A fresh interpreter (this one has imported JAX already) blocks `jax`, the
 JAX package `datafusion_tpu` with every module under it, and `bench`, then
 runs through the port on the CPU: TPC-H Q1 (the dense path), Q18's
 subquery (the hash path with a fused HAVING), ClickBench Q16 (the hash
-path with a fused top-k), TPC-H Q3, Q4 and Q5 (fanout-1 join chains), an
-ORDER BY ... LIMIT over lineitem (the radix sort) and a window query (the
-device window evaluation), with the sort and window thresholds at 1.
+path with a fused top-k), TPC-H Q3, Q4 and Q5 (fanout-1 join chains),
+TPC-H Q2 and Q20 (row-returning join chains), Q13 (the count over a LEFT
+join), an ORDER BY ... LIMIT over lineitem (the radix sort) and a window
+query (the device window evaluation), with the sort, window and
+row-returning join thresholds at 1.
 It prints the rows as JSON, and this process holds them against the JAX
 package on the same seeded data. A second interpreter blocks nothing and
 checks that running the port loads neither JAX nor the JAX package. The
@@ -42,7 +44,8 @@ WINDOW = ("select l_orderkey, l_linenumber, rank() over (partition by "
           "preceding and current row) q3 from lineitem "
           "order by l_orderkey, l_linenumber limit 50")
 QUERIES = {"q1": TPCH[1], "q18_sub": Q18_SUB, "cb_q16": CB[16],
-           "q3": TPCH[3], "q4": TPCH[4], "q5": TPCH[5], "sorted": SORTED,
+           "q3": TPCH[3], "q4": TPCH[4], "q5": TPCH[5], "q2": TPCH[2],
+           "q20": TPCH[20], "q13": TPCH[13], "sorted": SORTED,
            "window": WINDOW}
 # the exec each query must plan in the port, with what its display shows
 PLANS = {"q1": ("TorchGroupAggregateExec", ""),
@@ -52,6 +55,9 @@ PLANS = {"q1": ("TorchGroupAggregateExec", ""),
          "q3": ("TorchJoinChainAggregateExec", "INNER["),
          "q4": ("TorchJoinChainAggregateExec", "LEFTSEMI["),
          "q5": ("TorchJoinChainAggregateExec", "INNER["),
+         "q2": ("TorchJoinChainRowsExec", "INNER["),
+         "q20": ("TorchJoinChainRowsExec", "LEFTSEMI["),
+         "q13": ("LeftCountZeroFillExec", "left_key="),
          "sorted": ("SortExec", "fetch=20"),
          "window": ("BoundedWindowExec", "rank()")}
 
@@ -86,6 +92,7 @@ queries, plans = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 port = dft.SessionContext(torch.device("cpu"))
 port.sql("SET datafusion.tpu.device_sort_min_rows = 1")
 port.sql("SET datafusion.tpu.device_window_min_rows = 1")
+port.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
 register_tpch(port, sf=0.01, seed=1)
 port.register_arrays("hits", {"UserID": np.load(sys.argv[3])})
 
