@@ -19,7 +19,8 @@ query is held against a numpy oracle on the same data.
 4. TPC-H at SF10, made here from a seed by the rules of the port's
    `tpch/datagen.py` (`tpch_tables`: region, nation, 100,000 suppliers,
    2,000,000 parts, 8,000,000 partsupp rows, 1,500,000 customers,
-   15,000,000 orders, about 60.0M lineitems):
+   15,000,000 orders, about 60.0M lineitems, with the columns Q2-Q21
+   read):
    - hash path: `hash_group_aggregate` against its plain version on Q18's
      and Q15's subqueries (equal group tables), `compact_groups` with
      Q18's HAVING against its plain version (equal), then both subqueries
@@ -38,6 +39,12 @@ query is held against a numpy oracle on the same data.
      table (millions of groups, which stay on the card); then Q2 and Q20
      end to end against numpy, with 0 fallbacks and Q20's aggregate
      taking the resident emit, each with a breakdown;
+   - the full expression lowering, SEMI/ANTI min/max membership and the
+     functional-dependence lane: `chain_build` against its plain version
+     on Q21's builds (its two lineitem min/max tables equal) and
+     `chain_aggregate` on Q21's, Q18's reduced, Q9's (date_part keys)
+     and Q12's (CASE) walks, then Q7, Q8, Q9, Q10, Q12, Q14, Q18 and Q21
+     end to end against numpy, with 0 fallbacks and a breakdown each;
    - window functions over the SF10 lineitem (with `l_returnflag`):
      W1 (top 3 by price per supplier beside each order's quantity, a
      WindowExec over two PARTITION BYs), W2 (a global row_number and lag)
@@ -63,6 +70,21 @@ exec fell back to the host (for a window, a function evaluated on the
 host). Any failure raises and exits non-zero. The last line is `{"ok": true, "device": {...}}`; the line before it is the
 card's name and power limit, and before that one JSON line lists every
 kernel with its time, its plain version's time and its bound.
+
+    python3 chip_smoke.py --walks TREE [TREE ...]
+
+compares the `chain_aggregate` walks of TPC-H Q3, Q5, Q9, Q12, Q18 and
+Q21 and the `chain_rows` walks of Q2 and Q20 at SF10 across checkouts of
+the repository (for example the parent
+commit unpacked with `git archive`, then this tree, then both again in
+reverse order). Each TREE runs in a process of its own that imports that
+tree's `datafusion_tpu_torch` and builds its kernels, makes the same
+SF10 tables with this script's `tpch_tables`, and prints one JSON line:
+the mean device ms of each walk over WALK_REPS calls (null where the
+tree does not plan the query's chain on the card; a `chain_rows` call's
+time spans its read-back of the row count) and the registers and
+stack-frame bytes (spills included) `cuobjdump --dump-resource-usage`
+gives each walk kernel of that tree's library.
 """
 import datetime
 import json
@@ -211,20 +233,27 @@ def prog_ops(spec, n: int) -> int:
     return n * sum(len(p.code) for p in spec.programs())
 
 
+def entry_bytes(t) -> int:
+    """Bytes of one build table entry: the int32 row, the int64 key of a
+    hashed table, the int64 min and max of a min/max table."""
+    from datafusion_tpu_torch.device.join_chain import TAB_HASH
+    return 4 + 8 * (t.kind == TAB_HASH) + 16 * (t.mn is not None)
+
+
 def walk_bytes(spec, cols, n: int, hop_rows) -> int:
     """Bytes a chain walk over `n` spine rows must move: the spine columns
-    it reads, once; for each hop its build table and payload columns, each
-    entry at most once (as many as the rows that reach the hop, or survive
-    it for a payload, up to the whole table or column). `hop_rows` is the
-    plain walk's (rows reaching, rows surviving) of each hop."""
-    from datafusion_tpu_torch.device.join_chain import TAB_HASH
+    it reads, once; for each hop its build table (with a min/max table's
+    extremes) and payload columns, each entry at most once (as many as
+    the rows that reach the hop, or survive it for a payload, up to the
+    whole table or column). `hop_rows` is the plain walk's (rows reaching,
+    rows surviving) of each hop."""
     hop_of = spec.chain.hop_of
     nbytes = col_bytes(cols, [i for i in spec.pools.columns
                               if i not in hop_of], n)
     for h, (hop, (reach, alive)) in enumerate(zip(spec.chain.hops,
                                                   hop_rows)):
         t = hop.table
-        nbytes += min(reach, t.size) * (4 + 8 * (t.kind == TAB_HASH))
+        nbytes += min(reach, t.size) * entry_bytes(t)
         for i in spec.pools.columns:
             if hop_of.get(i) == h:
                 nbytes += col_bytes(cols, [i],
@@ -318,16 +347,20 @@ def float_batch(n: int, seed: int):
 
 def tpch_tables(sf: int, seed: int):
     """The TPC-H tables by the rules of the port's `tpch/datagen.py:98-257`,
-    vectorised, with the columns that Q2, Q3, Q4, Q5, Q15, Q18, Q20 and
-    W1-W3 read: `o_orderkey` is 4i - 3 and `l_orderkey` repeats it 1-7
+    vectorised, with the columns that Q2-Q5, Q7-Q10, Q12, Q14, Q15, Q18,
+    Q20, Q21 and W1-W3 read: `o_orderkey` is 4i - 3 and `l_orderkey` repeats it 1-7
     times (so it is sorted), foreign keys are uniform, `l_suppkey` is one
     of the 4 suppliers of a uniform `l_partkey` and `ps_suppkey` the
     supplier of each of a part's 4 `partsupp` rows (`datagen.py:161`,
     `:213`), money is Decimal(15,2), dates are Date32, `c_mktsegment`,
     `o_orderpriority`, `n_name`, `r_name`, the supplier's and the part's
     text columns (`datagen.py:115-150`) and `l_returnflag` (`datagen.py:
-    223`, drawn after the other columns) are dictionary strings. Returns
-    {table: Batch}."""
+    223`, drawn after the other columns) are dictionary strings. Drawn
+    last, so that the columns above keep their values: `l_tax`,
+    `l_shipmode` (`:236`, `:241`) and `c_acctbal`; then `l_linestatus` from
+    the ship date (`:225`), `o_orderstatus` and `o_totalprice` from the
+    lines (`:251-256`, the total rounded half up at scale 2) and the
+    customer's numbered text columns (`:176-182`). Returns {table: Batch}."""
     import numpy as np
     from datafusion_tpu_torch.common import dt
     from datafusion_tpu_torch.common.column import Column
@@ -393,7 +426,40 @@ def tpch_tables(sf: int, seed: int):
         ("l_returnflag", dict_column(["A", "N", "R"], np.where(
             receipt <= G._days(1995, 6, 17),
             np.where(rng.random(n) < 0.5, 2, 0), 1)))])
+    tax = rng.integers(0, 9, n)
+    mode = rng.integers(0, len(G._SHIPMODES), n)
+    acctbal = rng.integers(-99_999, 1_000_000, n_cust)
+    late = ship > G._days(1995, 6, 17)           # linestatus O, else F
+    starts = np.r_[0, np.cumsum(n_lines)[:-1]]
+    total = np.add.reduceat(price * (100 - col(out["lineitem"],
+                                               "l_discount")) * (100 + tax),
+                            starts)
+    n_open = np.add.reduceat(late.astype(np.int64), starts)
+    out["lineitem"] = add_columns(out["lineitem"], [
+        ("l_tax", Column(dec2, tax)),
+        ("l_linestatus", dict_column(["F", "O"], late.astype(np.int64))),
+        ("l_shipmode", dict_column(G._SHIPMODES, mode))])
+    out["orders"] = add_columns(out["orders"], [
+        ("o_orderstatus", dict_column(["F", "O", "P"], np.where(
+            n_open == 0, 0, np.where(n_open == n_lines, 1, 2)))),
+        ("o_totalprice", Column(dec2, (total + 5000) // 10000))])
+    ck = col(out["customer"], "c_custkey")
+    every = np.arange(n_cust)
+    out["customer"] = add_columns(out["customer"], [
+        ("c_name", dict_column(G._numbered("Customer#", ck, 9), every)),
+        ("c_address", dict_column(G._numbered("caddr", ck, 0), every)),
+        ("c_phone", dict_column(G._phones(
+            rng, col(out["customer"], "c_nationkey"), ck), every)),
+        ("c_acctbal", Column(dec2, acctbal)),
+        ("c_comment", dict_column(G._numbered(
+            "customer comment ", np.arange(1000), 0), ck % 1000))])
     return out
+
+
+def add_columns(batch, cols):
+    """`batch` with the columns [(name, column)] appended."""
+    return make_batch([(f.name, c) for f, c in zip(batch.schema.fields,
+                                                    batch.columns)] + cols)
 
 
 def supplier_batch(rng, n_supp: int):
@@ -748,14 +814,16 @@ def topk_vs_plain(table, lane, names, card, label):
     return entry(0.0, ms, plain, bnd, library)
 
 
-def chain_builds_vs_plain(ex, tctx, card, label):
+def chain_builds_vs_plain(ex, tctx, card, label, mmx_only=False):
     """`chain_build` against its plain version on every build side of the
     chain exec `ex` (the same kind, ranges, shifts, live rows and
-    duplicate flag, the same keys, and for an INNER build the same row of
-    each key). Returns the report entry of the largest build side."""
+    duplicate flag, the same keys, for an INNER build the same row of
+    each key, for a min/max build the same extremes of each key). Returns
+    the report entry of the largest build side (with `mmx_only`, of the
+    largest min/max build side)."""
     import numpy as np
     from datafusion_tpu_torch.device.join_chain import (
-        TAB_HASH, chain_build, chain_build_plain)
+        chain_build, chain_build_plain)
     best = None
     for h, bi in enumerate(ex.build_inputs(tctx)):
         n = bi.batch.num_rows
@@ -769,8 +837,12 @@ def chain_builds_vs_plain(ex, tctx, card, label):
         wk, wr = want.entries()
         # a SEMI or ANTI build stores presence: of a key's rows, either
         # version may keep any one
+        mmx = got.mn is not None
         if shape(got) != shape(want) or not np.array_equal(gk, wk) or \
-                (bi.unique and not np.array_equal(gr, wr)):
+                (bi.unique and not np.array_equal(gr, wr)) or \
+                mmx != (want.mn is not None) or (mmx and not all(
+                    np.array_equal(a, b) for a, b in zip(
+                        got.extremes(), want.extremes()))):
             raise AssertionError(f"{label} build {h}: chain_build differs "
                                  f"from its plain version: {shape(got)} "
                                  f"{shape(want)}")
@@ -780,14 +852,15 @@ def chain_builds_vs_plain(ex, tctx, card, label):
                                                   n, bi.unique), 2)
         # inputs read once, the table written once
         nbytes = col_bytes(bi.cols, bi.spec.pools.columns, n) + \
-            got.size * (4 + 8 * (got.kind == TAB_HASH))
+            got.size * entry_bytes(got)
         bnd = bound(nbytes, prog_ops(bi.spec, n))
         kind = ["direct", "hashed", "empty"][got.kind]
         print(f"chain_build {label} build {h}: {n} rows, {got.live} live, "
-              f"{kind} table of {got.size} slots: kernel {ms:.6f} ms, plain "
-              f"{plain:.6f} ms, bound {bnd['bound_ms']:.6f} ms, max_abs_err "
-              f"0 [{card}]", flush=True)
-        if best is None or n > best[0]:
+              f"{kind}{' min/max' if mmx else ''} table of {got.size} "
+              f"slots: kernel {ms:.6f} ms, plain {plain:.6f} ms, bound "
+              f"{bnd['bound_ms']:.6f} ms, max_abs_err 0 [{card}]",
+              flush=True)
+        if (mmx or not mmx_only) and (best is None or n > best[0]):
             best = (n, entry(0.0, ms, plain, bnd))
     return best[1]
 
@@ -804,7 +877,7 @@ def chain_walk_vs_plain(ex, tctx, card, label):
         AggregateSpec, compact_groups_plain, dense_group_table)
     from datafusion_tpu_torch.device.join_chain import (
         chain_aggregate, chain_aggregate_plain)
-    spec, _plan, _names, _slots, inputs, staged = ex.prepare(tctx)
+    spec, plan, _names, _slots, inputs, staged = ex.prepare(tctx)
     ((cols, aux, n),) = inputs
     dev = aux.device
     dense = isinstance(spec, AggregateSpec)
@@ -838,9 +911,11 @@ def chain_walk_vs_plain(ex, tctx, card, label):
     nbytes = walk_bytes(spec, cols, n, hop_rows)
     nbytes += got.shape[1] * got.shape[0] * 8    # live groups written once
     bnd = bound(nbytes, prog_ops(spec, n))
+    fd = f", keys reduced to {[ex.group_exprs[p][1] for p in plan.kept]}" \
+        if plan.dropped else ""
     print(f"chain_aggregate {label}: {n} spine rows, {len(spec.chain.hops)} "
           f"hops, rows reaching/surviving each hop {hop_rows}, "
-          f"{'dense' if dense else 'hash'} fold, {got.shape[1]} groups: "
+          f"{'dense' if dense else 'hash'} fold{fd}, {got.shape[1]} groups: "
           f"kernel {ms:.6f} ms, plain {plain:.6f} ms, bound "
           f"{bnd['bound_ms']:.6f} ms ({bnd['bytes']} bytes), max_abs_err 0 "
           f"[{card}]", flush=True)
@@ -1252,6 +1327,353 @@ def oracle_q20(t):
             len(uk))
 
 
+def year_of(d):
+    """The calendar year of Date32 days."""
+    import numpy as np
+    return d.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+
+
+def names_of(batch, column):
+    """Each row's string of a dictionary column, as an object array."""
+    c = batch.column_by_name(column)
+    return c.dictionary.values[c.data_host()]
+
+
+def code_of(batch, column, value):
+    return batch.column_by_name(column).dictionary.lookup(value)
+
+
+def line_keys(t):
+    """Per lineitem row: the row of its order, of its supplier, of its part
+    and of its partsupp entry (keys are dense: o_orderkey = 4i - 3, the
+    supplier of a line is one of its part's 4, `tpch_tables`)."""
+    li, supp = t["lineitem"], t["supplier"]
+    n_supp = supp.num_rows
+    part = col(li, "l_partkey") - 1
+    sk = col(li, "l_suppkey") - 1
+    which = ((sk - part) % n_supp) // (n_supp // 4 + 1)
+    return (col(li, "l_orderkey") + 3) // 4 - 1, sk, part, part * 4 + which
+
+
+def revenue(li, m):
+    """l_extendedprice * (1 - l_discount) of the rows `m`, at scale 4."""
+    return col(li, "l_extendedprice")[m] * (100 - col(li, "l_discount")[m])
+
+
+def group_sums(keys, values):
+    """(distinct key tuples, sum of `values` over each), ordered by key."""
+    import numpy as np
+    uk, inv = np.unique(np.stack(keys, 1), axis=0, return_inverse=True)
+    sums = np.zeros(len(uk), np.int64)
+    np.add.at(sums, inv.ravel(), values)
+    return uk, sums
+
+
+def oracle_q7(t):
+    """Q7's rows: (supplier nation, customer nation, ship year, revenue) of
+    FRANCE and GERMANY trade in 1995-1996, in that order."""
+    import numpy as np
+    li, nation = t["lineitem"], t["nation"]
+    oi, si, _p, _ps = line_keys(t)
+    s_nat = col(t["supplier"], "s_nationkey")[si]
+    c_nat = col(t["customer"], "c_nationkey")[
+        col(t["orders"], "o_custkey")[oi] - 1]
+    fr, de = (col(nation, "n_nationkey")[col(nation, "n_name") ==
+                                         code_of(nation, "n_name", n)][0]
+              for n in ("FRANCE", "GERMANY"))
+    ship = col(li, "l_shipdate")
+    m = (((s_nat == fr) & (c_nat == de)) | ((s_nat == de) & (c_nat == fr))) \
+        & (ship >= days(1995, 1, 1)) & (ship <= days(1996, 12, 31))
+    names = names_of(nation, "n_name")
+    keys, sums = group_sums([s_nat[m], c_nat[m], year_of(ship[m])],
+                            revenue(li, m))
+    rows = sorted(zip(names[keys[:, 0]], names[keys[:, 1]], keys[:, 2],
+                      sums.tolist()))
+    return [(a, b, float(y), v) for a, b, y, v in rows]
+
+
+def oracle_q8(t):
+    """Q8's (order year, BRAZIL's share at scale 8, truncated as a decimal
+    division) of AMERICA's ECONOMY ANODIZED STEEL orders of 1995-1996."""
+    import numpy as np
+    li, nation, region = t["lineitem"], t["nation"], t["region"]
+    oi, si, pi, _ps = line_keys(t)
+    america = col(region, "r_regionkey")[
+        col(region, "r_name") == code_of(region, "r_name", "AMERICA")]
+    c_nat = col(t["customer"], "c_nationkey")[
+        col(t["orders"], "o_custkey")[oi] - 1]
+    o_date = col(t["orders"], "o_orderdate")[oi]
+    steel = col(t["part"], "p_type")[pi] == code_of(
+        t["part"], "p_type", "ECONOMY ANODIZED STEEL")
+    m = np.isin(col(nation, "n_regionkey")[c_nat], america) & steel & \
+        (o_date >= days(1995, 1, 1)) & (o_date <= days(1996, 12, 31))
+    brazil = col(nation, "n_nationkey")[col(nation, "n_name") == code_of(
+        nation, "n_name", "BRAZIL")][0]
+    vol = revenue(li, m)
+    years = year_of(o_date[m])
+    s_nat = col(t["supplier"], "s_nationkey")[si[m]]
+    out = []
+    for y in np.unique(years):
+        tot = int(vol[years == y].sum())
+        br = int(vol[(years == y) & (s_nat == brazil)].sum())
+        out.append((float(y), br * 10**8 // tot))
+    return out
+
+
+def oracle_q9(t):
+    """Q9's (nation, order year, profit at scale 4) of the green parts, by
+    nation and year descending."""
+    import numpy as np
+    li, part, nation = t["lineitem"], t["part"], t["nation"]
+    oi, si, pi, psi = line_keys(t)
+    names = part.column_by_name("p_name").dictionary.values
+    green = np.array(["green" in str(v) for v in names])
+    m = green[col(part, "p_name")[pi]]
+    amount = revenue(li, m) - col(t["partsupp"], "ps_supplycost")[psi[m]] * \
+        col(li, "l_quantity")[m]
+    s_nat = col(t["supplier"], "s_nationkey")[si[m]]
+    years = year_of(col(t["orders"], "o_orderdate")[oi[m]])
+    keys, sums = group_sums([s_nat, years], amount)
+    n_names = names_of(nation, "n_name")
+    rows = sorted(zip(n_names[keys[:, 0]], -keys[:, 1], sums.tolist()))
+    return [(n, float(-y), v) for n, y, v in rows]
+
+
+def oracle_q10(t):
+    """Q10's 20 customers with the most revenue of returned lines ordered
+    in 1993 Q4: (custkey, name, revenue at scale 4, balance, nation,
+    address, phone, comment)."""
+    import numpy as np
+    li, cust, orders = t["lineitem"], t["customer"], t["orders"]
+    oi, _s, _p, _ps = line_keys(t)
+    o_date = col(orders, "o_orderdate")[oi]
+    m = (col(li, "l_returnflag") == code_of(li, "l_returnflag", "R")) & \
+        (o_date >= days(1993, 10, 1)) & (o_date < days(1994, 1, 1))
+    ci = col(orders, "o_custkey")[oi[m]] - 1
+    rev = np.zeros(cust.num_rows, np.int64)
+    np.add.at(rev, ci, revenue(li, m))
+    has = np.zeros(cust.num_rows, bool)
+    has[ci] = True
+    top = np.flatnonzero(has)[np.argsort(-rev[has], kind="stable")[:20]]
+    n_names = names_of(t["nation"], "n_name")
+    return [(int(col(cust, "c_custkey")[c]), names_of(cust, "c_name")[c],
+             int(rev[c]), int(col(cust, "c_acctbal")[c]),
+             n_names[col(cust, "c_nationkey")[c]],
+             names_of(cust, "c_address")[c], names_of(cust, "c_phone")[c],
+             names_of(cust, "c_comment")[c]) for c in top], int(has.sum())
+
+
+def oracle_q12(t):
+    """Q12's (ship mode, high priority lines, low priority lines)."""
+    import numpy as np
+    li, orders = t["lineitem"], t["orders"]
+    oi, _s, _p, _ps = line_keys(t)
+    ship, commit, receipt = (col(li, c) for c in (
+        "l_shipdate", "l_commitdate", "l_receiptdate"))
+    modes = [code_of(li, "l_shipmode", x) for x in ("MAIL", "SHIP")]
+    m = np.isin(col(li, "l_shipmode"), modes) & (commit < receipt) & \
+        (ship < commit) & (receipt >= days(1994, 1, 1)) & \
+        (receipt < days(1995, 1, 1))
+    prio = col(orders, "o_orderpriority")[oi[m]]
+    high = np.isin(prio, [code_of(orders, "o_orderpriority", x)
+                          for x in ("1-URGENT", "2-HIGH")])
+    mode = col(li, "l_shipmode")[m]
+    names = names_of(li, "l_shipmode")
+    return sorted((li.column_by_name("l_shipmode").dictionary.values[c],
+                   int((high & (mode == c)).sum()),
+                   int((~high & (mode == c)).sum()))
+                  for c in np.unique(mode)) if len(names) else []
+
+
+def oracle_q14(t):
+    """Q14's promo revenue share of September 1995, as the host computes
+    100.00 * sum(promo) / sum(all) in float64 over the decimal sums."""
+    import numpy as np
+    li, part = t["lineitem"], t["part"]
+    _o, _s, pi, _ps = line_keys(t)
+    ship = col(li, "l_shipdate")
+    m = (ship >= days(1995, 9, 1)) & (ship < days(1995, 10, 1))
+    types = part.column_by_name("p_type").dictionary.values
+    promo = np.array([str(v).startswith("PROMO") for v in types])[
+        col(part, "p_type")[pi[m]]]
+    vol = revenue(li, m)
+    return int(vol[promo].sum()), int(vol.sum())
+
+
+def oracle_q18(t):
+    """Q18's 100 large orders: (name, custkey, orderkey, date, total price,
+    quantity), by total price descending and date."""
+    import numpy as np
+    li, cust, orders = t["lineitem"], t["customer"], t["orders"]
+    oi, _s, _p, _ps = line_keys(t)
+    qty = np.bincount(oi, weights=col(li, "l_quantity"),
+                      minlength=orders.num_rows).astype(np.int64)
+    big = np.flatnonzero(qty > 300 * 100)
+    price, date = col(orders, "o_totalprice"), col(orders, "o_orderdate")
+    top = big[np.lexsort((date[big], -price[big]))[:100]]
+    ci = col(orders, "o_custkey")[top] - 1
+    return [(names_of(cust, "c_name")[c], int(c + 1),
+             int(col(orders, "o_orderkey")[o]), int(date[o]), int(price[o]),
+             int(qty[o])) for o, c in zip(top, ci)], len(big)
+
+
+def oracle_q21(t):
+    """Q21's (supplier name, waiting lines) of SAUDI ARABIA, by count
+    descending and name: late lines of status-F orders where another
+    supplier also has a line and no other supplier's line is late, found
+    by comparing each line with the up to 6 others of its order (lines of
+    an order are adjacent)."""
+    import numpy as np
+    li, supp, orders, nation = (t[k] for k in (
+        "lineitem", "supplier", "orders", "nation"))
+    oi, si, _p, _ps = line_keys(t)
+    late = col(li, "l_receiptdate") > col(li, "l_commitdate")
+    n = li.num_rows
+    other = np.zeros(n, bool)
+    other_late = np.zeros(n, bool)
+    for d in range(1, 7):
+        for a, b in ((slice(d, None), slice(None, n - d)),
+                     (slice(None, n - d), slice(d, None))):
+            differ = (oi[a] == oi[b]) & (si[a] != si[b])
+            other[a] |= differ
+            other_late[a] |= differ & late[b]
+    saudi = col(nation, "n_nationkey")[col(nation, "n_name") == code_of(
+        nation, "n_name", "SAUDI ARABIA")][0]
+    status_f = col(orders, "o_orderstatus") == code_of(
+        orders, "o_orderstatus", "F")
+    m = late & other & ~other_late & status_f[oi] & \
+        (col(supp, "s_nationkey")[si] == saudi)
+    counts = np.bincount(si[m], minlength=supp.num_rows)
+    names = names_of(supp, "s_name")
+    rows = sorted(((-int(c), names[k]) for k, c in enumerate(counts) if c),
+                  key=lambda r: (r[0], r[1]))
+    return [(nm, -c) for c, nm in rows[:100]], int(m.sum())
+
+
+def decimal_ints(values, scale: int):
+    """Decimal results of a query as integers at `scale`."""
+    import decimal
+    return [int(decimal.Decimal(v).scaleb(scale)) for v in values]
+
+
+def check_full_lowering(q, out, tables):
+    """Q7, Q8, Q9, Q10, Q12, Q14, Q18 or Q21's result `out` against its
+    numpy oracle, exactly; returns a line that says what agreed."""
+    got = out.to_pydict()
+    if q == 7:
+        want = oracle_q7(tables)
+        rows = list(zip(got["supp_nation"], got["cust_nation"],
+                        got["l_year"], decimal_ints(got["revenue"], 4)))
+        ok, say = rows == want, f"{len(want)} groups {want}"
+    elif q == 8:
+        want = oracle_q8(tables)
+        rows = list(zip(got["o_year"], decimal_ints(got["mkt_share"], 8)))
+        ok, say = rows == want, f"shares (scale 8) {want}"
+    elif q == 9:
+        want = oracle_q9(tables)
+        rows = list(zip(got["nation"], got["o_year"],
+                        decimal_ints(got["sum_profit"], 4)))
+        ok, say = rows == want, f"{len(want)} (nation, year) groups"
+    elif q == 10:
+        want, n = oracle_q10(tables)
+        rows = list(zip(got["c_custkey"], got["c_name"],
+                        decimal_ints(got["revenue"], 4),
+                        decimal_ints(got["c_acctbal"], 2), got["n_name"],
+                        got["c_address"], got["c_phone"], got["c_comment"]))
+        ok, say = rows == want, f"top 20 of {n} customers, {want[:2]}"
+    elif q == 12:
+        want = oracle_q12(tables)
+        rows = list(zip(got["l_shipmode"], got["high_line_count"],
+                        got["low_line_count"]))
+        ok, say = rows == want, f"{want}"
+    elif q == 14:
+        promo, total = oracle_q14(tables)
+        want = 100.0 * (promo / 1e4) / (total / 1e4)
+        ok, say = got["promo_revenue"] == [want], f"{want}"
+    elif q == 18:
+        want, n = oracle_q18(tables)
+        rows = list(zip(got["c_name"], got["c_custkey"], got["o_orderkey"],
+                        [days(d.year, d.month, d.day)
+                         for d in got["o_orderdate"]],
+                        decimal_ints(got["o_totalprice"], 2),
+                        decimal_ints(got["sum(lineitem.l_quantity)"], 2)))
+        ok, say = rows == want, f"{len(want)} of {n} large orders"
+    else:
+        want, n = oracle_q21(tables)
+        rows = list(zip(got["s_name"], got["numwait"]))
+        ok, say = rows == want, f"{n} waiting lines, top {want[:3]}"
+    if not ok:
+        raise AssertionError(f"Q{q} SF10 disagrees with numpy:\n{got}\n"
+                             f"{want}")
+    return f"Q{q} SF10 equals numpy exactly: {say}"
+
+
+FULL_LOWERING = (7, 8, 9, 10, 12, 14, 18, 21)
+
+
+def full_lowering_phase(ctx, tables, card, add):
+    """TPC-H Q7-Q10, Q12, Q14, Q18 and Q21 at SF10, the chains that need the
+    full expression lowering (CASE, date_part, `/`), the functional-
+    dependence key reduction (Q10, Q18) or the SEMI/ANTI min/max
+    membership (Q21): `chain_build` against its plain version on Q21's
+    builds (the two lineitem min/max tables), `chain_aggregate` against
+    its plain version on Q21's walk, Q18's reduced walk (the
+    representative-row lane too), Q9's (date_part keys, a decimal
+    `amount`) and Q12's (CASE sums); then each query end to end against
+    numpy with 0 fallbacks, its kernels launched, and a breakdown. Returns
+    the kernels line's entries of the two new parts of rows 15 and 16:
+    `chain_build[mmx]`, Q21's largest min/max build, with chain_build's
+    launches in Q21's main-path run, and `chain_aggregate[fd]`, Q18's
+    reduced walk, with chain_aggregate's launches in Q18's."""
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainAggregateExec)
+    from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
+    tctx = ctx.task_context()
+    execs = {q: find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
+                          TorchJoinChainAggregateExec) for q in FULL_LOWERING}
+    for q, ex in execs.items():
+        if ex is None:
+            raise AssertionError(f"Q{q} plans no TorchJoinChainAggregateExec")
+        print(f"Q{q} SF10 plans {ex.display_line()}", flush=True)
+    variants = {
+        "chain_build[mmx]": (21, "chain_build", chain_builds_vs_plain(
+            execs[21], tctx, card, "Q21 SF10", mmx_only=True),
+            "datafusion_tpu/physical/plan/device_join_chain.py:1158"),
+        "chain_aggregate[fd]": (18, "chain_aggregate", chain_walk_vs_plain(
+            execs[18], tctx, card, "Q18 SF10"),
+            "datafusion_tpu/physical/plan/device_join_chain.py:1501")}
+    chain_walk_vs_plain(execs[21], tctx, card, "Q21 SF10")
+    chain_walk_vs_plain(execs[9], tctx, card, "Q9 SF10")
+    chain_walk_vs_plain(execs[12], tctx, card, "Q12 SF10 (CASE)")
+    del execs
+    import torch
+    torch.cuda.empty_cache()
+    li = tables["lineitem"]
+    out_entries = {}
+    for q in FULL_LOWERING:
+        expect = ["chain_build", "chain_aggregate", "compact_groups"]
+        if q == 18:
+            expect.append("hash_group_aggregate")
+        out, counts, _ = run_path(ctx, TPCH[q], expect, card, f"Q{q} SF10",
+                                  li.num_rows, TorchJoinChainAggregateExec)
+        add(counts)
+        for name, (vq, kernel, ent, replaces) in variants.items():
+            if vq == q:
+                out_entries[name] = dict(
+                    name=name, route="cuda",
+                    source=kernels.KERNELS[kernel].source,
+                    replaces=replaces, launches=counts[kernel], **ent)
+        no_fallbacks(ctx, TPCH[q], f"Q{q} SF10")
+        print(check_full_lowering(q, out, tables), flush=True)
+        breakdown(ctx, TPCH[q], card, f"Q{q} SF10",
+                  TorchJoinChainAggregateExec)
+        del out
+    torch.cuda.empty_cache()
+    return list(out_entries.values())
+
+
 def main() -> int:
     for blocked in ("jax", "datafusion_tpu", "bench"):
         sys.modules[blocked] = None     # the port stands alone
@@ -1517,6 +1939,9 @@ def main() -> int:
     del tctx, out, agg
     torch.cuda.empty_cache()
 
+    # == TPC-H SF10: Q7-Q10, Q12, Q14, Q18, Q21 ===============================
+    variants = full_lowering_phase(ctx, tables, card, add)
+
     # == TPC-H SF10: window functions (W1, W2, W3) ============================
     from datafusion_tpu_torch.physical.plan.window import WindowExec
     window = ["radix_sort", "gather_lanes", "window_scan"]
@@ -1683,7 +2108,7 @@ def main() -> int:
     print(json.dumps({"kernels": [dict(
         name=k.name, route="cuda", source=k.source, replaces=k.replaces,
         launches=launched[k.name], **report[k.name])
-        for k in kernels.KERNELS.values()]}))
+        for k in kernels.KERNELS.values()] + variants}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1705,5 +2130,123 @@ def top_counts_agree(label, got_keys, got_counts, all_keys, all_counts):
         raise AssertionError(f"{label}: groups beyond the 10th count differ")
 
 
+# ---- walks across checkouts ------------------------------------------------
+
+WALK_QUERIES = (3, 5, 9, 12, 18, 21)
+ROWS_QUERIES = (2, 20)
+WALK_REPS = 20
+
+
+def walk_resources(lib_path):
+    """{kernel symbol: (registers, stack bytes)} of the walk kernels
+    (`chain_dense_kernel`, `chain_hash_kernel`, `rows_mark_kernel`,
+    `rows_emit_kernel`) in the library at `lib_path`, from `cuobjdump
+    --dump-resource-usage`."""
+    import re
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    out = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"),
+                          "--dump-resource-usage", lib_path],
+                         capture_output=True, text=True, check=True).stdout
+    res, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+            continue
+        reg = re.search(r"REG:(\d+)", line)
+        local = re.search(r"STACK:(\d+)", line)
+        if reg and local and name and re.search(
+                r"chain_(dense|hash)_kernel|rows_(mark|emit)_kernel", name):
+            res[name] = (int(reg.group(1)), int(local.group(1)))
+    return res
+
+
+def walk_tree(tree):
+    """The walks of WALK_QUERIES with `tree`'s package; prints one JSON
+    line."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    import datafusion_tpu_torch as dft
+    if not dft.__file__.startswith(tree + os.sep):
+        raise AssertionError(f"imported {dft.__file__}, not from {tree}")
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.join_chain import (
+        chain_aggregate, chain_rows)
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        DeviceLoweringUnsupported)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainAggregateExec, TorchJoinChainRowsExec)
+    from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
+    kernels.library()
+    tables = tpch_tables(10, seed=0)
+    ctx = dft.SessionContext(torch.device(DEVICE))
+    for tname, b in tables.items():
+        ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
+    tctx = ctx.task_context()
+    walks = {}
+    for q in WALK_QUERIES:
+        ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
+                       TorchJoinChainAggregateExec)
+        try:
+            if ex is None:
+                raise DeviceLoweringUnsupported("no chain exec")
+            spec, _p, _n, _s, inputs, _staged = ex.prepare(tctx)
+        except Exception as e:   # an older tree plans less on the card
+            walks[q] = None
+            print(f"Q{q}: not on the card in {tree}: "
+                  f"{type(e).__name__}: {e}", flush=True)
+            continue
+        ((cols, aux, n),) = inputs
+        table = spec.new_table(aux.device)
+        pristine = table.clone()
+        overflow = torch.zeros(1, dtype=torch.int32, device=aux.device)
+        walks[q] = cuda_ms(lambda: chain_aggregate(spec, cols, aux, n, table,
+                                                   overflow), WALK_REPS,
+                           setup=lambda: table.copy_(pristine))
+        del spec, inputs, _staged, cols, aux, table, pristine
+        torch.cuda.empty_cache()
+    rows = {}
+    for q in ROWS_QUERIES:
+        ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
+                       TorchJoinChainRowsExec)
+        if ex is None:
+            rows[q] = None
+            continue
+        spec, inputs, _staged = ex.prepare_rows(tctx)
+        ((cols, aux, n, _view),) = inputs
+        rows[q] = cuda_ms(lambda: chain_rows(spec, cols, aux, n), WALK_REPS)
+        del spec, inputs, _staged, cols, aux
+        torch.cuda.empty_cache()
+    print(json.dumps({"tree": tree, "walk_ms": walks, "rows_ms": rows,
+                      "resources": walk_resources(str(kernels.LIB))}),
+          flush=True)
+
+
+def walks_main(trees) -> int:
+    """Each tree's walks in a process of its own, in the order given."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    card = smi()
+    print(card, flush=True)
+    for tree in trees:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--walk-tree", tree], capture_output=True,
+                           text=True)
+        print(r.stdout.strip(), flush=True)
+        if r.returncode:
+            print(r.stderr[-4000:], file=sys.stderr)
+            return r.returncode
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--walks"]:
+        sys.exit(walks_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--walk-tree"]:
+        sys.exit(walk_tree(sys.argv[2]))
     sys.exit(main())

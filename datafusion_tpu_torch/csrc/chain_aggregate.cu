@@ -36,18 +36,25 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Four blocks an SM, so at most 64 registers a thread. The lean walks fit
+// that anyway; the full ones would take 80-104 and fit only two or three.
+// Measured on an H100 (PERF.md): Q9's and Q12's walks run faster
+// capped, Q21's (two min/max hops) 12% slower.
+constexpr int kMinBlocks = 4;
 
-__global__ void __launch_bounds__(kThreads)
+template <bool Full>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 chain_dense_kernel(const i64* __restrict__ meta_g, int meta_len,
                    const i64* __restrict__ aux, i64 n_rows,
                    u64* __restrict__ table_g) {
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
   dense_fold(smem, aux, n_rows, (u64*)(smem + meta_len), table_g,
-             ChainRows{smem, aux});
+             ChainRows<Full>{smem, aux});
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <bool Full>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 chain_hash_kernel(const i64* __restrict__ meta_g, int meta_len,
                   const i64* __restrict__ aux, i64 n_rows, i64 cap,
                   int identity_slots, i64* __restrict__ table,
@@ -55,7 +62,7 @@ chain_hash_kernel(const i64* __restrict__ meta_g, int meta_len,
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
   hash_fold(smem, aux, n_rows, cap, identity_slots, table, overflow,
-            ChainRows{smem, aux});
+            ChainRows<Full>{smem, aux});
 }
 
 }  // namespace
@@ -64,22 +71,26 @@ chain_hash_kernel(const i64* __restrict__ meta_g, int meta_len,
 // (join_chain.py); aux: device int64 per-batch inputs. mode 0: the dense
 // table int64 [n_lanes + 1][groups]; mode 1 (the packed key is the slot)
 // and 2 (probed): the hash table int64 [n_lanes + 2][cap] and the int32
-// overflow flag, as dft_hash_group_aggregate takes them. Launches on
-// `stream` and returns cudaGetLastError().
+// overflow flag, as dft_hash_group_aggregate takes them; full: the
+// programs or a min/max hop need the interpreter's full variant. Launches
+// on `stream` and returns cudaGetLastError().
 extern "C" int dft_chain_aggregate(const void* meta, int meta_len,
                                    int n_lanes, int groups, const void* aux,
                                    long long n_rows, long long cap, int mode,
-                                   void* table, void* overflow,
+                                   void* table, void* overflow, int full,
                                    void* stream) {
   const unsigned blocks = grid_blocks(n_rows, kThreads);
   if (mode == 0) {
     const size_t smem = (size_t)(meta_len + (n_lanes + 1) * groups) * 8;
-    chain_dense_kernel<<<blocks, kThreads, smem,
-                         (cudaStream_t)stream>>>(
+    const auto kernel = full ? chain_dense_kernel<true>
+                             : chain_dense_kernel<false>;
+    kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
         (const i64*)meta, meta_len, (const i64*)aux, n_rows, (u64*)table);
   } else {
-    chain_hash_kernel<<<blocks, kThreads, (size_t)meta_len * 8,
-                        (cudaStream_t)stream>>>(
+    const auto kernel = full ? chain_hash_kernel<true>
+                             : chain_hash_kernel<false>;
+    kernel<<<blocks, kThreads, (size_t)meta_len * 8,
+             (cudaStream_t)stream>>>(
         (const i64*)meta, meta_len, (const i64*)aux, n_rows, cap,
         mode == 1 ? 1 : 0, (i64*)table, (int*)overflow);
   }

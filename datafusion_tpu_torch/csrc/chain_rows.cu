@@ -40,17 +40,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool Full>
 __global__ void __launch_bounds__(kThreads)
 rows_mark_kernel(const i64* __restrict__ meta_g, int meta_len,
                  const i64* __restrict__ aux, i64 n_rows,
                  i64* __restrict__ pos) {
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
-  const ChainRows rows{smem, aux};
+  const ChainRows<Full> rows{smem, aux};
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
        row += stride) {
-    ChainColumns cols;
+    ChainColumns<Full> cols;
     pos[row] = rows(row, &cols) ? 1 : 0;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) pos[n_rows] = 0;
@@ -67,13 +68,14 @@ __device__ __forceinline__ void store(void* data, int dtype, i64 slot,
   }
 }
 
+template <bool Full>
 __global__ void __launch_bounds__(kThreads)
 rows_emit_kernel(const i64* __restrict__ meta_g, int meta_len,
                  const i64* __restrict__ aux, i64 n_rows,
                  const i64* __restrict__ pos, const i64* __restrict__ outs) {
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
-  const ChainRows rows{smem, aux};
+  const ChainRows<Full> rows{smem, aux};
   const int n_out = (int)smem[H_NLANES];
   const i64* progs = smem + smem[H_OFF_LANES];   // (program, dtype code)
   const i64 stride = (i64)gridDim.x * blockDim.x;
@@ -81,7 +83,7 @@ rows_emit_kernel(const i64* __restrict__ meta_g, int meta_len,
        row += stride) {
     const i64 slot = pos[row];
     if (pos[row + 1] == slot) continue;
-    ChainColumns cols;
+    ChainColumns<Full> cols;
     rows(row, &cols);  // true: the walk of pass 1, for the build rows
     for (int o = 0; o < n_out; ++o) {
       i64 x;
@@ -97,14 +99,17 @@ rows_emit_kernel(const i64* __restrict__ meta_g, int meta_len,
 // meta: device int64 descriptor of meta_len words (join_chain.py
 // ChainRowsSpec); aux: device int64 per-batch inputs; pos: device int64
 // [n_rows + 1]; sums: device int64 scratch of ceil((n_rows + 1) / 8192)
-// words. Four launches on `stream` (the mark, then exclusive_scan's
+// words; full: the programs or a min/max hop need the interpreter's full
+// variant. Four launches on `stream` (the mark, then exclusive_scan's
 // three); returns the first cudaError_t.
 extern "C" int dft_chain_rows_mark(const void* meta, int meta_len,
                                    const void* aux, long long n_rows,
-                                   void* pos, void* sums, void* stream) {
+                                   void* pos, void* sums, int full,
+                                   void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  rows_mark_kernel<<<grid_blocks(n_rows, kThreads), kThreads,
-                     (size_t)meta_len * 8, st>>>(
+  const auto kernel = full ? rows_mark_kernel<true> : rows_mark_kernel<false>;
+  kernel<<<grid_blocks(n_rows, kThreads), kThreads, (size_t)meta_len * 8,
+           st>>>(
       (const i64*)meta, meta_len, (const i64*)aux, n_rows, (i64*)pos);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -113,13 +118,14 @@ extern "C" int dft_chain_rows_mark(const void* meta, int meta_len,
 
 // pos: the scanned slots of dft_chain_rows_mark; outs: device int64
 // [2 * outputs], each output's (data pointer, validity pointer), data at
-// the width of its dtype code in the descriptor.
+// the width of its dtype code in the descriptor; full as in the mark.
 extern "C" int dft_chain_rows_emit(const void* meta, int meta_len,
                                    const void* aux, long long n_rows,
                                    const void* pos, const void* outs,
-                                   void* stream) {
-  rows_emit_kernel<<<grid_blocks(n_rows, kThreads), kThreads,
-                     (size_t)meta_len * 8, (cudaStream_t)stream>>>(
+                                   int full, void* stream) {
+  const auto kernel = full ? rows_emit_kernel<true> : rows_emit_kernel<false>;
+  kernel<<<grid_blocks(n_rows, kThreads), kThreads, (size_t)meta_len * 8,
+           (cudaStream_t)stream>>>(
       (const i64*)meta, meta_len, (const i64*)aux, n_rows, (const i64*)pos,
       (const i64*)outs);
   return (int)cudaGetLastError();

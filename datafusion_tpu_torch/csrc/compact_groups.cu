@@ -57,14 +57,16 @@ __device__ __forceinline__ double sum_value(int kind, i64 bits) {
 // Column loads of a HAVING program: output column `idx` of group `slot`,
 // finalised from the table as _apply_post_filter does
 // (device_aggregate.py:1301-1352). Descriptor words per column:
-//   FIN_KEY   (shift, bits, offset, is_bool)  ((k >> shift) & mask) - 1 +
-//             offset (bool: != 0), valid when that field is not 0
+//   FIN_KEY   (shift, bits, offset, is_bool, is_float)  ((k >> shift) &
+//             mask) - 1 + offset (bool: != 0; float: as float64, a
+//             date_part key), valid when that field is not 0
 //   FIN_COUNT (count row)
 //   FIN_SUM   (sum row, count row, lane kind)       valid when count > 0
 //   FIN_AVG   (sum row, count row, lane kind)       s / c, float64
 //   FIN_MIN/MAX (value row, count row, lane kind, nancnt row or -1):
 //             NaN restored (min: all values NaN; max: any value NaN)
 struct GroupColumns {
+  static constexpr bool kFull = true;   // a HAVING may use every opcode
   const i64* fin;
   const i64* table;
   i64 cap;
@@ -79,7 +81,7 @@ struct GroupColumns {
       case FIN_KEY: {
         const i64 raw = (at(0, slot) >> f[1]) & ((1ll << f[2]) - 1);
         const i64 code = wadd(raw - 1, f[3]);
-        *v = f[4] ? (i64)(code != 0) : code;
+        *v = f[4] ? (i64)(code != 0) : f[5] ? as_i((double)code) : code;
         return raw != 0;
       }
       case FIN_COUNT:

@@ -41,6 +41,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool Full>
 __global__ void __launch_bounds__(kThreads)
 fused_dense_aggregate_kernel(const i64* __restrict__ meta_g, int meta_len,
                              const i64* __restrict__ aux, i64 n_rows,
@@ -48,22 +49,26 @@ fused_dense_aggregate_kernel(const i64* __restrict__ meta_g, int meta_len,
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
   dense_fold(smem, aux, n_rows, (u64*)(smem + meta_len), table_g,
-             PlainRows{smem, aux});
+             PlainRows<Full>{smem, aux});
 }
 
 }  // namespace
 
 // meta: device int64 descriptor of meta_len words (see groupby.py);
 // aux: device int64 per-batch inputs; table: device int64
-// [n_lanes + 1][groups], filled with each lane's identity by the caller.
-// Launches on `stream` and returns cudaGetLastError().
+// [n_lanes + 1][groups], filled with each lane's identity by the caller;
+// full: the programs need the interpreter's full variant. Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int dft_fused_dense_aggregate(const void* meta, int meta_len,
                                          int n_lanes, int groups,
                                          const void* aux, long long n_rows,
-                                         void* table, void* stream) {
+                                         void* table, int full,
+                                         void* stream) {
   const size_t smem = (size_t)(meta_len + (n_lanes + 1) * groups) * 8;
-  fused_dense_aggregate_kernel<<<grid_blocks(n_rows, kThreads), kThreads,
-                                 smem, (cudaStream_t)stream>>>(
+  const auto kernel = full ? fused_dense_aggregate_kernel<true>
+                           : fused_dense_aggregate_kernel<false>;
+  kernel<<<grid_blocks(n_rows, kThreads), kThreads, smem,
+           (cudaStream_t)stream>>>(
       (const i64*)meta, meta_len, (const i64*)aux, n_rows, (u64*)table);
   return (int)cudaGetLastError();
 }

@@ -50,6 +50,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool Full>
 __global__ void __launch_bounds__(kThreads)
 hash_group_aggregate_kernel(const i64* __restrict__ meta_g, int meta_len,
                             const i64* __restrict__ aux, i64 n_rows, i64 cap,
@@ -58,7 +59,7 @@ hash_group_aggregate_kernel(const i64* __restrict__ meta_g, int meta_len,
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
   hash_fold(smem, aux, n_rows, cap, identity_slots, table, overflow,
-            PlainRows{smem, aux});
+            PlainRows<Full>{smem, aux});
 }
 
 }  // namespace
@@ -66,16 +67,19 @@ hash_group_aggregate_kernel(const i64* __restrict__ meta_g, int meta_len,
 // meta: device int64 descriptor of meta_len words (see groupby.py); aux:
 // device int64 per-batch inputs; table: device int64 [n_lanes + 2][cap],
 // cap a power of two, row 0 EMPTY (-1), row 1 zero, each lane its identity;
-// overflow: device int32 flag, set to 1 when a row found no slot.
-// Launches on `stream` and returns cudaGetLastError().
+// overflow: device int32 flag, set to 1 when a row found no slot; full:
+// the programs need the interpreter's full variant. Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int dft_hash_group_aggregate(const void* meta, int meta_len,
                                         const void* aux, long long n_rows,
                                         long long cap, int identity_slots,
                                         void* table, void* overflow,
-                                        void* stream) {
+                                        int full, void* stream) {
   const size_t smem = (size_t)meta_len * 8;
-  hash_group_aggregate_kernel<<<grid_blocks(n_rows, kThreads), kThreads,
-                                smem, (cudaStream_t)stream>>>(
+  const auto kernel = full ? hash_group_aggregate_kernel<true>
+                           : hash_group_aggregate_kernel<false>;
+  kernel<<<grid_blocks(n_rows, kThreads), kThreads, smem,
+           (cudaStream_t)stream>>>(
       (const i64*)meta, meta_len, (const i64*)aux, n_rows, cap,
       identity_slots, (i64*)table, (int*)overflow);
   return (int)cudaGetLastError();

@@ -36,7 +36,7 @@ typedef unsigned long long u64;
 
 // opcodes: datafusion_tpu_torch/device/lower.py
 enum {
-  OP_COL = 1, OP_ICONST = 2, OP_FCONST = 3, OP_NULL = 4,
+  OP_COL = 1, OP_ICONST = 2, OP_FCONST = 3, OP_NULL = 4, OP_ROWID = 5,
   OP_ADD_I = 10, OP_SUB_I = 11, OP_MUL_I = 12,
   OP_ADD_F = 13, OP_SUB_F = 14, OP_MUL_F = 15,
   OP_NEG_I = 16, OP_NEG_F = 17,
@@ -45,7 +45,17 @@ enum {
   OP_CMP_I = 30, OP_CMP_F = 31, OP_STRCMP = 32, OP_DECCMP = 33, OP_LUT = 34,
   OP_IN_I = 35, OP_IN_F = 36,
   OP_AND = 40, OP_OR = 41, OP_NOT = 42, OP_ISNULL = 43, OP_ISNOTNULL = 44,
+  OP_DIV_I = 50, OP_MOD_I = 51, OP_DIV_F = 52, OP_MOD_F = 53,
+  OP_SELECT = 54, OP_MATH = 55, OP_DATEPART = 56,
+  OP_AUX = 58, OP_F2I = 59, OP_DECCMP_AUX = 60,
 };
+// OP_MATH function ids and OP_DATEPART part ids (lower.py MATH_FUNCS,
+// DATE_PARTS)
+enum { M_ABS, M_SQRT, M_EXP, M_LN, M_LOG2, M_LOG10, M_SIN, M_COS, M_TAN,
+       M_FLOOR, M_CEIL };
+enum { P_YEAR, P_QUARTER, P_MONTH, P_DAY, P_WEEK, P_DOY, P_DOW, P_EPOCH,
+       P_HOUR, P_MINUTE, P_SECOND, P_MILLISECOND, P_MICROSECOND,
+       P_NANOSECOND };
 enum { CMP_EQ, CMP_NE, CMP_LT, CMP_LE, CMP_GT, CMP_GE };
 
 // lane kinds: datafusion_tpu_torch/device/groupby.py
@@ -66,8 +76,11 @@ enum { H_NCOLS, H_NLANES, H_G, H_NKEYS, H_PRED, H_OFF_COLS, H_OFF_PROGS,
 // join-chain section (datafusion_tpu_torch/device/join_chain.py): a head,
 // one record per hop, then the hop of every pair-space column (-1: spine)
 enum { C_NSPINE, C_NHOPS, C_PPRED, C_OFF_HOPOF, C_HOPS };
+// HOP_MOP: the comparison code of a SEMI/ANTI min/max membership test
+// (-1: none), HOP_MPROG its probe program, HOP_MN/HOP_MX the int64 min and
+// max of the member column, slot-aligned with the table
 enum { HOP_KIND, HOP_JTYPE, HOP_TABLE, HOP_KEYS, HOP_SIZE, HOP_NKEYS,
-       HOP_KEY0 };
+       HOP_MOP, HOP_MPROG, HOP_MN, HOP_MX, HOP_KEY0 };
 constexpr int kMaxHops = 8;
 constexpr int kMaxHopKeys = 4;
 constexpr int kHopWords = HOP_KEY0 + 4 * kMaxHopKeys;  // (prog, lo, hi, shift)
@@ -84,6 +97,120 @@ __device__ __forceinline__ i64 as_i(double d) { return __double_as_longlong(d); 
 __device__ __forceinline__ i64 wadd(i64 a, i64 b) { return (i64)((u64)a + (u64)b); }
 __device__ __forceinline__ i64 wsub(i64 a, i64 b) { return (i64)((u64)a - (u64)b); }
 __device__ __forceinline__ i64 wmul(i64 a, i64 b) { return (i64)((u64)a * (u64)b); }
+
+// Python's floor `//` and `mod` for b != 0 and (a, b) != (INT64_MIN, -1)
+__device__ __forceinline__ i64 floordiv(i64 a, i64 b) {
+  const i64 q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+__device__ __forceinline__ i64 floormod(i64 a, i64 b) {
+  const i64 r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// -x and |x| in an operand width of 32 or 64 bits (values held in int64):
+// the width's minimum stays itself, as int32/int64 negation wraps
+__device__ __forceinline__ i64 wneg(i64 x, int width) {
+  return width == 32 ? (x == INT32_MIN ? x : -x) : wsub(0, x);
+}
+__device__ __forceinline__ i64 wabs(i64 x, int width) {
+  return x < 0 ? wneg(x, width) : x;
+}
+__device__ __forceinline__ i64 sgn(i64 x) { return (x > 0) - (x < 0); }
+
+// `/` and `%` as the reference's device path computes them
+// (datafusion_tpu/device/lower.py:496-507): a zero divisor counts as 1;
+// integer `/` is sign(x) sign(y) (|x| // |y|), `%` is x >= 0 ? x mod |y| :
+// -((-x) mod |y|). |y| is >= 1 or the width's minimum, so no division
+// traps, INT64_MIN / -1 included (it wraps to INT64_MIN).
+__device__ __forceinline__ i64 div_i(i64 x, i64 y, int width) {
+  const i64 safe = y == 0 ? 1 : y;
+  return wmul(sgn(x) * sgn(safe), floordiv(wabs(x, width), wabs(safe, width)));
+}
+__device__ __forceinline__ i64 mod_i(i64 x, i64 y, int width) {
+  const i64 m = wabs(y == 0 ? 1 : y, width);
+  return x >= 0 ? floormod(x, m) : wneg(floormod(wneg(x, width), m), width);
+}
+__device__ __forceinline__ double mod_f(double x, double y) {
+  const double m = fabs(y == 0.0 ? 1.0 : y);
+  return x >= 0 ? fmod(x, m) : -fmod(-x, m);
+}
+
+// float64 -> int64 toward zero; NaN gives 0, out-of-range values saturate
+__device__ __forceinline__ i64 f2i(double x) {
+  if (isnan(x)) return 0;
+  if (x >= 9223372036854775808.0) return INT64_MAX;
+  if (x <= -9223372036854775808.0) return INT64_MIN;
+  return (i64)x;
+}
+
+__device__ __forceinline__ double math_fn(int fid, double x) {
+  switch (fid) {
+    case M_ABS: return fabs(x);
+    case M_SQRT: return sqrt(x);
+    case M_EXP: return exp(x);
+    case M_LN: return log(x);
+    case M_LOG2: return log2(x);
+    case M_LOG10: return log10(x);
+    case M_SIN: return sin(x);
+    case M_COS: return cos(x);
+    case M_TAN: return tan(x);
+    case M_FLOOR: return floor(x);
+    default: return ceil(x);
+  }
+}
+
+// civil from days and the day of 1 January (Hinnant; lower.py:619-645)
+__device__ __forceinline__ void days_to_ymd(i64 days, i64* y, i64* m,
+                                            i64* d) {
+  const i64 z = days + 719468;
+  const i64 era = floordiv(z, 146097);
+  const i64 doe = z - era * 146097;
+  const i64 yoe = (doe - doe / 1460 + doe / 36524 - doe / 146096) / 365;
+  const i64 doy = doe - (365 * yoe + yoe / 4 - yoe / 100);
+  const i64 mp = (5 * doy + 2) / 153;
+  *d = doy - (153 * mp + 2) / 5 + 1;
+  *m = mp < 10 ? mp + 3 : mp - 9;
+  *y = yoe + era * 400 + (*m <= 2);
+}
+__device__ __forceinline__ i64 jan1(i64 y) {
+  const i64 yy = y - 1;
+  const i64 era = floordiv(yy, 400);
+  const i64 yoe = yy - era * 400;
+  return era * 146097 + yoe * 365 + yoe / 4 - yoe / 100 + 306 - 719468;
+}
+
+// date_part of a raw date/timestamp value x (lower.py:678-722): to_us
+// converts it to microseconds (a negative to_us divides by -to_us)
+__device__ double date_part(int part, i64 to_us, i64 x) {
+  const i64 day_us = 86400000000LL;
+  const i64 us = to_us < 0 ? floordiv(x, -to_us) : wmul(x, to_us);
+  const i64 days = floordiv(us, day_us);
+  const i64 within = wsub(us, wmul(days, day_us));
+  i64 y, m, d, out;
+  switch (part) {
+    case P_EPOCH: return (double)us / 1e6;
+    case P_YEAR: case P_QUARTER: case P_MONTH: case P_DAY: case P_DOY:
+      days_to_ymd(days, &y, &m, &d);
+      out = part == P_YEAR ? y : part == P_QUARTER ? (m - 1) / 3 + 1
+          : part == P_MONTH ? m : part == P_DAY ? d : days - jan1(y) + 1;
+      break;
+    case P_WEEK: {  // ISO week: that of this week's Thursday
+      const i64 thu = days - floormod(days + 3, 7) + 3;
+      days_to_ymd(thu, &y, &m, &d);
+      out = floordiv(thu - jan1(y), 7) + 1;
+      break;
+    }
+    case P_DOW: out = floormod(days + 4, 7); break;
+    case P_HOUR: out = within / 3600000000LL; break;
+    case P_MINUTE: out = within % 3600000000LL / 60000000LL; break;
+    case P_SECOND: out = within % 60000000LL / 1000000LL; break;
+    case P_MILLISECOND: out = within % 60000000LL / 1000; break;
+    case P_MICROSECOND: out = within % 60000000LL; break;
+    default: out = within % 60000000LL * 1000; break;  // P_NANOSECOND
+  }
+  return (double)out;
+}
 
 template <typename T>
 __device__ __forceinline__ bool cmp(int code, T a, T b) {
@@ -116,8 +243,11 @@ __device__ __forceinline__ bool load_valid(const i64* c, i64 row, i64* v) {
 }
 
 // Column loads of the row kernels: (data pointer, validity pointer or 0,
-// dtype code) per column index, at meta[H_OFF_COLS].
+// dtype code) per column index, at meta[H_OFF_COLS]. `Full` picks the
+// interpreter's variant (`run`), as in every loader.
+template <bool Full>
 struct RowColumns {
+  static constexpr bool kFull = Full;
   const i64* cols;
   __device__ __forceinline__ bool operator()(i64 idx, i64 row, i64* v) const {
     return load_valid(cols + 3 * idx, row, v);
@@ -127,7 +257,9 @@ struct RowColumns {
 // Column loads of a join chain's pair space: a spine column (hop_of < 0)
 // at the spine row, a payload column of hop h at the build row that hop
 // found (brow[h]); a hop that found nothing reads as NULL.
+template <bool Full>
 struct ChainColumns {
+  static constexpr bool kFull = Full;
   const i64* cols;
   const i64* hop_of;
   i64 brow[kMaxHops];
@@ -147,9 +279,18 @@ struct ChainColumns {
 // Run program `prog` for one row. Returns the valid bit; the value
 // (int64, or float64 bits) goes to *out. `col(idx, row, &v)` loads one
 // column value and returns its valid bit.
+//
+// The loader's `kFull` picks one of two variants. The full one runs every
+// opcode. The lean one leaves out the opcodes from OP_DIV_I on (`/`, `%`,
+// CASE, the math functions, date_part, scalar subqueries): their integer
+// division, math library and calendar would cost every walk registers and
+// spills that most programs never use. The host launches the full variant
+// for a descriptor whose programs use any of them (`_ProgramSpec.full` in
+// groupby.py).
 template <class Columns>
 __device__ bool run(const i64* meta, const i64* aux, int prog, i64 row,
                     const Columns& col, i64* out) {
+  constexpr bool kFull = Columns::kFull;
   const i64* code = meta + meta[H_OFF_CODE];
   const i64* ic = meta + meta[H_OFF_ICONST];
   const i64* fc = meta + meta[H_OFF_FCONST];
@@ -174,8 +315,19 @@ __device__ bool run(const i64* meta, const i64* aux, int prog, i64 row,
       case OP_ICONST: v[sp] = ic[a]; SET_OK(sp, 1); ++sp; break;
       case OP_FCONST: v[sp] = fc[a]; SET_OK(sp, 1); ++sp; break;
       case OP_NULL: v[sp] = 0; SET_OK(sp, 0); ++sp; break;
+      case OP_ROWID: v[sp] = row; SET_OK(sp, 1); ++sp; break;
+      case OP_AUX: {
+        if constexpr (kFull) {
+          const i64* s = aux + aux[2 * a];
+          v[sp] = s[0];
+          SET_OK(sp, s[1] != 0);
+          ++sp;
+        }
+        break;
+      }
       case OP_ADD_I: case OP_SUB_I: case OP_MUL_I:
       case OP_ADD_F: case OP_SUB_F: case OP_MUL_F:
+      case OP_DIV_I: case OP_MOD_I: case OP_DIV_F: case OP_MOD_F:
       case OP_CMP_I: case OP_CMP_F: {
         const i64 x = v[sp - 2], y = v[sp - 1];
         const bool valid = OK(sp - 2) && OK(sp - 1);
@@ -187,6 +339,12 @@ __device__ bool run(const i64* meta, const i64* aux, int prog, i64 row,
           case OP_ADD_F: r = as_i(as_f(x) + as_f(y)); break;
           case OP_SUB_F: r = as_i(as_f(x) - as_f(y)); break;
           case OP_MUL_F: r = as_i(as_f(x) * as_f(y)); break;
+          case OP_DIV_I: r = kFull ? div_i(x, y, (int)b) : 0; break;
+          case OP_MOD_I: r = kFull ? mod_i(x, y, (int)b) : 0; break;
+          case OP_DIV_F: r = kFull ? as_i(as_f(x) / as_f(y)) : 0; break;
+          case OP_MOD_F:
+            r = kFull ? as_i(mod_f(as_f(x), as_f(y))) : 0;
+            break;
           case OP_CMP_I: r = cmp<i64>((int)a, x, y); break;
           default: r = cmp<double>((int)a, as_f(x), as_f(y)); break;
         }
@@ -210,6 +368,47 @@ __device__ bool run(const i64* meta, const i64* aux, int prog, i64 row,
         --sp;
         v[sp - 1] = d;
         SET_OK(sp - 1, valid);
+        break;
+      }
+      case OP_SELECT: {  // (acc, cond, then)
+        if constexpr (kFull) {
+          if (OK(sp - 2) && v[sp - 2] != 0) {
+            v[sp - 3] = v[sp - 1];
+            SET_OK(sp - 3, OK(sp - 1));
+          }
+          sp -= 2;
+        }
+        break;
+      }
+      case OP_MATH:
+        if constexpr (kFull) {
+          v[sp - 1] = as_i(math_fn((int)a, as_f(v[sp - 1])));
+        }
+        break;
+      case OP_DATEPART:
+        if constexpr (kFull) {
+          v[sp - 1] = as_i(date_part((int)a, b, v[sp - 1]));
+        }
+        break;
+      case OP_F2I:
+        if constexpr (kFull) v[sp - 1] = f2i(as_f(v[sp - 1]));
+        break;
+      case OP_DECCMP_AUX: {
+        if constexpr (kFull) {
+          const i64* s = aux + aux[2 * b];
+          const i64 x = v[sp - 1], t_ge = s[0], t_gt = s[1];
+          bool d;
+          switch ((int)a) {
+            case CMP_EQ: d = x >= t_ge && x < t_gt; break;
+            case CMP_NE: d = x < t_ge || x >= t_gt; break;
+            case CMP_LT: d = x < t_ge; break;
+            case CMP_LE: d = x < t_gt; break;
+            case CMP_GT: d = x >= t_gt; break;
+            default: d = x >= t_ge; break;
+          }
+          v[sp - 1] = d;
+          SET_OK(sp - 1, OK(sp - 1) && s[2] != 0);
+        }
         break;
       }
       case OP_NEG_I: v[sp - 1] = wsub(0, v[sp - 1]); break;
@@ -426,11 +625,12 @@ __device__ __forceinline__ i64 find_slot(i64* keys, i64 cap, i64 key) {
 // ---- the row bodies ---------------------------------------------------------
 
 // Rows of a plain aggregate: those that pass its predicate (H_PRED).
+template <bool Full>
 struct PlainRows {
   const i64* meta;
   const i64* aux;
-  typedef RowColumns Columns;
-  __device__ __forceinline__ bool operator()(i64 row, RowColumns* cols) const {
+  typedef RowColumns<Full> Columns;
+  __device__ __forceinline__ bool operator()(i64 row, Columns* cols) const {
     cols->cols = meta + meta[H_OFF_COLS];
     if (meta[H_PRED] < 0) return true;
     i64 x;
@@ -519,13 +719,14 @@ __device__ void hash_fold(const i64* meta, const i64* aux, i64 n_rows,
 // ---- the join chain ---------------------------------------------------------
 
 // The build row that hop `hop` (a record of the chain section) finds for
-// the current row, -1 for none: each probe-key program evaluated over the
-// pair space so far, NULL or outside the build's [lo, hi] never matching,
-// packed as the build packed its keys, looked up in the build's table.
+// the current row, -1 for none, and its table slot to *slot: each
+// probe-key program evaluated over the pair space so far, NULL or outside
+// the build's [lo, hi] never matching, packed as the build packed its
+// keys, looked up in the build's table.
 template <class Columns>
 __device__ __forceinline__ i64 hop_lookup(const i64* meta, const i64* aux,
                                           const i64* hop, i64 row,
-                                          const Columns& cols) {
+                                          const Columns& cols, i64* slot) {
   const int kind = (int)hop[HOP_KIND];
   if (kind == TAB_EMPTY) return -1;
   i64 packed = 0;
@@ -538,30 +739,60 @@ __device__ __forceinline__ i64 hop_lookup(const i64* meta, const i64* aux,
     packed |= (v - kr[1]) << kr[3];
   }
   const int* rows = (const int*)hop[HOP_TABLE];
-  if (kind == TAB_DIRECT) return __ldg(rows + packed);
+  if (kind == TAB_DIRECT) {
+    *slot = packed;
+    return __ldg(rows + packed);
+  }
   const i64* keys = (const i64*)hop[HOP_KEYS];
   const i64 mask = hop[HOP_SIZE] - 1;
   i64 h = (i64)(splitmix64((u64)packed) & (u64)mask);
   for (i64 probes = 0; probes <= mask; ++probes) {
     const i64 seen = __ldg((const long long*)keys + h);
-    if (seen == packed) return __ldg(rows + h);
+    if (seen == packed) {
+      *slot = h;
+      return __ldg(rows + h);
+    }
     if (seen == kEmpty) return -1;
     h = (h + 1) & mask;
   }
   return -1;
 }
 
+// The min/max membership test of a filtered SEMI/ANTI hop
+// (device_join_chain.py:1325-1347): some member row of the key found at
+// `slot` satisfies `member OP x`, x the hop's probe program over the pair
+// space; a NULL x satisfies nothing.
+template <class Columns>
+__device__ __forceinline__ bool mmx_exists(const i64* meta, const i64* aux,
+                                           const i64* hop, i64 row,
+                                           const Columns& cols, i64 slot) {
+  i64 x;
+  if (!run(meta, aux, (int)hop[HOP_MPROG], row, cols, &x)) return false;
+  const i64 mn = __ldg((const long long*)hop[HOP_MN] + slot);
+  const i64 mx = __ldg((const long long*)hop[HOP_MX] + slot);
+  switch ((int)hop[HOP_MOP]) {
+    case CMP_NE: return mn != x || mx != x;
+    case CMP_LT: return mn < x;
+    case CMP_LE: return mn <= x;
+    case CMP_GT: return mx > x;
+    default: return mx >= x;  // CMP_GE
+  }
+}
+
 // Rows of a join-chain aggregate: the probe predicate over the spine, then
-// each hop in chain order (INNER and SEMI need a match, ANTI needs none;
-// the build row an INNER hop found is kept in a register for the payload
-// loads of later hops, the residual, the keys and the lanes), then the
-// residual predicate (H_PRED) over the whole pair space.
+// each hop in chain order (INNER and SEMI need a match, ANTI needs none; a
+// filtered SEMI/ANTI hop's match must also pass its min/max membership
+// test; the build row an INNER hop found is kept in a register for the
+// payload loads of later hops, the residual, the keys and the lanes), then
+// the residual predicate (H_PRED) over the whole pair space. Only the
+// full variant has the min/max test; the host picks it for a chain with a
+// filtered hop.
+template <bool Full>
 struct ChainRows {
   const i64* meta;
   const i64* aux;
-  typedef ChainColumns Columns;
-  __device__ __forceinline__ bool operator()(i64 row,
-                                             ChainColumns* cols) const {
+  typedef ChainColumns<Full> Columns;
+  __device__ __forceinline__ bool operator()(i64 row, Columns* cols) const {
     const i64* ch = meta + meta[H_OFF_CHAIN];
     cols->cols = meta + meta[H_OFF_COLS];
     cols->hop_of = ch + ch[C_OFF_HOPOF];
@@ -575,7 +806,14 @@ struct ChainRows {
     const int n_hops = (int)ch[C_NHOPS];
     for (int h = 0; h < n_hops; ++h) {
       const i64* hop = ch + C_HOPS + h * kHopWords;
-      const i64 b = hop_lookup(meta, aux, hop, row, *cols);
+      i64 slot;
+      i64 b = hop_lookup(meta, aux, hop, row, *cols, &slot);
+      if constexpr (Full) {
+        if (b >= 0 && hop[HOP_MOP] >= 0 &&
+            !mmx_exists(meta, aux, hop, row, *cols, slot)) {
+          b = -1;
+        }
+      }
       if ((int)hop[HOP_JTYPE] == JT_ANTI ? b >= 0 : b < 0) return false;
       cols->brow[h] = b;
     }

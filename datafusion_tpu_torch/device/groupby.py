@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .lower import LoweringError, Pools, Program, evaluate
+from .lower import FULL_OPS_FROM, LoweringError, Pools, Program, evaluate
 
 fused_dense_aggregate = kernels.register(kernels.Kernel(
     "fused_dense_aggregate", "datafusion_tpu_torch/csrc/fused_dense_aggregate.cu",
@@ -125,10 +125,13 @@ Columns = Dict[int, Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
 def lane_kind(cat: str, prog: Optional[Program], f32_sums: bool = False) -> int:
     """The lane kind of a slot category of `DeviceGroupAggregateExec`
-    (`sum`, `cnt`, `min`, `max`, `nancnt`) over `prog`'s values. With
-    `f32_sums` (the hash path) a float32 sum keeps a float32 lane."""
+    (`sum`, `cnt`, `min`, `max`, `nancnt`, and `rowid`: a join chain's
+    representative spine row, the max of `OP_ROWID`) over `prog`'s values.
+    With `f32_sums` (the hash path) a float32 sum keeps a float32 lane."""
     if prog is None:
         return LANE_ROWS
+    if cat == "rowid":
+        return LANE_MAX_I64
     f = prog.is_float
     fsum = LANE_SUM_F32 if f32_sums and prog.out_dtype == np.float32 \
         else LANE_SUM_F64
@@ -199,6 +202,13 @@ class _ProgramSpec:
         out += [p for p, _o, _s in self.keys]
         out += [p for p, _k in self.lanes if p is not None]
         return out
+
+    @property
+    def full(self) -> bool:
+        """Whether the kernels must launch their interpreter's full variant:
+        a program uses an opcode from FULL_OPS_FROM on."""
+        return any(op >= FULL_OPS_FROM for p in self.programs()
+                   for op, _a, _b in p.code)
 
     def _chain_section(self, index: Dict[int, int]) -> np.ndarray:
         """The join-chain section of the descriptor (`device/join_chain.py`);
@@ -384,7 +394,8 @@ def dense_group_aggregate(spec: AggregateSpec, cols: Columns,
         meta_d = spec.device_meta(cols, table.device)
         rc = lib.dft_fused_dense_aggregate(
             meta_d.data_ptr(), len(spec.meta), len(spec.lanes), spec.groups,
-            aux.data_ptr(), n_rows, table.data_ptr(), _stream(table.device))
+            aux.data_ptr(), n_rows, table.data_ptr(), int(spec.full),
+            _stream(table.device))
     kernels.check(rc, fused_dense_aggregate)
     fused_dense_aggregate.launches += 1
     return table
@@ -498,7 +509,7 @@ def hash_group_aggregate(spec: HashSpec, cols: Columns, aux: torch.Tensor,
         rc = lib.dft_hash_group_aggregate(
             meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
             spec.cap, int(spec.identity_slots), table.data_ptr(),
-            overflow.data_ptr(), _stream(table.device))
+            overflow.data_ptr(), int(spec.full), _stream(table.device))
     kernels.check(rc, hash_group_aggregate_kernel)
     hash_group_aggregate_kernel.launches += 1
     return table
@@ -563,8 +574,9 @@ FIN_WORDS = 6
 class Finaliser:
     """One output column of an aggregate read from its group table, as
     `_apply_post_filter` (`device_aggregate.py:1301-1352`) reads it:
-    - FIN_KEY (shift, bits, offset, is_bool): `((k >> shift) & mask) - 1 +
-      offset` (bool: != 0), valid when that field is not 0;
+    - FIN_KEY (shift, bits, offset, is_bool, is_float): `((k >> shift) &
+      mask) - 1 + offset` (bool: != 0; float: as float64, a date_part
+      key), valid when that field is not 0;
     - FIN_COUNT (count row);
     - FIN_SUM / FIN_AVG (sum row, count row, sum lane kind): valid when the
       count is above 0; avg is `s / c` in float64;
@@ -596,11 +608,14 @@ def finalise(table: torch.Tensor, fins: Dict[int, Finaliser]):
     for idx, f in fins.items():
         w = f.words
         if f.kind == FIN_KEY:
-            shift, bits, offset, is_bool = w[:4]
+            shift, bits, offset, is_bool, is_float = (*w, 0)[:5]
             raw = (table[0] >> shift) & ((1 << bits) - 1)
             code = raw - 1 + offset
-            out[idx] = ((code != 0).to(torch.int64) if is_bool else code,
-                        raw != 0)
+            if is_bool:
+                code = (code != 0).to(torch.int64)
+            elif is_float:
+                code = code.to(torch.float64)
+            out[idx] = (code, raw != 0)
         elif f.kind == FIN_COUNT:
             out[idx] = (table[w[0]], torch.ones_like(table[w[0]],
                                                      dtype=torch.bool))

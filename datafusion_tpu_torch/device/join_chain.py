@@ -10,7 +10,8 @@ LEFTANTI).
 Build staging (`chain_build`, kernel `csrc/chain_build.cu`). Counterpart
 of `_unfiltered_lut` (`:177`), the per-query mask LUT (`:638-650`), the host
 sorted-key packing (`:657-711`), `_stage_build_device` (`:1069`) and
-`_stage_semi_member_lut` (`:1158`). One pass over the build rows counts
+`_stage_semi_member_lut` (`:1158`) with its min/max branch (`:1170-1300`).
+One pass over the build rows counts
 the rows that pass the build predicate with every key valid and takes each
 key's min and max; the host reads those few words and lays the table out
 (`table_layout`); a second pass packs each live row's keys as
@@ -19,7 +20,11 @@ int32 table (row or -1) when the packed span is at most 16 x rows and
 2^26, else into an open-addressing table of (int64 key, int32 row) of
 2 x next_pow2(rows) slots. A second row for a key marks a duplicate: an
 INNER build with one has fanout > 1 and the exec runs its host plan.
-NULL keys are never inserted.
+NULL keys are never inserted. A min/max build (a filtered SEMI or ANTI
+hop, `member_col OP probe_expr`, TPC-H Q21) counts a row only when its
+member value is valid too, and keeps the member's min and max over each
+key's rows in two int64 arrays aligned with the table, laid out by the same
+rule as every other build.
 
 The walk (`chain_aggregate`, kernel `csrc/chain_aggregate.cu`). Counterpart
 of `_chain_walk` (`:1597`), `_chain_core` (`:1783`), `_make_chain_step`
@@ -43,6 +48,13 @@ writes every output program's value and validity at the row's slot. The
 output is in spine order, as the reference's `searchsorted` compaction
 gives it.
 
+A filtered SEMI/ANTI hop keeps a row when some member row of its key
+satisfies `member OP x` (`_mmx_exists`, `:1325-1347`): `<>` when the min
+or the max differs from x, `<` and `<=` by the min, `>` and `>=` by the
+max; a NULL x satisfies nothing, and ANTI negates the test. The
+representative-row lane of a functional-dependence reduction (`:1859-1866`)
+is a max lane over `OP_ROWID`, the spine row's index.
+
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its CUDA kernel on CUDA tensors, or raises.
 """
@@ -55,10 +67,11 @@ import torch
 
 from .. import kernels
 from .groupby import (_DTYPE_CODE, _NP_TO_TORCH, EMPTY, H_OFF_KEYS,
-                      SMEM_BYTES, AggregateSpec, Columns, HashSpec, _cuda,
-                      _next_pow2, _ProgramSpec, _stream,
+                      LANE_MIN_I64, SMEM_BYTES, AggregateSpec, Columns,
+                      HashSpec, _cuda, _next_pow2, _ProgramSpec, _stream,
                       dense_group_aggregate_plain, hash_group_aggregate_plain)
-from .lower import LoweringError, Pools, Program, evaluate
+from .lower import (CMP_EQ, CMP_GE, CMP_GT, CMP_LE, CMP_LT, CMP_NE,
+                    LoweringError, Pools, Program, evaluate)
 
 chain_build_kernel = kernels.register(kernels.Kernel(
     "chain_build", "datafusion_tpu_torch/csrc/chain_build.cu",
@@ -78,8 +91,8 @@ JOIN_TYPES = {"INNER": JT_INNER, "LEFTSEMI": JT_SEMI, "LEFTANTI": JT_ANTI}
 # the chain section of a descriptor: a head, a record per hop, then the
 # hop of every pair-space column (-1: spine)
 C_NSPINE, C_NHOPS, C_PPRED, C_OFF_HOPOF, C_HOPS = range(5)
-(HOP_KIND, HOP_JTYPE, HOP_TABLE, HOP_KEYS, HOP_SIZE, HOP_NKEYS,
- HOP_KEY0) = range(7)
+(HOP_KIND, HOP_JTYPE, HOP_TABLE, HOP_KEYS, HOP_SIZE, HOP_NKEYS, HOP_MOP,
+ HOP_MPROG, HOP_MN, HOP_MX, HOP_KEY0) = range(11)
 MAX_HOPS = 8
 MAX_HOP_KEYS = 4
 HOP_WORDS = HOP_KEY0 + 4 * MAX_HOP_KEYS    # (prog, lo, hi, shift) per key
@@ -96,18 +109,26 @@ _I64_MIN = int(np.iinfo(np.int64).min)
 
 class BuildSpec(_ProgramSpec):
     """The build predicate and key programs of one build side, over its
-    batch's columns. The kernel reads the keys from the descriptor's key
-    section as (program, lo, shift); `packed_meta` fills lo and shift in
-    once the range pass has run."""
+    batch's columns, and for a min/max build the member column's program
+    (the descriptor's one lane). The kernel reads the keys from the
+    descriptor's key section as (program, lo, shift); `packed_meta` fills
+    lo and shift in once the range pass has run."""
 
     def __init__(self, pools: Pools, pred: Optional[Program],
-                 keys: Sequence[Program]):
+                 keys: Sequence[Program], member: Optional[Program] = None):
         if not 1 <= len(keys) <= MAX_HOP_KEYS:
             raise LoweringError(f"{len(keys)} build keys")
         if any(k.is_float for k in keys):
             raise LoweringError("float join key")
-        super().__init__(pools, pred, [(k, 0, 0) for k in keys], [])
+        if member is not None and member.is_float:
+            raise LoweringError("semi filter needs int member col")
+        lanes = [] if member is None else [(member, LANE_MIN_I64)]
+        super().__init__(pools, pred, [(k, 0, 0) for k in keys], lanes)
         self.meta = self._layout(0)
+
+    @property
+    def member(self) -> Optional[Program]:
+        return self.lanes[0][0] if self.lanes else None
 
     def key_programs(self) -> List[Program]:
         return [p for p, _o, _s in self.keys]
@@ -127,11 +148,15 @@ class BuildTable:
     each key's range [lo, hi] among the live rows and its shift in the
     packed key, the table's `size`, `rows` (int32: the build row, -1
     absent; slot-aligned with `keys`, int64, for a hashed table), the
-    number of `live` rows and whether a key had two rows (`duplicate`)."""
+    number of `live` rows and whether a key had two rows (`duplicate`).
+    A min/max build also has `mn` and `mx`, int64 and slot-aligned: the
+    member column's min and max over each key's rows."""
 
     def __init__(self, kind: int, los, his, shifts, size: int,
                  rows: torch.Tensor, keys: Optional[torch.Tensor],
-                 live: int, duplicate: bool):
+                 live: int, duplicate: bool,
+                 mn: Optional[torch.Tensor] = None,
+                 mx: Optional[torch.Tensor] = None):
         self.kind = kind
         self.los, self.his, self.shifts = list(los), list(his), list(shifts)
         self.size = int(size)
@@ -139,19 +164,56 @@ class BuildTable:
         self.keys = keys
         self.live = int(live)
         self.duplicate = bool(duplicate)
+        self.mn = mn
+        self.mx = mx
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [t for t in (self.rows, self.keys, self.mn, self.mx)
+                if t is not None]
+
+    def find(self, vals: Sequence[np.ndarray]) -> np.ndarray:
+        """The build row (-1 for none) of each probe key tuple `vals` (one
+        int64 array a key), looked up in the staged table: the host replay
+        of a functional-dependence reduction reads a few rows this way."""
+        n = len(vals[0]) if vals else 0
+        if self.kind == TAB_EMPTY or n == 0:
+            return np.full(n, -1, np.int64)
+        ok = np.ones(n, bool)
+        packed = np.zeros(n, np.int64)
+        for v, lo, hi, shift in zip(vals, self.los, self.his, self.shifts):
+            v = np.asarray(v, np.int64)
+            inside = (v >= lo) & (v <= hi)
+            ok &= inside
+            packed |= np.where(inside, v - lo, 0) << shift
+        p = torch.from_numpy(packed).to(self.rows.device)
+        if self.kind == TAB_DIRECT:
+            found = self.rows[p].to(torch.int64)
+        else:
+            slot, hit = _sorted_slots(self.keys, p)
+            found = torch.where(hit, self.rows[slot].to(torch.int64), -1)
+        return np.where(ok, found.cpu().numpy(), -1)
+
+    def _slots(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(packed key, slot) of every entry, ordered by key."""
+        if self.kind == TAB_HASH:
+            keys = self.keys.cpu().numpy()
+            slots = np.flatnonzero(keys != EMPTY)
+            keys = keys[slots]
+        else:
+            slots = keys = np.flatnonzero(self.rows.cpu().numpy() >= 0)
+        order = np.argsort(keys, kind="stable")
+        return keys[order], slots[order]
 
     def entries(self) -> Tuple[np.ndarray, np.ndarray]:
         """(packed key, build row) of every entry, ordered by key."""
-        rows = self.rows.cpu().numpy().astype(np.int64)
-        if self.kind == TAB_HASH:
-            keys = self.keys.cpu().numpy()
-            live = keys != EMPTY
-            keys, rows = keys[live], rows[live]
-        else:
-            keys = np.flatnonzero(rows >= 0)
-            rows = rows[keys]
-        order = np.argsort(keys, kind="stable")
-        return keys[order], rows[order]
+        keys, slots = self._slots()
+        return keys, self.rows.cpu().numpy().astype(np.int64)[slots]
+
+    def extremes(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(min, max) of the member column at every entry of a min/max
+        table, ordered by key as `entries` is."""
+        _keys, slots = self._slots()
+        return self.mn.cpu().numpy()[slots], self.mx.cpu().numpy()[slots]
 
 
 def table_layout(live: int, los: Sequence[int], his: Sequence[int]):
@@ -159,8 +221,9 @@ def table_layout(live: int, los: Sequence[int], his: Sequence[int]):
     span [lo_k, hi_k]: each key takes the bits of hi_k - lo_k, packed low
     key first; direct-address when the packed span is at most
     DIRECT_FILL x live and DIRECT_MAX, else hashed at 2 x next_pow2(live)
-    slots. The reference stops direct tables at 2^24 slots (`:202`);
-    TPC-H's o_orderkey spans 4x its rows, 60M at SF10."""
+    slots; a min/max table follows the same rule. The reference stops
+    direct tables at 2^24 slots (`:202`); TPC-H's o_orderkey spans 4x its
+    rows, 60M at SF10."""
     if live == 0:
         return TAB_EMPTY, [0] * len(los), 1
     shifts, shift = [], 0
@@ -219,14 +282,20 @@ def chain_build(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
             meta_d = spec.device_meta(cols, dev)
             kernels.check(lib.dft_chain_build_range(
                 meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
-                stats.data_ptr(), stream), chain_build_kernel)
+                stats.data_ptr(), int(spec.full), stream),
+                chain_build_kernel)
             chain_build_kernel.launches += 1
         host = stats.cpu().tolist()
         live, los, his = host[0], host[1::2], host[2::2]
+        mmx = spec.member is not None
         kind, shifts, size = table_layout(live, los, his)
         rows = torch.full((size,), -1, dtype=torch.int32, device=dev)
         keys = torch.full((size,), EMPTY, dtype=torch.int64, device=dev) \
             if kind == TAB_HASH else None
+        mn = torch.full((size,), _I64_MAX, dtype=torch.int64, device=dev) \
+            if mmx else None
+        mx = torch.full((size,), _I64_MIN, dtype=torch.int64, device=dev) \
+            if mmx else None
         duplicate = False
         if kind != TAB_EMPTY:
             dup = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -235,15 +304,17 @@ def chain_build(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
             kernels.check(lib.dft_chain_build_insert(
                 meta_d.data_ptr(), len(meta), aux.data_ptr(), n_rows, kind,
                 size, rows.data_ptr(),
-                None if keys is None else keys.data_ptr(), dup.data_ptr(),
-                stream), chain_build_kernel)
+                None if keys is None else keys.data_ptr(),
+                None if mn is None else mn.data_ptr(),
+                None if mx is None else mx.data_ptr(), dup.data_ptr(),
+                int(spec.full), stream), chain_build_kernel)
             chain_build_kernel.launches += 1
             flag = int(dup.item()) if unique else 0
             if flag == 2:
                 raise RuntimeError("chain build table overflowed")
             duplicate = flag == 1
     return BuildTable(kind, los, his, shifts, size, rows, keys, live,
-                      duplicate)
+                      duplicate, mn, mx)
 
 
 def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -292,11 +363,24 @@ def _hash_insert_plain(packed: torch.Tensor, rows: torch.Tensor, cap: int):
     return keys, table
 
 
+def _sorted_slots(keys: torch.Tensor, packed: torch.Tensor):
+    """(slot of each packed key in the hashed table `keys`, whether it is
+    there), by a search over the table's sorted live keys."""
+    live = (keys != EMPTY).nonzero().squeeze(1)
+    skeys, order = keys[live].sort()
+    if not skeys.numel():
+        return torch.zeros_like(packed), torch.zeros_like(packed,
+                                                          dtype=torch.bool)
+    pos = torch.searchsorted(skeys, packed).clamp(max=skeys.numel() - 1)
+    return live[order[pos]], skeys[pos] == packed
+
+
 def chain_build_plain(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
                       n_rows: int, unique: bool) -> BuildTable:
     """The plain PyTorch version: the programs interpreted over whole
     tensors, the ranges by `min`/`max`, duplicates by `torch.unique`, the
-    rows placed by indexing (direct) or by rounds of linear probing."""
+    rows placed by indexing (direct) or by rounds of linear probing, a
+    min/max build's member values by `scatter_reduce_`."""
     dev = aux.device
     n = n_rows
     live = torch.ones(n, dtype=torch.bool, device=dev)
@@ -308,13 +392,22 @@ def chain_build_plain(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
         d, v = evaluate(prog, cols, aux, n)
         live &= v
         vals.append(d)
+    mmx = spec.member is not None
+    if mmx:
+        member, v = evaluate(spec.member, cols, aux, n)
+        live &= v
     n_live = int(live.sum())
     los = [int(v[live].min()) if n_live else _I64_MAX for v in vals]
     his = [int(v[live].max()) if n_live else _I64_MIN for v in vals]
     kind, shifts, size = table_layout(n_live, los, his)
     rows = torch.full((size,), -1, dtype=torch.int32, device=dev)
+    mn = torch.full((size,), _I64_MAX, dtype=torch.int64, device=dev) \
+        if mmx else None
+    mx = torch.full((size,), _I64_MIN, dtype=torch.int64, device=dev) \
+        if mmx else None
     if kind == TAB_EMPTY:
-        return BuildTable(kind, los, his, shifts, size, rows, None, 0, False)
+        return BuildTable(kind, los, his, shifts, size, rows, None, 0, False,
+                          mn, mx)
     packed = torch.zeros(n_live, dtype=torch.int64, device=dev)
     for v, lo, shift in zip(vals, los, shifts):
         packed |= (v[live] - lo) << shift
@@ -323,30 +416,45 @@ def chain_build_plain(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
     keys = None
     if kind == TAB_DIRECT:
         rows[packed] = row_ids.to(torch.int32)
+        slot = packed
     else:
         keys, rows = _hash_insert_plain(packed, row_ids, size)
+        slot = _sorted_slots(keys, packed)[0]
+    if mmx:
+        mn.scatter_reduce_(0, slot, member[live], "amin")
+        mx.scatter_reduce_(0, slot, member[live], "amax")
     return BuildTable(kind, los, his, shifts, size, rows, keys, n_live,
-                      duplicate)
+                      duplicate, mn, mx)
 
 
 # --- the walk ------------------------------------------------------------------
 
 class Hop:
     """One hop of the walk: its build table, join type, probe-key programs
-    (over the pair space) and the pair-space indices of its payload."""
+    (over the pair space), the pair-space indices of its payload and, for
+    a filtered SEMI/ANTI over a min/max table, `mfilter`: (comparison code
+    of `member OP x`, the program of x over the pair space)."""
 
     def __init__(self, table: BuildTable, join_type: str,
-                 probe_keys: Sequence[Program], payload: Sequence[int]):
+                 probe_keys: Sequence[Program], payload: Sequence[int],
+                 mfilter: Optional[Tuple[int, Program]] = None):
         if join_type not in JOIN_TYPES:
             raise LoweringError(f"{join_type} join in a chain")
         if len(probe_keys) != len(table.los):
             raise ValueError("one probe key per build key")
         if any(k.is_float for k in probe_keys):
             raise LoweringError("float join key")
+        if (mfilter is not None) != (table.mn is not None) or \
+                (mfilter is not None and join_type == "INNER"):
+            raise ValueError("a min/max test needs a SEMI/ANTI min/max table")
+        if mfilter is not None and (mfilter[0] == CMP_EQ or
+                                    mfilter[1].is_float):
+            raise LoweringError("min/max test of an int `<>, <, <=, >, >=`")
         self.table = table
         self.jtype = JOIN_TYPES[join_type]
         self.probe_keys = list(probe_keys)
         self.payload = list(payload)
+        self.mfilter = mfilter
 
 
 class Chain:
@@ -368,6 +476,8 @@ class Chain:
         out = [self.ppred] if self.ppred is not None else []
         for hop in self.hops:
             out += hop.probe_keys
+            if hop.mfilter is not None:
+                out.append(hop.mfilter[1])
         return out
 
     def section(self, index: Dict[int, int], ncols: int) -> np.ndarray:
@@ -377,9 +487,13 @@ class Chain:
         recs = np.zeros((len(self.hops), HOP_WORDS), np.int64)
         for rec, hop in zip(recs, self.hops):
             t = hop.table
+            mop, mprog = hop.mfilter or (-1, None)
             rec[:HOP_KEY0] = [t.kind, hop.jtype, t.rows.data_ptr(),
                               0 if t.keys is None else t.keys.data_ptr(),
-                              t.size, len(hop.probe_keys)]
+                              t.size, len(hop.probe_keys), mop,
+                              -1 if mprog is None else index[id(mprog)],
+                              0 if t.mn is None else t.mn.data_ptr(),
+                              0 if t.mx is None else t.mx.data_ptr()]
             for k, prog in enumerate(hop.probe_keys):
                 rec[HOP_KEY0 + 4 * k:HOP_KEY0 + 4 * k + 4] = [
                     index[id(prog)], t.los[k], t.his[k], t.shifts[k]]
@@ -398,6 +512,12 @@ class _ChainSpec:
 
     def programs(self) -> List[Program]:
         return super().programs() + self.chain.programs()
+
+    @property
+    def full(self) -> bool:
+        """A min/max hop's test is in the full variant too."""
+        return super().full or \
+            any(hop.mfilter is not None for hop in self.chain.hops)
 
     def _chain_section(self, index: Dict[int, int]) -> np.ndarray:
         return self.chain.section(index, self.ncols)
@@ -433,8 +553,8 @@ def _check_pair(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
         raise ValueError("aux must be a contiguous int64 tensor on the "
                          "walk's device")
     for hop in spec.chain.hops:
-        for t in (hop.table.rows, hop.table.keys):
-            if t is not None and t.device != dev:
+        for t in hop.table.tensors():
+            if t.device != dev:
                 raise ValueError("a build table lies on another device")
     for idx in spec.pools.columns:
         if idx not in cols:
@@ -483,7 +603,7 @@ def chain_aggregate(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
             0 if dense else spec.cap,
             0 if dense else (1 if spec.identity_slots else 2),
             table.data_ptr(), None if dense else overflow.data_ptr(),
-            _stream(table.device))
+            int(spec.full), _stream(table.device))
     kernels.check(rc, chain_aggregate_kernel)
     chain_aggregate_kernel.launches += 1
     return table
@@ -551,7 +671,8 @@ def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
                            device=dev)
         kernels.check(lib.dft_chain_rows_mark(
             meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
-            pos.data_ptr(), sums.data_ptr(), stream), chain_rows_kernel)
+            pos.data_ptr(), sums.data_ptr(), int(spec.full), stream),
+            chain_rows_kernel)
         chain_rows_kernel.launches += 4   # the mark, the scan's three
         total = int(pos[n_rows].item())
         outs = [(torch.empty(total, dtype=d, device=dev),
@@ -563,7 +684,8 @@ def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
                                 dtype=torch.int64).to(dev)
             kernels.check(lib.dft_chain_rows_emit(
                 meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
-                pos.data_ptr(), ptrs.data_ptr(), stream), chain_rows_kernel)
+                pos.data_ptr(), ptrs.data_ptr(), int(spec.full), stream),
+                chain_rows_kernel)
             chain_rows_kernel.launches += 1
     return outs
 
@@ -582,8 +704,10 @@ def _walk_plain(spec, cols: Columns, aux: torch.Tensor, n: int,
         d, v = evaluate(spec.chain.ppred, pair, aux, n)
         rows &= (d != 0) & v
     for hop in spec.chain.hops:
-        brow = _lookup_plain(hop, pair, aux, n)
+        brow, slot = _lookup_plain(hop, pair, aux, n)
         found = brow >= 0
+        if hop.mfilter is not None:
+            found &= _mmx_exists_plain(hop, pair, aux, n, slot)
         reach = int(rows.sum()) if hop_rows is not None else 0
         rows &= ~found if hop.jtype == JT_ANTI else found
         if hop_rows is not None:
@@ -625,14 +749,14 @@ def chain_rows_plain(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
     return outs
 
 
-def _lookup_plain(hop: Hop, pair: Columns, aux: torch.Tensor,
-                  n: int) -> torch.Tensor:
-    """The build row each row finds in `hop`'s table, -1 for none."""
+def _lookup_plain(hop: Hop, pair: Columns, aux: torch.Tensor, n: int):
+    """(the build row each row finds in `hop`'s table, -1 for none; the
+    table slot it was found at)."""
     t = hop.table
     dev = aux.device
     miss = torch.full((n,), -1, dtype=torch.int64, device=dev)
     if t.kind == TAB_EMPTY:
-        return miss
+        return miss, torch.zeros_like(miss)
     ok = torch.ones(n, dtype=torch.bool, device=dev)
     packed = torch.zeros(n, dtype=torch.int64, device=dev)
     for prog, lo, hi, shift in zip(hop.probe_keys, t.los, t.his, t.shifts):
@@ -641,14 +765,23 @@ def _lookup_plain(hop: Hop, pair: Columns, aux: torch.Tensor,
         ok &= inside
         packed |= torch.where(inside, d - lo, 0) << shift
     if t.kind == TAB_DIRECT:
-        brow = t.rows[packed.clamp(0, t.size - 1)].to(torch.int64)
+        slot = packed.clamp(0, t.size - 1)
+        brow = t.rows[slot].to(torch.int64)
     else:
-        live = (t.keys != EMPTY).nonzero().squeeze(1)
-        skeys, order = t.keys[live].sort()
-        pos = torch.searchsorted(skeys, packed).clamp(max=skeys.numel() - 1)
-        hit = skeys[pos] == packed
-        brow = torch.where(hit, t.rows[live[order[pos]]].to(torch.int64), -1)
-    return torch.where(ok, brow, miss)
+        slot, hit = _sorted_slots(t.keys, packed)
+        brow = torch.where(hit, t.rows[slot].to(torch.int64), -1)
+    return torch.where(ok, brow, miss), slot
+
+
+def _mmx_exists_plain(hop: Hop, pair: Columns, aux: torch.Tensor, n: int,
+                      slot: torch.Tensor) -> torch.Tensor:
+    """The min/max membership test of `hop` at each row's slot."""
+    op, prog = hop.mfilter
+    x, xv = evaluate(prog, pair, aux, n)
+    mn, mx = hop.table.mn[slot], hop.table.mx[slot]
+    exists = {CMP_NE: (mn != x) | (mx != x), CMP_LT: mn < x,
+              CMP_LE: mn <= x, CMP_GT: mx > x, CMP_GE: mx >= x}[op]
+    return exists & xv
 
 
 def chain_aggregate_plain(spec, cols: Columns, aux: torch.Tensor,

@@ -14,9 +14,15 @@ Every stack value is an int64 or a float64. The program reproduces the
 JAX package's narrower dtypes exactly with explicit int32 wrap (`WRAP32`) and
 float32 rounding (`F32`) steps, so results match bit for bit.
 
-Unsupported constructs raise `LoweringError`, as the reference does:
-CASE, temporal arithmetic, date_part, math functions, `/`, `%`, scalar
-subqueries and string-string comparisons stay on the host path.
+The lowering covers what the reference's does (`lower.py:56-723`): columns,
+literals, casts, Kleene logic, comparisons (string and decimal ones through
+host-computed thresholds), `+ - * / %`, IN, LIKE, searched CASE, the
+`_MATH` functions, `date_part` on the civil calendar, and uncorrelated
+scalar subqueries (`DeferredScalarExpr`), whose value arrives through the
+aux buffer at every execution. Unsupported constructs raise
+`LoweringError`, as the reference does: `CASE <operand>`, decimal `/` and
+`%`, temporal arithmetic, a tz-aware `date_part`, string scalar subqueries
+and string-string comparisons stay on the host path.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ OP_COL = 1        # a = column index: push (value, validity)
 OP_ICONST = 2     # a = iconst index
 OP_FCONST = 3     # a = fconst index
 OP_NULL = 4       # push (0, invalid)
+OP_ROWID = 5      # push the row index (the representative-row lane)
 OP_ADD_I = 10
 OP_SUB_I = 11
 OP_MUL_I = 12
@@ -60,11 +67,65 @@ OP_OR = 41        # Kleene
 OP_NOT = 42
 OP_ISNULL = 43
 OP_ISNOTNULL = 44
+OP_DIV_I = 50     # b = operand width (32, 64): lower.py:497-500
+OP_MOD_I = 51     # b = operand width: lower.py:503-507
+OP_DIV_F = 52
+OP_MOD_F = 53
+OP_SELECT = 54    # (acc, cond, then) -> cond true and valid ? then : acc
+OP_MATH = 55      # a = MATH_* id, float64 in and out
+OP_DATEPART = 56  # a = PART_* id, b = to_us (< 0: divide by -b)
+OP_AUX = 58       # a = aux slot of (value bits, valid), b = 1 if float
+OP_F2I = 59       # float64 -> int64, truncating (NaN 0, saturating)
+OP_DECCMP_AUX = 60  # a = comparison code, b = aux slot of (t_ge, t_gt, valid)
+# the opcodes from here on run only in the full variant of the kernels'
+# interpreter (`run` in csrc/program.cuh)
+FULL_OPS_FROM = OP_DIV_I
 
 CMP_EQ, CMP_NE, CMP_LT, CMP_LE, CMP_GT, CMP_GE = range(6)
 _CMP = {Op.EQ: CMP_EQ, Op.NEQ: CMP_NE, Op.LT: CMP_LT, Op.LTEQ: CMP_LE,
         Op.GT: CMP_GT, Op.GTEQ: CMP_GE}
 _FLIP = {Op.LT: Op.GT, Op.LTEQ: Op.GTEQ, Op.GT: Op.LT, Op.GTEQ: Op.LTEQ}
+
+# the `_MATH` functions of lower.py:596-600, by id (csrc/program.cuh)
+MATH_FUNCS = ("abs", "sqrt", "exp", "ln", "log2", "log10", "sin", "cos",
+              "tan", "floor", "ceil")
+_MATH_ID = {f: i for i, f in enumerate(MATH_FUNCS)}
+
+
+def _square_residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """|x - y^2| with y^2 taken exactly as a float64 pair (Dekker)."""
+    p = y * y
+    c = 134217729.0 * y
+    hi = c - (c - y)
+    lo = y - hi
+    return ((x - p) - (((hi * hi - p) + 2 * hi * lo) + lo * lo)).abs()
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """IEEE sqrt, correctly rounded as CUDA's and XLA's are: PyTorch's CPU
+    sqrt is one ulp low on about 0.7% of float64 inputs, so each result
+    moves to the neighbour whose square is nearer x, where there is one."""
+    y = torch.sqrt(x)
+    ok = torch.isfinite(y) & (y > 1e-150) & (y < 1e150)
+    best, r = y, _square_residual(x, y)
+    for to in (-np.inf, np.inf):
+        cand = torch.nextafter(y, torch.full_like(y, to))
+        rc = _square_residual(x, cand)
+        better = ok & (rc < r)
+        best = torch.where(better, cand, best)
+        r = torch.where(better, rc, r)
+    return best
+
+
+_MATH_TORCH = (torch.abs, _sqrt_rn, torch.exp, torch.log, torch.log2,
+               torch.log10, torch.sin, torch.cos, torch.tan, torch.floor,
+               torch.ceil)
+# the parts `date_part` lowers (lower.py:671-674), by id
+DATE_PARTS = ("year", "quarter", "month", "day", "week", "doy", "dow",
+              "epoch", "hour", "minute", "second", "millisecond",
+              "microsecond", "nanosecond")
+_PART_ID = {p: i for i, p in enumerate(DATE_PARTS)}
+_US_PER_DAY = 86_400_000_000
 
 MAX_STACK = 16    # the kernel's per-row stack depth
 
@@ -145,17 +206,31 @@ def compile_expr(e: PE.PhysicalExpr, pools: Optional[Pools] = None) -> Program:
     return Program(code, pools, out)
 
 
-_PUSH = {OP_COL, OP_ICONST, OP_FCONST, OP_NULL}
+_PUSH = {OP_COL, OP_ICONST, OP_FCONST, OP_NULL, OP_ROWID, OP_AUX}
 _BINARY = {OP_ADD_I, OP_SUB_I, OP_MUL_I, OP_ADD_F, OP_SUB_F, OP_MUL_F,
-           OP_CMP_I, OP_CMP_F, OP_AND, OP_OR}
+           OP_CMP_I, OP_CMP_F, OP_AND, OP_OR, OP_DIV_I, OP_MOD_I, OP_DIV_F,
+           OP_MOD_F}
 
 
 def _max_depth(code) -> int:
     sp = depth = 0
     for op, _a, _b in code:
-        sp += 1 if op in _PUSH else (-1 if op in _BINARY else 0)
+        sp += 1 if op in _PUSH else (-1 if op in _BINARY else
+                                     (-2 if op == OP_SELECT else 0))
         depth = max(depth, sp)
     return depth
+
+
+def compile_key(e: PE.PhysicalExpr, pools: Pools) -> Program:
+    """A group-key program: its value packs as an int64, so a float key
+    (date_part's whole-number Float64, `_phys_int_bounds`) is truncated to
+    one, as the reference's `kd.astype(jnp.int64)` does
+    (`device_join_chain.py:1846`)."""
+    prog = compile_expr(e, pools)
+    if prog.is_float:
+        prog.code.append((OP_F2I, 0, 0))
+        prog.out_dtype = np.dtype(np.int64)
+    return prog
 
 
 def _dt(t) -> np.dtype:
@@ -267,7 +342,96 @@ class _Compiler:
         if isinstance(e, PE.LikeExpr):
             return self.like(e)
 
+        if isinstance(e, PE.DeferredScalarExpr):
+            return self.scalar_subquery(e)
+
+        if isinstance(e, PE.CaseExpr):
+            return self.case(e)
+
+        if isinstance(e, PE.ScalarFunctionExpr):
+            return self.function(e)
+
         raise LoweringError(f"cannot lower {type(e).__name__}")
+
+    # -- uncorrelated scalar subquery (lower.py:98-114) ---------------------
+    def scalar_subquery(self, e):
+        if e.out_type.is_string:
+            raise LoweringError("string scalar subquery on device TBD")
+        d = _dt(e.out_type)
+
+        def prep(batch, _e=e, _d=d):
+            val, valid, _dic = _e.scalar()
+            v = np.asarray(val).astype(_d)
+            bits = v.astype(np.float64).view(np.int64) if _d.kind == "f" \
+                else v.astype(np.int64)
+            return np.array([bits, int(bool(valid))], np.int64)
+        self.op(OP_AUX, self.p.add_aux(prep, "scalar_subquery"),
+                int(d.kind == "f"))
+        return d
+
+    # -- searched CASE (lower.py:163-188) -----------------------------------
+    def case(self, e):
+        """ELSE (or NULL), then each WHEN from the last to the first as a
+        select over the value so far, so the first WHEN whose condition is
+        true and valid wins and the stack stays one entry deep between
+        WHENs."""
+        if e.operand is not None:
+            raise LoweringError("CASE <operand> lowering TBD")
+        out = _dt(e.out_type)
+        if e.else_ is not None:
+            self.astype(self.emit(e.else_), out)
+        else:
+            self.op(OP_NULL)
+        for w, th in reversed(e.whens):
+            self.emit(w)
+            self.astype(self.emit(th), out)
+            self.op(OP_SELECT)
+        return out
+
+    # -- the _MATH functions and date_part (lower.py:596-723) ---------------
+    def function(self, e):
+        if e.name in _MATH_ID and len(e.args) == 1:
+            d = self.emit(e.args[0])
+            if d.kind != "f":
+                self.op(OP_I2F)
+            self.op(OP_MATH, _MATH_ID[e.name])
+            out = _dt(e.out_type)
+            if out.kind == "f":
+                self.round_to(out)
+            elif out.kind == "i":
+                self.op(OP_F2I)
+                self.round_to(out)
+            else:
+                raise LoweringError(f"{e.name} to {out}")
+            return out
+        if e.name in ("date_part", "datepart") and len(e.args) == 2:
+            return self.date_part(e)
+        raise LoweringError(f"function {e.name} not lowerable")
+
+    def date_part(self, e):
+        from ..functions.datetime_impl import _PART_ALIASES, _TS_SCALE
+        lit = e.args[0]
+        if not isinstance(lit, PE.LiteralExpr) or lit.value.value is None:
+            raise LoweringError("date_part needs a literal part")
+        part = _PART_ALIASES.get(str(lit.value.value).lower())
+        ct = e.args[1].out_type
+        if getattr(ct, "tz", None):
+            raise LoweringError("tz-aware date_part stays on host")
+        if ct.id == TypeId.DATE:
+            to_us = 1000 if ct.unit == "ms" else _US_PER_DAY
+        elif ct.id == TypeId.TIMESTAMP:
+            scale = _TS_SCALE[ct.unit]
+            to_us = (10**6 // scale) if scale <= 10**6 else -(scale // 10**6)
+        else:
+            raise LoweringError("date_part needs a date/timestamp input")
+        if part not in _PART_ID:
+            raise LoweringError(f"date_part part '{part}' not lowerable")
+        if self.emit(e.args[1]).kind == "f":
+            raise LoweringError("float-backed temporal column")
+        self.op(OP_DATEPART, _PART_ID[part], to_us)
+        out = _dt(e.out_type)
+        self.astype(np.dtype(np.float64), out)
+        return out
 
     # -- string column <cmp> string literal (lower.py:228-270) -------------
     def strcmp(self, e, op):
@@ -315,6 +479,29 @@ class _Compiler:
                 self.op(OP_DECCMP, _CMP[op_], self.p.i(t_ge, t_gt))
                 return np.dtype(np.bool_)
 
+        # decimal <cmp> float scalar subquery: the same thresholds, computed
+        # at every execution from the subquery's value (lower.py:323-377)
+        if op in _CMP:
+            dec = sc = None
+            if lt.is_decimal and isinstance(e.right, PE.DeferredScalarExpr) \
+                    and rt.is_float:
+                dec, sc, op_ = e.left, e.right, op
+            elif rt.is_decimal and isinstance(e.left, PE.DeferredScalarExpr) \
+                    and lt.is_float:
+                dec, sc, op_ = e.right, e.left, _FLIP.get(op, op)
+            if dec is not None:
+                def thresholds(_b, _s=sc, _scale=10 ** dec.out_type.scale):
+                    val, valid, _dic = _s.scalar()
+                    if not valid:
+                        return np.zeros(3, np.int64)
+                    t_ge, t_gt = _decimal_thresholds(np.float64(val), _scale)
+                    return np.array([t_ge, t_gt, 1], np.int64)
+                slot = self.p.add_aux(thresholds, "dec_scalar_thresholds")
+                if self.emit(dec).kind == "f":
+                    raise LoweringError("float-backed decimal")
+                self.op(OP_DECCMP_AUX, _CMP[op_], slot)
+                return np.dtype(np.bool_)
+
         if op in _CMP:
             common_t = K._comparison_type(lt, rt)
             common = _dt(common_t)
@@ -329,7 +516,7 @@ class _Compiler:
             self.op(OP_AND if op == Op.AND else OP_OR)
             return np.dtype(np.bool_)
 
-        if op in (Op.PLUS, Op.MINUS, Op.MULTIPLY):
+        if op in (Op.PLUS, Op.MINUS, Op.MULTIPLY, Op.DIVIDE, Op.MODULO):
             return self.arith(e)
         raise LoweringError(f"cannot lower operator {op}")
 
@@ -366,9 +553,15 @@ class _Compiler:
         self.astype(d, common)
 
     def arith(self, e):
-        """`+ - *` of lower.py:446-508, with the decimal rescale by 10^k."""
+        """`+ - * / %` of lower.py:446-508, with the decimal rescale by
+        10^k. Integer `/` truncates toward zero and `%` takes the sign of
+        the dividend; for both, and for float `%`, a zero divisor is
+        replaced by 1 and the row stays valid (`:498`, `:504`). Float `/`
+        gives IEEE inf and NaN."""
         op, out_t = e.op, e.out_type
         lt, rt = e.left.out_type, e.right.out_type
+        if op in (Op.DIVIDE, Op.MODULO) and out_t.is_decimal:
+            raise LoweringError("decimal div/mod on device TBD")
         if lt.is_temporal or rt.is_temporal or lt.is_interval or rt.is_interval:
             raise LoweringError("temporal arithmetic on device TBD")
         npdt = _dt(out_t)
@@ -396,9 +589,18 @@ class _Compiler:
                     self.op(OP_DIVC_F, self.p.f(10.0 ** t.scale))
                     self.round_to(npdt)
         is_f = npdt.kind == "f"
-        base = {Op.PLUS: OP_ADD_I, Op.MINUS: OP_SUB_I,
-                Op.MULTIPLY: OP_MUL_I}[op]
-        self.op(base + 3 if is_f else base)
+        if op in (Op.DIVIDE, Op.MODULO):
+            if is_f:
+                self.op(OP_DIV_F if op == Op.DIVIDE else OP_MOD_F)
+            elif npdt.kind == "i":
+                self.op(OP_DIV_I if op == Op.DIVIDE else OP_MOD_I, 0,
+                        8 * npdt.itemsize)
+            else:
+                raise LoweringError(f"{op} on {npdt}")
+        else:
+            base = {Op.PLUS: OP_ADD_I, Op.MINUS: OP_SUB_I,
+                    Op.MULTIPLY: OP_MUL_I}[op]
+            self.op(base + 3 if is_f else base)
         self.round_to(npdt)
         return npdt
 
@@ -489,6 +691,112 @@ def _cmp(code: int, a, b):
 def _aux_slot(aux: torch.Tensor, j: int) -> torch.Tensor:
     off, n = int(aux[2 * j]), int(aux[2 * j + 1])
     return aux[off:off + n]
+
+
+_I64_MIN = -(1 << 63)
+_I32_MIN = -(1 << 31)
+
+
+def _wneg(x: torch.Tensor, width: int) -> torch.Tensor:
+    """-x in the operand's width: the width's minimum stays itself."""
+    return torch.where(x == _I32_MIN, x, -x) if width == 32 else -x
+
+
+def _wabs(x: torch.Tensor, width: int) -> torch.Tensor:
+    return torch.where(x < 0, _wneg(x, width), x)
+
+
+def _divmod(op: int, width: int, x: torch.Tensor, y: torch.Tensor):
+    """`/` and `%` as the reference's device path computes them
+    (lower.py:496-507) on operands of `width` bits held in int64: integer
+    `/` is sign(x) sign(y) (|x| // |y|), `%` is x >= 0 ? x mod |y| :
+    -((-x) mod |y|) with Python's floor `//` and `mod` and the width's
+    wrapping `abs` and negation; a zero divisor counts as 1."""
+    if op == OP_DIV_F:
+        return x / y
+    if op == OP_MOD_F:
+        m = torch.where(y == 0, 1.0, y).abs()
+        return torch.where(x >= 0, torch.fmod(x, m), -torch.fmod(-x, m))
+    safe = torch.where(y == 0, 1, y)
+    m = _wabs(safe, width)
+    if op == OP_DIV_I:
+        q = torch.div(_wabs(x, width), m, rounding_mode="floor")
+        return torch.sign(x) * torch.sign(safe) * q
+    return torch.where(x >= 0, torch.remainder(x, m),
+                       _wneg(torch.remainder(_wneg(x, width), m), width))
+
+
+def _f2i(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 toward zero; NaN gives 0, out-of-range values
+    saturate."""
+    big = float(1 << 63)
+    inside = (x > -big) & (x < big)
+    t = torch.where(inside, x, 0.0).to(torch.int64)
+    t = torch.where(x >= big, (1 << 63) - 1, t)
+    return torch.where(x <= -big, _I64_MIN, t)
+
+
+def _fdiv(a, b: int):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _days_to_ymd(days: torch.Tensor):
+    """Civil from days (Hinnant, lower.py:619-632), int64 floor steps."""
+    z = days + 719468
+    era = _fdiv(z, 146097)
+    doe = z - era * 146097
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524)
+                - _fdiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)
+    dom = doy - _fdiv(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    return y + (m <= 2).to(torch.int64), m, dom
+
+
+def _jan1(y: torch.Tensor) -> torch.Tensor:
+    """Days from civil of (y, 1, 1) (lower.py:635-645 with m = d = 1)."""
+    yy = y - 1
+    era = _fdiv(yy, 400)
+    yoe = yy - era * 400
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + 306
+    return era * 146097 + doe - 719468
+
+
+def _date_part(part: int, to_us: int, x: torch.Tensor) -> torch.Tensor:
+    """`date_part` of lower.py:678-722 over raw date/timestamp values, as
+    float64."""
+    us = _fdiv(x, -to_us) if to_us < 0 else x * to_us
+    days = _fdiv(us, _US_PER_DAY)
+    within = us - days * _US_PER_DAY
+    name = DATE_PARTS[part]
+    if name == "epoch":
+        return us.to(torch.float64) / 1e6
+    if name in ("year", "quarter", "month", "day", "doy"):
+        y, m, dom = _days_to_ymd(days)
+        out = {"year": y, "quarter": _fdiv(m - 1, 3) + 1, "month": m,
+               "day": dom}.get(name)
+        if name == "doy":
+            out = days - _jan1(y) + 1
+    elif name == "week":             # ISO week: that of this week's Thursday
+        thu = days - torch.remainder(days + 3, 7) + 3
+        out = _fdiv(thu - _jan1(_days_to_ymd(thu)[0]), 7) + 1
+    elif name == "dow":
+        out = torch.remainder(days + 4, 7)
+    elif name == "hour":
+        out = _fdiv(within, 3_600_000_000)
+    elif name == "minute":
+        out = _fdiv(torch.remainder(within, 3_600_000_000), 60_000_000)
+    elif name == "second":
+        out = _fdiv(torch.remainder(within, 60_000_000), 1_000_000)
+    elif name == "millisecond":
+        out = _fdiv(torch.remainder(within, 60_000_000), 1000)
+    elif name == "microsecond":
+        out = torch.remainder(within, 60_000_000)
+    else:                            # nanosecond
+        out = torch.remainder(within, 60_000_000) * 1000
+    return out.to(torch.float64)
 
 
 def evaluate(prog: Program, cols: Dict[int, Tuple[torch.Tensor, Optional[torch.Tensor]]],
@@ -590,6 +898,37 @@ def evaluate(prog: Program, cols: Dict[int, Tuple[torch.Tensor, Optional[torch.T
             _x, xv = st.pop()
             m = xv if op == OP_ISNOTNULL else ~xv
             st.append((m.to(torch.int64), ones))
+        elif op in (OP_DIV_I, OP_MOD_I, OP_DIV_F, OP_MOD_F):
+            (x, xv), (y, yv) = pop2()
+            st.append((_divmod(op, b, x, y), xv & yv))
+        elif op == OP_SELECT:
+            (c, cv), (t, tv) = pop2()
+            acc, av = st.pop()
+            take = cv & (c != 0)
+            st.append((torch.where(take, t, acc), torch.where(take, tv, av)))
+        elif op == OP_MATH:
+            x, xv = st.pop()
+            st.append((_MATH_TORCH[a](x.to(torch.float64)), xv))
+        elif op == OP_DATEPART:
+            x, xv = st.pop()
+            st.append((_date_part(a, b, x), xv))
+        elif op == OP_ROWID:
+            st.append((torch.arange(n, dtype=torch.int64, device=dev), ones))
+        elif op == OP_AUX:
+            s = _aux_slot(aux, a)
+            d = s[0:1].clone()
+            st.append(((d.view(torch.float64) if b else d).expand(n),
+                       (s[1:2] != 0).expand(n)))
+        elif op == OP_F2I:
+            x, xv = st.pop()
+            st.append((_f2i(x), xv))
+        elif op == OP_DECCMP_AUX:
+            x, xv = st.pop()
+            s = _aux_slot(aux, b)
+            t_ge, t_gt = s[0], s[1]
+            d = ((x >= t_ge) & (x < t_gt), (x < t_ge) | (x >= t_gt),
+                 x < t_ge, x < t_gt, x >= t_gt, x >= t_ge)[a]
+            st.append((d.to(torch.int64), xv & (s[2] != 0)))
         else:
             raise ValueError(f"bad opcode {op}")
     (d, v), = st

@@ -37,16 +37,18 @@ _I = ctypes.c_int
 
 # C entry points: name -> argtypes; each returns cudaGetLastError()
 _SIGNATURES = {
-    "dft_fused_dense_aggregate": [_P, _I, _I, _I, _P, _LL, _P, _P],
-    "dft_hash_group_aggregate": [_P, _I, _P, _LL, _LL, _I, _P, _P, _P],
+    "dft_fused_dense_aggregate": [_P, _I, _I, _I, _P, _LL, _P, _I, _P],
+    "dft_hash_group_aggregate": [_P, _I, _P, _LL, _LL, _I, _P, _P, _I, _P],
     "dft_compact_count": [_P, _I, _P, _LL, _P, _LL, _P, _P, _P],
     "dft_compact_scatter": [_P, _I, _P, _LL, _I, _P, _LL, _P, _P, _LL, _P],
     "dft_group_topk": [_P, _LL, _I, _I, _LL, _P, _P, _P, _P],
-    "dft_chain_build_range": [_P, _I, _P, _LL, _P, _P],
-    "dft_chain_build_insert": [_P, _I, _P, _LL, _I, _LL, _P, _P, _P, _P],
-    "dft_chain_aggregate": [_P, _I, _I, _I, _P, _LL, _LL, _I, _P, _P, _P],
-    "dft_chain_rows_mark": [_P, _I, _P, _LL, _P, _P, _P],
-    "dft_chain_rows_emit": [_P, _I, _P, _LL, _P, _P, _P],
+    "dft_chain_build_range": [_P, _I, _P, _LL, _P, _I, _P],
+    "dft_chain_build_insert": [_P, _I, _P, _LL, _I, _LL, _P, _P, _P, _P, _P,
+                               _I, _P],
+    "dft_chain_aggregate": [_P, _I, _I, _I, _P, _LL, _LL, _I, _P, _P, _I,
+                            _P],
+    "dft_chain_rows_mark": [_P, _I, _P, _LL, _P, _P, _I, _P],
+    "dft_chain_rows_emit": [_P, _I, _P, _LL, _P, _P, _I, _P],
     "dft_group_emit": [_P, _LL, _I, _P, _P],
     "dft_radix_word_hist": [_P, _I, _LL, _P, _P],
     "dft_radix_gather": [_P, _I, _P, _LL, _P, _P],

@@ -52,7 +52,7 @@ from ...device.groupby import (
     compact_groups, dense_group_aggregate, dense_group_table,
     group_emit_columns, group_topk, hash_group_aggregate, lane_kind)
 from ...device.lower import (LoweringError, Pools, check_having,
-                             compile_expr)
+                             compile_expr, compile_key)
 from ...runtime import BaselineMetrics, TaskContext
 from ..expressions import PhysicalExpr
 from .base import ExecutionPlan, Partitioning, execute_stream
@@ -87,11 +87,19 @@ class GroupTableOverflow(RuntimeError):
 
 
 class _PackPlan:
+    """How the group keys pack: each packed key's offset, bits, type and
+    dictionary. A join chain whose keys were reduced by functional
+    dependence also sets the `kept` and `dropped` key positions and the
+    emit's `finalize` hook that rebuilds the dropped keys."""
+
     def __init__(self, offsets, bits, key_types, key_dicts):
         self.offsets = offsets
         self.bits = bits
         self.key_types = key_types
         self.key_dicts = key_dicts
+        self.kept = list(range(len(key_types)))
+        self.dropped: List[int] = []
+        self.finalize = None
 
 
 class TorchDeviceExec(ExecutionPlan):
@@ -293,12 +301,14 @@ class TorchAggregate(TorchDeviceExec):
         with record_function("dft.d2h"):
             return groups.cpu().numpy()
 
-    def _emit_groups(self, host, spec, plan, names, slot_map, m):
-        """The output batch of the compacted groups `host`."""
+    def _emit_groups(self, host, spec, plan, names, slot_map, m,
+                     key_finalize=None):
+        """The output batch of the compacted groups `host`; `key_finalize`
+        as `_emit_arrays` takes it."""
         with record_function("dft.emit"):
             aggs = dict(zip(names, spec.lane_arrays(host, first=2)))
             out = self._emit_arrays(host[0], np.ones(host.shape[1], bool),
-                                    aggs, plan, slot_map, m)
+                                    aggs, plan, slot_map, m, key_finalize)
         if out is not None:
             m.record_output(out.num_rows)
         return out
@@ -602,7 +612,7 @@ class TorchGroupAggregateExec(TorchAggregate):
         try:
             pred = compile_expr(self.predicate, pools) \
                 if self.predicate is not None else None
-            keys = [compile_expr(e, pools) for e, _ in self.group_exprs]
+            keys = [compile_key(e, pools) for e, _ in self.group_exprs]
             slot_defs, slot_map = self._compile_slots(pools)
             plan = self._plan_key_packing(batches, keys)
             key_progs, lanes, dense = _fold_inputs(keys, plan, slot_defs)
@@ -627,7 +637,7 @@ class TorchGroupAggregateExec(TorchAggregate):
         shift = 0
         for i, t in enumerate(plan.key_types):
             fins[i] = Finaliser(FIN_KEY, shift, plan.bits[i], plan.offsets[i],
-                                t.is_boolean)
+                                t.is_boolean, t.is_float)
             shift += plan.bits[i]
         for j, a in enumerate(self.aggs):
             s = slot_map[a.display]

@@ -15,14 +15,25 @@ then walks the chain and folds the surviving rows into the group table
 TorchGroupAggregateExec's does (`compact_groups`, one copy, the host
 emit).
 
-The group keys pack whole. Where the reference would drop functionally
-dependent keys (`_fd_reduce` `:1501`, `_fd_finalize` `:1359`: TPC-H Q10 and
-Q18's wide keys), the packed key does not fit 62 bits and the exec raises
-DeviceLoweringUnsupported, so the host plan (`fallback`) runs. So do count
-DISTINCT, the SEMI min/max filter (`_mmx_exists` `:1325`, TPC-H Q21), an
-INNER build with a duplicate key (fanout > 1), string or float join keys
-(`:350-354`) and more than 8 hops. Each fallback adds one to
-`self.fallbacks`.
+A filtered SEMI or ANTI hop (`member_col OP probe_expr`, TPC-H Q21's
+`l2.l_suppkey <> l1.l_suppkey`) stages a min/max table and tests membership
+in the walk (`_stage_semi_member_lut` `:1158`, `_mmx_exists` `:1325`).
+
+Functional dependence (`_fd_reduce` `:1501`, `_fd_finalize` `:1359`). A
+group key that is a payload column of a unique-key INNER build leaves the
+packed key when the remaining keys determine that build's probe keys
+(TPC-H Q18: five keys reduce to `o_orderkey`; Q10: to `c_custkey`). The
+walk then also folds a representative spine row per group (a max lane
+over `OP_ROWID`), and the emit replays the INNER hops on the host for
+those rows only and evaluates the dropped keys over them. As in the
+reference, this needs a single spine batch.
+
+A shape outside the port raises DeviceLoweringUnsupported and runs the
+host plan (`fallback`), as the reference does: count DISTINCT, an INNER
+build with a duplicate key (fanout > 1), string or float join keys
+(`:350-354`), a min/max filter over a non-integer member column, more than
+8 hops, and group keys wider than 62 bits after the reduction. Each
+fallback adds one to `self.fallbacks`.
 
 TorchJoinChainRowsExec is the row-returning sibling
 (`DeviceJoinChainRowsExec`, `:2142-2397`), planned by `UseTorchJoinRows`
@@ -38,6 +49,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -47,8 +59,8 @@ from ...device.groupby import AggregateSpec, dense_group_table
 from ...device.join_chain import (ChainDenseSpec, ChainHashSpec,
                                   ChainRowsSpec, Chain, BuildSpec, Hop,
                                   chain_aggregate, chain_build, chain_rows)
-from ...device.lower import (OP_COL, OP_NULL, LoweringError, Pools,
-                             compile_expr)
+from ...device.lower import (_CMP, OP_COL, OP_NULL, OP_ROWID, LoweringError,
+                             Pools, Program, compile_expr, compile_key)
 from ...runtime import BaselineMetrics, TaskContext
 from ..expressions import ColumnExpr, PhysicalExpr
 from .base import ExecutionPlan, collect_batch, execute_stream
@@ -172,22 +184,41 @@ class TorchChainExec(TorchDeviceExec):
         return out
 
     def check_builds(self) -> None:
-        """Raise LoweringError for a build the walk cannot take: a SEMI
-        min/max filter, or a string or float join key (`:350-354`)."""
+        """Raise LoweringError for a build the walk cannot take: a string
+        or float join key, or a min/max filter over a non-integer member
+        column or a string probe expression (`:350-363`)."""
         for b in self.builds:
-            if b.sfilter is not None:
-                raise LoweringError("SEMI min/max membership on device TBD")
             for pk, bk in zip(b.probe_keys, b.build_keys):
                 if pk.out_type.is_string or bk.out_type.is_string or \
                         pk.out_type.is_float or bk.out_type.is_float:
                     raise LoweringError("non-integer chain join key")
+            if b.sfilter is not None:
+                _op, ocol, pexpr = b.sfilter
+                if not ocol.out_type.is_integer or pexpr.out_type.is_string:
+                    raise LoweringError("semi filter needs int member col")
 
-    def chain(self, ppred, staged: List[_BuildInput], probe_keys) -> Chain:
+    def lower_mfilters(self, pools: Pools):
+        """Each build's min/max test as (comparison code, program of the
+        probe expression over the pair space; integer, as the reference's
+        `astype(int64)` makes it), or None."""
+        out = []
+        for b in self.builds:
+            if b.sfilter is None:
+                out.append(None)
+                continue
+            op, _ocol, pexpr = b.sfilter
+            out.append((_CMP[op], compile_key(pexpr, pools)))
+        return out
+
+    def chain(self, ppred, staged: List[_BuildInput], probe_keys,
+              mfilters) -> Chain:
         """The walk over the staged builds: one hop a build, with its
-        lowered probe keys and its payload's pair-space indices."""
-        hops = [Hop(s.table, b.join_type, pk, payload)
-                for b, s, pk, payload in zip(self.builds, staged, probe_keys,
-                                             self.payload_ranges())]
+        lowered probe keys, its payload's pair-space indices and its
+        min/max test."""
+        hops = [Hop(s.table, b.join_type, pk, payload, mf)
+                for b, s, pk, payload, mf in zip(
+                    self.builds, staged, probe_keys, self.payload_ranges(),
+                    mfilters)]
         return Chain(self.n_spine, ppred, hops)
 
     def build_inputs(self, ctx: TaskContext) -> List[_BuildInput]:
@@ -217,7 +248,12 @@ class TorchChainExec(TorchDeviceExec):
                 keys = [compile_expr(ColumnExpr(col_map[k.index], k.name,
                                                 k.out_type), pools)
                         for k in b.build_keys]
-                spec = BuildSpec(pools, bpred, keys)
+                member = None
+                if b.sfilter is not None:
+                    ocol = b.sfilter[1]
+                    member = compile_expr(ColumnExpr(
+                        col_map[ocol.index], ocol.name, ocol.out_type), pools)
+                spec = BuildSpec(pools, bpred, keys, member)
             except LoweringError as e:
                 raise DeviceLoweringUnsupported(str(e))
             cols = self._to_device(spec, {i: bb.columns[i]
@@ -309,28 +345,43 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
 
     def lower(self):
         """(pools, probe predicate, residual, group keys, slot defs, slot
-        map, probe keys of each build): every pair-space program of the
-        chain on one pool."""
+        map, probe keys of each build, min/max test of each build): every
+        pair-space program of the chain on one pool."""
         self.check_builds()
         pools = Pools()
         ppred = compile_expr(self.probe_predicate, pools) \
             if self.probe_predicate is not None else None
         pred = compile_expr(self.predicate, pools) \
             if self.predicate is not None else None
-        keys = [compile_expr(e, pools) for e, _ in self.group_exprs]
+        keys = [compile_key(e, pools) for e, _ in self.group_exprs]
         slot_defs, slot_map = self._compile_slots(pools)
         probe_keys = [[compile_expr(k, pools) for k in b.probe_keys]
                       for b in self.builds]
-        return pools, ppred, pred, keys, slot_defs, slot_map, probe_keys
+        return (pools, ppred, pred, keys, slot_defs, slot_map, probe_keys,
+                self.lower_mfilters(pools))
 
     def compile(self, lowered, staged: List[_BuildInput], views):
         """(spec, pack plan, lane names, slot map) of the chain over the
-        staged builds and the spine batches' pair views."""
-        pools, ppred, pred, keys, slot_defs, slot_map, probe_keys = lowered
-        plan = self._plan_key_packing(views, keys)
+        staged builds and the spine batches' pair views. With one spine
+        batch the group keys are reduced by functional dependence
+        (`_fd_reduce`, wired as `:395-420`): the plan's `kept` and
+        `dropped` key positions, and a `__rep#x` lane of the
+        representative spine row when any key was dropped."""
+        (pools, ppred, pred, keys, slot_defs, slot_map, probe_keys,
+         mfilters) = lowered
+        kept, dropped = self._fd_reduce() if len(views) == 1 else \
+            (list(range(len(self.group_exprs))), [])
+        if dropped:
+            keys = [keys[p] for p in kept]
+            slot_defs = dict(slot_defs)
+            slot_defs["__rep#x"] = ("rowid", Program(
+                [(OP_ROWID, 0, 0)], pools, np.dtype(np.int64)))
+        plan = self._plan_key_packing(
+            views, keys, [self.group_exprs[p] for p in kept])
+        plan.kept, plan.dropped = kept, dropped
         try:
             key_progs, lanes, dense = _fold_inputs(keys, plan, slot_defs)
-            chain = self.chain(ppred, staged, probe_keys)
+            chain = self.chain(ppred, staged, probe_keys, mfilters)
             if dense:
                 spec = ChainDenseSpec(pools, pred, key_progs, lanes, chain)
             else:
@@ -357,6 +408,9 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
         views = [self.pair_view(b, staged) for b in spine]
         with record_function("dft.compile"):
             spec, plan, names, slot_map = self.compile(lowered, staged, views)
+        if plan.dropped:
+            plan.finalize = self._fd_finalize(plan.kept, plan.dropped,
+                                              spine[0], staged)
         keep_spine = self._source_is_scan()
         inputs = [self.stage(spec, b, view, staged, keep_spine) + (b.num_rows,)
                   for b, view in zip(spine, views)]
@@ -379,7 +433,117 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
                         f"hash group table of {spec.cap} slots overflowed")
             host = self._fetch_groups(table)
             del table, inputs, staged
-        return self._emit_groups(host, spec, plan, names, slot_map, m)
+        return self._emit_groups(host, spec, plan, names, slot_map, m,
+                                 plan.finalize)
+
+    def _fd_reduce(self):
+        """(kept positions, dropped positions) of the group keys under
+        functional dependence, as the reference's `_fd_reduce` (`:1501`):
+        a group key that is a payload column of a unique-key INNER build
+        whose probe keys the remaining keys determine is constant within
+        a group, so it needs no bits in the packed key. Candidates go from
+        the widest pair-space index down; at least one key stays."""
+        every = list(range(len(self.group_exprs)))
+        if self.post_filter is not None or len(self.group_exprs) < 2:
+            return every, []
+        ranges = self.payload_ranges()
+        payload_idx = {p: bi for bi, r in enumerate(ranges) for p in r}
+        gk = {}
+        for pos, (e, _nm) in enumerate(self.group_exprs):
+            if not isinstance(e, ColumnExpr):
+                return every, []
+            gk[pos] = e.index
+        # probe key <-> payload equivalences (o_orderkey payload ==
+        # l_orderkey probe value on matched rows)
+        inner = [(bi, b) for bi, b in enumerate(self.builds)
+                 if b.join_type == "INNER"]
+        equiv = []
+        for bi, b in inner:
+            for pk, bk in zip(b.probe_keys, b.build_keys):
+                if isinstance(pk, ColumnExpr) and bk.index in b.payload:
+                    equiv.append((pk.index,
+                                  ranges[bi][b.payload.index(bk.index)]))
+
+        def closure(S):
+            S = set(S)
+            changed = True
+            while changed:
+                changed = False
+                for a_, b_ in equiv:
+                    for x, y in ((a_, b_), (b_, a_)):
+                        if x in S and y not in S:
+                            S.add(y)
+                            changed = True
+                for bi, b in inner:
+                    if all(isinstance(pk, ColumnExpr) and pk.index in S
+                           for pk in b.probe_keys) and \
+                            not set(ranges[bi]) <= S:
+                        S |= set(ranges[bi])
+                        changed = True
+            return S
+
+        kept = dict(gk)
+        dropped = []
+        for pos in sorted(gk, key=lambda p: -gk[p]):
+            if gk[pos] not in payload_idx:
+                continue            # spine keys stay
+            others = {v for k, v in kept.items() if k != pos}
+            if not others:
+                break               # keep at least one key
+            if gk[pos] in closure(others):
+                dropped.append(pos)
+                kept.pop(pos)
+        if not dropped:
+            return every, []
+        return sorted(kept), sorted(dropped)
+
+    def _fd_finalize(self, kept, dropped, spine_batch, staged):
+        """The emit's key hook (`_fd_finalize`, `:1359`): each group's
+        representative spine row (the `__rep#x` lane) replays the INNER
+        hops on the host (the probe keys evaluated over the row's pair
+        space so far, each looked up in the staged table), and the dropped
+        group keys are evaluated over the rebuilt pair rows. Only the
+        pair-space columns that a probe key or a dropped key reads are
+        gathered."""
+        from ..physical_optimizer import _collect_cols
+        need = set()
+        for b in self.builds:
+            if b.join_type == "INNER":
+                for pk in b.probe_keys:
+                    _collect_cols(pk, need)
+        for p in dropped:
+            _collect_cols(self.group_exprs[p][0], need)
+
+        def take(i, c, idx):
+            if i not in need:
+                return None
+            v = c.validity_host()
+            return Column(c.dtype, c.data_host()[idx],
+                          None if v is None else v[idx], c.dictionary)
+
+        def finalize(sel, cols, aggs_np):
+            rep = aggs_np["__rep#x"][sel].astype(np.int64)
+            n = len(rep)
+            pair = [take(i, c, rep)
+                    for i, c in enumerate(spine_batch.columns)]
+            for b, s in zip(self.builds, staged):
+                if b.join_type != "INNER":
+                    continue
+                view = _PairView(pair, n)
+                vals = [pk.evaluate(view).data_host().astype(np.int64)
+                        for pk in b.probe_keys]
+                brow = np.maximum(s.table.find(vals), 0)
+                pair += [take(len(pair) + j, s.batch.columns[s.col_map[i]],
+                              brow) for j, i in enumerate(b.payload)]
+            view = _PairView(pair, n)
+            full = [None] * len(self.group_exprs)
+            for j, p in enumerate(kept):
+                full[p] = cols[j]
+            for p in dropped:
+                full[p] = self.group_exprs[p][0].evaluate(view)
+            return full
+
+        return finalize
 
 
 def _nullable(prog, cols) -> bool:
@@ -442,8 +606,8 @@ class TorchJoinChainRowsExec(TorchChainExec):
 
     def lower_rows(self):
         """(pools, probe predicate, residual, outputs, probe keys of each
-        build): every pair-space program of the walk on one pool
-        (`:2226-2252`)."""
+        build, min/max test of each build): every pair-space program of
+        the walk on one pool (`:2226-2252`)."""
         self.check_builds()
         if not self.out_exprs:
             raise LoweringError("a row-returning chain with no output")
@@ -463,7 +627,8 @@ class TorchJoinChainRowsExec(TorchChainExec):
             outs.append(prog)
         probe_keys = [[compile_expr(k, pools) for k in b.probe_keys]
                       for b in self.builds]
-        return pools, ppred, pred, outs, probe_keys
+        return pools, ppred, pred, outs, probe_keys, \
+            self.lower_mfilters(pools)
 
     def prepare_rows(self, ctx: TaskContext):
         """Everything a run needs before the walk: the builds staged on the
@@ -472,7 +637,8 @@ class TorchJoinChainRowsExec(TorchChainExec):
         staged builds)."""
         with record_function("dft.compile"):
             try:
-                pools, ppred, pred, outs, probe_keys = self.lower_rows()
+                (pools, ppred, pred, outs, probe_keys,
+                 mfilters) = self.lower_rows()
             except LoweringError as e:
                 raise DeviceLoweringUnsupported(str(e))
         with record_function("dft.build"):
@@ -480,7 +646,8 @@ class TorchJoinChainRowsExec(TorchChainExec):
         spine = [b for b in execute_stream(self.source, ctx) if b.num_rows]
         try:
             spec = ChainRowsSpec(pools, pred, outs,
-                                 self.chain(ppred, staged, probe_keys))
+                                 self.chain(ppred, staged, probe_keys,
+                                            mfilters))
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
         keep_spine = self._source_is_scan()

@@ -44,15 +44,18 @@ def _table(n, seed):
     f32 = (rng.normal(size=n) * 10).astype(np.float32)
     b = rng.random(n) < 0.5
     dec = rng.integers(0, 10**6, n).astype(np.int64)
+    day = rng.integers(8000, 10600, n).astype(np.int32)   # 1991-11 to 1999
     dic = Dictionary(np.array(["ab", "ac", "b", "ca", "d"], dtype=object))
     schema = Schema([Field("g", dt.STRING, False), Field("k", dt.INT64, True),
                      Field("v", dt.FLOAT64, True), Field("i", dt.INT32, False),
                      Field("f", dt.FLOAT32, False), Field("b", dt.BOOL, False),
-                     Field("d", dt.decimal(15, 2), False)])
+                     Field("d", dt.decimal(15, 2), False),
+                     Field("day", dt.DATE, False)])
     return Batch(schema, [Column(dt.STRING, g, None, dic),
                           Column(dt.INT64, k, kv), Column(dt.FLOAT64, v, vv),
                           Column(dt.INT32, i32), Column(dt.FLOAT32, f32),
-                          Column(dt.BOOL, b), Column(dt.decimal(15, 2), dec)], n)
+                          Column(dt.BOOL, b), Column(dt.decimal(15, 2), dec),
+                          Column(dt.DATE, day)], n)
 
 
 QUERIES = [
@@ -64,6 +67,15 @@ QUERIES = [
     "WHERE d >= 0.5 AND g IN ('b', 'd') GROUP BY k",
     "SELECT count(*), sum(i + 1), sum(-k) FROM t WHERE k IS NOT NULL "
     "AND (v > 0 OR v IS NULL) AND g <= 'c'",
+    # the opcodes of the full lowering: CASE, `/` and `%` (zero divisors,
+    # the int32 width), the _MATH functions and date_part as a key
+    "SELECT g, sum(CASE WHEN k > 0 THEN v WHEN i < 0 THEN f END), "
+    "sum(k / (i % 5)), sum(i % 7), sum(i / (i % 3)), sum(v / k), "
+    "sum(v % 2.5), count(CASE WHEN b THEN 1 END) FROM t GROUP BY g",
+    "SELECT date_part('year', day), sum(sqrt(abs(v))), sum(exp(f / 10)), "
+    "sum(ln(abs(v) + 1)), sum(sin(v)), sum(floor(v)), min(ceil(f)), "
+    "sum(date_part('doy', day)), max(date_part('week', day)) FROM t "
+    "WHERE date_part('month', day) <> 2 GROUP BY 1",
 ]
 
 
@@ -314,12 +326,14 @@ def _tpch_ctx(device, sf):
 
 
 def _chain_exec(ctx, q):
+    """The first join-chain aggregate of the plan, depth first."""
     from datafusion_tpu_torch.physical.plan.device_join_chain import (
         TorchJoinChainAggregateExec)
-    node = ctx.sql(q).create_physical_plan()
-    while not isinstance(node, TorchJoinChainAggregateExec):
-        node = node.children()[0]
-    return node
+    todo = [ctx.sql(q).create_physical_plan()]
+    while not isinstance(todo[-1], TorchJoinChainAggregateExec):
+        node = todo.pop()
+        todo += node.children()[::-1]
+    return todo[-1]
 
 
 def _build_inputs(n, seed, sparse, nulls):
@@ -378,10 +392,13 @@ def test_chain_build_matches_plain(cuda, sparse, unique):
         np.testing.assert_array_equal(gr, wr)
 
 
-@pytest.mark.parametrize("q", [3, 4, 5])
+@pytest.mark.parametrize("q", [3, 4, 5, 9, 10, 12, 14, 18, 21])
 def test_chain_aggregate_matches_plain(cuda, q):
-    """TPC-H Q3 (hash fold), Q4 (SEMI) and Q5 (five hops, a residual, a
-    payload string key): the kernel's group table against its plain
+    """TPC-H Q3 (hash fold), Q4 (SEMI), Q5 (five hops, a residual, a
+    payload string key), Q9 (date_part key, decimal amount), Q12 and Q14
+    (CASE), Q10 and Q18 (keys reduced by functional dependence: the
+    representative-row lane must be equal too) and Q21 (SEMI and ANTI
+    min/max membership): the kernel's group table against its plain
     version's, on the same staged builds and spine."""
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch.device.groupby import (
@@ -417,6 +434,68 @@ def test_chain_aggregate_matches_plain(cuda, q):
             np.testing.assert_allclose(a, b, rtol=1e-9)
         else:
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_min_max_build_matches_plain(cuda, sparse):
+    """A filtered SEMI's build: presence and each key's min and max of a
+    member column with NULLs, direct and hashed, from the
+    kernel and from its plain version."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.common.column import to_device
+    from datafusion_tpu_torch.device.join_chain import (
+        EMPTY, TAB_DIRECT, TAB_HASH, BuildSpec, chain_build,
+        chain_build_plain)
+    from datafusion_tpu_torch.device.lower import Pools, compile_expr
+    from datafusion_tpu_torch.physical.expressions import ColumnExpr
+    n = 500_000
+    rng = np.random.default_rng(23)
+    keys = rng.integers(0, n // 4, n) * ((1 << 30) + 1 if sparse else 1)
+    member = rng.integers(-1000, 1000, n)
+    mvalid = rng.random(n) > 0.1
+    cols_h = [Column(dt.INT64, keys), Column(dt.INT64, member, mvalid)]
+    pools = Pools()
+    spec = BuildSpec(pools, None,
+                     [compile_expr(ColumnExpr(0, "k", dt.INT64), pools)],
+                     compile_expr(ColumnExpr(1, "m", dt.INT64), pools))
+    cols = {i: to_device(cols_h[i], cuda) for i in pools.columns}
+    aux = torch.zeros(0, dtype=torch.int64, device=cuda)
+    before = dft.launch_counts()["chain_build"]
+    got = chain_build(spec, cols, aux, n, unique=False)
+    assert dft.launch_counts()["chain_build"] == before + 2
+    want = chain_build_plain(spec, cols, aux, n, unique=False)
+    assert got.kind == want.kind == (TAB_HASH if sparse else TAB_DIRECT)
+    assert (got.los, got.his, got.live) == (want.los, want.his, want.live)
+
+    def by_key(t):
+        if t.keys is None:
+            slots = (t.rows >= 0).nonzero().squeeze(1)
+            k = slots
+        else:
+            slots = (t.keys != EMPTY).nonzero().squeeze(1)
+            k = t.keys[slots]
+        order = k.argsort()
+        return (k[order].cpu().numpy(), t.mn[slots][order].cpu().numpy(),
+                t.mx[slots][order].cpu().numpy())
+    for a, b in zip(by_key(got), by_key(want)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("q", [7, 8, 9, 10, 12, 14, 18, 21])
+def test_cuda_full_lowering_end_to_end_matches_cpu(cuda, q):
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ctx = _tpch_ctx(dev, 0.05)
+        out.append(ctx.sql(QUERIES[q]).to_pydict())
+        assert _chain_exec(ctx, QUERIES[q]).fallbacks == 0
+    assert list(out[0]) == list(out[1])
+    for name in out[1]:
+        for a, b in zip(out[0][name], out[1][name]):
+            if isinstance(b, float):
+                assert a == pytest.approx(b, rel=1e-9), (q, name)
+            else:
+                assert a == b, (q, name)
 
 
 def test_cuda_join_chain_end_to_end_matches_cpu(cuda):

@@ -381,7 +381,7 @@ def test_with_children_keeps_the_chain():
 # the queries whose chain the port's lowering covers (the others plan the
 # chain exec too, and fall back to the host plan: CASE, scalar functions,
 # keys wider than 62 bits, SEMI min/max, string IN over an expression)
-ON_THE_PORT = {2, 3, 4, 5, 11, 16, 17, 19}
+ON_THE_PORT = {2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 14, 16, 17, 18, 19, 21}
 
 
 @pytest.fixture(scope="module")
@@ -436,3 +436,160 @@ def test_tpch_dates_and_decimals_are_exact(tpch):
     got = port.sql(TPCH[3]).to_pydict()
     assert all(isinstance(v, decimal.Decimal) for v in got["revenue"])
     assert all(isinstance(v, datetime.date) for v in got["o_orderdate"])
+
+
+# --- SEMI/ANTI min/max membership (TPC-H Q21's filtered EXISTS) ----------------
+
+def _mmx_data(wide: bool, seed=13):
+    """A spine `f` with an INNER dimension and a member table `m` keyed like
+    the spine; member values `s` and the spine's `s` carry NULLs. With
+    `wide` the keys spread past 2^26, so the min/max table is hashed."""
+    rng = np.random.default_rng(seed)
+    n_f, n_m, n_k = 4000, 6000, 700
+    mult = (1 << 30) + 3 if wide else 1
+    fs = rng.integers(0, 12, n_f).astype(float)
+    fs[rng.random(n_f) < 0.08] = np.nan
+    ms = rng.integers(0, 12, n_m).astype(float)
+    ms[rng.random(n_m) < 0.1] = np.nan
+    return {"f0": {"k": rng.integers(0, n_k, n_f) * mult, "s": fs,
+                   "g": rng.integers(0, 6, n_f), "v": rng.integers(0, 50, n_f)},
+            "m0": {"k": rng.integers(0, n_k + 100, n_m) * mult, "s": ms,
+                   "w": rng.integers(0, 4, n_m)},
+            "d": {"id": np.arange(6), "name": np.array(list("abcdef"))}}
+
+
+def _mmx_pair(data):
+    port, ref = _pair(data)
+    for c in (port, ref):
+        c.sql("CREATE TABLE f AS SELECT k, CASE WHEN isnan(s) THEN NULL "
+              "ELSE CAST(s AS BIGINT) END s, g, v FROM f0")
+        c.sql("CREATE TABLE m AS SELECT k, CASE WHEN isnan(s) THEN NULL "
+              "ELSE CAST(s AS BIGINT) END s, w FROM m0")
+    return port, ref
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["direct", "hashed"])
+@pytest.mark.parametrize("anti", [False, True], ids=["semi", "anti"])
+@pytest.mark.parametrize("op", ["<>", "<", "<=", ">", ">="])
+def test_semi_min_max_membership_matches_jax(op, anti, wide):
+    """`[NOT] EXISTS (... m.k = f.k AND m.s OP f.s)` under a join chain:
+    the member table keeps each key's min and max of `s` over the rows that
+    pass `m.w > 0` with `s` valid; a NULL `f.s` satisfies nothing (so ANTI
+    keeps its row). Rows equal the JAX package's chain."""
+    sql = ("SELECT d.name, count(*) c, sum(f.v) s FROM f "
+           "JOIN d ON f.g = d.id WHERE " + ("NOT " if anti else "") +
+           f"EXISTS (SELECT 1 FROM m WHERE m.k = f.k AND m.s {op} f.s "
+           "AND m.w > 0) GROUP BY d.name ORDER BY d.name")
+    port, ref = _mmx_pair(_mmx_data(wide))
+    assert _execs(ref, sql, DeviceJoinChainAggregateExec)
+    got = port.sql(sql).to_pydict()
+    _same_rows(got, ref.sql(sql).to_pydict(), True)
+    (ex,) = _execs(port, sql, TorchJoinChainAggregateExec)
+    assert ex.fallbacks == 0
+    assert "filter=" in ex.display_line()
+    _spec, _p, _n, _s, _inputs, staged = ex.prepare(port.task_context())
+    (mm,) = [s.table for s in staged if s.table.mn is not None]
+    assert mm.kind == (TAB_HASH if wide else TAB_DIRECT)
+    assert sum(got["c"]) > 0
+
+
+def test_min_max_table_holds_each_keys_extremes():
+    """The staged min/max table: per key, the min and max of the member
+    column over the live rows (predicate true, key and member valid);
+    keys with no such row are absent."""
+    data = _mmx_data(False)
+    port, _ref = _mmx_pair(data)
+    sql = ("SELECT count(*) c FROM f JOIN d ON f.g = d.id WHERE EXISTS "
+           "(SELECT 1 FROM m WHERE m.k = f.k AND m.s < f.s AND m.w > 0)")
+    (ex,) = _execs(port, sql, TorchJoinChainAggregateExec)
+    _spec, _p, _n, _s, _inputs, staged = ex.prepare(port.task_context())
+    (t,) = [s.table for s in staged if s.table.mn is not None]
+    m = port.sql("SELECT k, s FROM m WHERE w > 0 AND s IS NOT NULL"
+                 ).to_pydict()
+    want = {}
+    for k, s in zip(m["k"], m["s"]):
+        lo, hi = want.get(k, (s, s))
+        want[k] = (min(lo, s), max(hi, s))
+    rows = t.rows.numpy()
+    present = np.flatnonzero(rows >= 0)
+    assert sorted(int(p) + t.los[0] for p in present) == sorted(want)
+    for p in present:
+        assert (int(t.mn[p]), int(t.mx[p])) == want[int(p) + t.los[0]]
+
+
+# --- functional-dependence key reduction (TPC-H Q10, Q18) ---------------------
+
+def _fd_tables(seed=21):
+    rng = np.random.default_rng(seed)
+    n_l, n_o, n_c = 6000, 900, 120
+    o_id = rng.permutation(4 * n_o)[:n_o] + 1
+    return {
+        "l": {"ok": rng.choice(o_id, n_l), "q": rng.integers(1, 50, n_l)},
+        "o": {"id": o_id, "cid": rng.integers(0, n_c, n_o),
+              "dt": rng.integers(9000, 10000, n_o),
+              "price": rng.integers(100, 10**6, n_o)},
+        "c": {"id": np.arange(n_c),
+              "name": np.array([f"Customer#{i:09d}" for i in range(n_c)]),
+              "bal": rng.integers(-999, 9999, n_c)}}
+
+
+FD_SQL = ("SELECT c.name, c.id, o.id, o.dt, o.price, sum(l.q) qty "
+          "FROM l JOIN o ON l.ok = o.id JOIN c ON o.cid = c.id "
+          "GROUP BY c.name, c.id, o.id, o.dt, o.price")
+
+
+@pytest.mark.parametrize("batches", [1, 2])
+def test_functional_dependence_reduces_keys_of_one_batch(batches):
+    """Q18's shape: with one spine batch the five keys reduce to the
+    orders key, a representative-row lane rebuilds the others on the host;
+    with two batches nothing is reduced. Rows equal the JAX package's in
+    both."""
+    data = _fd_tables()
+    port, ref = _pair({k: v for k, v in data.items() if k != "l"})
+    ref.register_arrays("l0", data["l"])
+    whole = ref.table("l0").collect()[0]
+    n = whole.num_rows
+    parts = [whole] if batches == 1 else \
+        [whole.slice_host(0, n // 3), whole.slice_host(n // 3, n - n // 3)]
+    ref.register_table("l", df.MemTable(whole.schema, [parts]))
+    port.register_table("l", dft.MemTable(twin(whole.schema),
+                                          [[twin(b) for b in parts]]))
+    got = port.sql(FD_SQL).to_pydict()
+    _same_rows(got, ref.sql(FD_SQL).to_pydict(), False)
+    (ex,) = _execs(port, FD_SQL, TorchJoinChainAggregateExec)
+    assert ex.fallbacks == 0
+    _spec, plan, names, _s, _inputs, _st = ex.prepare(port.task_context())
+    if batches == 1:
+        assert plan.dropped and [ex.group_exprs[p][1] for p in plan.kept] \
+            == ["id"] and "__rep#x" in names
+        assert ex.group_exprs[plan.kept[0]][0].index >= ex.n_spine
+    else:
+        assert not plan.dropped and "__rep#x" not in names
+    assert len(got["qty"]) == len(set(data["l"]["ok"]))
+
+
+def test_tpch_q10_q18_keys_are_reduced(tpch):
+    """TPC-H Q18's five keys reduce to o_orderkey and Q10's seven to
+    c_custkey, as the reference's `_fd_reduce` gives them."""
+    port, _ref = tpch
+    for q, kept in ((18, ["o_orderkey"]), (10, ["c_custkey"])):
+        (ex,) = _execs(port, TPCH[q], TorchJoinChainAggregateExec)
+        _spec, plan, _n, _s, _i, _st = ex.prepare(port.task_context())
+        assert [ex.group_exprs[p][1] for p in plan.kept] == kept
+        assert len(plan.dropped) == len(ex.group_exprs) - 1
+
+
+@pytest.mark.parametrize("q,full", [(3, False), (4, False), (5, False),
+                                    (10, False), (18, False), (7, True),
+                                    (8, True), (9, True), (12, True),
+                                    (14, True), (21, True)])
+def test_tpch_walk_picks_the_interpreter_variant(tpch, q, full):
+    """A walk whose programs stay within the opcodes below FULL_OPS_FROM
+    launches the lean interpreter: Q3, Q4, Q5, and Q10 and Q18 with their
+    representative lane. date_part (Q7, Q8, Q9), CASE (Q8, Q12, Q14) and a
+    min/max hop (Q21) need the full one. Every TPC-H build is lean."""
+    port, _ref = tpch
+    (ex,) = _execs(port, TPCH[q], TorchJoinChainAggregateExec)
+    spec, _p, _n, _s, _i, staged = ex.prepare(port.task_context())
+    assert spec.full == full
+    assert not any(s.spec.full for s in staged)

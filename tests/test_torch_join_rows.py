@@ -207,6 +207,14 @@ STAR_ROWS = {
     "keeps_nothing": ("SELECT f.q, d2.name FROM fact f "
                       "JOIN d1 ON f.k1 = d1.id JOIN d2 ON d1.k2 = d2.id "
                       "WHERE d1.w > 1000"),
+    # a SEMI and an ANTI hop filtered by `member <> / < probe` (TPC-H Q21's
+    # shape): min/max tables keyed on d1.k2
+    "filtered_semi": ("SELECT f.q, d1.w FROM fact f JOIN d1 ON f.k1 = d1.id "
+                      "WHERE EXISTS (SELECT 1 FROM d1 m WHERE m.k2 = d1.k2 "
+                      "AND m.w <> d1.w)"),
+    "filtered_anti": ("SELECT f.q, d1.k2 FROM fact f JOIN d1 ON f.k1 = d1.id "
+                      "WHERE NOT EXISTS (SELECT 1 FROM d1 m WHERE "
+                      "m.k2 = d1.k2 AND m.w < d1.w - 20)"),
 }
 
 
@@ -228,6 +236,8 @@ def test_star_rows_match_jax_package(case):
     if case in ("semi", "anti"):
         assert ("LEFTSEMI" if case == "semi" else "LEFTANTI") in \
             ex.display_line()
+    if case.startswith("filtered"):
+        assert "filter=" in ex.display_line()
     if case == "residual":
         assert ex.predicate is not None
 

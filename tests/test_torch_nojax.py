@@ -6,7 +6,8 @@ runs through the port on the CPU: TPC-H Q1 (the dense path), Q18's
 subquery (the hash path with a fused HAVING), ClickBench Q16 (the hash
 path with a fused top-k), TPC-H Q3, Q4 and Q5 (fanout-1 join chains),
 TPC-H Q2 and Q20 (row-returning join chains), Q13 (the count over a LEFT
-join), an ORDER BY ... LIMIT over lineitem (the radix sort) and a window
+join), TPC-H Q9 (date_part and decimal arithmetic in a five-hop chain) and
+Q21 (SEMI and ANTI min/max membership), an ORDER BY ... LIMIT over lineitem (the radix sort) and a window
 query (the device window evaluation), with the sort, window and
 row-returning join thresholds at 1.
 It prints the rows as JSON, and this process holds them against the JAX
@@ -45,8 +46,8 @@ WINDOW = ("select l_orderkey, l_linenumber, rank() over (partition by "
           "order by l_orderkey, l_linenumber limit 50")
 QUERIES = {"q1": TPCH[1], "q18_sub": Q18_SUB, "cb_q16": CB[16],
            "q3": TPCH[3], "q4": TPCH[4], "q5": TPCH[5], "q2": TPCH[2],
-           "q20": TPCH[20], "q13": TPCH[13], "sorted": SORTED,
-           "window": WINDOW}
+           "q20": TPCH[20], "q13": TPCH[13], "q9": TPCH[9], "q21": TPCH[21],
+           "sorted": SORTED, "window": WINDOW}
 # the exec each query must plan in the port, with what its display shows
 PLANS = {"q1": ("TorchGroupAggregateExec", ""),
          "q18_sub": ("TorchGroupAggregateExec", "having="),
@@ -58,6 +59,8 @@ PLANS = {"q1": ("TorchGroupAggregateExec", ""),
          "q2": ("TorchJoinChainRowsExec", "INNER["),
          "q20": ("TorchJoinChainRowsExec", "LEFTSEMI["),
          "q13": ("LeftCountZeroFillExec", "left_key="),
+         "q9": ("TorchJoinChainAggregateExec", "INNER["),
+         "q21": ("TorchJoinChainAggregateExec", "filter="),
          "sorted": ("SortExec", "fetch=20"),
          "window": ("BoundedWindowExec", "rank()")}
 
@@ -178,6 +181,7 @@ def test_port_runs_without_jax_or_the_jax_package(hits_file):
             _same(got[label], want[label])
     assert got["q18_sub"]["l_orderkey"] and len(got["q1"]["l_returnflag"]) == 4
     assert got["q3"]["l_orderkey"] and got["q5"]["n_name"]
+    assert got["q9"]["nation"] and got["q21"]["s_name"]
     assert len(got["sorted"]["l_orderkey"]) == 20
     assert len(got["window"]["rk"]) == 50
 
