@@ -45,6 +45,13 @@ query is held against a numpy oracle on the same data.
      `chain_aggregate` on Q21's, Q18's reduced, Q9's (date_part keys)
      and Q12's (CASE) walks, then Q7, Q8, Q9, Q10, Q12, Q14, Q18 and Q21
      end to end against numpy, with 0 fallbacks and a breakdown each;
+   - the fanout-N join-aggregate and the chain's distinct lane:
+     `join_build` and `join_aggregate` against their plain versions on J1
+     (lineitem x partsupp on the part key: every lineitem meets its
+     part's 4 partsupp rows, 239,990,660 pairs) and J2 (Q9's profit
+     through (part, supplier)), `chain_aggregate` with its distinct lane
+     on Q5D (Q5 with count(DISTINCT o_custkey)); then J1, J2 and Q5D end
+     to end against numpy, with 0 fallbacks and a breakdown each;
    - window functions over the SF10 lineitem (with `l_returnflag`):
      W1 (top 3 by price per supplier beside each order's quantity, a
      WindowExec over two PARTITION BYs), W2 (a global row_number and lag)
@@ -55,9 +62,16 @@ query is held against a numpy oracle on the same data.
      numpy, with a breakdown;
 5. ClickBench's `UserID`, `SearchPhrase` and `EventTime` at 99,997,497
    rows (the public `hits` row count), drawn as `generate_hits` draws
-   them: `group_topk` against its plain version on Q16,
+   them, then `RegionID`, `AdvEngineID` and `ResolutionWidth` by its
+   distributions: `group_topk` against its plain version on Q16,
    `hash_group_aggregate` against its plain version on Q17 (42-bit keys:
-   the probing table), Q16 and Q17 end to end against numpy; then
+   the probing table), Q16 and Q17 end to end against numpy;
+   `hash_group_aggregate` with its distinct lane against its plain
+   version on Q10 (equal group tables and distinct sets) and the dense
+   fold's 6 passes of Q30's 180 lanes against their plain version, Q10
+   and Q30 end to end against numpy (Q10's distinct counts by `np.unique`
+   over the (RegionID, UserID) pairs), with the pairs, the set's bytes
+   and the passes launched; then
    `radix_sort` against its plain version on Q25's and Q27's order words
    over the rows with a search phrase (equal permutations; stable
    `torch.sort` as the yardstick), and Q25, Q26 and Q27 end to end
@@ -70,6 +84,12 @@ exec fell back to the host (for a window, a function evaluated on the
 host). Any failure raises and exits non-zero. The last line is `{"ok": true, "device": {...}}`; the line before it is the
 card's name and power limit, and before that one JSON line lists every
 kernel with its time, its plain version's time and its bound.
+
+    python3 chip_smoke.py --host-joins
+
+times J1 and J2 at SF10 once each through the port's host plan (the
+device aggregate off: a numpy hash join under a numpy aggregate), each
+against numpy, for the record beside the join-aggregate's times.
 
     python3 chip_smoke.py --walks TREE [TREE ...]
 
@@ -100,8 +120,10 @@ FLOAT_QUERY = ("SELECT g, count(*) c, sum(v) s, avg(v) a, min(v) mn, "
                "max(v) mx FROM t GROUP BY g")
 HITS_ROWS = 99_997_497       # the public ClickBench hits.parquet
 REPS = 5
-WINDOW_REPS = 1              # W1-W3 each gather 60M rows on the host
-SORT_REPS = 3                # CB Q25-Q27 each filter 100M rows on the host
+# W1-W3 each gather 60M rows on the host: one run, no warm-up (their
+# columns are on the card from the earlier TPC-H queries)
+WINDOW_REPS = 1
+SORT_REPS = 1                # CB Q25-Q27 each filter 100M rows on the host
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 outside the tensor
 # cores (the interpreter's 64-bit integer ops have no published peak)
@@ -145,6 +167,37 @@ CB_Q16 = ('SELECT "UserID", COUNT(*) FROM hits GROUP BY "UserID" '
           'ORDER BY COUNT(*) DESC LIMIT 10')
 CB_Q17 = ('SELECT "UserID", "SearchPhrase", COUNT(*) FROM hits GROUP BY '
           '"UserID", "SearchPhrase" ORDER BY COUNT(*) DESC LIMIT 10')
+# ClickBench Q10 (count(DISTINCT UserID)) and Q30 (90 sums, 180 lanes)
+CB_Q10 = ('SELECT "RegionID", SUM("AdvEngineID"), COUNT(*) AS c, '
+          'AVG("ResolutionWidth"), COUNT(DISTINCT "UserID") FROM hits '
+          'GROUP BY "RegionID" ORDER BY c DESC LIMIT 10')
+CB_Q30 = "SELECT " + ", ".join(['SUM("ResolutionWidth")'] + [
+    f'SUM("ResolutionWidth" + {i})' for i in range(1, 90)]) + " FROM hits"
+# TPC-H Q5 with a distinct count; lineitem x partsupp, the fanout-4 part
+# key (J1) and Q9's profit through the composite key (J2)
+Q5D = """
+select n_name, sum(l_extendedprice * (1 - l_discount)) as revenue,
+       count(distinct o_custkey) as customers
+from customer, orders, lineitem, supplier, nation, region
+where c_custkey = o_custkey
+  and l_orderkey = o_orderkey
+  and l_suppkey = s_suppkey
+  and c_nationkey = s_nationkey
+  and s_nationkey = n_nationkey
+  and n_regionkey = r_regionkey
+  and r_name = 'ASIA'
+  and o_orderdate >= date '1994-01-01'
+  and o_orderdate < date '1995-01-01'
+group by n_name
+order by revenue desc
+"""
+J1 = ("SELECT ps_suppkey, count(*) AS c, sum(ps_supplycost * l_quantity) "
+      "AS cost FROM lineitem JOIN partsupp ON l_partkey = ps_partkey "
+      "GROUP BY ps_suppkey ORDER BY ps_suppkey")
+J2 = ("SELECT ps_suppkey, sum(l_extendedprice * (1 - l_discount) - "
+      "ps_supplycost * l_quantity) AS profit FROM lineitem JOIN partsupp "
+      "ON ps_partkey = l_partkey AND ps_suppkey = l_suppkey "
+      "GROUP BY ps_suppkey ORDER BY ps_suppkey")
 # ClickBench Q25-Q27: a top 10 over the rows with a search phrase
 CB_SORTS = {
     25: ('SELECT "SearchPhrase" FROM hits WHERE "SearchPhrase" <> \'\' '
@@ -527,9 +580,11 @@ def part_batches(rng, n_part: int, n_supp: int, per_part: int):
 def hits(n: int, seed: int = 0):
     """`UserID` and `SearchPhrase` as `generate_hits` draws them (its first
     three draws: zipf(1.3), random, zipf(1.5); `clickbench/workload.py:
-    15-26`), with the dictionary sorted as `register_hits` sorts it, and
-    then `EventTime` as it draws it (`:81`: 2013-07-01 plus up to 31 days
-    of seconds)."""
+    15-26`), with the dictionary sorted as `register_hits` sorts it, then
+    `EventTime` as it draws it (`:81`: 2013-07-01 plus up to 31 days of
+    seconds), then `RegionID`, `AdvEngineID` and `ResolutionWidth` by its
+    distributions (`:72-74`, `:86-87`: uniform on [0, 5000); 0 with
+    probability 0.95, else uniform on [1, 20); one of 8 screen widths)."""
     import numpy as np
     from datafusion_tpu_torch.common import dt
     from datafusion_tpu_torch.common.column import Column
@@ -544,9 +599,17 @@ def hits(n: int, seed: int = 0):
     idx = np.where(rng.random(n) < 0.6, 0,
                    rng.zipf(1.5, n) % len(phrases)).astype(np.int32)
     event = (1372636800 + rng.integers(0, 31 * 86400, n)).astype(np.int64)
+    region = rng.integers(0, 5000, n).astype(np.int64)
+    adv = np.where(rng.random(n) < 0.95, 0,
+                   rng.integers(1, 20, n)).astype(np.int64)
+    width = rng.choice([1024, 1280, 1366, 1440, 1536, 1600, 1920, 2560],
+                       n).astype(np.int64)
     return make_batch([("UserID", Column(dt.INT64, user)),
                        ("SearchPhrase", dict_column(phrases, idx)),
-                       ("EventTime", Column(dt.INT64, event))])
+                       ("EventTime", Column(dt.INT64, event)),
+                       ("RegionID", Column(dt.INT64, region)),
+                       ("AdvEngineID", Column(dt.INT64, adv)),
+                       ("ResolutionWidth", Column(dt.INT64, width))])
 
 
 def col(batch, name):
@@ -555,17 +618,20 @@ def col(batch, name):
 
 # ---- the main path ----------------------------------------------------------
 
-def run_path(ctx, sql, expect, card, label, rows, cls=None, reps=REPS):
-    """The main path: launch counts set to 0, a warm-up and `reps` timed
-    runs, counts read. Fails unless every kernel of `expect` launched and
-    no exec of `cls` (by default TorchGroupAggregateExec) fell back.
-    Returns (result batch, launches, ms)."""
+def run_path(ctx, sql, expect, card, label, rows, cls=None, reps=REPS,
+             warm=True):
+    """The main path: launch counts set to 0, a warm-up (unless not
+    `warm`) and `reps` timed runs, counts read. Fails unless every kernel
+    of `expect` launched and no exec of `cls` (by default
+    TorchGroupAggregateExec) fell back. Returns (result batch, launches,
+    ms)."""
     from datafusion_tpu_torch import kernels
     from datafusion_tpu_torch.physical.plan.device_aggregate import (
         TorchGroupAggregateExec)
     cls = cls or TorchGroupAggregateExec
     kernels.reset_launch_counts()
-    out = ctx.sql(sql).collect_batch()                # warm-up
+    if warm:
+        out = ctx.sql(sql).collect_batch()            # warm-up
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -583,8 +649,9 @@ def run_path(ctx, sql, expect, card, label, rows, cls=None, reps=REPS):
     if missing:
         raise AssertionError(f"{label} did not launch {missing}")
     med = statistics.median(times) * 1e3
-    per_query = {k: launches[k] / (reps + 1) for k in expect}
-    print(f"{label} end to end: warm median of {reps} {med:.3f} ms, "
+    per_query = {k: launches[k] / (reps + warm) for k in expect}
+    print(f"{label} end to end: {'warm ' if warm else ''}median of {reps} "
+          f"{med:.3f} ms, "
           f"{rows / (med / 1e3):.1f} rows/s, launches per query "
           f"{per_query}, fallbacks {fallbacks} [{card}]", flush=True)
     return out, launches, med
@@ -655,9 +722,10 @@ def breakdown(ctx, sql, card, label, cls=None, main=None, host=None):
 
 # ---- kernels against their plain versions -----------------------------------
 
-def kernel_vs_plain(ctx, sql, table_name, float_rel):
+def kernel_vs_plain(ctx, sql, table_name, float_rel, reps=(20, 3)):
     """Kernel and plain version of the query's dense aggregate on the same
-    staged inputs. Returns the kernel's report entry."""
+    staged inputs, timed over `reps` (kernel, plain) runs. Returns the
+    kernel's report entry."""
     import numpy as np
     import torch
     from datafusion_tpu_torch.device.groupby import (
@@ -692,10 +760,11 @@ def kernel_vs_plain(ctx, sql, table_name, float_rel):
         if not ok:
             raise AssertionError(f"{table_name}: lane {i} differs:\n{a}\n{b}")
     t_k = spec.new_table(dev)
-    ms = cuda_ms(lambda: dense_group_aggregate(spec, cols, aux, n, t_k), 20)
+    ms = cuda_ms(lambda: dense_group_aggregate(spec, cols, aux, n, t_k),
+                 reps[0])
     t_p = spec.new_table(dev)
     plain_ms = cuda_ms(
-        lambda: dense_group_aggregate_plain(spec, cols, aux, n, t_p), 3)
+        lambda: dense_group_aggregate_plain(spec, cols, aux, n, t_p), reps[1])
     bnd = bound(col_bytes(cols, spec.pools.columns, n) + t_k.numel() * 8,
                 prog_ops(spec, n))
     return entry(err, ms, plain_ms, bnd)
@@ -706,7 +775,8 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
     staged inputs (equal group tables, ordered by key), and with `having`
     `compact_groups` with the query's HAVING against its plain version
     (equal, column for column). Returns (kernel 2's report entry, kernel
-    3's or None, the kernel's table, spec, lane names)."""
+    3's with HAVING or None, kernel 3's without, the kernel's table, spec,
+    lane names)."""
     import numpy as np
     import torch
     from datafusion_tpu_torch.device.groupby import (
@@ -756,12 +826,16 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
     table = tables[0]
     ms3 = cuda_ms(lambda: compact_groups(table), 10)
     plain3 = cuda_ms(lambda: compact_groups_plain(table), 3)
+    # one PyTorch call: boolean-mask indexing by the occupied slots
+    lib3 = cuda_ms(lambda: table[:, table[0] != -1], 10)
     # the key row read once, the rest of each live slot read once and
     # written once
     b3 = bound(spec.cap * 8 + groups * (2 * rows - 1) * 8, spec.cap)
+    kc = entry(0.0, ms3, plain3, b3, lib3)
     print(f"compact_groups {label}, no HAVING: {groups} of {spec.cap} "
-          f"slots: kernel {ms3:.6f} ms, plain {plain3:.6f} ms, bound "
-          f"{b3['bound_ms']:.6f} ms [{card}]", flush=True)
+          f"slots: kernel {ms3:.6f} ms, plain {plain3:.6f} ms, boolean-mask "
+          f"indexing {lib3:.6f} ms, bound {b3['bound_ms']:.6f} ms [{card}]",
+          flush=True)
     k3 = None
     if having:
         hv = ex.having(spec, plan, names, slot_map)
@@ -780,7 +854,7 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
               f"{groups} groups kept: kernel {ms3:.6f} ms, plain "
               f"{plain3:.6f} ms, bound {b3['bound_ms']:.6f} ms, max_abs_err "
               f"0.0 [{card}]", flush=True)
-    return entry(err2, ms2, plain2, b2), k3, table, spec, names
+    return entry(err2, ms2, plain2, b2), k3, kc, table, spec, names
 
 
 def topk_vs_plain(table, lane, names, card, label):
@@ -887,7 +961,8 @@ def chain_walk_vs_plain(ex, tctx, card, label):
         table = spec.new_table(dev)
         overflow = torch.zeros(1, dtype=torch.int32, device=dev)
         kw = {"hop_rows": hop_rows} if fold is chain_aggregate_plain else {}
-        fold(spec, cols, aux, n, table, overflow, **kw)
+        fold(spec, cols, aux, n, table, overflow,
+             dset=spec.distinct_set(n, dev), **kw)
         torch.cuda.synchronize()
         if int(overflow.item()):
             raise AssertionError(f"{label}: {fold.__name__} overflowed")
@@ -901,13 +976,18 @@ def chain_walk_vs_plain(ex, tctx, card, label):
     scratch = spec.new_table(dev)
     pristine = scratch.clone()
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    dset = spec.distinct_set(n, dev)
+
+    def reset():
+        scratch.copy_(pristine)
+        if dset is not None:
+            dset.words.zero_()
     ms = cuda_ms(lambda: chain_aggregate(spec, cols, aux, n, scratch,
-                                         overflow), 5,
-                 setup=lambda: scratch.copy_(pristine))
+                                         overflow, dset), 5, setup=reset)
     plain = cuda_ms(lambda: chain_aggregate_plain(spec, cols, aux, n,
-                                                  scratch, overflow), 2,
-                    setup=lambda: scratch.copy_(pristine))
-    del scratch, pristine
+                                                  scratch, overflow,
+                                                  dset=dset), 2, setup=reset)
+    del scratch, pristine, dset
     nbytes = walk_bytes(spec, cols, n, hop_rows)
     nbytes += got.shape[1] * got.shape[0] * 8    # live groups written once
     bnd = bound(nbytes, prog_ops(spec, n))
@@ -1117,6 +1197,9 @@ def window_kernels_vs_plain(ctx, sql, card, label):
         del want
         ms_g = cuda_ms(lambda: reorder_rows(perm, words + extras), 5)
         plain_g = cuda_ms(lambda: reorder_rows_plain(perm, words + extras), 2)
+        # one PyTorch call a lane: index_select
+        lib_g = cuda_ms(lambda: [t.index_select(0, perm)
+                                 for t in words + extras], 5)
         width = sum(t.element_size() for t in words + extras)
         b_g = bound(n * 8 + 2 * n * width, 0)
         ms_s = cuda_ms(lambda: window_scan(sw, len(pw), perm, spec, *sl), 5)
@@ -1128,12 +1211,13 @@ def window_kernels_vs_plain(ctx, sql, card, label):
         b_s = bound(read + wrote, n)
         print(f"{label} {spec}: {n} rows, {len(words)} words, {len(extras)} "
               f"lanes; gather_lanes kernel {ms_g:.6f} ms, plain "
-              f"{plain_g:.6f} ms, bound {b_g['bound_ms']:.6f} ms; "
+              f"{plain_g:.6f} ms, index_select {lib_g:.6f} ms, bound "
+              f"{b_g['bound_ms']:.6f} ms; "
               f"window_scan kernel {ms_s:.6f} ms, plain {plain_s:.6f} ms, "
               f"bound {b_s['bound_ms']:.6f} ms; every output equal "
               f"[{card}]", flush=True)
         if first is None:
-            first = (entry(0.0, ms_g, plain_g, b_g),
+            first = (entry(0.0, ms_g, plain_g, b_g, lib_g),
                      entry(0.0, ms_s, plain_s, b_s))
         del words, lanes, extras, perm, moved, sw, sl, got
         torch.cuda.empty_cache()
@@ -1674,6 +1758,407 @@ def full_lowering_phase(ctx, tables, card, add):
     return list(out_entries.values())
 
 
+
+# ---- count(DISTINCT x), lanes past 32, the fanout-N join-aggregate ---------
+
+def distinct_vs_plain(ctx, sql, label, card):
+    """`hash_group_aggregate` with its distinct lane against its plain
+    version on the query's staged inputs: equal group tables (ordered by
+    key) and equal sets of distinct pairs. The bound reads the inputs once
+    and writes each live group's slot and each distinct pair's entry
+    (24 bytes) once. Returns (the report entry, distinct pairs, the set's
+    bytes)."""
+    import numpy as np
+    import torch
+    from datafusion_tpu_torch.device.groupby import (
+        compact_groups_plain, hash_group_aggregate,
+        hash_group_aggregate_plain)
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        TorchGroupAggregateExec)
+    ex = find_exec(ctx.sql(sql).create_physical_plan(),
+                   TorchGroupAggregateExec)
+    (batch,) = ex.input_batches(ctx.task_context())
+    spec, _plan, _names, _slots = ex.compile([batch])
+    cols, aux = ex.stage(spec, batch)
+    n, dev = batch.num_rows, ctx.device
+    tables, sets = [], []
+    for fold in (hash_group_aggregate, hash_group_aggregate_plain):
+        table = spec.new_table(dev)
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        dset = spec.distinct_set(n, dev)
+        fold(spec, cols, aux, n, table, overflow, dset=dset)
+        torch.cuda.synchronize()
+        if int(overflow.item()) or dset.overflowed():
+            raise AssertionError(f"{label}: {fold.__name__} overflowed")
+        set_bytes = dset.nbytes
+        sets.append(dset.pairs())
+        tables.append(compact_groups_plain(table).cpu().numpy())
+        del dset, table
+    got, want = (t[:, np.argsort(t[0], kind="stable")] for t in tables)
+    if got.shape != want.shape or not np.array_equal(got, want) or \
+            not torch.equal(sets[0], sets[1]):
+        raise AssertionError(f"{label}: the distinct fold differs from its "
+                             f"plain version")
+    pairs = sets[0].shape[0]
+    del sets, tables
+    scratch = spec.new_table(dev)
+    pristine = scratch.clone()
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    dset = spec.distinct_set(n, dev)
+
+    def reset():
+        scratch.copy_(pristine)
+        dset.words.zero_()
+    ms = cuda_ms(lambda: hash_group_aggregate(spec, cols, aux, n, scratch,
+                                              overflow, dset), 3,
+                 setup=reset)
+    plain = cuda_ms(lambda: hash_group_aggregate_plain(
+        spec, cols, aux, n, scratch, overflow, dset=dset), 1, setup=reset)
+    del scratch, pristine, dset
+    torch.cuda.empty_cache()
+    groups, rows = got.shape[1], got.shape[0]
+    bnd = bound(col_bytes(cols, spec.pools.columns, n) +
+                groups * rows * 8 + pairs * 24, prog_ops(spec, n))
+    print(f"hash_group_aggregate[distinct] {label}: {n} rows, {groups} "
+          f"groups, {spec.cap} slots "
+          f"({'identity' if spec.identity_slots else 'hashed'}), "
+          f"{len(spec.lanes)} lanes, {pairs} distinct pairs in a set of "
+          f"{set_bytes} bytes: kernel {ms:.6f} ms, plain {plain:.6f} ms, "
+          f"bound {bnd['bound_ms']:.6f} ms ({bnd['bytes']} bytes), "
+          f"max_abs_err 0 [{card}]", flush=True)
+    return entry(0.0, ms, plain, bnd), pairs, set_bytes
+
+
+def join_ops(spec, n_probe: int, pairs: int) -> int:
+    """Interpreter ops of a join-aggregate: the probe predicate and keys
+    once a probe row, the residual, group keys and lanes once a pair."""
+    probe = sum(len(p.code) for p in spec.join.programs())
+    pair = sum(len(p.code) for p in spec.programs()) - probe
+    return n_probe * probe + pairs * pair
+
+
+def join_vs_plain(ctx, sql, label, card):
+    """`join_build` against its plain version on the query's build side
+    (equal bucket starts, the same multiset of (key words, row) a bucket),
+    then `join_aggregate` over the kernel's table against its plain
+    version on the probe batch (equal group tables, ordered by key; every
+    lane is a count or an exact decimal sum). Bounds: the build's inputs
+    read and its CSR written once; the probe columns, the CSR and the
+    build columns the pairs read once, the live groups written once.
+    Returns (join_build's entry, join_aggregate's entry, pairs)."""
+    import numpy as np
+    import torch
+    from datafusion_tpu_torch.device.groupby import (
+        AggregateSpec, compact_groups_plain, dense_group_table)
+    from datafusion_tpu_torch.device.join_agg import (
+        join_aggregate, join_aggregate_plain, join_build, join_build_plain,
+        join_pairs_plain)
+    from datafusion_tpu_torch.physical.plan.base import (collect_batch,
+                                                         execute_stream)
+    from datafusion_tpu_torch.physical.plan.device_join_agg import (
+        TorchJoinAggregateExec)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        _PairView)
+    ex = find_exec(ctx.sql(sql).create_physical_plan(),
+                   TorchJoinAggregateExec)
+    if ex is None:
+        raise AssertionError(f"{label} plans no TorchJoinAggregateExec")
+    print(f"{label} plans {ex.display_line()}", flush=True)
+    tctx = ctx.task_context()
+    lowered = ex.lower()
+    bb = collect_batch(ex.build_source, tctx)
+    bspec, bcols, baux = ex.build_input(lowered, bb)
+    nb_rows = bb.num_rows
+    got_t = join_build(bspec, bcols, baux, nb_rows)
+    want_t = join_build_plain(bspec, bcols, baux, nb_rows)
+    torch.cuda.synchronize()
+    if (got_t.nb, got_t.live) != (want_t.nb, want_t.live) or \
+            not torch.equal(got_t.start, want_t.start) or not all(
+                np.array_equal(a, b) for a, b in zip(got_t.entries(),
+                                                     want_t.entries())):
+        raise AssertionError(f"{label}: join_build differs from its plain "
+                             f"version")
+    del want_t
+    ms_b = cuda_ms(lambda: join_build(bspec, bcols, baux, nb_rows), 5)
+    plain_b = cuda_ms(lambda: join_build_plain(bspec, bcols, baux, nb_rows),
+                      2)
+    bnd_b = bound(col_bytes(bcols, bspec.pools.columns, nb_rows) +
+                  got_t.nbytes, prog_ops(bspec, nb_rows))
+    print(f"join_build {label}: {nb_rows} build rows, {got_t.live} live, "
+          f"{got_t.nb} buckets, CSR of {got_t.nbytes} bytes: kernel "
+          f"{ms_b:.6f} ms, plain {plain_b:.6f} ms, bound "
+          f"{bnd_b['bound_ms']:.6f} ms, max_abs_err 0 [{card}]", flush=True)
+    (pb,) = [b for b in execute_stream(ex.probe_source, tctx) if b.num_rows]
+    view = _PairView(list(bb.columns) + list(pb.columns), pb.num_rows)
+    spec, _plan, _names, _sm = ex.compile_join(lowered, got_t, [view])
+    cols, aux = ex.stage_pair(spec, bb, pb, view)
+    n, dev = pb.num_rows, ctx.device
+    pairs = join_pairs_plain(spec, cols, aux, n)[0].numel()
+    dense = isinstance(spec, AggregateSpec)
+    tables = []
+    for fold in (join_aggregate, join_aggregate_plain):
+        table = spec.new_table(dev)
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        fold(spec, cols, aux, n, table, overflow)
+        torch.cuda.synchronize()
+        if int(overflow.item()):
+            raise AssertionError(f"{label}: {fold.__name__} overflowed")
+        tables.append(compact_groups_plain(
+            dense_group_table(table) if dense else table).cpu().numpy())
+        del table
+        torch.cuda.empty_cache()
+    got, want = (t[:, np.argsort(t[0], kind="stable")] for t in tables)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"{label}: join_aggregate's group table "
+                             f"differs from its plain version")
+    scratch = spec.new_table(dev)
+    pristine = scratch.clone()
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms_a = cuda_ms(lambda: join_aggregate(spec, cols, aux, n, scratch,
+                                          overflow), 5,
+                   setup=lambda: scratch.copy_(pristine))
+    plain_a = cuda_ms(lambda: join_aggregate_plain(spec, cols, aux, n,
+                                                   scratch, overflow), 1,
+                      setup=lambda: scratch.copy_(pristine))
+    del scratch, pristine
+    torch.cuda.empty_cache()
+    nbuild = spec.join.n_build
+    groups, rows = got.shape[1], got.shape[0]
+    nbytes = (col_bytes(cols, [i for i in spec.pools.columns
+                               if i >= nbuild], n) + got_t.nbytes +
+              col_bytes(cols, [i for i in spec.pools.columns if i < nbuild],
+                        nb_rows) + groups * rows * 8)
+    bnd_a = bound(nbytes, join_ops(spec, n, pairs))
+    print(f"join_aggregate {label}: {n} probe rows, {pairs} pairs, "
+          f"{'dense' if dense else 'hash'} fold, {groups} groups: kernel "
+          f"{ms_a:.6f} ms, plain {plain_a:.6f} ms, bound "
+          f"{bnd_a['bound_ms']:.6f} ms ({bnd_a['bytes']} bytes), "
+          f"max_abs_err 0 [{card}]", flush=True)
+    return entry(0.0, ms_b, plain_b, bnd_b), entry(0.0, ms_a, plain_a,
+                                                    bnd_a), pairs
+
+
+def oracle_q5d(t):
+    """Q5 with count(DISTINCT o_custkey): (nation name, revenue at scale
+    4, distinct customers), by revenue descending."""
+    import numpy as np
+    cust, orders, li = t["customer"], t["orders"], t["lineitem"]
+    nation, region, supp = t["nation"], t["region"], t["supplier"]
+    asia = region.column_by_name("r_name").dictionary.lookup("ASIA")
+    r_asia = col(region, "r_regionkey")[col(region, "r_name") == asia]
+    n_in = np.isin(col(nation, "n_regionkey"), r_asia)
+    o_date = col(orders, "o_orderdate")
+    o_ok = (o_date >= days(1994, 1, 1)) & (o_date < days(1995, 1, 1))
+    oi = (col(li, "l_orderkey") + 3) // 4 - 1
+    s_nat = col(supp, "s_nationkey")[col(li, "l_suppkey") - 1]
+    ck = col(orders, "o_custkey")[oi]
+    c_nat = col(cust, "c_nationkey")[ck - 1]
+    m = o_ok[oi] & (c_nat == s_nat) & n_in[s_nat]
+    rev = col(li, "l_extendedprice")[m] * (100 - col(li, "l_discount")[m])
+    nat, ck = s_nat[m], ck[m]
+    names = nation.column_by_name("n_name")
+    out = [(names.dictionary.values[col(nation, "n_name")[k]],
+            int(rev[nat == k].sum()), len(np.unique(ck[nat == k])))
+           for k in np.flatnonzero(n_in) if (nat == k).any()]
+    return sorted(out, key=lambda r: -r[1])
+
+
+def oracle_j1(t):
+    """J1: (ps_suppkey, pairs, sum(ps_supplycost * l_quantity) at scale 4)
+    of every supplier, by key: a part's lineitem count and quantity, spread
+    over its partsupp rows."""
+    import numpy as np
+    li, ps = t["lineitem"], t["partsupp"]
+    part = col(li, "l_partkey")
+    n_part = int(col(ps, "ps_partkey").max()) + 1
+    cnt = np.bincount(part, minlength=n_part)
+    qty = np.bincount(part, weights=col(li, "l_quantity"),
+                      minlength=n_part).astype(np.int64)
+    pp, sk = col(ps, "ps_partkey"), col(ps, "ps_suppkey")
+    pairs = np.bincount(sk, weights=cnt[pp]).astype(np.int64)
+    # every partial sum stays below 2^53, so float64 adds are exact
+    cost = np.bincount(sk, weights=col(ps, "ps_supplycost") * qty[pp]) \
+        .astype(np.int64)
+    keys = np.flatnonzero(pairs)
+    return keys, pairs[keys], cost[keys]
+
+
+def oracle_j2(t):
+    """J2: (ps_suppkey, sum(l_extendedprice * (1 - l_discount) -
+    ps_supplycost * l_quantity) at scale 4) of every supplier, by key: each
+    lineitem meets the partsupp row of its (part, supplier), the part's
+    row of the supplier's position among its 4."""
+    import numpy as np
+    li, ps = t["lineitem"], t["partsupp"]
+    part, supp = col(li, "l_partkey"), col(li, "l_suppkey")
+    n_supp = int(col(ps, "ps_suppkey").max())
+    j = ((supp - part) % n_supp) // (n_supp // 4 + 1)
+    row = (part - 1) * 4 + j
+    if not np.array_equal(col(ps, "ps_suppkey")[row], supp):
+        raise AssertionError("J2's oracle found another partsupp row")
+    profit = (col(li, "l_extendedprice") * (100 - col(li, "l_discount")) -
+              col(ps, "ps_supplycost")[row] * col(li, "l_quantity"))
+    # every partial sum stays below 2^53, so float64 adds are exact
+    out = np.bincount(supp, weights=profit, minlength=n_supp + 1) \
+        .astype(np.int64)
+    keys = np.flatnonzero(np.bincount(supp, minlength=n_supp + 1))
+    return keys, out[keys]
+
+
+def launched_as_predicted(label, counts, per_query, runs=REPS + 1):
+    """Fails unless each kernel of `per_query` launched that many times a
+    run of the main path."""
+    bad = {k: counts[k] for k, n in per_query.items()
+           if counts[k] != n * runs}
+    if bad:
+        raise AssertionError(f"{label}: launches {bad}, predicted "
+                             f"{per_query} a run")
+
+
+def join_agg_phase(ctx, tables, card, add, report):
+    """TPC-H at SF10 through the join-aggregate and the chain's distinct
+    lane: `join_build` and `join_aggregate` against their plain versions on
+    J1 (lineitem x partsupp on the part key: fanout 4) and J2 (Q9's profit
+    through the composite key), `chain_aggregate` with the distinct lane
+    against its plain version on Q5D (Q5 with count(DISTINCT o_custkey));
+    then J1, J2 and Q5D end to end against numpy, with 0 fallbacks and a
+    breakdown each. Sets report["join_build"] and report["join_aggregate"]
+    (J1's) and returns the kernels line's `chain_aggregate[distinct]`
+    entry, with chain_aggregate's launches in Q5D's main-path run."""
+    import numpy as np
+    import torch
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.physical.plan.device_join_agg import (
+        TorchJoinAggregateExec)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainAggregateExec)
+    li = tables["lineitem"]
+    report["join_build"], report["join_aggregate"], pairs1 = join_vs_plain(
+        ctx, J1, "J1 SF10", card)
+    _kb, _ka, pairs2 = join_vs_plain(ctx, J2, "J2 SF10", card)
+    ex = find_exec(ctx.sql(Q5D).create_physical_plan(),
+                   TorchJoinChainAggregateExec)
+    print(f"Q5D SF10 plans {ex.display_line()}", flush=True)
+    k5 = chain_walk_vs_plain(ex, ctx.task_context(), card, "Q5D SF10")
+    del ex
+    torch.cuda.empty_cache()
+    join = ["join_build", "join_aggregate", "compact_groups"]
+    for label, sql, oracle, pairs in (("J1 SF10", J1, oracle_j1, pairs1),
+                                      ("J2 SF10", J2, oracle_j2, pairs2)):
+        out, counts, _ = run_path(ctx, sql, join, card, label, li.num_rows,
+                                  TorchJoinAggregateExec)
+        add(counts)
+        # hash, count, the scan's three, scatter; one probe launch
+        launched_as_predicted(label, counts, {"join_build": 6,
+                                              "join_aggregate": 1})
+        no_fallbacks(ctx, sql, label)
+        want = oracle(tables)
+        got = [c.data_host() for c in out.columns]
+        if len(got) != len(want) or not all(
+                np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{label} disagrees with numpy")
+        print(f"{label} equals numpy exactly: {len(want[0])} suppliers, "
+              f"{pairs} pairs, first sums {got[-1][:3].tolist()} (scale 4)",
+              flush=True)
+        breakdown(ctx, sql, card, label, TorchJoinAggregateExec,
+                  main="join_aggregate")
+    out, counts, _ = run_path(ctx, Q5D, ["chain_build", "chain_aggregate",
+                                         "compact_groups"],
+                              card, "Q5D SF10", li.num_rows,
+                              TorchJoinChainAggregateExec)
+    add(counts)
+    launched_as_predicted("Q5D SF10", counts, {"chain_aggregate": 1})
+    no_fallbacks(ctx, Q5D, "Q5D SF10")
+    want = oracle_q5d(tables)
+    got = list(zip(out.columns[0].to_pylist(), col(out, "revenue").tolist(),
+                   col(out, "customers").tolist()))
+    if got != want:
+        raise AssertionError(f"Q5D SF10 disagrees with numpy: {got} {want}")
+    print(f"Q5D SF10 equals numpy exactly: {got}", flush=True)
+    breakdown(ctx, Q5D, card, "Q5D SF10", TorchJoinChainAggregateExec)
+    torch.cuda.empty_cache()
+    return [dict(name="chain_aggregate[distinct]", route="cuda",
+                 source=kernels.KERNELS["chain_aggregate"].source,
+                 replaces="datafusion_tpu/physical/plan/"
+                          "device_join_chain.py:1459",
+                 launches=counts["chain_aggregate"], **k5)]
+
+
+def clickbench_q10_q30(ctx, hb, card, add):
+    """ClickBench Q10 (count(DISTINCT UserID) beside a sum, an avg and the
+    count that the fused top-k orders by, over 5,000 RegionIDs) and Q30
+    (90 sums: 180 lanes in 6 passes) at 99,997,497 rows: the distinct fold
+    and the dense fold's passes against their plain versions, then both
+    end to end against numpy with 0 fallbacks and a breakdown. Returns the
+    kernels line's `hash_group_aggregate[distinct]` and
+    `fused_dense_aggregate[passes]` entries, with their kernel's launches
+    in each query's main-path run."""
+    import numpy as np
+    from datafusion_tpu_torch import kernels
+    k10, pairs, set_bytes = distinct_vs_plain(
+        ctx, CB_Q10.split(" ORDER BY")[0], "CB Q10", card)
+    out, counts10, _ = run_path(ctx, CB_Q10, [
+        "hash_group_aggregate", "group_topk", "compact_groups"], card,
+        "CB Q10", HITS_ROWS)
+    add(counts10)
+    launched_as_predicted("CB Q10", counts10, {"hash_group_aggregate": 1,
+                                               "group_topk": 1})
+    region, user = col(hb, "RegionID"), col(hb, "UserID")
+    adv, width = col(hb, "AdvEngineID"), col(hb, "ResolutionWidth")
+    n_reg = int(region.max()) + 1
+    per = np.bincount(region, minlength=n_reg)
+    top_counts_agree("CB Q10", col(out, "RegionID"), col(out, "c"),
+                     np.arange(n_reg), per)
+    uniq = np.unique(region * (int(user.max()) + 1) + user)
+    users = np.bincount(uniq // (int(user.max()) + 1), minlength=n_reg)
+    sums = np.bincount(region, weights=adv, minlength=n_reg)
+    wsum = np.bincount(region, weights=width, minlength=n_reg)
+    for i, r in enumerate(col(out, "RegionID")):
+        got = [int(out.columns[1].data_host()[i]),
+               float(out.columns[3].data_host()[i]),
+               int(out.columns[4].data_host()[i])]
+        if got[0] != int(sums[r]) or got[2] != int(users[r]) or \
+                abs(got[1] - wsum[r] / per[r]) > 1e-9 * wsum[r] / per[r]:
+            raise AssertionError(f"CB Q10 region {r}: {got} != "
+                                 f"{[sums[r], wsum[r] / per[r], users[r]]}")
+    print(f"CB Q10 equals numpy: top counts {col(out, 'c').tolist()}, "
+          f"{len(uniq)} distinct (RegionID, UserID) pairs ({pairs} in the "
+          f"kernel's set of {set_bytes} bytes), avg within rel 1e-9",
+          flush=True)
+    breakdown(ctx, CB_Q10, card, "CB Q10")
+    del uniq
+    k30 = kernel_vs_plain(ctx, CB_Q30, "hits", None, reps=(3, 1))
+    print(f"fused_dense_aggregate CB Q30 (180 lanes, 6 passes, G = 1): "
+          f"kernel {k30['ms']:.6f} ms, plain {k30['plain_ms']:.6f} ms, "
+          f"bound {k30['bound_ms']:.6f} ms ({k30['bound_by']}), "
+          f"max_abs_err {k30['max_abs_err']} [{card}]", flush=True)
+    out, counts30, _ = run_path(ctx, CB_Q30, ["fused_dense_aggregate"], card,
+                                "CB Q30", HITS_ROWS)
+    add(counts30)
+    launched_as_predicted("CB Q30", counts30, {"fused_dense_aggregate": 6})
+    total = int(width.sum())
+    want = [total + i * HITS_ROWS for i in range(90)]
+    got = [int(c.data_host()[0]) for c in out.columns]
+    if got != want:
+        raise AssertionError(f"CB Q30 disagrees with numpy: {got[:3]} "
+                             f"{want[:3]}")
+    print(f"CB Q30 equals numpy exactly: 90 sums from {want[0]}, "
+          f"fused_dense_aggregate launched "
+          f"{counts30['fused_dense_aggregate']} times in {REPS + 1} runs "
+          f"(6 passes of at most 32 lanes) [{card}]", flush=True)
+    breakdown(ctx, CB_Q30, card, "CB Q30")
+    fold = "datafusion_tpu/device/groupby.py"
+    return [dict(name="hash_group_aggregate[distinct]", route="cuda",
+                 source=kernels.KERNELS["hash_group_aggregate"].source,
+                 replaces=f"{fold}:214",
+                 launches=counts10["hash_group_aggregate"], **k10),
+            dict(name="fused_dense_aggregate[passes]", route="cuda",
+                 source=kernels.KERNELS["fused_dense_aggregate"].source,
+                 replaces="datafusion_tpu/physical/plan/"
+                          "device_aggregate.py:679",
+                 launches=counts30["fused_dense_aggregate"], **k30)]
+
+
 def main() -> int:
     for blocked in ("jax", "datafusion_tpu", "bench"):
         sys.modules[blocked] = None     # the port stands alone
@@ -1691,12 +2176,19 @@ def main() -> int:
         TorchGroupAggregateExec)
     from datafusion_tpu_torch.physical.plan.device_join_chain import (
         TorchJoinChainAggregateExec, TorchJoinChainRowsExec)
+    # registers join_build and join_aggregate with the launch counts
+    from datafusion_tpu_torch.physical.plan.device_join_agg import (  # noqa
+        TorchJoinAggregateExec)
     from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
 
     card = smi()
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
+
+    def phase(label):
+        print(f"-- {time.perf_counter() - t_start:.1f} s: {label}",
+              flush=True)
 
     t0 = time.perf_counter()
     kernels.library()
@@ -1712,6 +2204,7 @@ def main() -> int:
             launched[k] += v
 
     # == dense path: Q1 and Q6 ===============================================
+    phase("dense path: Q1 and Q6")
     t0 = time.perf_counter()
     sf10 = make_lineitem(SF10_ROWS, seed=0)
     print(f"lineitem SF10: {SF10_ROWS} rows made in "
@@ -1772,6 +2265,7 @@ def main() -> int:
     del ctx, sf10, ship, qty, price, disc, tax, m, g, charge
 
     # == TPC-H SF10: hash path (Q18's and Q15's subqueries) ==================
+    phase("TPC-H SF10: hash path (Q18's and Q15's subqueries)")
     t0 = time.perf_counter()
     tables = tpch_tables(10, seed=0)
     li = tables["lineitem"]
@@ -1781,12 +2275,12 @@ def main() -> int:
     ctx = dft.SessionContext(dev)
     for tname, b in tables.items():
         ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
-    k2, k3, table, _s, _n = hash_kernel_vs_plain(ctx, Q18_SUB, "Q18 sub SF10",
-                                                 card, having=True)
+    k2, _k3, kc, table, _s, _n = hash_kernel_vs_plain(
+        ctx, Q18_SUB, "Q18 sub SF10", card, having=True)
     del table
     report["hash_group_aggregate"] = k2
-    report["compact_groups"] = k3
-    _k2, _k3, table, _s, _n = hash_kernel_vs_plain(ctx, Q15_SUB,
+    report["compact_groups"] = kc
+    _k2, _k3, _kc, table, _s, _n = hash_kernel_vs_plain(ctx, Q15_SUB,
                                                    "Q15 sub SF10", card)
     del table
 
@@ -1826,6 +2320,7 @@ def main() -> int:
     del ok_, supp, qty, price, disc, ship, m, rev, live, starts, sums
 
     # == TPC-H SF10: join chains (Q3, Q4, Q5) =================================
+    phase("TPC-H SF10: join chains (Q3, Q4, Q5)")
     chain = ["chain_build", "chain_aggregate"]
     tctx = ctx.task_context()
     for q in (5, 3, 4):
@@ -1882,6 +2377,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # == TPC-H SF10: row-returning join chains (Q2, Q20) ======================
+    phase("TPC-H SF10: row-returning join chains (Q2, Q20)")
     ex2 = find_exec(ctx.sql(TPCH[2]).create_physical_plan(),
                     TorchJoinChainRowsExec)
     ex20 = find_exec(ctx.sql(TPCH[20]).create_physical_plan(),
@@ -1940,9 +2436,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # == TPC-H SF10: Q7-Q10, Q12, Q14, Q18, Q21 ===============================
+    phase("TPC-H SF10: Q7-Q10, Q12, Q14, Q18, Q21")
     variants = full_lowering_phase(ctx, tables, card, add)
 
+    # == TPC-H SF10: the fanout-N join-aggregate (J1, J2), Q5D ===============
+    phase("TPC-H SF10: the fanout-N join-aggregate (J1, J2), Q5D")
+    variants += join_agg_phase(ctx, tables, card, add, report)
+
     # == TPC-H SF10: window functions (W1, W2, W3) ============================
+    phase("TPC-H SF10: window functions (W1, W2, W3)")
     from datafusion_tpu_torch.physical.plan.window import WindowExec
     window = ["radix_sort", "gather_lanes", "window_scan"]
     n_li = li.num_rows
@@ -1952,7 +2454,7 @@ def main() -> int:
             report["gather_lanes"], report["window_scan"] = kg, ks
 
     out, counts, _ = run_path(ctx, W1, window, card, "W1 SF10", n_li,
-                              WindowExec, reps=WINDOW_REPS)
+                              WindowExec, reps=WINDOW_REPS, warm=False)
     add(counts)
     want = oracle_w1(li)
     got = [col(out, c).astype(np.int64) for c in (
@@ -1966,7 +2468,7 @@ def main() -> int:
     del out, got, want
 
     out, counts, _ = run_path(ctx, W2, window, card, "W2 SF10", n_li,
-                              WindowExec, reps=WINDOW_REPS)
+                              WindowExec, reps=WINDOW_REPS, warm=False)
     add(counts)
     order = window_order(li, ["l_shipdate", "l_orderkey"])
     price = col(li, "l_extendedprice")[order]
@@ -1987,7 +2489,7 @@ def main() -> int:
     del out, order, price, prev
 
     out, counts, _ = run_path(ctx, W3, window, card, "W3 SF10", n_li,
-                              WindowExec, reps=WINDOW_REPS)
+                              WindowExec, reps=WINDOW_REPS, warm=False)
     add(counts)
     order = window_order(li, ["l_returnflag", "l_shipdate", "l_orderkey"])
     flag = col(li, "l_returnflag")[order]
@@ -2011,18 +2513,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # == hash path: ClickBench Q16 and Q17 at 99,997,497 rows ================
+    phase("hash path: ClickBench Q16 and Q17 at 99,997,497 rows")
     t0 = time.perf_counter()
     hb = hits(HITS_ROWS, seed=0)
-    print(f"hits: {HITS_ROWS} rows of UserID, SearchPhrase made in "
+    print(f"hits: {HITS_ROWS} rows of UserID, SearchPhrase, EventTime, "
+          f"RegionID, AdvEngineID, ResolutionWidth made in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     ctx = dft.SessionContext(dev)
     ctx.register_table("hits", dft.MemTable(hb.schema, [[hb]]))
-    _k2, _k3, table, _spec, names = hash_kernel_vs_plain(
+    _k2, _k3, _kc, table, _spec, names = hash_kernel_vs_plain(
         ctx, CB_Q16.split(" ORDER BY")[0], "CB Q16 SF100M", card)
     report["group_topk"] = topk_vs_plain(table, names[0], names, card,
                                          "CB Q16")
     del table
-    _k2, _k3, table, _spec, names = hash_kernel_vs_plain(
+    _k2, _k3, _kc, table, _spec, names = hash_kernel_vs_plain(
         ctx, CB_Q17.split(" ORDER BY")[0], "CB Q17 SF100M", card)
     topk_vs_plain(table, names[0], names, card, "CB Q17")
     del table
@@ -2058,7 +2562,13 @@ def main() -> int:
     breakdown(ctx, CB_Q17, card, "CB Q17")
     del pair, pair_n, per_user
 
+    # == count(DISTINCT x) and 180 lanes: ClickBench Q10 and Q30 ==============
+    phase("count(DISTINCT x) and 180 lanes: ClickBench Q10 and Q30")
+    variants += clickbench_q10_q30(ctx, hb, card, add)
+    torch.cuda.empty_cache()
+
     # == sort: ClickBench Q25, Q26 and Q27 ====================================
+    phase("sort: ClickBench Q25, Q26 and Q27")
     from datafusion_tpu_torch.physical.plan.sort import SortExec
     event = col(hb, "EventTime")
     rows = np.flatnonzero(code != hb.column_by_name(
@@ -2244,7 +2754,43 @@ def walks_main(trees) -> int:
     return 0
 
 
+def host_joins_main() -> int:
+    """J1 and J2 at SF10 through the port's host plan (`datafusion.tpu.
+    device_aggregate` off: a numpy HashJoinExec under an AggregateExec),
+    one run each after planning, each against numpy: the time a user had
+    before the join-aggregate ran on the card."""
+    for blocked in ("jax", "datafusion_tpu", "bench"):
+        sys.modules[blocked] = None
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.physical.plan.joins import HashJoinExec
+    print(f"host: {os.cpu_count()} cores; card {smi()}", flush=True)
+    tables = tpch_tables(10, seed=0)
+    ctx = dft.SessionContext(torch.device("cpu"))
+    ctx.sql("SET datafusion.tpu.device_aggregate = false")
+    for tname, b in tables.items():
+        ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
+    for label, sql, oracle in (("J1 SF10", J1, oracle_j1),
+                               ("J2 SF10", J2, oracle_j2)):
+        if find_exec(ctx.sql(sql).create_physical_plan(),
+                     HashJoinExec) is None:
+            raise AssertionError(f"{label} plans no host HashJoinExec")
+        t0 = time.perf_counter()
+        out = ctx.sql(sql).collect_batch()
+        secs = time.perf_counter() - t0
+        got = [c.data_host() for c in out.columns]
+        if not all(np.array_equal(a, b) for a, b in zip(got, oracle(tables))):
+            raise AssertionError(f"{label} on the host disagrees with numpy")
+        print(f"{label} on the port's host plan: {secs * 1e3:.3f} ms, "
+              f"equals numpy", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--host-joins"]:
+        sys.exit(host_joins_main())
     if sys.argv[1:2] == ["--walks"]:
         sys.exit(walks_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--walk-tree"]:

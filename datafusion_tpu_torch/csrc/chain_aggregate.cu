@@ -22,7 +22,11 @@
 // one of the aggregate kernels (`dense_fold`: <= 64 slots in shared memory,
 // as fused_dense_aggregate; `hash_fold`: the global table of
 // hash_group_aggregate), so the output table has their layout and
-// compact_groups and the host emit run unchanged.
+// compact_groups and the host emit run unchanged. The fold's lanes include
+// count(DISTINCT x) through the global distinct set of program.cuh, in
+// place of the reference's distinct slot (`_chain_slots` :1459-1460,
+// row-space :2020), which takes one spine chunk of at most 2^21 rows
+// (:445-449); lanes past 32 run as further passes of the walk.
 //
 // Bounds. TPC-H Q5 at SF10 reads lineitem's l_suppkey, l_orderkey,
 // l_extendedprice and l_discount (32 bytes a row, 60.0M rows, 1.92 GB),

@@ -34,6 +34,20 @@
 // atomicMin/atomicMax for int64 min/max, CAS loops for float64 min/max, a
 // 32-bit float add for SUM_F32.
 //
+// count(DISTINCT x) (device/groupby.py:214-228, the `distinct` kind, and
+// its row-space lane :338-350, :381-383) is a lane too: each admitted row
+// with a valid argument inserts (slot, lane, value) into a global
+// open-addressing distinct set (program.cuh `distinct_insert`), and the
+// insert that creates a pair adds 1 to the group's lane. The reference
+// sorts (key, value) pairs and so takes one chunk of at most 2^21 rows;
+// the set persists across launches like the table, so any number of
+// batches fold into one count.
+//
+// More than 32 lanes (ClickBench Q30: 180) run as passes of this kernel
+// over the same rows, each with the descriptor of up to 32 lanes and their
+// first lane row (H_LANE0); the first pass counts the rows and claims the
+// slots, and the later ones find the same slots.
+//
 // Bounds. TPC-H Q18's subquery at SF10 reads 16 bytes a row (l_orderkey,
 // l_quantity: 60.0M rows, 0.96 GB) plus the table traffic: a key read and
 // three 8-byte atomics a row into a 2^26-slot identity table of 4 rows

@@ -15,7 +15,22 @@
 // table of <= 64 slots, a global hash table) are templates on the row
 // source: `PlainRows` admits the rows that pass an aggregate's predicate,
 // `ChainRows` those that also survive the join chain's walk, so the
-// grouped aggregate and the join-chain aggregate share one fold.
+// grouped aggregate and the join-chain aggregate share one fold. The
+// per-row steps (`dense_fold_row`, `hash_fold_row`) are also called once a
+// matching pair by the fanout-N join-aggregate (join_aggregate.cu), whose
+// loader `PairColumns` reads build columns at the pair's build row.
+//
+// Lanes run in passes of at most 32 (groupby.py MAX_LANES): a descriptor
+// holds one pass's lanes, and H_LANE0 says where they start among the
+// table's lane rows. The first pass counts the rows and, in hash mode,
+// claims every key's slot; a later pass re-runs the same rows and finds
+// the same slots before any EMPTY one.
+//
+// count(DISTINCT x) is a lane kind: an admitted row whose argument is valid
+// inserts the pair (group slot and lane, value) into one global
+// open-addressing set (`distinct_insert`); the thread whose insert created
+// the pair adds 1 to the group's lane, so each pair counts once, in one
+// pass, across every batch and block.
 //
 // Exactness. Integer arithmetic wraps in 64 bits (signed overflow is
 // undefined in C++, so it goes through unsigned). There is no signed 64-bit
@@ -62,7 +77,8 @@ enum { CMP_EQ, CMP_NE, CMP_LT, CMP_LE, CMP_GT, CMP_GE };
 enum {
   LANE_ROWS = 0, LANE_CNT = 1, LANE_SUM_I64 = 2, LANE_SUM_F64 = 3,
   LANE_MIN_I64 = 4, LANE_MAX_I64 = 5, LANE_MIN_F64 = 6, LANE_MAX_F64 = 7,
-  LANE_NANCNT = 8, LANE_SUM_F32 = 9,
+  LANE_NANCNT = 8, LANE_SUM_F32 = 9, LANE_DISTINCT = 10,
+  LANE_DISTINCT_F64 = 11,
 };
 
 // column dtype codes: datafusion_tpu_torch/device/groupby.py
@@ -71,7 +87,7 @@ enum { DT_BOOL, DT_I32, DT_I64, DT_F32, DT_F64 };
 // descriptor header words
 enum { H_NCOLS, H_NLANES, H_G, H_NKEYS, H_PRED, H_OFF_COLS, H_OFF_PROGS,
        H_OFF_CODE, H_OFF_ICONST, H_OFF_FCONST, H_OFF_KEYS, H_OFF_LANES,
-       H_OFF_CHAIN };
+       H_OFF_CHAIN, H_LANE0, H_DSET, H_DMASK };
 
 // join-chain section (datafusion_tpu_torch/device/join_chain.py): a head,
 // one record per hop, then the hop of every pair-space column (-1: spine)
@@ -271,6 +287,27 @@ struct ChainColumns {
         *v = 0;
         return false;
       }
+    }
+    return load_valid(cols + 3 * idx, row, v);
+  }
+};
+
+// Column loads of a fanout-N join's pair space (join_aggregate.cu): the
+// first n_build indices are build columns, read at the pair's build row
+// (NULL before a match), the rest probe columns at the probe row.
+template <bool Full>
+struct PairColumns {
+  static constexpr bool kFull = Full;
+  const i64* cols;
+  i64 n_build;
+  i64 brow;
+  __device__ __forceinline__ bool operator()(i64 idx, i64 row, i64* v) const {
+    if (idx < n_build) {
+      if (brow < 0) {
+        *v = 0;
+        return false;
+      }
+      row = brow;
     }
     return load_valid(cols + 3 * idx, row, v);
   }
@@ -525,62 +562,6 @@ __device__ __forceinline__ void fold(int kind, u64* cell, i64 x) {
   }
 }
 
-// Fold one row's lanes into the table cells cell(l) of one group, under the
-// rules of DeviceGroupAggregateExec._make_step.prepare
-// (datafusion_tpu/physical/plan/device_aggregate.py:718-767): count(*) and
-// CNT count the row (CNT only where its argument is valid), NaN is masked
-// out of float min/max and counted in the NANCNT lane.
-template <class Columns, class Cell>
-__device__ __forceinline__ void fold_lanes(const i64* meta, const i64* aux,
-                                           const i64* lanes, int n_lanes,
-                                           i64 row, const Columns& cols,
-                                           Cell cell) {
-  for (int l = 0; l < n_lanes; ++l) {
-    const int prog = (int)lanes[2 * l];
-    const int kind = (int)lanes[2 * l + 1];
-    if (prog < 0) {  // count(*)
-      atomicAdd(cell(l), 1ull);
-      continue;
-    }
-    i64 x;
-    const bool valid = run(meta, aux, prog, row, cols, &x);
-    if (!valid) continue;
-    switch (kind) {
-      case LANE_CNT: atomicAdd(cell(l), 1ull); break;
-      case LANE_NANCNT:
-        if (isnan(as_f(x))) atomicAdd(cell(l), 1ull);
-        break;
-      case LANE_MIN_F64: case LANE_MAX_F64:
-        if (!isnan(as_f(x))) fold(kind, cell(l), x);
-        break;
-      default: fold(kind, cell(l), x); break;
-    }
-  }
-}
-
-// The packed group key of one row: each key program's value packs as
-// (v - offset + 1) << shift, 0 for NULL (device_aggregate.py:708-716).
-template <class Columns>
-__device__ __forceinline__ i64 pack_key(const i64* meta, const i64* aux,
-                                        const i64* keys, int n_keys, i64 row,
-                                        const Columns& cols) {
-  i64 packed = 0;
-  for (int k = 0; k < n_keys; ++k) {
-    i64 x;
-    const bool valid = run(meta, aux, (int)keys[3 * k], row, cols, &x);
-    const i64 code = valid ? wadd(wsub(x, keys[3 * k + 1]), 1) : 0;
-    packed |= code << keys[3 * k + 2];
-  }
-  return packed;
-}
-
-// Copy the descriptor into shared memory (the block's first words).
-__device__ __forceinline__ void stage_meta(i64* smem, const i64* meta_g,
-                                           int meta_len) {
-  for (int i = threadIdx.x; i < meta_len; i += blockDim.x) smem[i] = meta_g[i];
-  __syncthreads();
-}
-
 // ---- hashing ----------------------------------------------------------------
 
 __device__ __forceinline__ u64 splitmix64(u64 x) {
@@ -622,6 +603,117 @@ __device__ __forceinline__ i64 find_slot(i64* keys, i64 cap, i64 key) {
   return claim_slot(keys, cap, key, &fresh);
 }
 
+// ---- the distinct set -------------------------------------------------------
+
+// Insert the pair (a, b) into the distinct set `set` of mask + 1 entries
+// (a power of two) of three int64 words each, (tag, a, b), then one
+// overflow word; true when this call created the pair. A tag is 0 while
+// the entry is free; a claim CASes in the pair's hash with bit 1 set and
+// bit 0 clear, writes the pair, then sets bit 0, after which the entry
+// never changes. A thread that meets a claimed entry of its own tag waits
+// for bit 0 before it compares the pair: a 64-bit CAS suffices, and two
+// threads with one pair agree on which of them created it. A probe that
+// wraps the whole set sets the overflow word and drops the pair; the set
+// is sized at twice the pairs there can be, so that does not happen.
+__device__ __forceinline__ bool distinct_insert(i64* set, i64 mask, i64 a,
+                                                i64 b) {
+  const u64 h = splitmix64((u64)a ^ splitmix64((u64)b));
+  const u64 ready = h | 3ull, claimed = ready ^ 1ull;
+  i64 i = (i64)(h & (u64)mask);
+  for (i64 probes = 0; probes <= mask; ++probes) {
+    u64* e = (u64*)(set + 3 * i);
+    u64 seen = *(volatile u64*)e;
+    if (seen == 0) {
+      seen = atomicCAS(e, 0ull, claimed);
+      if (seen == 0) {
+        ((volatile i64*)e)[1] = a;
+        ((volatile i64*)e)[2] = b;
+        __threadfence();
+        *(volatile u64*)e = ready;
+        return true;
+      }
+    }
+    if ((seen | 1ull) == ready) {
+      while ((seen & 1ull) == 0) seen = *(volatile u64*)e;
+      __threadfence();
+      if (((volatile i64*)e)[1] == a && ((volatile i64*)e)[2] == b) {
+        return false;
+      }
+    }
+    i = (i + 1) & mask;
+  }
+  *(volatile i64*)(set + 3 * (mask + 1)) = 1;
+  return false;
+}
+
+// ---- the lane folds ---------------------------------------------------------
+
+// Fold one row's lanes into the table cells cell(l) of group `slot`, under
+// the rules of DeviceGroupAggregateExec._make_step.prepare
+// (datafusion_tpu/physical/plan/device_aggregate.py:718-767): count(*) and
+// CNT count the row (CNT only where its argument is valid), NaN is masked
+// out of float min/max and counted in the NANCNT lane. A DISTINCT lane
+// counts the row when its (slot, lane, value) pair is new to the set at
+// meta[H_DSET]: the value is the argument's int64, or for a float its
+// float64 bits with -0.0 read as 0.0 (`:732-743`); NULL never counts.
+template <class Columns, class Cell>
+__device__ __forceinline__ void fold_lanes(const i64* meta, const i64* aux,
+                                           const i64* lanes, int n_lanes,
+                                           i64 row, const Columns& cols,
+                                           i64 slot, Cell cell) {
+  for (int l = 0; l < n_lanes; ++l) {
+    const int prog = (int)lanes[2 * l];
+    const int kind = (int)lanes[2 * l + 1];
+    if (prog < 0) {  // count(*)
+      atomicAdd(cell(l), 1ull);
+      continue;
+    }
+    i64 x;
+    const bool valid = run(meta, aux, prog, row, cols, &x);
+    if (!valid) continue;
+    switch (kind) {
+      case LANE_CNT: atomicAdd(cell(l), 1ull); break;
+      case LANE_NANCNT:
+        if (isnan(as_f(x))) atomicAdd(cell(l), 1ull);
+        break;
+      case LANE_MIN_F64: case LANE_MAX_F64:
+        if (!isnan(as_f(x))) fold(kind, cell(l), x);
+        break;
+      case LANE_DISTINCT_F64: case LANE_DISTINCT:
+        if (kind == LANE_DISTINCT_F64 && x == INT64_MIN) x = 0;  // -0.0
+        if (distinct_insert((i64*)meta[H_DSET], meta[H_DMASK],
+                            (slot << 12) | (meta[H_LANE0] + l), x)) {
+          atomicAdd(cell(l), 1ull);
+        }
+        break;
+      default: fold(kind, cell(l), x); break;
+    }
+  }
+}
+
+// The packed group key of one row: each key program's value packs as
+// (v - offset + 1) << shift, 0 for NULL (device_aggregate.py:708-716).
+template <class Columns>
+__device__ __forceinline__ i64 pack_key(const i64* meta, const i64* aux,
+                                        const i64* keys, int n_keys, i64 row,
+                                        const Columns& cols) {
+  i64 packed = 0;
+  for (int k = 0; k < n_keys; ++k) {
+    i64 x;
+    const bool valid = run(meta, aux, (int)keys[3 * k], row, cols, &x);
+    const i64 code = valid ? wadd(wsub(x, keys[3 * k + 1]), 1) : 0;
+    packed |= code << keys[3 * k + 2];
+  }
+  return packed;
+}
+
+// Copy the descriptor into shared memory (the block's first words).
+__device__ __forceinline__ void stage_meta(i64* smem, const i64* meta_g,
+                                           int meta_len) {
+  for (int i = threadIdx.x; i < meta_len; i += blockDim.x) smem[i] = meta_g[i];
+  __syncthreads();
+}
+
 // ---- the row bodies ---------------------------------------------------------
 
 // Rows of a plain aggregate: those that pass its predicate (H_PRED).
@@ -639,81 +731,147 @@ struct PlainRows {
   }
 };
 
-// Every admitted row folded into a dense table of G = meta[H_G] <= 64 slots
-// in shared memory (`tab`: [lanes + 1][G], row 0 the counts), merged into
-// the global table `table_g` with atomics at the end, so any number of
-// launches accumulate into one table.
-template <class Rows>
-__device__ void dense_fold(const i64* meta, const i64* aux, i64 n_rows,
-                           u64* tab, u64* table_g, const Rows& rows) {
-  const int n_lanes = (int)meta[H_NLANES];
+// The dense table of one pass in shared memory (`tab`: [lanes + 1][G], row
+// 0 the counts), each cell at its identity.
+__device__ __forceinline__ void dense_init(const i64* meta, u64* tab) {
   const int groups = (int)meta[H_G];
-  const int n_keys = (int)meta[H_NKEYS];
-  const i64* keys = meta + meta[H_OFF_KEYS];
   const i64* lanes = meta + meta[H_OFF_LANES];
-  const int cells = (n_lanes + 1) * groups;
+  const int cells = ((int)meta[H_NLANES] + 1) * groups;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
     const int lane = i / groups;
     tab[i] = (u64)(lane == 0 ? 0 : identity((int)lanes[2 * (lane - 1) + 1]));
   }
   __syncthreads();
+}
 
+// One admitted row (or pair) folded into the dense table `tab`.
+template <class Columns>
+__device__ __forceinline__ void dense_fold_row(const i64* meta, const i64* aux,
+                                               i64 row, const Columns& cols,
+                                               u64* tab) {
+  const int groups = (int)meta[H_G];
+  i64 slot = pack_key(meta, aux, meta + meta[H_OFF_KEYS], (int)meta[H_NKEYS],
+                      row, cols);
+  slot = slot < 0 ? 0 : (slot >= groups ? groups - 1 : slot);
+  atomicAdd(&tab[slot], 1ull);
+  fold_lanes(meta, aux, meta + meta[H_OFF_LANES], (int)meta[H_NLANES], row,
+             cols, slot, [&](int l) { return &tab[(l + 1) * groups + slot]; });
+}
+
+// The block's dense table merged into the global table `table_g` ([all
+// lanes + 1][G]) with atomics: the counts by the first pass only, this
+// pass's lanes into their rows from H_LANE0 on.
+__device__ __forceinline__ void dense_merge(const i64* meta, u64* tab,
+                                            u64* table_g) {
+  __syncthreads();
+  const int groups = (int)meta[H_G];
+  const i64 lane0 = meta[H_LANE0];
+  const i64* lanes = meta + meta[H_OFF_LANES];
+  const int cells = ((int)meta[H_NLANES] + 1) * groups;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int lane = i / groups;
+    if (lane == 0 && lane0 > 0) continue;
+    const int kind = lane == 0 ? LANE_ROWS : (int)lanes[2 * (lane - 1) + 1];
+    const i64 x = (i64)tab[i];
+    const i64 at = lane == 0 ? i : (lane + lane0) * groups + i % groups;
+    if (x != identity(kind)) fold(kind, &table_g[at], x);
+  }
+}
+
+// Every admitted row folded into a dense table of G = meta[H_G] <= 64 slots
+// in shared memory (`tab`), merged into the global table `table_g` with
+// atomics at the end, so any number of launches accumulate into one table.
+template <class Rows>
+__device__ void dense_fold(const i64* meta, const i64* aux, i64 n_rows,
+                           u64* tab, u64* table_g, const Rows& rows) {
+  dense_init(meta, tab);
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
        row += stride) {
     typename Rows::Columns cols;
     if (!rows(row, &cols)) continue;
-    i64 slot = pack_key(meta, aux, keys, n_keys, row, cols);
-    slot = slot < 0 ? 0 : (slot >= groups ? groups - 1 : slot);
-    atomicAdd(&tab[slot], 1ull);
-    fold_lanes(meta, aux, lanes, n_lanes, row, cols,
-               [&](int l) { return &tab[(l + 1) * groups + slot]; });
+    dense_fold_row(meta, aux, row, cols, tab);
   }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int lane = i / groups;
-    const int kind = lane == 0 ? LANE_ROWS : (int)lanes[2 * (lane - 1) + 1];
-    const i64 x = (i64)tab[i];
-    if (x != identity(kind)) fold(kind, &table_g[i], x);
-  }
+  dense_merge(meta, tab, table_g);
 }
 
-// Every admitted row folded into the global hash table `table` of
-// [lanes + 2][cap] (row 0 keys, EMPTY = -1; row 1 counts; then the lanes):
-// the packed key is the slot when `identity_slots`, else a probed slot. A
-// row that finds no slot sets *overflow and is dropped.
+// One admitted row (or pair) folded into the global hash table `table` of
+// [all lanes + 2][cap] (row 0 keys, EMPTY = -1; row 1 counts; then the
+// lanes): the packed key is the slot when `identity_slots`, else a probed
+// slot. A row that finds no slot sets *overflow and is dropped.
+template <class Columns>
+__device__ __forceinline__ void hash_fold_row(const i64* meta, const i64* aux,
+                                              i64 row, const Columns& cols,
+                                              i64 cap, int identity_slots,
+                                              i64* table, int* overflow) {
+  u64* counts = (u64*)(table + cap);   // row 1 of the table, then the lanes
+  const i64 lane0 = meta[H_LANE0];
+  const i64 packed = pack_key(meta, aux, meta + meta[H_OFF_KEYS],
+                              (int)meta[H_NKEYS], row, cols);
+  i64 slot;
+  if (identity_slots) {
+    slot = packed >= 0 && packed < cap ? packed : -1;
+    if (slot >= 0 && table[slot] != packed) table[slot] = packed;
+  } else {
+    slot = packed >= 0 ? find_slot(table, cap, packed) : -1;
+  }
+  if (slot < 0) {
+    *overflow = 1;
+    return;
+  }
+  if (lane0 == 0) atomicAdd(&counts[slot], 1ull);
+  fold_lanes(meta, aux, meta + meta[H_OFF_LANES], (int)meta[H_NLANES], row,
+             cols, slot,
+             [&](int l) { return &counts[(l + 1 + lane0) * cap + slot]; });
+}
+
+// Every admitted row folded into the global hash table (`hash_fold_row`).
 template <class Rows>
 __device__ void hash_fold(const i64* meta, const i64* aux, i64 n_rows,
                           i64 cap, int identity_slots, i64* table,
                           int* overflow, const Rows& rows) {
-  const int n_lanes = (int)meta[H_NLANES];
-  const int n_keys = (int)meta[H_NKEYS];
-  const i64* keys = meta + meta[H_OFF_KEYS];
-  const i64* lanes = meta + meta[H_OFF_LANES];
-  u64* counts = (u64*)(table + cap);   // row 1 of the table, then the lanes
-
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
        row += stride) {
     typename Rows::Columns cols;
     if (!rows(row, &cols)) continue;
-    const i64 packed = pack_key(meta, aux, keys, n_keys, row, cols);
-    i64 slot;
-    if (identity_slots) {
-      slot = packed >= 0 && packed < cap ? packed : -1;
-      if (slot >= 0 && table[slot] != packed) table[slot] = packed;
-    } else {
-      slot = packed >= 0 ? find_slot(table, cap, packed) : -1;
-    }
-    if (slot < 0) {
-      *overflow = 1;
-      continue;
-    }
-    atomicAdd(&counts[slot], 1ull);
-    fold_lanes(meta, aux, lanes, n_lanes, row, cols,
-               [&](int l) { return &counts[(i64)(l + 1) * cap + slot]; });
+    hash_fold_row(meta, aux, row, cols, cap, identity_slots, table,
+                  overflow);
   }
+}
+
+// ---- the fanout-N join ------------------------------------------------------
+
+// Join key kinds (datafusion_tpu_torch/device/join_agg.py): an integer, a
+// float (its float64 bits, -0.0 read as 0.0, NaN never matching) or a
+// dictionary code remapped into the build's dictionary (-1: absent from
+// it, never matching).
+enum { JK_INT, JK_FLOAT, JK_CODE };
+constexpr int kMaxJoinKeys = 4;
+
+// The key word of one join key value; false when the row can match nothing.
+__device__ __forceinline__ bool join_key_word(int kind, bool valid, i64 x,
+                                              i64* w) {
+  if (!valid) return false;
+  if (kind == JK_FLOAT) {
+    if (isnan(as_f(x))) return false;
+    if (x == INT64_MIN) x = 0;   // -0.0
+  } else if (kind == JK_CODE && x < 0) {
+    return false;
+  }
+  *w = x;
+  return true;
+}
+
+// The hash of a row's key words, non-negative: splitmix64 of the first,
+// each further word XORed into the hash so far and mixed by splitmix64.
+// (Mixing both sides through one function, splitmix64(h) ^ splitmix64(w),
+// sends every equal pair of words to one bucket: TPC-H partsupp's rows
+// with ps_partkey = ps_suppkey.)
+__device__ __forceinline__ i64 join_hash(const i64* w, int n) {
+  u64 h = splitmix64((u64)w[0]);
+  for (int k = 1; k < n; ++k) h = splitmix64(h ^ (u64)w[k]);
+  return (i64)(h >> 1);
 }
 
 // ---- the join chain ---------------------------------------------------------

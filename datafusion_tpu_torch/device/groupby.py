@@ -23,6 +23,26 @@ caller sizes `cap` from the input, so the table never fills and every
 batch folds into it. Float32 sums keep a float32 accumulator (SUM_F32), as
 the JAX sparse path does (`device_aggregate.py:725-728`).
 
+Lanes past 32 (ClickBench Q30's 180). A descriptor holds at most
+MAX_LANES lanes; a spec with more lays out one descriptor a pass
+(`metas`), each with its first lane row (H_LANE0), and a wrapper launches
+its kernel once a pass over the same rows into the same table. The first
+pass counts the rows and, in hash mode, claims every key's slot; later
+passes find the same slots by the same probe sequence before reaching any
+EMPTY one. The plain versions fold every lane at once.
+
+count(DISTINCT x). A lane kind (LANE_DISTINCT, or LANE_DISTINCT_F64 for a
+float argument, whose -0.0 counts as 0.0): each admitted row with a valid
+argument inserts the pair (slot and lane, value) into a `DistinctSet`, a
+global open-addressing set the caller sizes at twice the pairs there can
+be, and a pair that is new adds 1 to the group's lane. It stands for the
+reference's (key, value) sort and run count (`device/groupby.py:214-228`,
+the row-space lane `:338-350`), without its one-chunk limit: the set
+persists across batches as the table does. NULL is never counted, and a
+real INT64_MIN is a value like any other (the reference uses it as its
+NULL marker, `device_aggregate.py:732-743`). The plain version finds the
+new pairs with `torch.unique` against the pairs already in the set.
+
 Emit. `compact_groups` keeps the occupied slots of a `[lanes + 2, cap]`
 table, optionally those that pass a HAVING program over the finalised
 output columns (`_apply_post_filter`, `device_aggregate.py:1279`), or the
@@ -85,9 +105,14 @@ LANE_MIN_F64 = 6     # NaN masked out
 LANE_MAX_F64 = 7
 LANE_NANCNT = 8      # +1 per valid NaN argument
 LANE_SUM_F32 = 9     # hash path: a float32 sum in the cell's low word
+LANE_DISTINCT = 10   # count(DISTINCT x) of an integer (or code) argument
+LANE_DISTINCT_F64 = 11   # of a float argument: its float64 bits, -0.0 as 0.0
+_DISTINCT_LANES = (LANE_DISTINCT, LANE_DISTINCT_F64)
 
 MAX_GROUPS = 64      # dense slots; larger key spaces take the hash path
-MAX_LANES = 32
+MAX_LANES = 32       # lanes a pass of a kernel folds
+MAX_ALL_LANES = 1 << 12   # a distinct pair's group word holds the lane in 12 bits
+MAX_DISTINCT_ENTRIES = 1 << 30   # 24 GiB of set entries
 SMEM_BYTES = 48 * 1024   # a kernel's shared descriptor (+ the dense table)
 EMPTY = -1           # key of a free hash slot
 MAX_TOPK = 1 << 16
@@ -113,10 +138,12 @@ _NP_TO_TORCH = {np.dtype(np.bool_): torch.bool,
                 np.dtype(np.float64): torch.float64}
 
 # meta header: int64 words at the start of a kernel's descriptor
+# (H_LANE0: the pass's first lane row; H_DSET, H_DMASK: the distinct set's
+# words and its entries - 1, filled in per launch)
 (H_NCOLS, H_NLANES, H_G, H_NKEYS, H_PRED, H_OFF_COLS, H_OFF_PROGS,
  H_OFF_CODE, H_OFF_ICONST, H_OFF_FCONST, H_OFF_KEYS, H_OFF_LANES,
- H_OFF_CHAIN) = range(13)
-HEADER = 13
+ H_OFF_CHAIN, H_LANE0, H_DSET, H_DMASK) = range(16)
+HEADER = 16
 _SECTIONS = (H_OFF_COLS, H_OFF_PROGS, H_OFF_CODE, H_OFF_ICONST, H_OFF_FCONST,
              H_OFF_KEYS, H_OFF_LANES, H_OFF_CHAIN)
 
@@ -125,14 +152,17 @@ Columns = Dict[int, Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
 def lane_kind(cat: str, prog: Optional[Program], f32_sums: bool = False) -> int:
     """The lane kind of a slot category of `DeviceGroupAggregateExec`
-    (`sum`, `cnt`, `min`, `max`, `nancnt`, and `rowid`: a join chain's
-    representative spine row, the max of `OP_ROWID`) over `prog`'s values.
-    With `f32_sums` (the hash path) a float32 sum keeps a float32 lane."""
+    (`sum`, `cnt`, `min`, `max`, `nancnt`, `distinct`, and `rowid`: a join
+    chain's representative spine row, the max of `OP_ROWID`) over `prog`'s
+    values. With `f32_sums` (the hash path) a float32 sum keeps a float32
+    lane."""
     if prog is None:
         return LANE_ROWS
     if cat == "rowid":
         return LANE_MAX_I64
     f = prog.is_float
+    if cat == "distinct":
+        return LANE_DISTINCT_F64 if f else LANE_DISTINCT
     fsum = LANE_SUM_F32 if f32_sums and prog.out_dtype == np.float32 \
         else LANE_SUM_F64
     kinds = {"cnt": LANE_CNT, "sum": fsum if f else LANE_SUM_I64,
@@ -190,18 +220,44 @@ class _ProgramSpec:
             shift += int(bits)
         self.key_bits = shift
         self.lanes = list(lanes)
-        if len(self.lanes) > MAX_LANES:
-            raise LoweringError(f"{len(self.lanes)} lanes > {MAX_LANES}")
+        if len(self.lanes) >= MAX_ALL_LANES:
+            raise LoweringError(f"{len(self.lanes)} lanes")
+        # (first lane, lanes) of each pass of the kernels
+        self.passes = [(at, self.lanes[at:at + MAX_LANES])
+                       for at in range(0, max(len(self.lanes), 1), MAX_LANES)]
         for prog in self.programs():
             if prog.pools is not pools:
                 raise ValueError("programs of one aggregate share one pool")
         self.ncols = max(pools.columns, default=-1) + 1
 
     def programs(self) -> List[Program]:
+        return self._pass_programs(self.lanes)
+
+    def _pass_programs(self, lanes) -> List[Program]:
+        """The programs of a descriptor that folds `lanes`."""
         out = [self.pred] if self.pred is not None else []
         out += [p for p, _o, _s in self.keys]
-        out += [p for p, _k in self.lanes if p is not None]
+        out += [p for p, _k in lanes if p is not None]
         return out
+
+    @property
+    def distinct_lanes(self) -> List[int]:
+        return [i for i, (_p, k) in enumerate(self.lanes)
+                if k in _DISTINCT_LANES]
+
+    def distinct_set(self, rows: int,
+                     device: torch.device) -> Optional["DistinctSet"]:
+        """A set for the distinct lanes' pairs over `rows` admitted rows
+        (or pairs), or None when there is no distinct lane."""
+        n = len(self.distinct_lanes)
+        return DistinctSet(n * int(rows), device) if n else None
+
+    def check_distinct_set(self, rows: int) -> None:
+        """Raise LoweringError when the distinct set for `rows` rows would
+        hold more than MAX_DISTINCT_ENTRIES entries."""
+        cap = _next_pow2(2 * max(len(self.distinct_lanes) * int(rows), 1))
+        if self.distinct_lanes and cap > MAX_DISTINCT_ENTRIES:
+            raise LoweringError(f"distinct set of {cap} entries")
 
     @property
     def full(self) -> bool:
@@ -215,11 +271,15 @@ class _ProgramSpec:
         empty for a plain aggregate."""
         return np.zeros(0, np.int64)
 
-    def _layout(self, slots: int) -> np.ndarray:
-        progs = self.programs()
+    def _layout(self, slots: int, lane0: int = 0,
+                lanes: Optional[Sequence] = None) -> np.ndarray:
+        """The descriptor of the pass that folds `lanes` (all of them by
+        default) from lane row `lane0` on."""
+        lanes = self.lanes if lanes is None else lanes
+        progs = self._pass_programs(lanes)
         index = {id(p): i for i, p in enumerate(progs)}
-        head = {H_NCOLS: self.ncols, H_NLANES: len(self.lanes), H_G: slots,
-                H_NKEYS: len(self.keys),
+        head = {H_NCOLS: self.ncols, H_NLANES: len(lanes), H_G: slots,
+                H_NKEYS: len(self.keys), H_LANE0: lane0,
                 H_PRED: 0 if self.pred is not None else -1}
         return _descriptor(head, [
             np.zeros(3 * self.ncols, np.int64),                  # columns
@@ -227,8 +287,12 @@ class _ProgramSpec:
             np.asarray([(index[id(p)], o, s) for p, o, s in self.keys],
                        np.int64),                                # keys
             np.asarray([(-1 if p is None else index[id(p)], k)
-                        for p, k in self.lanes], np.int64),      # lanes
+                        for p, k in lanes], np.int64),           # lanes
             self._chain_section(index)])
+
+    def _pass_layouts(self, slots: int) -> List[np.ndarray]:
+        """One descriptor a pass (`metas`)."""
+        return [self._layout(slots, at, lanes) for at, lanes in self.passes]
 
     def identity(self) -> np.ndarray:
         """Each lane's identity: 0 for counts and sums, the extreme of the
@@ -264,10 +328,14 @@ class _ProgramSpec:
         return _NP_TO_TORCH[self.pools.columns[idx]]
 
     def device_meta(self, cols: Columns, device: torch.device,
-                    meta: Optional[np.ndarray] = None) -> torch.Tensor:
+                    meta: Optional[np.ndarray] = None,
+                    dset: Optional["DistinctSet"] = None) -> torch.Tensor:
         """The descriptor (`self.meta`, or `meta` of the same layout) with
-        the batch's column pointers, on `device`."""
+        the batch's column pointers and the distinct set, on `device`."""
         meta = (self.meta if meta is None else meta).copy()
+        if dset is not None:
+            meta[H_DSET] = dset.words.data_ptr()
+            meta[H_DMASK] = dset.cap - 1
         base = int(meta[H_OFF_COLS])
         for idx, (data, valid) in cols.items():
             if idx in self.pools.columns:
@@ -286,9 +354,12 @@ class AggregateSpec(_ProgramSpec):
         self.groups = 1 << self.key_bits
         if self.groups > MAX_GROUPS:
             raise LoweringError(f"{self.groups} slots > {MAX_GROUPS}")
-        self.meta = self._layout(self.groups)
-        if (len(self.meta) + self.table_words) * 8 > SMEM_BYTES:
-            raise LoweringError("aggregate program too large for the kernel")
+        self.metas = self._pass_layouts(self.groups)
+        self.meta = self.metas[0]
+        for meta, (_at, lanes) in zip(self.metas, self.passes):
+            if (len(meta) + (len(lanes) + 1) * self.groups) * 8 > SMEM_BYTES:
+                raise LoweringError("aggregate program too large for the "
+                                    "kernel")
 
     @property
     def table_shape(self) -> Tuple[int, int]:
@@ -322,8 +393,9 @@ class HashSpec(_ProgramSpec):
         cap = _next_pow2(2 * min(key_space, max(int(rows), 1)))
         self.identity_slots = key_space <= cap
         self.cap = key_space if self.identity_slots else cap
-        self.meta = self._layout(self.cap)
-        if len(self.meta) * 8 > SMEM_BYTES:
+        self.metas = self._pass_layouts(self.cap)
+        self.meta = self.metas[0]
+        if max(len(m) for m in self.metas) * 8 > SMEM_BYTES:
             raise LoweringError("aggregate program too large for the kernel")
 
     @property
@@ -333,6 +405,90 @@ class HashSpec(_ProgramSpec):
     def new_table(self, device: torch.device) -> torch.Tensor:
         """[lanes + 2, cap]: keys EMPTY, counts 0, lanes their identity."""
         return self._table([EMPTY, 0], device)
+
+
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _i64(c: int) -> int:
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def splitmix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 of int64 keys in two's-complement int64 arithmetic, bit
+    for bit the hash of `csrc/program.cuh`."""
+    x = x + _i64(0x9E3779B97F4A7C15)
+    x = (x ^ _srl(x, 30)) * _i64(0xBF58476D1CE4E5B9)
+    x = (x ^ _srl(x, 27)) * _i64(0x94D049BB133111EB)
+    return x ^ _srl(x, 31)
+
+
+class DistinctSet:
+    """The pairs (group word, value) that count(DISTINCT x) lanes have
+    seen: `cap` entries (a power of two, at least twice the pairs there can
+    be) of three int64 words, (tag, group word, value), then one overflow
+    word, in `words` on the table's device. A tag is 0 while its entry is
+    free. The group word is `slot << 12 | lane`. The kernels insert with
+    `distinct_insert` (csrc/program.cuh); the plain version places the new
+    pairs at the lowest free entries. Free it with the query."""
+
+    def __init__(self, pairs: int, device: torch.device):
+        self.cap = _next_pow2(2 * max(int(pairs), 1))
+        self.words = torch.zeros(3 * self.cap + 1, dtype=torch.int64,
+                                 device=device)
+
+    @property
+    def nbytes(self) -> int:
+        return self.words.numel() * 8
+
+    def overflowed(self) -> bool:
+        """Whether a pair found no entry (one synchronisation)."""
+        return bool(int(self.words[-1].item()))
+
+    def pairs(self) -> torch.Tensor:
+        """Every pair in the set, as a sorted int64 [m, 2]."""
+        e = self.words[:-1].view(-1, 3)
+        live = e[e[:, 0] != 0][:, 1:]
+        return torch.unique(live, dim=0) if live.numel() else live
+
+    def insert_plain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The plain version of the insert: the pairs (a[i], b[i]) that are
+        new to the set, each at its first occurrence (a bool mask), added."""
+        n = a.numel()
+        fresh = torch.zeros(n, dtype=torch.bool, device=a.device)
+        if n == 0:
+            return fresh
+        uniq, inv = torch.unique(torch.stack([a, b], 1), dim=0,
+                                 return_inverse=True)
+        e = self.words[:-1].view(-1, 3)
+        used = e[:, 0] != 0
+        old = e[used][:, 1:]
+        _u, inv2, cnt = torch.unique(torch.cat([old, uniq]), dim=0,
+                                     return_inverse=True, return_counts=True)
+        new = (cnt[inv2[old.shape[0]:]] == 1).nonzero().squeeze(1)
+        free = (~used).nonzero().squeeze(1)
+        if free.numel() < new.numel():
+            self.words[-1] = 1
+            new = new[:free.numel()]
+        place = free[:new.numel()]
+        na, nb = uniq[new, 0], uniq[new, 1]
+        e[place, 0] = splitmix64(na ^ splitmix64(nb)) | 3
+        e[place, 1], e[place, 2] = na, nb
+        first = torch.full((uniq.shape[0],), n, dtype=torch.int64,
+                           device=a.device)
+        first.scatter_reduce_(0, inv, torch.arange(n, device=a.device),
+                              "amin")
+        fresh[first[new]] = True
+        return fresh
+
+
+def _check_dset(spec: _ProgramSpec, dset: Optional[DistinctSet],
+                device: torch.device) -> None:
+    if spec.distinct_lanes and (dset is None or dset.words.device != device):
+        raise ValueError("distinct lanes need a DistinctSet on the table's "
+                         "device")
 
 
 def _check(spec: _ProgramSpec, cols: Columns, aux: torch.Tensor,
@@ -379,25 +535,31 @@ def _stream(device: torch.device) -> int:
 
 def dense_group_aggregate(spec: AggregateSpec, cols: Columns,
                           aux: torch.Tensor, n_rows: int,
-                          table: torch.Tensor) -> torch.Tensor:
-    """Fold the first `n_rows` rows of `cols` into `table` in place.
+                          table: torch.Tensor,
+                          dset: Optional[DistinctSet] = None) -> torch.Tensor:
+    """Fold the first `n_rows` rows of `cols` into `table` in place; the
+    distinct lanes' pairs go to `dset`.
 
     On CPU tensors this runs `dense_group_aggregate_plain`; on CUDA
-    tensors it launches the `fused_dense_aggregate` kernel or raises."""
+    tensors it launches the `fused_dense_aggregate` kernel once a pass of
+    lanes, or raises."""
     _check(spec, cols, aux, n_rows, table)
+    _check_dset(spec, dset, table.device)
     if not _cuda(table):
-        return dense_group_aggregate_plain(spec, cols, aux, n_rows, table)
+        return dense_group_aggregate_plain(spec, cols, aux, n_rows, table,
+                                           dset=dset)
     if n_rows == 0:
         return table
     lib = kernels.library()
     with torch.cuda.device(table.device):
-        meta_d = spec.device_meta(cols, table.device)
-        rc = lib.dft_fused_dense_aggregate(
-            meta_d.data_ptr(), len(spec.meta), len(spec.lanes), spec.groups,
-            aux.data_ptr(), n_rows, table.data_ptr(), int(spec.full),
-            _stream(table.device))
-    kernels.check(rc, fused_dense_aggregate)
-    fused_dense_aggregate.launches += 1
+        for meta, (_at, lanes) in zip(spec.metas, spec.passes):
+            meta_d = spec.device_meta(cols, table.device, meta, dset)
+            rc = lib.dft_fused_dense_aggregate(
+                meta_d.data_ptr(), len(meta), len(lanes), spec.groups,
+                aux.data_ptr(), n_rows, table.data_ptr(), int(spec.full),
+                _stream(table.device))
+            kernels.check(rc, fused_dense_aggregate)
+            fused_dense_aggregate.launches += 1
     return table
 
 
@@ -420,9 +582,11 @@ def _rows_and_keys(spec: _ProgramSpec, cols: Columns, aux: torch.Tensor,
 
 def _fold_plain(spec: _ProgramSpec, cols: Columns, aux: torch.Tensor, n: int,
                 row_valid: torch.Tensor, slot: torch.Tensor,
-                counts: torch.Tensor, lane_rows: torch.Tensor) -> None:
+                counts: torch.Tensor, lane_rows: torch.Tensor,
+                dset: Optional[DistinctSet] = None) -> None:
     """Fold the rows `row_valid` selects into `slot` of the count row and
-    the lane rows, under the rules of `prepare`."""
+    the lane rows, under the rules of `prepare`; a distinct lane counts
+    the rows whose pair is new to `dset`."""
     ones = torch.ones_like(slot)
     counts.index_add_(0, slot, ones)
     for i, (prog, kind) in enumerate(spec.lanes):
@@ -443,6 +607,13 @@ def _fold_plain(spec: _ProgramSpec, cols: Columns, aux: torch.Tensor, n: int,
             low.index_add_(0, slot, torch.where(v, d, 0.0).to(torch.float32))
         elif kind == LANE_NANCNT:
             row.index_add_(0, slot, (v & d.isnan()).to(torch.int64))
+        elif kind in _DISTINCT_LANES:
+            if kind == LANE_DISTINCT_F64:    # -0.0 is 0.0
+                d = torch.where(d == 0, 0.0, d.to(torch.float64)) \
+                    .view(torch.int64)
+            s = slot[v]
+            fresh = dset.insert_plain((s << 12) | i, d[v].to(torch.int64))
+            row.index_add_(0, s[fresh], torch.ones_like(s[fresh]))
         elif kind in (LANE_MIN_I64, LANE_MAX_I64):
             red = "amin" if kind == LANE_MIN_I64 else "amax"
             ident = _IDENTITY[kind]
@@ -460,7 +631,8 @@ def _fold_plain(spec: _ProgramSpec, cols: Columns, aux: torch.Tensor, n: int,
 def dense_group_aggregate_plain(spec: AggregateSpec, cols: Columns,
                                 aux: torch.Tensor, n_rows: int,
                                 table: torch.Tensor,
-                                rows: Optional[torch.Tensor] = None
+                                rows: Optional[torch.Tensor] = None,
+                                dset: Optional[DistinctSet] = None
                                 ) -> torch.Tensor:
     """The plain PyTorch version: the programs interpreted over whole
     tensors, then `index_add_` / `scatter_reduce_` into the slots. Only
@@ -469,7 +641,8 @@ def dense_group_aggregate_plain(spec: AggregateSpec, cols: Columns,
         return table
     row_valid, packed = _rows_and_keys(spec, cols, aux, n_rows, rows)
     slot = packed.clamp(0, spec.groups - 1)[row_valid]
-    _fold_plain(spec, cols, aux, n_rows, row_valid, slot, table[0], table[1:])
+    _fold_plain(spec, cols, aux, n_rows, row_valid, slot, table[0], table[1:],
+                dset)
     return table
 
 
@@ -490,28 +663,33 @@ def _check_overflow(overflow: torch.Tensor, device: torch.device) -> None:
 
 def hash_group_aggregate(spec: HashSpec, cols: Columns, aux: torch.Tensor,
                          n_rows: int, table: torch.Tensor,
-                         overflow: torch.Tensor) -> torch.Tensor:
+                         overflow: torch.Tensor,
+                         dset: Optional[DistinctSet] = None) -> torch.Tensor:
     """Fold the first `n_rows` rows of `cols` into the hash `table` in
-    place; `overflow` (one int32) is set to 1 if a row found no slot.
+    place; `overflow` (one int32) is set to 1 if a row found no slot; the
+    distinct lanes' pairs go to `dset`.
 
     On CPU tensors this runs `hash_group_aggregate_plain`; on CUDA tensors
-    it launches the `hash_group_aggregate` kernel or raises."""
+    it launches the `hash_group_aggregate` kernel once a pass of lanes, or
+    raises."""
     _check(spec, cols, aux, n_rows, table)
     _check_overflow(overflow, table.device)
+    _check_dset(spec, dset, table.device)
     if not _cuda(table):
         return hash_group_aggregate_plain(spec, cols, aux, n_rows, table,
-                                          overflow)
+                                          overflow, dset=dset)
     if n_rows == 0:
         return table
     lib = kernels.library()
     with torch.cuda.device(table.device):
-        meta_d = spec.device_meta(cols, table.device)
-        rc = lib.dft_hash_group_aggregate(
-            meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
-            spec.cap, int(spec.identity_slots), table.data_ptr(),
-            overflow.data_ptr(), int(spec.full), _stream(table.device))
-    kernels.check(rc, hash_group_aggregate_kernel)
-    hash_group_aggregate_kernel.launches += 1
+        for meta in spec.metas:
+            meta_d = spec.device_meta(cols, table.device, meta, dset)
+            rc = lib.dft_hash_group_aggregate(
+                meta_d.data_ptr(), len(meta), aux.data_ptr(), n_rows,
+                spec.cap, int(spec.identity_slots), table.data_ptr(),
+                overflow.data_ptr(), int(spec.full), _stream(table.device))
+            kernels.check(rc, hash_group_aggregate_kernel)
+            hash_group_aggregate_kernel.launches += 1
     return table
 
 
@@ -549,7 +727,8 @@ def hash_group_aggregate_plain(spec: HashSpec, cols: Columns,
                                aux: torch.Tensor, n_rows: int,
                                table: torch.Tensor,
                                overflow: torch.Tensor,
-                               rows: Optional[torch.Tensor] = None
+                               rows: Optional[torch.Tensor] = None,
+                               dset: Optional[DistinctSet] = None
                                ) -> torch.Tensor:
     """The plain PyTorch version: the programs interpreted over whole
     tensors, the keys interned with `torch.unique` against the keys
@@ -562,7 +741,7 @@ def hash_group_aggregate_plain(spec: HashSpec, cols: Columns,
     slot[row_valid] = _plain_slots(spec, table, packed[row_valid], overflow)
     row_valid &= slot >= 0
     _fold_plain(spec, cols, aux, n_rows, row_valid, slot[row_valid],
-                table[1], table[2:])
+                table[1], table[2:], dset)
     return table
 
 

@@ -67,9 +67,11 @@ import torch
 
 from .. import kernels
 from .groupby import (_DTYPE_CODE, _NP_TO_TORCH, EMPTY, H_OFF_KEYS,
-                      LANE_MIN_I64, SMEM_BYTES, AggregateSpec, Columns,
-                      HashSpec, _cuda, _next_pow2, _ProgramSpec, _stream,
-                      dense_group_aggregate_plain, hash_group_aggregate_plain)
+                      LANE_MIN_I64, MAX_LANES, SMEM_BYTES, AggregateSpec,
+                      Columns, DistinctSet, HashSpec, _check_dset, _cuda,
+                      _next_pow2, _ProgramSpec, _stream,
+                      dense_group_aggregate_plain, hash_group_aggregate_plain,
+                      splitmix64)
 from .lower import (CMP_EQ, CMP_GE, CMP_GT, CMP_LE, CMP_LT, CMP_NE,
                     LoweringError, Pools, Program, evaluate)
 
@@ -317,24 +319,6 @@ def chain_build(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
                       duplicate, mn, mx)
 
 
-def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Logical right shift of int64 bits."""
-    return (x >> s) & ((1 << (64 - s)) - 1)
-
-
-def _i64(c: int) -> int:
-    return c - (1 << 64) if c >= 1 << 63 else c
-
-
-def splitmix64(x: torch.Tensor) -> torch.Tensor:
-    """splitmix64 of int64 keys in two's-complement int64 arithmetic, bit
-    for bit the hash of `csrc/program.cuh`."""
-    x = x + _i64(0x9E3779B97F4A7C15)
-    x = (x ^ _srl(x, 30)) * _i64(0xBF58476D1CE4E5B9)
-    x = (x ^ _srl(x, 27)) * _i64(0x94D049BB133111EB)
-    return x ^ _srl(x, 31)
-
-
 def _hash_insert_plain(packed: torch.Tensor, rows: torch.Tensor, cap: int):
     """(keys, rows) of an open-addressing table of `cap` slots holding each
     distinct key of `packed` with its first row: linear probing from
@@ -510,8 +494,8 @@ class _ChainSpec:
     def _init_chain(self, chain: Chain):
         self.chain = chain
 
-    def programs(self) -> List[Program]:
-        return super().programs() + self.chain.programs()
+    def _pass_programs(self, lanes) -> List[Program]:
+        return super()._pass_programs(lanes) + self.chain.programs()
 
     @property
     def full(self) -> bool:
@@ -575,37 +559,41 @@ def _check_pair(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
 
 def chain_aggregate(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
                     table: torch.Tensor,
-                    overflow: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    overflow: Optional[torch.Tensor] = None,
+                    dset: Optional[DistinctSet] = None) -> torch.Tensor:
     """Walk the chain for the first `n_rows` spine rows and fold the rows
     that survive it into `table` in place: a dense `[lanes + 1, G]` table
     for a ChainDenseSpec, a hash table `[lanes + 2, cap]` and its int32
     `overflow` flag for a ChainHashSpec. `cols` maps pair-space indices to
     (data, validity): spine columns of the batch, payload columns of whole
-    build batches.
+    build batches. The distinct lanes' pairs go to `dset`.
 
     On CPU tensors this runs `chain_aggregate_plain`; on CUDA tensors it
-    launches the `chain_aggregate` kernel or raises."""
+    launches the `chain_aggregate` kernel once a pass of lanes, or
+    raises."""
     _check_chain(spec, cols, aux, n_rows, table)
+    _check_dset(spec, dset, table.device)
     dense = isinstance(spec, AggregateSpec)
     if not dense and (overflow is None or overflow.device != table.device):
         raise ValueError("a hash fold needs its overflow flag")
     if not _cuda(table):
         return chain_aggregate_plain(spec, cols, aux, n_rows, table,
-                                     overflow)
+                                     overflow, dset=dset)
     if n_rows == 0:
         return table
     lib = kernels.library()
     with torch.cuda.device(table.device):
-        meta_d = spec.device_meta(cols, table.device)
-        rc = lib.dft_chain_aggregate(
-            meta_d.data_ptr(), len(spec.meta), len(spec.lanes),
-            spec.groups if dense else 0, aux.data_ptr(), n_rows,
-            0 if dense else spec.cap,
-            0 if dense else (1 if spec.identity_slots else 2),
-            table.data_ptr(), None if dense else overflow.data_ptr(),
-            int(spec.full), _stream(table.device))
-    kernels.check(rc, chain_aggregate_kernel)
-    chain_aggregate_kernel.launches += 1
+        for meta, (_at, lanes) in zip(spec.metas, spec.passes):
+            meta_d = spec.device_meta(cols, table.device, meta, dset)
+            rc = lib.dft_chain_aggregate(
+                meta_d.data_ptr(), len(meta), len(lanes),
+                spec.groups if dense else 0, aux.data_ptr(), n_rows,
+                0 if dense else spec.cap,
+                0 if dense else (1 if spec.identity_slots else 2),
+                table.data_ptr(), None if dense else overflow.data_ptr(),
+                int(spec.full), _stream(table.device))
+            kernels.check(rc, chain_aggregate_kernel)
+            chain_aggregate_kernel.launches += 1
     return table
 
 
@@ -625,6 +613,8 @@ class ChainRowsSpec(_ChainSpec, _ProgramSpec):
             if dtype is None:
                 raise LoweringError(f"output of dtype {prog.out_dtype}")
             outs.append((prog, _DTYPE_CODE[dtype]))
+        if len(outs) > MAX_LANES:
+            raise LoweringError(f"{len(outs)} outputs > {MAX_LANES}")
         super().__init__(pools, residual, [], outs)
         self.meta = self._layout(0)
         if len(self.meta) * 8 > SMEM_BYTES:
@@ -787,7 +777,9 @@ def _mmx_exists_plain(hop: Hop, pair: Columns, aux: torch.Tensor, n: int,
 def chain_aggregate_plain(spec, cols: Columns, aux: torch.Tensor,
                           n_rows: int, table: torch.Tensor,
                           overflow: Optional[torch.Tensor] = None,
-                          hop_rows: Optional[list] = None) -> torch.Tensor:
+                          hop_rows: Optional[list] = None,
+                          dset: Optional[DistinctSet] = None
+                          ) -> torch.Tensor:
     """The plain PyTorch version: each hop's lookup over whole tensors
     (`_lookup_plain`), the payload columns gathered by the found rows,
     then the grouped fold's plain version over the surviving rows. With
@@ -798,6 +790,7 @@ def chain_aggregate_plain(spec, cols: Columns, aux: torch.Tensor,
         return table
     rows, pair = _walk_plain(spec, cols, aux, n, hop_rows)
     if isinstance(spec, AggregateSpec):
-        return dense_group_aggregate_plain(spec, pair, aux, n, table, rows)
+        return dense_group_aggregate_plain(spec, pair, aux, n, table, rows,
+                                           dset)
     return hash_group_aggregate_plain(spec, pair, aux, n, table, overflow,
-                                      rows)
+                                      rows, dset)

@@ -9,13 +9,13 @@ The host rules are the port's copies of the JAX package's
 flattening of the chain fuser (`:454-893`). The device rules are the
 port's own, in the reference's order (`default_physical_rules`,
 `:1352`): `UseTorchAggregate` in place of `UseDeviceAggregate` (it tries
-the count-over-LEFT-join rewrite, then the join-chain fusion, as `:88-100`
-does), `UseTorchJoinRows` in place of `UseDeviceJoinRows` (`:985`), the
+the count-over-LEFT-join rewrite, then the join-chain fusion, then the
+fanout-N join-aggregate fusion `_try_fuse_join`, as `:88-100` does),
+`UseTorchJoinRows` in place of `UseDeviceJoinRows` (`:985`), the
 host rules, then `FuseTopKIntoTorchAggregate` and
 `FuseFilterIntoTorchAggregate`, and last `UseTorchSort`, which hands the
 session's device to the sorts and windows (the JAX package reads its one
-device from module state instead). There is no mesh branch and no fanout-N
-join fusion.
+device from module state instead). There is no mesh branch.
 """
 from __future__ import annotations
 
@@ -45,8 +45,10 @@ class UseTorchAggregate:
     LEFT join grouped by its left key become a LeftCountZeroFillExec over
     a TorchGroupAggregateExec of the right side (`_try_fuse_left_count`);
     a tree of hash joins under the aggregate becomes a
-    TorchJoinChainAggregateExec (`_try_fuse_join_chain`); otherwise the
-    Filter / Projection chain fuses into a TorchGroupAggregateExec."""
+    TorchJoinChainAggregateExec (`_try_fuse_join_chain`); one INNER join
+    the chain declines (a build key not provably unique) becomes a
+    TorchJoinAggregateExec (`_try_fuse_join`); otherwise the Filter /
+    Projection chain fuses into a TorchGroupAggregateExec."""
     name = "use_torch_aggregate"
 
     def __init__(self, config, device: torch.device,
@@ -88,6 +90,10 @@ class UseTorchAggregate:
                 return fused
             fused = _try_fuse_join_chain(node, source, predicate, groups,
                                          aggs, self.device, self.cache)
+            if fused is not None:
+                return fused
+            fused = _try_fuse_join(node, source, predicate, groups, aggs,
+                                   self.device, self.cache)
             if fused is not None:
                 return fused
             return TorchGroupAggregateExec(
@@ -768,6 +774,62 @@ def _try_fuse_join_chain(agg_node, source, predicate, groups, aggs,
     return TorchJoinChainAggregateExec(
         parts["spine_src"], parts["spine_pred"], chain, final_pred, groups_p,
         aggs_p, agg_node.schema(), fallback=agg_node, device=device,
+        cache=cache)
+
+
+def _try_fuse_join(agg_node, source, predicate, groups, aggs,
+                   device: torch.device,
+                   cache: Optional[DeviceColumnCache] = None):
+    """When the aggregate's source is a CollectLeft INNER HashJoinExec
+    with column keys, fuse join and aggregation into one
+    TorchJoinAggregateExec (the reference's rule, `:394-452`): both sides
+    unwrapped to their leaf sources with their predicates, the group
+    keys, aggregates and predicate rewritten into the pair space (build
+    source columns, then probe source columns), the join's own filter
+    ANDed into the residual. None when the shape differs."""
+    from ..common import dt
+    from ..expr.operator import Op
+    from .expressions import BinaryPhysExpr
+    from .plan.aggregate import PhysAggregateExpr
+    from .plan.device_join_agg import TorchJoinAggregateExec
+    from .plan.joins import HashJoinExec
+
+    if not isinstance(source, HashJoinExec):
+        return None
+    j = source
+    if j.join_type != "INNER" or j.null_equals_null or not j.on:
+        return None
+    left_un, right_un = _unwrap_side(j.left), _unwrap_side(j.right)
+    if left_un is None or right_un is None:
+        return None
+    bsrc, bpred, bexprs = left_un
+    psrc, ppred, pexprs = right_un
+    n_bsrc = len(bsrc.schema())
+    shift = [ColumnExpr(n_bsrc + i, f.name, f.dtype)
+             for i, f in enumerate(psrc.schema())]
+    try:
+        pair_repl = list(bexprs) + [rewrite_columns(e, shift)
+                                    for e in pexprs]
+        build_keys = [rewrite_columns(b, bexprs) for b, _ in j.on]
+        probe_keys = [rewrite_columns(p, pexprs) for _, p in j.on]
+        groups2 = [(rewrite_columns(e, pair_repl), n) for e, n in groups]
+        aggs2 = [PhysAggregateExpr(
+            a.name, [rewrite_columns(x, pair_repl) for x in a.args],
+            a.out_type, a.display, a.distinct, None, a.count_star)
+            for a in aggs]
+        pred2 = rewrite_columns(predicate, pair_repl) \
+            if predicate is not None else None
+        if j.filter is not None:
+            jf = rewrite_columns(j.filter, pair_repl)
+            pred2 = jf if pred2 is None else \
+                BinaryPhysExpr(pred2, Op.AND, jf, dt.BOOL)
+    except Exception:  # noqa: BLE001
+        return None
+    if not all(isinstance(k, ColumnExpr) for k in build_keys + probe_keys):
+        return None
+    return TorchJoinAggregateExec(
+        bsrc, psrc, build_keys, probe_keys, bpred, ppred, pred2, groups2,
+        aggs2, agg_node.schema(), fallback=agg_node, device=device,
         cache=cache)
 
 

@@ -28,10 +28,18 @@ stays on the card instead: `group_emit_columns` writes its output columns
 there as device-born columns (`_emit_device_resident`, `:899`), which a
 consumer reads through `to_device` with no copy, or `data_host()` once.
 
+count(DISTINCT x) is a `distinct` lane of the same fold
+(`device_aggregate.py:286-287`, `:322-323`): its pairs go to a
+`DistinctSet` sized at twice the input rows, which lives for the query.
+Unlike the reference, which sorts the pairs and so takes one chunk of at
+most 2^21 rows (`:343-351`), any number of batches fold into it; a
+dictionary-coded argument counts codes, so its batches must share one
+dictionary.
+
 Shapes outside this slice raise `DeviceLoweringUnsupported` and run
 `self.fallback`, the host `AggregateExec`, as the reference does for SQL
-it cannot lower: count DISTINCT, FILTER clauses, string min/max. Each
-such fallback adds one to `self.fallbacks`.
+it cannot lower: DISTINCT on anything but a one-argument count, FILTER
+clauses, string min/max. Each such fallback adds one to `self.fallbacks`.
 """
 from __future__ import annotations
 
@@ -84,6 +92,21 @@ class DeviceLoweringUnsupported(Exception):
 class GroupTableOverflow(RuntimeError):
     """A row found no slot in the hash table. The table is sized so that
     this cannot happen; nothing carries on if it does."""
+
+
+def check_overflow(overflow: torch.Tensor, spec) -> None:
+    """Raise GroupTableOverflow when a row found no slot of the hash
+    table (one read after the last batch)."""
+    if int(overflow.item()):
+        raise GroupTableOverflow(
+            f"hash group table of {spec.cap} slots overflowed")
+
+
+def check_distinct_overflow(dset) -> None:
+    """Raise GroupTableOverflow when a distinct pair found no entry."""
+    if dset is not None and dset.overflowed():
+        raise GroupTableOverflow(
+            f"distinct set of {dset.cap} entries overflowed")
 
 
 class _PackPlan:
@@ -248,11 +271,13 @@ class TorchAggregate(TorchDeviceExec):
             return None
 
     # ---- shared by the port's device execs ---------------------------------
-    def _compile_slots(self, pools: Pools):
+    def _compile_slots(self, pools: Pools, distinct: bool = True):
         """(slot defs, slot map) of the aggregates: the slot scheme of
         `device_aggregate.py:303-336` (`_chain_slots`,
         `device_join_chain.py:1449`, is the same), where aggregates that
-        share an argument share its sum/count/min/max lanes."""
+        share an argument share its sum/count/min/max lanes and a
+        count(DISTINCT x) takes a `distinct` lane. Without `distinct` (the
+        join-aggregate, `device_join_agg.py:341-342`) DISTINCT is refused."""
         slot_defs: Dict[str, tuple] = {}
         slot_map: Dict[str, Dict[str, str]] = {}
         uniq: Dict[tuple, str] = {}
@@ -271,14 +296,18 @@ class TorchAggregate(TorchDeviceExec):
 
         for a in self.aggs:
             kind = "avg" if a.name == "mean" else a.name
-            if kind not in _AGGS or a.distinct or a.filter is not None:
+            if kind not in _AGGS or a.filter is not None:
                 raise LoweringError(f"{kind} not on the device path")
+            if a.distinct and not (distinct and kind == "count" and a.args):
+                raise LoweringError("agg FILTER/DISTINCT on device TBD")
             if kind in ("min", "max") and a.out_type.is_dict_coded:
                 raise LoweringError("string min/max on device TBD")
             if len(a.args) > 1 or getattr(a, "order_by", None):
                 raise LoweringError("multi-arg/ordered agg on device TBD")
             m = {}
-            if kind in ("sum", "avg"):
+            if a.distinct:
+                m["d"] = slot("distinct", a, "#d")
+            elif kind in ("sum", "avg"):
                 m["s"] = slot("sum", a, "#s")
                 m["c"] = slot("cnt", a, "#c")
             elif kind == "count":
@@ -291,6 +320,23 @@ class TorchAggregate(TorchDeviceExec):
                     m["nn"] = slot("nancnt", a, "#nn")
             slot_map[a.display] = m
         return slot_defs, slot_map
+
+    def _check_distinct_dicts(self, batches) -> None:
+        """A count(DISTINCT x) over a dictionary-coded `x` counts codes:
+        raise DeviceLoweringUnsupported unless `x` is a column and every
+        batch carries one dictionary for it (as a string group key,
+        `device_aggregate.py:419-422`)."""
+        from ..expressions import ColumnExpr
+        for a in self.aggs:
+            if not a.distinct or not a.args[0].out_type.is_dict_coded:
+                continue
+            e = a.args[0]
+            if not isinstance(e, ColumnExpr):
+                raise DeviceLoweringUnsupported("string DISTINCT argument "
+                                                "must be a column")
+            if len({id(b.columns[e.index].dictionary) for b in batches}) > 1:
+                raise DeviceLoweringUnsupported(
+                    "per-batch dictionaries need host remap")
 
     def _fetch_groups(self, table, having=None, slots=None) -> np.ndarray:
         """The live groups of a `[lanes + 2, slots]` table (those that pass
@@ -559,6 +605,9 @@ class TorchAggregate(TorchDeviceExec):
                 if "nn" in slots:
                     nn = aggs_np[slots["nn"]][sel]
                     x = np.where(has & (nn == cnt), np.nan, x)  # all-NaN group
+                elif "na" in slots:    # a NaN anywhere (device_join_agg.py)
+                    x = np.where(has & (aggs_np[slots["na"]][sel] > 0),
+                                 np.nan, x)
                 cols.append(Column(a.out_type, x, v))
             else:  # max
                 x = aggs_np[slots["x"]][sel].astype(a.out_type.device_dtype())
@@ -614,13 +663,15 @@ class TorchGroupAggregateExec(TorchAggregate):
                 if self.predicate is not None else None
             keys = [compile_key(e, pools) for e, _ in self.group_exprs]
             slot_defs, slot_map = self._compile_slots(pools)
+            self._check_distinct_dicts(batches)
             plan = self._plan_key_packing(batches, keys)
             key_progs, lanes, dense = _fold_inputs(keys, plan, slot_defs)
+            rows = sum(b.num_rows for b in batches)
             if dense:
                 spec = AggregateSpec(pools, pred, key_progs, lanes)
             else:
-                rows = sum(b.num_rows for b in batches)
                 spec = HashSpec(pools, pred, key_progs, lanes, rows)
+            spec.check_distinct_set(rows)
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
         return spec, plan, list(slot_defs), slot_map
@@ -641,6 +692,10 @@ class TorchGroupAggregateExec(TorchAggregate):
             shift += plan.bits[i]
         for j, a in enumerate(self.aggs):
             s = slot_map[a.display]
+            if "d" in s:
+                fins[len(plan.key_types) + j] = Finaliser(FIN_COUNT,
+                                                          row[s["d"]])
+                continue
             c = row[s["c"]]
             if a.name == "count":
                 f = Finaliser(FIN_COUNT, c)
@@ -649,8 +704,10 @@ class TorchGroupAggregateExec(TorchAggregate):
                               row[s["s"]], c, kind[s["s"]])
             else:
                 v = s["n"] if a.name == "min" else s["x"]
-                f = Finaliser(FIN_MIN if a.name == "min" else FIN_MAX,
-                              row[v], c, kind[v], row.get(s.get("nn"), -1))
+                # a NaN anywhere ("na") restores NaN as the max rule does
+                fk = FIN_MIN if a.name == "min" and "na" not in s else FIN_MAX
+                nan_row = row.get(s.get("nn", s.get("na")), -1)
+                f = Finaliser(fk, row[v], c, kind[v], nan_row)
             fins[len(plan.key_types) + j] = f
         try:
             prog = check_having(self.post_filter,
@@ -684,19 +741,22 @@ class TorchGroupAggregateExec(TorchAggregate):
         """Every batch folded into one group table, in the hash layout
         `[lanes + 2, slots]` (row 0 keys, EMPTY = -1; row 1 row counts)."""
         table = spec.new_table(self.device)
+        dset = spec.distinct_set(sum(b.num_rows for b in batches),
+                                 self.device)
         if isinstance(spec, AggregateSpec):
             for b in batches:
                 cols, aux = self.stage(spec, b, cache=keep)
-                dense_group_aggregate(spec, cols, aux, b.num_rows, table)
+                dense_group_aggregate(spec, cols, aux, b.num_rows, table, dset)
+            check_distinct_overflow(dset)
             return dense_group_table(table)
         overflow = torch.zeros(1, dtype=torch.int32, device=self.device)
         for b in batches:
             cols, aux = self.stage(spec, b, cache=keep)
-            hash_group_aggregate(spec, cols, aux, b.num_rows, table, overflow)
+            hash_group_aggregate(spec, cols, aux, b.num_rows, table, overflow,
+                                 dset)
         # the port of _overflow_poison: one read after the last batch
-        if int(overflow.item()):
-            raise GroupTableOverflow(
-                f"hash group table of {spec.cap} slots overflowed")
+        check_overflow(overflow, spec)
+        check_distinct_overflow(dset)
         return table
 
     def _execute_port(self, partition: int, ctx):
@@ -707,9 +767,23 @@ class TorchGroupAggregateExec(TorchAggregate):
             having = self.having(spec, plan, names, slot_map)
         # only registered tables keep their device copies across queries
         keep = self._source_is_scan()
+        # no name here holds the table, so `_finish` can free it
+        return self._finish(
+            self._timed_fold(m, lambda: self.group_table(spec, batches, keep)),
+            spec, plan, names, slot_map, having, m)
+
+    @staticmethod
+    def _timed_fold(m, fold):
+        """`fold()` under the compute timer and the `dft.aggregate` span."""
+        with m.elapsed_compute, record_function("dft.aggregate"):
+            return fold()
+
+    def _finish(self, table, spec, plan, names, slot_map, having, m):
+        """The output of a folded group table: the fused top-k, the
+        compaction (with HAVING), then the resident emit or one copy to
+        the host and the host emit. The caller holds no reference to
+        `table`, which is freed after the compaction."""
         with m.elapsed_compute:
-            with record_function("dft.aggregate"):
-                table = self.group_table(spec, batches, keep)
             slots = None
             pick = self._topk_lane(slot_map) if self.topk else None
             if pick is not None and isinstance(spec, HashSpec):

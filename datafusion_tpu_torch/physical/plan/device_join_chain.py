@@ -28,8 +28,13 @@ over `OP_ROWID`), and the emit replays the INNER hops on the host for
 those rows only and evaluates the dropped keys over them. As in the
 reference, this needs a single spine batch.
 
+count(DISTINCT x) folds through the distinct lane of the grouped fold
+(`_chain_slots` `:1459-1460`), its pairs in a `DistinctSet` sized at twice
+the spine rows; unlike the reference (`:445-449`) it takes any number of
+spine batches.
+
 A shape outside the port raises DeviceLoweringUnsupported and runs the
-host plan (`fallback`), as the reference does: count DISTINCT, an INNER
+host plan (`fallback`), as the reference does: an INNER
 build with a duplicate key (fanout > 1), string or float join keys
 (`:350-354`), a min/max filter over a non-integer member column, more than
 8 hops, and group keys wider than 62 bits after the reduction. Each
@@ -64,8 +69,9 @@ from ...device.lower import (_CMP, OP_COL, OP_NULL, OP_ROWID, LoweringError,
 from ...runtime import BaselineMetrics, TaskContext
 from ..expressions import ColumnExpr, PhysicalExpr
 from .base import ExecutionPlan, collect_batch, execute_stream
-from .device_aggregate import (DeviceLoweringUnsupported, GroupTableOverflow,
-                               TorchAggregate, TorchDeviceExec, _fold_inputs)
+from .device_aggregate import (DeviceLoweringUnsupported, TorchAggregate,
+                               TorchDeviceExec, _fold_inputs,
+                               check_distinct_overflow, check_overflow)
 from .scan import MemoryExec
 
 
@@ -376,18 +382,20 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
             slot_defs = dict(slot_defs)
             slot_defs["__rep#x"] = ("rowid", Program(
                 [(OP_ROWID, 0, 0)], pools, np.dtype(np.int64)))
+        self._check_distinct_dicts(views)
         plan = self._plan_key_packing(
             views, keys, [self.group_exprs[p] for p in kept])
         plan.kept, plan.dropped = kept, dropped
         try:
             key_progs, lanes, dense = _fold_inputs(keys, plan, slot_defs)
             chain = self.chain(ppred, staged, probe_keys, mfilters)
+            rows = sum(v.num_rows for v in views)
             if dense:
                 spec = ChainDenseSpec(pools, pred, key_progs, lanes, chain)
             else:
-                rows = sum(v.num_rows for v in views)
                 spec = ChainHashSpec(pools, pred, key_progs, lanes, rows,
                                      chain)
+            spec.check_distinct_set(rows)
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
         return spec, plan, list(slot_defs), slot_map
@@ -424,13 +432,17 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
                 table = spec.new_table(self.device)
                 overflow = torch.zeros(1, dtype=torch.int32,
                                        device=self.device)
+                dset = spec.distinct_set(sum(r for _c, _a, r in inputs),
+                                         self.device)
                 for cols, aux, rows in inputs:
-                    chain_aggregate(spec, cols, aux, rows, table, overflow)
+                    chain_aggregate(spec, cols, aux, rows, table, overflow,
+                                    dset)
                 if isinstance(spec, AggregateSpec):
                     table = dense_group_table(table)
-                elif int(overflow.item()):
-                    raise GroupTableOverflow(
-                        f"hash group table of {spec.cap} slots overflowed")
+                else:
+                    check_overflow(overflow, spec)
+                check_distinct_overflow(dset)
+                del dset
             host = self._fetch_groups(table)
             del table, inputs, staged
         return self._emit_groups(host, spec, plan, names, slot_map, m,

@@ -1,8 +1,11 @@
 """The port's CUDA sources compiled for the CPU, against the plain versions.
 
 `g++` builds `csrc/program.cuh` and the kernel bodies of
-`fused_dense_aggregate.cu`, `chain_build.cu` and `chain_aggregate.cu`
-(each file above its `extern "C"` launch wrappers) through `SHIM`, a
+`fused_dense_aggregate.cu`, `hash_group_aggregate.cu`, `chain_build.cu`,
+`chain_aggregate.cu`, `join_build.cu` and `join_aggregate.cu` (each file
+above its `extern "C"` launch wrappers; `scan.cuh`, whose device-wide scan
+launches kernels, is left out and the join build's scan runs as
+`torch.cumsum`) through `SHIM`, a
 header that defines the CUDA names for one thread: `__device__` is empty,
 `__ldg` a load, an atomic a plain read-modify-write, a warp shuffle gives
 back its own value. Each kernel then runs as one thread of one block over
@@ -10,7 +13,10 @@ the inputs its plain PyTorch version reads, and the two must agree
 exactly (the transcendental math functions within rel 1e-15, glibc's
 against PyTorch's): every program of the lowering tests, the dense fold,
 every build table (the insert pass; the range pass needs a warp) and
-every chain walk of TPC-H at SF 0.01 and of the min/max membership cases.
+every chain walk of TPC-H at SF 0.01 and of the min/max membership cases,
+the count(DISTINCT x) lane's set inserts (dense, hash and chain folds,
+lanes past 32 in passes), and the fanout-N join's build (the multiset of
+entries a bucket) and probe-and-fold.
 Each kernel runs in the interpreter variant (lean or full) that its spec's
 `full` flag picks, as the launch wrappers do, so a program that needs the
 full variant and is not flagged for it fails here. This holds the kernels' logic where there is no GPU; their parallel
@@ -61,6 +67,7 @@ inline long long atomicMax(long long* a, long long v) {
 template <class T> T atomicCAS(T* a, T c, T v) {
   T o = *a; if (o == c) *a = v; return o; }
 inline void __syncthreads() {}
+inline void __threadfence() {}
 template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
@@ -77,6 +84,15 @@ namespace cb { namespace { long long smem[1 << 16]; }
 }
 namespace ca { namespace { long long smem[1 << 16]; }
 #include "chain_aggregate_k.cu"
+}
+namespace hg { namespace { long long smem[1 << 16]; }
+#include "hash_group_aggregate_k.cu"
+}
+namespace jb { namespace { long long smem[1 << 16]; }
+#include "join_build_k.cu"
+}
+namespace ja { namespace { long long smem[1 << 16]; }
+#include "join_aggregate_k.cu"
 }
 extern "C" {
 void h_run(const long long* meta, const long long* aux, int prog,
@@ -109,6 +125,44 @@ void h_chain_dense(const long long* meta, int len, const long long* aux,
   (full ? ca::chain_dense_kernel<true> : ca::chain_dense_kernel<false>)(
       meta, len, aux, n, table);
 }
+void h_hash(const long long* meta, int len, const long long* aux,
+            long long n, long long cap, int ident, long long* table,
+            int* overflow, int full) {
+  (full ? hg::hash_group_aggregate_kernel<true>
+        : hg::hash_group_aggregate_kernel<false>)(meta, len, aux, n, cap,
+                                                  ident, table, overflow);
+}
+void h_jb_hash(const long long* meta, int len, const long long* aux,
+               long long n, long long* hashes, long long* words,
+               long long* live, int full) {
+  (full ? jb::join_build_hash_kernel<true>
+        : jb::join_build_hash_kernel<false>)(meta, len, aux, n, hashes,
+                                             words, live);
+}
+void h_jb_count(const long long* hashes, long long n, long long nb,
+                unsigned long long* counts) {
+  jb::join_build_count_kernel(hashes, n, nb, counts);
+}
+void h_jb_scatter(const long long* hashes, const long long* words,
+                  int n_keys, long long n, long long nb,
+                  const long long* start, unsigned long long* cursor,
+                  long long live, int* rows, long long* keys) {
+  jb::join_build_scatter_kernel(hashes, words, n_keys, n, nb, start, cursor,
+                                live, rows, keys);
+}
+void h_join(const long long* meta, int len, const long long* aux,
+            long long n, long long cap, int mode, long long* table,
+            int* overflow, int full) {
+  if (mode == 0) {
+    (full ? ja::join_aggregate_kernel<true, true>
+          : ja::join_aggregate_kernel<false, true>)(meta, len, aux, n, 0, 0,
+                                                    table, overflow);
+  } else {
+    (full ? ja::join_aggregate_kernel<true, false>
+          : ja::join_aggregate_kernel<false, false>)(
+        meta, len, aux, n, cap, mode == 1 ? 1 : 0, table, overflow);
+  }
+}
 }
 """
 
@@ -122,7 +176,9 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(SHIM)
     (d / "harness.cpp").write_text(HARNESS)
     shutil.copy(os.path.join(CSRC, "program.cuh"), d / "program.cuh")
-    for name in ("fused_dense_aggregate", "chain_build", "chain_aggregate"):
+    (d / "scan.cuh").write_text("#pragma once\n")
+    for name in ("fused_dense_aggregate", "chain_build", "chain_aggregate",
+                 "hash_group_aggregate", "join_build", "join_aggregate"):
         with open(os.path.join(CSRC, name + ".cu")) as f:
             src = f.read()
         (d / f"{name}_k.cu").write_text(src[:src.index('extern "C"')])
@@ -136,6 +192,11 @@ def lib(tmp_path_factory):
     out.h_insert.argtypes = [P, I, P, LL, I, LL, P, P, P, P, P, I]
     out.h_chain_hash.argtypes = [P, I, P, LL, LL, I, P, P, I]
     out.h_chain_dense.argtypes = [P, I, P, LL, P, I]
+    out.h_hash.argtypes = [P, I, P, LL, LL, I, P, P, I]
+    out.h_jb_hash.argtypes = [P, I, P, LL, P, P, P, I]
+    out.h_jb_count.argtypes = [P, LL, LL, P]
+    out.h_jb_scatter.argtypes = [P, P, I, LL, LL, P, P, LL, P, P]
+    out.h_join.argtypes = [P, I, P, LL, LL, I, P, P, I]
     return out
 
 
@@ -256,6 +317,15 @@ def _groups(table, dense):
             for s in (table[0] != EMPTY).nonzero().squeeze(1)}
 
 
+def _pairs_by_key(dset, table, dense):
+    """The set's pairs as (group key, lane, value): the slot in a pair's
+    group word is the key in a dense table, else the key at that slot."""
+    pairs = dset.pairs()
+    slot, lane = pairs[:, 0] >> 12, pairs[:, 0] & 4095
+    key = slot if dense else table[0][slot]
+    return set(zip(key.tolist(), lane.tolist(), pairs[:, 1].tolist()))
+
+
 def _check_chain(lib, ctx, sql):
     """Every build side's insert pass and the walk of the query's first
     chain aggregate, against the plain versions."""
@@ -292,20 +362,25 @@ def _check_chain(lib, ctx, sql):
         assert not bi.unique or int(dup) == int(t.duplicate)
     dense = isinstance(spec, AggregateSpec)
     got, want = spec.new_table(CPU), spec.new_table(CPU)
+    rows = sum(n for _c, _a, n in inputs)
+    dg, dw = spec.distinct_set(rows, CPU), spec.distinct_set(rows, CPU)
     ovf = torch.zeros(1, dtype=torch.int32)
     for cols, aux, n in inputs:
-        meta = spec.device_meta(cols, CPU)
-        if dense:
-            lib.h_chain_dense(_ptr(meta), len(spec.meta), _ptr(aux), n,
-                              _ptr(got), int(spec.full))
-        else:
-            lib.h_chain_hash(_ptr(meta), len(spec.meta), _ptr(aux), n,
-                             spec.cap, int(spec.identity_slots), _ptr(got),
-                             _ptr(ovf), int(spec.full))
+        for meta in spec.metas:
+            m = spec.device_meta(cols, CPU, meta, dg)
+            if dense:
+                lib.h_chain_dense(_ptr(m), len(meta), _ptr(aux), n,
+                                  _ptr(got), int(spec.full))
+            else:
+                lib.h_chain_hash(_ptr(m), len(meta), _ptr(aux), n,
+                                 spec.cap, int(spec.identity_slots),
+                                 _ptr(got), _ptr(ovf), int(spec.full))
         chain_aggregate_plain(spec, cols, aux, n, want,
-                              torch.zeros(1, dtype=torch.int32))
+                              torch.zeros(1, dtype=torch.int32), dset=dw)
     g, w = _groups(got, dense), _groups(want, dense)
     assert g.keys() == w.keys() and int(ovf) == 0
+    if dg is not None:
+        assert _pairs_by_key(dg, got, dense) == _pairs_by_key(dw, want, dense)
     floats = [i + 1 for i, (_p, k) in enumerate(spec.lanes)
               if k == LANE_SUM_F64]
     for key, row in g.items():
@@ -346,3 +421,176 @@ def test_min_max_membership_kernels_match_plain(lib, op, anti, wide):
            "AND m.w > 0) GROUP BY d.name")
     staged = _check_chain(lib, port, sql)
     assert any(s.table.mn is not None for s in staged)
+
+
+# --- count(DISTINCT x) and lanes past 32 in the grouped folds ------------------
+
+def _fold_cases():
+    import test_torch_distinct as D
+    import test_torch_lanes as L
+    names = ["dense", "hash", "ungrouped", "predicate", "strings_hash",
+             "mixed_dense"]
+    return [D.QUERIES[n] for n in names] + [L._lanes_query(65, "g8"),
+                                            L._lanes_query(65, "g")]
+
+
+@pytest.mark.parametrize("q", _fold_cases())
+def test_distinct_and_pass_folds_match_plain(lib, q):
+    """The dense and hash kernels' folds, one launch a pass, with a
+    distinct set: the group tables and the set's (group, lane, value)
+    pairs equal the plain versions'."""
+    import datafusion_tpu_torch as dft
+    import test_torch_distinct as D
+    from torch_twin import twin
+    from datafusion_tpu_torch.device.groupby import (
+        AggregateSpec, dense_group_aggregate_plain, dense_group_table,
+        hash_group_aggregate_plain)
+    ctx = dft.SessionContext(CPU)
+    b = twin(D.table(20_000, 1))
+    ctx.register_table("t", dft.MemTable(b.schema, [[b]]))
+    (node,) = D.execs(ctx, q)[1]
+    (src,) = node.input_batches(ctx.task_context())
+    spec, _p, _n, _s = node.compile([src])
+    cols, aux = node.stage(spec, src)
+    n = src.num_rows
+    got, want = spec.new_table(CPU), spec.new_table(CPU)
+    dg, dw = spec.distinct_set(n, CPU), spec.distinct_set(n, CPU)
+    dense = isinstance(spec, AggregateSpec)
+    ovf = torch.zeros(1, dtype=torch.int32)
+    for meta in spec.metas:
+        m = spec.device_meta(cols, CPU, meta, dg)
+        if dense:
+            lib.h_dense(_ptr(m), len(meta), _ptr(aux), n, _ptr(got),
+                        int(spec.full))
+        else:
+            lib.h_hash(_ptr(m), len(meta), _ptr(aux), n, spec.cap,
+                       int(spec.identity_slots), _ptr(got), _ptr(ovf),
+                       int(spec.full))
+    if dense:
+        dense_group_aggregate_plain(spec, cols, aux, n, want, dset=dw)
+        got, want = dense_group_table(got), dense_group_table(want)
+    else:
+        hash_group_aggregate_plain(spec, cols, aux, n, want,
+                                   torch.zeros(1, dtype=torch.int32),
+                                   dset=dw)
+    _same_groups(spec, got, want)
+    assert int(ovf) == 0
+    if dg is not None:
+        assert _pairs_by_key(dg, got, False) == _pairs_by_key(dw, want, False)
+        assert int(dg.words[-1]) == 0
+
+
+def _same_groups(spec, got, want):
+    """Two `[lanes + 2, slots]` tables hold the same groups and lanes (the
+    float64 sums within rel 1e-12: they add in another order)."""
+    from datafusion_tpu_torch.device.groupby import LANE_SUM_F64
+    g, w = _groups(got, False), _groups(want, False)
+    assert g.keys() == w.keys() and g
+    floats = [i + 1 for i, (_p, k) in enumerate(spec.lanes)
+              if k == LANE_SUM_F64]
+    for key, row in g.items():
+        for i, (a, b) in enumerate(zip(row, w[key])):
+            if i in floats:
+                a, b = (np.int64(x).view(np.float64) for x in (a, b))
+                assert a == pytest.approx(b, rel=1e-12, nan_ok=True)
+            else:
+                assert a == b, (key, i)
+
+
+def test_tpch_q5_distinct_chain_kernels_match_plain(lib, tpch):
+    import test_torch_distinct as D
+    _check_chain(lib, tpch, D.Q5D)
+
+
+# --- the fanout-N join: build and probe-and-fold ------------------------------
+
+def _join_ctx(tpch_ctx, q):
+    if "partsupp" in q:
+        return tpch_ctx
+    import datafusion_tpu_torch as dft
+    import test_torch_join_agg as T
+    from torch_twin import twin
+    ctx = dft.SessionContext(CPU)
+    for name, part in (("b", T._build()), ("p", T._probe(6_000, 2))):
+        tw = twin(part)
+        ctx.register_table(name, dft.MemTable(tw.schema, [[tw]]))
+    return ctx
+
+
+def _join_cases():
+    import test_torch_join_agg as T
+    return [T.J1, T.J2] + [T.QUERIES[n] for n in (
+        "hash_keys", "dense_keys", "two_sides", "join_filter",
+        "string_keys", "composite_keys", "nan_min_max_dense")]
+
+
+@pytest.mark.parametrize("q", _join_cases())
+def test_join_kernels_match_plain(lib, tpch, q):
+    """`join_build`'s hash and scatter passes (the count pass, then the
+    scan as `torch.cumsum`) give the plain build's bucket starts and the
+    same multiset of (key words, row) a bucket; `join_aggregate` over that
+    table folds the plain version's groups, a launch a pass."""
+    import test_torch_distinct as D
+    from datafusion_tpu_torch.device.groupby import (AggregateSpec,
+                                                     _next_pow2,
+                                                     dense_group_table)
+    from datafusion_tpu_torch.device.join_agg import (
+        JoinTable, join_aggregate_plain, join_build_plain)
+    from datafusion_tpu_torch.physical.plan.base import (collect_batch,
+                                                         execute_stream)
+    from datafusion_tpu_torch.physical.plan.device_join_agg import (
+        TorchJoinAggregateExec)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        _PairView)
+    ctx = _join_ctx(tpch, q)
+    (ex,) = D.execs(ctx, q, TorchJoinAggregateExec)[1]
+    tctx = ctx.task_context()
+    lowered = ex.lower()
+    build_batch = collect_batch(ex.build_source, tctx)
+    bspec, bcols, baux = ex.build_input(lowered, build_batch)
+    n, nk = build_batch.num_rows, len(bspec.keys)
+    want_t = join_build_plain(bspec, bcols, baux, n)
+    hashes = torch.empty(max(n, 1), dtype=torch.int64)
+    words = torch.empty(max(nk * n, 1), dtype=torch.int64)
+    live = torch.zeros(1, dtype=torch.int64)
+    meta = bspec.device_meta(bcols, CPU)
+    lib.h_jb_hash(_ptr(meta), len(bspec.meta), _ptr(baux), n, _ptr(hashes),
+                  _ptr(words), _ptr(live), int(bspec.full))
+    live = int(live)
+    nb = _next_pow2(max(live, 1))
+    counts = torch.zeros(nb + 1, dtype=torch.int64)
+    lib.h_jb_count(_ptr(hashes), n, nb, _ptr(counts))
+    start = torch.zeros(nb + 1, dtype=torch.int64)
+    start[1:] = torch.cumsum(counts[:nb], 0)
+    rows = torch.empty(live, dtype=torch.int32)
+    keys = torch.empty((nk, live), dtype=torch.int64)
+    cursor = torch.zeros(nb, dtype=torch.int64)
+    lib.h_jb_scatter(_ptr(hashes), _ptr(words), nk, n, nb, _ptr(start),
+                     _ptr(cursor), live, _ptr(rows), _ptr(keys))
+    got_t = JoinTable(nb, live, start, rows, keys)
+    assert (nb, live) == (want_t.nb, want_t.live) and live
+    assert torch.equal(start, want_t.start)
+    for a, b in zip(got_t.entries(), want_t.entries()):
+        np.testing.assert_array_equal(a, b)
+
+    probe = [b for b in execute_stream(ex.probe_source, tctx) if b.num_rows]
+    views = [_PairView(list(build_batch.columns) + list(pb.columns),
+                       pb.num_rows) for pb in probe]
+    spec, _plan, _names, _sm = ex.compile_join(lowered, got_t, views)
+    dense = isinstance(spec, AggregateSpec)
+    got, want = spec.new_table(CPU), spec.new_table(CPU)
+    ovf = torch.zeros(1, dtype=torch.int32)
+    mode = 0 if dense else (1 if spec.identity_slots else 2)
+    for pb, view in zip(probe, views):
+        cols, aux = ex.stage_pair(spec, build_batch, pb, view)
+        for meta in spec.metas:
+            m = spec.device_meta(cols, CPU, meta)
+            lib.h_join(_ptr(m), len(meta), _ptr(aux), pb.num_rows,
+                       0 if dense else spec.cap, mode, _ptr(got), _ptr(ovf),
+                       int(spec.full))
+        join_aggregate_plain(spec, cols, aux, pb.num_rows, want,
+                             torch.zeros(1, dtype=torch.int32))
+    if dense:
+        got, want = dense_group_table(got), dense_group_table(want)
+    _same_groups(spec, got, want)
+    assert int(ovf) == 0

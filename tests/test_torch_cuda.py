@@ -155,7 +155,7 @@ def _by_key(spec, host):
         [a[order] for a in spec.lane_arrays(host, first=2)]
 
 
-def _assert_tables_equal(spec, got, want):
+def _assert_tables_equal(spec, got, want, f64_tol=(1e-12, 1e-9)):
     from datafusion_tpu_torch.device.groupby import LANE_SUM_F32, LANE_SUM_F64
     gk, gc, gl = _by_key(spec, got)
     wk, wc, wl = _by_key(spec, want)
@@ -166,7 +166,7 @@ def _assert_tables_equal(spec, got, want):
         # near 0, so the bound is absolute too: a few float64 (float32)
         # ulps of the largest partial sum, about 1e3 (1e2)
         if kind == LANE_SUM_F64:
-            np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-9,
+            np.testing.assert_allclose(a, b, rtol=f64_tol[0], atol=f64_tol[1],
                                        equal_nan=True)
         elif kind == LANE_SUM_F32:
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-3)
@@ -778,3 +778,266 @@ def test_cuda_join_rows_end_to_end_matches_cpu(cuda):
             assert all(e.fallbacks == 0 for e in execs)
             assert bool(execs) == (q != 13)
         assert out[0] == out[1], q
+
+
+# --- count(DISTINCT x), lanes past 32 and the fanout-N join-aggregate ---------
+
+def _distinct_table(n, seed):
+    """Keys `g` (1,000) and `g8` (6), and distinct arguments of each kind:
+    int32 with NULLs, int64, date, decimal, float32 and float64 with -0.0,
+    0.0 and NaN, and `v` for sums."""
+    rng = np.random.default_rng(seed)
+    f = rng.choice(np.array([-0.0, 0.0, 1.5, -2.25, 3.0, np.nan]), n)
+    cols = [("g", dt.INT64, rng.integers(0, 1000, n), None),
+            ("g8", dt.INT32, rng.integers(0, 6, n).astype(np.int32), None),
+            ("i32", dt.INT32, rng.integers(-50, 50, n).astype(np.int32),
+             rng.random(n) > 0.1),
+            ("i64", dt.INT64, rng.integers(-2**40, 2**40, n), None),
+            ("day", dt.DATE, rng.integers(8000, 8060, n).astype(np.int32),
+             None),
+            ("dec", dt.decimal(12, 2), rng.integers(-300, 300, n), None),
+            ("f32", dt.FLOAT32, f.astype(np.float32), None),
+            ("f64", dt.FLOAT64, f * 0.1, rng.random(n) > 0.1),
+            ("v", dt.INT64, rng.integers(0, 100, n), None)]
+    schema = Schema([Field(nm, t, v is not None) for nm, t, _d, v in cols])
+    return Batch(schema, [Column(t, np.asarray(d), v)
+                          for _nm, t, d, v in cols], n)
+
+
+_ARGS = ("i32", "i64", "day", "dec", "f32", "f64")
+DISTINCT_QUERIES = [
+    "SELECT g8, " + ", ".join(f"count(DISTINCT {a})" for a in _ARGS) +
+    ", sum(v) FROM t GROUP BY g8",
+    "SELECT g, " + ", ".join(f"count(DISTINCT {a})" for a in _ARGS) +
+    ", count(*) FROM t GROUP BY g",
+    # 65 lanes: three passes
+    "SELECT g, " + ", ".join(f"sum(v + {i})" for i in range(32)) +
+    ", count(*) FROM t GROUP BY g",
+    "SELECT g8, count(DISTINCT i64), " +
+    ", ".join(f"sum(v + {i})" for i in range(32)) + " FROM t GROUP BY g8",
+]
+
+
+def _pair_keys(dset, host_table, dense):
+    """The distinct set's pairs as (group key, lane, value)."""
+    pairs = dset.pairs().cpu()
+    slot, lane = pairs[:, 0] >> 12, pairs[:, 0] & 4095
+    key = slot if dense else torch.from_numpy(host_table[0])[slot]
+    return sorted(zip(key.tolist(), lane.tolist(), pairs[:, 1].tolist()))
+
+
+@pytest.mark.parametrize("q", DISTINCT_QUERIES)
+def test_distinct_and_pass_kernels_match_plain(cuda, q):
+    """The dense and hash kernels with distinct lanes and lanes in passes
+    against their plain versions on the same device tensors: equal group
+    tables and equal distinct pairs; one launch a pass."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        AggregateSpec, compact_groups, dense_group_aggregate,
+        dense_group_aggregate_plain, dense_group_table, hash_group_aggregate,
+        hash_group_aggregate_plain)
+    batch = _distinct_table(300_000, 5)
+    ctx = dft.SessionContext(cuda)
+    ctx.register_table("t", dft.MemTable(batch.schema, [[batch]]))
+    node = _exec(ctx, q)
+    (src,) = node.input_batches(ctx.task_context())
+    spec, _p, _n, _s = node.compile([src])
+    cols, aux = node.stage(spec, src)
+    dense = isinstance(spec, AggregateSpec)
+    name = "fused_dense_aggregate" if dense else "hash_group_aggregate"
+    folds = (dense_group_aggregate, dense_group_aggregate_plain) if dense \
+        else (hash_group_aggregate, hash_group_aggregate_plain)
+    tables, pairs = [], []
+    for fold in folds:
+        table = spec.new_table(cuda)
+        dset = spec.distinct_set(src.num_rows, cuda)
+        before = dft.launch_counts()[name]
+        if dense:
+            fold(spec, cols, aux, src.num_rows, table, dset=dset)
+            table = dense_group_table(table)
+        else:
+            overflow = torch.zeros(1, dtype=torch.int32, device=cuda)
+            fold(spec, cols, aux, src.num_rows, table, overflow, dset=dset)
+            assert int(overflow.item()) == 0
+        assert dft.launch_counts()[name] == before + (
+            len(spec.passes) if fold is folds[0] else 0)
+        torch.cuda.synchronize()
+        host = compact_groups(table).cpu().numpy()
+        tables.append(host)
+        if dset is not None:
+            assert not dset.overflowed()
+            pairs.append(_pair_keys(dset, table.cpu().numpy(), False))
+    _assert_tables_equal(spec, *tables)
+    if pairs:
+        assert pairs[0] == pairs[1] and pairs[0]
+
+
+def test_chain_distinct_matches_plain(cuda):
+    """TPC-H Q5 with count(DISTINCT o_custkey) at SF 0.1: the chain walk's
+    distinct lane against its plain version."""
+    from datafusion_tpu_torch.device.groupby import (AggregateSpec,
+                                                     compact_groups,
+                                                     dense_group_table)
+    from datafusion_tpu_torch.device.join_chain import (
+        chain_aggregate, chain_aggregate_plain)
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    q = QUERIES[5].replace("as revenue", "as revenue, count(distinct "
+                           "o_custkey) as customers")
+    ctx = _tpch_ctx(cuda, 0.1)
+    ex = _chain_exec(ctx, q)
+    spec, _plan, _names, _slots, inputs, _staged = ex.prepare(
+        ctx.task_context())
+    ((cols, aux, rows),) = inputs
+    assert spec.distinct_lanes
+    tables = []
+    for fold in (chain_aggregate, chain_aggregate_plain):
+        table = spec.new_table(cuda)
+        overflow = torch.zeros(1, dtype=torch.int32, device=cuda)
+        dset = spec.distinct_set(rows, cuda)
+        fold(spec, cols, aux, rows, table, overflow, dset=dset)
+        torch.cuda.synchronize()
+        if isinstance(spec, AggregateSpec):
+            table = dense_group_table(table)
+        tables.append(compact_groups(table).cpu().numpy())
+    _assert_tables_equal(spec, *tables)
+
+
+def _join_ctx(device):
+    """partsupp and lineitem at SF 0.1, and a build of fanouts 0, 1 and 4
+    with a hot key of 1,000 rows against 300,000 probe rows, NULL keys on
+    both sides."""
+    ctx = _tpch_ctx(device, 0.1)
+    rng = np.random.default_rng(9)
+    keys = [k for k in range(2100) for _ in range((0, 1, 4)[k % 3])]
+    keys += [5000] * 1000
+    nb = len(keys)
+    bkv = rng.random(nb) > 0.01
+    n = 300_000
+    pk = rng.integers(0, 2200, n)
+    pk[rng.random(n) < 0.01] = 5000
+    b = Batch(Schema([Field("bk", dt.INT64, True), Field("bg", dt.INT32, False),
+                      Field("bd", dt.decimal(12, 2), False)]),
+              [Column(dt.INT64, np.asarray(keys, np.int64), bkv),
+               Column(dt.INT32, rng.integers(0, 300, nb).astype(np.int32)),
+               Column(dt.decimal(12, 2), rng.integers(0, 10**5, nb))], nb)
+    p = Batch(Schema([Field("pk", dt.INT64, True), Field("px", dt.INT64, False),
+                      Field("pf", dt.FLOAT64, False)]),
+              [Column(dt.INT64, pk, rng.random(n) > 0.05),
+               Column(dt.INT64, rng.integers(0, 1000, n)),
+               Column(dt.FLOAT64, rng.normal(size=n))], n)
+    import datafusion_tpu_torch as dft
+    ctx.register_table("b", dft.MemTable(b.schema, [[b]]))
+    ctx.register_table("p", dft.MemTable(p.schema, [[p]]))
+    return ctx
+
+
+JOIN_QUERIES = [
+    "SELECT ps_suppkey, count(*), sum(ps_supplycost * l_quantity) "
+    "FROM lineitem JOIN partsupp ON l_partkey = ps_partkey "
+    "GROUP BY ps_suppkey",
+    "SELECT ps_suppkey, sum(l_extendedprice * (1 - l_discount) - "
+    "ps_supplycost * l_quantity) FROM lineitem JOIN partsupp "
+    "ON ps_partkey = l_partkey AND ps_suppkey = l_suppkey GROUP BY ps_suppkey",
+    "SELECT b.bg, count(*), sum(p.px * b.bd), sum(p.pf), min(p.px), "
+    "max(b.bd) FROM p JOIN b ON p.pk = b.bk WHERE p.px + b.bg > 100 "
+    "GROUP BY b.bg",
+    "SELECT p.px < 500, count(*), sum(p.pf), max(p.pf) FROM p JOIN b "
+    "ON p.pk = b.bk GROUP BY p.px < 500",
+]
+
+
+def _join_exec(ctx, q):
+    from datafusion_tpu_torch.physical.plan.device_join_agg import (
+        TorchJoinAggregateExec)
+    todo = [ctx.sql(q).create_physical_plan()]
+    while not isinstance(todo[-1], TorchJoinAggregateExec):
+        node = todo.pop()
+        todo += node.children()[::-1]
+    return todo[-1]
+
+
+@pytest.mark.parametrize("q", JOIN_QUERIES)
+def test_join_kernels_match_plain(cuda, q):
+    """`join_build` against `join_build_plain` (the bucket starts and the
+    multiset of (key words, row) a bucket), then `join_aggregate` over the
+    kernel's table against `join_aggregate_plain` (equal group tables;
+    float64 sums within rel 1e-9 and abs 1e-6: a group here sums up to
+    1.7M pairs, whose partial sums reach about 1e3, in the atomics'
+    order)."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        AggregateSpec, compact_groups, dense_group_table)
+    from datafusion_tpu_torch.device.join_agg import (
+        join_aggregate, join_aggregate_plain, join_build, join_build_plain)
+    from datafusion_tpu_torch.physical.plan.base import (collect_batch,
+                                                         execute_stream)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        _PairView)
+    ctx = _join_ctx(cuda)
+    ex = _join_exec(ctx, q)
+    tctx = ctx.task_context()
+    lowered = ex.lower()
+    bb = collect_batch(ex.build_source, tctx)
+    bspec, bcols, baux = ex.build_input(lowered, bb)
+    before = dft.launch_counts()["join_build"]
+    got_t = join_build(bspec, bcols, baux, bb.num_rows)
+    assert dft.launch_counts()["join_build"] == before + 6
+    want_t = join_build_plain(bspec, bcols, baux, bb.num_rows)
+    torch.cuda.synchronize()
+    assert (got_t.nb, got_t.live) == (want_t.nb, want_t.live)
+    assert torch.equal(got_t.start, want_t.start)
+    for a, b in zip(got_t.entries(), want_t.entries()):
+        np.testing.assert_array_equal(a, b)
+    probe = [b for b in execute_stream(ex.probe_source, tctx) if b.num_rows]
+    views = [_PairView(list(bb.columns) + list(pb.columns), pb.num_rows)
+             for pb in probe]
+    spec, _plan, _names, _sm = ex.compile_join(lowered, got_t, views)
+    tables = []
+    for fold in (join_aggregate, join_aggregate_plain):
+        table = spec.new_table(cuda)
+        overflow = torch.zeros(1, dtype=torch.int32, device=cuda)
+        for pb, view in zip(probe, views):
+            cols, aux = ex.stage_pair(spec, bb, pb, view)
+            fold(spec, cols, aux, pb.num_rows, table, overflow)
+        torch.cuda.synchronize()
+        assert int(overflow.item()) == 0
+        if isinstance(spec, AggregateSpec):
+            table = dense_group_table(table)
+        tables.append(compact_groups(table).cpu().numpy())
+    _assert_tables_equal(spec, *tables, f64_tol=(1e-9, 1e-6))
+
+
+def test_cuda_distinct_and_join_end_to_end_matches_cpu(cuda):
+    """count(DISTINCT x), 65 lanes and the join-aggregate through a CUDA
+    session and a CPU session: the same rows, no fallback."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.physical.plan.device_join_agg import (
+        TorchJoinAggregateExec)
+    batch = _distinct_table(200_000, 6)
+    qs = DISTINCT_QUERIES + JOIN_QUERIES
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ctx = _join_ctx(dev)
+        ctx.register_table("t", dft.MemTable(batch.schema, [[batch]]))
+        rows = []
+        for q in qs:
+            q = q + " ORDER BY 1"
+            rows.append(ctx.sql(q).to_pydict())
+            node = ctx.sql(q).create_physical_plan()
+            todo = [node]
+            while todo:
+                n = todo.pop()
+                assert getattr(n, "fallbacks", 0) == 0, q
+                todo += n.children()
+        assert any(isinstance(n, TorchJoinAggregateExec)
+                   for n in [_join_exec(ctx, JOIN_QUERIES[0])])
+        out.append(rows)
+    for got, want in zip(*out):
+        assert list(got) == list(want)
+        for k in got:
+            for a, b in zip(got[k], want[k]):
+                if isinstance(a, float):
+                    assert a == pytest.approx(b, rel=1e-9, abs=1e-6,
+                                              nan_ok=True)
+                else:
+                    assert a == b

@@ -421,4 +421,5 @@ def test_kernel_digest_covers_shared_headers(tmp_path):
         "chain_aggregate.cu", "chain_build.cu", "chain_rows.cu",
         "compact_groups.cu", "fused_dense_aggregate.cu", "gather_lanes.cu",
         "group_emit.cu", "group_topk.cu", "hash_group_aggregate.cu",
-        "radix_sort.cu", "window_scan.cu"]
+        "join_aggregate.cu", "join_build.cu", "radix_sort.cu",
+        "window_scan.cu"]

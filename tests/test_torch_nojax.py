@@ -44,10 +44,17 @@ WINDOW = ("select l_orderkey, l_linenumber, rank() over (partition by "
           "(partition by l_suppkey order by l_shipdate rows between 2 "
           "preceding and current row) q3 from lineitem "
           "order by l_orderkey, l_linenumber limit 50")
+DISTINCT = ('select count(distinct "UserID") u, count(*) c from hits')
+J1 = ("select ps_suppkey, count(*) c, sum(ps_supplycost * l_quantity) cost "
+      "from lineitem join partsupp on l_partkey = ps_partkey "
+      "group by ps_suppkey order by ps_suppkey")
+Q5D = TPCH[5].replace("as revenue", "as revenue, count(distinct o_custkey) "
+                      "as customers")
 QUERIES = {"q1": TPCH[1], "q18_sub": Q18_SUB, "cb_q16": CB[16],
            "q3": TPCH[3], "q4": TPCH[4], "q5": TPCH[5], "q2": TPCH[2],
            "q20": TPCH[20], "q13": TPCH[13], "q9": TPCH[9], "q21": TPCH[21],
-           "sorted": SORTED, "window": WINDOW}
+           "sorted": SORTED, "window": WINDOW, "distinct": DISTINCT,
+           "j1": J1, "q5d": Q5D}
 # the exec each query must plan in the port, with what its display shows
 PLANS = {"q1": ("TorchGroupAggregateExec", ""),
          "q18_sub": ("TorchGroupAggregateExec", "having="),
@@ -62,7 +69,10 @@ PLANS = {"q1": ("TorchGroupAggregateExec", ""),
          "q9": ("TorchJoinChainAggregateExec", "INNER["),
          "q21": ("TorchJoinChainAggregateExec", "filter="),
          "sorted": ("SortExec", "fetch=20"),
-         "window": ("BoundedWindowExec", "rank()")}
+         "window": ("BoundedWindowExec", "rank()"),
+         "distinct": ("TorchGroupAggregateExec", "count(DISTINCT"),
+         "j1": ("TorchJoinAggregateExec", "on=["),
+         "q5d": ("TorchJoinChainAggregateExec", "count(DISTINCT")}
 
 BLOCK = r"""
 import sys
