@@ -52,6 +52,17 @@ query is held against a numpy oracle on the same data.
      through (part, supplier)), `chain_aggregate` with its distinct lane
      on Q5D (Q5 with count(DISTINCT o_custkey)); then J1, J2 and Q5D end
      to end against numpy, with 0 fallbacks and a breakdown each;
+   - the mesh, 4 shards of the one card (`SET datafusion.tpu.mesh_devices
+     = 4`, a LocalMesh): MQ1 (Q1 over the SF10 rows of step 3: the
+     all_gather aggregate), MQ15 (Q15's revenue0: the owned-slot
+     shuffle), MJ1 (lineitem x partsupp, `sum(l_quantity)`: the
+     partitioned join) and MB (lineitem x supplier: the broadcast join)
+     against numpy, each with 0 fallbacks, its route, one cold and two
+     warm runs and a breakdown; `partition_rows` (K1) against its plain
+     version and a stable `torch.argsort` of the owners on MJ1's probe
+     rows of shard 0, and `merge_partials` (K2) against its plain version
+     on shard 0's share of MQ15's partial tables; then MQ1 once more
+     through a one-rank NCCL `ProcessGroupMesh`, against the 4-shard rows;
    - window functions over the SF10 lineitem (with `l_returnflag`):
      W1 (top 3 by price per supplier beside each order's quantity, a
      WindowExec over two PARTITION BYs), W2 (a global row_number and lag)
@@ -198,6 +209,19 @@ J2 = ("SELECT ps_suppkey, sum(l_extendedprice * (1 - l_discount) - "
       "ps_supplycost * l_quantity) AS profit FROM lineitem JOIN partsupp "
       "ON ps_partkey = l_partkey AND ps_suppkey = l_suppkey "
       "GROUP BY ps_suppkey ORDER BY ps_suppkey")
+# The mesh (4 shards of one card): MQ1 is Q1, MQ15 Q15's revenue0; MJ1 is
+# J1 with one argument a side (the mesh refuses an argument over both
+# sides, as the JAX package's DistributedJoinAggregateExec does:
+# `distributed_aggregate.py:355`), partsupp's 8M rows partitioned; MB
+# builds supplier's 100,000 rows and broadcasts them
+MESH_SHARDS = 4
+MJ1 = ("SELECT ps_suppkey, count(*) AS c, sum(l_quantity) AS qty FROM "
+       "lineitem JOIN partsupp ON l_partkey = ps_partkey GROUP BY ps_suppkey "
+       "ORDER BY ps_suppkey")
+MB = ("SELECT s_nationkey, count(*) AS c, sum(l_extendedprice) AS price FROM "
+      "lineitem JOIN supplier ON l_suppkey = s_suppkey GROUP BY s_nationkey "
+      "ORDER BY s_nationkey")
+MESH_RUNS = 3                # one cold run, two warm
 # ClickBench Q25-Q27: a top 10 over the rows with a search phrase
 CB_SORTS = {
     25: ('SELECT "SearchPhrase" FROM hits WHERE "SearchPhrase" <> \'\' '
@@ -718,6 +742,7 @@ def breakdown(ctx, sql, card, label, cls=None, main=None, host=None):
           f"device busy {busy:.3f} ms, idle share "
           f"{(1 - busy / wall) if whole else 'not measured'} [{card}]",
           flush=True)
+    return spans
 
 
 # ---- kernels against their plain versions -----------------------------------
@@ -2084,6 +2109,351 @@ def join_agg_phase(ctx, tables, card, add, report):
                  launches=counts["chain_aggregate"], **k5)]
 
 
+def oracle_q1(li):
+    """Q1's (returnflag * 2 + linestatus, count_order, sum_charge at scale
+    6) of `make_lineitem`'s rows, by group."""
+    import numpy as np
+    ship = col(li, "l_shipdate")
+    m = ship <= days(1998, 9, 2)
+    g = (col(li, "l_returnflag") * 2 + col(li, "l_linestatus"))[m]
+    charge = (col(li, "l_extendedprice") * (100 - col(li, "l_discount")) *
+              (100 + col(li, "l_tax")))[m]
+    keys = np.unique(g)
+    return {int(k): (int((g == k).sum()), int(charge[g == k].sum()))
+            for k in keys}
+
+
+def oracle_q15(t):
+    """Q15's revenue0: (supplier, revenue at scale 4) of every supplier
+    with a line shipped in 1996 Q1."""
+    import numpy as np
+    li = t["lineitem"]
+    ship, supp = col(li, "l_shipdate"), col(li, "l_suppkey")
+    m = (ship >= days(1996, 1, 1)) & (ship < days(1996, 4, 1))
+    rev = np.zeros(int(supp.max()) + 1, np.int64)
+    np.add.at(rev, supp[m], col(li, "l_extendedprice")[m] *
+              (100 - col(li, "l_discount")[m]))
+    live = np.zeros(len(rev), bool)
+    live[supp[m]] = True
+    return np.flatnonzero(live), rev[live]
+
+
+def check_q1(out, li, label):
+    """Fails unless Q1's output equals `oracle_q1` over `li`."""
+    want = oracle_q1(li)
+    got = {int(a) * 2 + int(b): (int(c), int(d)) for a, b, c, d in zip(
+        col(out, "l_returnflag"), col(out, "l_linestatus"),
+        col(out, "count_order"), col(out, "sum_charge"))}
+    if got != want:
+        raise AssertionError(f"{label} disagrees with numpy: {got} {want}")
+    print(f"{label} equals numpy exactly: (count_order, sum_charge at scale "
+          f"6) {sorted(want.values())}", flush=True)
+
+
+def check_q15(out, tables, label):
+    """Fails unless Q15's revenue0 equals `oracle_q15` over `tables`."""
+    import numpy as np
+    keys, revs = oracle_q15(tables)
+    got_s, got_r = (c.data_host() for c in out.columns)
+    o = np.argsort(got_s)
+    if not (np.array_equal(got_s[o], keys) and np.array_equal(got_r[o], revs)):
+        raise AssertionError(f"{label} disagrees with numpy")
+    print(f"{label} equals numpy exactly: {len(keys)} groups", flush=True)
+
+
+def oracle_mj1(t):
+    """MJ1: (ps_suppkey, pairs, sum(l_quantity) at scale 2) by key: each
+    part's lineitem count and quantity, over its 4 partsupp rows."""
+    import numpy as np
+    li, ps = t["lineitem"], t["partsupp"]
+    part = col(li, "l_partkey")
+    n_part = int(col(ps, "ps_partkey").max()) + 1
+    cnt = np.bincount(part, minlength=n_part)
+    qty = np.bincount(part, weights=col(li, "l_quantity"),
+                      minlength=n_part).astype(np.int64)
+    pp, sk = col(ps, "ps_partkey"), col(ps, "ps_suppkey")
+    pairs = np.bincount(sk, weights=cnt[pp]).astype(np.int64)
+    # every partial sum stays below 2^53, so float64 adds are exact
+    total = np.bincount(sk, weights=qty[pp]).astype(np.int64)
+    keys = np.flatnonzero(pairs)
+    return keys, pairs[keys], total[keys]
+
+
+def oracle_mb(t):
+    """MB: (s_nationkey, lines, sum(l_extendedprice) at scale 2) by nation
+    of each line's supplier."""
+    import numpy as np
+    li, su = t["lineitem"], t["supplier"]
+    nation = np.zeros(int(col(su, "s_suppkey").max()) + 1, np.int64)
+    nation[col(su, "s_suppkey")] = col(su, "s_nationkey")
+    n = nation[col(li, "l_suppkey")]
+    cnt = np.bincount(n)
+    price = np.bincount(n, weights=col(li, "l_extendedprice")).astype(
+        np.int64)
+    keys = np.flatnonzero(cnt)
+    return keys, cnt[keys], price[keys]
+
+
+def mesh_run(ctx, sql, label, cls, route, expect, card, rows):
+    """A mesh query's main path: launch counts set to 0, MESH_RUNS runs
+    (the first cold), counts read. Fails unless the exec `cls` ran every
+    time on `route` with no fallback and every kernel of `expect`
+    launched. Returns (result, launches, ms of each run)."""
+    from datafusion_tpu_torch import kernels
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(MESH_RUNS):
+        t0 = time.perf_counter()
+        out = ctx.sql(sql).collect_batch()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = kernels.launch_counts()
+    ex = find_exec(ctx.sql(sql).create_physical_plan(), cls)
+    if ex is None or type(ex) is not cls or ex.fallbacks != 0:
+        raise AssertionError(f"{label} did not run on the mesh: {ex}")
+    if [r for r, _salt in ex.routes] != [route] * MESH_RUNS:
+        raise AssertionError(f"{label}: routes {ex.routes}, not {route}")
+    missing = [k for k in expect if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"{label} did not launch {missing}")
+    no_fallbacks(ctx, sql, label)
+    per_query = {k: launches[k] / MESH_RUNS for k in expect}
+    print(f"{label} on {MESH_SHARDS} shards ({ex.the_mesh().describe()}), "
+          f"route {ex.routes[-1]}: cold {times[0]:.3f} ms, warm "
+          f"{times[1]:.3f} / {times[2]:.3f} ms, "
+          f"{rows / (min(times[1:]) / 1e3):.1f} rows/s, launches per query "
+          f"{per_query}, fallbacks 0 [{card}]", flush=True)
+    return out, launches, times
+
+
+def mesh_breakdown(ctx, sql, card, label, cls, main):
+    spans = breakdown(ctx, sql, card, label, cls, main=main)
+    if spans:
+        top = max(spans, key=spans.get)
+        print(f"{label} largest host part: {top} {spans[top]} ms "
+              f"(host clock, profiled run) [{card}]", flush=True)
+
+
+def partition_vs_plain(ex, ctx, card):
+    """K1 (`partition_rows`) against its plain version on MJ1's probe rows
+    of shard 0 (one round at the exec's cap): equal send buffers, splits
+    and flags; timed against the plain version and `torch.argsort` of the
+    owners (stable), the library's yardstick."""
+    import torch
+    from datafusion_tpu_torch.device.exchange import (
+        partition_rows, partition_rows_plain, shard_owner)
+    from datafusion_tpu_torch.parallel.distributed import row_ranges
+    from datafusion_tpu_torch.parallel.exchange import _lanes_of
+    from datafusion_tpu_torch.physical.plan.base import collect_batch
+    tctx = ctx.task_context()
+    bb = collect_batch(ex.build_source, tctx)
+    pb = collect_batch(ex.probe_source, tctx)
+    jplan = ex._join_key_plan(bb, pb, ex.build_predicate, ex.probe_predicate,
+                              True, True)
+    pkey, pvalid = ex.packed_keys(pb, ex.probe_keys, jplan, 1, True)
+    pools = ex._lower_packed(ex.build_predicate, ex.probe_predicate)[0]
+    nb, npc = ex.n_build, len(ex.probe_source.schema())
+    pcols = ex._columns(pb, [i for i in pools.columns
+                             if nb <= i < nb + npc], nb, True)
+    lo, hi = row_ranges(pb.num_rows, MESH_SHARDS)[0]
+    lanes = [x[lo:hi] for x in _lanes_of(pcols)[0]]
+    keys, pend0 = pkey[lo:hi], pvalid[lo:hi]
+    cap = hi - lo
+    got = partition_rows(keys, pend0.clone(), MESH_SHARDS, cap, lanes)
+    want = partition_rows_plain(keys, pend0.clone(), MESH_SHARDS, cap, lanes)
+    torch.cuda.synchronize()
+    if got.splits != want.splits or not torch.equal(got.keys, want.keys) or \
+            not all(torch.equal(a, b) for a, b in zip(got.lanes, want.lanes)):
+        raise AssertionError("partition_rows differs from its plain version")
+    pend = pend0.clone()
+
+    def reset():
+        pend.copy_(pend0)
+    ms = cuda_ms(lambda: partition_rows(keys, pend, MESH_SHARDS, cap, lanes),
+                 10, reset)
+    plain_ms = cuda_ms(lambda: partition_rows_plain(
+        keys, pend, MESH_SHARDS, cap, lanes), 3, reset)
+    owner = shard_owner(keys, MESH_SHARDS)
+    lib_ms = cuda_ms(lambda: torch.argsort(owner, stable=True), 5)
+    n, m = hi - lo, sum(got.splits)
+    lane_b = sum(x.element_size() for x in lanes)
+    bnd = bound(n * (8 + 1 + lane_b) + n + m * (8 + lane_b), 0)
+    print(f"partition_rows MJ1 SF10 probe, shard 0: {n} rows, {len(lanes)} "
+          f"lanes, splits {got.splits}: kernel {ms:.6f} ms, plain "
+          f"{plain_ms:.6f} ms, stable argsort of the owners {lib_ms:.6f} ms, "
+          f"bound {bnd['bound_ms']:.6f} ms, equal [{card}]", flush=True)
+    return entry(0, ms, plain_ms, bnd, lib_ms)
+
+
+def merge_vs_plain(ex, ctx, card):
+    """K2 (`merge_partials`) against its plain version on what shard 0
+    owns of MQ15's four partial tables (the entries the shuffle brings
+    it): equal groups, counts and sums; timed."""
+    import numpy as np
+    import torch
+    from datafusion_tpu_torch.device.exchange import (
+        MergeTable, merge_partials, merge_partials_plain, shard_owner)
+    from datafusion_tpu_torch.device.groupby import compact_groups
+    from datafusion_tpu_torch.parallel import LocalMesh
+    from datafusion_tpu_torch.parallel.distributed import lane_kinds
+    batches = ex.input_batches(ctx.task_context())
+    n = sum(b.num_rows for b in batches)
+    spec, _plan, _names, _sm = ex.compile_mesh(batches, -(-n // MESH_SHARDS),
+                                               True)
+    staged = [(b.num_rows, *ex.stage(spec, b, True)) for b in batches]
+    parts = ex.shard_partials(spec, staged, LocalMesh(MESH_SHARDS, ctx.device))
+    every = torch.cat(parts, 1)
+    entries = every[:, shard_owner(every[0], MESH_SHARDS) == 0].contiguous()
+    kinds = lane_kinds(spec)
+    limit = entries.shape[1]
+    got = merge_partials(entries, MergeTable(kinds, limit, ctx.device))
+    want = merge_partials_plain(entries, MergeTable(kinds, limit, ctx.device))
+    a, b = (compact_groups(t.table).cpu().numpy() for t in (got, want))
+    a, b = a[:, np.argsort(a[0])], b[:, np.argsort(b[0])]
+    if not np.array_equal(a, b):
+        raise AssertionError("merge_partials differs from its plain version")
+    tables = []
+
+    def fresh():
+        tables[:] = [MergeTable(kinds, limit, ctx.device)]
+    ms = cuda_ms(lambda: merge_partials(entries, tables[0]), 20, fresh)
+    plain_ms = cuda_ms(lambda: merge_partials_plain(entries, tables[0]), 3,
+                       fresh)
+    bnd = bound(entries.numel() * 8 + a.size * 8, 0)
+    print(f"merge_partials MQ15 SF10, shard 0's share of the partial tables: "
+          f"{entries.shape[1]} entries of {entries.shape[0]} words into "
+          f"{a.shape[1]} groups: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+          f"bound {bnd['bound_ms']:.6f} ms, equal [{card}]", flush=True)
+    return entry(0, ms, plain_ms, bnd)
+
+
+def mesh_phase(sf10, tables, card, add, report):
+    """The mesh on one card: `SET datafusion.tpu.mesh_devices = 4` makes
+    LocalMesh(4) on the H100. MQ1 (Q1 over `make_lineitem`'s SF10 rows:
+    the all_gather aggregate), MQ15 (Q15's revenue0: the owned-slot
+    shuffle), MJ1 (lineitem x partsupp: the partitioned join) and MB
+    (lineitem x supplier: the broadcast join) against numpy, each with 0
+    fallbacks, its route, cold and warm times and a breakdown; K1 and K2
+    against their plain versions (report["partition_rows"],
+    report["merge_partials"]); then MQ1 once more through a one-rank NCCL
+    ProcessGroupMesh, against the 4-shard rows."""
+    import copy
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.parallel import ProcessGroupMesh
+    from datafusion_tpu_torch.physical.plan.distributed_aggregate import (
+        TorchDistributedAggregateExec as Agg,
+        TorchDistributedJoinAggregateExec as Join)
+    dev = torch.device(DEVICE)
+    q1ctx, ctx = dft.SessionContext(dev), dft.SessionContext(dev)
+    for c in (q1ctx, ctx):
+        c.config.set("datafusion.tpu.mesh_devices", MESH_SHARDS)
+    q1ctx.register_table("lineitem", dft.MemTable(sf10.schema, [[sf10]]))
+    for tname, b in tables.items():
+        ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
+    li = tables["lineitem"]
+    agg = ["merge_partials", "compact_groups"]
+
+    out, counts, _ = mesh_run(q1ctx, Q1, "MQ1 SF10", Agg,
+                              "distributed_group_aggregate",
+                              agg + ["fused_dense_aggregate"], card,
+                              sf10.num_rows)
+    add(counts)
+    check_q1(out, sf10, "MQ1 SF10")
+    mesh_breakdown(q1ctx, Q1, card, "MQ1 SF10", Agg, "aggregate_kernel")
+
+    out, counts, _ = mesh_run(ctx, Q15_SUB, "MQ15 SF10", Agg,
+                              "distributed_shuffle_group_aggregate",
+                              agg + ["hash_group_aggregate",
+                                     "partition_rows"], card, li.num_rows)
+    add(counts)
+    check_q15(out, tables, "MQ15 SF10")
+    mesh_breakdown(ctx, Q15_SUB, card, "MQ15 SF10", Agg, "aggregate_kernel")
+    report["merge_partials"] = merge_vs_plain(
+        find_exec(ctx.sql(Q15_SUB).create_physical_plan(), Agg), ctx, card)
+
+    ex = find_exec(ctx.sql(MJ1).create_physical_plan(), Join)
+    if "ps_partkey" not in [f.name for f in ex.build_source.schema()]:
+        raise AssertionError(f"MJ1 builds {ex.display_line()}")
+    out, counts, _ = mesh_run(ctx, MJ1, "MJ1 SF10", Join,
+                              "distributed_partitioned_join_aggregate",
+                              agg + ["partition_rows", "join_build",
+                                     "join_aggregate",
+                                     "hash_group_aggregate"], card,
+                              li.num_rows)
+    add(counts)
+    want = oracle_mj1(tables)
+    got = [c.data_host() for c in out.columns]
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("MJ1 SF10 disagrees with numpy")
+    print(f"MJ1 SF10 equals numpy exactly: {len(want[0])} suppliers, "
+          f"{int(want[1].sum())} pairs", flush=True)
+    mesh_breakdown(ctx, MJ1, card, "MJ1 SF10", Join, "join_aggregate")
+    report["partition_rows"] = partition_vs_plain(ex, ctx, card)
+    del ex
+
+    mb = MB
+    ex = find_exec(ctx.sql(mb).create_physical_plan(), Join)
+    if "s_suppkey" not in [f.name for f in ex.build_source.schema()]:
+        mb = mb.replace("FROM lineitem JOIN supplier",
+                        "FROM supplier JOIN lineitem")
+    out, counts, _ = mesh_run(ctx, mb, "MB SF10", Join,
+                              "distributed_join_group_aggregate",
+                              agg + ["join_build", "join_aggregate"], card,
+                              li.num_rows)
+    add(counts)
+    want = oracle_mb(tables)
+    got = [c.data_host() for c in out.columns]
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("MB SF10 disagrees with numpy")
+    print(f"MB SF10 equals numpy exactly: {len(want[0])} nations, "
+          f"{int(want[1].sum())} lines", flush=True)
+    mesh_breakdown(ctx, mb, card, "MB SF10", Join, "join_aggregate")
+
+    # MQ1 through a one-rank NCCL process group: the collectives of a
+    # ProcessGroupMesh launch on the card
+    rendezvous = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "datafusion_tpu_torch", "_build",
+                              "nccl_rendezvous")
+    os.makedirs(os.path.dirname(rendezvous), exist_ok=True)
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}",
+                            rank=0, world_size=1)
+    try:
+        pmesh = ProcessGroupMesh()
+        one = copy.copy(find_exec(q1ctx.sql(Q1).create_physical_plan(), Agg))
+        one.mesh_devices, one.mesh, one.routes = 1, pmesh, []
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        (b1,) = list(one.execute(0, q1ctx.task_context()))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        add(counts)
+        names = [f.name for f in b1.schema]
+        rows1 = sorted(zip(*[c.to_pylist() for c in b1.columns]))
+        (b4,) = list(find_exec(q1ctx.sql(Q1).create_physical_plan(),
+                               Agg).execute(0, q1ctx.task_context()))
+        rows4 = sorted(zip(*[c.to_pylist() for c in b4.columns]))
+        if rows1 != rows4 or one.fallbacks or \
+                one.routes != [("distributed_group_aggregate", 1)] or \
+                counts["merge_partials"] < 1:
+            raise AssertionError(f"MQ1 over NCCL: {rows1} {one.routes}")
+        print(f"MQ1 SF10 over a one-rank NCCL ProcessGroupMesh "
+              f"({pmesh.describe()}): {ms:.3f} ms, equals the 4-shard rows "
+              f"({len(rows1)} groups of {len(names)} columns), launches "
+              f"{ {k: v for k, v in counts.items() if v} } [{card}]",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(rendezvous):
+            os.remove(rendezvous)
+    del q1ctx, ctx
+
+
 def clickbench_q10_q30(ctx, hb, card, add):
     """ClickBench Q10 (count(DISTINCT UserID) beside a sum, an avg and the
     count that the fused top-k orders by, over 5,000 RegionIDs) and Q30
@@ -2179,6 +2549,9 @@ def main() -> int:
     # registers join_build and join_aggregate with the launch counts
     from datafusion_tpu_torch.physical.plan.device_join_agg import (  # noqa
         TorchJoinAggregateExec)
+    # registers partition_rows and merge_partials
+    from datafusion_tpu_torch.physical.plan.distributed_aggregate import (  # noqa
+        TorchDistributedAggregateExec)
     from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
 
     card = smi()
@@ -2230,22 +2603,7 @@ def main() -> int:
                                         "compact_groups"],
                               card, "Q1 SF10", SF10_ROWS)
     add(counts)
-    ship = col(sf10, "l_shipdate")
-    got_count = col(out, "count_order")
-    if out.num_rows != 4 or int(got_count.sum()) != int(
-            np.count_nonzero(ship <= days(1998, 9, 2))):
-        raise AssertionError("Q1 SF10 disagrees with numpy")
-    qty, price, disc, tax = (col(sf10, c) for c in (
-        "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
-    m = ship <= days(1998, 9, 2)
-    g = (col(sf10, "l_returnflag") * 2 + col(sf10, "l_linestatus"))[m]
-    charge = (price * (100 - disc) * (100 + tax))[m]
-    got_g = col(out, "l_returnflag") * 2 + col(out, "l_linestatus")
-    want_charge = [int(charge[g == k].sum()) for k in got_g]
-    if col(out, "sum_charge").tolist() != want_charge:
-        raise AssertionError("Q1 SF10 sum_charge disagrees with numpy")
-    print(f"Q1 SF10 equals numpy: count_order {got_count.tolist()}, "
-          f"sum_charge exactly (scale 6)", flush=True)
+    check_q1(out, sf10, "Q1 SF10")
 
     q6 = kernel_vs_plain(ctx, Q6, "lineitem", None)
     print(f"fused_dense_aggregate Q6 SF10 (G = 1): kernel {q6['ms']:.6f} ms, "
@@ -2254,6 +2612,8 @@ def main() -> int:
     out, counts, _ = run_path(ctx, Q6, ["fused_dense_aggregate"], card,
                               "Q6 SF10", SF10_ROWS)
     add(counts)
+    ship, qty, price, disc = (col(sf10, c) for c in (
+        "l_shipdate", "l_quantity", "l_extendedprice", "l_discount"))
     m = ((ship >= days(1994, 1, 1)) & (ship < days(1995, 1, 1)) &
          (disc / 100.0 >= 0.05) & (disc / 100.0 <= 0.07) & (qty < 2400))
     want_q6 = int((price[m] * disc[m]).sum())
@@ -2262,7 +2622,7 @@ def main() -> int:
                              f"{want_q6}")
     print(f"Q6 SF10 revenue equals numpy exactly: {want_q6} (scale 4), "
           f"{int(m.sum())} rows pass", flush=True)
-    del ctx, sf10, ship, qty, price, disc, tax, m, g, charge
+    del ctx, ship, qty, price, disc, m
 
     # == TPC-H SF10: hash path (Q18's and Q15's subqueries) ==================
     phase("TPC-H SF10: hash path (Q18's and Q15's subqueries)")
@@ -2284,9 +2644,7 @@ def main() -> int:
                                                    "Q15 sub SF10", card)
     del table
 
-    ok_, supp, qty, price, disc, ship = (col(li, c) for c in (
-        "l_orderkey", "l_suppkey", "l_quantity", "l_extendedprice",
-        "l_discount", "l_shipdate"))
+    ok_, qty = (col(li, c) for c in ("l_orderkey", "l_quantity"))
     out, counts, _ = run_path(ctx, Q18_SUB, ["hash_group_aggregate",
                                              "compact_groups"],
                               card, "Q18 sub SF10", li.num_rows)
@@ -2304,20 +2662,9 @@ def main() -> int:
                                              "compact_groups"],
                               card, "Q15 sub SF10", li.num_rows)
     add(counts)
-    m = (ship >= days(1996, 1, 1)) & (ship < days(1996, 4, 1))
-    rev = np.zeros(int(supp.max()) + 1, np.int64)
-    np.add.at(rev, supp[m], price[m] * (100 - disc[m]))
-    live = np.zeros(len(rev), bool)
-    live[supp[m]] = True
-    got_s, got_r = (c.data_host() for c in out.columns)
-    o = np.argsort(got_s)
-    if not (np.array_equal(got_s[o], np.flatnonzero(live)) and
-            np.array_equal(got_r[o], rev[live])):
-        raise AssertionError("Q15 sub SF10 disagrees with numpy")
-    print(f"Q15 sub SF10 equals numpy exactly: {int(m.sum())} rows pass, "
-          f"{out.num_rows} groups", flush=True)
+    check_q15(out, tables, "Q15 sub SF10")
     breakdown(ctx, Q15_SUB, card, "Q15 sub SF10")
-    del ok_, supp, qty, price, disc, ship, m, rev, live, starts, sums
+    del ok_, qty, starts, sums
 
     # == TPC-H SF10: join chains (Q3, Q4, Q5) =================================
     phase("TPC-H SF10: join chains (Q3, Q4, Q5)")
@@ -2442,6 +2789,12 @@ def main() -> int:
     # == TPC-H SF10: the fanout-N join-aggregate (J1, J2), Q5D ===============
     phase("TPC-H SF10: the fanout-N join-aggregate (J1, J2), Q5D")
     variants += join_agg_phase(ctx, tables, card, add, report)
+
+    # == mesh: 4 shards on one H100 ==========================================
+    phase("mesh: 4 shards on one H100 (MQ1, MQ15, MJ1, MB; MQ1 over NCCL)")
+    mesh_phase(sf10, tables, card, add, report)
+    del sf10
+    torch.cuda.empty_cache()
 
     # == TPC-H SF10: window functions (W1, W2, W3) ============================
     phase("TPC-H SF10: window functions (W1, W2, W3)")

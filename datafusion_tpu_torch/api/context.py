@@ -110,10 +110,15 @@ class SessionContext:
     The device is required and explicit. `torch.device("cuda")` on a
     machine without CUDA raises: nothing carries on on the CPU unasked.
     With `torch.device("cpu")` the port runs each kernel's plain PyTorch
-    version, which is how the tests hold it against the JAX package."""
+    version, which is how the tests hold it against the JAX package.
+
+    `mesh` (a `parallel.LocalMesh` or `parallel.ProcessGroupMesh`) is the
+    mesh that `SET datafusion.tpu.mesh_devices = N` and the automatic mesh
+    run on when it has N shards; without it the session makes a LocalMesh
+    of N shards on its device."""
 
     def __init__(self, device, config: Optional[SessionConfig] = None,
-                 runtime: Optional[RuntimeEnv] = None):
+                 runtime: Optional[RuntimeEnv] = None, mesh=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA device requested but "
@@ -121,6 +126,7 @@ class SessionContext:
         if device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {device}")
         self.device = device
+        self.mesh = mesh
         # device copies of registered tables' columns, dropped with the
         # cached plans on any catalog or data change
         self.device_cache = DeviceColumnCache()
@@ -138,7 +144,7 @@ class SessionContext:
         self.prepared: Dict[str, A.Statement] = {}
         self.optimizer = Optimizer()
         self.planner = PhysicalPlanner(self.config.options, device,
-                                       self.device_cache)
+                                       self.device_cache, mesh)
         # physical-plan cache per SQL text (reference contrast: DataFusion
         # replans in single-digit ms; our planning+fusion passes cost more,
         # and warm TPC-H queries repeat the same text). Invalidated by

@@ -3,7 +3,8 @@
 Reference parity: `ConfigOptions` + `config_namespace!`
 (`datafusion/common/src/config.rs:106,638`). Keys mirror the reference's
 names (``datafusion.execution.batch_size`` etc.) so SET / SHOW ALL behave the
-same; the port's own knobs under ``datafusion.tpu.*`` (``device_aggregate``,
+same; the port's own knobs under ``datafusion.tpu.*`` (``mesh_devices``,
+``auto_mesh_min_bytes``, ``device_aggregate``,
 ``device_join_rows_min_spine``, ``device_sort_min_rows``,
 ``device_window_min_rows``) keep the JAX
 package's names so that one SET script drives both.
@@ -95,6 +96,15 @@ _OPTIONS: List[Tuple[str, Any, type, str]] = [
     ("datafusion.explain.physical_plan_only", False, bool, ""),
     ("datafusion.explain.show_statistics", False, bool, ""),
     # --- device ---
+    ("datafusion.tpu.mesh_devices", 0, int,
+     "Shard Single-mode aggregates and join-aggregates over a mesh of N "
+     "shards (0 = off): a LocalMesh of N shards on the session's device, "
+     "or the session's own mesh when it has N (parallel/mesh.py)."),
+    ("datafusion.tpu.auto_mesh_min_bytes", 4 << 30, int,
+     "Stats-driven mesh participation: when a query's resident source "
+     "bytes reach this and the session spans more than one device (CUDA "
+     "cards, or a CPU session's given mesh), shard over all of them "
+     "without SET datafusion.tpu.mesh_devices (0 disables it)."),
     ("datafusion.tpu.device_aggregate", True, bool,
      "Run filter/project/group-aggregate pipelines and fanout-1 join "
      "chains under them as CUDA kernels on the card (falls back to the "

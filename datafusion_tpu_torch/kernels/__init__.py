@@ -64,6 +64,11 @@ _SIGNATURES = {
                         _P],
     "dft_window_eval": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _P, _P, _P],
+    "dft_partition_hist": [_P, _P, _LL, _I, _I, _I, _LL, _LL, _P, _P, _P],
+    "dft_partition_scatter": [_P, _P, _LL, _I, _I, _I, _LL, _LL, _P, _P, _P,
+                              _LL, _I, _P, _P, _P, _P, _P],
+    "dft_merge_partials": [_P, _LL, _I, _P, _I, _I, _P, _LL, _P, _LL, _P,
+                           _P],
 }
 
 

@@ -8,14 +8,16 @@ The host rules are the port's copies of the JAX package's
 (`_unwrap_chain` `:229`, `_unwrap_side` `:353`) and the join-tree
 flattening of the chain fuser (`:454-893`). The device rules are the
 port's own, in the reference's order (`default_physical_rules`,
-`:1352`): `UseTorchAggregate` in place of `UseDeviceAggregate` (it tries
-the count-over-LEFT-join rewrite, then the join-chain fusion, then the
-fanout-N join-aggregate fusion `_try_fuse_join`, as `:88-100` does),
+`:1352`): `UseTorchAggregate` in place of `UseDeviceAggregate` (under a mesh
+of more than one shard it plans the distributed execs first, as
+`:62-87` does; otherwise it tries the count-over-LEFT-join rewrite, then
+the join-chain fusion, then the fanout-N join-aggregate fusion
+`_try_fuse_join`, as `:88-100` does),
 `UseTorchJoinRows` in place of `UseDeviceJoinRows` (`:985`), the
 host rules, then `FuseTopKIntoTorchAggregate` and
 `FuseFilterIntoTorchAggregate`, and last `UseTorchSort`, which hands the
 session's device to the sorts and windows (the JAX package reads its one
-device from module state instead). There is no mesh branch.
+device from module state instead).
 """
 from __future__ import annotations
 
@@ -52,10 +54,11 @@ class UseTorchAggregate:
     name = "use_torch_aggregate"
 
     def __init__(self, config, device: torch.device,
-                 cache: Optional[DeviceColumnCache] = None):
+                 cache: Optional[DeviceColumnCache] = None, mesh=None):
         self.config = config
         self.device = device
         self.cache = cache
+        self.mesh = mesh
 
     def enabled(self) -> bool:
         if self.config is None:
@@ -64,6 +67,41 @@ class UseTorchAggregate:
             return bool(self.config.get("datafusion.tpu.device_aggregate"))
         except Exception:  # noqa: BLE001
             return True
+
+    def _mesh_branch(self, node, source, predicate, groups, aggs):
+        """The distributed exec of the aggregate under a mesh of more than
+        one shard (`SET datafusion.tpu.mesh_devices = N`, or the automatic
+        mesh of `_auto_mesh_devices`), or None (`:62-87`): a join that
+        `_try_fuse_join` takes becomes a TorchDistributedJoinAggregateExec,
+        anything else a TorchDistributedAggregateExec."""
+        try:
+            n = int(self.config.get("datafusion.tpu.mesh_devices"))
+        except Exception:  # noqa: BLE001
+            n = 0
+        if n == 0:
+            n = _auto_mesh_devices(source, self.config, self.device,
+                                   self.mesh)
+        if n <= 1:
+            return None
+        from .plan.distributed_aggregate import (
+            TorchDistributedAggregateExec, TorchDistributedJoinAggregateExec)
+        try:
+            thr = int(self.config.get(
+                "datafusion.optimizer."
+                "hash_join_single_partition_threshold_rows"))
+        except Exception:  # noqa: BLE001
+            thr = 131072
+        fused = _try_fuse_join(node, source, predicate, groups, aggs,
+                               self.device, self.cache,
+                               cls=TorchDistributedJoinAggregateExec,
+                               mesh_devices=n, broadcast_threshold_rows=thr,
+                               mesh=self.mesh)
+        if fused is not None:
+            return fused
+        return TorchDistributedAggregateExec(
+            source, predicate, groups, aggs, node.schema(), fallback=node,
+            device=self.device, cache=self.cache, mesh_devices=n,
+            mesh=self.mesh)
 
     def rewrite(self, plan: ExecutionPlan) -> ExecutionPlan:
         if not self.enabled():
@@ -84,6 +122,11 @@ class UseTorchAggregate:
             if unwrapped is None:
                 return node
             source, predicate, groups, aggs = unwrapped
+            if self.config is not None:
+                fused = self._mesh_branch(node, source, predicate, groups,
+                                          aggs)
+                if fused is not None:
+                    return fused
             fused = _try_fuse_left_count(node, source, predicate, groups,
                                          aggs, self.device, self.cache)
             if fused is not None:
@@ -166,6 +209,45 @@ def _try_fuse_left_count(agg_node, source, predicate, groups, aggs,
                                   host_agg.schema(), fallback=host_agg,
                                   device=device, cache=cache)
     return LeftCountZeroFillExec(dev, j.left, lk, agg_node.schema())
+
+
+def _auto_mesh_devices(source, config, device: torch.device,
+                       mesh=None) -> int:
+    """The stats-driven mesh (`_auto_mesh_devices`, `:187-226`): when the
+    query's resident source bytes reach `datafusion.tpu.auto_mesh_min_bytes`
+    and the session spans more than one device (`parallel/mesh.py`
+    `device_count`: the CUDA cards, or a CPU session's given mesh), the
+    aggregate shards over all of them. Returns that count, or 0."""
+    from ..parallel.mesh import device_count
+    try:
+        thr = int(config.get("datafusion.tpu.auto_mesh_min_bytes")) \
+            if config is not None else 0
+    except Exception:  # noqa: BLE001
+        thr = 0
+    if thr <= 0:
+        return 0
+    total = 0
+
+    def walk(node):
+        nonlocal total
+        t = getattr(node, "table", None)
+        parts = getattr(t, "partitions", None) if t is not None else None
+        if parts is not None:
+            for p in parts:
+                for b in p:
+                    try:
+                        total += b.nbytes()
+                    except Exception:  # noqa: BLE001
+                        pass
+            return
+        for c in node.children():
+            walk(c)
+
+    walk(source)
+    if total < thr:
+        return 0
+    n = device_count(device, mesh)
+    return n if n > 1 else 0
 
 
 def _unwrap_chain(agg: AggregateExec):
@@ -779,14 +861,16 @@ def _try_fuse_join_chain(agg_node, source, predicate, groups, aggs,
 
 def _try_fuse_join(agg_node, source, predicate, groups, aggs,
                    device: torch.device,
-                   cache: Optional[DeviceColumnCache] = None):
+                   cache: Optional[DeviceColumnCache] = None, cls=None,
+                   **extra):
     """When the aggregate's source is a CollectLeft INNER HashJoinExec
     with column keys, fuse join and aggregation into one
     TorchJoinAggregateExec (the reference's rule, `:394-452`): both sides
     unwrapped to their leaf sources with their predicates, the group
     keys, aggregates and predicate rewritten into the pair space (build
     source columns, then probe source columns), the join's own filter
-    ANDed into the residual. None when the shape differs."""
+    ANDed into the residual; `cls` (with `extra`) for the distributed
+    exec. None when the shape differs."""
     from ..common import dt
     from ..expr.operator import Op
     from .expressions import BinaryPhysExpr
@@ -827,10 +911,10 @@ def _try_fuse_join(agg_node, source, predicate, groups, aggs,
         return None
     if not all(isinstance(k, ColumnExpr) for k in build_keys + probe_keys):
         return None
-    return TorchJoinAggregateExec(
+    return (cls or TorchJoinAggregateExec)(
         bsrc, psrc, build_keys, probe_keys, bpred, ppred, pred2, groups2,
         aggs2, agg_node.schema(), fallback=agg_node, device=device,
-        cache=cache)
+        cache=cache, **extra)
 
 
 def _try_fuse_join_rows(node, min_spine_rows: int, device: torch.device,
@@ -1195,9 +1279,9 @@ class UseTorchSort:
 
 
 def optimize_physical(plan: ExecutionPlan, config, device: torch.device,
-                      cache: Optional[DeviceColumnCache] = None
+                      cache: Optional[DeviceColumnCache] = None, mesh=None
                       ) -> ExecutionPlan:
-    for rule in (UseTorchAggregate(config, device, cache),
+    for rule in (UseTorchAggregate(config, device, cache, mesh),
                  UseTorchJoinRows(config, device, cache),
                  RemoveRedundantSort(config), UseSymmetricHashJoin(config),
                  RepartitionFileScans(config),

@@ -451,9 +451,18 @@ class TorchAggregate(TorchDeviceExec):
             return (int(y[0]), int(y[1]))   # year is monotone in time
         return None
 
-    def _plan_key_packing(self, batches, key_l,
-                          group_exprs=None) -> _PackPlan:
+    def _plan_key_packing(self, batches, key_l, group_exprs=None,
+                          bounds=None, mesh: bool = False) -> _PackPlan:
+        """The packing of the group keys: a string key's codes (a column,
+        one dictionary for every batch), a boolean in 2 bits, an integer-
+        valued key offset by its low bound. `bounds(e)` gives an integer
+        key's (lo, hi), by default `_phys_int_bounds` over `batches`.
+        `mesh` takes the reference's mesh rule (`_host_pack_plan`,
+        `distributed_aggregate.py:225-253`): integer, decimal and temporal
+        keys only, each its span's bits + 1."""
         from ..expressions import ColumnExpr
+        if bounds is None:
+            bounds = lambda e: self._phys_int_bounds(e, batches)  # noqa: E731
         offsets, bits, key_types, key_dicts = [], [], [], []
         for (e, _name) in (group_exprs if group_exprs is not None
                            else self.group_exprs):
@@ -476,9 +485,10 @@ class TorchAggregate(TorchDeviceExec):
                 key_dicts.append(None)
                 offsets.append(0)
                 bits.append(2)
-            elif t.is_integer or t.is_decimal or t.is_float or \
-                    t.id in (TypeId.DATE, TypeId.TIMESTAMP):
-                rng = self._phys_int_bounds(e, batches)
+            elif t.is_integer or t.is_decimal or \
+                    t.id in (TypeId.DATE, TypeId.TIMESTAMP) or \
+                    (t.id == TypeId.TIME if mesh else t.is_float):
+                rng = bounds(e)
                 if rng is None:
                     raise DeviceLoweringUnsupported(
                         f"group key {'type ' + str(t) if t.is_float else 'expr'}"
@@ -487,13 +497,14 @@ class TorchAggregate(TorchDeviceExec):
                 key_dicts.append(None)
                 offsets.append(lo)
                 span = hi - lo + 1   # values stored v-lo+1, 0 = NULL
-                bits.append(max(int(np.ceil(np.log2(span + 2))), 1))
+                bits.append(max(int(span).bit_length() + 1, 2) if mesh else
+                            max(int(np.ceil(np.log2(span + 2))), 1))
             else:
-                raise DeviceLoweringUnsupported(f"group key type {t}")
+                raise DeviceLoweringUnsupported(
+                    f"group key type {t}{' on mesh' if mesh else ''}")
         if sum(bits) > 62:
             raise DeviceLoweringUnsupported(f"key bits {sum(bits)} > 62")
         return _PackPlan(offsets, bits, key_types, key_dicts)
-
 
     def _topk_lane(self, slot_map):
         """Resolve the fused ORDER BY target to an int64 device lane.

@@ -32,21 +32,24 @@ from .plan.window import PhysWindowExpr, WindowExec
 class PhysicalPlanner:
     """The reference's planner, whose physical optimizer is the port's:
     its device rules plan the port's execs on `device`, caching resident
-    columns in `cache`."""
+    columns in `cache`; a mesh branch runs over `mesh` when it has the
+    shards asked for."""
 
-    def __init__(self, config=None, device=None, cache=None):
+    def __init__(self, config=None, device=None, cache=None, mesh=None):
         from ..common.config import ConfigOptions
         self.config = config or ConfigOptions()
         if device is None:
             raise ValueError("the port's planner needs an explicit device")
         self.device = device
         self.cache = cache
+        self.mesh = mesh
 
     # ------------------------------------------------------------------
     def create_physical_plan(self, plan: L.LogicalPlan) -> ExecutionPlan:
         phys = self._plan(plan)
         from .physical_optimizer import optimize_physical
-        return optimize_physical(phys, self.config, self.device, self.cache)
+        return optimize_physical(phys, self.config, self.device, self.cache,
+                                 self.mesh)
 
     def _plan(self, node: L.LogicalPlan) -> ExecutionPlan:
         if isinstance(node, L.TableScan):
@@ -139,7 +142,7 @@ class PhysicalPlanner:
             rows = []
             from .physical_optimizer import optimize_physical
             phys = optimize_physical(self._plan(inner), self.config,
-                                     self.device, self.cache)
+                                     self.device, self.cache, self.mesh)
             if node.analyze:
                 return AnalyzeExec(phys, node.verbose)
             fmt = getattr(node, "format", "indent")

@@ -15,8 +15,10 @@ against PyTorch's): every program of the lowering tests, the dense fold,
 every build table (the insert pass; the range pass needs a warp) and
 every chain walk of TPC-H at SF 0.01 and of the min/max membership cases,
 the count(DISTINCT x) lane's set inserts (dense, hash and chain folds,
-lanes past 32 in passes), and the fanout-N join's build (the multiset of
-entries a bucket) and probe-and-fold.
+lanes past 32 in passes), the fanout-N join's build (the multiset of
+entries a bucket) and probe-and-fold, and the mesh's row partition (K1:
+histogram, the scan as `torch.cumsum`, the stable scatter, round after
+round) and partial-table merge (K2).
 Each kernel runs in the interpreter variant (lean or full) that its spec's
 `full` flag picks, as the launch wrappers do, so a program that needs the
 full variant and is not flagged for it fails here. This holds the kernels' logic where there is no GPU; their parallel
@@ -69,6 +71,8 @@ template <class T> T atomicCAS(T* a, T c, T v) {
 inline void __syncthreads() {}
 inline void __threadfence() {}
 template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
+inline unsigned __match_any_sync(unsigned, int) { return 1u; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
 inline int cudaGetLastError() { return 0; }
@@ -94,7 +98,41 @@ namespace jb { namespace { long long smem[1 << 16]; }
 namespace ja { namespace { long long smem[1 << 16]; }
 #include "join_aggregate_k.cu"
 }
+namespace xc {
+#include "exchange_k.cu"
+}
 extern "C" {
+void h_part_hist(const long long* keys, const unsigned char* pending,
+                 long long n, int n_dest, int salt, int mode, long long r,
+                 long long tile, long long n_tiles, long long* counts,
+                 unsigned long long* totals) {
+  xc::partition_hist_kernel(keys, pending, n, n_dest, salt, mode, r, tile,
+                            n_tiles, counts, totals);
+}
+void h_part_scatter(const long long* keys, unsigned char* pending,
+                    long long n, int n_dest, int salt, int mode, long long r,
+                    long long tile, long long n_tiles,
+                    const long long* offsets,
+                    const unsigned long long* totals, long long cap,
+                    int n_lanes, void* const* src, void* const* dst,
+                    const int* width, long long* key_out) {
+  xc::XLanes x;
+  x.n_lanes = n_lanes;
+  for (int l = 0; l < n_lanes; ++l) {
+    x.src[l] = src[l];
+    x.dst[l] = dst[l];
+    x.width[l] = width[l];
+  }
+  xc::partition_scatter_kernel(keys, pending, n, n_dest, salt, mode, r, tile,
+                               n_tiles, offsets, totals, cap, x, key_out, 1);
+}
+void h_merge(const long long* entries, long long m, int rows,
+             const long long* kinds, int my, int n_owner, long long* table,
+             long long cap, unsigned long long* groups, long long limit,
+             int* overflow) {
+  xc::merge_partials_kernel(entries, m, rows, kinds, my, n_owner, table, cap,
+                            groups, limit, overflow);
+}
 void h_run(const long long* meta, const long long* aux, int prog,
            long long n, long long* out, unsigned char* valid) {
   RowColumns<true> cols{meta + meta[H_OFF_COLS]};
@@ -178,7 +216,8 @@ def lib(tmp_path_factory):
     shutil.copy(os.path.join(CSRC, "program.cuh"), d / "program.cuh")
     (d / "scan.cuh").write_text("#pragma once\n")
     for name in ("fused_dense_aggregate", "chain_build", "chain_aggregate",
-                 "hash_group_aggregate", "join_build", "join_aggregate"):
+                 "hash_group_aggregate", "join_build", "join_aggregate",
+                 "exchange"):
         with open(os.path.join(CSRC, name + ".cu")) as f:
             src = f.read()
         (d / f"{name}_k.cu").write_text(src[:src.index('extern "C"')])
@@ -197,6 +236,10 @@ def lib(tmp_path_factory):
     out.h_jb_count.argtypes = [P, LL, LL, P]
     out.h_jb_scatter.argtypes = [P, P, I, LL, LL, P, P, LL, P, P]
     out.h_join.argtypes = [P, I, P, LL, LL, I, P, P, I]
+    out.h_part_hist.argtypes = [P, P, LL, I, I, I, LL, LL, LL, P, P]
+    out.h_part_scatter.argtypes = [P, P, LL, I, I, I, LL, LL, LL, P, P, LL,
+                                   I, P, P, P, P]
+    out.h_merge.argtypes = [P, LL, I, P, I, I, P, LL, P, LL, P]
     return out
 
 
@@ -594,3 +637,86 @@ def test_join_kernels_match_plain(lib, tpch, q):
         got, want = dense_group_table(got), dense_group_table(want)
     _same_groups(spec, got, want)
     assert int(ovf) == 0
+
+
+@pytest.mark.parametrize("n,n_dest,cap,salt,mode", [
+    (1, 4, 1, 1, 1), (5000, 8, 300, 1, 1), (5000, 3, 5000, 4, 1),
+    (3000, 5, 2000, 3, 2), (9000, 256, 20, 1, 1)])
+def test_partition_rows_matches_plain(lib, n, n_dest, cap, salt, mode):
+    """K1 run as one thread (a tile of 4096 rows at a time) gives the plain
+    version's send buffer, splits and pending flags in every round, for
+    keys with bit 63 set, a hot key, salted rows and build replicas."""
+    import ctypes
+    from datafusion_tpu_torch.device.exchange import (TILE,
+                                                      partition_rows_plain)
+    rng = np.random.default_rng(n + n_dest)
+    keys = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, n,
+                                         dtype=np.int64))
+    keys[torch.from_numpy(rng.random(n) < 0.3)] = 42
+    lanes = [torch.from_numpy(rng.integers(0, 2**40, n)),
+             torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32)),
+             torch.from_numpy(rng.random(n) < 0.5)]
+    pend = torch.from_numpy(rng.random(n) < 0.9)
+    mine = pend.clone()
+    nt = max(-(-n // TILE), 1)
+    for _round in range(1000):
+        want = partition_rows_plain(keys, pend, n_dest, cap, lanes, salt,
+                                    mode, 2)
+        counts = torch.zeros(n_dest * nt, dtype=torch.int64)
+        totals = torch.zeros(n_dest, dtype=torch.int64)
+        flags = mine.view(torch.uint8)
+        lib.h_part_hist(_ptr(keys), _ptr(flags), n, n_dest, salt, mode, 2,
+                        TILE, nt, _ptr(counts), _ptr(totals))
+        splits = [min(int(t), cap) for t in totals]
+        assert splits == want.splits
+        offsets = torch.cumsum(counts, 0) - counts
+        m = sum(splits)
+        key_out = torch.empty(m, dtype=torch.int64)
+        outs = [torch.empty(m, dtype=x.dtype) for x in lanes]
+        src = (ctypes.c_void_p * 3)(*[x.data_ptr() for x in lanes])
+        dst = (ctypes.c_void_p * 3)(*[x.data_ptr() for x in outs])
+        width = (ctypes.c_int * 3)(*[x.element_size() for x in lanes])
+        lib.h_part_scatter(_ptr(keys), _ptr(flags), n, n_dest, salt, mode, 2,
+                           TILE, nt, _ptr(offsets), _ptr(totals), cap, 3,
+                           src, dst, width, _ptr(key_out))
+        assert torch.equal(key_out, want.keys)
+        for a, b in zip(outs, want.lanes):
+            assert torch.equal(a, b)
+        assert torch.equal(mine, pend)
+        if not want.left:
+            break
+    assert not bool(pend.any())
+
+
+@pytest.mark.parametrize("m,n_keys,n_owner", [
+    (1, 3, 0), (4000, 300, 0), (6000, 5000, 4), (6000, 40, 7)])
+def test_merge_partials_matches_plain(lib, m, n_keys, n_owner):
+    """K2 run as one thread folds the plain version's groups (every lane
+    kind's merge; integer lanes exactly, float sums within rel 1e-12),
+    across three calls into one table, with the ownership test."""
+    import test_torch_cuda as C
+    from datafusion_tpu_torch.device.exchange import (MergeTable,
+                                                      merge_partials_plain)
+    from datafusion_tpu_torch.device.groupby import (LANE_SUM_F64,
+                                                     compact_groups)
+    rng = np.random.default_rng(m)
+    kinds, e = C._merge_entries(rng, m, n_keys)
+    got, want = MergeTable(kinds, n_keys, CPU), MergeTable(kinds, n_keys, CPU)
+    for part in torch.chunk(e, 3, dim=1):
+        part = part.contiguous()
+        lib.h_merge(_ptr(part), part.shape[1], part.shape[0],
+                    _ptr(got.kinds_d), 1, n_owner, _ptr(got.table), got.cap,
+                    _ptr(got.groups), got.limit, _ptr(got.overflow))
+        merge_partials_plain(part, want, my=1, n_owner=n_owner)
+    assert int(got.groups) == int(want.groups)
+    assert int(got.overflow) == int(want.overflow) == 0
+    a, b = compact_groups(got.table), compact_groups(want.table)
+    a, b = a[:, torch.argsort(a[0])], b[:, torch.argsort(b[0])]
+    assert a.shape == b.shape
+    for r in range(a.shape[0]):
+        if r >= 2 and kinds[r - 2] == LANE_SUM_F64:
+            np.testing.assert_allclose(a[r].view(torch.float64).numpy(),
+                                       b[r].view(torch.float64).numpy(),
+                                       rtol=1e-12)
+        else:
+            assert torch.equal(a[r], b[r])

@@ -1041,3 +1041,159 @@ def test_cuda_distinct_and_join_end_to_end_matches_cpu(cuda):
                                               nan_ok=True)
                 else:
                     assert a == b
+
+
+# ---- the mesh: K1 partition_rows, K2 merge_partials ------------------------
+
+@pytest.mark.parametrize("n,n_dest,cap,salt", [
+    (1, 4, 1, 1), (4097, 4, 700, 1), (300_000, 8, 1 << 20, 1),
+    (300_000, 3, 9_000, 4), (70_000, 256, 100, 1)])
+def test_partition_rows_matches_plain(cuda, n, n_dest, cap, salt):
+    """K1 against its plain version (a stable sort on the destination):
+    the same send buffer, splits and pending flags, round after round,
+    keys with bit 63 set among them; lanes of 1, 4 and 8 bytes. A call
+    counts its five launches: the histogram, the scan's three and one
+    scatter pass."""
+    from datafusion_tpu_torch.device.exchange import (
+        partition_rows, partition_rows_kernel, partition_rows_plain)
+    rng = np.random.default_rng(n + n_dest)
+    keys = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+    keys[rng.random(n) < 0.5] = rng.integers(0, 50, n)[:1]   # a hot key
+    lanes = [torch.from_numpy(rng.integers(0, 2**62, n)),
+             torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32)),
+             torch.from_numpy(rng.random(n) < 0.5)]
+    pend = torch.from_numpy(rng.random(n) < 0.9)
+    k = torch.from_numpy(keys)
+    state = [(k.to(cuda), pend.clone().to(cuda), [x.to(cuda) for x in lanes]),
+             (k.to(cuda), pend.clone().to(cuda), [x.to(cuda) for x in lanes])]
+    for _round in range(4):
+        before = partition_rows_kernel.launches
+        a = partition_rows(*state[0][:2], n_dest, cap, state[0][2], salt)
+        assert partition_rows_kernel.launches - before == 5
+        b = partition_rows_plain(*state[1][:2], n_dest, cap, state[1][2],
+                                 salt)
+        assert a.splits == b.splits and a.left == b.left
+        assert torch.equal(a.keys, b.keys)
+        for x, y in zip(a.lanes, b.lanes):
+            assert torch.equal(x, y)
+        assert torch.equal(state[0][1], state[1][1])
+        if not a.left:
+            break
+
+
+def _merge_entries(rng, m, n_keys):
+    from datafusion_tpu_torch.device.groupby import (
+        LANE_CNT, LANE_MAX_F64, LANE_MAX_I64, LANE_MIN_F64, LANE_MIN_I64,
+        LANE_NANCNT, LANE_ROWS, LANE_SUM_F64, LANE_SUM_I64)
+    kinds = [LANE_ROWS, LANE_CNT, LANE_SUM_I64, LANE_SUM_F64, LANE_MIN_I64,
+             LANE_MAX_I64, LANE_MIN_F64, LANE_MAX_F64, LANE_NANCNT]
+    keys = rng.integers(0, n_keys, m)
+    keys[rng.random(m) < 0.05] = -1                       # EMPTY
+    rows = [keys, rng.integers(1, 5, m), rng.integers(0, 9, m),
+            rng.integers(0, 9, m), rng.integers(-2**40, 2**40, m),
+            rng.normal(size=m).view(np.int64),
+            rng.integers(-2**62, 2**62, m), rng.integers(-2**62, 2**62, m),
+            (rng.normal(size=m) * 1e3).view(np.int64),
+            (rng.normal(size=m) * 1e3).view(np.int64), rng.integers(0, 3, m)]
+    return kinds, torch.from_numpy(np.stack(rows).astype(np.int64))
+
+
+@pytest.mark.parametrize("m,n_keys,n_owner,limit", [
+    (1, 5, 0, 16), (5000, 300, 0, 300), (300_000, 200_000, 4, 200_000),
+    (300_000, 50, 8, 50), (20_000, 20_000, 0, 100)])
+def test_merge_partials_matches_plain(cuda, m, n_keys, n_owner, limit):
+    """K2 against its plain version: the same distinct-key count and
+    overflow flag (the last case passes its limit and fills the table, and
+    both count only the keys that found a slot); below the limit, the same
+    groups (compacted, by key), counts, integer lanes and min/max exactly,
+    float sums within rel 1e-12 (atomic adds change the order). Which keys
+    win a full table's slots depends on the threads' order, so the groups
+    of the overflow case are not compared."""
+    from datafusion_tpu_torch.device.exchange import (
+        MergeTable, merge_partials, merge_partials_kernel,
+        merge_partials_plain)
+    from datafusion_tpu_torch.device.groupby import (
+        LANE_SUM_F64, compact_groups)
+    rng = np.random.default_rng(m + n_keys)
+    kinds, e = _merge_entries(rng, m, n_keys)
+    t = MergeTable(kinds, limit, cuda)
+    before = merge_partials_kernel.launches
+    merge_partials(e[:, :0].contiguous().to(cuda), t)   # no entries: none
+    merge_partials(e.to(cuda), t)
+    assert merge_partials_kernel.launches - before == 1
+    out = []
+    for dev, fn in ((cuda, merge_partials), (cuda, merge_partials_plain)):
+        t = MergeTable(kinds, limit, dev)
+        for part in torch.chunk(e, 3, dim=1):        # three rounds
+            fn(part.contiguous().to(dev), t, my=1, n_owner=n_owner)
+        g = compact_groups(t.table).cpu()
+        g = g[:, torch.argsort(g[0])]
+        out.append((g, int(t.groups.item()), int(t.overflow.item())))
+    (a, ga, oa), (b, gb, ob) = out
+    assert oa == ob
+    assert ga == gb
+    if oa:
+        return
+    assert a.shape == b.shape
+    for r in range(a.shape[0]):
+        if r >= 2 and kinds[r - 2] == LANE_SUM_F64:
+            np.testing.assert_allclose(a[r].view(torch.float64).numpy(),
+                                       b[r].view(torch.float64).numpy(),
+                                       rtol=1e-12)
+        else:
+            assert torch.equal(a[r], b[r])
+
+
+MESH_QUERIES = [
+    "SELECT g, count(*) c, sum(v) s, min(i) mn, max(d) mx FROM t GROUP BY g",
+    "SELECT k, count(*) c, sum(d) s FROM t GROUP BY k",
+    "SELECT day, count(*) c, sum(i) s FROM t GROUP BY day",
+    "SELECT d, count(*) c, sum(i) s, max(v) mx FROM t GROUP BY d",
+]
+
+
+def test_cuda_mesh_end_to_end_matches_cpu(cuda):
+    """A 4-shard mesh on the card against a 4-shard mesh on the CPU: the
+    all_gather and shuffle aggregates, the broadcast and partitioned
+    joins, the same rows, no fallback, K1 and K2 launched."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch import kernels
+    batch = _table(200_000, 11)
+    rng = np.random.default_rng(3)
+    dim = {"dk": np.arange(15) % 3 - 1, "w": rng.integers(0, 9, 15)}
+    qs = MESH_QUERIES + [
+        "SELECT w, count(*) c, sum(i) s, min(v) mn FROM dim JOIN t ON dk = k "
+        "GROUP BY w"]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        rows = []
+        for thr in (131072, 4):
+            ctx = dft.SessionContext(dev)
+            ctx.config.set("datafusion.tpu.mesh_devices", 4)
+            ctx.config.set("datafusion.optimizer."
+                           "hash_join_single_partition_threshold_rows", thr)
+            ctx.register_table("t", dft.MemTable(batch.schema, [[batch]]))
+            ctx.register_arrays("dim", dim)
+            kernels.reset_launch_counts()
+            for q in qs:
+                q = q + " ORDER BY 1"
+                rows.append(ctx.sql(q).to_pydict())
+                todo = [ctx.sql(q).create_physical_plan()]
+                while todo:
+                    n = todo.pop()
+                    assert getattr(n, "fallbacks", 0) == 0, q
+                    todo += n.children()
+            if dev.type == "cuda":
+                counts = kernels.launch_counts()
+                assert counts["merge_partials"] > 0
+                assert counts["partition_rows"] > 0
+        out.append(rows)
+    for got, want in zip(*out):
+        assert list(got) == list(want)
+        for k in got:
+            for a, b in zip(got[k], want[k]):
+                if isinstance(a, float):
+                    assert a == pytest.approx(b, rel=1e-9, abs=1e-6,
+                                              nan_ok=True)
+                else:
+                    assert a == b

@@ -9,7 +9,9 @@ TPC-H Q2 and Q20 (row-returning join chains), Q13 (the count over a LEFT
 join), TPC-H Q9 (date_part and decimal arithmetic in a five-hop chain) and
 Q21 (SEMI and ANTI min/max membership), an ORDER BY ... LIMIT over lineitem (the radix sort) and a window
 query (the device window evaluation), with the sort, window and
-row-returning join thresholds at 1.
+row-returning join thresholds at 1, and, in a second session on a
+4-shard mesh, TPC-H Q1 (the all_gather aggregate) and lineitem x
+partsupp (the partitioned join).
 It prints the rows as JSON, and this process holds them against the JAX
 package on the same seeded data. A second interpreter blocks nothing and
 checks that running the port loads neither JAX nor the JAX package. The
@@ -50,11 +52,14 @@ J1 = ("select ps_suppkey, count(*) c, sum(ps_supplycost * l_quantity) cost "
       "group by ps_suppkey order by ps_suppkey")
 Q5D = TPCH[5].replace("as revenue", "as revenue, count(distinct o_custkey) "
                       "as customers")
+MESH_JOIN = ("select ps_suppkey, count(*) c, sum(l_quantity) q from lineitem "
+             "join partsupp on l_partkey = ps_partkey group by ps_suppkey "
+             "order by ps_suppkey")
 QUERIES = {"q1": TPCH[1], "q18_sub": Q18_SUB, "cb_q16": CB[16],
            "q3": TPCH[3], "q4": TPCH[4], "q5": TPCH[5], "q2": TPCH[2],
            "q20": TPCH[20], "q13": TPCH[13], "q9": TPCH[9], "q21": TPCH[21],
            "sorted": SORTED, "window": WINDOW, "distinct": DISTINCT,
-           "j1": J1, "q5d": Q5D}
+           "j1": J1, "q5d": Q5D, "mesh_q1": TPCH[1], "mesh_join": MESH_JOIN}
 # the exec each query must plan in the port, with what its display shows
 PLANS = {"q1": ("TorchGroupAggregateExec", ""),
          "q18_sub": ("TorchGroupAggregateExec", "having="),
@@ -72,7 +77,9 @@ PLANS = {"q1": ("TorchGroupAggregateExec", ""),
          "window": ("BoundedWindowExec", "rank()"),
          "distinct": ("TorchGroupAggregateExec", "count(DISTINCT"),
          "j1": ("TorchJoinAggregateExec", "on=["),
-         "q5d": ("TorchJoinChainAggregateExec", "count(DISTINCT")}
+         "q5d": ("TorchJoinChainAggregateExec", "count(DISTINCT"),
+         "mesh_q1": ("TorchDistributedAggregateExec", "(mesh=4)"),
+         "mesh_join": ("TorchDistributedJoinAggregateExec", "(mesh=4)")}
 
 BLOCK = r"""
 import sys
@@ -108,6 +115,12 @@ port.sql("SET datafusion.tpu.device_window_min_rows = 1")
 port.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
 register_tpch(port, sf=0.01, seed=1)
 port.register_arrays("hits", {"UserID": np.load(sys.argv[3])})
+# the mesh: 4 shards of a LocalMesh, the partitioned join past 64 rows
+meshed = dft.SessionContext(torch.device("cpu"))
+meshed.sql("SET datafusion.tpu.mesh_devices = 4")
+meshed.sql("SET datafusion.optimizer."
+           "hash_join_single_partition_threshold_rows = 64")
+register_tpch(meshed, sf=0.01, seed=1)
 
 
 def execs(node):
@@ -118,15 +131,17 @@ def execs(node):
 
 rows = {}
 for label, sql in queries.items():
-    rows[label] = port.sql(sql).to_pydict()
+    ctx = meshed if label.startswith("mesh") else port
+    rows[label] = ctx.sql(sql).to_pydict()
     cls, shown = plans[label]
-    found = [n for n in execs(port.sql(sql).create_physical_plan())
+    found = [n for n in execs(ctx.sql(sql).create_physical_plan())
              if type(n).__name__ == cls]
     assert found and shown in found[0].display_line(), (label, found)
-    port.sql(sql).collect()
+    ctx.sql(sql).collect()
     assert all(getattr(n, "fallbacks", 0) == 0 for n in found), label
     assert all(getattr(n, "device", port.device) == port.device
                for n in found), label
+    assert all(getattr(n, "routes", [1]) for n in found), label
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and
                 m.split(".")[0] in ("jax", "datafusion_tpu", "bench"))
 assert not loaded, loaded
