@@ -29,7 +29,15 @@ query is held against a numpy oracle on the same data.
      side of Q5 (equal tables) and `chain_aggregate` against its plain
      version on Q5's walk (equal group tables), the same on Q3 (the hash
      fold) and Q4 (the SEMI build over lineitem), then Q3, Q4 and Q5 end
-     to end against numpy, each with a breakdown of its time;
+     to end against numpy, each with a breakdown of its time; for every
+     chain query of this step and the next two, which hops its staging
+     composes (hop: owner, tag) and folds (hop: the reference's span and
+     width), against the SF10 expectation (supplier's hops in Q2, Q5,
+     Q7-Q9 and Q21, part's fold in Q14); `chain_compose` and `chain_fold`
+     against their plain versions on Q5's staged builds (nation and
+     region composed into supplier, supplier folded) and Q21's (a member
+     composition), exactly, each run expecting its staging kernels
+     launched;
    - row-returning join chains: `chain_rows` against its plain version on
      Q2's chain over partsupp (five INNER hops, the subquery's min as a
      build, a decimal residual equality) and on Q20's inner chain (an
@@ -104,8 +112,9 @@ against numpy, for the record beside the join-aggregate's times.
 
     python3 chip_smoke.py --walks TREE [TREE ...]
 
-compares the `chain_aggregate` walks of TPC-H Q3, Q5, Q9, Q12, Q18 and
-Q21 and the `chain_rows` walks of Q2 and Q20 at SF10 across checkouts of
+compares the `chain_aggregate` walks of TPC-H Q3, Q5, Q7, Q8, Q9, Q12,
+Q14, Q18 and Q21 and the `chain_rows` walks of Q2 and Q20 at SF10 across
+checkouts of
 the repository (for example the parent
 commit unpacked with `git archive`, then this tree, then both again in
 reverse order). Each TREE runs in a process of its own that imports that
@@ -115,7 +124,10 @@ the mean device ms of each walk over WALK_REPS calls (null where the
 tree does not plan the query's chain on the card; a `chain_rows` call's
 time spans its read-back of the row count) and the registers and
 stack-frame bytes (spills included) `cuobjdump --dump-resource-usage`
-gives each walk kernel of that tree's library.
+gives each walk kernel (and `chain_compose_kernel`) of that tree's
+library. A walk is timed as the tree stages it: composed and folded where
+the tree composes, and then, in such a tree, staged without composition
+or folding too (`walk_ms_uncomposed`).
 """
 import datetime
 import json
@@ -319,20 +331,30 @@ def entry_bytes(t) -> int:
 
 def walk_bytes(spec, cols, n: int, hop_rows) -> int:
     """Bytes a chain walk over `n` spine rows must move: the spine columns
-    it reads, once; for each hop its build table (with a min/max table's
-    extremes) and payload columns, each entry at most once (as many as
-    the rows that reach the hop, or survive it for a payload, up to the
-    whole table or column). `hop_rows` is the plain walk's (rows reaching,
-    rows surviving) of each hop."""
+    its programs read, once; for each hop its build table (with a min/max
+    table's extremes) and the payload columns the programs read, each
+    entry at most once (as many as the rows that reach the hop, or survive
+    it for a payload, up to the whole table or column). A composed hop
+    reads its words at the owner's row, a folded one its records (which
+    hold its payload). `hop_rows` is the plain walk's (rows reaching, rows
+    surviving) of each hop."""
+    from datafusion_tpu_torch.device.lower import OP_COL
     hop_of = spec.chain.hop_of
-    nbytes = col_bytes(cols, [i for i in spec.pools.columns
-                              if i not in hop_of], n)
+    read = {a for p in spec.programs() for op, a, _b in p.code
+            if op == OP_COL}
+    nbytes = col_bytes(cols, [i for i in read if i not in hop_of], n)
     for h, (hop, (reach, alive)) in enumerate(zip(spec.chain.hops,
                                                   hop_rows)):
-        t = hop.table
-        nbytes += min(reach, t.size) * entry_bytes(t)
-        for i in spec.pools.columns:
-            if hop_of.get(i) == h:
+        t, c, f = hop.table, hop.compose, hop.fold
+        if c is not None:
+            nbytes += min(reach, c.words.shape[0]) * 8 * c.width
+        elif f is not None:
+            nbytes += min(reach, t.size) * (8 * f.words + f.nullable *
+                                            f.words + entry_bytes(t) - 4)
+        else:
+            nbytes += min(reach, t.size) * entry_bytes(t)
+        for i in read:
+            if hop_of.get(i) == h and (f is None or i not in f.columns):
                 nbytes += col_bytes(cols, [i],
                                     min(alive, cols[i][0].shape[0]))
     return nbytes
@@ -1019,7 +1041,8 @@ def chain_walk_vs_plain(ex, tctx, card, label):
     fd = f", keys reduced to {[ex.group_exprs[p][1] for p in plan.kept]}" \
         if plan.dropped else ""
     print(f"chain_aggregate {label}: {n} spine rows, {len(spec.chain.hops)} "
-          f"hops, rows reaching/surviving each hop {hop_rows}, "
+          f"hops ({routes(spec)}), rows reaching/surviving each hop "
+          f"{hop_rows}, "
           f"{'dense' if dense else 'hash'} fold{fd}, {got.shape[1]} groups: "
           f"kernel {ms:.6f} ms, plain {plain:.6f} ms, bound "
           f"{bnd['bound_ms']:.6f} ms ({bnd['bytes']} bytes), max_abs_err 0 "
@@ -1053,12 +1076,126 @@ def rows_vs_plain(ex, tctx, card, label):
     nbytes = walk_bytes(spec, cols, n, hop_rows)
     nbytes += sum(kept * (d.element_size() + 1) for d, _v in got)
     bnd = bound(nbytes, prog_ops(spec, n))
-    print(f"chain_rows {label}: {n} spine rows, {len(spec.chain.hops)} hops, "
-          f"rows reaching/surviving each hop {hop_rows}, {kept} rows kept, "
+    print(f"chain_rows {label}: {n} spine rows, {len(spec.chain.hops)} hops "
+          f"({routes(spec)}), rows reaching/surviving each hop {hop_rows}, "
+          f"{kept} rows kept, "
           f"{len(got)} output columns: kernel {ms:.6f} ms, plain "
           f"{plain:.6f} ms, bound {bnd['bound_ms']:.6f} ms ({bnd['bytes']} "
           f"bytes), max_abs_err 0 [{card}]", flush=True)
     return entry(0.0, ms, plain, bnd), kept
+
+
+def routes(spec) -> str:
+    """How each hop of a walk resolves: probed, composed (into its owner)
+    or folded (its records' words)."""
+    out = []
+    for h, hop in enumerate(spec.chain.hops):
+        if hop.compose is not None:
+            out.append(f"{h}: composed into {hop.compose.owner}")
+        elif hop.fold is not None:
+            out.append(f"{h}: folded, {hop.fold.words}-word records")
+        else:
+            out.append(f"{h}: probed")
+    return "; ".join(out)
+
+
+# what composes or folds at SF10 by the reference's test: supplier's hops
+# (nation, region) in Q2, Q5, Q7, Q8, Q9 and Q21; customer's (1.5M rows,
+# within 2^22: nation composes into it in Q7, Q8 and Q10, and it folds in
+# Q5, Q7, Q8 and Q18); part's (2M rows) folds in Q2 and Q14. Orders (15M
+# rows, a span of 60M) neither composes nor folds, so Q3, Q4, Q12 and Q20
+# keep their walks.
+COMPOSE_SF10 = {2: True, 5: True, 7: True, 8: True, 9: True, 10: True,
+                14: True, 18: True, 21: True}
+
+
+def staging_kernels(ex, tctx, q):
+    """Prints which hops the chain exec `ex` of TPC-H query `q` at SF10
+    composes (hop: owner, tag) and folds (hop: the reference's span and
+    width), and whether that is what COMPOSE_SF10 expects (a difference is
+    printed, not raised); returns the staging kernels its run must
+    launch."""
+    composed, folded = ex.compose_plan(ex.stage_builds(tctx, compose=False))
+    said = "as expected" if bool(composed or folded) == \
+        COMPOSE_SF10.get(q, False) else "NOT as expected"
+    print(f"Q{q} SF10 staging: composed (hop: owner, tag) {composed}, "
+          f"folded (hop: span, width) {folded}, {said}", flush=True)
+    return ["chain_compose"] * bool(composed) + ["chain_fold"] * bool(folded)
+
+
+def compose_vs_plain(ex, tctx, card, label):
+    """`chain_compose` and `chain_fold` against their plain versions on the
+    chain exec `ex`'s staged builds: each composition into a copy of its
+    owner's words, each fold into fresh records, all exact. The bound of a
+    composition is the owner's key columns and the composed hop's table
+    read once and its words written once; of a fold the table's rows, the
+    owner's composed words and the payload columns read once and the
+    records written once. Returns (the entry of the last composition, of
+    the last fold)."""
+    import torch
+    from datafusion_tpu_torch.device.join_chain import (
+        chain_compose, chain_compose_plain, chain_fold, chain_fold_plain)
+    spec, _p, _n, _s, inputs, staged = ex.prepare(tctx)
+    cols = inputs[0][0]
+    ent_c = ent_f = None
+    for bi, s in enumerate(staged):
+        c = s.compose
+        if c is None:
+            continue
+        cspec, ccols, aux, n = ex.compose_input(staged, bi, c.owner)
+        got, want = c.words.clone(), c.words.clone()
+        chain_compose(cspec, ccols, aux, n, got, c.word)
+        chain_compose_plain(cspec, ccols, aux, n, want, c.word)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, c.words)):
+            raise AssertionError(f"{label} hop {bi}: chain_compose differs "
+                                 f"from its plain version")
+        ms = cuda_ms(lambda: chain_compose(cspec, ccols, aux, n, got,
+                                           c.word), 20)
+        plain = cuda_ms(lambda: chain_compose_plain(cspec, ccols, aux, n,
+                                                    want, c.word), 3)
+        t = s.table
+        nbytes = col_bytes(ccols, cspec.pools.columns, n) + \
+            t.size * entry_bytes(t) + n * 8 * c.width
+        bnd = bound(nbytes, prog_ops(cspec, n))
+        print(f"chain_compose {label} hop {bi} into {c.owner} ({c.tag}): "
+              f"{n} owner rows, {int((c.words[:, c.word] >= 0).sum())} "
+              f"found, a table of {t.size} slots: kernel {ms:.6f} ms, plain "
+              f"{plain:.6f} ms, bound {bnd['bound_ms']:.6f} ms, max_abs_err "
+              f"0 [{card}]", flush=True)
+        ent_c = entry(0.0, ms, plain, bnd)
+    for h, hop in enumerate(spec.chain.hops):
+        f = hop.fold
+        if f is None:
+            continue
+        comp = next((o.compose.words for o in spec.chain.hops
+                     if o.compose is not None and o.compose.owner == h), None)
+        columns = [cols[p] for p in f.columns]
+        got = chain_fold(hop.table, comp, columns, f)
+        want = chain_fold_plain(hop.table, comp, columns, f)
+        torch.cuda.synchronize()
+        if not all(a is b or (a is not None and b is not None and
+                              torch.equal(a, b))
+                   for a, b in zip(got + want, want + (f.records, f.valid))):
+            raise AssertionError(f"{label} hop {h}: chain_fold differs from "
+                                 f"its plain version")
+        ms = cuda_ms(lambda: chain_fold(hop.table, comp, columns, f), 20)
+        plain = cuda_ms(lambda: chain_fold_plain(hop.table, comp, columns,
+                                                 f), 3)
+        rows = staged[h].batch.num_rows
+        nbytes = hop.table.size * (4 + (8 + f.nullable) * f.words) + \
+            (0 if comp is None else comp.numel() * 8) + \
+            sum(rows * (d.element_size() + (v is not None))
+                for d, v in columns)
+        bnd = bound(nbytes, 0)
+        print(f"chain_fold {label} hop {h}: {hop.table.size} slots of "
+              f"{f.words} words ({f.n_comp} composed, {len(f.columns)} "
+              f"payload columns; the reference's budget span {f.span} x "
+              f"width {f.width}): kernel {ms:.6f} ms, plain {plain:.6f} ms, "
+              f"bound {bnd['bound_ms']:.6f} ms, max_abs_err 0 [{card}]",
+              flush=True)
+        ent_f = entry(0.0, ms, plain, bnd)
+    return ent_c, ent_f
 
 
 def emit_vs_plain(ctx, sql, card, label):
@@ -1742,10 +1879,12 @@ def full_lowering_phase(ctx, tables, card, add):
     tctx = ctx.task_context()
     execs = {q: find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
                           TorchJoinChainAggregateExec) for q in FULL_LOWERING}
+    stage = {}
     for q, ex in execs.items():
         if ex is None:
             raise AssertionError(f"Q{q} plans no TorchJoinChainAggregateExec")
         print(f"Q{q} SF10 plans {ex.display_line()}", flush=True)
+        stage[q] = staging_kernels(ex, tctx, q)
     variants = {
         "chain_build[mmx]": (21, "chain_build", chain_builds_vs_plain(
             execs[21], tctx, card, "Q21 SF10", mmx_only=True),
@@ -1754,6 +1893,7 @@ def full_lowering_phase(ctx, tables, card, add):
             execs[18], tctx, card, "Q18 SF10"),
             "datafusion_tpu/physical/plan/device_join_chain.py:1501")}
     chain_walk_vs_plain(execs[21], tctx, card, "Q21 SF10")
+    compose_vs_plain(execs[21], tctx, card, "Q21 SF10")
     chain_walk_vs_plain(execs[9], tctx, card, "Q9 SF10")
     chain_walk_vs_plain(execs[12], tctx, card, "Q12 SF10 (CASE)")
     del execs
@@ -1762,7 +1902,8 @@ def full_lowering_phase(ctx, tables, card, add):
     li = tables["lineitem"]
     out_entries = {}
     for q in FULL_LOWERING:
-        expect = ["chain_build", "chain_aggregate", "compact_groups"]
+        expect = ["chain_build", "chain_aggregate", "compact_groups"] + \
+            stage[q]
         if q == 18:
             expect.append("hash_group_aggregate")
         out, counts, _ = run_path(ctx, TPCH[q], expect, card, f"Q{q} SF10",
@@ -2670,19 +2811,26 @@ def main() -> int:
     phase("TPC-H SF10: join chains (Q3, Q4, Q5)")
     chain = ["chain_build", "chain_aggregate"]
     tctx = ctx.task_context()
+    stage = {}         # query -> the staging kernels its run launches
     for q in (5, 3, 4):
         ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
                        TorchJoinChainAggregateExec)
         if ex is None:
             raise AssertionError(f"Q{q} plans no TorchJoinChainAggregateExec")
         print(f"Q{q} SF10 plans {ex.display_line()}", flush=True)
+        stage[q] = staging_kernels(ex, tctx, q)
         kb = chain_builds_vs_plain(ex, tctx, card, f"Q{q} SF10")
         kw = chain_walk_vs_plain(ex, tctx, card, f"Q{q} SF10")
         if q == 5:
             report["chain_build"], report["chain_aggregate"] = kb, kw
+            kc, kf = compose_vs_plain(ex, tctx, card, "Q5 SF10")
+            if kc is None or kf is None:
+                raise AssertionError("Q5 SF10 composed or folded nothing")
+            report["chain_compose"], report["chain_fold"] = kc, kf
     torch.cuda.empty_cache()
 
-    out, counts, _ = run_path(ctx, TPCH[3], chain + ["compact_groups"], card,
+    out, counts, _ = run_path(ctx, TPCH[3], chain + ["compact_groups"] +
+                              stage[3], card,
                               "Q3 SF10", li.num_rows,
                               TorchJoinChainAggregateExec)
     add(counts)
@@ -2697,8 +2845,9 @@ def main() -> int:
           f"{revs[:3].tolist()} (scale 4)", flush=True)
     breakdown(ctx, TPCH[3], card, "Q3 SF10", TorchJoinChainAggregateExec)
 
-    out, counts, _ = run_path(ctx, TPCH[4], chain + ["compact_groups"],
-                              card, "Q4 SF10", tables["orders"].num_rows,
+    out, counts, _ = run_path(ctx, TPCH[4], chain + ["compact_groups"] +
+                              stage[4], card, "Q4 SF10",
+                              tables["orders"].num_rows,
                               TorchJoinChainAggregateExec)
     add(counts)
     prios, want4 = oracle_q4(tables)
@@ -2709,8 +2858,8 @@ def main() -> int:
     print(f"Q4 SF10 equals numpy exactly: {want4.tolist()}", flush=True)
     breakdown(ctx, TPCH[4], card, "Q4 SF10", TorchJoinChainAggregateExec)
 
-    out, counts, _ = run_path(ctx, TPCH[5], chain + ["compact_groups"],
-                              card, "Q5 SF10",
+    out, counts, _ = run_path(ctx, TPCH[5], chain + ["compact_groups"] +
+                              stage[5], card, "Q5 SF10",
                               li.num_rows, TorchJoinChainAggregateExec)
     add(counts)
     want5 = oracle_q5(tables)
@@ -2733,6 +2882,7 @@ def main() -> int:
         raise AssertionError("Q2 or Q20 plans no TorchJoinChainRowsExec")
     for q, ex in ((2, ex2), (20, ex20)):
         print(f"Q{q} SF10 plans {ex.display_line()}", flush=True)
+        stage[q] = staging_kernels(ex, tctx, q)
     report["chain_rows"], _kept = rows_vs_plain(ex2, tctx, card, "Q2 SF10")
     rows_vs_plain(ex20, tctx, card, "Q20 SF10 (inner chain)")
     report["group_emit"], _ng = emit_vs_plain(ctx, TPCH[20], card,
@@ -2740,8 +2890,8 @@ def main() -> int:
     del ex2, ex20
     torch.cuda.empty_cache()
 
-    out, counts, _ = run_path(ctx, TPCH[2], chain + ["compact_groups",
-                                                     "chain_rows"],
+    out, counts, _ = run_path(ctx, TPCH[2], chain + stage[2] + [
+                                  "compact_groups", "chain_rows"],
                               card, "Q2 SF10", tables["partsupp"].num_rows,
                               TorchJoinChainRowsExec)
     add(counts)
@@ -2761,7 +2911,8 @@ def main() -> int:
 
     out, counts, _ = run_path(ctx, TPCH[20], [
         "hash_group_aggregate", "compact_groups", "group_emit",
-        "chain_build", "chain_rows"], card, "Q20 SF10", li.num_rows,
+        "chain_build", "chain_rows"] + stage[20], card, "Q20 SF10",
+        li.num_rows,
         TorchJoinChainRowsExec)
     add(counts)
     no_fallbacks(ctx, TPCH[20], "Q20 SF10")
@@ -2995,7 +3146,7 @@ def top_counts_agree(label, got_keys, got_counts, all_keys, all_counts):
 
 # ---- walks across checkouts ------------------------------------------------
 
-WALK_QUERIES = (3, 5, 9, 12, 18, 21)
+WALK_QUERIES = (3, 5, 7, 8, 9, 12, 14, 18, 21)
 ROWS_QUERIES = (2, 20)
 WALK_REPS = 20
 
@@ -3003,8 +3154,8 @@ WALK_REPS = 20
 def walk_resources(lib_path):
     """{kernel symbol: (registers, stack bytes)} of the walk kernels
     (`chain_dense_kernel`, `chain_hash_kernel`, `rows_mark_kernel`,
-    `rows_emit_kernel`) in the library at `lib_path`, from `cuobjdump
-    --dump-resource-usage`."""
+    `rows_emit_kernel`) and of `chain_compose_kernel` in the library at
+    `lib_path`, from `cuobjdump --dump-resource-usage`."""
     import re
     cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     out = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"),
@@ -3019,7 +3170,8 @@ def walk_resources(lib_path):
         reg = re.search(r"REG:(\d+)", line)
         local = re.search(r"STACK:(\d+)", line)
         if reg and local and name and re.search(
-                r"chain_(dense|hash)_kernel|rows_(mark|emit)_kernel", name):
+                r"chain_(dense|hash|compose)_kernel|rows_(mark|emit)_kernel",
+                name):
             res[name] = (int(reg.group(1)), int(local.group(1)))
     return res
 
@@ -3027,6 +3179,7 @@ def walk_resources(lib_path):
 def walk_tree(tree):
     """The walks of WALK_QUERIES with `tree`'s package; prints one JSON
     line."""
+    import inspect
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -3047,28 +3200,35 @@ def walk_tree(tree):
     for tname, b in tables.items():
         ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
     tctx = ctx.task_context()
-    walks = {}
+    # a tree whose staging composes also times each walk staged without
+    # (`prepare(ctx, compose=False)`), in the same process
+    stages = (True, False) if "compose" in inspect.signature(
+        TorchJoinChainAggregateExec.prepare).parameters else (True,)
+    walks, unstaged = {}, {}
     for q in WALK_QUERIES:
         ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
                        TorchJoinChainAggregateExec)
-        try:
-            if ex is None:
-                raise DeviceLoweringUnsupported("no chain exec")
-            spec, _p, _n, _s, inputs, _staged = ex.prepare(tctx)
-        except Exception as e:   # an older tree plans less on the card
-            walks[q] = None
-            print(f"Q{q}: not on the card in {tree}: "
-                  f"{type(e).__name__}: {e}", flush=True)
-            continue
-        ((cols, aux, n),) = inputs
-        table = spec.new_table(aux.device)
-        pristine = table.clone()
-        overflow = torch.zeros(1, dtype=torch.int32, device=aux.device)
-        walks[q] = cuda_ms(lambda: chain_aggregate(spec, cols, aux, n, table,
-                                                   overflow), WALK_REPS,
-                           setup=lambda: table.copy_(pristine))
-        del spec, inputs, _staged, cols, aux, table, pristine
-        torch.cuda.empty_cache()
+        for staged_run in stages:
+            try:
+                if ex is None:
+                    raise DeviceLoweringUnsupported("no chain exec")
+                args = () if len(stages) == 1 else (staged_run,)
+                spec, _p, _n, _s, inputs, _staged = ex.prepare(tctx, *args)
+            except Exception as e:   # an older tree plans less on the card
+                walks[q] = None
+                print(f"Q{q}: not on the card in {tree}: "
+                      f"{type(e).__name__}: {e}", flush=True)
+                break
+            ((cols, aux, n),) = inputs
+            table = spec.new_table(aux.device)
+            pristine = table.clone()
+            overflow = torch.zeros(1, dtype=torch.int32, device=aux.device)
+            ms = cuda_ms(lambda: chain_aggregate(spec, cols, aux, n, table,
+                                                 overflow), WALK_REPS,
+                         setup=lambda: table.copy_(pristine))
+            (walks if staged_run else unstaged)[q] = ms
+            del spec, inputs, _staged, cols, aux, table, pristine
+            torch.cuda.empty_cache()
     rows = {}
     for q in ROWS_QUERIES:
         ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
@@ -3081,7 +3241,8 @@ def walk_tree(tree):
         rows[q] = cuda_ms(lambda: chain_rows(spec, cols, aux, n), WALK_REPS)
         del spec, inputs, _staged, cols, aux
         torch.cuda.empty_cache()
-    print(json.dumps({"tree": tree, "walk_ms": walks, "rows_ms": rows,
+    print(json.dumps({"tree": tree, "walk_ms": walks,
+                      "walk_ms_uncomposed": unstaged, "rows_ms": rows,
                       "resources": walk_resources(str(kernels.LIB))}),
           flush=True)
 

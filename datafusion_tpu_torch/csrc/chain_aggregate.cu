@@ -46,7 +46,7 @@ constexpr int kThreads = 256;
 // capped, Q21's (two min/max hops) 12% slower.
 constexpr int kMinBlocks = 4;
 
-template <bool Full>
+template <bool Full, bool Staged>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 chain_dense_kernel(const i64* __restrict__ meta_g, int meta_len,
                    const i64* __restrict__ aux, i64 n_rows,
@@ -54,10 +54,10 @@ chain_dense_kernel(const i64* __restrict__ meta_g, int meta_len,
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
   dense_fold(smem, aux, n_rows, (u64*)(smem + meta_len), table_g,
-             ChainRows<Full>{smem, aux});
+             ChainRows<Full, Staged>{smem, aux});
 }
 
-template <bool Full>
+template <bool Full, bool Staged>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 chain_hash_kernel(const i64* __restrict__ meta_g, int meta_len,
                   const i64* __restrict__ aux, i64 n_rows, i64 cap,
@@ -66,7 +66,7 @@ chain_hash_kernel(const i64* __restrict__ meta_g, int meta_len,
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
   hash_fold(smem, aux, n_rows, cap, identity_slots, table, overflow,
-            ChainRows<Full>{smem, aux});
+            ChainRows<Full, Staged>{smem, aux});
 }
 
 }  // namespace
@@ -75,24 +75,23 @@ chain_hash_kernel(const i64* __restrict__ meta_g, int meta_len,
 // (join_chain.py); aux: device int64 per-batch inputs. mode 0: the dense
 // table int64 [n_lanes + 1][groups]; mode 1 (the packed key is the slot)
 // and 2 (probed): the hash table int64 [n_lanes + 2][cap] and the int32
-// overflow flag, as dft_hash_group_aggregate takes them; full: the
-// programs or a min/max hop need the interpreter's full variant. Launches
-// on `stream` and returns cudaGetLastError().
+// overflow flag, as dft_hash_group_aggregate takes them; variant: bit 0
+// the programs or a min/max hop need the interpreter's full variant, bit 1
+// the chain has composed or folded hops. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int dft_chain_aggregate(const void* meta, int meta_len,
                                    int n_lanes, int groups, const void* aux,
                                    long long n_rows, long long cap, int mode,
-                                   void* table, void* overflow, int full,
+                                   void* table, void* overflow, int variant,
                                    void* stream) {
   const unsigned blocks = grid_blocks(n_rows, kThreads);
   if (mode == 0) {
     const size_t smem = (size_t)(meta_len + (n_lanes + 1) * groups) * 8;
-    const auto kernel = full ? chain_dense_kernel<true>
-                             : chain_dense_kernel<false>;
+    const auto kernel = DFT_WALK_VARIANT(chain_dense_kernel, variant);
     kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
         (const i64*)meta, meta_len, (const i64*)aux, n_rows, (u64*)table);
   } else {
-    const auto kernel = full ? chain_hash_kernel<true>
-                             : chain_hash_kernel<false>;
+    const auto kernel = DFT_WALK_VARIANT(chain_hash_kernel, variant);
     kernel<<<blocks, kThreads, (size_t)meta_len * 8,
              (cudaStream_t)stream>>>(
         (const i64*)meta, meta_len, (const i64*)aux, n_rows, cap,

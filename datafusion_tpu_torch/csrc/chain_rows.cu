@@ -40,14 +40,14 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool Full>
+template <bool Full, bool Staged>
 __global__ void __launch_bounds__(kThreads)
 rows_mark_kernel(const i64* __restrict__ meta_g, int meta_len,
                  const i64* __restrict__ aux, i64 n_rows,
                  i64* __restrict__ pos) {
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
-  const ChainRows<Full> rows{smem, aux};
+  const ChainRows<Full, Staged> rows{smem, aux};
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
        row += stride) {
@@ -68,14 +68,14 @@ __device__ __forceinline__ void store(void* data, int dtype, i64 slot,
   }
 }
 
-template <bool Full>
+template <bool Full, bool Staged>
 __global__ void __launch_bounds__(kThreads)
 rows_emit_kernel(const i64* __restrict__ meta_g, int meta_len,
                  const i64* __restrict__ aux, i64 n_rows,
                  const i64* __restrict__ pos, const i64* __restrict__ outs) {
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
-  const ChainRows<Full> rows{smem, aux};
+  const ChainRows<Full, Staged> rows{smem, aux};
   const int n_out = (int)smem[H_NLANES];
   const i64* progs = smem + smem[H_OFF_LANES];   // (program, dtype code)
   const i64 stride = (i64)gridDim.x * blockDim.x;
@@ -99,15 +99,16 @@ rows_emit_kernel(const i64* __restrict__ meta_g, int meta_len,
 // meta: device int64 descriptor of meta_len words (join_chain.py
 // ChainRowsSpec); aux: device int64 per-batch inputs; pos: device int64
 // [n_rows + 1]; sums: device int64 scratch of ceil((n_rows + 1) / 8192)
-// words; full: the programs or a min/max hop need the interpreter's full
-// variant. Four launches on `stream` (the mark, then exclusive_scan's
-// three); returns the first cudaError_t.
+// words; variant: bit 0 the programs or a min/max hop need the
+// interpreter's full variant, bit 1 the chain has composed or folded hops.
+// Four launches on `stream` (the mark, then exclusive_scan's three);
+// returns the first cudaError_t.
 extern "C" int dft_chain_rows_mark(const void* meta, int meta_len,
                                    const void* aux, long long n_rows,
-                                   void* pos, void* sums, int full,
+                                   void* pos, void* sums, int variant,
                                    void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const auto kernel = full ? rows_mark_kernel<true> : rows_mark_kernel<false>;
+  const auto kernel = DFT_WALK_VARIANT(rows_mark_kernel, variant);
   kernel<<<grid_blocks(n_rows, kThreads), kThreads, (size_t)meta_len * 8,
            st>>>(
       (const i64*)meta, meta_len, (const i64*)aux, n_rows, (i64*)pos);
@@ -118,12 +119,12 @@ extern "C" int dft_chain_rows_mark(const void* meta, int meta_len,
 
 // pos: the scanned slots of dft_chain_rows_mark; outs: device int64
 // [2 * outputs], each output's (data pointer, validity pointer), data at
-// the width of its dtype code in the descriptor; full as in the mark.
+// the width of its dtype code in the descriptor; variant as in the mark.
 extern "C" int dft_chain_rows_emit(const void* meta, int meta_len,
                                    const void* aux, long long n_rows,
                                    const void* pos, const void* outs,
-                                   int full, void* stream) {
-  const auto kernel = full ? rows_emit_kernel<true> : rows_emit_kernel<false>;
+                                   int variant, void* stream) {
+  const auto kernel = DFT_WALK_VARIANT(rows_emit_kernel, variant);
   kernel<<<grid_blocks(n_rows, kThreads), kThreads, (size_t)meta_len * 8,
            (cudaStream_t)stream>>>(
       (const i64*)meta, meta_len, (const i64*)aux, n_rows, (const i64*)pos,

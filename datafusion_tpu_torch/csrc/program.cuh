@@ -9,7 +9,8 @@
 // interpreter reads table rows (`RowColumns`, the aggregate kernels),
 // finalised group-table columns (the HAVING loader of compact_groups.cu),
 // or the pair space of a join chain (`ChainColumns`: spine columns at the
-// row, build payloads at the row each hop found).
+// row, build payloads at the row each hop found, a folded hop's payloads
+// in its records at the record's first word).
 //
 // The row bodies `dense_fold` and `hash_fold` (a dense shared-memory
 // table of <= 64 slots, a global hash table) are templates on the row
@@ -94,13 +95,20 @@ enum { H_NCOLS, H_NLANES, H_G, H_NKEYS, H_PRED, H_OFF_COLS, H_OFF_PROGS,
 enum { C_NSPINE, C_NHOPS, C_PPRED, C_OFF_HOPOF, C_HOPS };
 // HOP_MOP: the comparison code of a SEMI/ANTI min/max membership test
 // (-1: none), HOP_MPROG its probe program, HOP_MN/HOP_MX the int64 min and
-// max of the member column, slot-aligned with the table
+// max of the member column, slot-aligned with the table. HOP_TABLE holds
+// each slot's build row as an int32 every HOP_STRIDE bytes: an int32 table
+// (4), or a folded hop's records of HOP_FOLD int64 words, the row in the
+// first (its row handle is then slot x HOP_FOLD). A composed hop
+// (TAB_COMPOSED) reads its int64 words at (const i64*)HOP_TABLE +
+// brow[HOP_OWNER] x HOP_STRIDE: its row, then a min/max hop's min and max
+// (HOP_MN, HOP_MX: the same words at handle 0).
 enum { HOP_KIND, HOP_JTYPE, HOP_TABLE, HOP_KEYS, HOP_SIZE, HOP_NKEYS,
-       HOP_MOP, HOP_MPROG, HOP_MN, HOP_MX, HOP_KEY0 };
+       HOP_MOP, HOP_MPROG, HOP_MN, HOP_MX, HOP_STRIDE, HOP_OWNER, HOP_FOLD,
+       HOP_KEY0 };
 constexpr int kMaxHops = 8;
 constexpr int kMaxHopKeys = 4;
 constexpr int kHopWords = HOP_KEY0 + 4 * kMaxHopKeys;  // (prog, lo, hi, shift)
-enum { TAB_DIRECT, TAB_HASH, TAB_EMPTY };               // build table kinds
+enum { TAB_DIRECT, TAB_HASH, TAB_EMPTY, TAB_COMPOSED };  // build table kinds
 enum { JT_INNER, JT_SEMI, JT_ANTI };                    // hop join types
 
 constexpr int kMaxStack = 16;
@@ -271,8 +279,13 @@ struct RowColumns {
 };
 
 // Column loads of a join chain's pair space: a spine column (hop_of < 0)
-// at the spine row, a payload column of hop h at the build row that hop
-// found (brow[h]); a hop that found nothing reads as NULL.
+// at the spine row, a payload column of hop h at the row handle that hop
+// found (brow[h]: its build row, or for a folded hop the index of its
+// record's first int64 word, the column's descriptor then pointing at the
+// column's word of record 0 as an int64 column, and its validity at the
+// records' validity bytes, laid out as the words); a hop that found
+// nothing reads as NULL. The loads are the same for every chain, so the
+// interpreter's code is too.
 template <bool Full>
 struct ChainColumns {
   static constexpr bool kFull = Full;
@@ -880,8 +893,9 @@ __device__ __forceinline__ i64 join_hash(const i64* w, int n) {
 // the current row, -1 for none, and its table slot to *slot: each
 // probe-key program evaluated over the pair space so far, NULL or outside
 // the build's [lo, hi] never matching, packed as the build packed its
-// keys, looked up in the build's table.
-template <class Columns>
+// keys, looked up in the build's table. `Staged`: the rows lie HOP_STRIDE
+// bytes apart (a folded hop's records); else the table is int32 rows.
+template <bool Staged, class Columns>
 __device__ __forceinline__ i64 hop_lookup(const i64* meta, const i64* aux,
                                           const i64* hop, i64 row,
                                           const Columns& cols, i64* slot) {
@@ -896,10 +910,11 @@ __device__ __forceinline__ i64 hop_lookup(const i64* meta, const i64* aux,
     if (v < kr[1] || v > kr[2]) return -1;
     packed |= (v - kr[1]) << kr[3];
   }
-  const int* rows = (const int*)hop[HOP_TABLE];
+  const char* rows = (const char*)hop[HOP_TABLE];
+  const i64 stride = Staged ? hop[HOP_STRIDE] : 4;
   if (kind == TAB_DIRECT) {
     *slot = packed;
-    return __ldg(rows + packed);
+    return __ldg((const int*)(rows + packed * stride));
   }
   const i64* keys = (const i64*)hop[HOP_KEYS];
   const i64 mask = hop[HOP_SIZE] - 1;
@@ -908,12 +923,24 @@ __device__ __forceinline__ i64 hop_lookup(const i64* meta, const i64* aux,
     const i64 seen = __ldg((const long long*)keys + h);
     if (seen == packed) {
       *slot = h;
-      return __ldg(rows + h);
+      return __ldg((const int*)(rows + h * stride));
     }
     if (seen == kEmpty) return -1;
     h = (h + 1) & mask;
   }
   return -1;
+}
+
+// The build row a composed hop finds through its owner's row handle
+// (brow[HOP_OWNER]), -1 for none, and the int64 index of its words from
+// HOP_TABLE to *slot: the owner's composed words (a build row's), or the
+// owner's records when it is folded.
+__device__ __forceinline__ i64 composed_row(const i64* hop, const i64* brow,
+                                            i64* slot) {
+  const i64 ob = brow[hop[HOP_OWNER]];
+  if (ob < 0) return -1;
+  *slot = ob * hop[HOP_STRIDE];
+  return __ldg((const long long*)hop[HOP_TABLE] + *slot);
 }
 
 // The min/max membership test of a filtered SEMI/ANTI hop
@@ -940,12 +967,16 @@ __device__ __forceinline__ bool mmx_exists(const i64* meta, const i64* aux,
 // Rows of a join-chain aggregate: the probe predicate over the spine, then
 // each hop in chain order (INNER and SEMI need a match, ANTI needs none; a
 // filtered SEMI/ANTI hop's match must also pass its min/max membership
-// test; the build row an INNER hop found is kept in a register for the
-// payload loads of later hops, the residual, the keys and the lanes), then
-// the residual predicate (H_PRED) over the whole pair space. Only the
-// full variant has the min/max test; the host picks it for a chain with a
-// filtered hop.
-template <bool Full>
+// test; the row handle an INNER hop found is kept for the payload loads of
+// later hops, the residual, the keys and the lanes), then the residual
+// predicate (H_PRED) over the whole pair space. A composed hop runs no
+// probe-key program: it reads its row (and a min/max hop's min and max)
+// from its owner's words at the owner's handle. A folded hop's handle is
+// its record's first word. Only the full variant has the min/max test;
+// the host picks it for a chain with a filtered hop. Only the `Staged`
+// variant reads composed and folded hops; the host picks it for a chain
+// that has any, so other walks keep their registers.
+template <bool Full, bool Staged>
 struct ChainRows {
   const i64* meta;
   const i64* aux;
@@ -965,7 +996,14 @@ struct ChainRows {
     for (int h = 0; h < n_hops; ++h) {
       const i64* hop = ch + C_HOPS + h * kHopWords;
       i64 slot;
-      i64 b = hop_lookup(meta, aux, hop, row, *cols, &slot);
+      i64 b;
+      if constexpr (Staged) {
+        b = hop[HOP_KIND] == TAB_COMPOSED
+                ? composed_row(hop, cols->brow, &slot)
+                : hop_lookup<true>(meta, aux, hop, row, *cols, &slot);
+      } else {
+        b = hop_lookup<false>(meta, aux, hop, row, *cols, &slot);
+      }
       if constexpr (Full) {
         if (b >= 0 && hop[HOP_MOP] >= 0 &&
             !mmx_exists(meta, aux, hop, row, *cols, slot)) {
@@ -973,6 +1011,9 @@ struct ChainRows {
         }
       }
       if ((int)hop[HOP_JTYPE] == JT_ANTI ? b >= 0 : b < 0) return false;
+      if constexpr (Staged) {
+        if (hop[HOP_FOLD] && b >= 0) b = slot * hop[HOP_FOLD];
+      }
       cols->brow[h] = b;
     }
     if (meta[H_PRED] < 0) return true;
@@ -981,6 +1022,14 @@ struct ChainRows {
 };
 
 // ---- launch -----------------------------------------------------------------
+
+// A walk kernel's instantiation from the host's variant: bit 0 the full
+// interpreter, bit 1 the staged chain (join_chain.py `variant`).
+#define DFT_WALK_VARIANT(kernel, variant)                              \
+  ((variant) == 0   ? kernel<false, false>                             \
+   : (variant) == 1 ? kernel<true, false>                              \
+   : (variant) == 2 ? kernel<false, true>                              \
+                    : kernel<true, true>)
 
 // Blocks of `threads` for a grid-stride loop over `n` items: one per
 // `threads` items, at most 8 per SM of the current device, at least one.

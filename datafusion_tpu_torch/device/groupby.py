@@ -342,7 +342,12 @@ class _ProgramSpec:
                 meta[base + 3 * idx] = data.data_ptr()
                 meta[base + 3 * idx + 1] = 0 if valid is None else valid.data_ptr()
                 meta[base + 3 * idx + 2] = _DTYPE_CODE[data.dtype]
+        self._patch_columns(meta)
         return torch.from_numpy(meta).to(device)
+
+    def _patch_columns(self, meta: np.ndarray) -> None:
+        """Column descriptors that read elsewhere than the given columns
+        (a join chain's folded records); none for a plain aggregate."""
 
 
 class AggregateSpec(_ProgramSpec):

@@ -48,6 +48,21 @@ writes every output program's value and validity at the row's slot. The
 output is in spine order, as the reference's `searchsorted` compaction
 gives it.
 
+Staging-time composition and folding (`chain_compose` and `chain_fold`,
+kernels in `csrc/chain_compose.cu`). Counterpart of
+`_compose_staged_hops` (`:786`, its program `_make_compose_prog` `:926`,
+jit `:887`) and `_fold_lut_pmat` (`:719`, jit `:756`). A hop whose probe
+keys are all payload columns of one earlier INNER hop, its owner (or of
+hops already composed into it), is probed once for each of the owner's
+build rows when the chain is staged; the results sit in the owner's
+composed words (`Compose`), and the walk reads them at the row it found
+for the owner (`TAB_COMPOSED`) and runs no probe-key program for the hop.
+A folded hop (`Fold`) has one record a table slot: the build row, the
+composed words of its own composed hops at that row and the payload words
+the walk's programs read, so a spine row resolves the hop and all that
+hangs on it from adjacent words; its payload columns then load from the
+record as int64 columns whose row is the record's first word.
+
 A filtered SEMI/ANTI hop keeps a row when some member row of its key
 satisfies `member OP x` (`_mmx_exists`, `:1325-1347`): `<>` when the min
 or the max differs from x, `<` and `<=` by the min, `>` and `>=` by the
@@ -66,8 +81,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .groupby import (_DTYPE_CODE, _NP_TO_TORCH, EMPTY, H_OFF_KEYS,
-                      LANE_MIN_I64, MAX_LANES, SMEM_BYTES, AggregateSpec,
+from .groupby import (_DTYPE_CODE, _NP_TO_TORCH, EMPTY, H_OFF_COLS,
+                      H_OFF_KEYS, LANE_MIN_I64, MAX_LANES, SMEM_BYTES, AggregateSpec,
                       Columns, DistinctSet, HashSpec, _check_dset, _cuda,
                       _next_pow2, _ProgramSpec, _stream,
                       dense_group_aggregate_plain, hash_group_aggregate_plain,
@@ -84,17 +99,28 @@ chain_aggregate_kernel = kernels.register(kernels.Kernel(
 chain_rows_kernel = kernels.register(kernels.Kernel(
     "chain_rows", "datafusion_tpu_torch/csrc/chain_rows.cu",
     "datafusion_tpu/physical/plan/device_join_chain.py:2312"))
+chain_compose_kernel = kernels.register(kernels.Kernel(
+    "chain_compose", "datafusion_tpu_torch/csrc/chain_compose.cu",
+    "datafusion_tpu/physical/plan/device_join_chain.py:926"))
+chain_fold_kernel = kernels.register(kernels.Kernel(
+    "chain_fold", "datafusion_tpu_torch/csrc/chain_compose.cu",
+    "datafusion_tpu/physical/plan/device_join_chain.py:719"))
 
-# build table kinds and hop join types (mirrored in csrc/program.cuh)
-TAB_DIRECT, TAB_HASH, TAB_EMPTY = range(3)
+# build table kinds (a composed hop reads its owner's composed words) and
+# hop join types (mirrored in csrc/program.cuh)
+TAB_DIRECT, TAB_HASH, TAB_EMPTY, TAB_COMPOSED = range(4)
 JT_INNER, JT_SEMI, JT_ANTI = range(3)
 JOIN_TYPES = {"INNER": JT_INNER, "LEFTSEMI": JT_SEMI, "LEFTANTI": JT_ANTI}
 
 # the chain section of a descriptor: a head, a record per hop, then the
-# hop of every pair-space column (-1: spine)
+# hop of every pair-space column (-1: spine). HOP_TABLE is read at byte
+# HOP_STRIDE a slot (4: an int32 table; a folded hop's record size); a
+# composed hop's HOP_TABLE is its first word at the owner's row handle 0,
+# HOP_STRIDE the bytes a unit of that handle moves, HOP_OWNER the owner
 C_NSPINE, C_NHOPS, C_PPRED, C_OFF_HOPOF, C_HOPS = range(5)
 (HOP_KIND, HOP_JTYPE, HOP_TABLE, HOP_KEYS, HOP_SIZE, HOP_NKEYS, HOP_MOP,
- HOP_MPROG, HOP_MN, HOP_MX, HOP_KEY0) = range(11)
+ HOP_MPROG, HOP_MN, HOP_MX, HOP_STRIDE, HOP_OWNER, HOP_FOLD,
+ HOP_KEY0) = range(14)
 MAX_HOPS = 8
 MAX_HOP_KEYS = 4
 HOP_WORDS = HOP_KEY0 + 4 * MAX_HOP_KEYS    # (prog, lo, hi, shift) per key
@@ -413,32 +439,97 @@ def chain_build_plain(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
 
 # --- the walk ------------------------------------------------------------------
 
+class Compose:
+    """A hop resolved at staging time through the build rows of an earlier
+    INNER hop, its `owner`. `words` (int64 [owner build rows, width],
+    shared by every hop composed into that owner, in chain order) holds at
+    column `word` the build row this hop finds for each owner row (-1:
+    none) and, for a min/max hop, the member's min and max of the key found
+    at `word + 1` and `word + 2` (0 where none). `tag` is the reference's
+    marker (`:813-839`): "inner" for an INNER hop with payload, "mmx" for a
+    filtered SEMI/ANTI, "member" otherwise."""
+
+    def __init__(self, owner: int, tag: str, words: torch.Tensor, word: int):
+        self.owner = owner
+        self.tag = tag
+        self.words = words
+        self.word = word
+
+    @property
+    def width(self) -> int:
+        return 3 if self.tag == "mmx" else 1
+
+
+class Fold:
+    """The record table of a folded hop: `records`, int64 [table slots,
+    `words`], one record a slot of the hop's table. Word 0 is the build
+    row (-1: none), words 1 to `n_comp` the owner's composed words at that
+    row, then one word for each payload column the walk reads (`columns`:
+    pair index -> (word, whether it has NULLs)), the value as the
+    interpreter loads it (a float32 widened to float64). `valid`, uint8
+    laid out as `records`, holds the validity byte of each such word when
+    a column has NULLs (else None). A record takes a power of two of words
+    up to four (one 32-byte sector), else a multiple of four. `span` and
+    `width`: the reference's budget for the fold (its direct-address span
+    and int32 lanes, `:736`)."""
+
+    def __init__(self, n_comp: int, columns: Sequence[Tuple[int, bool]],
+                 span: int, width: int):
+        self.n_comp = n_comp
+        self.span, self.width = span, width
+        self.columns: Dict[int, Tuple[int, bool]] = {
+            idx: (1 + n_comp + k, nullable)
+            for k, (idx, nullable) in enumerate(columns)}
+        words = 1 + n_comp + len(columns)
+        self.words = _next_pow2(words) if words <= 4 else -(-words // 4) * 4
+        self.nullable = any(n for _i, n in columns)
+        self.records: Optional[torch.Tensor] = None
+        self.valid: Optional[torch.Tensor] = None
+
+
 class Hop:
     """One hop of the walk: its build table, join type, probe-key programs
     (over the pair space), the pair-space indices of its payload and, for
     a filtered SEMI/ANTI over a min/max table, `mfilter`: (comparison code
-    of `member OP x`, the program of x over the pair space)."""
+    of `member OP x`, the program of x over the pair space). A composed
+    hop (`compose`) runs no probe-key program; a folded one (`fold`) reads
+    its row and payload from its record table."""
 
     def __init__(self, table: BuildTable, join_type: str,
                  probe_keys: Sequence[Program], payload: Sequence[int],
-                 mfilter: Optional[Tuple[int, Program]] = None):
+                 mfilter: Optional[Tuple[int, Program]] = None,
+                 compose: Optional[Compose] = None,
+                 fold: Optional[Fold] = None):
         if join_type not in JOIN_TYPES:
             raise LoweringError(f"{join_type} join in a chain")
-        if len(probe_keys) != len(table.los):
+        if compose is None and len(probe_keys) != len(table.los):
             raise ValueError("one probe key per build key")
         if any(k.is_float for k in probe_keys):
             raise LoweringError("float join key")
-        if (mfilter is not None) != (table.mn is not None) or \
-                (mfilter is not None and join_type == "INNER"):
+        if mfilter is not None and (table.mn is None or
+                                    join_type == "INNER"):
             raise ValueError("a min/max test needs a SEMI/ANTI min/max table")
         if mfilter is not None and (mfilter[0] == CMP_EQ or
                                     mfilter[1].is_float):
             raise LoweringError("min/max test of an int `<>, <, <=, >, >=`")
+        if compose is not None and fold is not None:
+            raise ValueError("a composed hop has no table to fold")
         self.table = table
         self.jtype = JOIN_TYPES[join_type]
         self.probe_keys = list(probe_keys)
         self.payload = list(payload)
         self.mfilter = mfilter
+        self.compose = compose
+        self.fold = fold
+
+    def tensors(self) -> List[torch.Tensor]:
+        out = self.table.tensors()
+        if self.compose is not None:
+            out.append(self.compose.words)
+        if self.fold is not None:
+            out += [t for t in (self.fold.records, self.fold.valid)
+                    if t is not None]
+        return out
 
 
 class Chain:
@@ -459,31 +550,65 @@ class Chain:
     def programs(self) -> List[Program]:
         out = [self.ppred] if self.ppred is not None else []
         for hop in self.hops:
-            out += hop.probe_keys
+            if hop.compose is None:
+                out += hop.probe_keys
             if hop.mfilter is not None:
                 out.append(hop.mfilter[1])
         return out
+
+    def _record(self, hop: Hop, index: Dict[int, int]) -> np.ndarray:
+        rec = np.zeros(HOP_WORDS, np.int64)
+        mop, mprog = hop.mfilter or (-1, None)
+        rec[[HOP_JTYPE, HOP_MOP, HOP_MPROG, HOP_OWNER]] = [
+            hop.jtype, mop, -1 if mprog is None else index[id(mprog)], -1]
+        c = hop.compose
+        if c is not None:
+            owner = self.hops[c.owner].fold
+            if owner is not None:     # the owner's row handle: its record
+                base = owner.records.data_ptr() + 8 * (1 + c.word)
+                stride = 1
+            else:                     # the owner's row handle: a build row
+                base = c.words.data_ptr() + 8 * c.word
+                stride = c.words.shape[1]
+            rec[[HOP_KIND, HOP_TABLE, HOP_STRIDE, HOP_OWNER]] = [
+                TAB_COMPOSED, base, stride, c.owner]
+            if hop.mfilter is not None:
+                rec[[HOP_MN, HOP_MX]] = [base + 8, base + 16]
+            return rec
+        t, f = hop.table, hop.fold
+        rec[[HOP_KIND, HOP_TABLE, HOP_KEYS, HOP_SIZE, HOP_NKEYS, HOP_MN,
+             HOP_MX, HOP_STRIDE, HOP_FOLD]] = [
+            t.kind, (t.rows if f is None else f.records).data_ptr(),
+            0 if t.keys is None else t.keys.data_ptr(), t.size,
+            len(hop.probe_keys), 0 if t.mn is None else t.mn.data_ptr(),
+            0 if t.mx is None else t.mx.data_ptr(),
+            4 if f is None else 8 * f.words, 0 if f is None else f.words]
+        for k, prog in enumerate(hop.probe_keys):
+            rec[HOP_KEY0 + 4 * k:HOP_KEY0 + 4 * k + 4] = [
+                index[id(prog)], t.los[k], t.his[k], t.shifts[k]]
+        return rec
 
     def section(self, index: Dict[int, int], ncols: int) -> np.ndarray:
         head = [self.n_spine, len(self.hops),
                 -1 if self.ppred is None else index[id(self.ppred)],
                 C_HOPS + HOP_WORDS * len(self.hops)]
-        recs = np.zeros((len(self.hops), HOP_WORDS), np.int64)
-        for rec, hop in zip(recs, self.hops):
-            t = hop.table
-            mop, mprog = hop.mfilter or (-1, None)
-            rec[:HOP_KEY0] = [t.kind, hop.jtype, t.rows.data_ptr(),
-                              0 if t.keys is None else t.keys.data_ptr(),
-                              t.size, len(hop.probe_keys), mop,
-                              -1 if mprog is None else index[id(mprog)],
-                              0 if t.mn is None else t.mn.data_ptr(),
-                              0 if t.mx is None else t.mx.data_ptr()]
-            for k, prog in enumerate(hop.probe_keys):
-                rec[HOP_KEY0 + 4 * k:HOP_KEY0 + 4 * k + 4] = [
-                    index[id(prog)], t.los[k], t.his[k], t.shifts[k]]
+        recs = [self._record(hop, index) for hop in self.hops]
         hop_of = [self.hop_of.get(i, -1) for i in range(ncols)]
-        return np.concatenate([np.asarray(head, np.int64), recs.ravel(),
+        return np.concatenate([np.asarray(head, np.int64), *recs,
                                np.asarray(hop_of, np.int64)])
+
+    def record_columns(self) -> Dict[int, Tuple[int, int]]:
+        """{pair index: (its word's address in record 0, its validity
+        byte's or 0)} of every payload column a folded hop's records
+        hold."""
+        out = {}
+        for hop in self.hops:
+            f = hop.fold
+            if f is not None:
+                for idx, (word, nullable) in f.columns.items():
+                    out[idx] = (f.records.data_ptr() + 8 * word,
+                                f.valid.data_ptr() + word if nullable else 0)
+        return out
 
 
 class _ChainSpec:
@@ -503,8 +628,25 @@ class _ChainSpec:
         return super().full or \
             any(hop.mfilter is not None for hop in self.chain.hops)
 
+    @property
+    def variant(self) -> int:
+        """The walk kernel's instantiation: bit 0 the full interpreter, bit
+        1 a staged chain (composed or folded hops)."""
+        staged = any(h.compose is not None or h.fold is not None
+                     for h in self.chain.hops)
+        return int(self.full) | int(staged) << 1
+
     def _chain_section(self, index: Dict[int, int]) -> np.ndarray:
         return self.chain.section(index, self.ncols)
+
+    def _patch_columns(self, meta: np.ndarray) -> None:
+        """A folded hop's payload columns load from its records, as int64
+        columns whose row is the record's first word."""
+        base = int(meta[H_OFF_COLS])
+        for idx, (data, valid) in self.chain.record_columns().items():
+            if idx in self.pools.columns:
+                meta[base + 3 * idx:base + 3 * idx + 3] = [
+                    data, valid, _DTYPE_CODE[torch.int64]]
 
 
 class ChainDenseSpec(_ChainSpec, AggregateSpec):
@@ -537,7 +679,7 @@ def _check_pair(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
         raise ValueError("aux must be a contiguous int64 tensor on the "
                          "walk's device")
     for hop in spec.chain.hops:
-        for t in hop.table.tensors():
+        for t in hop.tensors():
             if t.device != dev:
                 raise ValueError("a build table lies on another device")
     for idx in spec.pools.columns:
@@ -591,7 +733,7 @@ def chain_aggregate(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
                 0 if dense else spec.cap,
                 0 if dense else (1 if spec.identity_slots else 2),
                 table.data_ptr(), None if dense else overflow.data_ptr(),
-                int(spec.full), _stream(table.device))
+                spec.variant, _stream(table.device))
             kernels.check(rc, chain_aggregate_kernel)
             chain_aggregate_kernel.launches += 1
     return table
@@ -661,7 +803,7 @@ def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
                            device=dev)
         kernels.check(lib.dft_chain_rows_mark(
             meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
-            pos.data_ptr(), sums.data_ptr(), int(spec.full), stream),
+            pos.data_ptr(), sums.data_ptr(), spec.variant, stream),
             chain_rows_kernel)
         chain_rows_kernel.launches += 4   # the mark, the scan's three
         total = int(pos[n_rows].item())
@@ -674,7 +816,7 @@ def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
                                 dtype=torch.int64).to(dev)
             kernels.check(lib.dft_chain_rows_emit(
                 meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
-                pos.data_ptr(), ptrs.data_ptr(), int(spec.full), stream),
+                pos.data_ptr(), ptrs.data_ptr(), spec.variant, stream),
                 chain_rows_kernel)
             chain_rows_kernel.launches += 1
     return outs
@@ -684,8 +826,10 @@ def _walk_plain(spec, cols: Columns, aux: torch.Tensor, n: int,
                 hop_rows: Optional[list] = None):
     """The plain walk: (rows that survive the probe predicate and every
     hop, the pair space with each payload column gathered at the row its
-    hop found). With `hop_rows`, appends (rows that reach the hop, rows
-    still alive after it) for each hop."""
+    hop found). A composed hop reads its owner's composed words (from the
+    owner's records when the owner is folded), a folded hop its records.
+    With `hop_rows`, appends (rows that reach the hop, rows still alive
+    after it) for each hop."""
     dev = aux.device
     hop_of = spec.chain.hop_of
     pair = {i: c for i, c in cols.items() if hop_of.get(i, -1) < 0}
@@ -693,20 +837,48 @@ def _walk_plain(spec, cols: Columns, aux: torch.Tensor, n: int,
     if spec.chain.ppred is not None:
         d, v = evaluate(spec.chain.ppred, pair, aux, n)
         rows &= (d != 0) & v
+    found_at = []   # per hop: (build row, its records' rows or None)
     for hop in spec.chain.hops:
-        brow, slot = _lookup_plain(hop, pair, aux, n)
+        rec = mn = mx = None
+        c = hop.compose
+        if c is not None:
+            ob, orec = found_at[c.owner]
+            if orec is not None:
+                words = orec[0][:, 1 + c.word:1 + c.word + c.width]
+            elif c.words.shape[0]:
+                words = c.words[ob.clamp(min=0), c.word:c.word + c.width]
+            else:
+                words = torch.zeros((n, c.width), dtype=torch.int64,
+                                    device=dev)
+            brow = torch.where(ob >= 0, words[:, 0], -1)
+            if c.tag == "mmx":
+                mn, mx = words[:, 1], words[:, 2]
+        else:
+            brow, slot = _lookup_plain(hop, pair, aux, n)
+            if hop.fold is not None:
+                f = hop.fold
+                rec = (f.records[slot],
+                       None if f.valid is None else f.valid[slot])
+            if hop.mfilter is not None:
+                mn, mx = hop.table.mn[slot], hop.table.mx[slot]
         found = brow >= 0
         if hop.mfilter is not None:
-            found &= _mmx_exists_plain(hop, pair, aux, n, slot)
+            found &= _mmx_exists_plain(hop, pair, aux, n, mn, mx)
         reach = int(rows.sum()) if hop_rows is not None else 0
         rows &= ~found if hop.jtype == JT_ANTI else found
         if hop_rows is not None:
             hop_rows.append((reach, int(rows.sum())))
+        found_at.append((brow, rec))
         at = brow.clamp(min=0)
         for p in hop.payload:
             if p not in cols:
                 continue
             data, valid = cols[p]
+            if rec is not None and p in hop.fold.columns:
+                word, nullable = hop.fold.columns[p]
+                ok = found & (rec[1][:, word] != 0) if nullable else found
+                pair[p] = (_from_word(rec[0][:, word], data.dtype), ok)
+                continue
             if data.numel() == 0:       # an empty build finds nothing
                 pair[p] = (torch.zeros(n, dtype=data.dtype, device=dev),
                            torch.zeros(n, dtype=torch.bool, device=dev))
@@ -714,6 +886,25 @@ def _walk_plain(spec, cols: Columns, aux: torch.Tensor, n: int,
             ok = found if valid is None else found & valid[at]
             pair[p] = (data[at], ok)
     return rows, pair
+
+
+def _to_word(data: torch.Tensor) -> torch.Tensor:
+    """Column values as the interpreter loads them: int64, or float64
+    bits (a float32 widened)."""
+    if data.dtype == torch.float32:
+        data = data.to(torch.float64)
+    if data.dtype == torch.float64:
+        return data.view(torch.int64)
+    return data.to(torch.int64)
+
+
+def _from_word(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`_to_word`'s inverse, back to a column of `dtype`."""
+    if dtype in (torch.float32, torch.float64):
+        return words.view(torch.float64).to(dtype)
+    if dtype == torch.bool:
+        return words != 0
+    return words.to(dtype)
 
 
 def chain_rows_plain(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
@@ -740,8 +931,9 @@ def chain_rows_plain(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
 
 
 def _lookup_plain(hop: Hop, pair: Columns, aux: torch.Tensor, n: int):
-    """(the build row each row finds in `hop`'s table, -1 for none; the
-    table slot it was found at)."""
+    """(the build row each row finds in `hop`'s table, -1 for none, read
+    from the hop's records when it is folded; the table slot it was found
+    at)."""
     t = hop.table
     dev = aux.device
     miss = torch.full((n,), -1, dtype=torch.int64, device=dev)
@@ -756,19 +948,21 @@ def _lookup_plain(hop: Hop, pair: Columns, aux: torch.Tensor, n: int):
         packed |= torch.where(inside, d - lo, 0) << shift
     if t.kind == TAB_DIRECT:
         slot = packed.clamp(0, t.size - 1)
-        brow = t.rows[slot].to(torch.int64)
+        hit = ok
     else:
         slot, hit = _sorted_slots(t.keys, packed)
-        brow = torch.where(hit, t.rows[slot].to(torch.int64), -1)
-    return torch.where(ok, brow, miss), slot
+        hit &= ok
+    brow = t.rows[slot].to(torch.int64) if hop.fold is None else \
+        hop.fold.records[slot, 0]
+    return torch.where(hit, brow, miss), slot
 
 
 def _mmx_exists_plain(hop: Hop, pair: Columns, aux: torch.Tensor, n: int,
-                      slot: torch.Tensor) -> torch.Tensor:
-    """The min/max membership test of `hop` at each row's slot."""
+                      mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """The min/max membership test of `hop` over the member's min `mn`
+    and max `mx` of each row's key."""
     op, prog = hop.mfilter
     x, xv = evaluate(prog, pair, aux, n)
-    mn, mx = hop.table.mn[slot], hop.table.mx[slot]
     exists = {CMP_NE: (mn != x) | (mx != x), CMP_LT: mn < x,
               CMP_LE: mn <= x, CMP_GT: mx > x, CMP_GE: mx >= x}[op]
     return exists & xv
@@ -794,3 +988,221 @@ def chain_aggregate_plain(spec, cols: Columns, aux: torch.Tensor,
                                            dset)
     return hash_group_aggregate_plain(spec, pair, aux, n, table, overflow,
                                       rows, dset)
+
+
+# --- staging-time composition and folding -------------------------------------
+
+class ComposeSpec(_ProgramSpec):
+    """One composition's descriptor: the composed hop's probe-key programs
+    over the pair space, and a chain section whose last hop is the composed
+    hop with its own table, earlier ones the hops composed into the same
+    owner (`TAB_COMPOSED`, whose payload may be a key) or stubs. `owner`
+    is the owner's index in the chain."""
+
+    def __init__(self, pools: Pools, chain: Chain, owner: int):
+        self.chain = chain
+        self.owner = owner
+        super().__init__(pools, None, [], [])
+        self.meta = self._layout(0)
+
+    @property
+    def hop(self) -> Hop:
+        return self.chain.hops[-1]
+
+    @property
+    def width(self) -> int:
+        """The words a composition writes: the row, then a min/max hop's
+        min and max."""
+        return 3 if self.hop.table.mn is not None else 1
+
+    def _pass_programs(self, lanes) -> List[Program]:
+        return list(self.hop.probe_keys)
+
+    def _chain_section(self, index: Dict[int, int]) -> np.ndarray:
+        return self.chain.section(index, self.ncols)
+
+
+def stub_hop(payload: Sequence[int], rows: torch.Tensor) -> Hop:
+    """A hop of a composition's chain that the kernel never probes (an
+    empty table over `rows`, any int32 tensor on the device, never read):
+    it names the hop of its payload columns."""
+    return Hop(BuildTable(TAB_EMPTY, [], [], [], 1, rows, None, 0, False),
+               "INNER", [], payload)
+
+
+def chain_compose(spec: ComposeSpec, cols: Columns, aux: torch.Tensor,
+                  n_rows: int, words: torch.Tensor, word: int) -> None:
+    """Probe `spec.hop` once for each of the first `n_rows` build rows of
+    its owner: the probe keys over the owner's columns at the row (and the
+    columns of hops composed into the owner before it, at the rows they
+    found there), NULL or outside [lo, hi] finding nothing. Writes the
+    build row found (-1: none) to column `word` of `words` (int64
+    [n_rows, width]) and, for a min/max hop, the key's member min and max
+    to `word + 1` and `word + 2` (0 where none). `cols` maps the programs'
+    pair-space indices to whole build columns.
+
+    On CPU tensors this runs `chain_compose_plain`; on CUDA tensors it
+    launches the `chain_compose` kernel once, or raises."""
+    dev = words.device
+    _check_compose(spec, cols, aux, n_rows, words, word)
+    if not _cuda(words):
+        return chain_compose_plain(spec, cols, aux, n_rows, words, word)
+    if n_rows == 0:
+        return None
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        meta_d = spec.device_meta(cols, dev)
+        kernels.check(lib.dft_chain_compose(
+            meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
+            spec.owner, words.data_ptr() + 8 * word, words.shape[1],
+            int(spec.hop.table.mn is not None), int(spec.full),
+            _stream(dev)), chain_compose_kernel)
+        chain_compose_kernel.launches += 1
+    return None
+
+
+def _check_compose(spec: ComposeSpec, cols: Columns, aux: torch.Tensor,
+                   n_rows: int, words: torch.Tensor, word: int) -> None:
+    dev = words.device
+    if words.dtype != torch.int64 or not words.is_contiguous() or \
+            words.dim() != 2 or words.shape[0] < n_rows or \
+            not 0 <= word <= words.shape[1] - spec.width:
+        raise ValueError("words must be a contiguous int64 [rows, width] "
+                         "with the hop's columns inside")
+    if aux.device != dev or aux.dtype != torch.int64 or \
+            not aux.is_contiguous():
+        raise ValueError("aux must be a contiguous int64 tensor")
+    for hop in spec.chain.hops:
+        for t in hop.tensors():
+            if t.device != dev:
+                raise ValueError("a build table lies on another device")
+    for idx in spec.pools.columns:
+        if idx not in cols:
+            raise ValueError(f"column {idx} is read but not given")
+        data, valid = cols[idx]
+        if data.device != dev or not data.is_contiguous() or \
+                data.dim() != 1 or data.dtype != spec.column_dtype(idx):
+            raise ValueError(f"column {idx}: contiguous 1-D "
+                             f"{spec.column_dtype(idx)} on {dev} expected")
+        if valid is not None and (valid.device != dev or
+                                  valid.dtype != torch.bool or
+                                  valid.shape[0] < data.shape[0]):
+            raise ValueError(f"column {idx}: bad validity")
+
+
+def chain_compose_plain(spec: ComposeSpec, cols: Columns, aux: torch.Tensor,
+                        n_rows: int, words: torch.Tensor, word: int) -> None:
+    """The plain PyTorch version: the owner's rows as a whole tensor, each
+    earlier composed hop's row gathered from its words, then the hop's
+    lookup (`_lookup_plain`) over the pair space at those rows."""
+    dev = words.device
+    n = n_rows
+    found = {spec.owner: torch.arange(n, device=dev)}
+    for h, hop in enumerate(spec.chain.hops[:-1]):
+        c = hop.compose
+        if c is not None and c.owner == spec.owner:
+            ob = found[c.owner]
+            found[h] = torch.where(ob >= 0, c.words[ob.clamp(min=0), c.word],
+                                   -1)
+    pair = {}
+    for idx in spec.pools.columns:
+        at = found[spec.chain.hop_of[idx]]
+        data, valid = cols[idx]
+        ok = at >= 0
+        at = at.clamp(min=0)
+        pair[idx] = (data[at], ok if valid is None else ok & valid[at])
+    brow, slot = _lookup_plain(spec.hop, pair, aux, n)
+    words[:n, word] = brow
+    t = spec.hop.table
+    if t.mn is not None:
+        words[:n, word + 1] = torch.where(brow >= 0, t.mn[slot], 0)
+        words[:n, word + 2] = torch.where(brow >= 0, t.mx[slot], 0)
+    return None
+
+
+def chain_fold(table: BuildTable, comp: Optional[torch.Tensor],
+               columns: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+               fold: Fold) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The records of a folded hop (int64 [table.size, fold.words], laid out
+    by `fold`) and their validity bytes (uint8, the same shape, or None):
+    for each slot of `table`, the build row it holds, the owner's composed
+    words `comp` (int64 [build rows, fold.n_comp], or None) at that row
+    and, in the order of `fold.columns`, each of `columns` ((data,
+    validity) of a whole build column) at that row. A slot with no row
+    holds -1 and zeros.
+
+    On CPU tensors this runs `chain_fold_plain`; on CUDA tensors it
+    launches the `chain_fold` kernel once, or raises."""
+    dev = table.rows.device
+    if len(columns) != len(fold.columns) or \
+            (comp is None) != (fold.n_comp == 0) or \
+            (comp is not None and (comp.dtype != torch.int64 or
+                                   not comp.is_contiguous() or
+                                   comp.shape[1] != fold.n_comp or
+                                   comp.device != dev)):
+        raise ValueError("the columns and composed words must match the "
+                         "fold's layout")
+    for (data, valid), (_w, nullable) in zip(columns, fold.columns.values()):
+        if data.device != dev or not data.is_contiguous() or \
+                data.dtype not in _DTYPE_CODE or \
+                (valid is not None) != nullable or \
+                (valid is not None and valid.device != dev):
+            raise ValueError("fold columns: contiguous 1-D tensors on the "
+                             "table's device, NULLs as the layout says")
+    if not _cuda(table.rows):
+        return chain_fold_plain(table, comp, columns, fold)
+    records = torch.zeros((table.size, fold.words), dtype=torch.int64,
+                          device=dev)
+    valid = torch.zeros((table.size, fold.words), dtype=torch.uint8,
+                        device=dev) if fold.nullable else None
+    desc = fold_columns(columns, fold).to(dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        kernels.check(lib.dft_chain_fold(
+            table.rows.data_ptr(), table.size,
+            None if comp is None else comp.data_ptr(), fold.n_comp,
+            desc.data_ptr() if len(columns) else None, len(columns),
+            records.data_ptr(), None if valid is None else valid.data_ptr(),
+            fold.words, _stream(dev)), chain_fold_kernel)
+        chain_fold_kernel.launches += 1
+    return records, valid
+
+
+def fold_columns(columns: Sequence[Tuple[torch.Tensor,
+                                         Optional[torch.Tensor]]],
+                 fold: Fold) -> torch.Tensor:
+    """The fold kernel's column descriptors (host int64, four words a
+    column): data and validity addresses (0: none), dtype code, and the
+    column's word in a record."""
+    return torch.tensor([w for (data, valid), (word, _n) in
+                         zip(columns, fold.columns.values())
+                         for w in (data.data_ptr(),
+                                   0 if valid is None else valid.data_ptr(),
+                                   _DTYPE_CODE[data.dtype], word)],
+                        dtype=torch.int64)
+
+
+def chain_fold_plain(table: BuildTable, comp: Optional[torch.Tensor],
+                     columns: Sequence[Tuple[torch.Tensor,
+                                             Optional[torch.Tensor]]],
+                     fold: Fold) -> Tuple[torch.Tensor,
+                                          Optional[torch.Tensor]]:
+    """The plain PyTorch version: the records' words filled by indexing."""
+    dev = table.rows.device
+    shape = (table.size, fold.words)
+    records = torch.zeros(shape, dtype=torch.int64, device=dev)
+    valid = torch.zeros(shape, dtype=torch.uint8, device=dev) \
+        if fold.nullable else None
+    rows = table.rows.to(torch.int64)
+    records[:, 0] = rows
+    ok = rows >= 0
+    if not bool(ok.any()):
+        return records, valid
+    at = rows.clamp(min=0)
+    if comp is not None:
+        records[:, 1:1 + fold.n_comp] = torch.where(ok[:, None], comp[at], 0)
+    for (data, v), (word, nullable) in zip(columns, fold.columns.values()):
+        records[:, word] = torch.where(ok, _to_word(data)[at], 0)
+        if nullable:
+            valid[:, word] = (ok & v[at]).to(torch.uint8)
+    return records, valid

@@ -49,6 +49,8 @@ _SIGNATURES = {
                             _P],
     "dft_chain_rows_mark": [_P, _I, _P, _LL, _P, _P, _I, _P],
     "dft_chain_rows_emit": [_P, _I, _P, _LL, _P, _P, _I, _P],
+    "dft_chain_compose": [_P, _I, _P, _LL, _I, _P, _LL, _I, _I, _P],
+    "dft_chain_fold": [_P, _LL, _P, _I, _P, _I, _P, _P, _I, _P],
     "dft_group_emit": [_P, _LL, _I, _P, _P],
     "dft_join_build_hash": [_P, _I, _P, _LL, _P, _P, _P, _I, _P],
     "dft_join_build_offsets": [_P, _LL, _LL, _P, _P, _P],

@@ -19,6 +19,21 @@ A filtered SEMI or ANTI hop (`member_col OP probe_expr`, TPC-H Q21's
 `l2.l_suppkey <> l1.l_suppkey`) stages a min/max table and tests membership
 in the walk (`_stage_semi_member_lut` `:1158`, `_mmx_exists` `:1325`).
 
+Staging-time composition and folding (`compose_builds`; the reference's
+`_compose_staged_hops` `:786` and `_fold_lut_pmat` `:719`, called at
+`:712-714`). After the tables are staged, the reference's test runs over
+them in chain order: a hop whose probe keys are all integer payload
+columns of one earlier INNER hop (or of hops already composed into it) is
+composed into that owner when the owner has a payload and at most 2^22
+build rows (`chain_compose`, one launch a composed hop), and an INNER hop
+the reference would stage as a direct-address table is folded when its
+span x (1 + its lanes, composed ones included) is at most 2^24
+(`chain_fold` in `chain()`, over the payload columns the walk reads).
+Spans and lanes are counted as the reference counts them, so both
+packages compose and fold the same hops at every scale. Tables, composed
+words and records are built per execution; the reference's cross-query
+cache of them (`_CMP_CACHE`) is not ported.
+
 Functional dependence (`_fd_reduce` `:1501`, `_fd_finalize` `:1359`). A
 group key that is a payload column of a unique-key INNER build leaves the
 packed key when the remaining keys determine that build's probe keys
@@ -52,18 +67,20 @@ them with no host round trip.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ...common.batch import Batch
+from ...common.batch import Batch, round_capacity
 from ...common.column import Column, DeviceColumnCache
-from ...device.groupby import AggregateSpec, dense_group_table
+from ...device.groupby import _NP_TO_TORCH, AggregateSpec, dense_group_table
 from ...device.join_chain import (ChainDenseSpec, ChainHashSpec,
-                                  ChainRowsSpec, Chain, BuildSpec, Hop,
-                                  chain_aggregate, chain_build, chain_rows)
+                                  ChainRowsSpec, Chain, BuildSpec, Compose,
+                                  ComposeSpec, Fold, Hop, chain_aggregate,
+                                  chain_build, chain_compose, chain_fold,
+                                  chain_rows, stub_hop)
 from ...device.lower import (_CMP, OP_COL, OP_NULL, OP_ROWID, LoweringError,
                              Pools, Program, compile_expr, compile_key)
 from ...runtime import BaselineMetrics, TaskContext
@@ -120,7 +137,9 @@ class _BuildInput:
     """One build side ready for `chain_build`: its spec, device columns and
     aux inputs, whether it must be unique (INNER), its batch, the map from
     build output columns to batch columns, whether its columns stay
-    resident, and once staged its `table`."""
+    resident, and once staged its `table`, its `compose` record when it
+    was composed into an earlier hop, and `fold`, the reference's (span,
+    width) of its fold when it folds."""
 
     def __init__(self, spec, cols, aux, unique: bool, batch, col_map,
                  keep: bool):
@@ -132,6 +151,29 @@ class _BuildInput:
         self.col_map = col_map
         self.keep = keep
         self.table = None
+        self.compose: Optional[Compose] = None
+        self.fold = None
+
+
+class _PoolColumns:
+    """The device dtype each program of a pool reads a column at."""
+
+    def __init__(self, pools: Pools):
+        self.pools = pools
+
+    def column_dtype(self, idx: int) -> torch.dtype:
+        return _NP_TO_TORCH[self.pools.columns[idx]]
+
+
+def _lanes(col: Column) -> Tuple[int, bool, bool]:
+    """How the reference's payload matrix holds a column
+    (`_stage_payload_matrix`, `:1007`): (its int32 lanes: two for int64,
+    none for float64, else one, and one more for a validity; whether it is
+    an integer lane, `i64` or `int`, which a composed hop may probe by;
+    whether it is float64)."""
+    dt = np.dtype(col.dtype.device_dtype())
+    n = 2 if dt in (np.int64, np.uint64) else 0 if dt == np.float64 else 1
+    return n + col.has_nulls, dt.kind in "iu", dt == np.float64
 
 
 class TorchChainExec(TorchDeviceExec):
@@ -217,15 +259,45 @@ class TorchChainExec(TorchDeviceExec):
         return out
 
     def chain(self, ppred, staged: List[_BuildInput], probe_keys,
-              mfilters) -> Chain:
+              mfilters, pools: Pools, reads) -> Chain:
         """The walk over the staged builds: one hop a build, with its
-        lowered probe keys, its payload's pair-space indices and its
-        min/max test."""
-        hops = [Hop(s.table, b.join_type, pk, payload, mf)
+        lowered probe keys, its payload's pair-space indices, its min/max
+        test and its composition; then each folding hop's records
+        (`chain_fold`) over the payload columns that the chain's programs
+        and `reads` (the walk's other programs) read."""
+        hops = [Hop(s.table, b.join_type, pk, payload, mf, s.compose)
                 for b, s, pk, payload, mf in zip(
                     self.builds, staged, probe_keys, self.payload_ranges(),
                     mfilters)]
-        return Chain(self.n_spine, ppred, hops)
+        chain = Chain(self.n_spine, ppred, hops)
+        read = {a for prog in list(reads) + chain.programs()
+                if prog is not None for op, a, _b in prog.code
+                if op == OP_COL}
+        dtypes = _PoolColumns(pools)
+        for h, (hop, s) in enumerate(zip(hops, staged)):
+            if s.fold is None:
+                continue
+            idxs = [p for p in hop.payload if p in read]
+            cols = {}
+            for p in idxs:
+                cols.update(self._to_device(
+                    dtypes, {p: self._pair_column(staged, p)}, s.keep))
+            comp = next((o.compose.words for o in hops
+                         if o.compose is not None and o.compose.owner == h),
+                        None)
+            fold = Fold(0 if comp is None else comp.shape[1],
+                        [(p, cols[p][1] is not None) for p in idxs], *s.fold)
+            fold.records, fold.valid = chain_fold(
+                s.table, comp, [cols[p] for p in idxs], fold)
+            hop.fold = fold
+        return chain
+
+    def _pair_column(self, staged: List[_BuildInput], idx: int) -> Column:
+        """The build column behind pair-space payload column `idx`."""
+        for b, s, r in zip(self.builds, staged, self.payload_ranges()):
+            if idx in r:
+                return s.batch.columns[s.col_map[b.payload[r.index(idx)]]]
+        raise KeyError(idx)
 
     def build_inputs(self, ctx: TaskContext) -> List[_BuildInput]:
         """What `chain_build` takes for every build side. A Filter/Projection
@@ -269,11 +341,13 @@ class TorchChainExec(TorchDeviceExec):
                                    bb, col_map, keep))
         return out
 
-    def stage_builds(self, ctx: TaskContext) -> List[_BuildInput]:
-        """Every build side staged on the card as a table (`chain_build`).
-        An INNER build with a duplicate key, a build of 2^31 rows or more,
-        or packed keys wider than 62 bits raise DeviceLoweringUnsupported
-        (`:700`)."""
+    def stage_builds(self, ctx: TaskContext,
+                     compose: bool = True) -> List[_BuildInput]:
+        """Every build side staged on the card as a table (`chain_build`),
+        then, unless `compose` is false, the hops composed and the folds
+        chosen (`compose_builds`). An INNER build with a duplicate key, a
+        build of 2^31 rows or more, or packed keys wider than 62 bits raise
+        DeviceLoweringUnsupported (`:700`)."""
         out = self.build_inputs(ctx)
         for bi in out:
             if bi.batch.num_rows >= 1 << 31:
@@ -287,7 +361,182 @@ class TorchChainExec(TorchDeviceExec):
             if bi.table.duplicate:
                 raise DeviceLoweringUnsupported(
                     "chain build keys not unique (fanout > 1)")
+        if compose:
+            self.compose_builds(out)
         return out
+
+    def compose_plan(self, staged: List[_BuildInput]):
+        """The reference's choice (`_compose_staged_hops` `:812-839`, then
+        `_fold_lut_pmat` `:729-737`): ({composed hop: (owner, tag)},
+        {folded hop: (span, width)}), hops in chain order. `registry` maps a
+        pair-space payload column to the hop whose lanes hold it (an
+        uncomposed INNER hop, or the owner of a composed one) and whether
+        it is an integer lane; `lanes` counts each such hop's int32 lanes
+        as the reference's payload matrix does, composed ones included."""
+        n_spine = self.n_spine
+        ranges = self.payload_ranges()
+        registry, lanes, has_matrix = {}, {}, set()
+        composed = {}
+        for bi, (b, s) in enumerate(zip(self.builds, staged)):
+            inner = b.join_type == "INNER"
+            pcols = [_lanes(s.batch.columns[s.col_map[i]])
+                     for i in b.payload] if inner else []
+            keys = b.probe_keys
+            owner = None
+            if keys and all(isinstance(k, ColumnExpr) and k.index >= n_spine
+                            and k.index in registry for k in keys):
+                owners = {registry[k.index][0] for k in keys}
+                if len(owners) == 1:
+                    owner = owners.pop()
+            if owner is not None and not (
+                    owner in has_matrix and
+                    all(registry[k.index][1] for k in keys) and
+                    not any(f64 for _n, _i, f64 in pcols) and
+                    round_capacity(len(staged[owner].batch.columns[0])
+                                   if staged[owner].batch.columns else 0)
+                    <= (1 << 22)):
+                owner = None
+            if owner is None:
+                if inner and pcols:
+                    for p, (_n, key_ok, _f) in zip(ranges[bi], pcols):
+                        registry[p] = (bi, key_ok)
+                    lanes[bi] = sum(n for n, _i, _f in pcols)
+                    if lanes[bi]:
+                        has_matrix.add(bi)
+                continue
+            if b.sfilter is not None:
+                tag, new = "mmx", 1 + 2 * self._mmx_lanes(b, s)
+            elif inner and pcols:
+                tag, new = "inner", 1 + sum(n for n, _i, _f in pcols)
+                for p, (_n, key_ok, _f) in zip(ranges[bi], pcols):
+                    registry[p] = (owner, key_ok)
+            else:
+                tag, new = "member", 1
+            composed[bi] = (owner, tag)
+            lanes[owner] += new
+        folded = {}
+        for bi, (b, s) in enumerate(zip(self.builds, staged)):
+            if bi in composed or bi not in has_matrix:
+                continue
+            span = self._lut_span(b, s, lanes[bi])
+            if span is not None:
+                folded[bi] = (span, 1 + lanes[bi])
+        return composed, folded
+
+    @staticmethod
+    def _mmx_lanes(b: ChainBuild, s: _BuildInput) -> int:
+        """The int32 lanes the reference gives each of a composed min/max
+        hop's min and max (`:858-863`): one when its table is
+        direct-address (unfiltered key bits at most 26, `:1245`) and the
+        member column fits int32 (`:1211-1215`), else two."""
+        n = s.batch.num_rows
+        if n == 0:
+            return 2
+        bits = 0
+        for k in b.build_keys:
+            a = s.batch.columns[s.col_map[k.index]].data_host()[:n]
+            bits += max(int(np.ceil(np.log2(int(a.max()) - int(a.min())
+                                            + 2))), 1)
+        if bits > 26:
+            return 2
+        fa = s.batch.columns[s.col_map[b.sfilter[1].index]].data_host()[:n]
+        fit32 = int(fa.min()) > np.iinfo(np.int32).min + 1 and \
+            int(fa.max()) < np.iinfo(np.int32).max
+        return 1 if fit32 else 2
+
+    @staticmethod
+    def _lut_span(b: ChainBuild, s: _BuildInput,
+                  lanes: int) -> Optional[int]:
+        """The span of the direct-address table the reference stages for
+        the INNER build `b` (`_unfiltered_lut`, `:177`): 1 << the bits of
+        its unfiltered keys' ranges, when they are unique non-null integers
+        spanning at most 2^24 and 16 x its rows, and it is not a build the
+        reference stages from device-born columns (`_stage_build_device`,
+        `:1069`: 4 MB or more and no predicate); and only when the fold's
+        budget, span x (1 + `lanes`) <= 2^24, holds. Else None. A build
+        whose every row is live (no predicate, no NULL key) has its key
+        ranges and uniqueness in its table already; another takes them on
+        the card."""
+        bb = s.batch
+        n = bb.num_rows
+        keys = [bb.columns[s.col_map[k.index]] for k in b.build_keys]
+        if n == 0 or any(c.has_nulls or not c.dtype.is_integer
+                         for c in keys):
+            return None
+        if s.spec.pred is None and bb.nbytes() >= (4 << 20) and all(
+                c.device_born and getattr(c, "_host_cache", None) is None
+                for c in keys):
+            return None
+        whole = s.table.live == n      # the table knows the unfiltered keys
+        vals = [s.cols[s.col_map[k.index]][0][:n].to(torch.int64)
+                for k in b.build_keys]
+        ext = list(zip(s.table.los, s.table.his)) if whole else \
+            torch.stack([torch.stack([v.min(), v.max()])
+                         for v in vals]).cpu().tolist()
+        bits = [max(int(np.ceil(np.log2(hi - lo + 2))), 1) for lo, hi in ext]
+        span = 1 << sum(bits)
+        if span > min(1 << 24, 16 * n) or span * (1 + lanes) > (1 << 24):
+            return None
+        if whole:                      # an INNER table has no duplicate
+            return span
+        packed, shift = torch.zeros_like(vals[0]), 0
+        for v, (lo, _hi), w in zip(vals, ext, bits):
+            packed |= (v - lo) << shift
+            shift += w
+        return span if torch.unique(packed).numel() == n else None
+
+    def compose_builds(self, staged: List[_BuildInput]) -> None:
+        """Compose and mark for folding the hops `compose_plan` picks: each
+        owner's composed words (int64 [its build rows, words]: one a hop,
+        three for a min/max hop), filled by one `chain_compose` a composed
+        hop in chain order, so a later one reads an earlier one's rows."""
+        composed, folded = self.compose_plan(staged)
+        width = {}
+        for owner, tag in composed.values():
+            width[owner] = width.get(owner, 0) + (3 if tag == "mmx" else 1)
+        words = {o: torch.zeros((staged[o].batch.num_rows, w),
+                                dtype=torch.int64, device=self.device)
+                 for o, w in width.items()}
+        used = {o: 0 for o in width}
+        for bi, (owner, tag) in composed.items():
+            spec, cols, aux, n = self.compose_input(staged, bi, owner)
+            chain_compose(spec, cols, aux, n, words[owner], used[owner])
+            staged[bi].compose = Compose(owner, tag, words[owner],
+                                         used[owner])
+            used[owner] += 3 if tag == "mmx" else 1
+        for bi, budget in folded.items():
+            staged[bi].fold = budget
+
+    def compose_input(self, staged: List[_BuildInput], bi: int, owner: int):
+        """What `chain_compose` takes to compose hop `bi` into `owner`: (its
+        ComposeSpec, the pair-space columns its probe keys read, aux, the
+        owner's build rows). The hops composed into `owner` before `bi`
+        enter the spec's chain as they are staged (their payload may be a
+        key); every other earlier hop is a stub."""
+        b, s = self.builds[bi], staged[bi]
+        ranges = self.payload_ranges()
+        pools = Pools()
+        try:
+            keys = [compile_expr(k, pools) for k in b.probe_keys]
+        except LoweringError as e:
+            raise DeviceLoweringUnsupported(str(e))
+        hops = []
+        for h in range(bi):
+            c = staged[h].compose
+            if c is not None and c.owner == owner and ranges[h]:
+                hops.append(Hop(staged[h].table, "INNER", [], ranges[h],
+                                compose=c))
+            else:
+                hops.append(stub_hop(ranges[h], staged[h].table.rows))
+        hops.append(Hop(s.table, b.join_type, keys, ranges[bi]))
+        spec = ComposeSpec(pools, Chain(self.n_spine, None, hops), owner)
+        cols = {}
+        for p in pools.columns:
+            h = spec.chain.hop_of[p]
+            cols.update(self._to_device(
+                spec, {p: self._pair_column(staged, p)}, staged[h].keep))
+        aux = torch.zeros(0, dtype=torch.int64, device=self.device)
+        return spec, cols, aux, staged[owner].batch.num_rows
 
     def pair_view(self, spine_batch, staged: List[_BuildInput]) -> _PairView:
         cols = list(spine_batch.columns)
@@ -388,7 +637,9 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
         plan.kept, plan.dropped = kept, dropped
         try:
             key_progs, lanes, dense = _fold_inputs(keys, plan, slot_defs)
-            chain = self.chain(ppred, staged, probe_keys, mfilters)
+            chain = self.chain(ppred, staged, probe_keys, mfilters, pools,
+                               [pred] + [k for k, _o, _b in key_progs] +
+                               [p for p, _k in lanes])
             rows = sum(v.num_rows for v in views)
             if dense:
                 spec = ChainDenseSpec(pools, pred, key_progs, lanes, chain)
@@ -400,18 +651,19 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
             raise DeviceLoweringUnsupported(str(e))
         return spec, plan, list(slot_defs), slot_map
 
-    def prepare(self, ctx: TaskContext):
+    def prepare(self, ctx: TaskContext, compose: bool = True):
         """Everything a run needs before the walk: the builds staged on the
-        card, the chain compiled, each spine batch's columns staged.
-        Returns (spec, pack plan, lane names, slot map, [(cols, aux, rows)
-        per spine batch], staged builds)."""
+        card (composed and folded unless `compose` is false), the chain
+        compiled, each spine batch's columns staged. Returns (spec, pack
+        plan, lane names, slot map, [(cols, aux, rows) per spine batch],
+        staged builds)."""
         with record_function("dft.compile"):
             try:
                 lowered = self.lower()
             except LoweringError as e:
                 raise DeviceLoweringUnsupported(str(e))
         with record_function("dft.build"):
-            staged = self.stage_builds(ctx)
+            staged = self.stage_builds(ctx, compose)
         spine = [b for b in execute_stream(self.source, ctx) if b.num_rows]
         views = [self.pair_view(b, staged) for b in spine]
         with record_function("dft.compile"):
@@ -642,11 +894,11 @@ class TorchJoinChainRowsExec(TorchChainExec):
         return pools, ppred, pred, outs, probe_keys, \
             self.lower_mfilters(pools)
 
-    def prepare_rows(self, ctx: TaskContext):
+    def prepare_rows(self, ctx: TaskContext, compose: bool = True):
         """Everything a run needs before the walk: the builds staged on the
-        card, the walk's spec, and each spine batch's staged columns.
-        Returns (spec, [(cols, aux, rows, pair view) per spine batch],
-        staged builds)."""
+        card (composed and folded unless `compose` is false), the walk's
+        spec, and each spine batch's staged columns. Returns (spec, [(cols,
+        aux, rows, pair view) per spine batch], staged builds)."""
         with record_function("dft.compile"):
             try:
                 (pools, ppred, pred, outs, probe_keys,
@@ -654,12 +906,12 @@ class TorchJoinChainRowsExec(TorchChainExec):
             except LoweringError as e:
                 raise DeviceLoweringUnsupported(str(e))
         with record_function("dft.build"):
-            staged = self.stage_builds(ctx)
+            staged = self.stage_builds(ctx, compose)
         spine = [b for b in execute_stream(self.source, ctx) if b.num_rows]
         try:
             spec = ChainRowsSpec(pools, pred, outs,
                                  self.chain(ppred, staged, probe_keys,
-                                            mfilters))
+                                            mfilters, pools, [pred] + outs))
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
         keep_spine = self._source_is_scan()

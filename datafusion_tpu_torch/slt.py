@@ -25,6 +25,10 @@ bools -> true/false, floats/decimals -> BigDecimal round(12) normalized
 (NaN/Infinity spelled out), dates ISO, timestamps RFC3339 ("T" separator).
 Cells are normalized by the column's *data type* (as the reference's
 DataFusion engine does); the type string only documents arity.
+
+The runner's session takes the card (`device="cuda"`, the CLI's
+`--device cuda`) unless it is given the CPU, where each kernel runs its
+plain PyTorch version; with no card, asking for it raises.
 """
 from __future__ import annotations
 
@@ -383,7 +387,7 @@ _FILE_SETUP = {"joins.slt": _setup_joins_fixtures}
 class SltRunner:
     def __init__(self, ctx=None, lenient_errors: bool = False,
                  base_dir: Optional[str] = None,
-                 float_rel_tol: Optional[float] = None, device="cpu"):
+                 float_rel_tol: Optional[float] = None, device="cuda"):
         import datafusion_tpu_torch as df
         self.ctx = ctx or df.SessionContext(device)
         self.lenient_errors = lenient_errors
@@ -514,13 +518,14 @@ class SltRunner:
                 "\n".join(diff))
 
 
-def run_slt_text(text: str, ctx=None, lenient_errors: bool = False) -> int:
-    r = SltRunner(ctx, lenient_errors=lenient_errors)
+def run_slt_text(text: str, ctx=None, lenient_errors: bool = False,
+                 device="cuda") -> int:
+    r = SltRunner(ctx, lenient_errors=lenient_errors, device=device)
     return r.run_text(text)
 
 
 def run_slt_file(path: str, ctx=None, lenient_errors: bool = False,
-                 device="cpu") -> int:
+                 device="cuda") -> int:
     r = SltRunner(ctx, lenient_errors=lenient_errors, device=device)
     return r.run_file(path)
 
@@ -533,8 +538,9 @@ def main(argv=None):
     ap.add_argument("--lenient-errors", action="store_true")
     ap.add_argument("--all", action="store_true",
                     help="report every failure instead of stopping")
-    ap.add_argument("--device", default="cpu",
-                    help="the session's device, e.g. cuda (default: cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="the session's device; cpu runs each kernel's plain "
+                    "PyTorch version (default: cuda)")
     args = ap.parse_args(argv)
     failed = 0
     for p in args.files:

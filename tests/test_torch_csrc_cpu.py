@@ -2,7 +2,8 @@
 
 `g++` builds `csrc/program.cuh` and the kernel bodies of
 `fused_dense_aggregate.cu`, `hash_group_aggregate.cu`, `chain_build.cu`,
-`chain_aggregate.cu`, `join_build.cu` and `join_aggregate.cu` (each file
+`chain_aggregate.cu`, `chain_rows.cu`, `chain_compose.cu`, `join_build.cu`
+and `join_aggregate.cu` (each file
 above its `extern "C"` launch wrappers; `scan.cuh`, whose device-wide scan
 launches kernels, is left out and the join build's scan runs as
 `torch.cumsum`) through `SHIM`, a
@@ -13,15 +14,19 @@ the inputs its plain PyTorch version reads, and the two must agree
 exactly (the transcendental math functions within rel 1e-15, glibc's
 against PyTorch's): every program of the lowering tests, the dense fold,
 every build table (the insert pass; the range pass needs a warp) and
-every chain walk of TPC-H at SF 0.01 and of the min/max membership cases,
+every chain walk of TPC-H at SF 0.01 and of the min/max membership cases
+(with their staging-time compositions and folds, as the exec stages them;
+every composition and fold itself, and the row-returning walk's mark and
+emit passes over Q2's composed and folded chain),
 the count(DISTINCT x) lane's set inserts (dense, hash and chain folds,
 lanes past 32 in passes), the fanout-N join's build (the multiset of
 entries a bucket) and probe-and-fold, and the mesh's row partition (K1:
 histogram, the scan as `torch.cumsum`, the stable scatter, round after
 round) and partial-table merge (K2).
 Each kernel runs in the interpreter variant (lean or full) that its spec's
-`full` flag picks, as the launch wrappers do, so a program that needs the
-full variant and is not flagged for it fails here. This holds the kernels' logic where there is no GPU; their parallel
+`full` flag picks, and a walk in the staged variant when its chain has
+composed or folded hops (`spec.variant`), as the launch wrappers do, so a
+program that needs the full variant and is not flagged for it fails here. This holds the kernels' logic where there is no GPU; their parallel
 behaviour is held on the card by `tests/test_torch_cuda.py`.
 """
 import ctypes
@@ -89,6 +94,12 @@ namespace cb { namespace { long long smem[1 << 16]; }
 namespace ca { namespace { long long smem[1 << 16]; }
 #include "chain_aggregate_k.cu"
 }
+namespace cr { namespace { long long smem[1 << 16]; }
+#include "chain_rows_k.cu"
+}
+namespace cc { namespace { long long smem[1 << 16]; }
+#include "chain_compose_k.cu"
+}
 namespace hg { namespace { long long smem[1 << 16]; }
 #include "hash_group_aggregate_k.cu"
 }
@@ -154,14 +165,35 @@ void h_insert(const long long* meta, int len, const long long* aux,
 }
 void h_chain_hash(const long long* meta, int len, const long long* aux,
                   long long n, long long cap, int ident, long long* table,
-                  int* overflow, int full) {
-  (full ? ca::chain_hash_kernel<true> : ca::chain_hash_kernel<false>)(
+                  int* overflow, int variant) {
+  DFT_WALK_VARIANT(ca::chain_hash_kernel, variant)(
       meta, len, aux, n, cap, ident, table, overflow);
 }
 void h_chain_dense(const long long* meta, int len, const long long* aux,
-                   long long n, unsigned long long* table, int full) {
-  (full ? ca::chain_dense_kernel<true> : ca::chain_dense_kernel<false>)(
-      meta, len, aux, n, table);
+                   long long n, unsigned long long* table, int variant) {
+  DFT_WALK_VARIANT(ca::chain_dense_kernel, variant)(meta, len, aux, n, table);
+}
+void h_rows_mark(const long long* meta, int len, const long long* aux,
+                 long long n, long long* pos, int variant) {
+  DFT_WALK_VARIANT(cr::rows_mark_kernel, variant)(meta, len, aux, n, pos);
+}
+void h_rows_emit(const long long* meta, int len, const long long* aux,
+                 long long n, const long long* pos, const long long* outs,
+                 int variant) {
+  DFT_WALK_VARIANT(cr::rows_emit_kernel, variant)(meta, len, aux, n, pos,
+                                                  outs);
+}
+void h_compose(const long long* meta, int len, const long long* aux,
+               long long n, int owner, long long* out, long long words,
+               int mmx, int full) {
+  (full ? cc::chain_compose_kernel<true> : cc::chain_compose_kernel<false>)(
+      meta, len, aux, n, owner, out, words, mmx);
+}
+void h_fold(const int* rows, long long size, const long long* comp,
+            int comp_words, const long long* cols, int n_cols,
+            long long* rec, unsigned char* valid, int rec_words) {
+  cc::chain_fold_kernel(rows, size, comp, comp_words, cols, n_cols, rec,
+                        valid, rec_words);
 }
 void h_hash(const long long* meta, int len, const long long* aux,
             long long n, long long cap, int ident, long long* table,
@@ -216,8 +248,8 @@ def lib(tmp_path_factory):
     shutil.copy(os.path.join(CSRC, "program.cuh"), d / "program.cuh")
     (d / "scan.cuh").write_text("#pragma once\n")
     for name in ("fused_dense_aggregate", "chain_build", "chain_aggregate",
-                 "hash_group_aggregate", "join_build", "join_aggregate",
-                 "exchange"):
+                 "chain_rows", "chain_compose", "hash_group_aggregate",
+                 "join_build", "join_aggregate", "exchange"):
         with open(os.path.join(CSRC, name + ".cu")) as f:
             src = f.read()
         (d / f"{name}_k.cu").write_text(src[:src.index('extern "C"')])
@@ -231,6 +263,10 @@ def lib(tmp_path_factory):
     out.h_insert.argtypes = [P, I, P, LL, I, LL, P, P, P, P, P, I]
     out.h_chain_hash.argtypes = [P, I, P, LL, LL, I, P, P, I]
     out.h_chain_dense.argtypes = [P, I, P, LL, P, I]
+    out.h_rows_mark.argtypes = [P, I, P, LL, P, I]
+    out.h_rows_emit.argtypes = [P, I, P, LL, P, P, I]
+    out.h_compose.argtypes = [P, I, P, LL, I, P, LL, I, I]
+    out.h_fold.argtypes = [P, LL, P, I, P, I, P, P, I]
     out.h_hash.argtypes = [P, I, P, LL, LL, I, P, P, I]
     out.h_jb_hash.argtypes = [P, I, P, LL, P, P, P, I]
     out.h_jb_count.argtypes = [P, LL, LL, P]
@@ -413,11 +449,11 @@ def _check_chain(lib, ctx, sql):
             m = spec.device_meta(cols, CPU, meta, dg)
             if dense:
                 lib.h_chain_dense(_ptr(m), len(meta), _ptr(aux), n,
-                                  _ptr(got), int(spec.full))
+                                  _ptr(got), spec.variant)
             else:
                 lib.h_chain_hash(_ptr(m), len(meta), _ptr(aux), n,
                                  spec.cap, int(spec.identity_slots),
-                                 _ptr(got), _ptr(ovf), int(spec.full))
+                                 _ptr(got), _ptr(ovf), spec.variant)
         chain_aggregate_plain(spec, cols, aux, n, want,
                               torch.zeros(1, dtype=torch.int32), dset=dw)
     g, w = _groups(got, dense), _groups(want, dense)
@@ -464,6 +500,136 @@ def test_min_max_membership_kernels_match_plain(lib, op, anti, wide):
            "AND m.w > 0) GROUP BY d.name")
     staged = _check_chain(lib, port, sql)
     assert any(s.table.mn is not None for s in staged)
+
+
+# --- staging-time composition and folding --------------------------------------
+
+def _check_compose_and_fold(lib, ex, tctx):
+    """Every composition of the chain exec `ex`, run again through the
+    kernel into a copy of its owner's words, and every fold, through the
+    kernel into fresh records, against what the plain versions staged.
+    Returns (compositions, folds) checked."""
+    from datafusion_tpu_torch.device.join_chain import fold_columns
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainRowsExec)
+    if isinstance(ex, TorchJoinChainRowsExec):
+        spec, inputs, staged = ex.prepare_rows(tctx)
+    else:
+        spec, _p, _n, _s, inputs, staged = ex.prepare(tctx)
+    cols = inputs[0][0]
+    n_comp = n_fold = 0
+    for bi, s in enumerate(staged):
+        c = s.compose
+        if c is None:
+            continue
+        cspec, ccols, aux, n = ex.compose_input(staged, bi, c.owner)
+        got = c.words.clone()
+        got[:, c.word:c.word + c.width] = -7
+        meta = cspec.device_meta(ccols, CPU)
+        lib.h_compose(_ptr(meta), len(cspec.meta), _ptr(aux), n, c.owner,
+                      got.data_ptr() + 8 * c.word, got.shape[1],
+                      int(c.tag == "mmx"), int(cspec.full))
+        assert torch.equal(got, c.words), bi
+        n_comp += 1
+    for h, hop in enumerate(spec.chain.hops):
+        f = hop.fold
+        if f is None:
+            continue
+        comp = next((o.compose.words for o in spec.chain.hops
+                     if o.compose is not None and o.compose.owner == h), None)
+        columns = [cols[p] for p in f.columns]
+        desc = fold_columns(columns, f)
+        rec = torch.zeros_like(f.records)
+        valid = None if f.valid is None else torch.zeros_like(f.valid)
+        lib.h_fold(_ptr(hop.table.rows), hop.table.size, _ptr(comp), f.n_comp,
+                   _ptr(desc) if columns else None, len(columns), _ptr(rec),
+                   _ptr(valid), f.words)
+        assert torch.equal(rec, f.records), h
+        assert valid is None or torch.equal(valid, f.valid), h
+        n_fold += 1
+    return n_comp, n_fold
+
+
+def _chain_execs(ctx, sql):
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchChainExec)
+    todo, out = [ctx.sql(sql).create_physical_plan()], []
+    while todo:
+        node = todo.pop()
+        if isinstance(node, TorchChainExec):
+            out.append(node)
+        todo += node.children()
+    return out
+
+
+@pytest.mark.parametrize("q", [2, 3, 5, 7, 8, 9, 10, 11, 12, 14, 16, 17, 18,
+                               19, 21])
+def test_tpch_compose_and_fold_kernels_match_plain(lib, tpch, q):
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    done = [_check_compose_and_fold(lib, ex, tpch.task_context())
+            for ex in _chain_execs(tpch, QUERIES[q])]
+    assert sum(f for _c, f in done) >= 1
+
+
+def test_edge_case_compose_and_fold_kernels_match_plain(lib):
+    """The composition edge cases of `test_torch_chain_compose.py` (NULL
+    and out-of-range owner keys, dropped owner rows, ANTI and min/max
+    composed hops, an int32 owner column, the fold budget's edge)."""
+    import test_torch_chain_compose as T
+    checked = [0, 0]
+    for name, (data, sql) in T.edge_cases().items():
+        port, _ref = T.pair(data)
+        for ex in _chain_execs(port, sql):
+            c, f = _check_compose_and_fold(lib, ex, port.task_context())
+            checked[0] += c
+            checked[1] += f
+    assert checked[0] >= 6 and checked[1] >= 1
+
+
+def test_q2_rows_walk_with_composed_and_folded_hops_matches_plain(lib):
+    """`chain_rows`' mark and emit passes (the scan as `torch.cumsum`) over
+    TPC-H Q2's row-returning chain, whose nation and region hops compose
+    into supplier and whose supplier hop folds: the outputs equal
+    `chain_rows_plain`'s in spine order."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.join_chain import (_DTYPE_CODE,
+                                                        chain_rows_plain)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainRowsExec)
+    from datafusion_tpu_torch.tpch.datagen import register_tpch
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    ctx = dft.SessionContext(CPU)
+    ctx.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
+    register_tpch(ctx, sf=0.01, seed=1)
+    (ex,) = [e for e in _chain_execs(ctx, QUERIES[2])
+             if isinstance(e, TorchJoinChainRowsExec)]
+    spec, inputs, _staged = ex.prepare_rows(ctx.task_context())
+    assert any(h.compose is not None for h in spec.chain.hops)
+    assert any(h.fold is not None for h in spec.chain.hops)
+    ((cols, aux, n, _view),) = inputs
+    meta = spec.device_meta(cols, CPU)
+    pos = torch.full((n + 1,), -1, dtype=torch.int64)
+    lib.h_rows_mark(_ptr(meta), len(spec.meta), _ptr(aux), n, _ptr(pos),
+                    spec.variant)
+    assert int(pos[n]) == 0
+    keep = pos[:n].clone()
+    pos[1:] = torch.cumsum(keep, 0)
+    pos[0] = 0
+    total = int(pos[n])
+    want = chain_rows_plain(spec, cols, aux, n)
+    assert total == want[0][0].numel() > 0
+    outs = [(torch.zeros(total, dtype=d.dtype), torch.zeros(total,
+                                                            dtype=torch.bool))
+            for d, _v in want]
+    ptrs = torch.tensor([p for d, v in outs for p in (d.data_ptr(),
+                                                      v.data_ptr())],
+                        dtype=torch.int64)
+    assert all(d.dtype in _DTYPE_CODE for d, _v in outs)
+    lib.h_rows_emit(_ptr(meta), len(spec.meta), _ptr(aux), n, _ptr(pos),
+                    _ptr(ptrs), spec.variant)
+    assert spec.variant & 2
+    for (gd, gv), (wd, wv) in zip(outs, want):
+        assert torch.equal(gv, wv) and torch.equal(gd, wd)
 
 
 # --- count(DISTINCT x) and lanes past 32 in the grouped folds ------------------

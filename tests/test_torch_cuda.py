@@ -649,6 +649,153 @@ def test_cuda_sort_and_window_end_to_end_matches_cpu(cuda):
     assert out[0] == out[1]
 
 
+# --- staging-time composition and folding: chain_compose, chain_fold -------
+
+def _compose_and_fold_vs_plain(ex, tctx):
+    """Every composition of the chain exec `ex` through `chain_compose` and
+    `chain_compose_plain` (into copies of the owner's words) and every fold
+    through `chain_fold` and `chain_fold_plain`, each equal to what the
+    exec staged; one launch a call. Returns the calls checked."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.join_chain import (
+        chain_compose, chain_compose_plain, chain_fold, chain_fold_plain)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainRowsExec)
+    if isinstance(ex, TorchJoinChainRowsExec):
+        spec, inputs, staged = ex.prepare_rows(tctx)
+    else:
+        spec, _p, _n, _s, inputs, staged = ex.prepare(tctx)
+    cols = inputs[0][0]
+    checked = 0
+    for bi, s in enumerate(staged):
+        c = s.compose
+        if c is None:
+            continue
+        cspec, ccols, aux, rows = ex.compose_input(staged, bi, c.owner)
+        for fn in (chain_compose, chain_compose_plain):
+            got = c.words.clone()
+            got[:, c.word:c.word + c.width] = -7
+            before = dft.launch_counts()["chain_compose"]
+            fn(cspec, ccols, aux, rows, got, c.word)
+            assert dft.launch_counts()["chain_compose"] == \
+                before + (fn is chain_compose)
+            torch.cuda.synchronize()
+            assert torch.equal(got, c.words)
+        checked += 1
+    for h, hop in enumerate(spec.chain.hops):
+        f = hop.fold
+        if f is None:
+            continue
+        comp = next((o.compose.words for o in spec.chain.hops
+                     if o.compose is not None and o.compose.owner == h), None)
+        columns = [cols[p] for p in f.columns]
+        before = dft.launch_counts()["chain_fold"]
+        got = chain_fold(hop.table, comp, columns, f)
+        assert dft.launch_counts()["chain_fold"] == before + 1
+        want = chain_fold_plain(hop.table, comp, columns, f)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, (f.records, f.valid)):
+            assert (a is None and b is None and c is None) or \
+                (torch.equal(a, b) and torch.equal(a, c))
+        checked += 1
+    return checked
+
+
+@pytest.mark.parametrize("q", [2, 5, 7, 8, 9, 10, 14, 18, 21])
+def test_tpch_compose_and_fold_match_plain(cuda, q):
+    """TPC-H's composed and folded chains at SF 0.1 (Q2 as its
+    row-returning chain): each composition and fold from its kernel equals
+    its plain version, exactly."""
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchChainExec)
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    ctx = _tpch_ctx(cuda, 0.1)
+    ctx.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
+
+    def walk(node):
+        yield node
+        for c in node.children():
+            yield from walk(c)
+    execs = [n for n in walk(ctx.sql(QUERIES[q]).create_physical_plan())
+             if isinstance(n, TorchChainExec)]
+    assert sum(_compose_and_fold_vs_plain(ex, ctx.task_context())
+               for ex in execs) >= 1
+
+
+def _compose_ctx(device):
+    """A spine `f`, an owner `d` whose `ek` has NULLs and keys outside its
+    dimensions' ranges, a dimension `e` keyed by `ek`, a hashed one `h`
+    keyed by `hk`, a member table `m`."""
+    import datafusion_tpu_torch as dft
+    rng = np.random.default_rng(12)
+    nf, nd, ne = 400_000, 5000, 300
+    ek = rng.integers(-20, ne + 20, nd)
+    hid = rng.choice(1 << 40, ne, replace=False)
+    ctx = dft.SessionContext(device)
+    ctx.register_arrays("f", {"k": rng.integers(0, nd, nf),
+                              "v": rng.integers(0, 100, nf),
+                              "s": rng.integers(0, 12, nf)})
+    ctx.register_table("d", dft.MemTable.from_batches([Batch(
+        Schema([Field("id", dt.INT64, False), Field("ek", dt.INT64, True),
+                Field("flag", dt.INT64, False), Field("hk", dt.INT64, False)]),
+        [Column(dt.INT64, np.arange(nd)),
+         Column(dt.INT64, ek, rng.random(nd) > 0.1),
+         Column(dt.INT64, rng.integers(0, 5, nd)),
+         Column(dt.INT64, rng.choice(hid, nd))], nd)]))
+    ctx.register_arrays("e", {"id": np.arange(ne),
+                              "w": rng.integers(0, 6, ne)})
+    ctx.register_arrays("h", {"id": hid, "w": rng.integers(0, 6, ne)})
+    ctx.register_arrays("m", {"k": rng.integers(0, ne, 3000),
+                              "s": rng.integers(0, 12, 3000)})
+    return ctx
+
+
+COMPOSE_SQL = [
+    "SELECT e.w, count(*) c, sum(f.v) s FROM f JOIN d ON f.k = d.id "
+    "JOIN e ON d.ek = e.id WHERE d.flag > 1 GROUP BY e.w",
+    "SELECT h.w, count(*) c, sum(f.v) s FROM f JOIN d ON f.k = d.id "
+    "JOIN h ON d.hk = h.id GROUP BY h.w",
+    "SELECT d.flag, count(*) c FROM f JOIN d ON f.k = d.id WHERE NOT EXISTS "
+    "(SELECT 1 FROM e WHERE e.id = d.ek AND e.w > 2) GROUP BY d.flag",
+    "SELECT d.flag, count(*) c FROM f JOIN d ON f.k = d.id WHERE EXISTS "
+    "(SELECT 1 FROM m WHERE m.k = d.ek AND m.s < f.s) GROUP BY d.flag",
+]
+
+
+@pytest.mark.parametrize("sql", COMPOSE_SQL)
+def test_composed_walk_matches_plain(cuda, sql):
+    """NULL and out-of-range owner keys with dropped owner rows, a hashed
+    composed hop, an ANTI and a min/max composed hop: the compositions and
+    folds, then `chain_aggregate` over the composed and folded chain, from
+    the kernels equal their plain versions; the query equals the CPU's."""
+    from datafusion_tpu_torch.device.groupby import (AggregateSpec,
+                                                     compact_groups,
+                                                     dense_group_table)
+    from datafusion_tpu_torch.device.join_chain import (
+        chain_aggregate, chain_aggregate_plain)
+    ctx = _compose_ctx(cuda)
+    ex = _chain_exec(ctx, sql)
+    assert _compose_and_fold_vs_plain(ex, ctx.task_context()) >= 2
+    spec, _plan, _names, _slots, inputs, _staged = ex.prepare(
+        ctx.task_context())
+    assert any(h.compose is not None for h in spec.chain.hops)
+    ((cols, aux, rows),) = inputs
+    tables = []
+    for fold in (chain_aggregate, chain_aggregate_plain):
+        table = spec.new_table(cuda)
+        overflow = torch.zeros(1, dtype=torch.int32, device=cuda)
+        fold(spec, cols, aux, rows, table, overflow)
+        if isinstance(spec, AggregateSpec):
+            table = dense_group_table(table)
+        tables.append(compact_groups(table).cpu().numpy())
+    got, want = (t[:, np.argsort(t[0], kind="stable")] for t in tables)
+    np.testing.assert_array_equal(got, want)
+    assert got.shape[1] > 0
+    on_card = ctx.sql(sql).to_pydict()
+    assert ex.fallbacks == 0
+    assert on_card == _compose_ctx(torch.device("cpu")).sql(sql).to_pydict()
+
+
 # --- the row-returning chain and the resident emit: chain_rows, group_emit ---
 
 def _rows_exec(ctx, q):

@@ -418,8 +418,8 @@ def test_kernel_digest_covers_shared_headers(tmp_path):
     assert [s.name for s in sources] == ["k.cu"]
     assert kernels._inputs(tmp_path)[1] != before
     assert [s.name for s in kernels._inputs(kernels.CSRC)[0]] == [
-        "chain_aggregate.cu", "chain_build.cu", "chain_rows.cu",
-        "compact_groups.cu", "exchange.cu", "fused_dense_aggregate.cu",
+        "chain_aggregate.cu", "chain_build.cu", "chain_compose.cu",
+        "chain_rows.cu", "compact_groups.cu", "exchange.cu", "fused_dense_aggregate.cu",
         "gather_lanes.cu", "group_emit.cu", "group_topk.cu",
         "hash_group_aggregate.cu", "join_aggregate.cu", "join_build.cu",
         "radix_sort.cu", "window_scan.cu"]

@@ -1,8 +1,8 @@
 """The sqllogictest corpus through the PyTorch port.
 
 Every file of `tests/slt/` and `tests/slt/ref/` runs through the port's own
-runner (`datafusion_tpu_torch/slt.py`, a copy of the reference runner whose
-session is `dft.SessionContext(cpu)`), one case per file, with
+runner (`datafusion_tpu_torch/slt.py`, a copy of the reference runner,
+given the CPU: its session is `dft.SessionContext(cpu)`), one case per file, with
 `lenient_errors` for the ported corpus as `tests/test_slt.py` runs it. On
 the CPU the port's device paths run their kernels' plain versions, so the
 corpus is a parity net for every expression the port lowers.
@@ -57,7 +57,8 @@ def _run(path: str, lenient: bool) -> int:
     if os.path.basename(path) == "information_schema.slt":
         text = _port_show_all(text)
     runner = SltRunner(lenient_errors=lenient,
-                       base_dir=os.path.dirname(os.path.abspath(path)))
+                       base_dir=os.path.dirname(os.path.abspath(path)),
+                       device="cpu")
     setup = _FILE_SETUP.get(os.path.basename(path))
     if setup is not None:
         setup(runner.ctx)
@@ -88,6 +89,29 @@ def test_show_all_holds_only_the_tpu_rows_to_the_port():
         keep = [r for r in was.split("\n") if not r.startswith(_TPU)]
         assert [r for r in now.split("\n") if not r.startswith(_TPU)] == keep
         assert len(keep) > 60
+
+
+@pytest.mark.parametrize("entry", ["runner", "run_slt_text", "cli"])
+def test_entry_points_take_the_card_unless_given_the_cpu(entry, tmp_path):
+    """The runner, `run_slt_text` and the CLI built with no device ask for
+    CUDA: with no card `SessionContext` raises, and nothing runs on the
+    CPU unasked; with a card the session is on it."""
+    import torch
+
+    from datafusion_tpu_torch import slt
+    path = tmp_path / "one.slt"
+    path.write_text("query I\nSELECT 1\n----\n1\n")
+    run = {"runner": lambda: slt.SltRunner().ctx.device,
+           "run_slt_text": lambda: slt.run_slt_text(path.read_text()),
+           "cli": lambda: slt.main([str(path)])}[entry]
+    if torch.cuda.is_available():
+        got = run()
+        assert got == 0 if entry == "cli" else \
+            (got.type == "cuda" if entry == "runner" else got == 1)
+        return
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        run()
+    assert slt.main([str(path), "--device", "cpu"]) == 0
 
 
 _AGG100 = """CREATE EXTERNAL TABLE aggregate_test_100 (
