@@ -77,7 +77,8 @@ query is held against a numpy oracle on the same data.
      and W3 (a 7-row moving sum in 3 partition runs, a BoundedWindowExec
      over its partition-key sort): `radix_sort`, `gather_lanes` and
      `window_scan` against their plain versions on each window
-     evaluation's inputs (equal), then each query end to end against
+     evaluation's inputs (equal; the sort also against np.lexsort's
+     order), then each query end to end against
      numpy, with a breakdown;
 5. ClickBench's `UserID`, `SearchPhrase` and `EventTime` at 99,997,497
    rows (the public `hits` row count), drawn as `generate_hits` draws
@@ -91,10 +92,14 @@ query is held against a numpy oracle on the same data.
    and Q30 end to end against numpy (Q10's distinct counts by `np.unique`
    over the (RegionID, UserID) pairs), with the pairs, the set's bytes
    and the passes launched; then
-   `radix_sort` against its plain version on Q25's and Q27's order words
-   over the rows with a search phrase (equal permutations; stable
+   `radix_sort` against its plain version and np.lexsort's order
+   (`lexsort_order_holds`) on Q25's and Q27's order words over the rows
+   with a search phrase (equal permutations; stable
    `torch.sort` as the yardstick), and Q25, Q26 and Q27 end to end
-   against numpy, with a breakdown.
+   against numpy, with a breakdown. `group_topk` and `radix_sort` are held
+   to the launches their designs predict: TOPK_LAUNCHES a top-k, and a
+   histogram a word, a launch a varying byte and a gather a later word a
+   sort (`device_sort.sort_launch_count`).
 
 ClickBench Q25-Q27 take a warm median of SORT_REPS runs (each spends
 seconds in the host filter). Each end-to-end path sets the launch counts
@@ -109,6 +114,16 @@ kernel with its time, its plain version's time and its bound.
 times J1 and J2 at SF10 once each through the port's host plan (the
 device aggregate off: a numpy hash join under a numpy aggregate), each
 against numpy, for the record beside the join-aggregate's times.
+
+    python3 chip_smoke.py --sorts TREE [TREE ...]
+
+makes the order words of CB Q25-Q27 and of W1's first window evaluation
+and the group tables of CB Q16 and Q17 once (`sort_inputs`, saved under
+`_chip/sort_inputs` and removed at the end), then in a process a tree
+holds `radix_sort` and `group_topk` to their plain versions and prints
+one JSON line a tree: kernel, plain, library (`torch.sort` of the first
+value word, `torch.topk`) and bound ms, launches a call, each kernel's
+registers and stack bytes and its device ms in one profiled call.
 
     python3 chip_smoke.py --walks TREE [TREE ...]
 
@@ -904,16 +919,36 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
     return entry(err2, ms2, plain2, b2), k3, kc, table, spec, names
 
 
-def topk_vs_plain(table, lane, names, card, label):
+def topk_bound(table, row: int, k: int) -> dict:
+    """The least time of a top-k of a group table by its row `row`: the key
+    row read once, the 32-byte sectors of the lane that hold a live slot
+    (this table's, counted), and k slots written."""
+    import torch
+    live = (table[0] != -1).nonzero().squeeze(1)
+    sectors = int(torch.unique_consecutive(live // 4).numel())
+    return bound(table.shape[1] * 8 + sectors * 32 + k * 8, table.shape[1])
+
+
+def topk_vs_plain(table, lane, names, card, label, predicted=True):
     """`group_topk` against its plain version (the order column exactly,
     the key set beyond the k-th value), and `torch.topk` over the same row
-    as the library yardstick. Returns the kernel's report entry."""
+    as the library yardstick; with `predicted` its launches a call held to
+    TOPK_LAUNCHES. Returns (the kernel's report entry, its launches)."""
     import numpy as np
     import torch
     from datafusion_tpu_torch.device.groupby import (
-        compact_groups_plain, group_topk, group_topk_plain)
+        compact_groups_plain, group_topk, group_topk_kernel,
+        group_topk_plain)
     row = 2 + names.index(lane)
-    got = compact_groups_plain(table, slots=group_topk(table, row, False, 10))
+    before = group_topk_kernel.launches
+    slots = group_topk(table, row, False, 10)
+    launches = group_topk_kernel.launches - before
+    if predicted:
+        from datafusion_tpu_torch.device.groupby import TOPK_LAUNCHES
+        if launches != TOPK_LAUNCHES:
+            raise AssertionError(f"{label}: group_topk counted {launches} "
+                                 f"launches, not {TOPK_LAUNCHES}")
+    got = compact_groups_plain(table, slots=slots)
     want = compact_groups_plain(table,
                                 slots=group_topk_plain(table, row, False, 10))
     g, w = got.cpu().numpy(), want.cpu().numpy()
@@ -926,13 +961,13 @@ def topk_vs_plain(table, lane, names, card, label):
     plain = cuda_ms(lambda: group_topk_plain(table, row, False, 10), 3)
     lane_row = table[row]
     library = cuda_ms(lambda: torch.topk(lane_row, 10), 10)
-    cap = table.shape[1]
-    bnd = bound(cap * 8 * 2 + 10 * 8, cap)   # the key and lane rows once
-    print(f"group_topk {label}: top 10 counts {wv[::-1].tolist()}: kernel "
-          f"{ms:.6f} ms, plain {plain:.6f} ms, torch.topk {library:.6f} ms, "
-          f"bound {bnd['bound_ms']:.6f} ms, max_abs_err 0.0 [{card}]",
-          flush=True)
-    return entry(0.0, ms, plain, bnd, library)
+    bnd = topk_bound(table, row, 10)
+    print(f"group_topk {label}: top 10 counts {wv[::-1].tolist()}, "
+          f"{launches} launches a call: kernel {ms:.6f} ms, plain "
+          f"{plain:.6f} ms, torch.topk {library:.6f} ms, bound "
+          f"{bnd['bound_ms']:.6f} ms ({bnd['bytes']} bytes), max_abs_err "
+          f"0.0 [{card}]", flush=True)
+    return entry(0.0, ms, plain, bnd, library), launches
 
 
 def chain_builds_vs_plain(ex, tctx, card, label, mmx_only=False):
@@ -1255,12 +1290,14 @@ def sort_input(ctx, sql):
     return ex, batch, secs, words
 
 
-def radix_vs_plain(words, dev, card, label, library=False):
+def radix_vs_plain(words, dev, card, label, library=False, predicted=True):
     """`radix_sort` against its plain version on the order words (equal
-    permutations), both timed; with `library` a stable `torch.sort` of the
-    first value word (as int64 order) as the yardstick. The bound counts
-    each word read once and the permutation written once. Returns (the
-    kernel's report entry, its permutation)."""
+    permutations, and np.lexsort's order), both timed; with `library` a
+    stable `torch.sort` of the first uint64 word (as int64 order) as the
+    yardstick; with `predicted` its launches a sort held to
+    `sort_launch_count`. The bound counts each word read once and the
+    permutation written once. Returns (the kernel's report entry, its
+    permutation, its launches)."""
     import torch
     from datafusion_tpu_torch import kernels
     from datafusion_tpu_torch.physical.plan.device_sort import (
@@ -1270,17 +1307,25 @@ def radix_vs_plain(words, dev, card, label, library=False):
     before = kernels.launch_counts()["radix_sort"]
     got = radix_sort(staged)
     launches = kernels.launch_counts()["radix_sort"] - before
+    if predicted:
+        from datafusion_tpu_torch.physical.plan.device_sort import (
+            sort_launch_count)
+        if launches != sort_launch_count(words):
+            raise AssertionError(f"{label}: radix_sort counted {launches} "
+                                 f"launches, not {sort_launch_count(words)}")
     want = radix_sort_plain(staged)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"{label}: radix_sort differs from its plain "
                              f"version")
+    if not lexsort_order_holds(staged, got):
+        raise AssertionError(f"{label}: radix_sort differs from np.lexsort")
     del want
     ms = cuda_ms(lambda: radix_sort(staged), 5)
     plain = cuda_ms(lambda: radix_sort_plain(staged), 2)
     lib = None
     if library:
-        key = staged[1] ^ (-2**63)
+        key = next(w for w in staged if w.dtype == torch.int64) ^ (-2**63)
         lib = cuda_ms(lambda: torch.sort(key, stable=True), 5)
         del key
     bnd = bound(sum(n * w.dtype.itemsize for w in words) + n * 8,
@@ -1289,7 +1334,33 @@ def radix_vs_plain(words, dev, card, label, library=False):
           f"launches a sort: kernel {ms:.6f} ms, plain {plain:.6f} ms, "
           f"torch.sort {lib} ms, bound {bnd['bound_ms']:.6f} ms, "
           f"max_abs_err 0 [{card}]", flush=True)
-    return entry(0.0, ms, plain, bnd, lib), got.cpu().numpy()
+    return entry(0.0, ms, plain, bnd, lib), got.cpu().numpy(), launches
+
+
+def lexsort_order_holds(words, perm) -> bool:
+    """Whether `perm` (on the card) is the permutation
+    `np.lexsort(tuple(reversed(words)))` returns for these order words
+    (uint8, or int64 holding uint64 bits): every row once, the words in
+    ascending lexicographic order along it (compared unsigned), ties in
+    row order. The stable ascending order is unique, so this is equality
+    with np.lexsort, checked on the card in a pass a word."""
+    import torch
+    n = perm.numel()
+    if n and (int(perm.min()) < 0 or int(perm.max()) >= n):
+        return False
+    seen = torch.zeros(n, dtype=torch.bool, device=perm.device)
+    seen[perm] = True
+    if not bool(seen.all()):
+        return False
+    lt = torch.zeros(max(n - 1, 0), dtype=torch.bool, device=perm.device)
+    eq = torch.ones_like(lt)
+    for w in words:
+        x = w[perm]
+        if x.dtype == torch.int64:
+            x = x ^ (-2**63)         # unsigned order as signed
+        lt |= eq & (x[:-1] < x[1:])
+        eq &= x[:-1] == x[1:]
+    return bool((lt | (eq & (perm[:-1] < perm[1:]))).all())
 
 
 def oracle_first(keys, k=10):
@@ -1340,7 +1411,8 @@ def window_kernels_vs_plain(ctx, sql, card, label):
         words, lanes = stage_window(pw, ow, n, spec, **lanes,
                                     device=ctx.device)
         perm = radix_sort(words)
-        if not torch.equal(perm, radix_sort_plain(words)):
+        if not torch.equal(perm, radix_sort_plain(words)) or \
+                not lexsort_order_holds(words, perm):
             raise AssertionError(f"{label} {spec}: radix_sort differs")
         extras = [x for x in lanes if x is not None]
         moved = reorder_rows(perm, words + extras)
@@ -2606,6 +2678,7 @@ def clickbench_q10_q30(ctx, hb, card, add):
     in each query's main-path run."""
     import numpy as np
     from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.groupby import TOPK_LAUNCHES
     k10, pairs, set_bytes = distinct_vs_plain(
         ctx, CB_Q10.split(" ORDER BY")[0], "CB Q10", card)
     out, counts10, _ = run_path(ctx, CB_Q10, [
@@ -2613,7 +2686,7 @@ def clickbench_q10_q30(ctx, hb, card, add):
         "CB Q10", HITS_ROWS)
     add(counts10)
     launched_as_predicted("CB Q10", counts10, {"hash_group_aggregate": 1,
-                                               "group_topk": 1})
+                                               "group_topk": TOPK_LAUNCHES})
     region, user = col(hb, "RegionID"), col(hb, "UserID")
     adv, width = col(hb, "AdvEngineID"), col(hb, "ResolutionWidth")
     n_reg = int(region.max()) + 1
@@ -2683,6 +2756,7 @@ def main() -> int:
     sys.path.insert(0, root)
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.groupby import TOPK_LAUNCHES
     from datafusion_tpu_torch.physical.plan.device_aggregate import (
         TorchGroupAggregateExec)
     from datafusion_tpu_torch.physical.plan.device_join_chain import (
@@ -3027,8 +3101,8 @@ def main() -> int:
     ctx.register_table("hits", dft.MemTable(hb.schema, [[hb]]))
     _k2, _k3, _kc, table, _spec, names = hash_kernel_vs_plain(
         ctx, CB_Q16.split(" ORDER BY")[0], "CB Q16 SF100M", card)
-    report["group_topk"] = topk_vs_plain(table, names[0], names, card,
-                                         "CB Q16")
+    report["group_topk"], _n = topk_vs_plain(table, names[0], names, card,
+                                             "CB Q16")
     del table
     _k2, _k3, _kc, table, _spec, names = hash_kernel_vs_plain(
         ctx, CB_Q17.split(" ORDER BY")[0], "CB Q17 SF100M", card)
@@ -3042,6 +3116,7 @@ def main() -> int:
                                             "group_topk", "compact_groups"],
                               card, "CB Q16", HITS_ROWS)
     add(counts)
+    launched_as_predicted("CB Q16", counts, {"group_topk": TOPK_LAUNCHES})
     per_user = np.bincount(user)
     top_counts_agree("CB Q16", out.columns[0].data_host(),
                      out.columns[1].data_host(),
@@ -3055,6 +3130,7 @@ def main() -> int:
                                             "group_topk", "compact_groups"],
                               card, "CB Q17", HITS_ROWS)
     add(counts)
+    launched_as_predicted("CB Q17", counts, {"group_topk": TOPK_LAUNCHES})
     pair, pair_n = np.unique(user * n_dic + code, return_counts=True)
     got_pair = (out.columns[0].data_host() * n_dic +
                 out.columns[1].data_host())
@@ -3073,6 +3149,8 @@ def main() -> int:
 
     # == sort: ClickBench Q25, Q26 and Q27 ====================================
     phase("sort: ClickBench Q25, Q26 and Q27")
+    from datafusion_tpu_torch.physical.plan.device_sort import (
+        sort_launch_count)
     from datafusion_tpu_torch.physical.plan.sort import SortExec
     event = col(hb, "EventTime")
     rows = np.flatnonzero(code != hb.column_by_name(
@@ -3080,14 +3158,15 @@ def main() -> int:
     phrases = hb.column_by_name("SearchPhrase").dictionary.values
     oracle_keys = {25: [event[rows]], 26: [code[rows]],
                    27: [event[rows], code[rows]]}
-    host_ms = {}
+    host_ms, sort_calls = {}, {}
     for q in (25, 26, 27):
         ex, batch, secs, words = sort_input(ctx, CB_SORTS[q])
         host_ms[q] = secs * 1e3
+        sort_calls[q] = sort_launch_count(words)
         print(f"CB Q{q} plans {ex.display_line()} over {batch.num_rows} "
               f"rows; its input (host filter and projection) took "
               f"{host_ms[q]:.3f} ms on its own", flush=True)
-        kr, perm = radix_vs_plain(words, dev, card, f"CB Q{q}",
+        kr, perm, _n = radix_vs_plain(words, dev, card, f"CB Q{q}",
                                   library=q == 25)
         first = rows[oracle_first(oracle_keys[q])]
         if not np.array_equal(rows[perm[:10]], first):
@@ -3101,6 +3180,9 @@ def main() -> int:
                                   f"CB Q{q}", HITS_ROWS, SortExec,
                                   reps=SORT_REPS)
         add(counts)
+        launched_as_predicted(f"CB Q{q}", counts,
+                              {"radix_sort": sort_calls[q]},
+                              runs=SORT_REPS + 1)
         want = phrases[code[rows[oracle_first(oracle_keys[q])]]].tolist()
         if out.columns[0].to_pylist() != want:
             raise AssertionError(f"CB Q{q} disagrees with numpy: "
@@ -3108,7 +3190,7 @@ def main() -> int:
         print(f"CB Q{q} equals numpy exactly: {want[:3]}... of "
               f"{len(rows)} rows with a search phrase", flush=True)
         breakdown(ctx, CB_SORTS[q], card, f"CB Q{q}", SortExec,
-                  main="scatter_kernel",
+                  main="onesweep_kernel",
                   host=f"filter and projection {host_ms[q]:.3f} ms run alone")
     del ctx, hb, user, code, event, rows, oracle_keys
 
@@ -3156,6 +3238,14 @@ def walk_resources(lib_path):
     (`chain_dense_kernel`, `chain_hash_kernel`, `rows_mark_kernel`,
     `rows_emit_kernel`) and of `chain_compose_kernel` in the library at
     `lib_path`, from `cuobjdump --dump-resource-usage`."""
+    return kernel_resources(
+        lib_path, r"chain_(dense|hash|compose)_kernel|rows_(mark|emit)_kernel")
+
+
+def kernel_resources(lib_path, pattern):
+    """{kernel symbol: (registers, stack bytes)} of the kernels whose
+    symbol matches `pattern` in the library at `lib_path`, from `cuobjdump
+    --dump-resource-usage` (spilled registers live on the stack)."""
     import re
     cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     out = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"),
@@ -3169,9 +3259,7 @@ def walk_resources(lib_path):
             continue
         reg = re.search(r"REG:(\d+)", line)
         local = re.search(r"STACK:(\d+)", line)
-        if reg and local and name and re.search(
-                r"chain_(dense|hash|compose)_kernel|rows_(mark|emit)_kernel",
-                name):
+        if reg and local and name and re.search(pattern, name):
             res[name] = (int(reg.group(1)), int(local.group(1)))
     return res
 
@@ -3268,6 +3356,185 @@ def walks_main(trees) -> int:
     return 0
 
 
+# ---- the sort and top-k kernels across checkouts -----------------------------
+
+SORT_SHAPES = ("CB Q25", "CB Q26", "CB Q27", "W1")
+SORT_SYMBOLS = (r"\d(onesweep_kernel|word_hist_kernel|gather_kernel|"
+                r"scatter_kernel|block_hist_kernel)|topk_\w+_kernel")
+
+
+def sort_inputs(data):
+    """The inputs of `sorts_main`, made once with this checkout's package
+    and saved under `data`: the order words of CB Q25-Q27 (the rows with a
+    search phrase, as `sort_input` encodes them) and of W1's first window
+    evaluation (as `stage_window` stages them), and the live slots, keys
+    and order lanes of CB Q16's and Q17's group tables."""
+    import numpy as np
+    import torch
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        EMPTY, hash_group_aggregate)
+    from datafusion_tpu_torch.device.window import stage_window
+    from datafusion_tpu_torch.physical.plan.base import collect_batch
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        TorchGroupAggregateExec)
+    from datafusion_tpu_torch.physical.plan.window import (
+        WindowExec, _plan_window_evaluation, device_window_inputs)
+    os.makedirs(data, exist_ok=True)
+    dev = torch.device(DEVICE)
+    hb = hits(HITS_ROWS, seed=0)
+    ctx = dft.SessionContext(dev)
+    ctx.register_table("hits", dft.MemTable(hb.schema, [[hb]]))
+    for q in (16, 17):
+        sql = (CB_Q16 if q == 16 else CB_Q17).split(" ORDER BY")[0]
+        ex = find_exec(ctx.sql(sql).create_physical_plan(),
+                       TorchGroupAggregateExec)
+        (batch,) = ex.input_batches(ctx.task_context())
+        spec, _plan, names, _slots = ex.compile([batch])
+        cols, aux = ex.stage(spec, batch)
+        table = spec.new_table(dev)
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        hash_group_aggregate(spec, cols, aux, batch.num_rows, table,
+                             overflow)
+        live = (table[0] != EMPTY).nonzero().squeeze(1)
+        np.savez(os.path.join(data, f"CB Q{q}.npz"), cap=table.shape[1],
+                 slots=live.cpu().numpy(), keys=table[0][live].cpu().numpy(),
+                 lane=table[2 + names.index(names[0])][live].cpu().numpy())
+        del table, cols, aux, live
+    for q in (25, 26, 27):
+        _ex, _batch, _secs, words = sort_input(ctx, CB_SORTS[q])
+        np.savez(os.path.join(data, f"CB Q{q}.npz"),
+                 *[np.ascontiguousarray(w) for w in words])
+    del ctx, hb
+    li = tpch_tables(10, seed=0)["lineitem"]
+    ctx = dft.SessionContext(dev)
+    ctx.register_table("lineitem", dft.MemTable(li.schema, [[li]]))
+    ex = find_exec(ctx.sql(W1).create_physical_plan(), WindowExec)
+    batch = collect_batch(ex.input, ctx.task_context())
+    w = _plan_window_evaluation(ex.window_exprs,
+                                ex.input.output_ordering())[0]
+    spec, pw, ow, lanes, _arg = device_window_inputs(w, batch)
+    words, _lanes = stage_window(pw, ow, batch.num_rows, spec, **lanes,
+                                 device=dev)
+    np.savez(os.path.join(data, "W1.npz"), *[
+        t.cpu().numpy().view(np.uint64 if t.dtype == torch.int64
+                             else np.uint8) for t in words])
+
+
+def kernel_ms(fn) -> dict:
+    """Device ms by kernel of one call of `fn` (after a warm-up), from
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            key = ev.key.replace("(anonymous namespace)::", "")
+            key = key.split("(")[0][-40:]
+            out[key] = round(out.get(key, 0.0) +
+                             getattr(ev, "self_device_time_total", 0) / 1e3,
+                             4)
+    return out
+
+
+def sort_tree(tree, data):
+    """`radix_sort` on the words of SORT_SHAPES and `group_topk` (k = 10,
+    descending) on CB Q16's and Q17's tables with `tree`'s package, each
+    through `radix_vs_plain` and `topk_vs_plain` (against its plain
+    version, launches recorded, not predicted: the parent counts its
+    own); prints one JSON line of kernel, plain, library and bound ms,
+    launches a call, and the kernels' registers and stack bytes, and each
+    kernel's device ms in one profiled call."""
+    import re
+    import numpy as np
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    import datafusion_tpu_torch as dft
+    if not dft.__file__.startswith(tree + os.sep):
+        raise AssertionError(f"imported {dft.__file__}, not from {tree}")
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.groupby import group_topk
+    from datafusion_tpu_torch.physical.plan.device_sort import (
+        radix_sort, to_word)
+    kernels.library()
+    dev = torch.device(DEVICE)
+    card = smi()
+    out = {"tree": tree}
+    for label in SORT_SHAPES:
+        with np.load(os.path.join(data, f"{label}.npz")) as z:
+            host = [z[f"arr_{i}"] for i in range(len(z.files))]
+        kr, _perm, launches = radix_vs_plain(host, dev, card, label,
+                                             library=True, predicted=False)
+        words = [to_word(w).to(dev) for w in host]
+        out[label] = dict(rows=len(host[0]), words=len(host),
+                          launches=launches, **kr,
+                          device_ms=kernel_ms(lambda: radix_sort(words)))
+        del words
+        torch.cuda.empty_cache()
+    for label in ("CB Q16", "CB Q17"):
+        with np.load(os.path.join(data, f"{label}.npz")) as z:
+            cap, slots = int(z["cap"]), torch.from_numpy(z["slots"]).to(dev)
+            table = torch.zeros((3, cap), dtype=torch.int64, device=dev)
+            table[0] = -1
+            table[0, slots] = torch.from_numpy(z["keys"]).to(dev)
+            table[2, slots] = torch.from_numpy(z["lane"]).to(dev)
+        kt, launches = topk_vs_plain(table, "lane", ["lane"], card, label,
+                                     predicted=False)
+        out[label] = dict(
+            slots=cap, groups=int(slots.numel()), launches=launches, **kt,
+            device_ms=kernel_ms(lambda: group_topk(table, 2, False, 10)))
+        del table, slots
+        torch.cuda.empty_cache()
+    res = {}
+    for sym, rs in kernel_resources(str(kernels.LIB), SORT_SYMBOLS).items():
+        m = re.search(r"\d+([a-z_]+_kernel)(I([a-z])E)?", sym)
+        res[m.group(1) + {"y": "<u64>", "h": "<u8>"}.get(m.group(3), "")] = rs
+    out["resources"] = res
+    print(json.dumps(out), flush=True)
+
+
+def sorts_main(trees) -> int:
+    """The inputs once, then each tree's `sort_tree` in a process of its
+    own, in the order given."""
+    import shutil
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    for blocked in ("jax", "datafusion_tpu", "bench"):
+        sys.modules[blocked] = None
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    card = smi()
+    print(card, flush=True)
+    data = os.path.join(root, "_chip", "sort_inputs")
+    t0 = time.perf_counter()
+    sort_inputs(data)
+    print(f"inputs made in {time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        for tree in trees:
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--sort-tree", tree, data],
+                               capture_output=True, text=True)
+            print(r.stdout.strip(), flush=True)
+            if r.returncode:
+                print(r.stderr[-4000:], file=sys.stderr)
+                return r.returncode
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+    print(card)
+    return 0
+
+
 def host_joins_main() -> int:
     """J1 and J2 at SF10 through the port's host plan (`datafusion.tpu.
     device_aggregate` off: a numpy HashJoinExec under an AggregateExec),
@@ -3309,4 +3576,8 @@ if __name__ == "__main__":
         sys.exit(walks_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--walk-tree"]:
         sys.exit(walk_tree(sys.argv[2]))
+    if sys.argv[1:2] == ["--sorts"]:
+        sys.exit(sorts_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--sort-tree"]:
+        sys.exit(sort_tree(sys.argv[2], sys.argv[3]))
     sys.exit(main())

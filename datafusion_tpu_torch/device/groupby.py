@@ -116,6 +116,12 @@ MAX_DISTINCT_ENTRIES = 1 << 30   # 24 GiB of set entries
 SMEM_BYTES = 48 * 1024   # a kernel's shared descriptor (+ the dense table)
 EMPTY = -1           # key of a free hash slot
 MAX_TOPK = 1 << 16
+# csrc/group_topk.cu: its launches a call (the compaction, one select round
+# a byte, the gather), its 32-bit candidate slots and the most candidates
+# it lists (12 bytes each: 96 MiB; past them it reads the table instead)
+TOPK_LAUNCHES = 10
+TOPK_MAX_SLOTS = 1 << 32
+TOPK_CANDIDATES = 1 << 23
 COMPACT_TILE = 2048  # slots per block of csrc/compact_groups.cu
 MAX_GATHER_LANES = 32   # lanes a launch of csrc/gather_lanes.cu moves
 
@@ -931,7 +937,10 @@ def group_topk(table: torch.Tensor, lane_row: int, asc: bool,
     is unspecified.
 
     On CPU tensors this runs `group_topk_plain`; on CUDA tensors it
-    launches the `group_topk` kernels or raises."""
+    launches the `group_topk` kernels (TOPK_LAUNCHES of them: the
+    compaction, the select's rounds and the gather) or raises. Its
+    scratch is a candidate list of `topk_candidates(cap, k)` entries, 12
+    bytes each; with more live groups the rounds read the table."""
     _check_group_table(table)
     if not 0 < k <= MAX_TOPK:
         raise ValueError(f"k = {k} outside 1..{MAX_TOPK}")
@@ -939,19 +948,35 @@ def group_topk(table: torch.Tensor, lane_row: int, asc: bool,
         raise ValueError(f"lane row {lane_row} outside the table")
     if not _cuda(table):
         return group_topk_plain(table, lane_row, asc, k)
+    cap = table.shape[1]
+    if cap > TOPK_MAX_SLOTS:
+        raise ValueError(f"group_topk takes at most {TOPK_MAX_SLOTS} slots "
+                         f"(32-bit candidate slots), not {cap}")
     lib = kernels.library()
     dev = table.device
+    ncand = topk_candidates(cap, k)
     with torch.cuda.device(dev):
-        state = torch.tensor([0, k, 0, 0, 0, 0, 0, 0], dtype=torch.int64,
-                             device=dev)
-        hist = torch.zeros(256, dtype=torch.int64, device=dev)
-        out = torch.full((k,), -1, dtype=torch.int64, device=dev)
-        rc = lib.dft_group_topk(table.data_ptr(), table.shape[1], lane_row,
-                                int(asc), k, state.data_ptr(),
-                                hist.data_ptr(), out.data_ptr(), _stream(dev))
+        # zeros (no copy from the host): the kernels' state words, then
+        # the rounds' histogram
+        scratch = torch.zeros(8 + 256, dtype=torch.int64, device=dev)
+        state, hist = scratch[:8], scratch[8:]
+        cand_u = torch.empty(ncand, dtype=torch.int64, device=dev)
+        cand_s = torch.empty(ncand, dtype=torch.int32, device=dev)
+        out = torch.empty(k, dtype=torch.int64, device=dev)
+        rc = lib.dft_group_topk(table.data_ptr(), cap, lane_row, int(asc), k,
+                                state.data_ptr(), hist.data_ptr(), ncand,
+                                cand_u.data_ptr(), cand_s.data_ptr(),
+                                out.data_ptr(), _stream(dev))
     kernels.check(rc, group_topk_kernel)
-    group_topk_kernel.launches += 1
+    group_topk_kernel.launches += TOPK_LAUNCHES
     return out
+
+
+def topk_candidates(cap: int, k: int) -> int:
+    """The entries of `group_topk`'s candidate list for a table of `cap`
+    slots: TOPK_CANDIDATES, but never more than the slots nor fewer than
+    min(cap, k), so that k or fewer live groups are always listed."""
+    return min(cap, max(TOPK_CANDIDATES, k))
 
 
 def group_topk_plain(table: torch.Tensor, lane_row: int, asc: bool,

@@ -16,7 +16,7 @@ device and `datafusion.tpu.device_sort_min_rows`.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,10 +29,21 @@ radix_sort_kernel = kernels.register(kernels.Kernel(
     "datafusion_tpu/physical/plan/device_sort.py:54"))
 
 DEFAULT_MIN_ROWS = 1 << 17
-TILE = 4096              # rows a block of csrc/radix_sort.cu
-SCAN_TILE = 8192         # words a block of csrc/scan.cuh
+TILE = 4096              # rows a tile of csrc/radix_sort.cu's byte pass
+DIGITS = 256
+MAX_ROWS = 1 << 40       # the count field of a status word (radix_sort.cu)
 _WORD_DTYPES = (torch.uint8, torch.int64)   # int64 holds uint64 bits
 _I64_MIN = np.iinfo(np.int64).min
+
+
+class BytePass(NamedTuple):
+    """One launch of the radix sort's byte pass: digit `byte` of word
+    `word` (an index into the words, most significant first)."""
+    word: int
+    byte: int
+    gather: bool      # the word's first pass after an earlier word's: its
+    #                   keys are read through the permutation first
+    keys_out: bool    # a later pass of the same word reads the keys
 
 
 def min_rows(config) -> int:
@@ -56,15 +67,59 @@ def _check_words(words: Sequence[torch.Tensor]) -> int:
     return n
 
 
+def byte_passes(hists: Sequence[np.ndarray], n: int) -> List[BytePass]:
+    """The byte passes of a sort of n rows, in launch order (least
+    significant word first, low byte first), from each word's digit counts
+    (`hists[w]`: [width, 256], the word's `word_hist`): a byte whose rows
+    all share one digit is skipped, and a word all of whose bytes are is
+    skipped whole."""
+    passes: List[BytePass] = []
+    for w in reversed(range(len(hists))):
+        varying = [b for b, row in enumerate(hists[w]) if int(row.max()) < n]
+        for j, b in enumerate(varying):
+            passes.append(BytePass(w, b, gather=j == 0 and bool(passes),
+                                   keys_out=j < len(varying) - 1))
+    return passes
+
+
+def digit_counts(w: np.ndarray) -> np.ndarray:
+    """The digit counts of every byte of a host order word ([width, 256]),
+    as `dft_radix_word_hist` counts them on the card."""
+    w = np.asarray(w)
+    u = w.astype(np.uint64)
+    return np.stack([np.bincount(((u >> np.uint64(8 * b)) & np.uint64(255))
+                                 .astype(np.int64), minlength=DIGITS)
+                     for b in range(w.itemsize)])
+
+
+def sort_launch_count(words: Sequence[np.ndarray]) -> int:
+    """`radix_sort`'s launches over host order words (as `to_word` takes
+    them): none for one row or fewer, else a digit histogram a word, one
+    launch a byte pass (`byte_passes`) and a gather before each later
+    word's first pass."""
+    n = len(words[0])
+    if n <= 1:
+        return 0
+    passes = byte_passes([digit_counts(w) for w in words], n)
+    return len(words) + len(passes) + sum(p.gather for p in passes)
+
+
+def status_words(n: int) -> int:
+    """uint64 words of the status array that every byte pass of a sort of
+    n rows shares: one a (tile, digit)."""
+    return -(-n // TILE) * DIGITS
+
+
 def radix_sort(words: Sequence[torch.Tensor],
                limit: Optional[int] = None) -> torch.Tensor:
     """The stable ascending permutation (int64) over `words`, most
     significant first, cut to `min(n, limit)` rows.
 
     On CPU tensors this runs `radix_sort_plain`; on CUDA tensors it
-    launches the `radix_sort` kernels or raises. It reads each word's digit
-    counts back to skip the bytes that do not vary: one synchronisation a
-    word."""
+    launches the `radix_sort` kernels or raises: every word's digit
+    counts, read back at once (the sort's one synchronisation) to skip
+    the bytes that do not vary, then one launch a byte pass and one gather
+    a later word."""
     n = _check_words(words)
     if words[0].device.type == "cpu":
         return radix_sort_plain(words, limit)
@@ -72,50 +127,55 @@ def radix_sort(words: Sequence[torch.Tensor],
     dev = words[0].device
     if n <= 1:
         return torch.arange(k, dtype=torch.int64, device=dev)
+    if n >= MAX_ROWS:
+        raise ValueError(f"radix_sort takes fewer than {MAX_ROWS} rows")
     lib = kernels.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        nb = -(-n // TILE)
-        counts = torch.empty(256 * nb, dtype=torch.int64, device=dev)
-        sums = torch.empty(max(-(-256 * nb // SCAN_TILE), 1),
-                           dtype=torch.int64, device=dev)
+        widths = [w.element_size() for w in words]
+        at = np.cumsum([0] + [DIGITS * x for x in widths])
+        hist = torch.zeros(int(at[-1]), dtype=torch.int64, device=dev)
+        for w, x, off in zip(words, widths, at):
+            kernels.check(lib.dft_radix_word_hist(
+                w.data_ptr(), x, n, hist[int(off):].data_ptr(), stream),
+                radix_sort_kernel)
+        radix_sort_kernel.launches += len(words)
+        host = hist.cpu().numpy()
+        passes = byte_passes([host[a:b].reshape(-1, DIGITS)
+                              for a, b in zip(at[:-1], at[1:])], n)
+        if not passes:
+            return torch.arange(k, dtype=torch.int64, device=dev)
+        # the tile counters of every pass, then the status words
+        scratch = torch.zeros(len(passes) + status_words(n),
+                              dtype=torch.int64, device=dev)
+        status = scratch[len(passes):]
         keys = [torch.empty(n, dtype=torch.int64, device=dev)
                 for _ in range(2)]
         perms = [torch.empty(n, dtype=torch.int64, device=dev)
                  for _ in range(2)]
-        perm = None              # None: the identity
-        for w in reversed(words):
-            width = w.element_size()
-            hist = torch.zeros(width * 256, dtype=torch.int64, device=dev)
-            kernels.check(lib.dft_radix_word_hist(
-                w.data_ptr(), width, n, hist.data_ptr(), stream),
-                radix_sort_kernel)
-            radix_sort_kernel.launches += 1
-            varying = [b for b, row in enumerate(hist.view(width, 256).cpu())
-                       if int(row.max()) < n]
-            if not varying:
-                continue
-            src = w
-            if perm is not None:
-                src = keys[0]
+        src, perm = None, None    # perm None: the identity
+        for e, p in enumerate(passes):
+            word, width = words[p.word], widths[p.word]
+            if p.gather:
                 kernels.check(lib.dft_radix_gather(
-                    w.data_ptr(), width, perm.data_ptr(), n, src.data_ptr(),
-                    stream), radix_sort_kernel)
+                    word.data_ptr(), width, perm.data_ptr(), n,
+                    keys[0].data_ptr(), stream), radix_sort_kernel)
                 radix_sort_kernel.launches += 1
-            for j, b in enumerate(varying):
-                out_keys = None if j == len(varying) - 1 else \
-                    (keys[1] if src is keys[0] else keys[0])
-                out_perm = perms[1] if perm is perms[0] else perms[0]
-                kernels.check(lib.dft_radix_pass(
-                    src.data_ptr(), width,
-                    None if perm is None else perm.data_ptr(), n, 8 * b,
-                    counts.data_ptr(), sums.data_ptr(),
-                    None if out_keys is None else out_keys.data_ptr(),
-                    out_perm.data_ptr(), stream), radix_sort_kernel)
-                radix_sort_kernel.launches += 5
-                src, perm = out_keys, out_perm
-        if perm is None:
-            return torch.arange(k, dtype=torch.int64, device=dev)
+                src = keys[0]
+            elif e == 0:
+                src = word
+            out_keys = (keys[1] if src is keys[0] else keys[0]) \
+                if p.keys_out else None
+            out_perm = perms[1] if perm is perms[0] else perms[0]
+            kernels.check(lib.dft_radix_pass(
+                src.data_ptr(), width,
+                None if perm is None else perm.data_ptr(), n, 8 * p.byte,
+                hist[int(at[p.word]) + DIGITS * p.byte:].data_ptr(),
+                status.data_ptr(), e + 1, scratch[e:].data_ptr(),
+                None if out_keys is None else out_keys.data_ptr(),
+                out_perm.data_ptr(), stream), radix_sort_kernel)
+            radix_sort_kernel.launches += 1
+            src, perm = out_keys, out_perm
     return perm[:k]
 
 

@@ -263,11 +263,39 @@ def test_having_compaction_matches_plain(cuda):
     assert 0 < got.shape[1] < int((table[0] != -1).sum())
 
 
-@pytest.mark.parametrize("asc", [False, True])
-@pytest.mark.parametrize("k", [1, 10, 1000, 200_000])
-def test_topk_kernel_matches_plain(cuda, asc, k):
-    from datafusion_tpu_torch.device.groupby import (
-        compact_groups, group_topk, group_topk_plain, hash_group_aggregate)
+def _topk_table(case, cuda):
+    """A [3, cap] group table (keys, counts, the order lane at row 2) for a
+    top-k edge case: every value equal, 9 live groups (k or fewer for
+    k >= 10), INT64_MIN and INT64_MAX among the values, and a sparse
+    2^26-slot table."""
+    cap, live, seed = {"equal": (1 << 20, 300_000, 1),
+                       "few": (1 << 16, 9, 2),
+                       "extremes": (1 << 20, 200_000, 3),
+                       "sparse": (1 << 26, 1_000_000, 4)}[case]
+    rng = np.random.default_rng(seed)
+    slots = rng.choice(cap, live, replace=False)
+    table = np.zeros((3, cap), np.int64)
+    table[0] = -1
+    table[0, slots] = rng.integers(0, 2**62, live)
+    table[1, slots] = rng.integers(1, 100, live)
+    if case == "equal":
+        lane = np.full(live, 7, np.int64)
+    elif case == "extremes":
+        lane = rng.integers(-2**63, 2**63 - 1, live, dtype=np.int64,
+                            endpoint=True)
+        pick = rng.random(live)
+        lane[pick < 0.01] = np.iinfo(np.int64).min
+        lane[pick > 0.99] = np.iinfo(np.int64).max
+    else:
+        lane = rng.zipf(1.5, live).astype(np.int64)
+    table[2, slots] = lane
+    return torch.from_numpy(table).to(cuda)
+
+
+def _hash_topk_table(cuda):
+    """A hash group table of `SELECT x, count(*) c, sum(i) s ... GROUP BY
+    x` and its lane names."""
+    from datafusion_tpu_torch.device.groupby import hash_group_aggregate
     import datafusion_tpu_torch as dft
     batch = _wide_table(400_000, 14, 40)
     ctx = dft.SessionContext(cuda)
@@ -279,21 +307,64 @@ def test_topk_kernel_matches_plain(cuda, asc, k):
     table = spec.new_table(cuda)
     overflow = torch.zeros(1, dtype=torch.int32, device=cuda)
     hash_group_aggregate(spec, cols, aux, src.num_rows, table, overflow)
-    k = min(k, 1 << 16)
-    for lane in (1, 2 + names.index([n for n in names if n.endswith("#s")][0])):
-        got = group_topk(table, lane, asc, k)
-        want = group_topk_plain(table, lane, asc, k)
-        g = compact_groups(table, slots=got).cpu().numpy()
-        w = compact_groups(table, slots=want).cpu().numpy()
-        assert g.shape == w.shape
-        gv, wv = np.sort(g[lane]), np.sort(w[lane])
-        np.testing.assert_array_equal(gv, wv)     # the order column
-        # the key set beyond the k-th value
-        kth = wv[-1] if asc else wv[0]
-        beyond = (lambda r: r[lane] < kth) if asc else \
-            (lambda r: r[lane] > kth)
-        np.testing.assert_array_equal(np.sort(g[0][beyond(g)]),
-                                      np.sort(w[0][beyond(w)]))
+    return table, names
+
+
+@pytest.mark.parametrize("case", ["hash", "equal", "few", "extremes",
+                                  "sparse"])
+@pytest.mark.parametrize("asc", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 1000, 200_000])
+def test_topk_kernel_matches_plain(cuda, asc, k, case):
+    """Kernel 10 on a hash table's count and sum lanes and on the edge
+    cases of `_topk_table`: the order column exactly, the key set beyond
+    the k-th value; TOPK_LAUNCHES launches a call."""
+    if case == "hash":
+        table, names = _hash_topk_table(cuda)
+        lanes = (1, 2 + names.index([n for n in names
+                                     if n.endswith("#s")][0]))
+    else:
+        table, lanes = _topk_table(case, cuda), (2,)
+    for lane in lanes:
+        _topk_holds(table, lane, asc, min(k, 1 << 16))
+
+
+def _topk_holds(table, lane, asc, k):
+    """`group_topk` against its plain version: the order column exactly,
+    the key set beyond the k-th value, TOPK_LAUNCHES launches a call."""
+    from datafusion_tpu_torch.device.groupby import (
+        TOPK_LAUNCHES, compact_groups, group_topk, group_topk_kernel,
+        group_topk_plain)
+    before = group_topk_kernel.launches
+    got = group_topk(table, lane, asc, k)
+    assert group_topk_kernel.launches - before == TOPK_LAUNCHES
+    want = group_topk_plain(table, lane, asc, k)
+    assert int((got >= 0).sum()) == int((want >= 0).sum())
+    g = compact_groups(table, slots=got).cpu().numpy()
+    w = compact_groups(table, slots=want).cpu().numpy()
+    assert g.shape == w.shape
+    gv, wv = np.sort(g[lane]), np.sort(w[lane])
+    np.testing.assert_array_equal(gv, wv)     # the order column
+    # the key set beyond the k-th value
+    kth = wv[-1] if asc else wv[0]
+    beyond = (lambda r: r[lane] < kth) if asc else \
+        (lambda r: r[lane] > kth)
+    np.testing.assert_array_equal(np.sort(g[0][beyond(g)]),
+                                  np.sort(w[0][beyond(w)]))
+
+
+@pytest.mark.parametrize("case", ["equal", "extremes", "sparse"])
+@pytest.mark.parametrize("asc", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 1000])
+def test_topk_kernel_past_its_candidates(cuda, monkeypatch, asc, k, case):
+    """Kernel 10 with more live groups than its candidate list holds
+    (TOPK_CANDIDATES cut to 4,096): the rounds and the gather read the
+    table instead, with the same launches and the same answer."""
+    from datafusion_tpu_torch.device import groupby
+    monkeypatch.setattr(groupby, "TOPK_CANDIDATES", 4096)
+    table = _topk_table(case, cuda)
+    assert int((table[0] != -1).sum()) > groupby.topk_candidates(
+        table.shape[1], k)
+    _topk_holds(table, 2, asc, k)
 
 
 def test_cuda_hash_path_end_to_end_matches_cpu(cuda):
@@ -509,11 +580,27 @@ def test_cuda_join_chain_end_to_end_matches_cpu(cuda):
         assert out[0] == out[1], q
 
 
-def _words(n, seed):
-    """Order words of every kind a sort meets: a uint8 null rank, a uint64
-    key over the whole range (both extremes), a uint64 key with many ties,
-    an all-zero rank."""
+def _words(n, seed, shape="mixed"):
+    """Order words of a sort. "mixed": every kind a sort meets, a uint8
+    null rank, a uint64 key over the whole range (both extremes), a uint64
+    key with many ties, an all-zero rank; "skewed": a uint64 word whose
+    every row holds one value but a handful (tiles whose counts are 0 for
+    the other digits), under a rank; "all_bytes": a uint64 word whose
+    eight bytes all vary; "bytes_only": three uint8 words."""
     rng = np.random.default_rng(seed)
+    if shape == "skewed":
+        word = np.full(n, 0x0123456789ABCDEF, np.uint64)
+        odd = rng.choice(n, min(n, 5), replace=False)
+        word[odd] = rng.integers(0, 2**64 - 1, len(odd), dtype=np.uint64,
+                                 endpoint=True)
+        return [(rng.random(n) < 0.5).astype(np.uint8), word]
+    if shape == "all_bytes":
+        return [rng.integers(0, 2**64 - 1, n, dtype=np.uint64,
+                             endpoint=True)]
+    if shape == "bytes_only":
+        return [rng.integers(0, 256, n).astype(np.uint8),
+                rng.integers(0, 3, n).astype(np.uint8),
+                rng.integers(0, 256, n).astype(np.uint8)]
     full = rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
     full[: min(n, 2)] = [np.uint64(2**64 - 1), np.uint64(0)][: min(n, 2)]
     return [(rng.random(n) < 0.3).astype(np.uint8),
@@ -521,19 +608,25 @@ def _words(n, seed):
             np.zeros(n, np.uint8), full]
 
 
-@pytest.mark.parametrize("n", [1, 2, 4097, 300_000])
+@pytest.mark.parametrize("shape", ["mixed", "skewed", "all_bytes",
+                                   "bytes_only"])
+@pytest.mark.parametrize("n", [1, 2, 4097, 300_000, 3_000_017,
+                               (1 << 22) + 1])
 @pytest.mark.parametrize("limit", [None, 10])
-def test_radix_sort_matches_plain(cuda, n, limit):
+def test_radix_sort_matches_plain(cuda, n, limit, shape):
     """Kernel 19: the permutation equals its plain version's and
-    np.lexsort's, ties in row order, limits included."""
+    np.lexsort's, ties in row order, limits included, across many tiles;
+    the launches are the design's (a histogram a word, a pass a varying
+    byte, a gather a later word)."""
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch.physical.plan.device_sort import (
-        radix_sort, radix_sort_plain, to_word)
-    host = _words(n, n)
+        radix_sort, radix_sort_plain, sort_launch_count, to_word)
+    host = _words(n, n, shape)
     words = [to_word(w).to(cuda) for w in host]
     before = dft.launch_counts()["radix_sort"]
     got = radix_sort(words, limit).cpu().numpy()
-    assert dft.launch_counts()["radix_sort"] > before or n == 1
+    assert dft.launch_counts()["radix_sort"] - before == \
+        sort_launch_count(host)
     want = radix_sort_plain(words, limit).cpu().numpy()
     lex = np.lexsort(tuple(reversed(host)))[:limit]
     np.testing.assert_array_equal(got, want)

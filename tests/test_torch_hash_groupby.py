@@ -407,6 +407,141 @@ def test_topk_matches_emit_topk(asc, k):
                                   np.sort(beyond(wk, wc)))
 
 
+# --- a numpy model of csrc/group_topk.cu's compact-then-select ------------
+
+def _topk_model(table, lane_row, asc, k, cand_cap=None, seed=0):
+    """The slots `group_topk`'s kernels choose, modelled in numpy: the
+    compaction (candidates in an arbitrary order, as the warps' atomics
+    leave them, or, past `cand_cap` live groups, the table's live slots in
+    slot order; the AND and OR of the order keys), the rounds from the
+    highest varying byte down (each one's 256-bin histogram of the
+    candidates under the prefix and the bin of the k-th largest key) and
+    the gather. Returns (slots [k], -1 past the groups; the start byte)."""
+    live = np.flatnonzero(table[0] != G.EMPTY)
+    if cand_cap is None:
+        cand_cap = G.topk_candidates(table.shape[1], k)
+    if len(live) <= cand_cap:
+        live = np.random.default_rng(seed).permutation(live)
+    u = table[lane_row][live].view(np.uint64) ^ np.uint64(1 << 63)
+    if asc:
+        u = ~u
+    out = np.full(k, -1, np.int64)
+    if len(u) <= k:
+        out[:len(u)] = live
+        return out, None
+    all_, any_ = int(np.bitwise_and.reduce(u)), int(np.bitwise_or.reduce(u))
+    top = ((all_ ^ any_).bit_length() - 1) // 8 if all_ != any_ else -1
+    prefix, krem = 0, k
+    for byte in range(7, -1, -1):
+        if byte > top:
+            continue
+        hi = 0 if byte == 7 else (~0 << (8 * byte + 8)) & (2**64 - 1)
+        if byte == top:
+            prefix = all_ & hi
+        under = u[(u & np.uint64(hi)) == np.uint64(prefix)]
+        hist = np.bincount(((under >> np.uint64(8 * byte)) &
+                            np.uint64(255)).astype(np.int64), minlength=256)
+        above = np.cumsum(hist[::-1])[::-1] - hist   # in the bins above
+        (bin_,) = np.flatnonzero((above < krem) & (above + hist >= krem))
+        prefix |= int(bin_) << (8 * byte)
+        krem -= int(above[bin_])
+    t = np.uint64(all_ if top < 0 else prefix)
+    gt, eq = live[u > t], live[u == t]
+    assert len(gt) == k - krem
+    out[:len(gt)] = gt
+    out[k - krem:] = eq[:krem]
+    return out, top
+
+
+def _topk_tables():
+    """[3, cap] group tables (row 2 the order lane): counts of a zipf key
+    (at most 25M, so five high bytes equal), every value equal, INT64_MIN
+    and INT64_MAX among random values, 9 live groups."""
+    rng = np.random.default_rng(10)
+    cap = 1 << 14
+    tables = []
+    for kind in ("counts", "equal", "extremes", "few"):
+        live = rng.choice(cap, 9 if kind == "few" else 6000, replace=False)
+        t = np.zeros((3, cap), np.int64)
+        t[0] = G.EMPTY
+        t[0, live] = rng.integers(0, 2**40, len(live))
+        if kind == "counts":
+            lane = np.minimum(rng.zipf(1.3, len(live)), 25_000_000)
+        elif kind == "equal":
+            lane = np.full(len(live), -3)
+        else:
+            lane = rng.integers(-2**63, 2**63 - 1, len(live), dtype=np.int64,
+                                endpoint=True)
+            lane[:40] = np.iinfo(np.int64).min
+            lane[40:80] = np.iinfo(np.int64).max
+        t[2, live] = lane
+        tables.append((kind, t))
+    return tables
+
+
+@pytest.mark.parametrize("cand_cap", [None, 64])
+@pytest.mark.parametrize("asc", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 1000, 65_536])
+def test_topk_model_matches_plain(asc, k, cand_cap):
+    """The model of the kernel's select keeps `group_topk_plain`'s order
+    column exactly and its groups beyond the k-th value, on edge cases and
+    on a hash group table of `SELECT k, count(*) ...`, from the candidate
+    list or (64 candidates) from the table; counts of at most 25M start at
+    byte 3 or below (descending) instead of byte 7."""
+    data = _table_data(6_000, 8)
+    ctx = _pair(data)
+    ex = _port_exec(ctx, "SELECT k, count(*) c, sum(x) s FROM t GROUP BY k")
+    _spec, _plan, names, _slots, table = _group_table(ex, ctx)
+    cases = _topk_tables() + [("hash", table.numpy())]
+    for kind, t in cases:
+        row = 1 if kind == "hash" else 2
+        cap = None if cand_cap is None else max(cand_cap, min(
+            t.shape[1], k))          # as topk_candidates keeps it
+        got, top = _topk_model(t, row, asc, k, cap)
+        want = G.group_topk_plain(torch.from_numpy(t), row, asc, k).numpy()
+        assert (got >= 0).sum() == (want >= 0).sum() == min(
+            k, int((t[0] != G.EMPTY).sum()))
+        gv, wv = t[row][got[got >= 0]], t[row][want[want >= 0]]
+        np.testing.assert_array_equal(np.sort(gv), np.sort(wv))
+        kth = np.sort(wv)[-1] if asc else np.sort(wv)[0]
+        beyond = (lambda v: v < kth) if asc else (lambda v: v > kth)
+        np.testing.assert_array_equal(
+            np.sort(got[got >= 0][beyond(gv)]),
+            np.sort(want[want >= 0][beyond(wv)]))
+        if kind == "equal" and top is not None:
+            assert top == -1                  # no round runs
+        if kind in ("counts", "hash") and not asc and top is not None:
+            assert top <= 3
+
+
+def test_topk_launches_match_the_kernel():
+    """TOPK_LAUNCHES counts the compaction, one round a byte (kRounds) and
+    the gather; the wrapper's state holds the kernel's S_WORDS words."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(G.__file__), os.pardir, "csrc",
+                            "group_topk.cu")).read()
+    rounds = int(re.search(r"constexpr int kRounds = (\d+);", src)[1])
+    assert G.TOPK_LAUNCHES == 1 + rounds + 1
+    assert int(re.search(r"S_WORDS = (\d+)", src)[1]) == 8
+    assert G.TOPK_MAX_SLOTS == 1 << 32      # the candidates' uint32 slots
+    assert "if (p < cand_cap)" in src       # the list is never overrun
+
+
+@pytest.mark.parametrize("cap, k, want", [
+    (1 << 14, 10, 1 << 14),               # a small table: every slot
+    (1 << 24, 10, 1 << 23),               # CB Q16's table
+    (1 << 28, 10, 1 << 23),               # CB Q17's: 96 MiB, not 3 GiB
+    (1 << 30, 65_536, 1 << 23),
+    (1 << 10, 65_536, 1 << 10)])
+def test_topk_candidates_bound_the_scratch(cap, k, want):
+    """The candidate list holds TOPK_CANDIDATES entries at most (12 bytes
+    each), never more than the slots, and at least min(cap, k), so that k
+    or fewer live groups are always listed (the gather's short path)."""
+    assert G.topk_candidates(cap, k) == want
+    assert 12 * G.topk_candidates(cap, k) <= 12 << 23
+
+
 def test_kernel_digest_covers_shared_headers(tmp_path):
     """An edit to a shared header (`csrc/*.cuh`) must rebuild the library:
     it changes the digest, though it is not compiled on its own."""

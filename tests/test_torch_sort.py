@@ -174,3 +174,178 @@ def test_clickbench_sorts_match_jax(hits, q, monkeypatch):
     assert got == want
     assert len(got["SearchPhrase"]) == 10
     assert len(calls) == 1 and calls[0] > HITS_ROWS // 3
+
+
+# --- the radix sort's bookkeeping and a numpy model of its byte pass --------
+#
+# `csrc/radix_sort.cu` cannot run here. Its host side (`byte_passes`,
+# `status_words`, the tile size) is tested directly; its byte pass is
+# rehearsed by `_onesweep_pass`, a numpy model of `onesweep_kernel`'s
+# offset arithmetic: tiles of `threads * items` rows, row r of a tile as
+# item r % (32 items) // 32 of lane r % 32 of warp r // (32 items), ranked
+# item by item within its warp, then across warps; per-tile digit counts;
+# the exclusive prefix over earlier tiles (the look-back) plus the digit's
+# global base (word_hist's exclusive scan, which tile 0 publishes).
+
+def _digits(keys, shift):
+    return ((keys.astype(np.uint64) >> np.uint64(shift)) &
+            np.uint64(255)).astype(np.int64)
+
+
+def _word_hist(w):
+    """word_hist_kernel: the digit counts of every byte of a word."""
+    return np.stack([np.bincount(_digits(w, 8 * b), minlength=256)
+                     for b in range(w.itemsize)])
+
+
+def _onesweep_pass(keys, perm, shift, threads=256, items=16):
+    """(keys, rows) after one stable pass on the byte at `shift`, placed
+    as `onesweep_kernel` places them."""
+    n, tile, warps = len(keys), threads * items, threads // 32
+    d = _digits(keys, shift)
+    hist = np.bincount(d, minlength=256)
+    base = np.cumsum(hist) - hist
+    n_tiles = -(-n // tile)
+    counts = np.stack([np.bincount(d[t * tile:(t + 1) * tile], minlength=256)
+                       for t in range(n_tiles)])
+    look_back = base + np.cumsum(counts, axis=0) - counts
+    out_keys, out_perm = np.empty_like(keys), np.full(n, -1, np.int64)
+    for t in range(n_tiles):
+        warp_hist = np.zeros((warps, 256), np.int64)
+        rank = np.zeros(tile, np.int64)
+        for w in range(warps):
+            for j in range(items):
+                r0 = w * 32 * items + 32 * j        # lane 0's tile row
+                dl = d[t * tile + r0:min(n, t * tile + r0 + 32)]
+                for lane, dig in enumerate(dl):     # peers below it
+                    rank[r0 + lane] = warp_hist[w, dig] + \
+                        int((dl[:lane] == dig).sum())
+                np.add.at(warp_hist[w], dl, 1)
+        warp_off = np.cumsum(warp_hist, axis=0) - warp_hist
+        assert np.array_equal(warp_hist.sum(axis=0), counts[t])
+        rows = np.arange(t * tile, min(n, (t + 1) * tile))
+        local = rows - t * tile
+        dig = d[rows]
+        pos = look_back[t, dig] + warp_off[local // (32 * items), dig] + \
+            rank[local]
+        out_keys[pos] = keys[rows]
+        out_perm[pos] = perm[rows]
+    assert (out_perm >= 0).all()
+    return out_keys, out_perm
+
+
+def _model_sort(words, threads=256, items=16):
+    """The whole sort as `radix_sort` launches it, each pass modelled."""
+    n = len(words[0])
+    passes = port_sort.byte_passes([_word_hist(w) for w in words], n)
+    perm, keys = np.arange(n, dtype=np.int64), None
+    for e, p in enumerate(passes):
+        if p.gather:
+            keys = words[p.word][perm]
+        elif e == 0:
+            keys = words[p.word]
+        keys, perm = _onesweep_pass(keys, perm, 8 * p.byte, threads, items)
+    return perm
+
+
+@pytest.mark.parametrize("threads, items", [(256, 16), (64, 1), (32, 3),
+                                            (128, 2)])
+@pytest.mark.parametrize("n", [1, 31, 4096, 4097, 20_011])
+def test_onesweep_model_matches_stable_argsort(threads, items, n):
+    """One pass of the model equals np.argsort(kind="stable") of the byte,
+    at several tile sizes, ragged last tiles and one-digit words."""
+    rng = np.random.default_rng(n + threads)
+    for keys in (rng.integers(0, 2**64 - 1, n, dtype=np.uint64,
+                              endpoint=True),
+                 rng.integers(0, 3, n).astype(np.uint8),
+                 np.where(rng.random(n) < 0.999, np.uint64(5),
+                          np.uint64(2**63 + 9))):
+        perm = rng.permutation(n).astype(np.int64)
+        for shift in (0, 8, 56) if keys.itemsize == 8 else (0,):
+            out_keys, out_perm = _onesweep_pass(keys, perm, shift, threads,
+                                                items)
+            order = np.argsort(_digits(keys, shift), kind="stable")
+            np.testing.assert_array_equal(out_perm, perm[order])
+            np.testing.assert_array_equal(out_keys, keys[order])
+
+
+@pytest.mark.parametrize("threads, items", [(256, 16), (32, 2)])
+def test_model_sort_matches_lexsort(threads, items):
+    """The model's passes in `byte_passes`' order, gathering each later
+    word through the permutation, give np.lexsort's permutation."""
+    for n in (5, 3000, 9000):
+        keys = _keys(n, n)
+        np.testing.assert_array_equal(_model_sort(keys, threads, items),
+                                      np.lexsort(tuple(reversed(keys))))
+
+
+def test_byte_passes_skip_the_bytes_that_do_not_vary():
+    """Most significant word first: an all-zero rank is skipped whole, a
+    key's constant high bytes are skipped, the first word sorted gathers
+    nothing, each later word's first pass gathers, and a word's last pass
+    carries no keys."""
+    n = 1000
+    rng = np.random.default_rng(3)
+    rank = np.zeros(n, np.uint8)
+    date = (19000 + rng.integers(0, 300, n)).astype(np.uint64)   # 2 bytes
+    flag = rng.integers(0, 2, n).astype(np.uint8)
+    passes = port_sort.byte_passes(
+        [_word_hist(w) for w in (rank, date, flag)], n)
+    assert passes == [
+        port_sort.BytePass(2, 0, gather=False, keys_out=False),
+        port_sort.BytePass(1, 0, gather=True, keys_out=True),
+        port_sort.BytePass(1, 1, gather=False, keys_out=False)]
+    # every byte of every word constant: no pass, the identity
+    assert port_sort.byte_passes([_word_hist(np.full(n, 7, np.uint64))],
+                                 n) == []
+    # a uint64 word whose eight bytes all vary: eight passes, keys carried
+    full = rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
+    passes = port_sort.byte_passes([_word_hist(full)], n)
+    assert [p.byte for p in passes] == list(range(8))
+    assert [p.keys_out for p in passes] == [True] * 7 + [False]
+
+
+def test_radix_scratch_matches_the_kernel():
+    """The tile, status array and row limit the wrapper sizes are the
+    kernel's: kThreads * kItems rows a tile, one status word a (tile,
+    digit), counts of kCountBits bits; the sort's launches are a
+    histogram a word, a pass a varying byte and a gather a later word."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(port_sort.__file__), os.pardir,
+                            os.pardir, "csrc", "radix_sort.cu")).read()
+    const = {m[0]: int(m[1]) for m in
+             re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert const["kThreads"] * const["kItems"] == port_sort.TILE
+    assert port_sort.MAX_ROWS == 1 << const["kCountBits"]
+    assert port_sort.status_words(1) == 256
+    assert port_sort.status_words(port_sort.TILE) == 256
+    assert port_sort.status_words(39_995_647) == 9765 * 256
+    # CB Q25's words: an all-zero rank and a time of 3 varying bytes
+    n = 50_000
+    rng = np.random.default_rng(25)
+    words = [np.zeros(n, np.uint8),
+             (1372636800 + rng.integers(0, 31 * 86400, n)).astype(np.uint64)]
+    passes = port_sort.byte_passes([_word_hist(w) for w in words], n)
+    assert len(words) + len(passes) + sum(p.gather for p in passes) == 5
+    assert port_sort.sort_launch_count(words) == 5
+
+
+@pytest.mark.parametrize("n", [0, 1, 5000])
+def test_sort_launch_count_follows_the_passes(n):
+    """`sort_launch_count`: nothing for one row or fewer; else a
+    histogram a word, a pass a varying byte of `byte_passes` and a gather
+    before each later word's first pass; `digit_counts` counts as the
+    histogram kernel does."""
+    rng = np.random.default_rng(n)
+    words = [rng.integers(0, 2, n).astype(np.uint8),
+             np.zeros(n, np.uint8),
+             rng.integers(0, 1 << 20, n).astype(np.uint64),
+             rng.integers(0, 2, n).astype(bool)]
+    for w in words:
+        np.testing.assert_array_equal(port_sort.digit_counts(w),
+                                      _word_hist(w))
+    # 4 histograms; 5 passes (the bool, 3 bytes of the key, the rank);
+    # 2 gathers (the key, the rank)
+    want = 0 if n <= 1 else 4 + 5 + 2
+    assert port_sort.sort_launch_count(words) == want
