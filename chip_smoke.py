@@ -22,9 +22,10 @@ query is held against a numpy oracle on the same data.
    15,000,000 orders, about 60.0M lineitems, with the columns Q2-Q21
    read):
    - hash path: `hash_group_aggregate` against its plain version on Q18's
-     and Q15's subqueries (equal group tables), `compact_groups` with
-     Q18's HAVING against its plain version (equal), then both subqueries
-     end to end against numpy;
+     and Q15's subqueries (equal group tables), `compact_groups` with and
+     without Q18's HAVING against its plain version (equal; boolean-mask
+     indexing as the yardstick), then both subqueries end to end against
+     numpy;
    - join chains: `chain_build` against its plain version on every build
      side of Q5 (equal tables) and `chain_aggregate` against its plain
      version on Q5's walk (equal group tables), the same on Q3 (the hash
@@ -78,14 +79,16 @@ query is held against a numpy oracle on the same data.
      over its partition-key sort): `radix_sort`, `gather_lanes` and
      `window_scan` against their plain versions on each window
      evaluation's inputs (equal; the sort also against np.lexsort's
-     order), then each query end to end against
+     order; the gather's record layout and mode printed, `index_select`
+     a lane as its yardstick), then each query end to end against
      numpy, with a breakdown;
 5. ClickBench's `UserID`, `SearchPhrase` and `EventTime` at 99,997,497
    rows (the public `hits` row count), drawn as `generate_hits` draws
    them, then `RegionID`, `AdvEngineID` and `ResolutionWidth` by its
    distributions: `group_topk` against its plain version on Q16,
    `hash_group_aggregate` against its plain version on Q17 (42-bit keys:
-   the probing table), Q16 and Q17 end to end against numpy;
+   the probing table), `compact_groups` on both tables, Q16 and Q17 end
+   to end against numpy;
    `hash_group_aggregate` with its distinct lane against its plain
    version on Q10 (equal group tables and distinct sets) and the dense
    fold's 6 passes of Q30's 180 lanes against their plain version, Q10
@@ -96,10 +99,13 @@ query is held against a numpy oracle on the same data.
    (`lexsort_order_holds`) on Q25's and Q27's order words over the rows
    with a search phrase (equal permutations; stable
    `torch.sort` as the yardstick), and Q25, Q26 and Q27 end to end
-   against numpy, with a breakdown. `group_topk` and `radix_sort` are held
-   to the launches their designs predict: TOPK_LAUNCHES a top-k, and a
-   histogram a word, a launch a varying byte and a gather a later word a
-   sort (`device_sort.sort_launch_count`).
+   against numpy, with a breakdown. `group_topk`, `radix_sort`,
+   `compact_groups` and `gather_lanes` are held to the launches their
+   designs predict: TOPK_LAUNCHES a top-k; a histogram a word, a launch a
+   varying byte and a gather a later word a sort
+   (`device_sort.sort_launch_count`); 2 a compaction that keeps a group
+   (Q18's subquery, CB Q17), 1 one that keeps none; and 2 a packed record
+   group, 1 a direct one, of `groupby.gather_plan` (W1).
 
 ClickBench Q25-Q27 take a warm median of SORT_REPS runs (each spends
 seconds in the host filter). Each end-to-end path sets the launch counts
@@ -120,10 +126,13 @@ against numpy, for the record beside the join-aggregate's times.
 makes the order words of CB Q25-Q27 and of W1's first window evaluation
 and the group tables of CB Q16 and Q17 once (`sort_inputs`, saved under
 `_chip/sort_inputs` and removed at the end), then in a process a tree
-holds `radix_sort` and `group_topk` to their plain versions and prints
-one JSON line a tree: kernel, plain, library (`torch.sort` of the first
-value word, `torch.topk`) and bound ms, launches a call, each kernel's
-registers and stack bytes and its device ms in one profiled call.
+holds `radix_sort`, `reorder_rows` (W1's words through their
+permutation), `group_topk` and `compact_groups` (the rebuilt tables) to
+their plain versions and prints one JSON line a tree: kernel, plain,
+library (`torch.sort` of the first value word, `index_select` a lane,
+`torch.topk`, boolean-mask indexing) and bound ms, launches a call, each
+kernel's registers and stack bytes and its device ms in one profiled
+call.
 
     python3 chip_smoke.py --walks TREE [TREE ...]
 
@@ -842,7 +851,7 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
     import numpy as np
     import torch
     from datafusion_tpu_torch.device.groupby import (
-        compact_groups, compact_groups_plain, hash_group_aggregate,
+        compact_groups_plain, hash_group_aggregate,
         hash_group_aggregate_plain)
     from datafusion_tpu_torch.physical.plan.device_aggregate import (
         TorchGroupAggregateExec)
@@ -886,37 +895,86 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
           f": kernel {ms2:.6f} ms, plain {plain2:.6f} ms, bound "
           f"{b2['bound_ms']:.6f} ms, max_abs_err {err2} [{card}]", flush=True)
     table = tables[0]
-    ms3 = cuda_ms(lambda: compact_groups(table), 10)
-    plain3 = cuda_ms(lambda: compact_groups_plain(table), 3)
-    # one PyTorch call: boolean-mask indexing by the occupied slots
-    lib3 = cuda_ms(lambda: table[:, table[0] != -1], 10)
-    # the key row read once, the rest of each live slot read once and
-    # written once
-    b3 = bound(spec.cap * 8 + groups * (2 * rows - 1) * 8, spec.cap)
-    kc = entry(0.0, ms3, plain3, b3, lib3)
-    print(f"compact_groups {label}, no HAVING: {groups} of {spec.cap} "
-          f"slots: kernel {ms3:.6f} ms, plain {plain3:.6f} ms, boolean-mask "
-          f"indexing {lib3:.6f} ms, bound {b3['bound_ms']:.6f} ms [{card}]",
-          flush=True)
+    kc, _launches = compaction_vs_plain(table, None, label, card)
     k3 = None
     if having:
         hv = ex.having(spec, plan, names, slot_map)
-        g3 = compact_groups(table, hv).cpu().numpy()
-        w3 = compact_groups_plain(table, hv).cpu().numpy()
-        if g3.shape != w3.shape or not np.array_equal(g3, w3):
-            raise AssertionError(f"{label}: kernel 3's HAVING output differs")
-        ms3 = cuda_ms(lambda: compact_groups(table, hv), 10)
-        plain3 = cuda_ms(lambda: compact_groups_plain(table, hv), 3)
-        # the key row read once, the rest of each live slot read once, the
-        # kept groups written once
-        b3 = bound(spec.cap * 8 + groups * (rows - 1) * 8 +
-                   g3.shape[1] * rows * 8, groups * len(hv.prog.code))
-        k3 = entry(0.0, ms3, plain3, b3)
-        print(f"compact_groups {label} with HAVING: {g3.shape[1]} of "
-              f"{groups} groups kept: kernel {ms3:.6f} ms, plain "
-              f"{plain3:.6f} ms, bound {b3['bound_ms']:.6f} ms, max_abs_err "
-              f"0.0 [{card}]", flush=True)
+        k3, _launches = compaction_vs_plain(table, hv, label, card,
+                                            groups * len(hv.prog.code))
     return entry(err2, ms2, plain2, b2), k3, kc, table, spec, names
+
+
+def compaction_vs_plain(table, having, label, card, ops=None,
+                        predicted=True):
+    """`compact_groups` (kernel rows 2 and 11) against its plain version on
+    `table`, with or without `having`: equal column for column; with
+    `predicted`, launched 2 times a call (1 when nothing is kept). With no
+    HAVING, boolean-mask indexing by the occupied slots is the library
+    yardstick. Bound: the key row read once, the rest of each live slot's
+    rows read once, the kept groups written once. Returns (the report
+    entry, its launches a call)."""
+    import torch
+    from datafusion_tpu_torch.device.groupby import (
+        compact_groups, compact_groups_kernel, compact_groups_plain)
+    before = compact_groups_kernel.launches
+    got = compact_groups(table, having)
+    launches = compact_groups_kernel.launches - before
+    want = compact_groups_plain(table, having)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{label}: compact_groups differs from its "
+                             f"plain version")
+    kept = want.shape[1]
+    if predicted and launches != (2 if kept else 1):
+        raise AssertionError(f"{label}: compact_groups counted {launches} "
+                             f"launches")
+    del got, want
+    rows, cap = table.shape
+    groups = int((table[0] != -1).sum())
+    ms = cuda_ms(lambda: compact_groups(table, having), 10)
+    plain = cuda_ms(lambda: compact_groups_plain(table, having), 3)
+    library = None
+    if having is None:
+        library = cuda_ms(lambda: table[:, table[0] != -1], 10)
+    bnd = bound(cap * 8 + groups * (rows - 1) * 8 + kept * rows * 8,
+                cap if ops is None else ops)
+    what = "no HAVING" if having is None else "with HAVING"
+    print(f"compact_groups {label}, {what}: {kept} kept of {groups} groups "
+          f"in {cap} slots, {launches} launches a call: kernel {ms:.6f} ms, "
+          f"plain {plain:.6f} ms, boolean-mask indexing "
+          f"{'-' if library is None else f'{library:.6f}'} ms, bound "
+          f"{bnd['bound_ms']:.6f} ms, max_abs_err 0.0 [{card}]", flush=True)
+    return entry(0.0, ms, plain, bnd, library), launches
+
+
+def gather_vs_plain(perm, lanes, card, label):
+    """`reorder_rows` (kernel row 8) of the lanes through `perm` against
+    its plain version (equal), with `index_select` a lane as the library
+    yardstick. Bound: the index read once, each lane read and written once
+    (it counts no random sectors). Returns the report entry with its
+    launches a call and its device ms by kernel."""
+    import torch
+    from datafusion_tpu_torch.device.groupby import (
+        gather_lanes_kernel, reorder_rows, reorder_rows_plain)
+    before = gather_lanes_kernel.launches
+    got = reorder_rows(perm, lanes)
+    launches = gather_lanes_kernel.launches - before
+    for g, p in zip(got, reorder_rows_plain(perm, lanes)):
+        if not torch.equal(g, p):
+            raise AssertionError(f"{label}: gather_lanes differs from its "
+                                 f"plain version")
+    del got
+    n = perm.numel()
+    ms = cuda_ms(lambda: reorder_rows(perm, lanes), 10)
+    plain = cuda_ms(lambda: reorder_rows_plain(perm, lanes), 3)
+    library = cuda_ms(lambda: [t.index_select(0, perm) for t in lanes], 10)
+    width = sum(t.element_size() for t in lanes)
+    bnd = bound(n * 8 + 2 * n * width, 0)
+    print(f"gather_lanes {label}: {n} rows, {len(lanes)} lanes of {width} "
+          f"B, {launches} launches a call: kernel {ms:.6f} ms, plain "
+          f"{plain:.6f} ms, index_select {library:.6f} ms, bound "
+          f"{bnd['bound_ms']:.6f} ms, max_abs_err 0.0 [{card}]", flush=True)
+    return dict(launches=launches, **entry(0.0, ms, plain, bnd, library),
+                device_ms=kernel_ms(lambda: reorder_rows(perm, lanes)))
 
 
 def topk_bound(table, row: int, k: int) -> dict:
@@ -1381,11 +1439,13 @@ def window_kernels_vs_plain(ctx, sql, card, label):
     Bounds: the gather reads the index once and each lane once and writes
     each lane once; the scan reads the sorted words, lanes and the
     permutation once and writes each output once. Returns the report
-    entries (gather, scan) of the first function."""
+    entries (gather, scan) of the first function and the gather's launches
+    that `gather_plan` predicts for one batch's evaluations, each of which
+    is held to its prediction."""
     import numpy as np
     import torch
     from datafusion_tpu_torch.device.groupby import (
-        reorder_rows, reorder_rows_plain)
+        gather_lanes_kernel, gather_plan, reorder_rows, reorder_rows_plain)
     from datafusion_tpu_torch.device.window import (
         stage_window, window_scan, window_scan_plain)
     from datafusion_tpu_torch.physical.plan.base import collect_batch
@@ -1400,7 +1460,7 @@ def window_kernels_vs_plain(ctx, sql, card, label):
         key = ex.window_exprs[0].partition_by[0].evaluate(batch).data_host()
         cut = int(np.argmax(key != key[0])) or batch.num_rows
         batch = batch.take_host(np.arange(cut))
-    n, first = batch.num_rows, None
+    n, first, predicted = batch.num_rows, None, 0
     for w in _plan_window_evaluation(ex.window_exprs,
                                      ex.input.output_ordering()):
         inputs = device_window_inputs(w, batch)
@@ -1415,7 +1475,14 @@ def window_kernels_vs_plain(ctx, sql, card, label):
                 not lexsort_order_holds(words, perm):
             raise AssertionError(f"{label} {spec}: radix_sort differs")
         extras = [x for x in lanes if x is not None]
+        plan = gather_plan([t.element_size() for t in words + extras], n, n)
+        before = gather_lanes_kernel.launches
         moved = reorder_rows(perm, words + extras)
+        launches = gather_lanes_kernel.launches - before
+        predicted += sum(g.launches for g in plan)
+        if launches != sum(g.launches for g in plan):
+            raise AssertionError(f"{label} {spec}: gather_lanes counted "
+                                 f"{launches} launches, not as its plan")
         for g, p in zip(moved, reorder_rows_plain(perm, words + extras)):
             if not torch.equal(g, p):
                 raise AssertionError(f"{label} {spec}: gather_lanes differs")
@@ -1443,8 +1510,12 @@ def window_kernels_vs_plain(ctx, sql, card, label):
                     sum(t.element_size() for t in sl if t is not None))
         wrote = sum(v.numel() * v.element_size() for v in got.values())
         b_s = bound(read + wrote, n)
+        layout = ", ".join(f"{g.w} B in {g.width} "
+                           f"{'packed' if g.packed else 'direct'}"
+                           for g in plan)
         print(f"{label} {spec}: {n} rows, {len(words)} words, {len(extras)} "
-              f"lanes; gather_lanes kernel {ms_g:.6f} ms, plain "
+              f"lanes ({layout}, {launches} launches); gather_lanes kernel "
+              f"{ms_g:.6f} ms, plain "
               f"{plain_g:.6f} ms, index_select {lib_g:.6f} ms, bound "
               f"{b_g['bound_ms']:.6f} ms; "
               f"window_scan kernel {ms_s:.6f} ms, plain {plain_s:.6f} ms, "
@@ -1455,7 +1526,7 @@ def window_kernels_vs_plain(ctx, sql, card, label):
                      entry(0.0, ms_s, plain_s, b_s))
         del words, lanes, extras, perm, moved, sw, sl, got
         torch.cuda.empty_cache()
-    return first
+    return first, predicted
 
 
 # ---- numpy oracles of the window queries -------------------------------------
@@ -2864,6 +2935,8 @@ def main() -> int:
                                              "compact_groups"],
                               card, "Q18 sub SF10", li.num_rows)
     add(counts)
+    # the mark pass and the copy of the 676 groups kept
+    launched_as_predicted("Q18 sub SF10", counts, {"compact_groups": 2})
     starts = np.flatnonzero(np.r_[True, ok_[1:] != ok_[:-1]])
     sums = np.add.reduceat(qty, starts)
     want18 = ok_[starts][sums > 300 * 100]
@@ -3027,13 +3100,17 @@ def main() -> int:
     window = ["radix_sort", "gather_lanes", "window_scan"]
     n_li = li.num_rows
     for label, sql in (("W1", W1), ("W2", W2), ("W3", W3)):
-        kg, ks = window_kernels_vs_plain(ctx, sql, card, f"{label} SF10")
+        (kg, ks), gathers = window_kernels_vs_plain(ctx, sql, card,
+                                                    f"{label} SF10")
         if label == "W1":
             report["gather_lanes"], report["window_scan"] = kg, ks
+            w1_gathers = gathers
 
     out, counts, _ = run_path(ctx, W1, window, card, "W1 SF10", n_li,
                               WindowExec, reps=WINDOW_REPS, warm=False)
     add(counts)
+    launched_as_predicted("W1 SF10", counts, {"gather_lanes": w1_gathers},
+                          runs=WINDOW_REPS)
     want = oracle_w1(li)
     got = [col(out, c).astype(np.int64) for c in (
         "l_suppkey", "l_orderkey", "l_extendedprice", "rk", "order_qty")]
@@ -3130,7 +3207,8 @@ def main() -> int:
                                             "group_topk", "compact_groups"],
                               card, "CB Q17", HITS_ROWS)
     add(counts)
-    launched_as_predicted("CB Q17", counts, {"group_topk": TOPK_LAUNCHES})
+    launched_as_predicted("CB Q17", counts, {"group_topk": TOPK_LAUNCHES,
+                                             "compact_groups": 2})
     pair, pair_n = np.unique(user * n_dic + code, return_counts=True)
     got_pair = (out.columns[0].data_host() * n_dic +
                 out.columns[1].data_host())
@@ -3360,7 +3438,22 @@ def walks_main(trees) -> int:
 
 SORT_SHAPES = ("CB Q25", "CB Q26", "CB Q27", "W1")
 SORT_SYMBOLS = (r"\d(onesweep_kernel|word_hist_kernel|gather_kernel|"
-                r"scatter_kernel|block_hist_kernel)|topk_\w+_kernel")
+                r"scatter_kernel|block_hist_kernel|pack_kernel|"
+                r"gather_records_kernel|direct_kernel|gather_lanes_kernel)|"
+                r"topk_\w+_kernel|compact_\w+_kernel")
+
+
+def kernel_label(sym):
+    """A kernel's name from its mangled symbol, with its template
+    arguments: `onesweep_kernel<u64>`, `compact_mark_kernel<1,0>`,
+    `pack_kernel<32>`."""
+    import re
+    m = re.search(r"\d+([a-z_]+_kernel)(I((?:L[a-z]\d+E|[a-z])+)E)?", sym)
+    if m.group(3) is None:
+        return m.group(1)
+    args = [a or {"y": "u64", "h": "u8"}.get(t, t) for a, t in
+            re.findall(r"L[a-z](\d+)E|([a-z])", m.group(3))]
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def sort_inputs(data):
@@ -3445,14 +3538,15 @@ def kernel_ms(fn) -> dict:
 
 
 def sort_tree(tree, data):
-    """`radix_sort` on the words of SORT_SHAPES and `group_topk` (k = 10,
-    descending) on CB Q16's and Q17's tables with `tree`'s package, each
-    through `radix_vs_plain` and `topk_vs_plain` (against its plain
-    version, launches recorded, not predicted: the parent counts its
-    own); prints one JSON line of kernel, plain, library and bound ms,
-    launches a call, and the kernels' registers and stack bytes, and each
-    kernel's device ms in one profiled call."""
-    import re
+    """`radix_sort` on the words of SORT_SHAPES, `reorder_rows` of W1's
+    words through their permutation, and `group_topk` (k = 10,
+    descending) and `compact_groups` on CB Q16's and Q17's tables with
+    `tree`'s package, each through `radix_vs_plain`, `gather_vs_plain`,
+    `topk_vs_plain` and `compaction_vs_plain` (against its plain version,
+    launches recorded, not predicted: the parent counts its own); prints
+    one JSON line of kernel, plain, library and bound ms, launches a call,
+    and the kernels' registers and stack bytes, and each kernel's device ms
+    in one profiled call."""
     import numpy as np
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -3461,7 +3555,7 @@ def sort_tree(tree, data):
     if not dft.__file__.startswith(tree + os.sep):
         raise AssertionError(f"imported {dft.__file__}, not from {tree}")
     from datafusion_tpu_torch import kernels
-    from datafusion_tpu_torch.device.groupby import group_topk
+    from datafusion_tpu_torch.device.groupby import compact_groups, group_topk
     from datafusion_tpu_torch.physical.plan.device_sort import (
         radix_sort, to_word)
     kernels.library()
@@ -3471,13 +3565,16 @@ def sort_tree(tree, data):
     for label in SORT_SHAPES:
         with np.load(os.path.join(data, f"{label}.npz")) as z:
             host = [z[f"arr_{i}"] for i in range(len(z.files))]
-        kr, _perm, launches = radix_vs_plain(host, dev, card, label,
-                                             library=True, predicted=False)
+        kr, perm, launches = radix_vs_plain(host, dev, card, label,
+                                            library=True, predicted=False)
         words = [to_word(w).to(dev) for w in host]
         out[label] = dict(rows=len(host[0]), words=len(host),
                           launches=launches, **kr,
                           device_ms=kernel_ms(lambda: radix_sort(words)))
-        del words
+        if label == "W1":
+            out["W1 gather"] = gather_vs_plain(
+                torch.from_numpy(perm).to(dev), words, card, label)
+        del words, perm
         torch.cuda.empty_cache()
     for label in ("CB Q16", "CB Q17"):
         with np.load(os.path.join(data, f"{label}.npz")) as z:
@@ -3491,13 +3588,16 @@ def sort_tree(tree, data):
         out[label] = dict(
             slots=cap, groups=int(slots.numel()), launches=launches, **kt,
             device_ms=kernel_ms(lambda: group_topk(table, 2, False, 10)))
+        kc, launches = compaction_vs_plain(table, None, label, card,
+                                           predicted=False)
+        out[f"{label} compact"] = dict(
+            slots=cap, groups=int(slots.numel()), launches=launches, **kc,
+            device_ms=kernel_ms(lambda: compact_groups(table)))
         del table, slots
         torch.cuda.empty_cache()
-    res = {}
-    for sym, rs in kernel_resources(str(kernels.LIB), SORT_SYMBOLS).items():
-        m = re.search(r"\d+([a-z_]+_kernel)(I([a-z])E)?", sym)
-        res[m.group(1) + {"y": "<u64>", "h": "<u8>"}.get(m.group(3), "")] = rs
-    out["resources"] = res
+    out["resources"] = {
+        kernel_label(sym): rs for sym, rs in
+        kernel_resources(str(kernels.LIB), SORT_SYMBOLS).items()}
     print(json.dumps(out), flush=True)
 
 

@@ -54,6 +54,7 @@
 
 #include <stdint.h>
 
+#include "lookback.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -68,13 +69,9 @@ constexpr int kHistThreads = 256;
 constexpr int kHistUnroll = 4;          // rows a thread loads at a time
 constexpr int kSweepBlocks = 2;         // resident sweep blocks an SM
 constexpr int kLookBack = 4;            // status words a look-back step reads
-
-// status word of (tile, digit): flag << 62 | epoch << 40 | count
-constexpr int kCountBits = 40;          // device_sort.py MAX_ROWS
-constexpr u64 kCountMask = (1ull << kCountBits) - 1;
-constexpr u64 kEpochMask = (1ull << 22) - 1;
-constexpr u64 kAggregate = 1;           // the tile's own count
-constexpr u64 kInclusive = 2;           // the global end of the tile's run
+// status word of (tile, digit): lookback.cuh's, counts below 2^40
+// (device_sort.py MAX_ROWS); tile 0's inclusive count is the digit's
+// global end, so every prefix is a global position
 
 __device__ __forceinline__ unsigned lanemask_lt() {
   unsigned m;
@@ -91,17 +88,6 @@ __device__ __forceinline__ unsigned digit_peers(unsigned d, unsigned valid) {
     peers &= (d >> b) & 1u ? set : ~set;
   }
   return peers;
-}
-
-__device__ __forceinline__ u64 load_status(const u64* p) {
-  return *(const volatile u64*)p;
-}
-
-// One 64-bit store carries the flag, the epoch and the count, and a
-// reader takes nothing else from the writer within the pass (the keys and
-// rows it wrote are read by the next launch), so no fence orders it.
-__device__ __forceinline__ void store_status(u64* p, u64 v) {
-  *(volatile u64*)p = v;
 }
 
 // hist[b * 256 + d] += rows whose byte b is d, for every byte of the word
@@ -267,26 +253,7 @@ onesweep_kernel(const K* __restrict__ keys_in,
   if (tile == 0) {
     excl = block_exclusive_sum<kThreads>((i64)digit_hist[d], &total);
   } else {
-    // decoupled look-back, kLookBack earlier tiles a round trip: their
-    // counts while they are aggregates, up to the first inclusive one
-    bool done = false;
-    for (i64 t = tile - 1; !done;) {
-      u64 st[kLookBack];
-#pragma unroll
-      for (int q = 0; q < kLookBack; ++q) {
-        st[q] = t - q >= 0 ? load_status(status + (t - q) * kDigits + d) : 0;
-      }
-      int q = 0;
-#pragma unroll
-      for (int r = 0; r < kLookBack; ++r) {
-        if (done || q < r) continue;
-        if ((st[r] >> kCountBits & kEpochMask) != epoch) continue;  // not yet
-        excl += (i64)(st[r] & kCountMask);
-        done = st[r] >> 62 == kInclusive;
-        q = r + 1;
-      }
-      t -= q;
-    }
+    excl = look_back<kLookBack>(status + d, tile, kDigits, epoch);
   }
   store_status(mine, kInclusive << 62 | tag | (u64)(excl + cnt));
   move[d] = excl - start;

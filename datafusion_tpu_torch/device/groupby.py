@@ -56,10 +56,12 @@ with its validity (`_emit_device_resident`, `device_aggregate.py:899`).
 A large group table's consumer (a join build) reads them in place.
 
 Row permutation. `reorder_rows` moves many row-aligned lanes through one
-int64 permutation in one launch of `csrc/gather_lanes.cu`, the counterpart
-of `reorder_rows_packed` (`datafusion_tpu/device/groupby.py:237`) without
-its int32 lane packing. The window evaluation (`device/window.py`) carries
-its words and value lanes into sorted order with it.
+int64 index list with `csrc/gather_lanes.cu`, the counterpart of
+`reorder_rows_packed` (`datafusion_tpu/device/groupby.py:237`): like it,
+it packs the lanes into row records and gathers whole records, records
+laid out for the H100's 32-byte sector (`gather_plan`). The window
+evaluation (`device/window.py`) carries its words and value lanes into
+sorted order with it.
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its CUDA kernel (`csrc/`) on CUDA tensors, or raises.
@@ -67,7 +69,7 @@ its CUDA kernel (`csrc/`) on CUDA tensors, or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,8 +124,13 @@ MAX_TOPK = 1 << 16
 TOPK_LAUNCHES = 10
 TOPK_MAX_SLOTS = 1 << 32
 TOPK_CANDIDATES = 1 << 23
-COMPACT_TILE = 2048  # slots per block of csrc/compact_groups.cu
-MAX_GATHER_LANES = 32   # lanes a launch of csrc/gather_lanes.cu moves
+# csrc/compact_groups.cu: entries a tile, and keep words (32 entries) a tile
+COMPACT_TILE = 4096
+COMPACT_WORDS = COMPACT_TILE // 32
+# csrc/gather_lanes.cu: the bytes of a record (a group of lanes), and the
+# sector whose size pads it
+GATHER_MAX_RECORD = 128
+GATHER_SECTOR = 32
 
 _I64_MAX = np.iinfo(np.int64).max
 _I64_MIN = np.iinfo(np.int64).min
@@ -880,8 +887,10 @@ def compact_groups(table: torch.Tensor, having: Optional[HavingSpec] = None,
     those slots in their order: a `[lanes + 2, ng]` tensor.
 
     On CPU tensors this runs `compact_groups_plain`; on CUDA tensors it
-    launches the `compact_groups` kernels or raises. It reads ng back to
-    size the output: one synchronisation."""
+    launches the `compact_groups` kernels (the mark pass, then the copy
+    unless ng is 0) or raises. It reads ng back to size the output: one
+    synchronisation. Its scratch is a keep bit an entry and a status word
+    a tile."""
     _check_group_table(table)
     _check_slots(slots, table)
     if not _cuda(table):
@@ -890,28 +899,29 @@ def compact_groups(table: torch.Tensor, having: Optional[HavingSpec] = None,
     dev = table.device
     rows, cap = table.shape
     n = cap if slots is None else slots.numel()
+    nt = max(-(-n // COMPACT_TILE), 1)
     meta = _NO_HAVING if having is None else having.meta
     slots_ptr = None if slots is None else slots.data_ptr()
     with torch.cuda.device(dev):
         meta_d = torch.from_numpy(meta).to(dev)
-        offsets = torch.empty(max(-(-n // COMPACT_TILE), 1),
-                              dtype=torch.int64, device=dev)
-        ng_d = torch.empty(1, dtype=torch.int64, device=dev)
+        # the tiles' status words, the tile counter, ng
+        state = torch.zeros(nt + 2, dtype=torch.int64, device=dev)
+        words = torch.empty(nt * COMPACT_WORDS, dtype=torch.int32,
+                            device=dev)
         stream = _stream(dev)
-        rc = lib.dft_compact_count(meta_d.data_ptr(), len(meta),
-                                   table.data_ptr(), cap, slots_ptr, n,
-                                   offsets.data_ptr(), ng_d.data_ptr(),
-                                   stream)
-        kernels.check(rc, compact_groups_kernel)
-        ng = int(ng_d.item())
+        kernels.check(lib.dft_compact_mark(
+            meta_d.data_ptr(), len(meta), int(having is not None),
+            table.data_ptr(), cap, slots_ptr, n, words.data_ptr(),
+            state.data_ptr(), stream), compact_groups_kernel)
+        compact_groups_kernel.launches += 1
+        ng = int(state[nt + 1].item())
         out = torch.empty((rows, ng), dtype=torch.int64, device=dev)
         if ng:
-            rc = lib.dft_compact_scatter(meta_d.data_ptr(), len(meta),
-                                         table.data_ptr(), cap, rows,
-                                         slots_ptr, n, offsets.data_ptr(),
-                                         out.data_ptr(), ng, stream)
-            kernels.check(rc, compact_groups_kernel)
-    compact_groups_kernel.launches += 1
+            kernels.check(lib.dft_compact_copy(
+                table.data_ptr(), cap, rows, slots_ptr, n, words.data_ptr(),
+                state.data_ptr(), out.data_ptr(), ng, stream),
+                compact_groups_kernel)
+            compact_groups_kernel.launches += 1
     return out
 
 
@@ -1089,15 +1099,70 @@ def group_emit_columns_plain(groups: torch.Tensor,
     return outs
 
 
+class GatherGroup(NamedTuple):
+    """Lanes that `gather_lanes.cu` moves as one record: `lanes` (indices
+    into the caller's list, widest first), their byte `offsets` in the
+    record, the row's bytes `w`, the record's padded `width`, and whether
+    the group is `packed` (pack, then gather records: two launches) or
+    moved lane by lane (`direct`: one launch)."""
+    lanes: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    w: int
+    width: int
+    packed: bool
+
+    @property
+    def launches(self) -> int:
+        return 2 if self.packed else 1
+
+
+def record_width(w: int) -> int:
+    """A record of w bytes padded to a power of two up to GATHER_SECTOR
+    bytes, past that to a multiple of GATHER_SECTOR, so that a record of
+    at most a sector never straddles two."""
+    if w <= GATHER_SECTOR:
+        return 1 << (w - 1).bit_length()
+    return -(-w // GATHER_SECTOR) * GATHER_SECTOR
+
+
+def gather_plan(widths: Sequence[int], m: int, n: int) -> List[GatherGroup]:
+    """How `reorder_rows` moves lanes of `widths` bytes (n rows each) to m
+    output rows: the lanes widest first (stable), cut into groups of at
+    most GATHER_MAX_RECORD bytes a row. A group is packed when the random
+    sectors it saves outweigh the pack's bytes: one sector a lane a row
+    read directly, against the record's sectors, so packed iff
+    m * 32 * (lanes - sectors) > n * (w + width)."""
+    order = sorted(range(len(widths)), key=lambda i: -widths[i])
+    groups, cur = [], []
+    for i in order:
+        if sum(widths[j] for j in cur) + widths[i] > GATHER_MAX_RECORD:
+            groups.append(cur)
+            cur = []
+        cur.append(i)
+    if cur:
+        groups.append(cur)
+    plan = []
+    for g in groups:
+        offsets = np.cumsum([0] + [widths[i] for i in g])
+        w = int(offsets[-1])
+        width = record_width(w)
+        sectors = -(-width // GATHER_SECTOR)
+        packed = m * GATHER_SECTOR * (len(g) - sectors) > n * (w + width)
+        plan.append(GatherGroup(tuple(g), tuple(int(o) for o in offsets[:-1]),
+                                w, width, bool(packed)))
+    return plan
+
+
 def reorder_rows(order: torch.Tensor,
                  lanes: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Every lane (a contiguous [n] tensor of 1, 2, 4 or 8 bytes a row)
-    read through `order` (int64 [m], row indices into the lanes): new
-    lanes of m rows, `lane[order]` each.
+    """Every lane (a contiguous [n] tensor of 1, 2, 4 or 8 bytes a row, the
+    same n for all) read through `order` (int64 [m], row indices into the
+    lanes): new lanes of m rows, `lane[order]` each.
 
     On CPU tensors this runs `reorder_rows_plain`; on CUDA tensors it
-    launches the `gather_lanes` kernel, once for up to 32 lanes, or
-    raises."""
+    launches the `gather_lanes` kernels, for each group of `gather_plan`
+    a pack and a gather of whole records or one direct launch, or raises.
+    A packed group's scratch is n * width bytes, freed at return."""
     if order.dtype != torch.int64 or order.dim() != 1 or \
             not order.is_contiguous():
         raise ValueError("order must be a contiguous int64 [m] tensor")
@@ -1107,27 +1172,44 @@ def reorder_rows(order: torch.Tensor,
                 lane.element_size() not in (1, 2, 4, 8):
             raise ValueError("lanes must be contiguous [n] tensors of 1, 2, 4 "
                              "or 8 bytes on the order's device")
+    if len({lane.numel() for lane in lanes}) > 1:
+        raise ValueError("lanes must be row-aligned: the same length each")
     if not _cuda(order):
         return reorder_rows_plain(order, lanes)
     m, dev = order.numel(), order.device
     outs = [torch.empty(m, dtype=lane.dtype, device=dev) for lane in lanes]
     if m == 0 or not lanes:
         return outs
+    n = lanes[0].numel()
     lib = kernels.library()
     with torch.cuda.device(dev):
         stream = _stream(dev)
-        for at in range(0, len(lanes), MAX_GATHER_LANES):
-            part = range(at, min(at + MAX_GATHER_LANES, len(lanes)))
-            srcs = (ctypes.c_void_p * len(part))(
-                *[lanes[i].data_ptr() for i in part])
-            dsts = (ctypes.c_void_p * len(part))(
-                *[outs[i].data_ptr() for i in part])
-            widths = (ctypes.c_int * len(part))(
-                *[lanes[i].element_size() for i in part])
-            kernels.check(lib.dft_gather_lanes(
-                order.data_ptr(), m, len(part), srcs, dsts, widths, stream),
+        for g in gather_plan([t.element_size() for t in lanes], m, n):
+            k = len(g.lanes)
+            srcs = (ctypes.c_void_p * k)(*[lanes[i].data_ptr()
+                                           for i in g.lanes])
+            dsts = (ctypes.c_void_p * k)(*[outs[i].data_ptr()
+                                           for i in g.lanes])
+            widths = (ctypes.c_int * k)(*[lanes[i].element_size()
+                                          for i in g.lanes])
+            offs = (ctypes.c_int * k)(*g.offsets)
+            if not g.packed:
+                kernels.check(lib.dft_gather_direct(
+                    order.data_ptr(), m, k, srcs, dsts, widths, offs,
+                    stream), gather_lanes_kernel)
+                gather_lanes_kernel.launches += 1
+                continue
+            recs = torch.empty(-(-n * g.width // 16) * 16,
+                               dtype=torch.uint8, device=dev)
+            kernels.check(lib.dft_gather_pack(
+                n, k, srcs, widths, offs, g.width, recs.data_ptr(), stream),
                 gather_lanes_kernel)
             gather_lanes_kernel.launches += 1
+            kernels.check(lib.dft_gather_records(
+                order.data_ptr(), m, recs.data_ptr(), g.width, k, dsts,
+                widths, offs, stream), gather_lanes_kernel)
+            gather_lanes_kernel.launches += 1
+            del recs
     return outs
 
 

@@ -39,8 +39,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "dft_fused_dense_aggregate": [_P, _I, _I, _I, _P, _LL, _P, _I, _P],
     "dft_hash_group_aggregate": [_P, _I, _P, _LL, _LL, _I, _P, _P, _I, _P],
-    "dft_compact_count": [_P, _I, _P, _LL, _P, _LL, _P, _P, _P],
-    "dft_compact_scatter": [_P, _I, _P, _LL, _I, _P, _LL, _P, _P, _LL, _P],
+    "dft_compact_mark": [_P, _I, _I, _P, _LL, _P, _LL, _P, _P, _P],
+    "dft_compact_copy": [_P, _LL, _I, _P, _LL, _P, _P, _P, _LL, _P],
     "dft_group_topk": [_P, _LL, _I, _I, _LL, _P, _P, _LL, _P, _P, _P,
                        _P],
     "dft_chain_build_range": [_P, _I, _P, _LL, _P, _I, _P],
@@ -61,7 +61,9 @@ _SIGNATURES = {
     "dft_radix_word_hist": [_P, _I, _LL, _P, _P],
     "dft_radix_gather": [_P, _I, _P, _LL, _P, _P],
     "dft_radix_pass": [_P, _I, _P, _LL, _I, _P, _P, _LL, _P, _P, _P, _P],
-    "dft_gather_lanes": [_P, _LL, _I, _P, _P, _P, _P],
+    "dft_gather_pack": [_LL, _I, _P, _P, _P, _I, _P, _P],
+    "dft_gather_records": [_P, _LL, _P, _I, _I, _P, _P, _P, _P],
+    "dft_gather_direct": [_P, _LL, _I, _P, _P, _P, _P, _P],
     "dft_window_flags": [_P, _P, _I, _I, _LL, _P, _P],
     "dft_window_scan": [_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                         _P],

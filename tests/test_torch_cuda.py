@@ -256,11 +256,66 @@ def test_having_compaction_matches_plain(cuda):
     hash_group_aggregate(spec, cols, aux, src.num_rows, table, overflow)
     before = dft.launch_counts()["compact_groups"]
     got = compact_groups(table, having).cpu().numpy()
-    assert dft.launch_counts()["compact_groups"] == before + 1
+    # the mark pass and the copy (groups are kept)
+    assert dft.launch_counts()["compact_groups"] == before + 2
     want = compact_groups_plain(table, having).cpu().numpy()
     # both keep slot order, so they agree column for column
     np.testing.assert_array_equal(got, want)
     assert 0 < got.shape[1] < int((table[0] != -1).sum())
+
+
+_TILE = 4096
+_CAP = 3 * _TILE + 77
+
+
+def _edge_table(case, cuda):
+    """A [3, cap] group table (and a slot list or None) for a compaction
+    edge case: no live slot, every slot live, one live slot at a tile edge,
+    2^28 slots with 1.5% live, a slot list with -1 entries ("listed"), and
+    a table at an 8-byte (not 16-byte) aligned address."""
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    cap = 1 << 28 if case == "2^28" else _CAP
+    table = torch.full((3, cap), -1, dtype=torch.int64, device=cuda)
+    if case == "unaligned":
+        buf = torch.full((3 * cap + 1,), -1, dtype=torch.int64, device=cuda)
+        table = buf[1:].view(3, cap)
+    live = {"empty": torch.zeros(cap, dtype=torch.bool, device=cuda),
+            "full": torch.ones(cap, dtype=torch.bool, device=cuda)}.get(case)
+    if live is None and case.startswith("slot "):
+        live = torch.zeros(cap, dtype=torch.bool, device=cuda)
+        live[int(case.split()[1])] = True
+    if live is None:
+        share = 0.015 if case == "2^28" else 0.2
+        live = torch.rand(cap, generator=g, device=cuda) < share
+    table[0] = torch.where(live, torch.randint(0, 1 << 40, (cap,),
+                                               generator=g, device=cuda), -1)
+    table[1:] = torch.randint(-1000, 1000, (2, cap), generator=g,
+                              device=cuda)
+    slots = None
+    if case == "listed":
+        slots = torch.randperm(cap, generator=g, device=cuda)[:6_000]
+        slots[torch.rand(6_000, generator=g, device=cuda) < 0.1] = -1
+    return table, slots
+
+
+@pytest.mark.parametrize("case", [
+    "empty", "full", "slot 0", f"slot {_TILE - 1}", f"slot {_TILE}",
+    f"slot {3 * _TILE}", f"slot {_CAP - 1}", "sparse", "2^28", "listed",
+    "unaligned"])
+def test_compaction_edges_match_plain(cuda, case):
+    """Kernel row 2 at tile edges against its plain version: equal column
+    for column, in 2 launches (1 when nothing is kept)."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        compact_groups, compact_groups_plain)
+    table, slots = _edge_table(case, cuda)
+    before = dft.launch_counts()["compact_groups"]
+    got = compact_groups(table, slots=slots)
+    torch.cuda.synchronize()
+    want = compact_groups_plain(table, slots=slots)
+    assert torch.equal(got, want)
+    assert dft.launch_counts()["compact_groups"] - before == \
+        (2 if want.shape[1] else 1)
 
 
 def _topk_table(case, cuda):
@@ -638,7 +693,7 @@ def test_gather_lanes_matches_plain(cuda):
     index list with repeats (not a permutation)."""
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch.device.groupby import (
-        reorder_rows, reorder_rows_plain)
+        gather_plan, reorder_rows, reorder_rows_plain)
     rng = np.random.default_rng(8)
     n = 100_003
     kinds = [np.uint8, np.bool_, np.int16, np.int32, np.int64, np.float32,
@@ -647,14 +702,51 @@ def test_gather_lanes_matches_plain(cuda):
         (rng.integers(0, 255, n) if k not in (np.float32, np.float64)
          else rng.normal(size=n)).astype(k)).to(cuda)
         for k in kinds * 6]
-    for order in (rng.permutation(n), rng.integers(0, n, 5000)):
+    # 168 B a row: a 128-B record and a 40-B one (padded to 64); the
+    # permutation packs both (2 launches each), 5000 indices move both
+    # directly (1 each)
+    for order, launches in ((rng.permutation(n), 4),
+                            (rng.integers(0, n, 5000), 2)):
         o = torch.from_numpy(order.astype(np.int64)).to(cuda)
+        plan = gather_plan([t.element_size() for t in lanes], len(order), n)
+        assert sum(g.launches for g in plan) == launches
         before = dft.launch_counts()["gather_lanes"]
         got = reorder_rows(o, lanes)
-        assert dft.launch_counts()["gather_lanes"] == before + 2
+        assert dft.launch_counts()["gather_lanes"] == before + launches
         for g, w in zip(got, reorder_rows_plain(o, lanes)):
             assert g.dtype == w.dtype
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("widths", [
+    [1, 8, 1, 8], [1, 2, 4, 8, 2, 1, 4], [1, 1], [2, 2], [4, 2, 2],
+    [8] * 11 + [4], [8] * 17 + [4, 2, 1], [4]])
+@pytest.mark.parametrize("kind", ["permutation", "short", "repeats"])
+def test_gather_modes_match_plain(cuda, widths, kind):
+    """Kernel row 8 in both modes, every record width the plan makes
+    (2, 4, 8, 16, 32 (W1's 18 B), 96 and 128 B; 64 above): equal to
+    `reorder_rows_plain`, in the launches `gather_plan` predicts."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        gather_plan, reorder_rows, reorder_rows_plain)
+    rng = np.random.default_rng(len(widths) * 3 + len(kind))
+    n = 1_000_003
+    kinds = {1: np.uint8, 2: np.int16, 4: np.float32, 8: np.int64}
+    lanes = [torch.from_numpy(rng.integers(0, 127, n).astype(kinds[w])
+                              ).to(cuda) for w in widths]
+    order = {"permutation": rng.permutation(n),
+             "short": rng.integers(0, n, n // 40),
+             "repeats": rng.integers(0, n, n + 5)}[kind]
+    o = torch.from_numpy(order.astype(np.int64)).to(cuda)
+    plan = gather_plan(widths, len(order), n)
+    before = dft.launch_counts()["gather_lanes"]
+    got = reorder_rows(o, lanes)
+    torch.cuda.synchronize()
+    assert dft.launch_counts()["gather_lanes"] - before == \
+        sum(g.launches for g in plan)
+    for g, w in zip(got, reorder_rows_plain(o, lanes)):
+        assert g.dtype == w.dtype
+        assert torch.equal(g, w)
 
 
 WINDOW_SPECS = [("rank", f) for f in ("row_number", "rank", "dense_rank",

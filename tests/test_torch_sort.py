@@ -312,8 +312,11 @@ def test_radix_scratch_matches_the_kernel():
     histogram a word, a pass a varying byte and a gather a later word."""
     import os
     import re
-    src = open(os.path.join(os.path.dirname(port_sort.__file__), os.pardir,
-                            os.pardir, "csrc", "radix_sort.cu")).read()
+    csrc = os.path.join(os.path.dirname(port_sort.__file__), os.pardir,
+                        os.pardir, "csrc")
+    # the status word's layout is the shared look-back header's
+    src = "".join(open(os.path.join(csrc, f)).read()
+                  for f in ("radix_sort.cu", "lookback.cuh"))
     const = {m[0]: int(m[1]) for m in
              re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert const["kThreads"] * const["kItems"] == port_sort.TILE
