@@ -125,7 +125,7 @@ against numpy, for the record beside the join-aggregate's times.
 
 makes the order words of CB Q25-Q27 and of W1's first window evaluation
 and the group tables of CB Q16 and Q17 once (`sort_inputs`, saved under
-`_chip/sort_inputs` and removed at the end), then in a process a tree
+`_chip/ab_inputs` and removed at the end), then in a process a tree
 holds `radix_sort`, `reorder_rows` (W1's words through their
 permutation), `group_topk` and `compact_groups` (the rebuilt tables) to
 their plain versions and prints one JSON line a tree: kernel, plain,
@@ -133,6 +133,20 @@ library (`torch.sort` of the first value word, `index_select` a lane,
 `torch.topk`, boolean-mask indexing) and bound ms, launches a call, each
 kernel's registers and stack bytes and its device ms in one profiled
 call.
+
+    python3 chip_smoke.py --folds TREE [TREE ...]
+
+compares the dense fold and the join probe across checkouts, as
+`--walks` does the walks: one process a tree, each building its own
+kernels and making the same data, prints one JSON line with the mean
+device ms (CUDA events) of `fused_dense_aggregate` on TPC-H Q1 and Q6 at
+SF10 (`make_lineitem`) and ClickBench Q30 (99,997,497 rows, 180 lanes),
+of the dense `chain_aggregate` walks of TPC-H Q5, Q12 and Q14 at SF10
+(`time_walks`, as `--walks` times them), and of `join_build` and
+`join_aggregate` (and their sum, and the build table's bytes) on J1 and
+J2 at SF10; the five fold and join queries end to end (warm median of
+REPS); the launches a call; and the registers and stack bytes
+`cuobjdump` gives those kernels in the tree's library.
 
     python3 chip_smoke.py --walks TREE [TREE ...]
 
@@ -151,7 +165,8 @@ stack-frame bytes (spills included) `cuobjdump --dump-resource-usage`
 gives each walk kernel (and `chain_compose_kernel`) of that tree's
 library. A walk is timed as the tree stages it: composed and folded where
 the tree composes, and then, in such a tree, staged without composition
-or folding too (`walk_ms_uncomposed`).
+or folding too (`walk_ms_uncomposed`). Q5, Q12 and Q14 are also timed end
+to end (`e2e_ms`, warm median of REPS).
 """
 import datetime
 import json
@@ -2148,12 +2163,13 @@ def join_ops(spec, n_probe: int, pairs: int) -> int:
 
 def join_vs_plain(ctx, sql, label, card):
     """`join_build` against its plain version on the query's build side
-    (equal bucket starts, the same multiset of (key words, row) a bucket),
-    then `join_aggregate` over the kernel's table against its plain
-    version on the probe batch (equal group tables, ordered by key; every
-    lane is a count or an exact decimal sum). Bounds: the build's inputs
-    read and its CSR written once; the probe columns, the CSR and the
-    build columns the pairs read once, the live groups written once.
+    (equal int32 bucket starts, the same multiset of (row, record) a
+    bucket), then `join_aggregate` over the kernel's table against its
+    plain version on the probe batch (equal group tables, ordered by key;
+    every lane is a count or an exact decimal sum). Bounds: the build's
+    inputs (keys and payload columns) read and its CSR and records written
+    once; the probe columns and the CSR with its records (which carry the
+    build columns the pairs read) read once, the live groups written once.
     Returns (join_build's entry, join_aggregate's entry, pairs)."""
     import numpy as np
     import torch
@@ -2191,10 +2207,12 @@ def join_vs_plain(ctx, sql, label, card):
     ms_b = cuda_ms(lambda: join_build(bspec, bcols, baux, nb_rows), 5)
     plain_b = cuda_ms(lambda: join_build_plain(bspec, bcols, baux, nb_rows),
                       2)
-    bnd_b = bound(col_bytes(bcols, bspec.pools.columns, nb_rows) +
+    bnd_b = bound(col_bytes(bcols, set(bspec.pools.columns) |
+                            set(bspec.payload), nb_rows) +
                   got_t.nbytes, prog_ops(bspec, nb_rows))
     print(f"join_build {label}: {nb_rows} build rows, {got_t.live} live, "
-          f"{got_t.nb} buckets, CSR of {got_t.nbytes} bytes: kernel "
+          f"{got_t.nb} buckets, records of {8 * got_t.width} bytes, CSR of "
+          f"{got_t.nbytes} bytes: kernel "
           f"{ms_b:.6f} ms, plain {plain_b:.6f} ms, bound "
           f"{bnd_b['bound_ms']:.6f} ms, max_abs_err 0 [{card}]", flush=True)
     (pb,) = [b for b in execute_stream(ex.probe_source, tctx) if b.num_rows]
@@ -2233,10 +2251,10 @@ def join_vs_plain(ctx, sql, label, card):
     torch.cuda.empty_cache()
     nbuild = spec.join.n_build
     groups, rows = got.shape[1], got.shape[0]
+    # the build columns the pairs read are in the table's records
     nbytes = (col_bytes(cols, [i for i in spec.pools.columns
                                if i >= nbuild], n) + got_t.nbytes +
-              col_bytes(cols, [i for i in spec.pools.columns if i < nbuild],
-                        nb_rows) + groups * rows * 8)
+              groups * rows * 8)
     bnd_a = bound(nbytes, join_ops(spec, n, pairs))
     print(f"join_aggregate {label}: {n} probe rows, {pairs} pairs, "
           f"{'dense' if dense else 'hash'} fold, {groups} groups: kernel "
@@ -3309,6 +3327,19 @@ def top_counts_agree(label, got_keys, got_counts, all_keys, all_counts):
 WALK_QUERIES = (3, 5, 7, 8, 9, 12, 14, 18, 21)
 ROWS_QUERIES = (2, 20)
 WALK_REPS = 20
+E2E_WALKS = (5, 12, 14)
+
+
+def warm_median(ctx, sql, reps=REPS):
+    """The query end to end on the host's clock: a warm-up, then the
+    median ms of `reps` runs."""
+    ctx.sql(sql).collect_batch()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ctx.sql(sql).collect_batch()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
 
 
 def walk_resources(lib_path):
@@ -3342,6 +3373,45 @@ def kernel_resources(lib_path, pattern):
     return res
 
 
+def time_walks(ctx, queries, compose=None):
+    """{query: the mean device ms of its `chain_aggregate` walk over
+    WALK_REPS calls}, staged as the imported tree stages it (with
+    `compose` given, `prepare(ctx, compose)`); None where the tree plans
+    no chain of the query on the card."""
+    import torch
+    from datafusion_tpu_torch.device.join_chain import chain_aggregate
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        DeviceLoweringUnsupported)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainAggregateExec)
+    from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
+    tctx = ctx.task_context()
+    walks = {}
+    for q in queries:
+        ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
+                       TorchJoinChainAggregateExec)
+        try:
+            if ex is None:
+                raise DeviceLoweringUnsupported("no chain exec")
+            args = () if compose is None else (compose,)
+            spec, _p, _n, _s, inputs, _staged = ex.prepare(tctx, *args)
+        except Exception as e:   # an older tree plans less on the card
+            walks[q] = None
+            print(f"Q{q}: not on the card: {type(e).__name__}: {e}",
+                  flush=True)
+            continue
+        ((cols, aux, n),) = inputs
+        table = spec.new_table(aux.device)
+        pristine = table.clone()
+        overflow = torch.zeros(1, dtype=torch.int32, device=aux.device)
+        walks[q] = cuda_ms(lambda: chain_aggregate(spec, cols, aux, n, table,
+                                                   overflow), WALK_REPS,
+                           setup=lambda: table.copy_(pristine))
+        del spec, inputs, _staged, cols, aux, table, pristine
+        torch.cuda.empty_cache()
+    return walks
+
+
 def walk_tree(tree):
     """The walks of WALK_QUERIES with `tree`'s package; prints one JSON
     line."""
@@ -3353,10 +3423,7 @@ def walk_tree(tree):
     if not dft.__file__.startswith(tree + os.sep):
         raise AssertionError(f"imported {dft.__file__}, not from {tree}")
     from datafusion_tpu_torch import kernels
-    from datafusion_tpu_torch.device.join_chain import (
-        chain_aggregate, chain_rows)
-    from datafusion_tpu_torch.physical.plan.device_aggregate import (
-        DeviceLoweringUnsupported)
+    from datafusion_tpu_torch.device.join_chain import chain_rows
     from datafusion_tpu_torch.physical.plan.device_join_chain import (
         TorchJoinChainAggregateExec, TorchJoinChainRowsExec)
     from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
@@ -3368,33 +3435,12 @@ def walk_tree(tree):
     tctx = ctx.task_context()
     # a tree whose staging composes also times each walk staged without
     # (`prepare(ctx, compose=False)`), in the same process
-    stages = (True, False) if "compose" in inspect.signature(
-        TorchJoinChainAggregateExec.prepare).parameters else (True,)
-    walks, unstaged = {}, {}
-    for q in WALK_QUERIES:
-        ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
-                       TorchJoinChainAggregateExec)
-        for staged_run in stages:
-            try:
-                if ex is None:
-                    raise DeviceLoweringUnsupported("no chain exec")
-                args = () if len(stages) == 1 else (staged_run,)
-                spec, _p, _n, _s, inputs, _staged = ex.prepare(tctx, *args)
-            except Exception as e:   # an older tree plans less on the card
-                walks[q] = None
-                print(f"Q{q}: not on the card in {tree}: "
-                      f"{type(e).__name__}: {e}", flush=True)
-                break
-            ((cols, aux, n),) = inputs
-            table = spec.new_table(aux.device)
-            pristine = table.clone()
-            overflow = torch.zeros(1, dtype=torch.int32, device=aux.device)
-            ms = cuda_ms(lambda: chain_aggregate(spec, cols, aux, n, table,
-                                                 overflow), WALK_REPS,
-                         setup=lambda: table.copy_(pristine))
-            (walks if staged_run else unstaged)[q] = ms
-            del spec, inputs, _staged, cols, aux, table, pristine
-            torch.cuda.empty_cache()
+    if "compose" in inspect.signature(
+            TorchJoinChainAggregateExec.prepare).parameters:
+        walks = time_walks(ctx, WALK_QUERIES, True)
+        unstaged = time_walks(ctx, WALK_QUERIES, False)
+    else:
+        walks, unstaged = time_walks(ctx, WALK_QUERIES), {}
     rows = {}
     for q in ROWS_QUERIES:
         ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
@@ -3407,14 +3453,23 @@ def walk_tree(tree):
         rows[q] = cuda_ms(lambda: chain_rows(spec, cols, aux, n), WALK_REPS)
         del spec, inputs, _staged, cols, aux
         torch.cuda.empty_cache()
+    e2e = {f"Q{q}": warm_median(ctx, TPCH[q]) for q in E2E_WALKS}
     print(json.dumps({"tree": tree, "walk_ms": walks,
                       "walk_ms_uncomposed": unstaged, "rows_ms": rows,
-                      "resources": walk_resources(str(kernels.LIB))}),
+                      "e2e_ms": e2e,
+                      "resources": {kernel_label(k): v for k, v in
+                                    walk_resources(str(kernels.LIB)).items()}}),
           flush=True)
 
 
-def walks_main(trees) -> int:
-    """Each tree's walks in a process of its own, in the order given."""
+def ab_main(flag, trees, inputs=None) -> int:
+    """An A/B run on one card: each tree's `flag` child (`--walk-tree`,
+    `--sort-tree`, `--fold-tree`) in a process of its own, in the order
+    given, between two lines of the card's name and power limit. With
+    `inputs`, the inputs are made once first, with this checkout's
+    package, in a directory that each child gets as its second argument
+    and that is removed at the end."""
+    import shutil
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3422,14 +3477,28 @@ def walks_main(trees) -> int:
         return 2
     card = smi()
     print(card, flush=True)
-    for tree in trees:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--walk-tree", tree], capture_output=True,
-                           text=True)
-        print(r.stdout.strip(), flush=True)
-        if r.returncode:
-            print(r.stderr[-4000:], file=sys.stderr)
-            return r.returncode
+    extra = []
+    if inputs is not None:
+        for blocked in ("jax", "datafusion_tpu", "bench"):
+            sys.modules[blocked] = None
+        root = os.path.dirname(os.path.abspath(__file__))
+        sys.path.insert(0, root)
+        extra = [os.path.join(root, "_chip", "ab_inputs")]
+        t0 = time.perf_counter()
+        inputs(extra[0])
+        print(f"inputs made in {time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        for tree in trees:
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                flag, tree, *extra], capture_output=True,
+                               text=True)
+            print(r.stdout.strip(), flush=True)
+            if r.returncode:
+                print(r.stderr[-4000:], file=sys.stderr)
+                return r.returncode
+    finally:
+        for d in extra:
+            shutil.rmtree(d, ignore_errors=True)
     print(card)
     return 0
 
@@ -3457,7 +3526,7 @@ def kernel_label(sym):
 
 
 def sort_inputs(data):
-    """The inputs of `sorts_main`, made once with this checkout's package
+    """The inputs of `--sorts`, made once with this checkout's package
     and saved under `data`: the order words of CB Q25-Q27 (the rows with a
     search phrase, as `sort_input` encodes them) and of W1's first window
     evaluation (as `stage_window` stages them), and the live slots, keys
@@ -3601,38 +3670,124 @@ def sort_tree(tree, data):
     print(json.dumps(out), flush=True)
 
 
-def sorts_main(trees) -> int:
-    """The inputs once, then each tree's `sort_tree` in a process of its
-    own, in the order given."""
-    import shutil
+# ---- the dense fold and the join probe across checkouts ----------------------
+
+FOLD_WALKS = (5, 12, 14)
+FOLD_SYMBOLS = (r"fused_dense_aggregate_kernel|chain_dense_kernel|"
+                r"join_aggregate_kernel|join_build_\w+_kernel")
+FOLD_REPS = {"Q1 SF10": 20, "Q6 SF10": 20, "CB Q30": 3}
+JOIN_REPS = 5
+
+
+def fold_tree(tree):
+    """Row 1's dense fold on Q1, Q6 (SF10) and CB Q30, the dense walks of
+    FOLD_WALKS (`time_walks`, as `--walks` times them) and `join_build` +
+    `join_aggregate` on J1 and J2, with `tree`'s package; prints one JSON
+    line: the mean device ms of each (CUDA events), the folds and joins
+    end to end (`warm_median`), the launches a call, and the registers and
+    stack bytes of the kernels (`cuobjdump`)."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false",
-              file=sys.stderr)
-        return 2
-    for blocked in ("jax", "datafusion_tpu", "bench"):
-        sys.modules[blocked] = None
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
-    card = smi()
-    print(card, flush=True)
-    data = os.path.join(root, "_chip", "sort_inputs")
-    t0 = time.perf_counter()
-    sort_inputs(data)
-    print(f"inputs made in {time.perf_counter() - t0:.1f} s", flush=True)
-    try:
-        for tree in trees:
-            r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--sort-tree", tree, data],
-                               capture_output=True, text=True)
-            print(r.stdout.strip(), flush=True)
-            if r.returncode:
-                print(r.stderr[-4000:], file=sys.stderr)
-                return r.returncode
-    finally:
-        shutil.rmtree(data, ignore_errors=True)
-    print(card)
-    return 0
+    import datafusion_tpu_torch as dft
+    if not dft.__file__.startswith(tree + os.sep):
+        raise AssertionError(f"imported {dft.__file__}, not from {tree}")
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.groupby import dense_group_aggregate
+    from datafusion_tpu_torch.device.join_agg import (join_aggregate,
+                                                      join_build)
+    from datafusion_tpu_torch.physical.plan.base import (collect_batch,
+                                                         execute_stream)
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        TorchGroupAggregateExec)
+    from datafusion_tpu_torch.physical.plan.device_join_agg import (
+        TorchJoinAggregateExec)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        _PairView)
+    kernels.library()
+    dev = torch.device(DEVICE)
+    out = {"tree": tree, "fold_ms": {}, "walk_ms": {}, "join_ms": {},
+           "e2e_ms": {}, "launches": {}}
+
+    def launches(name, fn):
+        before = dft.launch_counts()[name]
+        fn()
+        return dft.launch_counts()[name] - before
+
+    def dense(ctx, label, sql):
+        ex = find_exec(ctx.sql(sql).create_physical_plan(),
+                       TorchGroupAggregateExec)
+        (batch,) = ex.input_batches(ctx.task_context())
+        spec, _plan, _names, _slots = ex.compile([batch])
+        cols, aux = ex.stage(spec, batch)
+        table = spec.new_table(dev)
+
+        def fold():
+            dense_group_aggregate(spec, cols, aux, batch.num_rows, table)
+        out["fold_ms"][label] = cuda_ms(fold, FOLD_REPS[label])
+        out["launches"][label] = launches("fused_dense_aggregate", fold)
+        del spec, cols, aux, table
+        out["e2e_ms"][label] = warm_median(ctx, sql)
+
+    li = make_lineitem(SF10_ROWS, seed=0)
+    ctx = dft.SessionContext(dev)
+    ctx.register_table("lineitem", dft.MemTable(li.schema, [[li]]))
+    dense(ctx, "Q1 SF10", Q1)
+    dense(ctx, "Q6 SF10", Q6)
+    del ctx, li
+    hb = hits(HITS_ROWS, seed=0)
+    ctx = dft.SessionContext(dev)
+    ctx.register_table("hits", dft.MemTable(hb.schema, [[hb]]))
+    dense(ctx, "CB Q30", CB_Q30)
+    del ctx, hb
+    torch.cuda.empty_cache()
+    tables = tpch_tables(10, seed=0)
+    ctx = dft.SessionContext(dev)
+    for tname, b in tables.items():
+        ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
+    tctx = ctx.task_context()
+    out["walk_ms"] = {f"Q{q}": ms for q, ms in
+                      time_walks(ctx, FOLD_WALKS).items()}
+    for label, sql in (("J1 SF10", J1), ("J2 SF10", J2)):
+        ex = find_exec(ctx.sql(sql).create_physical_plan(),
+                       TorchJoinAggregateExec)
+        lowered = ex.lower()
+        bb = collect_batch(ex.build_source, tctx)
+        bspec, bcols, baux = ex.build_input(lowered, bb)
+        built = [join_build(bspec, bcols, baux, bb.num_rows)]
+        (pb,) = [b for b in execute_stream(ex.probe_source, tctx)
+                 if b.num_rows]
+        view = _PairView(list(bb.columns) + list(pb.columns), pb.num_rows)
+        spec, _plan, _names, _sm = ex.compile_join(lowered, built[0], [view])
+        cols, aux = ex.stage_pair(spec, bb, pb, view)
+        table = spec.new_table(dev)
+        pristine = table.clone()
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def build():
+            built[0] = join_build(bspec, bcols, baux, bb.num_rows)
+
+        def probe():
+            join_aggregate(spec, cols, aux, pb.num_rows, table, overflow)
+        # the last timed table is freed before each build, so that the
+        # caching allocator reuses its memory instead of asking for more
+        b_ms = cuda_ms(build, JOIN_REPS,
+                       setup=lambda: built.__setitem__(0, None))
+        p_ms = cuda_ms(probe, JOIN_REPS, setup=lambda: table.copy_(pristine))
+        out["join_ms"][label] = {"join_build": b_ms, "join_aggregate": p_ms,
+                                 "sum": b_ms + p_ms,
+                                 "table_bytes": spec.join.table.nbytes}
+        built[0] = None
+        out["launches"][label] = {"join_build": launches("join_build", build),
+                                  "join_aggregate": launches(
+                                      "join_aggregate", probe)}
+        del spec, cols, aux, table, pristine, built, bcols
+        torch.cuda.empty_cache()
+        out["e2e_ms"][label] = warm_median(ctx, sql)
+    out["resources"] = {kernel_label(k): v for k, v in
+                        kernel_resources(str(kernels.LIB),
+                                         FOLD_SYMBOLS).items()}
+    print(json.dumps(out), flush=True)
 
 
 def host_joins_main() -> int:
@@ -3673,11 +3828,15 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--host-joins"]:
         sys.exit(host_joins_main())
     if sys.argv[1:2] == ["--walks"]:
-        sys.exit(walks_main(sys.argv[2:]))
+        sys.exit(ab_main("--walk-tree", sys.argv[2:]))
     if sys.argv[1:2] == ["--walk-tree"]:
         sys.exit(walk_tree(sys.argv[2]))
     if sys.argv[1:2] == ["--sorts"]:
-        sys.exit(sorts_main(sys.argv[2:]))
+        sys.exit(ab_main("--sort-tree", sys.argv[2:], sort_inputs))
     if sys.argv[1:2] == ["--sort-tree"]:
         sys.exit(sort_tree(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--folds"]:
+        sys.exit(ab_main("--fold-tree", sys.argv[2:]))
+    if sys.argv[1:2] == ["--fold-tree"]:
+        sys.exit(fold_tree(sys.argv[2]))
     sys.exit(main())

@@ -19,8 +19,10 @@
 // INNER or SEMI hop found a row and an ANTI hop found none; then the
 // residual predicate; then the packed group key and the lane folds of the
 // grouped aggregate. No joined column is ever materialised. The fold is the
-// one of the aggregate kernels (`dense_fold`: <= 64 slots in shared memory,
-// as fused_dense_aggregate; `hash_fold`: the global table of
+// one of the aggregate kernels (`dense_fold_rows`: <= 64 slots in shared
+// memory, one atomic a lane a row, as fused_dense_aggregate did before it
+// reduced across the warp, which costs the walks registers and buys them
+// nothing, since their hops admit few rows; `hash_fold`: the global table of
 // hash_group_aggregate), so the output table has their layout and
 // compact_groups and the host emit run unchanged. The fold's lanes include
 // count(DISTINCT x) through the global distinct set of program.cuh, in
@@ -53,8 +55,8 @@ chain_dense_kernel(const i64* __restrict__ meta_g, int meta_len,
                    u64* __restrict__ table_g) {
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
-  dense_fold(smem, aux, n_rows, (u64*)(smem + meta_len), table_g,
-             ChainRows<Full, Staged>{smem, aux});
+  dense_fold_rows(smem, aux, n_rows, (u64*)(smem + meta_len), table_g,
+                  ChainRows<Full, Staged>{smem, aux});
 }
 
 template <bool Full, bool Staged>

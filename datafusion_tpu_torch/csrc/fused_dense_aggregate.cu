@@ -7,49 +7,63 @@
 // _dense_group_aggregate (datafusion_tpu/device/groupby.py:70), and the
 // emit packer _fetch_state (device_aggregate.py:1017): the result is one
 // [lanes + 1][G] int64 table (float lanes hold float64 bits) that a single
-// device-to-host copy brings back.
+// device-to-host copy brings back. With G = 1 it is also the filtered
+// reduction device_filter_reduce (device/groupby.py:443).
 //
 // Design. Every expression (predicate, each group key, each lane argument)
 // arrives as a small stack program compiled on the host
 // (datafusion_tpu_torch/device/lower.py). The kernel copies the whole
-// descriptor (programs, constants, column pointers) into shared memory,
-// walks the rows with a grid-stride loop, interprets the programs once per
-// row on a stack of (64-bit value, valid bit) entries, and folds each lane
-// into a per-block [lanes + 1][G] table in shared memory (G <= 64 slots,
-// lanes <= 32: at most 16.9 KB). At the end each block merges its table
-// into the global table with atomics, so any number of batches can
-// accumulate into one table without a separate merge program.
+// descriptor (programs, constants, column pointers) into shared memory and
+// keeps a per-block [lanes + 1][G] table there (G <= 64 slots, lanes <= 32:
+// at most 16.9 KB), merged into the global table with atomics at the end,
+// so any number of batches accumulate into one table. The rows are reduced
+// before any atomic (`dense_fold` in program.cuh):
+//   - G = 1 (TPC-H Q6, ClickBench Q30): a warp takes tiles of kTile x 32
+//     consecutive rows; each lane finds its rows' admitted bits once, then
+//     runs each lane program over them into a register, and the warp
+//     reduces each lane by shuffles: one shared-memory update a lane a
+//     tile, where a row used to make one a lane;
+//   - G > 1 (TPC-H Q1): 32 rows a warp step; the rows of one slot find
+//     their peers once (__match_any_sync) and each lane reduces over them,
+//     so a slot takes one update a lane a warp.
+// Float min and max run their CAS loops on the reduced value, once a warp.
 //
 // Bounds. TPC-H Q1 reads 44 bytes a row (four int64 decimals, three int32
 // columns); at SF10 (60,012,150 rows) that is about 2.6 GB, roughly 0.8 ms
 // at the 3.35 TB/s data-sheet peak of an NVIDIA H100 80GB HBM3 at its
-// 700 W limit. The likely real limit is the shared-memory
-// atomics: Q1 has only 4 live groups among its 32 slots, so the 12 atomic
-// updates of each row land on a few hot addresses and serialize within a
-// warp. Warp-level pre-aggregation (__match_any_sync) is the next step.
+// 700 W limit. ClickBench Q30 reads 4 bytes a row of 99,997,497 rows but
+// runs 180 lane programs a row, in 6 passes of at most 32. With the
+// atomics reduced a warp at a time, what is left is the interpreter: a
+// switch per instruction on a stack kept in local memory, some tens of
+// instructions a lane program a row, far above either bound.
 //
 // Exactness. Integer and decimal lanes are exact in any order (64-bit
-// two's-complement adds wrap the same way). Float sums are atomics, so
-// their order changes from run to run; callers compare them within a
-// relative tolerance. The interpreter, the lane folds and the row body
-// (`dense_fold`) live in program.cuh, shared with the hash group-by and the
-// join-chain kernels.
+// two's-complement adds wrap the same way). Float sums add in another
+// order than the plain version's (and from run to run); callers compare
+// them within a relative tolerance. The interpreter, the lane folds and the
+// row bodies live in program.cuh, shared with the hash group-by, the
+// join-chain and the join-aggregate kernels.
 
 #include "program.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// rows a lane takes a tile at G = 1
+constexpr int kTile = 8;
+// Five blocks an SM for the lean interpreter (at most 51 registers), as
+// many as it held before the warp reduction raised its registers to 60.
+constexpr int kMinBlocks = 5;
 
 template <bool Full>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Full ? 1 : kMinBlocks)
 fused_dense_aggregate_kernel(const i64* __restrict__ meta_g, int meta_len,
                              const i64* __restrict__ aux, i64 n_rows,
                              u64* __restrict__ table_g) {
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
-  dense_fold(smem, aux, n_rows, (u64*)(smem + meta_len), table_g,
-             PlainRows<Full>{smem, aux});
+  dense_fold<kTile>(smem, aux, n_rows, (u64*)(smem + meta_len), table_g,
+                    PlainRows<Full>{smem, aux});
 }
 
 }  // namespace
@@ -67,8 +81,9 @@ extern "C" int dft_fused_dense_aggregate(const void* meta, int meta_len,
   const size_t smem = (size_t)(meta_len + (n_lanes + 1) * groups) * 8;
   const auto kernel = full ? fused_dense_aggregate_kernel<true>
                            : fused_dense_aggregate_kernel<false>;
-  kernel<<<grid_blocks(n_rows, kThreads), kThreads, smem,
-           (cudaStream_t)stream>>>(
+  const long long per_thread = groups == 1 ? kTile : 1;
+  kernel<<<grid_blocks((n_rows + per_thread - 1) / per_thread, kThreads),
+           kThreads, smem, (cudaStream_t)stream>>>(
       (const i64*)meta, meta_len, (const i64*)aux, n_rows, (u64*)table);
   return (int)cudaGetLastError();
 }

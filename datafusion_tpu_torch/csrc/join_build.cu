@@ -22,17 +22,28 @@
 //      exclusive scan of scan.cuh turns the nb + 1 counts into
 //      bucket_start.
 //   3. scatter: each live row takes a place in its bucket with an
-//      atomicAdd on the bucket's cursor and writes its row id (int32) and
-//      key words there. The order within a bucket is the atomics' order,
-//      so the plain version is compared bucket by bucket as a multiset.
+//      atomicAdd on the bucket's cursor and writes its entry there: a
+//      record of int64 words, the key words and then the payload, the
+//      build columns the probe's programs read, each as the interpreter
+//      loads it (program.cuh `load`), with a validity byte a word where a
+//      payload column has NULLs. No entry keeps its build row: the probe
+//      reads nothing else of the build side. The same launch narrows the
+//      bucket starts to int32 (a build holds fewer than 2^31 rows), which
+//      halves the probe's directory. The order within a bucket is the
+//      atomics' order, so the plain version is compared bucket by bucket
+//      as a multiset.
+// A probe's match then reads one record (24-40 bytes, one or two adjacent
+// sectors) where it read a key word, a row and one random sector a payload
+// column at that row.
 //
 // Bounds. TPC-H partsupp at SF10 (8,000,000 rows, the build of the
-// lineitem x partsupp join-aggregates) reads one or two int64 keys (8-16
-// bytes a row) and writes the CSR (4 bytes of row and 8 of each key an
-// entry, 8 a bucket): about 0.1 ms of traffic at the 3.35 TB/s of an
-// NVIDIA H100 80GB HBM3 at 700 W. The scratch hash and key words add one
-// write and one read of 16-24 bytes a row; the scattered atomics into 2^23
-// buckets (64 MB, beyond the 50 MB L2) are the likely real cost.
+// lineitem x partsupp join-aggregates) reads one or two int64 keys and the
+// payload columns (24-32 bytes a row) and writes the CSR (a 24-32 byte
+// record an entry, 4 a bucket): about 0.15 ms of traffic
+// at the 3.35 TB/s of an NVIDIA H100 80GB HBM3 at 700 W. The scratch hash
+// and key words add one write and one read of 16-24 bytes a row; the
+// scattered atomics into 2^23 buckets (64 MB, beyond the 50 MB L2) and the
+// scattered record writes are the likely real cost.
 
 #include "program.cuh"
 #include "scan.cuh"
@@ -91,23 +102,34 @@ join_build_count_kernel(const i64* __restrict__ hashes, i64 n_rows, i64 nb,
   }
 }
 
+// cols: per payload column 4 words (data pointer, validity pointer or 0,
+// dtype code, its word in a record); valid: the records' validity bytes
+// (one a word), null when no payload column has a validity
 __global__ void __launch_bounds__(kThreads)
 join_build_scatter_kernel(const i64* __restrict__ hashes,
                           const i64* __restrict__ words, int n_keys,
                           i64 n_rows, i64 nb, const i64* __restrict__ start,
-                          u64* __restrict__ cursor, i64 live,
-                          int* __restrict__ rows_out,
-                          i64* __restrict__ keys_out) {
+                          u64* __restrict__ cursor,
+                          const i64* __restrict__ cols, int n_cols,
+                          int rec_words, int* __restrict__ start32,
+                          i64* __restrict__ rec,
+                          unsigned char* __restrict__ valid) {
   const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
-       row += stride) {
+  const i64 first = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  for (i64 b = first; b <= nb; b += stride) start32[b] = (int)start[b];
+  for (i64 row = first; row < n_rows; row += stride) {
     const i64 h = hashes[row];
     if (h < 0) continue;
     const i64 b = h & (nb - 1);
     const i64 at = start[b] + (i64)atomicAdd(&cursor[b], 1ull);
-    rows_out[at] = (int)row;
-    for (int k = 0; k < n_keys; ++k) {
-      keys_out[(i64)k * live + at] = words[(i64)k * n_rows + row];
+    i64* o = rec + at * rec_words;
+    for (int k = 0; k < n_keys; ++k) o[k] = words[(i64)k * n_rows + row];
+    for (int c = 0; c < n_cols; ++c) {
+      const i64* d = cols + 4 * c;
+      i64 v;
+      const bool ok = load_valid(d, row, &v);
+      o[d[3]] = v;
+      if (d[1] != 0) valid[at * rec_words + d[3]] = ok;
     }
   }
 }
@@ -147,16 +169,23 @@ extern "C" int dft_join_build_offsets(const void* hashes, long long n_rows,
   return (int)exclusive_scan((i64*)start, nb + 1, (i64*)sums, st);
 }
 
-// Step 3. cursor: device int64 [nb] zeroed by the caller; rows: device
-// int32 [live]; keys: device int64 [n_keys * live].
+// Step 3. cursor: device int64 [nb] zeroed by the caller; cols: device
+// int64 [4 * n_cols] as join_build_scatter_kernel reads them; start32:
+// device int32 [nb + 1], the bucket starts narrowed; rec: device int64
+// [live, rec_words]; valid: device uint8 [live, rec_words] zero-filled by
+// the caller, or null.
 extern "C" int dft_join_build_scatter(const void* hashes, const void* words,
                                       int n_keys, long long n_rows,
                                       long long nb, const void* start,
-                                      void* cursor, long long live,
-                                      void* rows, void* keys, void* stream) {
-  join_build_scatter_kernel<<<grid_blocks(n_rows, kThreads), kThreads, 0,
-                              (cudaStream_t)stream>>>(
+                                      void* cursor, const void* cols,
+                                      int n_cols, int rec_words,
+                                      void* start32, void* rec, void* valid,
+                                      void* stream) {
+  join_build_scatter_kernel<<<grid_blocks(n_rows > nb ? n_rows : nb + 1,
+                                          kThreads),
+                              kThreads, 0, (cudaStream_t)stream>>>(
       (const i64*)hashes, (const i64*)words, n_keys, n_rows, nb,
-      (const i64*)start, (u64*)cursor, live, (int*)rows, (i64*)keys);
+      (const i64*)start, (u64*)cursor, (const i64*)cols, n_cols, rec_words,
+      (int*)start32, (i64*)rec, (unsigned char*)valid);
   return (int)cudaGetLastError();
 }

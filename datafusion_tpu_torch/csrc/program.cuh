@@ -16,10 +16,26 @@
 // table of <= 64 slots, a global hash table) are templates on the row
 // source: `PlainRows` admits the rows that pass an aggregate's predicate,
 // `ChainRows` those that also survive the join chain's walk, so the
-// grouped aggregate and the join-chain aggregate share one fold. The
-// per-row steps (`dense_fold_row`, `hash_fold_row`) are also called once a
-// matching pair by the fanout-N join-aggregate (join_aggregate.cu), whose
-// loader `PairColumns` reads build columns at the pair's build row.
+// grouped aggregate and the join-chain aggregate share one fold (the
+// walks' dense fold, `dense_fold_rows`, folds a row at a time). The
+// per-row step `hash_fold_row` and the per-warp step `dense_fold_warp` are
+// also called once a matching pair by the fanout-N join-aggregate
+// (join_aggregate.cu), whose loader `PairColumns` reads build columns in
+// the pair's entry record.
+//
+// The dense fold reduces before any atomic. A warp takes 32 consecutive
+// rows a step; each row's admitted bit and slot are found once; then each
+// lane program runs and the warp reduces its value over the rows of each
+// slot (their peers, by __match_any_sync; at G = 1 the whole warp): counts
+// by a ballot, sums, min and max by shuffles (`warp_reduce`, a butterfly;
+// `reduce_peers`, a tree over a peer set). The lowest peer makes one
+// shared-memory update a slot and lane a warp, and a float min or max runs
+// its CAS loop once a warp, not once a row. At G = 1 the aggregate kernel
+// goes further (`dense_fold_tiles`): a lane folds its rows of a tile of
+// Tile x 32 into a register before the warp reduces, one update a lane a
+// tile. What bounds it then is the interpreter, not the atomics. Every
+// fold, warp or row at a time, takes what a row adds to a lane from one
+// place, `lane_value`, which holds the lane rules.
 //
 // Lanes run in passes of at most 32 (groupby.py MAX_LANES): a descriptor
 // holds one pass's lanes, and H_LANE0 says where they start among the
@@ -29,16 +45,18 @@
 //
 // count(DISTINCT x) is a lane kind: an admitted row whose argument is valid
 // inserts the pair (group slot and lane, value) into one global
-// open-addressing set (`distinct_insert`); the thread whose insert created
-// the pair adds 1 to the group's lane, so each pair counts once, in one
-// pass, across every batch and block.
+// open-addressing set (`distinct_insert`); the insert that created the
+// pair adds 1 to the group's lane (in the dense fold, a 1 reduced with the
+// warp's others), so each pair counts once, in one pass, across every
+// batch and block.
 //
 // Exactness. Integer arithmetic wraps in 64 bits (signed overflow is
 // undefined in C++, so it goes through unsigned). There is no signed 64-bit
 // atomicAdd: the value is added through unsigned long long, which wraps
 // identically. There are no float64 atomic min and max: a compare-and-swap
 // loop does them; NaN never reaches them (it is masked out and counted in a
-// NANCNT lane).
+// NANCNT lane). The warp reductions add floats in another order than one
+// row at a time; integer lanes stay exact.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -659,47 +677,132 @@ __device__ __forceinline__ bool distinct_insert(i64* set, i64 mask, i64 a,
   return false;
 }
 
+// ---- warp reductions ----------------------------------------------------------
+
+constexpr unsigned kWarp = 0xffffffffu;
+
+__device__ __forceinline__ int lane_id() { return (int)(threadIdx.x & 31); }
+
+// The lanes of the calling warp that hold a thread: all 32 on the card (the
+// kernels launch whole warps), one where the sources run as one thread.
+__device__ __forceinline__ unsigned warp_members() {
+  return __ballot_sync(kWarp, 1);
+}
+
+// a and b combined under a lane kind's fold: min, max, a float add (in
+// float32 for SUM_F32, whose values are float32s held as float64), or a
+// wrapping int64 add (counts and int64 sums)
+__device__ __forceinline__ i64 combine(int kind, i64 a, i64 b) {
+  switch (kind) {
+    case LANE_SUM_F64: return as_i(as_f(a) + as_f(b));
+    case LANE_SUM_F32:
+      return as_i((double)((float)as_f(a) + (float)as_f(b)));
+    case LANE_MIN_I64: return b < a ? b : a;
+    case LANE_MAX_I64: return b > a ? b : a;
+    case LANE_MIN_F64: return as_f(b) < as_f(a) ? b : a;
+    case LANE_MAX_F64: return as_f(b) > as_f(a) ? b : a;
+    default: return wadd(a, b);
+  }
+}
+
+// lanes whose per-row values are 0 or 1, reduced by a ballot
+__device__ __forceinline__ bool counts_kind(int kind) {
+  return kind == LANE_ROWS || kind == LANE_CNT || kind == LANE_NANCNT ||
+         kind == LANE_DISTINCT || kind == LANE_DISTINCT_F64;
+}
+
+// x combined over every member of the warp (a butterfly of shuffles), in
+// every lane.
+__device__ __forceinline__ i64 warp_reduce(int kind, unsigned members, i64 x) {
+  const int lane = lane_id();
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const i64 t = __shfl_xor_sync(kWarp, x, o);
+    if ((members >> (lane ^ o)) & 1u) x = combine(kind, x, t);
+  }
+  return x;
+}
+
+// x combined over the lanes of `peers` (the calling lane's set), in the
+// lowest lane of each set: a tree over the set in log2(its size) rounds,
+// each lane adding in the next lane still in play (Harris, "Voting and
+// shuffling to optimize atomic operations"). Every lane of the warp calls
+// it.
+__device__ __forceinline__ i64 reduce_peers(int kind, unsigned peers, i64 x) {
+  const int lane = lane_id();
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  peers &= ~((2u << lane) - 1u);   // the peers above this lane
+  while (__any_sync(kWarp, peers != 0)) {
+    const int next = __ffs(peers);
+    const i64 t = __shfl_sync(kWarp, x, (next - 1) & 31);
+    if (next) x = combine(kind, x, t);
+    peers &= ~__ballot_sync(kWarp, rank & 1u);
+    rank >>= 1;
+  }
+  return x;
+}
+
 // ---- the lane folds ---------------------------------------------------------
 
-// Fold one row's lanes into the table cells cell(l) of group `slot`, under
-// the rules of DeviceGroupAggregateExec._make_step.prepare
+// What one admitted row adds to lane `l` of group `slot` (program `prog`,
+// kind `kind`): false when it adds nothing, else true with the value in
+// *out, as `fold` and `combine` take it. The rules of
+// DeviceGroupAggregateExec._make_step.prepare
 // (datafusion_tpu/physical/plan/device_aggregate.py:718-767): count(*) and
-// CNT count the row (CNT only where its argument is valid), NaN is masked
-// out of float min/max and counted in the NANCNT lane. A DISTINCT lane
+// CNT count the row (CNT only where its argument is valid), NaN is kept
+// out of float min and max and counted in the NANCNT lane. A DISTINCT lane
 // counts the row when its (slot, lane, value) pair is new to the set at
-// meta[H_DSET]: the value is the argument's int64, or for a float its
-// float64 bits with -0.0 read as 0.0 (`:732-743`); NULL never counts.
+// meta[H_DSET] (its insert happens here): the value is the argument's
+// int64, or for a float its float64 bits with -0.0 read as 0.0
+// (`:732-743`); NULL never counts.
+template <class Columns>
+__device__ __forceinline__ bool lane_value(const i64* meta, const i64* aux,
+                                           int prog, int kind, int l, i64 row,
+                                           const Columns& cols, i64 slot,
+                                           i64* out) {
+  if (prog < 0) {   // count(*)
+    *out = 1;
+    return true;
+  }
+  i64 x;
+  if (!run(meta, aux, prog, row, cols, &x)) return false;
+  switch (kind) {
+    case LANE_CNT: x = 1; break;
+    case LANE_NANCNT:
+      if (!isnan(as_f(x))) return false;
+      x = 1;
+      break;
+    case LANE_MIN_F64: case LANE_MAX_F64:
+      if (isnan(as_f(x))) return false;
+      break;
+    case LANE_DISTINCT_F64: case LANE_DISTINCT:
+      if (kind == LANE_DISTINCT_F64 && x == INT64_MIN) x = 0;  // -0.0
+      if (!distinct_insert((i64*)meta[H_DSET], meta[H_DMASK],
+                           (slot << 12) | (meta[H_LANE0] + l), x)) {
+        return false;
+      }
+      x = 1;
+      break;
+    default: break;
+  }
+  *out = x;
+  return true;
+}
+
+// Fold one row's lanes into the table cells cell(l) of group `slot`: one
+// atomic a lane whose value (`lane_value`) is not its identity (a CASE
+// sum's 0 makes none).
 template <class Columns, class Cell>
 __device__ __forceinline__ void fold_lanes(const i64* meta, const i64* aux,
                                            const i64* lanes, int n_lanes,
                                            i64 row, const Columns& cols,
                                            i64 slot, Cell cell) {
   for (int l = 0; l < n_lanes; ++l) {
-    const int prog = (int)lanes[2 * l];
     const int kind = (int)lanes[2 * l + 1];
-    if (prog < 0) {  // count(*)
-      atomicAdd(cell(l), 1ull);
-      continue;
-    }
     i64 x;
-    const bool valid = run(meta, aux, prog, row, cols, &x);
-    if (!valid) continue;
-    switch (kind) {
-      case LANE_CNT: atomicAdd(cell(l), 1ull); break;
-      case LANE_NANCNT:
-        if (isnan(as_f(x))) atomicAdd(cell(l), 1ull);
-        break;
-      case LANE_MIN_F64: case LANE_MAX_F64:
-        if (!isnan(as_f(x))) fold(kind, cell(l), x);
-        break;
-      case LANE_DISTINCT_F64: case LANE_DISTINCT:
-        if (kind == LANE_DISTINCT_F64 && x == INT64_MIN) x = 0;  // -0.0
-        if (distinct_insert((i64*)meta[H_DSET], meta[H_DMASK],
-                            (slot << 12) | (meta[H_LANE0] + l), x)) {
-          atomicAdd(cell(l), 1ull);
-        }
-        break;
-      default: fold(kind, cell(l), x); break;
+    if (lane_value(meta, aux, (int)lanes[2 * l], kind, l, row, cols, slot,
+                   &x) && x != identity(kind)) {
+      fold(kind, cell(l), x);
     }
   }
 }
@@ -757,7 +860,56 @@ __device__ __forceinline__ void dense_init(const i64* meta, u64* tab) {
   __syncthreads();
 }
 
-// One admitted row (or pair) folded into the dense table `tab`.
+// One row (or pair) a lane of the calling warp folded into the dense table
+// `tab`, `adm` saying which lanes hold an admitted one. The rows of one
+// slot are reduced across the warp before any atomic: their lanes are the
+// slot's peers (__match_any_sync on the slot, computed once a row and kept
+// for every lane; at G = 1 the whole warp), counts reduce by a ballot and
+// the other lanes by shuffles (`reduce_peers`, `warp_reduce`, so a float
+// min or max runs its CAS loop once a warp), and the lowest peer makes one
+// shared-memory update a slot and lane. Every lane of the warp calls it.
+template <class Columns>
+__device__ __forceinline__ void dense_fold_warp(const i64* meta,
+                                                const i64* aux, bool adm,
+                                                i64 row, const Columns& cols,
+                                                u64* tab) {
+  const unsigned admitted = __ballot_sync(kWarp, adm);
+  if (admitted == 0) return;
+  const int groups = (int)meta[H_G];
+  int slot = 0;
+  if (adm && groups > 1) {
+    const i64 k = pack_key(meta, aux, meta + meta[H_OFF_KEYS],
+                           (int)meta[H_NKEYS], row, cols);
+    slot = (int)(k < 0 ? 0 : (k >= groups ? groups - 1 : k));
+  }
+  const unsigned members = warp_members();
+  const unsigned peers =
+      groups == 1 ? members : __match_any_sync(kWarp, adm ? slot : -1);
+  const bool lead = (adm || groups == 1) && lane_id() == __ffs(peers) - 1;
+  if (lead) atomicAdd(&tab[slot], (u64)__popc(admitted & peers));
+  const i64* lanes = meta + meta[H_OFF_LANES];
+  const int n_lanes = (int)meta[H_NLANES];
+  for (int l = 0; l < n_lanes; ++l) {
+    const int prog = (int)lanes[2 * l];
+    const int kind = (int)lanes[2 * l + 1];
+    i64 x;
+    if (!(adm && lane_value(meta, aux, prog, kind, l, row, cols, slot, &x))) {
+      x = identity(kind);
+    }
+    i64 r;
+    if (counts_kind(kind)) {
+      r = __popc(__ballot_sync(kWarp, x != 0) & peers);
+    } else {
+      r = groups == 1 ? warp_reduce(kind, members, x)
+                      : reduce_peers(kind, peers, x);
+    }
+    if (lead && r != identity(kind)) fold(kind, &tab[(l + 1) * groups + slot], r);
+  }
+}
+
+// One admitted row folded into the dense table `tab` on its own: one
+// shared-memory atomic a lane (`fold_lanes`), for the join-chain walks
+// (`dense_fold_rows`).
 template <class Columns>
 __device__ __forceinline__ void dense_fold_row(const i64* meta, const i64* aux,
                                                i64 row, const Columns& cols,
@@ -791,12 +943,89 @@ __device__ __forceinline__ void dense_merge(const i64* meta, u64* tab,
   }
 }
 
+// G = 1 over tiles of Tile rows a lane: a lane's admitted rows are found
+// first (their bits in one register), then each lane program runs over
+// them into a register, and the warp reduces each lane once a tile: one
+// shared-memory update a lane a tile of Tile x 32 rows. The rows' loader
+// must not depend on the row (PlainRows).
+template <int Tile, class Rows>
+__device__ __forceinline__ void dense_fold_tiles(const i64* meta,
+                                                 const i64* aux, i64 n_rows,
+                                                 u64* tab, const Rows& rows,
+                                                 i64 first, i64 step,
+                                                 i64 width) {
+  const unsigned members = warp_members();
+  const int lane = lane_id();
+  const bool lead = lane == __ffs(members) - 1;
+  const i64* lanes = meta + meta[H_OFF_LANES];
+  const int n_lanes = (int)meta[H_NLANES];
+  for (i64 base = first; base < n_rows; base += step) {
+    typename Rows::Columns cols;
+    unsigned adm = 0;
+#pragma unroll 1
+    for (int r = 0; r < Tile; ++r) {
+      const i64 row = base + r * width + lane;
+      if (row < n_rows && rows(row, &cols)) adm |= 1u << r;
+    }
+    if (!__any_sync(kWarp, adm != 0)) continue;
+    const i64 n = warp_reduce(LANE_ROWS, members, __popc(adm));
+    if (lead) atomicAdd(&tab[0], (u64)n);
+    for (int l = 0; l < n_lanes; ++l) {
+      const int prog = (int)lanes[2 * l];
+      const int kind = (int)lanes[2 * l + 1];
+      i64 acc = identity(kind);
+#pragma unroll 1
+      for (int r = 0; r < Tile; ++r) {
+        i64 x;
+        if (((adm >> r) & 1u) &&
+            lane_value(meta, aux, prog, kind, l, base + r * width + lane,
+                       cols, 0, &x)) {
+          acc = combine(kind, acc, x);
+        }
+      }
+      acc = warp_reduce(kind, members, acc);
+      if (lead && acc != identity(kind)) fold(kind, &tab[l + 1], acc);
+    }
+  }
+}
+
 // Every admitted row folded into a dense table of G = meta[H_G] <= 64 slots
 // in shared memory (`tab`), merged into the global table `table_g` with
 // atomics at the end, so any number of launches accumulate into one table.
-template <class Rows>
+// A warp takes 32 consecutive rows a step (Tile x 32 at G = 1:
+// `dense_fold_tiles`), so its loads are coalesced and its rows reduce
+// together (`dense_fold_warp`).
+template <int Tile, class Rows>
 __device__ void dense_fold(const i64* meta, const i64* aux, i64 n_rows,
                            u64* tab, u64* table_g, const Rows& rows) {
+  dense_init(meta, tab);
+  const i64 width = __popc(warp_members());
+  const i64 per_block = (blockDim.x + 31) >> 5;
+  const i64 warp = (i64)blockIdx.x * per_block + (threadIdx.x >> 5);
+  const i64 warps = (i64)gridDim.x * per_block;
+  if (meta[H_G] == 1) {
+    dense_fold_tiles<Tile>(meta, aux, n_rows, tab, rows, warp * width * Tile,
+                           warps * width * Tile, width);
+  } else {
+    for (i64 base = warp * width; base < n_rows; base += warps * width) {
+      const i64 row = base + lane_id();
+      typename Rows::Columns cols;
+      const bool adm = row < n_rows && rows(row, &cols);
+      dense_fold_warp(meta, aux, adm, row, cols, tab);
+    }
+  }
+  dense_merge(meta, tab, table_g);
+}
+
+// Every admitted row folded into the dense table one row at a time
+// (`dense_fold_row`), merged as `dense_fold` merges: the join-chain walks'
+// fold. Their hops admit few rows, so their atomics are few, and the warp
+// reduction's registers cost them more than it saves under their
+// 64-register cap (measured on an NVIDIA H100: 48 more stack bytes, TPC-H
+// Q12's walk 22% and Q14's 8% slower with it).
+template <class Rows>
+__device__ void dense_fold_rows(const i64* meta, const i64* aux, i64 n_rows,
+                                u64* tab, u64* table_g, const Rows& rows) {
   dense_init(meta, tab);
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;

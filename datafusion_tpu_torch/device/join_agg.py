@@ -20,24 +20,29 @@ read as 0.0 and NaN never matching, a string key its dictionary code. The
 key words hash (splitmix64 of the first, each further word XORed in and
 mixed by splitmix64, the top bit dropped) into nb = next_pow2(live)
 buckets; the live rows are laid out in bucket order as a CSR: `start[nb +
-1]`, the
-build `rows` (int32) and the key words `keys` ([n_keys, live]). A unique
-key is a bucket of one entry: the reference's LUT route needs no second
-design.
+1]` (int32: a build holds fewer than 2^31 rows) and each entry's record
+`records` ([live, width] int64: the key words, then the payload, the build columns the probe's programs read,
+`JoinBuildSpec.payload`, as the interpreter loads them), with `valid`
+([live, width] uint8) where a payload column has NULLs. A unique key is a
+bucket of one entry: the reference's LUT route needs no second design.
 
 Probe (`join_aggregate`, kernel `csrc/join_aggregate.cu`). Per probe row:
 the probe predicate, the probe key words (a string key's probe code
 remapped into the build's dictionary by `_remap_lut`'s rule, an absent
 string matching nothing), the row's bucket, and each entry with equal key
 words is a pair. The pair space is the reference's: build columns
-`0..n_build-1`, then probe columns. For each pair the residual, the packed
-group key and the lanes run over the pair row, and the pair folds into the
-grouped aggregate of `device/groupby.py` (dense slots or the hash table),
-whose table `compact_groups`, top-k and the emit take as they are.
+`0..n_build-1`, then probe columns; the build columns are read from the
+pair's record (their descriptors point into the records). For each pair
+the residual, the packed group key and the lanes run over the pair row,
+and the pair folds into the grouped aggregate of `device/groupby.py`
+(dense slots or the hash table), whose table `compact_groups`, top-k and
+the emit take as they are. On the card a warp probes 32 rows at once and
+walks their buckets' entries together, 32 a step.
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 CUDA kernel on CUDA tensors, or raises. The plain versions expand the pairs
-with `repeat_interleave` and reuse the grouped fold's plain versions.
+with `repeat_interleave`, read the build columns from the records and reuse
+the grouped fold's plain versions.
 """
 from __future__ import annotations
 
@@ -47,8 +52,9 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .groupby import (AggregateSpec, Columns, HashSpec, _check_overflow,
-                      _cuda, _next_pow2, _ProgramSpec, _srl, _stream,
+from .groupby import (_DTYPE_CODE, _NP_TO_TORCH, H_OFF_COLS, AggregateSpec,
+                      Columns, HashSpec, _check_overflow, _cuda, _next_pow2,
+                      _ProgramSpec, _srl, _stream,
                       dense_group_aggregate_plain, hash_group_aggregate_plain,
                       splitmix64)
 from .lower import LoweringError, Pools, Program, evaluate
@@ -65,7 +71,7 @@ JK_INT, JK_FLOAT, JK_CODE = range(3)
 MAX_JOIN_KEYS = 4
 
 # the join section of a JoinAggSpec descriptor (csrc/join_aggregate.cu)
-(J_NBUILD, J_PPRED, J_NKEYS, J_BUCKETS, J_START, J_ROWS, J_KEYS, J_LIVE,
+(J_NBUILD, J_PPRED, J_NKEYS, J_BUCKETS, J_START, J_REC, J_WIDTH, J_LIVE,
  J_KEY0) = range(9)
 SCAN_TILE = 8192          # words a block of csrc/scan.cuh scans
 
@@ -85,50 +91,118 @@ def _check_keys(keys: Sequence[Tuple[Program, int]]) -> None:
             raise LoweringError("a float join key against a non-float one")
 
 
+def payload_of(pair_pools: Pools, n_build: int) -> Dict[int, np.dtype]:
+    """{build column: dtype} of the build columns (pair-space indices below
+    `n_build`) that the pair programs of `pair_pools` read: the payload a
+    build table's records carry."""
+    return {i: d for i, d in sorted(pair_pools.columns.items())
+            if i < n_build}
+
+
 class JoinBuildSpec(_ProgramSpec):
     """The build predicate and key programs of the build side, over its
-    batch's columns. The kernel reads the keys from the descriptor's key
-    section as (program, key kind)."""
+    batch's columns, and the payload columns ({index: dtype}, in the same
+    index space) whose values each entry's record carries for the probe.
+    The kernel reads the keys from the descriptor's key section as
+    (program, key kind)."""
 
     def __init__(self, pools: Pools, pred: Optional[Program],
-                 keys: Sequence[Tuple[Program, int]]):
+                 keys: Sequence[Tuple[Program, int]],
+                 payload: Optional[Dict[int, np.dtype]] = None):
         _check_keys(keys)
         super().__init__(pools, pred, [], [])
         self.keys = [(prog, kind, 0) for prog, kind in keys]
+        self.payload = dict(sorted((payload or {}).items()))
         self.meta = self._layout(0)
 
     def key_programs(self) -> List[Tuple[Program, int]]:
         return [(p, k) for p, k, _s in self.keys]
 
+    def column_dtype(self, idx: int) -> torch.dtype:
+        if idx in self.payload and idx not in self.pools.columns:
+            return _NP_TO_TORCH[np.dtype(self.payload[idx])]
+        return super().column_dtype(idx)
+
+    def record_words(self) -> Dict[int, int]:
+        """{payload column: its word in a record}: after the key words."""
+        return {idx: len(self.keys) + j for j, idx in enumerate(self.payload)}
+
 
 class JoinTable:
     """The staged build side: `nb` buckets (a power of two), `live` entries
-    in bucket order, `start` (int64 [nb + 1]: bucket b holds entries
-    start[b]..start[b+1]-1), each entry's build row `rows` (int32 [live])
-    and key words `keys` (int64 [n_keys, live])."""
+    in bucket order, `start` (int32 [nb + 1]: bucket b holds entries
+    start[b]..start[b+1]-1) and each entry's record `records` (int64
+    [live, width]: the `n_keys` key words,
+    then the payload columns at their words `payload` ({column: word})),
+    with `valid` (uint8 [live, width], a byte a word) when a payload column
+    in `nullable` has NULLs, else None."""
 
     def __init__(self, nb: int, live: int, start: torch.Tensor,
-                 rows: torch.Tensor, keys: torch.Tensor):
+                 records: torch.Tensor, n_keys: int,
+                 payload: Dict[int, int], valid: Optional[torch.Tensor],
+                 nullable: Sequence[int] = ()):
         self.nb = int(nb)
         self.live = int(live)
         self.start = start
-        self.rows = rows
-        self.keys = keys
+        self.records = records
+        self.n_keys = int(n_keys)
+        self.payload = dict(payload)
+        self.valid = valid
+        self.nullable = set(nullable)
+
+    @property
+    def width(self) -> int:
+        return self.records.shape[1]
 
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.start, self.rows, self.keys))
+                   for t in (self.start, self.records, self.valid)
+                   if t is not None)
 
-    def entries(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(bucket, build row, key words [n_keys, live]) of every entry,
-        ordered by bucket then row: the multiset each bucket holds."""
-        counts = (self.start[1:] - self.start[:-1]).cpu()
-        bucket = torch.repeat_interleave(torch.arange(self.nb), counts)
-        rows = self.rows.cpu().to(torch.int64)
-        order = torch.argsort(bucket * (1 << 31) + rows)
-        return (bucket[order].numpy(), rows[order].numpy(),
-                self.keys.cpu()[:, order].numpy())
+    def entries(self) -> Tuple[np.ndarray, ...]:
+        """(bucket, records [live, width], validity bytes or None) of
+        every entry, ordered by bucket, then by record words, then by
+        validity bytes: the multiset each bucket holds."""
+        counts = (self.start[1:] - self.start[:-1]).cpu().numpy()
+        bucket = np.repeat(np.arange(self.nb), counts)
+        rec = self.records.cpu().numpy()
+        valid = None if self.valid is None else self.valid.cpu().numpy()
+        keys = [bucket] + list(rec.T) + ([] if valid is None
+                                         else list(valid.T))
+        order = np.lexsort(keys[::-1])
+        return (bucket[order], rec[order],
+                None if valid is None else valid[order])
+
+    def column(self, idx: int, entry: torch.Tensor, dtype: torch.dtype):
+        """(data, validity) of payload column `idx` at the entries
+        `entry`, at its dtype, read from the records."""
+        word = self.payload.get(idx)
+        if word is None:
+            raise ValueError(f"build column {idx} is not in the table's "
+                             f"records")
+        return (_from_word(self.records[entry, word], dtype),
+                self.valid[entry, word].bool() if idx in self.nullable
+                else None)
+
+
+def _to_word(data: torch.Tensor) -> torch.Tensor:
+    """Column values as the interpreter loads them: int64, or float64
+    bits (a float32 widened)."""
+    if data.dtype == torch.float32:
+        data = data.to(torch.float64)
+    if data.dtype == torch.float64:
+        return data.view(torch.int64)
+    return data.to(torch.int64)
+
+
+def _from_word(word: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A column of `dtype` from its record words (`_to_word` undone)."""
+    if dtype.is_floating_point:
+        return word.view(torch.float64).to(dtype)
+    if dtype == torch.bool:
+        return word != 0
+    return word.to(dtype)
 
 
 def key_words(kind: int, d: torch.Tensor, v: torch.Tensor):
@@ -157,7 +231,9 @@ def _check_build(spec: JoinBuildSpec, cols: Columns, aux: torch.Tensor,
         raise ValueError("aux must be a contiguous int64 tensor")
     if n_rows >= 1 << 31:
         raise ValueError("a build side holds at most 2^31 - 1 rows")
-    for idx in spec.pools.columns:
+    for idx in sorted(set(spec.pools.columns) | set(spec.payload)):
+        if idx not in cols:
+            raise ValueError(f"build column {idx} is read but not given")
         data, valid = cols[idx]
         if data.device != dev or not data.is_contiguous() or \
                 data.dtype != spec.column_dtype(idx) or \
@@ -171,9 +247,38 @@ def _check_build(spec: JoinBuildSpec, cols: Columns, aux: torch.Tensor,
             raise ValueError(f"build column {idx}: bad validity")
 
 
+def new_join_table(spec: JoinBuildSpec, cols: Columns, nb: int, live: int,
+               dev) -> JoinTable:
+    """An empty table of `live` entries: records zeroed, and the validity
+    bytes where a payload column has NULLs."""
+    words = spec.record_words()
+    nullable = [i for i in spec.payload if cols[i][1] is not None]
+    width = len(spec.keys) + len(spec.payload)
+    return JoinTable(
+        nb, live, torch.zeros(nb + 1, dtype=torch.int32, device=dev),
+        torch.zeros((live, width), dtype=torch.int64, device=dev),
+        len(spec.keys), words,
+        torch.zeros((live, width), dtype=torch.uint8, device=dev)
+        if nullable else None, nullable)
+
+
+def payload_columns(table: JoinTable, cols: Columns) -> torch.Tensor:
+    """The scatter kernel's payload descriptors (host int64, four words a
+    column): data and validity addresses (0: none), dtype code, and the
+    column's word in a record."""
+    return torch.tensor(
+        [w for idx, word in table.payload.items()
+         for w in (cols[idx][0].data_ptr(),
+                   0 if cols[idx][1] is None else cols[idx][1].data_ptr(),
+                   _DTYPE_CODE[cols[idx][0].dtype], word)],
+        dtype=torch.int64)
+
+
 def join_build(spec: JoinBuildSpec, cols: Columns, aux: torch.Tensor,
                n_rows: int) -> JoinTable:
-    """Stage the first `n_rows` rows of `cols` as the join's multi-map.
+    """Stage the first `n_rows` rows of `cols` as the join's multi-map,
+    each entry's record carrying its key words and the payload columns
+    `spec.payload` of `cols`.
 
     On CPU tensors this runs `join_build_plain`; on CUDA tensors it
     launches the `join_build` kernels (hash, count, the scan's three,
@@ -200,29 +305,33 @@ def join_build(spec: JoinBuildSpec, cols: Columns, aux: torch.Tensor,
             join_build_kernel.launches += 1
         live = int(live_d.item())
         nb = _next_pow2(max(live, 1))
-        start = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
-        rows = torch.empty(live, dtype=torch.int32, device=dev)
-        keys = torch.empty((n_keys, live), dtype=torch.int64, device=dev)
+        table = new_join_table(spec, cols, nb, live, dev)
         if live:
+            start = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
             sums = torch.empty(-(-(nb + 1) // SCAN_TILE), dtype=torch.int64,
                                device=dev)
             kernels.check(lib.dft_join_build_offsets(
                 hashes.data_ptr(), n_rows, nb, start.data_ptr(),
                 sums.data_ptr(), stream), join_build_kernel)
             cursor = torch.zeros(nb, dtype=torch.int64, device=dev)
+            pay = payload_columns(table, cols).to(dev)
             kernels.check(lib.dft_join_build_scatter(
                 hashes.data_ptr(), words.data_ptr(), n_keys, n_rows, nb,
-                start.data_ptr(), cursor.data_ptr(), live, rows.data_ptr(),
-                keys.data_ptr(), stream), join_build_kernel)
+                start.data_ptr(), cursor.data_ptr(), pay.data_ptr(),
+                len(table.payload), table.width, table.start.data_ptr(),
+                table.records.data_ptr(),
+                None if table.valid is None else table.valid.data_ptr(),
+                stream), join_build_kernel)
             join_build_kernel.launches += 5   # count, the scan's three, scatter
-    return JoinTable(nb, live, start, rows, keys)
+    return table
 
 
 def join_build_plain(spec: JoinBuildSpec, cols: Columns, aux: torch.Tensor,
                      n_rows: int) -> JoinTable:
     """The plain PyTorch version: the programs interpreted over whole
     tensors, the hashes as the kernel computes them, the live rows sorted
-    by (bucket, row) and the bucket starts by `bincount` and `cumsum`."""
+    by (bucket, row), the bucket starts by `bincount` and `cumsum`, and the
+    records by indexing."""
     dev = aux.device
     n = n_rows
     live = torch.ones(n, dtype=torch.bool, device=dev)
@@ -238,20 +347,22 @@ def join_build_plain(spec: JoinBuildSpec, cols: Columns, aux: torch.Tensor,
     ids = live.nonzero().squeeze(1)
     n_live = ids.numel()
     nb = _next_pow2(max(n_live, 1))
-    n_keys = len(words)
+    table = new_join_table(spec, cols, nb, n_live, dev)
     if n_live == 0:
-        return JoinTable(nb, 0, torch.zeros(nb + 1, dtype=torch.int64,
-                                            device=dev),
-                         torch.empty(0, dtype=torch.int32, device=dev),
-                         torch.empty((n_keys, 0), dtype=torch.int64,
-                                     device=dev))
+        return table
     words = [w[ids] for w in words]
     bucket = join_hash(words) & (nb - 1)
     order = torch.argsort(bucket * (1 << 31) + ids)
-    start = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
-    start[1:] = torch.cumsum(torch.bincount(bucket, minlength=nb), 0)
-    return JoinTable(nb, n_live, start, ids[order].to(torch.int32),
-                     torch.stack([w[order] for w in words]))
+    at = ids[order]
+    table.start[1:] = torch.cumsum(torch.bincount(bucket, minlength=nb), 0)
+    for k, w in enumerate(words):
+        table.records[:, k] = w[order]
+    for idx, word in table.payload.items():
+        data, valid = cols[idx]
+        table.records[:, word] = _to_word(data[:n])[at]
+        if valid is not None:
+            table.valid[:, word] = valid[at].to(torch.uint8)
+    return table
 
 
 # --- the probe ----------------------------------------------------------------
@@ -266,7 +377,7 @@ class Join:
                  probe_keys: Sequence[Tuple[Program, int]],
                  table: JoinTable):
         _check_keys(probe_keys)
-        if len(probe_keys) != table.keys.shape[0]:
+        if len(probe_keys) != table.n_keys:
             raise ValueError("one probe key per build key")
         self.n_build = int(n_build)
         self.ppred = ppred
@@ -282,7 +393,7 @@ class Join:
         head = [self.n_build,
                 -1 if self.ppred is None else index[id(self.ppred)],
                 len(self.probe_keys), t.nb, t.start.data_ptr(),
-                t.rows.data_ptr(), t.keys.data_ptr(), t.live]
+                t.records.data_ptr(), t.width, t.live]
         keys = [w for p, k in self.probe_keys for w in (index[id(p)], k)]
         return np.asarray(head + keys, np.int64)
 
@@ -300,6 +411,24 @@ class _JoinSpec:
 
     def _chain_section(self, index: Dict[int, int]) -> np.ndarray:
         return self.join.section(index)
+
+    def _patch_columns(self, meta: np.ndarray) -> None:
+        """The build columns load from the pair's record (the loader's row
+        handle is entry x width): each an int64 column at its word of
+        record 0, its validity at the records' validity bytes."""
+        t = self.join.table
+        base = int(meta[H_OFF_COLS])
+        for idx in self.pools.columns:
+            if idx >= self.join.n_build:
+                continue
+            word = t.payload.get(idx)
+            if word is None:
+                raise ValueError(f"build column {idx} is not in the "
+                                 f"table's records")
+            meta[base + 3 * idx:base + 3 * idx + 3] = [
+                t.records.data_ptr() + 8 * word,
+                t.valid.data_ptr() + word if idx in t.nullable else 0,
+                _DTYPE_CODE[torch.int64]]
 
 
 class JoinDenseSpec(_JoinSpec, AggregateSpec):
@@ -326,10 +455,15 @@ def _check_pair(spec, cols: Columns, aux: torch.Tensor, n_probe: int,
         raise ValueError("aux must be a contiguous int64 tensor on the "
                          "table's device")
     t = spec.join.table
-    for x in (t.start, t.rows, t.keys):
+    for x in (t.start, t.records):
         if x.device != dev:
             raise ValueError("the build table lies on another device")
     for idx in spec.pools.columns:
+        if idx < spec.join.n_build:   # read from the build table's records
+            if idx not in t.payload:
+                raise ValueError(f"build column {idx} is not in the "
+                                 f"table's records")
+            continue
         if idx not in cols:
             raise ValueError(f"column {idx} is read but not given")
         data, valid = cols[idx]
@@ -337,7 +471,7 @@ def _check_pair(spec, cols: Columns, aux: torch.Tensor, n_probe: int,
                 data.dim() != 1 or data.dtype != spec.column_dtype(idx):
             raise ValueError(f"column {idx}: contiguous 1-D "
                              f"{spec.column_dtype(idx)} on {dev} expected")
-        if idx >= spec.join.n_build and data.shape[0] < n_probe:
+        if data.shape[0] < n_probe:
             raise ValueError(f"probe column {idx} shorter than {n_probe} rows")
         if valid is not None and (valid.device != dev or
                                   valid.dtype != torch.bool or
@@ -352,8 +486,8 @@ def join_aggregate(spec, cols: Columns, aux: torch.Tensor, n_probe: int,
     fold every pair into `table` in place: a dense `[lanes + 1, G]` table
     for a JoinDenseSpec, a hash table `[lanes + 2, cap]` and its int32
     `overflow` flag for a JoinHashSpec. `cols` maps pair-space indices to
-    (data, validity): build columns of the whole build batch, probe
-    columns of the batch.
+    (data, validity): the probe columns of the batch (build columns come
+    from the table's records; any given are not read).
 
     On CPU tensors this runs `join_aggregate_plain`; on CUDA tensors it
     launches the `join_aggregate` kernel once a pass of lanes, or raises."""
@@ -387,8 +521,8 @@ def join_aggregate(spec, cols: Columns, aux: torch.Tensor, n_probe: int,
 
 
 def join_pairs_plain(spec, cols: Columns, aux: torch.Tensor, n_probe: int):
-    """(probe row, build row) of every pair: the probe predicate and key
-    words over the probe rows, each row's bucket range expanded with
+    """(probe row, entry) of every pair: the probe predicate and key words
+    over the probe rows, each row's bucket range expanded with
     `repeat_interleave`, the entries with equal key words kept."""
     j, t = spec.join, spec.join.table
     dev = aux.device
@@ -404,15 +538,16 @@ def join_pairs_plain(spec, cols: Columns, aux: torch.Tensor, n_probe: int):
         ok &= good
         words.append(w)
     b = join_hash(words) & (t.nb - 1)
-    lo = t.start[b]
-    cnt = torch.where(ok, t.start[b + 1] - lo, 0)
+    start = t.start.to(torch.int64)
+    lo = start[b]
+    cnt = torch.where(ok, start[b + 1] - lo, 0)
     prow = torch.repeat_interleave(torch.arange(n, device=dev), cnt)
     first = torch.cumsum(cnt, 0) - cnt
     e = lo[prow] + torch.arange(prow.numel(), device=dev) - first[prow]
     match = torch.ones_like(prow, dtype=torch.bool)
     for k, w in enumerate(words):
-        match &= t.keys[k][e] == w[prow]
-    return prow[match], t.rows[e[match]].to(torch.int64)
+        match &= t.records[e, k] == w[prow]
+    return prow[match], e[match]
 
 
 def join_aggregate_plain(spec, cols: Columns, aux: torch.Tensor,
@@ -420,15 +555,20 @@ def join_aggregate_plain(spec, cols: Columns, aux: torch.Tensor,
                          overflow: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """The plain PyTorch version: the pairs (`join_pairs_plain`), every
-    pair-space column gathered at its side's row, then the grouped fold's
-    plain version over the pairs (the residual is its predicate)."""
+    pair-space column gathered at its side's row (a build column from the
+    pair's record), then the grouped fold's plain version over the pairs
+    (the residual is its predicate)."""
     if n_probe == 0 or spec.join.table.live == 0:
         return table
-    prow, brow = join_pairs_plain(spec, cols, aux, n_probe)
+    prow, entry = join_pairs_plain(spec, cols, aux, n_probe)
+    t = spec.join.table
     pair = {}
-    for idx, (data, valid) in cols.items():
-        at = brow if idx < spec.join.n_build else prow
-        pair[idx] = (data[at], None if valid is None else valid[at])
+    for idx in spec.pools.columns:
+        if idx < spec.join.n_build:
+            pair[idx] = t.column(idx, entry, spec.column_dtype(idx))
+        else:
+            data, valid = cols[idx]
+            pair[idx] = (data[prow], None if valid is None else valid[prow])
     m = prow.numel()
     if isinstance(spec, AggregateSpec):
         return dense_group_aggregate_plain(spec, pair, aux, m, table)

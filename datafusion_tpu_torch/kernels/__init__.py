@@ -55,8 +55,8 @@ _SIGNATURES = {
     "dft_group_emit": [_P, _LL, _I, _P, _P],
     "dft_join_build_hash": [_P, _I, _P, _LL, _P, _P, _P, _I, _P],
     "dft_join_build_offsets": [_P, _LL, _LL, _P, _P, _P],
-    "dft_join_build_scatter": [_P, _P, _I, _LL, _LL, _P, _P, _LL, _P, _P,
-                               _P],
+    "dft_join_build_scatter": [_P, _P, _I, _LL, _LL, _P, _P, _P, _I, _I, _P,
+                               _P, _P, _P],
     "dft_join_aggregate": [_P, _I, _I, _I, _P, _LL, _LL, _I, _P, _P, _I, _P],
     "dft_radix_word_hist": [_P, _I, _LL, _P, _P],
     "dft_radix_gather": [_P, _I, _P, _LL, _P, _P],

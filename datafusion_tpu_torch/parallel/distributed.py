@@ -39,7 +39,8 @@ from ..device.groupby import (LANE_MAX_F64, LANE_MIN_F64, LANE_SUM_F64,
                               dense_group_aggregate, dense_group_table,
                               hash_group_aggregate, lane_kind)
 from ..device.join_agg import (JK_INT, Join, JoinBuildSpec, JoinDenseSpec,
-                               JoinHashSpec, join_aggregate, join_build)
+                               JoinHashSpec, join_aggregate, join_build,
+                               payload_of)
 from ..device.lower import Pools, compile_expr, compile_key
 from ..physical.expressions import ColumnExpr
 
@@ -314,7 +315,8 @@ class RawJoin:
         self.pkey = compile_expr(column(self.pkey_at, pkey), self.pools)
 
     def build_spec(self) -> JoinBuildSpec:
-        return JoinBuildSpec(self.bpools, None, [(self.bkey, JK_INT)])
+        return JoinBuildSpec(self.bpools, None, [(self.bkey, JK_INT)],
+                             payload_of(self.pools, self.nb))
 
     def pair_spec(self, rows: int):
         """spec(table): the fold of the pairs with a build table."""

@@ -43,7 +43,7 @@ from torch.profiler import record_function
 from ...device.groupby import AggregateSpec, dense_group_table, lane_kind
 from ...device.join_agg import (JK_CODE, MAX_JOIN_KEYS, Join, JoinBuildSpec,
                                 JoinDenseSpec, JoinHashSpec, join_aggregate,
-                                join_build, key_kind)
+                                join_build, key_kind, payload_of)
 from ...device.lower import (OP_LUT, LoweringError, Pools, compile_expr,
                              compile_key)
 from ...runtime import BaselineMetrics, TaskContext
@@ -174,18 +174,22 @@ class TorchJoinAggregateExec(TorchGroupAggregateExec):
                 bkeys, pkeys)
 
     def build_input(self, lowered, build_batch):
-        """(spec, device columns, aux) of the build side for `join_build`."""
-        *_pair, bpools, bpred, bkeys, _pkeys = lowered
+        """(spec, device columns, aux) of the build side for `join_build`:
+        its programs' columns and the payload, the build columns the pair
+        programs read, which the table's records carry."""
+        pools, *_pair, bpools, bpred, bkeys, _pkeys = lowered
         if build_batch.num_rows >= 1 << 31:
             raise DeviceLoweringUnsupported(
                 "a join build side holds at most 2^31 - 1 rows")
         try:
-            spec = JoinBuildSpec(bpools, bpred, bkeys)
+            spec = JoinBuildSpec(bpools, bpred, bkeys,
+                                 payload_of(pools, self.n_build))
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
-        cols = self._to_device(spec, {i: build_batch.columns[i]
-                                      for i in bpools.columns},
-                               _keeps(self.build_source))
+        cols = self._to_device(spec, {
+            i: build_batch.columns[i]
+            for i in sorted(set(bpools.columns) | set(spec.payload))},
+            _keeps(self.build_source))
         aux = torch.from_numpy(bpools.aux_buffer(build_batch)).to(self.device)
         return spec, cols, aux
 
@@ -236,17 +240,13 @@ class TorchJoinAggregateExec(TorchGroupAggregateExec):
         return spec, plan, list(slot_defs), slot_map
 
     def stage_pair(self, spec, build_batch, probe_batch, view):
-        """The pair-space columns the programs read, on the card (build
-        columns of the whole build batch, probe columns of this batch), and
-        the batch's aux inputs."""
-        cols = {}
-        for i in spec.pools.columns:
-            build = i < self.n_build
-            col = build_batch.columns[i] if build else \
-                probe_batch.columns[i - self.n_build]
-            cols.update(self._to_device(
-                spec, {i: col}, _keeps(self.build_source if build
-                                       else self.probe_source)))
+        """The probe columns the programs read, on the card (the build
+        columns are in the build table's records), and the batch's aux
+        inputs."""
+        cols = self._to_device(
+            spec, {i: probe_batch.columns[i - self.n_build]
+                   for i in spec.pools.columns if i >= self.n_build},
+            _keeps(self.probe_source))
         aux = torch.from_numpy(spec.pools.aux_buffer(view)).to(self.device)
         return cols, aux
 

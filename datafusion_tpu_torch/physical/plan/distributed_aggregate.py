@@ -61,7 +61,7 @@ from ...device.groupby import (LANE_MAX_I64, LANE_MIN_I64, MAX_GROUPS,
                                AggregateSpec, HashSpec, dense_group_aggregate,
                                lane_kind)
 from ...device.join_agg import (JK_INT, Join, JoinBuildSpec, JoinDenseSpec,
-                                JoinHashSpec)
+                                JoinHashSpec, payload_of)
 from ...device.lower import LoweringError, Pools, compile_expr, compile_key
 from ...parallel import distributed as D
 from ...parallel import exchange as X
@@ -579,7 +579,8 @@ class TorchDistributedJoinAggregateExec(TorchJoinAggregateExec,
             with m.elapsed_compute, record_function("dft.aggregate"):
                 partials, flags, _per = X.partitioned_join_partials(
                     mesh, bkey, bvalid, bcols, nb, JoinBuildSpec(
-                        bpools, lowered[7], lowered[8]), baux, pkey, pvalid,
+                        bpools, lowered[7], lowered[8],
+                        payload_of(pools, nb)), baux, pkey, pvalid,
                     pcols, nb + npc,
                     self._pair_spec(lowered, plan, key_space, made), paux,
                     salt, _next_pow2(max(8, 4 * (np_pad // n_dev) // n_dev)))

@@ -9,7 +9,10 @@ launches kernels, is left out and the join build's scan runs as
 `torch.cumsum`) through `SHIM`, a
 header that defines the CUDA names for one thread: `__device__` is empty,
 `__ldg` a load, an atomic a plain read-modify-write, a warp shuffle gives
-back its own value. Each kernel then runs as one thread of one block over
+back its own value, a ballot its own bit, `__match_any_sync` and
+`__activemask` the thread alone (so a warp loop sized by the warp's
+members takes one row a step; `test_torch_join_walk.py` replays the
+32-lane steps). Each kernel then runs as one thread of one block over
 the inputs its plain PyTorch version reads, and the two must agree
 exactly (the transcendental math functions within rel 1e-15, glibc's
 against PyTorch's): every program of the lowering tests, the dense fold,
@@ -20,7 +23,7 @@ every composition and fold itself, and the row-returning walk's mark and
 emit passes over Q2's composed and folded chain),
 the count(DISTINCT x) lane's set inserts (dense, hash and chain folds,
 lanes past 32 in passes), the fanout-N join's build (the multiset of
-entries a bucket) and probe-and-fold, and the mesh's row partition (K1:
+entry records a bucket) and probe-and-fold, and the mesh's row partition (K1:
 histogram, the scan as `torch.cumsum`, the stable scatter, round after
 round) and partial-table merge (K2).
 Each kernel runs in the interpreter variant (lean or full) that its spec's
@@ -76,8 +79,15 @@ template <class T> T atomicCAS(T* a, T c, T v) {
 inline void __syncthreads() {}
 inline void __threadfence() {}
 template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
+template <class T> T __shfl_up_sync(unsigned, T v, int) { return v; }
+template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
+template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
 inline unsigned __match_any_sync(unsigned, int) { return 1u; }
+inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
+inline int __any_sync(unsigned, int p) { return p; }
+inline unsigned __activemask() { return 1u; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
 inline int cudaGetLastError() { return 0; }
@@ -216,9 +226,10 @@ void h_jb_count(const long long* hashes, long long n, long long nb,
 void h_jb_scatter(const long long* hashes, const long long* words,
                   int n_keys, long long n, long long nb,
                   const long long* start, unsigned long long* cursor,
-                  long long live, int* rows, long long* keys) {
+                  const long long* cols, int n_cols, int width, int* start32,
+                  long long* rec, unsigned char* valid) {
   jb::join_build_scatter_kernel(hashes, words, n_keys, n, nb, start, cursor,
-                                live, rows, keys);
+                                cols, n_cols, width, start32, rec, valid);
 }
 void h_join(const long long* meta, int len, const long long* aux,
             long long n, long long cap, int mode, long long* table,
@@ -270,7 +281,7 @@ def lib(tmp_path_factory):
     out.h_hash.argtypes = [P, I, P, LL, LL, I, P, P, I]
     out.h_jb_hash.argtypes = [P, I, P, LL, P, P, P, I]
     out.h_jb_count.argtypes = [P, LL, LL, P]
-    out.h_jb_scatter.argtypes = [P, P, I, LL, LL, P, P, LL, P, P]
+    out.h_jb_scatter.argtypes = [P, P, I, LL, LL, P, P, P, I, I, P, P, P]
     out.h_join.argtypes = [P, I, P, LL, LL, I, P, P, I]
     out.h_part_hist.argtypes = [P, P, LL, I, I, I, LL, LL, LL, P, P]
     out.h_part_scatter.argtypes = [P, P, LL, I, I, I, LL, LL, LL, P, P, LL,
@@ -736,15 +747,17 @@ def _join_cases():
 @pytest.mark.parametrize("q", _join_cases())
 def test_join_kernels_match_plain(lib, tpch, q):
     """`join_build`'s hash and scatter passes (the count pass, then the
-    scan as `torch.cumsum`) give the plain build's bucket starts and the
-    same multiset of (key words, row) a bucket; `join_aggregate` over that
-    table folds the plain version's groups, a launch a pass."""
+    scan as `torch.cumsum`) give the plain build's int32 bucket starts and
+    the same multiset of (row, record, validity bytes) a bucket, the record
+    the key words and the payload columns; `join_aggregate` over that table
+    folds the plain version's groups, a launch a pass."""
     import test_torch_distinct as D
     from datafusion_tpu_torch.device.groupby import (AggregateSpec,
                                                      _next_pow2,
                                                      dense_group_table)
     from datafusion_tpu_torch.device.join_agg import (
-        JoinTable, join_aggregate_plain, join_build_plain)
+        join_aggregate_plain, join_build_plain, new_join_table,
+        payload_columns)
     from datafusion_tpu_torch.physical.plan.base import (collect_batch,
                                                          execute_stream)
     from datafusion_tpu_torch.physical.plan.device_join_agg import (
@@ -771,14 +784,16 @@ def test_join_kernels_match_plain(lib, tpch, q):
     lib.h_jb_count(_ptr(hashes), n, nb, _ptr(counts))
     start = torch.zeros(nb + 1, dtype=torch.int64)
     start[1:] = torch.cumsum(counts[:nb], 0)
-    rows = torch.empty(live, dtype=torch.int32)
-    keys = torch.empty((nk, live), dtype=torch.int64)
+    got_t = new_join_table(bspec, bcols, nb, live, CPU)
+    pay = payload_columns(got_t, bcols)
     cursor = torch.zeros(nb, dtype=torch.int64)
     lib.h_jb_scatter(_ptr(hashes), _ptr(words), nk, n, nb, _ptr(start),
-                     _ptr(cursor), live, _ptr(rows), _ptr(keys))
-    got_t = JoinTable(nb, live, start, rows, keys)
+                     _ptr(cursor), _ptr(pay), len(got_t.payload),
+                     got_t.width, _ptr(got_t.start), _ptr(got_t.records),
+                     _ptr(got_t.valid))
     assert (nb, live) == (want_t.nb, want_t.live) and live
-    assert torch.equal(start, want_t.start)
+    assert torch.equal(got_t.start, want_t.start)
+    assert got_t.payload == want_t.payload
     for a, b in zip(got_t.entries(), want_t.entries()):
         np.testing.assert_array_equal(a, b)
 

@@ -1288,14 +1288,11 @@ def _join_exec(ctx, q):
     return todo[-1]
 
 
-@pytest.mark.parametrize("q", JOIN_QUERIES)
-def test_join_kernels_match_plain(cuda, q):
-    """`join_build` against `join_build_plain` (the bucket starts and the
-    multiset of (key words, row) a bucket), then `join_aggregate` over the
-    kernel's table against `join_aggregate_plain` (equal group tables;
-    float64 sums within rel 1e-9 and abs 1e-6: a group here sums up to
-    1.7M pairs, whose partial sums reach about 1e3, in the atomics'
-    order)."""
+def _join_vs_plain(ctx, cuda, q):
+    """`join_build` and `join_aggregate` against their plain versions on
+    the query's inputs: the same entries a bucket, and equal group tables
+    (float64 sums within rel 1e-9, abs 1e-6: the atomics' order). Returns
+    (spec, group table)."""
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch.device.groupby import (
         AggregateSpec, compact_groups, dense_group_table)
@@ -1305,7 +1302,6 @@ def test_join_kernels_match_plain(cuda, q):
                                                          execute_stream)
     from datafusion_tpu_torch.physical.plan.device_join_chain import (
         _PairView)
-    ctx = _join_ctx(cuda)
     ex = _join_exec(ctx, q)
     tctx = ctx.task_context()
     lowered = ex.lower()
@@ -1317,6 +1313,7 @@ def test_join_kernels_match_plain(cuda, q):
     want_t = join_build_plain(bspec, bcols, baux, bb.num_rows)
     torch.cuda.synchronize()
     assert (got_t.nb, got_t.live) == (want_t.nb, want_t.live)
+    assert got_t.start.dtype == torch.int32
     assert torch.equal(got_t.start, want_t.start)
     for a, b in zip(got_t.entries(), want_t.entries()):
         np.testing.assert_array_equal(a, b)
@@ -1337,6 +1334,18 @@ def test_join_kernels_match_plain(cuda, q):
             table = dense_group_table(table)
         tables.append(compact_groups(table).cpu().numpy())
     _assert_tables_equal(spec, *tables, f64_tol=(1e-9, 1e-6))
+    return spec, tables[0]
+
+
+@pytest.mark.parametrize("q", JOIN_QUERIES)
+def test_join_kernels_match_plain(cuda, q):
+    """`join_build` against `join_build_plain` (the int32 bucket starts and
+    the multiset of (row, record) a bucket), then `join_aggregate` over the
+    kernel's table against `join_aggregate_plain` (equal group tables;
+    float64 sums within rel 1e-9 and abs 1e-6: a group here sums up to
+    1.7M pairs, whose partial sums reach about 1e3, in the atomics'
+    order)."""
+    _join_vs_plain(_join_ctx(cuda), cuda, q)
 
 
 def test_cuda_distinct_and_join_end_to_end_matches_cpu(cuda):
@@ -1373,6 +1382,206 @@ def test_cuda_distinct_and_join_end_to_end_matches_cpu(cuda):
                                               nan_ok=True)
                 else:
                     assert a == b
+
+
+# --- the dense fold's warp reduction and the join's warp walk: edges --------
+
+def _fold_table(n, seed):
+    """`g`: 62 keys (6 key bits: G = 64) with one hot slot holding 90% of
+    the rows; floats over NaN, -0.0, 0.0 and infinities with NULLs; int64,
+    int32 and decimal lanes; `x` for a distinct count."""
+    rng = np.random.default_rng(seed)
+    g = np.where(rng.random(n) < 0.9, 17, rng.integers(0, 62, n))
+    f = rng.choice(np.array([-0.0, 0.0, np.nan, 1.5, -2.5, np.inf, -np.inf,
+                             7.25]), n)
+    cols = [("g", dt.INT32, g.astype(np.int32), None),
+            ("f", dt.FLOAT64, f, rng.random(n) > 0.1),
+            ("f32", dt.FLOAT32, rng.choice(np.array(
+                [-0.0, 0.0, np.nan, 3.5, -1.25], np.float32), n), None),
+            ("k", dt.INT64, rng.integers(-2**40, 2**40, n),
+             rng.random(n) > 0.2),
+            ("i", dt.INT32, rng.integers(-2**31, 2**31 - 1, n)
+             .astype(np.int32), None),
+            ("d", dt.decimal(12, 2), rng.integers(-10**6, 10**6, n), None),
+            ("x", dt.INT64, rng.integers(0, 50, n), None)]
+    schema = Schema([Field(nm, t, v is not None) for nm, t, _d, v in cols])
+    return Batch(schema, [Column(t, np.asarray(d), v)
+                          for _nm, t, d, v in cols], n)
+
+
+def _edge_aggregates():
+    """Aggregates of every lane kind, 180 lanes and more with a distinct
+    count: sums, counts, min and max of floats (NaN counted apart), of
+    float32, int64, int32 and decimals."""
+    out = ["count(*)", "count(DISTINCT x)"]
+    for i in range(30):
+        out += [f"sum(f * {i + 1})", f"min(f + {i})", f"max(f - {i})",
+                f"sum(k + {i})", f"min(i - {i})", f"max(d * {i + 1})",
+                f"count(f32 + {i})"]
+    out += ["min(f32)", "max(f32)", "sum(f32)"]
+    return ", ".join(out)
+
+
+EDGE_DENSE = [
+    ("SELECT " + _edge_aggregates() + " FROM t", 1),
+    ("SELECT g, " + _edge_aggregates() + " FROM t GROUP BY g", 64),
+]
+
+
+def _dense_vs_plain(cuda, batch, q, groups):
+    """The dense kernel (a launch a pass, with its distinct set) against
+    its plain version on the same device tensors: equal group tables and
+    distinct pairs."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        compact_groups, dense_group_aggregate, dense_group_aggregate_plain,
+        dense_group_table)
+    ctx = dft.SessionContext(cuda)
+    ctx.register_table("t", dft.MemTable(batch.schema, [[batch]]))
+    node = _exec(ctx, q)
+    (src,) = node.input_batches(ctx.task_context())
+    spec, _p, _n, _s = node.compile([src])
+    assert (spec.groups == 1) == (groups == 1) and len(spec.lanes) >= 180
+    assert spec.groups == groups or src.num_rows < 1000
+    cols, aux = node.stage(spec, src)
+    tables, pairs = [], []
+    for fold in (dense_group_aggregate, dense_group_aggregate_plain):
+        table = spec.new_table(cuda)
+        dset = spec.distinct_set(src.num_rows, cuda)
+        before = dft.launch_counts()["fused_dense_aggregate"]
+        fold(spec, cols, aux, src.num_rows, table, dset=dset)
+        assert dft.launch_counts()["fused_dense_aggregate"] == before + (
+            len(spec.passes) if fold is dense_group_aggregate and
+            src.num_rows else 0)
+        torch.cuda.synchronize()
+        table = dense_group_table(table)
+        tables.append(compact_groups(table).cpu().numpy())
+        assert not dset.overflowed()
+        pairs.append(_pair_keys(dset, table.cpu().numpy(), False))
+    _assert_tables_equal(spec, *tables, f64_tol=(1e-12, 1e-6))
+    assert pairs[0] == pairs[1]
+    return tables[0]
+
+
+@pytest.mark.parametrize("q,groups", EDGE_DENSE)
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 128, 129, 255, 257, 300_000])
+def test_dense_fold_edges_match_plain(cuda, q, groups, n):
+    """G = 1 (the tiled fold: 8 x 32 rows a warp) and G = 64 with one hot
+    slot, 180+ lanes of every kind (float min and max over NaN, -0.0, 0.0
+    and infinities, NANCNT, a distinct count) in passes, at row counts
+    around a warp and a tile."""
+    table = _dense_vs_plain(cuda, _fold_table(n, n), q, groups)
+    assert table.shape[1] >= 1
+
+
+@pytest.mark.parametrize("q,groups", EDGE_DENSE)
+def test_dense_fold_all_filtered_matches_plain(cuda, q, groups):
+    """A predicate that admits no row: no group, every lane at its
+    identity, in both versions."""
+    q = q.replace(" FROM t", " FROM t WHERE k > 2000000000000")
+    table = _dense_vs_plain(cuda, _fold_table(20_000, 3), q, groups)
+    assert table.shape[1] == 0
+
+
+def _join_edge_ctx(device, case):
+    """Tables `b` (build) and `p` (probe) for the join edges: `hot_build`
+    (one probe key meets 100,000 build rows), `hot_probe` (every probe row
+    meets one build key), `mixed` (buckets of 0, 1 and up to 64 entries)
+    and `two_keys` (two key words)."""
+    import datafusion_tpu_torch as dft
+    rng = np.random.default_rng(len(case))
+    if case == "hot_build":
+        bk = np.concatenate([np.full(100_000, 7), rng.integers(0, 5000, 5000)])
+        pk = rng.integers(0, 5000, 40_000)
+        pk[::997] = 7
+    elif case == "hot_probe":
+        bk = np.concatenate([np.full(5, 3), rng.integers(10, 5000, 5000)])
+        pk = np.full(300_000, 3)
+    else:
+        fan = rng.integers(0, 65, 3000) * (rng.random(3000) < 0.5)
+        bk = np.repeat(np.arange(3000), fan)
+        pk = rng.integers(0, 3200, 200_000)
+    nb, n = len(bk), len(pk)
+    bx = rng.integers(0, 3, nb)
+    b = Batch(Schema([Field("bk", dt.INT64, False), Field("bx", dt.INT64, False),
+                      Field("bg", dt.INT32, False),
+                      Field("bd", dt.decimal(12, 2), True),
+                      Field("bf", dt.FLOAT64, False)]),
+              [Column(dt.INT64, bk.astype(np.int64)),
+               Column(dt.INT64, bx),
+               Column(dt.INT32, rng.integers(0, 40, nb).astype(np.int32)),
+               Column(dt.decimal(12, 2), rng.integers(0, 10**5, nb),
+                      rng.random(nb) > 0.1),
+               Column(dt.FLOAT64, rng.choice(np.array(
+                   [-0.0, 0.0, np.nan, 2.5, -1.0]), nb))], nb)
+    p = Batch(Schema([Field("pk", dt.INT64, True), Field("px", dt.INT64, False),
+                      Field("pf", dt.FLOAT64, False)]),
+              [Column(dt.INT64, pk.astype(np.int64), rng.random(n) > 0.02),
+               Column(dt.INT64, rng.integers(0, 3, n)),
+               Column(dt.FLOAT64, rng.normal(size=n))], n)
+    ctx = dft.SessionContext(device)
+    ctx.register_table("b", dft.MemTable(b.schema, [[b]]))
+    ctx.register_table("p", dft.MemTable(p.schema, [[p]]))
+    return ctx
+
+
+_EDGE_JOIN_DENSE = ("SELECT b.bg, count(*), sum(p.px * b.bd), min(b.bf), "
+                    "max(b.bf), sum(p.pf), count(b.bd) FROM p JOIN b ON {on} "
+                    "GROUP BY b.bg")
+_EDGE_JOIN_HASH = ("SELECT b.bd, p.px, count(*), sum(p.pf * b.bf), "
+                   "max(b.bg) FROM p JOIN b ON {on} GROUP BY b.bd, p.px")
+EDGE_JOINS = [(case, q.format(on=on)) for case in
+              ("hot_build", "hot_probe", "mixed", "two_keys")
+              for on in (["p.pk = b.bk AND p.px = b.bx"] if case == "two_keys"
+                         else ["p.pk = b.bk"])
+              for q in (_EDGE_JOIN_DENSE, _EDGE_JOIN_HASH)]
+
+
+@pytest.mark.parametrize("case,q", EDGE_JOINS)
+def test_join_edges_match_plain(cuda, case, q):
+    """The warp-cooperative probe on its edges, dense and hash folds: a
+    probe key meeting 100,000 build rows, a build key met by every probe
+    row, buckets of 0, 1 and many entries, and two key words; build
+    payloads with NULLs, NaN and -0.0 in their records."""
+    from datafusion_tpu_torch.device.groupby import AggregateSpec
+    spec, table = _join_vs_plain(_join_edge_ctx(cuda, case), cuda, q)
+    assert isinstance(spec, AggregateSpec) == (q.startswith(
+        _EDGE_JOIN_DENSE[:20]))
+    assert table.shape[1] > 0 and table[1].sum() > 0
+
+
+def test_join_forced_overflow_matches_plain(cuda):
+    """A hash fold sized for 4 groups (8 probed slots) that meets many:
+    the kernel and its plain version both raise the overflow flag."""
+    from datafusion_tpu_torch.device.join_agg import (
+        JoinHashSpec, join_aggregate, join_aggregate_plain, join_build)
+    from datafusion_tpu_torch.physical.plan.base import (collect_batch,
+                                                         execute_stream)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        _PairView)
+    ctx = _join_edge_ctx(cuda, "mixed")
+    q = _EDGE_JOIN_HASH.format(on="p.pk = b.bk")
+    ex = _join_exec(ctx, q)
+    tctx = ctx.task_context()
+    lowered = ex.lower()
+    bb = collect_batch(ex.build_source, tctx)
+    bspec, bcols, baux = ex.build_input(lowered, bb)
+    table = join_build(bspec, bcols, baux, bb.num_rows)
+    (pb,) = [b for b in execute_stream(ex.probe_source, tctx) if b.num_rows]
+    view = _PairView(list(bb.columns) + list(pb.columns), pb.num_rows)
+    spec, _plan, _names, _sm = ex.compile_join(lowered, table, [view])
+    small = JoinHashSpec(spec.pools, spec.pred, [
+        (p, o, 30) for p, o, _s in spec.keys], spec.lanes, 4, spec.join)
+    assert not small.identity_slots and small.cap == 8
+    cols, aux = ex.stage_pair(small, bb, pb, view)
+    flags = []
+    for fold in (join_aggregate, join_aggregate_plain):
+        groups = small.new_table(cuda)
+        overflow = torch.zeros(1, dtype=torch.int32, device=cuda)
+        fold(small, cols, aux, pb.num_rows, groups, overflow)
+        torch.cuda.synchronize()
+        flags.append(int(overflow.item()))
+    assert flags == [1, 1]
 
 
 # ---- the mesh: K1 partition_rows, K2 merge_partials ------------------------
