@@ -85,10 +85,11 @@ query is held against a numpy oracle on the same data.
 5. ClickBench's `UserID`, `SearchPhrase` and `EventTime` at 99,997,497
    rows (the public `hits` row count), drawn as `generate_hits` draws
    them, then `RegionID`, `AdvEngineID` and `ResolutionWidth` by its
-   distributions: `group_topk` against its plain version on Q16,
-   `hash_group_aggregate` against its plain version on Q17 (42-bit keys:
-   the probing table), `compact_groups` on both tables, Q16 and Q17 end
-   to end against numpy;
+   distributions: `hash_group_aggregate` against its plain version on Q16
+   (a 2^24-slot identity table) and Q17 (42-bit keys: the probing table),
+   each with `torch.unique(..., return_counts=True)` on its packed keys as
+   the yardstick, `group_topk` against its plain version on Q16,
+   `compact_groups` on both tables, Q16 and Q17 end to end against numpy;
    `hash_group_aggregate` with its distinct lane against its plain
    version on Q10 (equal group tables and distinct sets) and the dense
    fold's 6 passes of Q30's 180 lanes against their plain version, Q10
@@ -147,6 +148,18 @@ of the dense `chain_aggregate` walks of TPC-H Q5, Q12 and Q14 at SF10
 J2 at SF10; the five fold and join queries end to end (warm median of
 REPS); the launches a call; and the registers and stack bytes
 `cuobjdump` gives those kernels in the tree's library.
+
+    python3 chip_smoke.py --hash TREE [TREE ...]
+
+compares the hash group fold (`hash_group_aggregate`) across checkouts in
+the same way: one process a tree, each building its own kernels and making
+`hits(HITS_ROWS)` and the SF10 `tpch_tables` with the same seeds, prints
+one JSON line with the mean device ms of the fold (from a pristine table)
+on CB Q16, CB Q16 over a uniform `UserID` of the same users, CB Q17, CB
+Q10 (its distinct lane) and Q18's and Q15's subqueries,
+`torch.unique(..., return_counts=True)` on CB Q16's and Q17's packed keys,
+CB Q16 and Q17 end to end (warm median of REPS), the launches a call, the
+groups, and the registers and stack bytes of both variants of the kernel.
 
     python3 chip_smoke.py --walks TREE [TREE ...]
 
@@ -856,13 +869,36 @@ def kernel_vs_plain(ctx, sql, table_name, float_rel, reps=(20, 3)):
     return entry(err, ms, plain_ms, bnd)
 
 
-def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
+def unique_yardstick(spec, cols, aux, n, groups, label):
+    """The mean device ms of `torch.unique(keys, return_counts=True)` (a
+    sort and a run-length count: one PyTorch call that computes a
+    count-only group table) on the staged packed keys of the rows that pass
+    the spec's predicate, made with torch ops outside the timed region (so
+    the call leaves out the key program); fails unless it finds `groups`
+    keys."""
+    import torch
+    from datafusion_tpu_torch.device.groupby import _rows_and_keys
+    valid, packed = _rows_and_keys(spec, cols, aux, n)
+    keys = packed[valid]
+    del valid, packed
+    found = torch.unique(keys, return_counts=True)[0].numel()
+    if found != groups:
+        raise AssertionError(f"{label}: torch.unique found {found} keys, "
+                             f"the kernel {groups}")
+    ms = cuda_ms(lambda: torch.unique(keys, return_counts=True), 5)
+    del keys
+    torch.cuda.empty_cache()
+    return ms
+
+
+def hash_kernel_vs_plain(ctx, sql, label, card, having=False, library=False):
     """`hash_group_aggregate` against its plain version on the query's
     staged inputs (equal group tables, ordered by key), and with `having`
     `compact_groups` with the query's HAVING against its plain version
-    (equal, column for column). Returns (kernel 2's report entry, kernel
-    3's with HAVING or None, kernel 3's without, the kernel's table, spec,
-    lane names)."""
+    (equal, column for column); with `library`, `torch.unique` on the
+    packed keys as its yardstick (`unique_yardstick`). Returns (kernel 2's
+    report entry, kernel 3's with HAVING or None, kernel 3's without, the
+    kernel's table, spec, lane names)."""
     import numpy as np
     import torch
     from datafusion_tpu_torch.device.groupby import (
@@ -905,10 +941,14 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
     # inputs read once, each live group's slot written once
     b2 = bound(col_bytes(cols, spec.pools.columns, n) + groups * rows * 8,
                prog_ops(spec, n))
+    lib2 = unique_yardstick(spec, cols, aux, n, groups, label) \
+        if library else None
     print(f"hash_group_aggregate {label}: {n} rows, {groups} groups, "
           f"{spec.cap} slots ({'identity' if spec.identity_slots else 'hashed'})"
           f": kernel {ms2:.6f} ms, plain {plain2:.6f} ms, bound "
-          f"{b2['bound_ms']:.6f} ms, max_abs_err {err2} [{card}]", flush=True)
+          f"{b2['bound_ms']:.6f} ms, torch.unique "
+          f"{'none' if lib2 is None else f'{lib2:.6f} ms'}, max_abs_err "
+          f"{err2} [{card}]", flush=True)
     table = tables[0]
     kc, _launches = compaction_vs_plain(table, None, label, card)
     k3 = None
@@ -916,7 +956,7 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False):
         hv = ex.having(spec, plan, names, slot_map)
         k3, _launches = compaction_vs_plain(table, hv, label, card,
                                             groups * len(hv.prog.code))
-    return entry(err2, ms2, plain2, b2), k3, kc, table, spec, names
+    return entry(err2, ms2, plain2, b2, lib2), k3, kc, table, spec, names
 
 
 def compaction_vs_plain(table, having, label, card, ops=None,
@@ -3194,13 +3234,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     ctx = dft.SessionContext(dev)
     ctx.register_table("hits", dft.MemTable(hb.schema, [[hb]]))
-    _k2, _k3, _kc, table, _spec, names = hash_kernel_vs_plain(
-        ctx, CB_Q16.split(" ORDER BY")[0], "CB Q16 SF100M", card)
+    k16, _k3, _kc, table, _spec, names = hash_kernel_vs_plain(
+        ctx, CB_Q16.split(" ORDER BY")[0], "CB Q16 SF100M", card,
+        library=True)
     report["group_topk"], _n = topk_vs_plain(table, names[0], names, card,
                                              "CB Q16")
     del table
-    _k2, _k3, _kc, table, _spec, names = hash_kernel_vs_plain(
-        ctx, CB_Q17.split(" ORDER BY")[0], "CB Q17 SF100M", card)
+    k17, _k3, _kc, table, _spec, names = hash_kernel_vs_plain(
+        ctx, CB_Q17.split(" ORDER BY")[0], "CB Q17 SF100M", card,
+        library=True)
     topk_vs_plain(table, names[0], names, card, "CB Q17")
     del table
 
@@ -3212,6 +3254,11 @@ def main() -> int:
                               card, "CB Q16", HITS_ROWS)
     add(counts)
     launched_as_predicted("CB Q16", counts, {"group_topk": TOPK_LAUNCHES})
+    fold = "datafusion_tpu/device/groupby.py"
+    source = kernels.KERNELS["hash_group_aggregate"].source
+    variants.append(dict(name="hash_group_aggregate[CB Q16]", route="cuda",
+                         source=source, replaces=f"{fold}:159",
+                         launches=counts["hash_group_aggregate"], **k16))
     per_user = np.bincount(user)
     top_counts_agree("CB Q16", out.columns[0].data_host(),
                      out.columns[1].data_host(),
@@ -3227,6 +3274,9 @@ def main() -> int:
     add(counts)
     launched_as_predicted("CB Q17", counts, {"group_topk": TOPK_LAUNCHES,
                                              "compact_groups": 2})
+    variants.append(dict(name="hash_group_aggregate[CB Q17]", route="cuda",
+                         source=source, replaces=f"{fold}:393",
+                         launches=counts["hash_group_aggregate"], **k17))
     pair, pair_n = np.unique(user * n_dic + code, return_counts=True)
     got_pair = (out.columns[0].data_host() * n_dic +
                 out.columns[1].data_host())
@@ -3464,7 +3514,7 @@ def walk_tree(tree):
 
 def ab_main(flag, trees, inputs=None) -> int:
     """An A/B run on one card: each tree's `flag` child (`--walk-tree`,
-    `--sort-tree`, `--fold-tree`) in a process of its own, in the order
+    `--sort-tree`, `--fold-tree`, `--hash-tree`) in a process of its own, in the order
     given, between two lines of the card's name and power limit. With
     `inputs`, the inputs are made once first, with this checkout's
     package, in a directory that each child gets as its second argument
@@ -3790,6 +3840,107 @@ def fold_tree(tree):
     print(json.dumps(out), flush=True)
 
 
+# ---- the hash group fold across checkouts -----------------------------------
+
+HASH_SYMBOLS = r"hash_group_aggregate_kernel"
+HASH_REPS = 10
+
+
+def hash_tree(tree):
+    """Rows 5, 6, 7 and 9's hash fold with `tree`'s package: the mean
+    device ms (CUDA events, each call from a pristine table and an empty
+    distinct set) of `hash_group_aggregate` on CB Q16, CB Q16 over a
+    uniform `UserID` (the same 16,666,249 users), CB Q17, CB Q10 (its
+    distinct lane), Q18's and Q15's subqueries (SF10); `torch.unique(...,
+    return_counts=True)` on CB Q16's and Q17's packed keys
+    (`unique_yardstick`); CB Q16 and Q17 end to end (`warm_median`); the
+    launches a call; and the registers and stack bytes of both variants
+    of the kernel (`cuobjdump`). Prints one JSON line."""
+    import numpy as np
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    import datafusion_tpu_torch as dft
+    if not dft.__file__.startswith(tree + os.sep):
+        raise AssertionError(f"imported {dft.__file__}, not from {tree}")
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.common import dt
+    from datafusion_tpu_torch.common.column import Column
+    from datafusion_tpu_torch.device.groupby import (compact_groups,
+                                                     hash_group_aggregate)
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        TorchGroupAggregateExec)
+    kernels.library()
+    dev = torch.device(DEVICE)
+    out = {"tree": tree, "fold_ms": {}, "unique_ms": {}, "e2e_ms": {},
+           "launches": {}, "groups": {}}
+
+    def fold(ctx, label, sql, distinct=False, unique=False):
+        ex = find_exec(ctx.sql(sql).create_physical_plan(),
+                       TorchGroupAggregateExec)
+        (batch,) = ex.input_batches(ctx.task_context())
+        spec, _plan, _names, _slots = ex.compile([batch])
+        cols, aux = ex.stage(spec, batch)
+        n = batch.num_rows
+        table = spec.new_table(dev)
+        pristine = table.clone()
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        dset = spec.distinct_set(n, dev) if distinct else None
+
+        def reset():
+            table.copy_(pristine)
+            if dset is not None:
+                dset.words.zero_()
+
+        def call():
+            hash_group_aggregate(spec, cols, aux, n, table, overflow, dset)
+        out["fold_ms"][label] = cuda_ms(call, HASH_REPS, setup=reset)
+        reset()
+        before = dft.launch_counts()["hash_group_aggregate"]
+        call()
+        out["launches"][label] = \
+            dft.launch_counts()["hash_group_aggregate"] - before
+        torch.cuda.synchronize()
+        if int(overflow.item()):
+            raise AssertionError(f"{label}: the fold overflowed")
+        groups = int(compact_groups(table).shape[1])
+        out["groups"][label] = groups
+        del table, pristine, dset
+        if unique:
+            out["unique_ms"][label] = unique_yardstick(spec, cols, aux, n,
+                                                       groups, label)
+        del spec, cols, aux
+        torch.cuda.empty_cache()
+
+    hb = hits(HITS_ROWS, seed=0)
+    rng = np.random.default_rng(1)
+    users = rng.integers(0, max(HITS_ROWS // 6, 10), HITS_ROWS)
+    ub = make_batch([("UserID", Column(dt.INT64, users))])
+    del users
+    ctx = dft.SessionContext(dev)
+    ctx.register_table("hits", dft.MemTable(hb.schema, [[hb]]))
+    ctx.register_table("hits_uniform", dft.MemTable(ub.schema, [[ub]]))
+    fold(ctx, "CB Q16", CB_Q16.split(" ORDER BY")[0], unique=True)
+    fold(ctx, "CB Q16 uniform", CB_Q16.split(" ORDER BY")[0].replace(
+        "FROM hits", "FROM hits_uniform"))
+    fold(ctx, "CB Q17", CB_Q17.split(" ORDER BY")[0], unique=True)
+    fold(ctx, "CB Q10", CB_Q10.split(" ORDER BY")[0], distinct=True)
+    for label, sql in (("CB Q16", CB_Q16), ("CB Q17", CB_Q17)):
+        out["e2e_ms"][label] = warm_median(ctx, sql)
+    del ctx, hb, ub
+    torch.cuda.empty_cache()
+    tables = tpch_tables(10, seed=0)
+    ctx = dft.SessionContext(dev)
+    for tname, b in tables.items():
+        ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
+    fold(ctx, "Q18 sub SF10", Q18_SUB)
+    fold(ctx, "Q15 sub SF10", Q15_SUB)
+    out["resources"] = {kernel_label(k): v for k, v in
+                        kernel_resources(str(kernels.LIB),
+                                         HASH_SYMBOLS).items()}
+    print(json.dumps(out), flush=True)
+
+
 def host_joins_main() -> int:
     """J1 and J2 at SF10 through the port's host plan (`datafusion.tpu.
     device_aggregate` off: a numpy HashJoinExec under an AggregateExec),
@@ -3835,6 +3986,10 @@ if __name__ == "__main__":
         sys.exit(ab_main("--sort-tree", sys.argv[2:], sort_inputs))
     if sys.argv[1:2] == ["--sort-tree"]:
         sys.exit(sort_tree(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--hash"]:
+        sys.exit(ab_main("--hash-tree", sys.argv[2:]))
+    if sys.argv[1:2] == ["--hash-tree"]:
+        sys.exit(hash_tree(sys.argv[2]))
     if sys.argv[1:2] == ["--folds"]:
         sys.exit(ab_main("--fold-tree", sys.argv[2:]))
     if sys.argv[1:2] == ["--fold-tree"]:

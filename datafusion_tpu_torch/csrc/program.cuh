@@ -37,6 +37,19 @@
 // fold, warp or row at a time, takes what a row adds to a lane from one
 // place, `lane_value`, which holds the lane rules.
 //
+// The hash aggregate has its own fold, `hash_fold_warps`, which also
+// reduces before any atomic, in two levels. A warp takes 32 consecutive
+// rows a step and the rows of one packed key are peers (__match_any_sync
+// on the 64-bit key): the lowest counts them by a popcount, finds the
+// group once and makes one atomic a lane after the lanes reduce over the
+// set. It finds the group first in its block's cache of hot keys, an
+// open-addressing table of the table's layout in dynamic shared memory
+// (`cache_entry`, merged into the table at the block's end by
+// `cache_merge`), then in the table; identity mode writes a group's key
+// word once, from the count update that finds the count 0. The join-chain
+// walks keep the row-at-a-time `hash_fold`, and the fanout-N join its
+// per-pair `hash_fold_row`: their registers are the tighter limit there.
+//
 // Lanes run in passes of at most 32 (groupby.py MAX_LANES): a descriptor
 // holds one pass's lanes, and H_LANE0 says where they start among the
 // table's lane rows. The first pass counts the rows and, in hash mode,
@@ -1080,6 +1093,255 @@ __device__ void hash_fold(const i64* meta, const i64* aux, i64 n_rows,
     hash_fold_row(meta, aux, row, cols, cap, identity_slots, table,
                   overflow);
   }
+}
+
+// ---- the aggregate's hash fold: warp peers, then a block cache ---------------
+
+// Entries a key probes in its block's cache before it goes to the table.
+constexpr int kCacheProbes = 8;
+// A block stops probing its cache once its debt reaches kCacheGiveUp: each
+// peer set that claims an entry (a merge to come) or misses (probes for
+// nothing) adds 1, each that hits an entry it holds takes kCacheHitCredit
+// (an atomic on the table saved). Keys that seldom repeat within a block
+// (a uniform key over millions of groups, sorted keys, a selective
+// predicate) stop it after a few hundred sets; a zipf head keeps it.
+constexpr int kCacheGiveUp = 256;
+constexpr int kCacheHitCredit = 4;
+// A block stops matching peers once its steps' debt reaches kMatchGiveUp:
+// each warp step adds 1 and takes 2 for each row that joined another's
+// set. Keys that seldom meet in a warp (5,000 uniform regions, a
+// selective predicate) stop it within about a hundred steps a block; a
+// hot key or sorted keys keep it.
+constexpr int kMatchGiveUp = 64;
+
+// A block's cache of hot keys in shared memory: `entries` (a power of two)
+// entries laid out as the table, [lanes + 2][entries] (row 0 the keys,
+// EMPTY = -1; row 1 the counts; then this pass's lanes), each cell at its
+// identity.
+__device__ __forceinline__ void cache_init(const i64* meta, i64* cache,
+                                           int entries) {
+  const i64* lanes = meta + meta[H_OFF_LANES];
+  const int cells = ((int)meta[H_NLANES] + 2) * entries;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int r = i / entries;
+    cache[i] = r == 0 ? kEmpty
+                      : (r == 1 ? 0 : identity((int)lanes[2 * (r - 2) + 1]));
+  }
+  __syncthreads();
+}
+
+// The cache entry of `key` (>= 0), claimed with a shared CAS if the key is
+// new to it (*fresh); -1 when kCacheProbes entries from the key's hash
+// (Fibonacci hashing) hold other keys. A key, once claimed, keeps its
+// entry until the block merges the cache.
+__device__ __forceinline__ int cache_entry(i64* keys, int entries, i64 key,
+                                           bool* fresh) {
+  const int mask = entries - 1;
+  int e = (int)(((u64)key * 0x9E3779B97F4A7C15ull) >> 40) & mask;
+  for (int p = 0; p < kCacheProbes; ++p) {
+    const i64 seen = ((volatile i64*)keys)[e];
+    if (seen == key) {
+      *fresh = false;
+      return e;
+    }
+    if (seen == kEmpty) {
+      const i64 old = (i64)atomicCAS((u64*)&keys[e], (u64)kEmpty, (u64)key);
+      if (old == kEmpty || old == key) {
+        *fresh = old == kEmpty;
+        return e;
+      }
+    }
+    e = (e + 1) & mask;
+  }
+  return -1;
+}
+
+// The table slot of group `key`: the key itself in identity mode, else
+// probed and claimed (`claim_slot`); -1 when the table is full.
+__device__ __forceinline__ i64 group_slot(i64* table, i64 cap,
+                                          int identity_slots, i64 key) {
+  return identity_slots ? key : find_slot(table, cap, key);
+}
+
+// `n` rows added to the count of group `key` at `slot`, in the first pass
+// only. In identity mode the key word is written here, by the one update
+// that finds the count 0: once a group, not once a row.
+__device__ __forceinline__ void count_rows(i64* table, i64 cap,
+                                           int identity_slots, i64 lane0,
+                                           i64 slot, i64 key, i64 n) {
+  if (lane0 != 0) return;
+  const u64 old = atomicAdd((u64*)&table[cap + slot], (u64)n);
+  if (identity_slots && old == 0) table[slot] = key;
+}
+
+// A cache cell's value as `fold` takes it: a SUM_F32 cell holds a float32
+// in its low word, `fold` a float64 holding a float32 value.
+__device__ __forceinline__ i64 cell_value(int kind, i64 x) {
+  if (kind != LANE_SUM_F32) return x;
+  return as_i((double)__int_as_float((int)(x & 0xffffffffll)));
+}
+
+// The block's cache merged into the table: each occupied entry finds or
+// claims its group's slot (a key that finds none sets *overflow), adds its
+// count in the first pass, and folds each lane that is not its identity.
+__device__ __forceinline__ void cache_merge(const i64* meta, i64* cache,
+                                            int entries, i64 cap,
+                                            int identity_slots, i64* table,
+                                            int* overflow) {
+  __syncthreads();
+  const i64 lane0 = meta[H_LANE0];
+  const i64* lanes = meta + meta[H_OFF_LANES];
+  const int n_lanes = (int)meta[H_NLANES];
+  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
+    const i64 key = cache[e];
+    if (key == kEmpty) continue;
+    const i64 slot = group_slot(table, cap, identity_slots, key);
+    if (slot < 0) {
+      *overflow = 1;
+      continue;
+    }
+    count_rows(table, cap, identity_slots, lane0, slot, key,
+               cache[entries + e]);
+    for (int l = 0; l < n_lanes; ++l) {
+      const int kind = (int)lanes[2 * l + 1];
+      const i64 x = cache[(l + 2) * entries + e];
+      if (x != identity(kind)) {
+        fold(kind, (u64*)&table[(l + 2 + lane0) * cap + slot],
+             cell_value(kind, x));
+      }
+    }
+  }
+}
+
+// Every admitted row folded into the global hash table `table` of [all
+// lanes + 2][cap], the aggregate kernel's fold. A warp takes 32 consecutive
+// rows a step, so its column loads are coalesced; each row's admitted bit
+// and packed key are found once, and the rows of one key are its peers
+// (__match_any_sync on the 64-bit key). The lowest peer counts them by a
+// popcount and finds the group once: in the block's cache (`cache_entry`:
+// shared atomics, merged into the table at the block's end by
+// `cache_merge`), or, on a miss or without a cache (`entries` = 0), in the
+// table (`group_slot`, `count_rows`). Each lane reduces over the peers
+// before the lowest makes one atomic: counts by a ballot (a distinct lane's
+// 1s, one set insert a row, are the pairs its rows created), the others by
+// `reduce_peers`, so a float min or max runs its CAS loop once a peer set.
+// A row whose key finds no slot, or lies outside an identity table, sets
+// *overflow and is dropped. A pass with a distinct lane must run without a
+// cache (`entries` = 0: the set's pair needs the table slot in every row,
+// which the lowest peer shares). A block stops matching, or probing its
+// cache, where its keys show it saves nothing (kMatchGiveUp,
+// kCacheGiveUp); with no row in another's set, the step reduces nothing.
+// Little lives across the interpreter's calls, so that the fold keeps the
+// row-at-a-time fold's stack (144 B lean, 192 B full on an NVIDIA H100): a
+// peer set's destination is one word, the block's statistics sit in
+// shared memory, and the row is the loop's only counter.
+template <class Rows>
+__device__ void hash_fold_warps(const i64* meta, const i64* aux, i64 n_rows,
+                                i64 cap, int identity_slots, i64* table,
+                                int* overflow, i64* cache, int entries,
+                                const Rows& rows) {
+  // the block's cache debt (kCacheGiveUp: off from the start without a
+  // cache) and match debt
+  __shared__ int debt, unmatched;
+  if (threadIdx.x == 0) {
+    debt = entries > 0 ? 0 : kCacheGiveUp;
+    unmatched = 0;
+  }
+  __syncthreads();
+  if (entries > 0) cache_init(meta, cache, entries);
+  const i64 per_block = (blockDim.x + 31) >> 5;
+  const i64 width = __popc(warp_members());
+  const i64 first_row =
+      ((i64)blockIdx.x * per_block + (threadIdx.x >> 5)) * width + lane_id();
+  for (i64 row = first_row; row - lane_id() < n_rows;
+       row += (i64)gridDim.x * per_block * width) {
+    typename Rows::Columns cols;
+    bool adm = row < n_rows && rows(row, &cols);
+    i64 key = kEmpty;
+    if (adm) {
+      key = pack_key(meta, aux, meta + meta[H_OFF_KEYS], (int)meta[H_NKEYS],
+                     row, cols);
+      if (key < 0 || (identity_slots && key >= cap)) {
+        *overflow = 1;
+        adm = false;
+        key = kEmpty;
+      }
+    }
+    const unsigned admitted = __ballot_sync(kWarp, adm);
+    if (admitted == 0) continue;
+    // a row not admitted is a set of its own, which no lane reduces over;
+    // peers is 0 in every lane when every row is (no row joined another's
+    // set, or the block stopped matching): the step then reduces nothing
+    unsigned peers = 0;
+    // the block's state as lane 0 reads it, the same in every lane
+    if (__shfl_sync(kWarp, *(volatile int*)&unmatched, 0) < kMatchGiveUp) {
+      const unsigned match = __match_any_sync(kWarp, (u64)key);
+      peers = adm ? match : 1u << lane_id();
+      const int joined =
+          __popc(admitted) -
+          __popc(__ballot_sync(kWarp, adm && lane_id() == __ffs(peers) - 1));
+      if (lane_id() == 0) atomicAdd(&unmatched, 1 - 2 * joined);
+      if (joined == 0) peers = 0;
+    }
+    const i64 lane0 = meta[H_LANE0];
+    const bool cached =
+        __shfl_sync(kWarp, *(volatile int*)&debt, 0) < kCacheGiveUp;
+    // where the lowest peer folds, in one word: the table slot (>= 0), the
+    // cache entry e as -2 - e, or -1 for nowhere (a row not admitted, or
+    // no slot); and what its set adds to the block's debt
+    i64 at = -1;
+    int owes = 0;
+    if (adm && (peers == 0 || lane_id() == __ffs(peers) - 1)) {
+      const i64 n = peers == 0 ? 1 : __popc(peers);
+      bool fresh = true;
+      const int e = cached ? cache_entry(cache, entries, key, &fresh) : -1;
+      owes = fresh ? 1 : -kCacheHitCredit;
+      if (e >= 0) {
+        if (lane0 == 0) atomicAdd((u64*)&cache[entries + e], (u64)n);
+        at = -2 - e;
+      } else {
+        at = group_slot(table, cap, identity_slots, key);
+        if (at < 0) {
+          *overflow = 1;
+        } else {
+          count_rows(table, cap, identity_slots, lane0, at, key, n);
+        }
+      }
+    }
+    // every peer learns where its set went (a distinct lane's set insert
+    // takes the slot)
+    if (peers != 0) at = __shfl_sync(kWarp, at, __ffs(peers) - 1);
+    if (cached) {
+      owes = __reduce_add_sync(kWarp, owes);
+      if (lane_id() == 0 && owes != 0) atomicAdd(&debt, owes);
+    }
+    for (int l = 0; l < (int)meta[H_NLANES]; ++l) {
+      const i64* lanes = meta + meta[H_OFF_LANES];
+      const int prog = (int)lanes[2 * l];
+      const int kind = (int)lanes[2 * l + 1];
+      i64 x;
+      if (!(at != -1 &&
+            lane_value(meta, aux, prog, kind, l, row, cols, at, &x))) {
+        x = identity(kind);
+      }
+      i64 r = x;
+      if (peers != 0) {
+        r = counts_kind(kind)
+                ? (i64)__popc(__ballot_sync(kWarp, x != 0) & peers)
+                : reduce_peers(kind, peers, x);
+      }
+      const bool lead =
+          at != -1 && (peers == 0 || lane_id() == __ffs(peers) - 1);
+      if (!lead || r == identity(kind)) continue;
+      if (at < -1) {
+        fold(kind, (u64*)&cache[(l + 2) * entries + (-2 - at)], r);
+      } else {
+        fold(kind, (u64*)&table[(l + 2 + meta[H_LANE0]) * cap + at], r);
+      }
+    }
+  }
+  if (entries > 0) cache_merge(meta, cache, entries, cap, identity_slots,
+                               table, overflow);
 }
 
 // ---- the fanout-N join ------------------------------------------------------

@@ -700,12 +700,15 @@ def hash_group_aggregate(spec: HashSpec, cols: Columns, aux: torch.Tensor,
         return table
     lib = kernels.library()
     with torch.cuda.device(table.device):
-        for meta in spec.metas:
+        for meta, (_at, lanes) in zip(spec.metas, spec.passes):
             meta_d = spec.device_meta(cols, table.device, meta, dset)
+            # a pass with a distinct lane folds without the block cache
+            cache = not any(k in _DISTINCT_LANES for _p, k in lanes)
             rc = lib.dft_hash_group_aggregate(
-                meta_d.data_ptr(), len(meta), aux.data_ptr(), n_rows,
-                spec.cap, int(spec.identity_slots), table.data_ptr(),
-                overflow.data_ptr(), int(spec.full), _stream(table.device))
+                meta_d.data_ptr(), len(meta), len(lanes), int(cache),
+                aux.data_ptr(), n_rows, spec.cap, int(spec.identity_slots),
+                table.data_ptr(), overflow.data_ptr(), int(spec.full),
+                _stream(table.device))
             kernels.check(rc, hash_group_aggregate_kernel)
             hash_group_aggregate_kernel.launches += 1
     return table

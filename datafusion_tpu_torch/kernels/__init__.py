@@ -38,7 +38,8 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes; each returns cudaGetLastError()
 _SIGNATURES = {
     "dft_fused_dense_aggregate": [_P, _I, _I, _I, _P, _LL, _P, _I, _P],
-    "dft_hash_group_aggregate": [_P, _I, _P, _LL, _LL, _I, _P, _P, _I, _P],
+    "dft_hash_group_aggregate": [_P, _I, _I, _I, _P, _LL, _LL, _I, _P, _P, _I,
+                                 _P],
     "dft_compact_mark": [_P, _I, _I, _P, _LL, _P, _LL, _P, _P, _P],
     "dft_compact_copy": [_P, _LL, _I, _P, _LL, _P, _P, _P, _LL, _P],
     "dft_group_topk": [_P, _LL, _I, _I, _LL, _P, _P, _LL, _P, _P, _P,

@@ -11,11 +11,14 @@ header that defines the CUDA names for one thread: `__device__` is empty,
 `__ldg` a load, an atomic a plain read-modify-write, a warp shuffle gives
 back its own value, a ballot its own bit, `__match_any_sync` and
 `__activemask` the thread alone (so a warp loop sized by the warp's
-members takes one row a step; `test_torch_join_walk.py` replays the
-32-lane steps). Each kernel then runs as one thread of one block over
+members takes one row a step; `test_torch_join_walk.py` and
+`test_torch_hash_fold.py` replay the 32-lane steps), and a block's static
+`__shared__` variables are the function's own locals. Each kernel then runs as one thread of one block over
 the inputs its plain PyTorch version reads, and the two must agree
 exactly (the transcendental math functions within rel 1e-15, glibc's
-against PyTorch's): every program of the lowering tests, the dense fold,
+against PyTorch's): every program of the lowering tests, the dense fold, the aggregate's
+hash fold (identity and probed tables, both interpreter variants, skewed
+keys, block caches of 0, 1 and 64 entries, a table that overflows),
 every build table (the insert pass; the range pass needs a warp) and
 every chain walk of TPC-H at SF 0.01 and of the min/max membership cases
 (with their staging-time compositions and folds, as the exec stages them;
@@ -68,6 +71,7 @@ inline double __longlong_as_double(long long b) {
 inline long long __double_as_longlong(double d) {
   long long b; memcpy(&b, &d, 8); return b; }
 inline float __double2float_rn(double d) { return (float)d; }
+inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T atomicAdd(T* a, T v) { T o = *a; *a = o + v; return o; }
 inline long long atomicMin(long long* a, long long v) {
@@ -78,6 +82,8 @@ template <class T> T atomicCAS(T* a, T c, T v) {
   T o = *a; if (o == c) *a = v; return o; }
 inline void __syncthreads() {}
 inline void __threadfence() {}
+inline void __syncwarp(unsigned = 0xffffffffu) {}
+inline int __reduce_add_sync(unsigned, int v) { return v; }
 template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
 template <class T> T __shfl_up_sync(unsigned, T v, int) { return v; }
 template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
@@ -207,10 +213,11 @@ void h_fold(const int* rows, long long size, const long long* comp,
 }
 void h_hash(const long long* meta, int len, const long long* aux,
             long long n, long long cap, int ident, long long* table,
-            int* overflow, int full) {
+            int* overflow, int full, int entries) {
   (full ? hg::hash_group_aggregate_kernel<true>
         : hg::hash_group_aggregate_kernel<false>)(meta, len, aux, n, cap,
-                                                  ident, table, overflow);
+                                                  ident, table, overflow,
+                                                  entries);
 }
 void h_jb_hash(const long long* meta, int len, const long long* aux,
                long long n, long long* hashes, long long* words,
@@ -278,7 +285,7 @@ def lib(tmp_path_factory):
     out.h_rows_emit.argtypes = [P, I, P, LL, P, P, I]
     out.h_compose.argtypes = [P, I, P, LL, I, P, LL, I, I]
     out.h_fold.argtypes = [P, LL, P, I, P, I, P, P, I]
-    out.h_hash.argtypes = [P, I, P, LL, LL, I, P, P, I]
+    out.h_hash.argtypes = [P, I, P, LL, LL, I, P, P, I, I]
     out.h_jb_hash.argtypes = [P, I, P, LL, P, P, P, I]
     out.h_jb_count.argtypes = [P, LL, LL, P]
     out.h_jb_scatter.argtypes = [P, P, I, LL, LL, P, P, P, I, I, P, P, P]
@@ -677,7 +684,7 @@ def test_distinct_and_pass_folds_match_plain(lib, q):
     dg, dw = spec.distinct_set(n, CPU), spec.distinct_set(n, CPU)
     dense = isinstance(spec, AggregateSpec)
     ovf = torch.zeros(1, dtype=torch.int32)
-    for meta in spec.metas:
+    for meta, (_at, lanes) in zip(spec.metas, spec.passes):
         m = spec.device_meta(cols, CPU, meta, dg)
         if dense:
             lib.h_dense(_ptr(m), len(meta), _ptr(aux), n, _ptr(got),
@@ -685,7 +692,7 @@ def test_distinct_and_pass_folds_match_plain(lib, q):
         else:
             lib.h_hash(_ptr(m), len(meta), _ptr(aux), n, spec.cap,
                        int(spec.identity_slots), _ptr(got), _ptr(ovf),
-                       int(spec.full))
+                       int(spec.full), _cache_entries(lanes, 64))
     if dense:
         dense_group_aggregate_plain(spec, cols, aux, n, want, dset=dw)
         got, want = dense_group_table(got), dense_group_table(want)
@@ -698,6 +705,13 @@ def test_distinct_and_pass_folds_match_plain(lib, q):
     if dg is not None:
         assert _pairs_by_key(dg, got, False) == _pairs_by_key(dw, want, False)
         assert int(dg.words[-1]) == 0
+
+
+def _cache_entries(lanes, entries):
+    """The block cache a pass of `lanes` gets, as the launch wrapper gives
+    it: none with a distinct lane."""
+    from datafusion_tpu_torch.device.groupby import _DISTINCT_LANES
+    return 0 if any(k in _DISTINCT_LANES for _p, k in lanes) else entries
 
 
 def _same_groups(spec, got, want):
@@ -715,6 +729,121 @@ def _same_groups(spec, got, want):
                 assert a == pytest.approx(b, rel=1e-12, nan_ok=True)
             else:
                 assert a == b, (key, i)
+
+
+# --- the aggregate's hash fold: warp peers and the block cache ----------------
+
+def _skew_table(n, seed, mult):
+    """`test_torch_cuda._table`'s columns under an int64 key x, zipf(1.3)
+    over 5,000 keys times `mult` (2^27 makes a 2^40 key space: the probing
+    table); a quarter of the rows or so share the hottest key."""
+    import test_torch_cuda as C
+    from datafusion_tpu_torch.common import dt
+    from datafusion_tpu_torch.common.batch import Batch
+    from datafusion_tpu_torch.common.column import Column
+    from datafusion_tpu_torch.common.schema import Field, Schema
+    rng = np.random.default_rng(seed)
+    x = (rng.zipf(1.3, n) % 5000).astype(np.int64) * mult
+    base = C._table(n, seed)
+    schema = Schema([Field("x", dt.INT64, False)] + list(base.schema.fields))
+    return Batch(schema, [Column(dt.INT64, x)] + list(base.columns), n)
+
+
+_WIDE = ("SELECT x, count(*), count(v), sum(v), min(v), max(v), sum(f), "
+         "min(i), max(i), sum(d) FROM t GROUP BY x")
+_FULL = ("SELECT x, sum(CASE WHEN k > 0 THEN v WHEN i < 0 THEN f END), "
+         "sum(i % 7), sum(k / (i % 5)), count(CASE WHEN b THEN 1 END), "
+         "max(v) FROM t WHERE g <> 'b' GROUP BY x")
+# (query, table, identity slots, full interpreter): the queries of
+# test_torch_cuda.HASH_QUERIES, then skewed keys in both modes and both
+# interpreter variants
+HASH_FOLDS = [
+    (_WIDE, ("wide", 40), False, False),
+    ("SELECT gi, g, k, count(*), sum(d), avg(v), max(f) FROM t WHERE b "
+     "GROUP BY gi, g, k", ("wide", 20), True, False),
+    (_WIDE, ("zipf", 1), True, False),
+    (_WIDE, ("zipf", 1 << 27), False, False),
+    (_FULL, ("zipf", 1), True, True),
+    (_FULL, ("zipf", 1 << 27), False, True),
+]
+
+
+@pytest.mark.parametrize("entries", [0, 1, 64])
+@pytest.mark.parametrize("q,data,identity,full", HASH_FOLDS)
+def test_hash_fold_matches_plain(lib, q, data, identity, full, entries):
+    """The aggregate's hash fold (`hash_fold_warps`) against the plain
+    version, with no block cache, a cache of one entry (every other key
+    misses it) and of 64 (the warp stops probing once its rows mostly
+    miss): equal groups, counts, integer lanes and min/max; float64 sums
+    within rel 1e-12 and float32 sums within rel 1e-5 (a cached key's
+    partial sum joins the table's in another order)."""
+    import datafusion_tpu_torch as dft
+    import test_torch_cuda as C
+    from datafusion_tpu_torch.device.groupby import (
+        LANE_SUM_F32, LANE_SUM_F64, HashSpec, hash_group_aggregate_plain)
+    kind, arg = data
+    batch = C._wide_table(20_000, 11, arg) if kind == "wide" \
+        else _skew_table(20_000, 5, arg)
+    ctx = dft.SessionContext(CPU)
+    ctx.register_table("t", dft.MemTable(batch.schema, [[batch]]))
+    node = C._exec(ctx, q)
+    (src,) = node.input_batches(ctx.task_context())
+    spec, _p, _n, _s = node.compile([src])
+    assert isinstance(spec, HashSpec)
+    assert spec.identity_slots == identity and spec.full == full
+    cols, aux = node.stage(spec, src)
+    n = src.num_rows
+    got, want = spec.new_table(CPU), spec.new_table(CPU)
+    ovf = torch.zeros(1, dtype=torch.int32)
+    for meta, (_at, lanes) in zip(spec.metas, spec.passes):
+        m = spec.device_meta(cols, CPU, meta)
+        lib.h_hash(_ptr(m), len(meta), _ptr(aux), n, spec.cap,
+                   int(spec.identity_slots), _ptr(got), _ptr(ovf),
+                   int(spec.full), _cache_entries(lanes, entries))
+    hash_group_aggregate_plain(spec, cols, aux, n, want,
+                               torch.zeros(1, dtype=torch.int32))
+    assert int(ovf) == 0
+    g, w = _groups(got, False), _groups(want, False)
+    assert g.keys() == w.keys() and g
+    kinds = [k for _p, k in spec.lanes]
+    for key, row in g.items():
+        assert row[0] == w[key][0], key
+        for kind, a, b in zip(kinds, row[1:], w[key][1:]):
+            if kind == LANE_SUM_F64:
+                a, b = (np.int64(x).view(np.float64) for x in (a, b))
+                assert a == pytest.approx(b, rel=1e-12, nan_ok=True)
+            elif kind == LANE_SUM_F32:
+                a, b = (np.array([x], np.int64).view(np.float32)[0]
+                        for x in (a, b))
+                assert a == pytest.approx(b, rel=1e-5, abs=1e-3)
+            else:
+                assert a == b, (key, kind)
+
+
+def test_hash_fold_cache_overflow_is_flagged(lib):
+    """A table too small for its keys sets the overflow flag, with the keys
+    held in a block cache (merged at the block's end) and without one."""
+    import datafusion_tpu_torch as dft
+    import test_torch_cuda as C
+    from datafusion_tpu_torch.device.groupby import HashSpec
+    batch = _skew_table(5_000, 6, 1 << 27)
+    ctx = dft.SessionContext(CPU)
+    ctx.register_table("t", dft.MemTable(batch.schema, [[batch]]))
+    node = C._exec(ctx, "SELECT x, count(*) FROM t GROUP BY x")
+    (src,) = node.input_batches(ctx.task_context())
+    spec, _p, _n, _s = node.compile([src])
+    small = HashSpec(spec.pools, spec.pred,
+                     [(p, o, 40) for p, o, _s in spec.keys], spec.lanes, 100)
+    cols, aux = node.stage(small, src)
+    for entries in (0, 1 << 12):
+        table = small.new_table(CPU)
+        ovf = torch.zeros(1, dtype=torch.int32)
+        m = small.device_meta(cols, CPU, small.meta)
+        lib.h_hash(_ptr(m), len(small.meta), _ptr(aux), src.num_rows,
+                   small.cap, int(small.identity_slots), _ptr(table),
+                   _ptr(ovf), int(small.full), entries)
+        assert int(ovf) == 1
+        assert int((table[0] != -1).sum()) == small.cap
 
 
 def test_tpch_q5_distinct_chain_kernels_match_plain(lib, tpch):

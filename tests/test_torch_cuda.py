@@ -236,6 +236,117 @@ def test_hash_overflow_is_flagged(cuda):
     assert int(overflow.item()) == 1
 
 
+def _fold_edge_batch(n, seed, case):
+    """An int64 key x (one key; zipf(1.3) over n / 6 keys; uniform over
+    n / 2, more than any block cache holds; zipf over 100,000 keys spread
+    over 2^40) beside a float64 v (NaNs and NULLs), a float32 f, an int64 i
+    and a low-cardinality int64 u."""
+    rng = np.random.default_rng(seed)
+    if case == "one_key":
+        x = np.full(n, 7, np.int64)
+    elif case == "many_keys":
+        x = rng.integers(0, n // 2, n)
+    elif case == "wide":
+        x = (rng.zipf(1.3, n) % 100_000) * (1 << 23)
+    else:
+        x = rng.zipf(1.3, n) % (n // 6)
+    v = rng.normal(size=n) * 100
+    v[rng.random(n) < 0.02] = np.nan
+    schema = Schema([Field("x", dt.INT64, False), Field("v", dt.FLOAT64, True),
+                     Field("f", dt.FLOAT32, False), Field("i", dt.INT64, False),
+                     Field("u", dt.INT64, False)])
+    return Batch(schema, [
+        Column(dt.INT64, x.astype(np.int64)),
+        Column(dt.FLOAT64, v, rng.random(n) > 0.03),
+        Column(dt.FLOAT32, (rng.normal(size=n) * 10).astype(np.float32)),
+        Column(dt.INT64, rng.integers(-10**12, 10**12, n)),
+        Column(dt.INT64, rng.integers(0, 50, n))], n)
+
+
+_INTS = "SELECT x, count(*), sum(i), min(i), max(i) FROM t GROUP BY x"
+# (id, keys, query, key bits forced or None, identity slots)
+HASH_EDGES = [
+    ("one key for every row", "one_key", _INTS, 20, True),
+    ("zipf keys", "zipf", _INTS, None, True),
+    ("more keys than a cache", "many_keys", _INTS, None, True),
+    ("2^40 key space", "wide", _INTS, None, False),
+    ("float min/max with NaN", "zipf", "SELECT x, count(v), min(v), max(v), "
+     "sum(v) FROM t GROUP BY x", None, True),
+    ("SUM_F32", "zipf", "SELECT x, sum(f), count(*) FROM t GROUP BY x", None,
+     True),
+    ("40 lanes in two passes", "zipf", "SELECT x, count(*), " + ", ".join(
+        f"sum(i + {k})" for k in range(38)) + " FROM t GROUP BY x", None,
+     True),
+    ("a distinct lane", "zipf", "SELECT x, count(DISTINCT u), sum(i) FROM t "
+     "GROUP BY x", None, True),
+]
+
+
+@pytest.mark.parametrize("case,keys,q,bits,identity", HASH_EDGES,
+                         ids=[e[0] for e in HASH_EDGES])
+def test_hash_fold_edges_match_plain(cuda, case, keys, q, bits, identity):
+    """The warp-peer and block-cache fold against the plain version at 2^22
+    rows: equal keys, counts and integer lanes, float min/max exactly,
+    float sums within `_assert_tables_equal`'s bounds (another order)."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        HashSpec, compact_groups, compact_groups_plain, hash_group_aggregate,
+        hash_group_aggregate_plain)
+    batch = _fold_edge_batch(1 << 22, 21, keys)
+    ctx = dft.SessionContext(cuda)
+    ctx.register_table("t", dft.MemTable(batch.schema, [[batch]]))
+    node = _exec(ctx, q)
+    (src,) = node.input_batches(ctx.task_context())
+    spec, _p, _n, _s = node.compile([src])
+    if bits is not None:
+        spec = HashSpec(spec.pools, spec.pred,
+                        [(p, o, bits) for p, o, _s in spec.keys], spec.lanes,
+                        src.num_rows)
+    assert isinstance(spec, HashSpec) and spec.identity_slots == identity
+    cols, aux = node.stage(spec, src)
+    n = src.num_rows
+    tables = []
+    for fold, compact in ((hash_group_aggregate, compact_groups),
+                          (hash_group_aggregate_plain, compact_groups_plain)):
+        table = spec.new_table(cuda)
+        overflow = torch.zeros(1, dtype=torch.int32, device=cuda)
+        dset = spec.distinct_set(n, cuda)
+        fold(spec, cols, aux, n, table, overflow, dset=dset)
+        torch.cuda.synchronize()
+        assert int(overflow.item()) == 0
+        assert dset is None or not dset.overflowed()
+        tables.append(compact(table).cpu().numpy())
+    _assert_tables_equal(spec, *tables)
+
+
+def test_hash_overflow_in_a_block_cache_is_flagged(cuda):
+    """A table too small for its keys sets the overflow flag when the keys
+    sit in the blocks' caches, so that only the caches' merges reach the
+    table: 1,000 keys, each block's cache holding all it meets."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        HashSpec, hash_group_aggregate)
+    n = 1 << 20
+    rng = np.random.default_rng(13)
+    x = rng.integers(0, 1000, n) * (1 << 30)
+    batch = Batch(Schema([Field("x", dt.INT64, False)]),
+                  [Column(dt.INT64, x)], n)
+    ctx = dft.SessionContext(cuda)
+    ctx.register_table("t", dft.MemTable(batch.schema, [[batch]]))
+    node = _exec(ctx, "SELECT x, count(*) FROM t GROUP BY x")
+    (src,) = node.input_batches(ctx.task_context())
+    spec, _p, _n, _s = node.compile([src])
+    small = HashSpec(spec.pools, spec.pred,
+                     [(p, o, 40) for p, o, _s in spec.keys], spec.lanes, 100)
+    assert not small.identity_slots and small.cap < 1000
+    cols, aux = node.stage(small, src)
+    table = small.new_table(cuda)
+    overflow = torch.zeros(1, dtype=torch.int32, device=cuda)
+    hash_group_aggregate(small, cols, aux, n, table, overflow)
+    assert int(overflow.item()) == 1
+    assert int((table[0] != -1).sum().item()) == small.cap
+
+
 def test_having_compaction_matches_plain(cuda):
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch.device.groupby import (
