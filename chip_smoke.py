@@ -27,7 +27,9 @@ query is held against a numpy oracle on the same data.
      indexing as the yardstick), then both subqueries end to end against
      numpy;
    - join chains: `chain_build` against its plain version on every build
-     side of Q5 (equal tables) and `chain_aggregate` against its plain
+     side of Q5 (equal tables; two launches a build side, the range pass
+     and the insert, as Q3's, Q4's, Q5's and Q21's runs are held to) and
+     `chain_aggregate` against its plain
      version on Q5's walk (equal group tables), the same on Q3 (the hash
      fold) and Q4 (the SEMI build over lineitem), then Q3, Q4 and Q5 end
      to end against numpy, each with a breakdown of its time; for every
@@ -50,7 +52,9 @@ query is held against a numpy oracle on the same data.
      taking the resident emit, each with a breakdown;
    - the full expression lowering, SEMI/ANTI min/max membership and the
      functional-dependence lane: `chain_build` against its plain version
-     on Q21's builds (its two lineitem min/max tables equal) and
+     on Q21's builds (its two lineitem min/max tables equal;
+     `scatter_reduce_` amin and amax on the packed keys as the yardstick,
+     `index_put_` of the rows beside every other direct table) and
      `chain_aggregate` on Q21's, Q18's reduced, Q9's (date_part keys)
      and Q12's (CASE) walks, then Q7, Q8, Q9, Q10, Q12, Q14, Q18 and Q21
      end to end against numpy, with 0 fallbacks and a breakdown each;
@@ -80,8 +84,10 @@ query is held against a numpy oracle on the same data.
      `window_scan` against their plain versions on each window
      evaluation's inputs (equal; the sort also against np.lexsort's
      order; the gather's record layout and mode printed, `index_select`
-     a lane as its yardstick), then each query end to end against
-     numpy, with a breakdown;
+     a lane as its yardstick; the scan's launches as `scan_launches`
+     predicts, `index_copy_` of one int64 lane as its floor), then each
+     query end to end against numpy, with its scan launches as predicted
+     and a breakdown;
 5. ClickBench's `UserID`, `SearchPhrase` and `EventTime` at 99,997,497
    rows (the public `hits` row count), drawn as `generate_hits` draws
    them, then `RegionID`, `AdvEngineID` and `ResolutionWidth` by its
@@ -160,6 +166,23 @@ Q10 (its distinct lane) and Q18's and Q15's subqueries,
 `torch.unique(..., return_counts=True)` on CB Q16's and Q17's packed keys,
 CB Q16 and Q17 end to end (warm median of REPS), the launches a call, the
 groups, and the registers and stack bytes of both variants of the kernel.
+
+    python3 chip_smoke.py --scans TREE [TREE ...]
+
+compares the window scan (`window_scan`) and the chain build
+(`chain_build`) across checkouts in the same way: one process a tree,
+each building its own kernels and making the SF10 `tpch_tables` with the
+same seed, prints one JSON line with, on every window evaluation of W1,
+W2 and each partition run of W3 (sorted and gathered by the tree's own
+kernels), `window_scan` held to its plain version, its mean device ms
+(CUDA events) and the floor beside it, `index_copy_` of one int64 lane
+through the permutation; on every build side of TPC-H Q4, Q21, Q3 and
+Q5, `chain_build` held to its plain version, its mean device ms and its
+`build_yardstick` (`scatter_reduce_` amin and amax for a min/max table,
+`index_put_` of the rows for another direct table); for each the
+launches a call and the device ms of each kernel in one profiled call;
+Q4 and Q21 (warm median of REPS) and W1 (one run after a warm-up) end to
+end; and the registers and stack bytes of both kernels' variants.
 
     python3 chip_smoke.py --walks TREE [TREE ...]
 
@@ -1083,42 +1106,105 @@ def topk_vs_plain(table, lane, names, card, label, predicted=True):
     return entry(0.0, ms, plain, bnd, library), launches
 
 
-def chain_builds_vs_plain(ex, tctx, card, label, mmx_only=False):
-    """`chain_build` against its plain version on every build side of the
-    chain exec `ex` (the same kind, ranges, shifts, live rows and
-    duplicate flag, the same keys, for an INNER build the same row of
-    each key, for a min/max build the same extremes of each key). Returns
-    the report entry of the largest build side (with `mmx_only`, of the
-    largest min/max build side)."""
+def check_build(bi, label):
+    """`chain_build` against its plain version on the build side `bi`
+    (the same kind, ranges, shifts, live rows and duplicate flag, the same
+    keys, for an INNER build the same row of each key, for a min/max build
+    the same extremes of each key). Returns the kernel's table."""
     import numpy as np
     from datafusion_tpu_torch.device.join_chain import (
         chain_build, chain_build_plain)
-    best = None
+    n = bi.batch.num_rows
+    got = chain_build(bi.spec, bi.cols, bi.aux, n, bi.unique)
+    want = chain_build_plain(bi.spec, bi.cols, bi.aux, n, bi.unique)
+
+    def shape(t):
+        return (t.kind, t.los, t.his, t.shifts, t.size, t.live, t.duplicate)
+    gk, gr = got.entries()
+    wk, wr = want.entries()
+    # a SEMI or ANTI build stores presence: of a key's rows, either
+    # version may keep any one
+    mmx = got.mn is not None
+    if shape(got) != shape(want) or not np.array_equal(gk, wk) or \
+            (bi.unique and not np.array_equal(gr, wr)) or \
+            mmx != (want.mn is not None) or (mmx and not all(
+                np.array_equal(a, b) for a, b in zip(
+                    got.extremes(), want.extremes()))):
+        raise AssertionError(f"{label}: chain_build differs from its plain "
+                             f"version: {shape(got)} {shape(want)}")
+    return got
+
+
+def build_yardstick(bi, table, reps=5):
+    """The one PyTorch call that computes a direct build table from the
+    packed keys of its live rows (the programs left out, as
+    `unique_yardstick` leaves out the key program): for a min/max build
+    `scatter_reduce_` "amin" and "amax" of the member into the extremes,
+    else `index_put_` of the rows. {call: mean device ms}, and "ms" their
+    sum; None for a hashed or empty table, whose slots are no function of
+    the key alone."""
+    import torch
+    from datafusion_tpu_torch.device.join_chain import TAB_DIRECT
+    from datafusion_tpu_torch.device.lower import evaluate
+    if table.kind != TAB_DIRECT:
+        return None
+    spec, cols, aux, n = bi.spec, bi.cols, bi.aux, bi.batch.num_rows
+    live = torch.ones(n, dtype=torch.bool, device=aux.device)
+    if spec.pred is not None:
+        d, v = evaluate(spec.pred, cols, aux, n)
+        live &= (d != 0) & v
+    packed = torch.zeros(n, dtype=torch.int64, device=aux.device)
+    for prog, lo, shift in zip(spec.key_programs(), table.los, table.shifts):
+        d, v = evaluate(prog, cols, aux, n)
+        live &= v
+        packed |= (d - lo) << shift
+    member = None
+    if spec.member is not None:
+        member, v = evaluate(spec.member, cols, aux, n)
+        live &= v
+        member = member[live]
+    packed = packed[live]
+    out = {}
+    if member is not None:
+        ext = torch.empty(table.size, dtype=torch.int64, device=aux.device)
+        for how in ("amin", "amax"):
+            out[f"scatter_reduce_ {how}"] = cuda_ms(
+                lambda: ext.scatter_reduce_(0, packed, member, how), reps)
+    else:
+        rows = torch.nonzero(live).squeeze(1).to(torch.int32)
+        tab = torch.empty(table.size, dtype=torch.int32, device=aux.device)
+        out["index_put_"] = cuda_ms(lambda: tab.index_put_((packed,), rows),
+                                    reps)
+    out["ms"] = sum(out.values())
+    return out
+
+
+def chain_builds_vs_plain(ex, tctx, card, label, mmx_only=False):
+    """`check_build` on every build side of the chain exec `ex`, each
+    timed beside its plain version and, for a direct table, its
+    `build_yardstick`, and held to the launches its design predicts: the
+    range pass and the insert, no insert for an empty table. Returns the
+    report entry of the largest build side (with `mmx_only`, of the largest
+    min/max build side) and the launches a run of the query predicts."""
+    from datafusion_tpu_torch.device.join_chain import (
+        TAB_EMPTY, chain_build, chain_build_kernel, chain_build_plain)
+    best, predicted = None, 0
     for h, bi in enumerate(ex.build_inputs(tctx)):
         n = bi.batch.num_rows
-        got = chain_build(bi.spec, bi.cols, bi.aux, n, bi.unique)
-        want = chain_build_plain(bi.spec, bi.cols, bi.aux, n, bi.unique)
-
-        def shape(t):
-            return (t.kind, t.los, t.his, t.shifts, t.size, t.live,
-                    t.duplicate)
-        gk, gr = got.entries()
-        wk, wr = want.entries()
-        # a SEMI or ANTI build stores presence: of a key's rows, either
-        # version may keep any one
+        before = chain_build_kernel.launches
+        got = check_build(bi, f"{label} build {h}")
+        launches = chain_build_kernel.launches - before
+        want = (n > 0) + (got.kind != TAB_EMPTY)
+        if launches != want:
+            raise AssertionError(f"{label} build {h}: chain_build counted "
+                                 f"{launches} launches, not {want}")
+        predicted += want
         mmx = got.mn is not None
-        if shape(got) != shape(want) or not np.array_equal(gk, wk) or \
-                (bi.unique and not np.array_equal(gr, wr)) or \
-                mmx != (want.mn is not None) or (mmx and not all(
-                    np.array_equal(a, b) for a, b in zip(
-                        got.extremes(), want.extremes()))):
-            raise AssertionError(f"{label} build {h}: chain_build differs "
-                                 f"from its plain version: {shape(got)} "
-                                 f"{shape(want)}")
         ms = cuda_ms(lambda: chain_build(bi.spec, bi.cols, bi.aux, n,
                                          bi.unique), 5)
         plain = cuda_ms(lambda: chain_build_plain(bi.spec, bi.cols, bi.aux,
                                                   n, bi.unique), 2)
+        lib = build_yardstick(bi, got)
         # inputs read once, the table written once
         nbytes = col_bytes(bi.cols, bi.spec.pools.columns, n) + \
             got.size * entry_bytes(got)
@@ -1127,11 +1213,12 @@ def chain_builds_vs_plain(ex, tctx, card, label, mmx_only=False):
         print(f"chain_build {label} build {h}: {n} rows, {got.live} live, "
               f"{kind}{' min/max' if mmx else ''} table of {got.size} "
               f"slots: kernel {ms:.6f} ms, plain {plain:.6f} ms, bound "
-              f"{bnd['bound_ms']:.6f} ms, max_abs_err 0 [{card}]",
-              flush=True)
+              f"{bnd['bound_ms']:.6f} ms, library {lib}, max_abs_err 0 "
+              f"[{card}]", flush=True)
         if (mmx or not mmx_only) and (best is None or n > best[0]):
-            best = (n, entry(0.0, ms, plain, bnd))
-    return best[1]
+            best = (n, entry(0.0, ms, plain, bnd,
+                             None if lib is None else lib["ms"]))
+    return best[1], predicted
 
 
 def chain_walk_vs_plain(ex, tctx, card, label):
@@ -1486,6 +1573,26 @@ def oracle_first(keys, k=10):
     return cand[np.lexsort(tuple(x[cand] for x in reversed(keys)))[:k]]
 
 
+def window_batches(ctx, sql, all_runs=False):
+    """(exec, batches, runs) of the query's WindowExec as the main path
+    evaluates it: its whole input, or for a BoundedWindowExec the first
+    of its `runs` partition runs (every run, in order, with
+    `all_runs`)."""
+    import numpy as np
+    from datafusion_tpu_torch.physical.plan.base import collect_batch
+    from datafusion_tpu_torch.physical.plan.window import (
+        BoundedWindowExec, WindowExec)
+    ex = find_exec(ctx.sql(sql).create_physical_plan(), WindowExec)
+    batch = collect_batch(ex.input, ctx.task_context())
+    if not isinstance(ex, BoundedWindowExec):
+        return ex, [batch], 1
+    key = ex.window_exprs[0].partition_by[0].evaluate(batch).data_host()
+    cuts = [0, *(np.flatnonzero(key[1:] != key[:-1]) + 1), batch.num_rows]
+    runs = [batch.take_host(np.arange(a, b))
+            for a, b in zip(cuts, cuts[1:] if all_runs else cuts[1:2])]
+    return ex, runs, len(cuts) - 1
+
+
 def window_kernels_vs_plain(ctx, sql, card, label):
     """For each window function of the query's WindowExec, on the inputs
     of one evaluation of the main path (a BoundedWindowExec's first
@@ -1493,29 +1600,27 @@ def window_kernels_vs_plain(ctx, sql, card, label):
     their plain versions (equal, all of them: W1-W3 sum only decimals).
     Bounds: the gather reads the index once and each lane once and writes
     each lane once; the scan reads the sorted words, lanes and the
-    permutation once and writes each output once. Returns the report
-    entries (gather, scan) of the first function and the gather's launches
-    that `gather_plan` predicts for one batch's evaluations, each of which
-    is held to its prediction."""
+    permutation once and writes each output once; the scan's yardstick
+    is a floor, `index_copy_` of one int64 lane through the permutation
+    (the scatter every design pays; no one PyTorch call computes a window
+    function). Returns the report entries (gather, scan) of the first
+    function, the gather's launches that `gather_plan` predicts for one
+    batch's evaluations and the scan's that `scan_launches` predicts for
+    one run of the query (every partition run), each of which is held to
+    its prediction."""
     import numpy as np
     import torch
     from datafusion_tpu_torch.device.groupby import (
         gather_lanes_kernel, gather_plan, reorder_rows, reorder_rows_plain)
     from datafusion_tpu_torch.device.window import (
-        stage_window, window_scan, window_scan_plain)
-    from datafusion_tpu_torch.physical.plan.base import collect_batch
+        scan_launches, stage_window, window_scan, window_scan_kernel,
+        window_scan_plain)
     from datafusion_tpu_torch.physical.plan.device_sort import (
         radix_sort, radix_sort_plain)
     from datafusion_tpu_torch.physical.plan.window import (
-        BoundedWindowExec, WindowExec, _plan_window_evaluation,
-        device_window_inputs)
-    ex = find_exec(ctx.sql(sql).create_physical_plan(), WindowExec)
-    batch = collect_batch(ex.input, ctx.task_context())
-    if isinstance(ex, BoundedWindowExec):
-        key = ex.window_exprs[0].partition_by[0].evaluate(batch).data_host()
-        cut = int(np.argmax(key != key[0])) or batch.num_rows
-        batch = batch.take_host(np.arange(cut))
-    n, first, predicted = batch.num_rows, None, 0
+        _plan_window_evaluation, device_window_inputs)
+    ex, (batch,), n_runs = window_batches(ctx, sql)
+    n, first, predicted, scans = batch.num_rows, None, 0, 0
     for w in _plan_window_evaluation(ex.window_exprs,
                                      ex.input.output_ordering()):
         inputs = device_window_inputs(w, batch)
@@ -1543,7 +1648,14 @@ def window_kernels_vs_plain(ctx, sql, card, label):
                 raise AssertionError(f"{label} {spec}: gather_lanes differs")
         sw, rest = moved[:len(words)], iter(moved[len(words):])
         sl = [None if x is None else next(rest) for x in lanes]
+        before = window_scan_kernel.launches
         got = window_scan(sw, len(pw), perm, spec, *sl)
+        launches_s = window_scan_kernel.launches - before
+        if launches_s != scan_launches(spec):
+            raise AssertionError(f"{label} {spec}: window_scan counted "
+                                 f"{launches_s} launches, not "
+                                 f"{scan_launches(spec)}")
+        scans += scan_launches(spec) * n_runs
         want = window_scan_plain(sw, len(pw), perm, spec, *sl)
         torch.cuda.synchronize()
         for k in want:
@@ -1561,6 +1673,10 @@ def window_kernels_vs_plain(ctx, sql, card, label):
         ms_s = cuda_ms(lambda: window_scan(sw, len(pw), perm, spec, *sl), 5)
         plain_s = cuda_ms(
             lambda: window_scan_plain(sw, len(pw), perm, spec, *sl), 2)
+        lane, into = (torch.zeros(n, dtype=torch.int64, device=perm.device)
+                      for _ in range(2))
+        floor_s = cuda_ms(lambda: into.index_copy_(0, perm, lane), 5)
+        del lane, into
         read = n * (8 + sum(t.element_size() for t in sw) +
                     sum(t.element_size() for t in sl if t is not None))
         wrote = sum(v.numel() * v.element_size() for v in got.values())
@@ -1573,15 +1689,16 @@ def window_kernels_vs_plain(ctx, sql, card, label):
               f"{ms_g:.6f} ms, plain "
               f"{plain_g:.6f} ms, index_select {lib_g:.6f} ms, bound "
               f"{b_g['bound_ms']:.6f} ms; "
-              f"window_scan kernel {ms_s:.6f} ms, plain {plain_s:.6f} ms, "
-              f"bound {b_s['bound_ms']:.6f} ms; every output equal "
-              f"[{card}]", flush=True)
+              f"window_scan kernel {ms_s:.6f} ms ({launches_s} launches), "
+              f"plain {plain_s:.6f} ms, bound {b_s['bound_ms']:.6f} ms, "
+              f"floor (index_copy_ of one int64 lane) {floor_s:.6f} ms; "
+              f"every output equal [{card}]", flush=True)
         if first is None:
             first = (entry(0.0, ms_g, plain_g, b_g, lib_g),
-                     entry(0.0, ms_s, plain_s, b_s))
+                     entry(0.0, ms_s, plain_s, b_s, floor_s))
         del words, lanes, extras, perm, moved, sw, sl, got
         torch.cuda.empty_cache()
-    return first, predicted
+    return first, predicted, scans
 
 
 # ---- numpy oracles of the window queries -------------------------------------
@@ -2083,10 +2200,12 @@ def full_lowering_phase(ctx, tables, card, add):
             raise AssertionError(f"Q{q} plans no TorchJoinChainAggregateExec")
         print(f"Q{q} SF10 plans {ex.display_line()}", flush=True)
         stage[q] = staging_kernels(ex, tctx, q)
+    kb21, builds21 = chain_builds_vs_plain(execs[21], tctx, card, "Q21 SF10",
+                                           mmx_only=True)
     variants = {
-        "chain_build[mmx]": (21, "chain_build", chain_builds_vs_plain(
-            execs[21], tctx, card, "Q21 SF10", mmx_only=True),
-            "datafusion_tpu/physical/plan/device_join_chain.py:1158"),
+        "chain_build[mmx]": (21, "chain_build", kb21,
+                             "datafusion_tpu/physical/plan/"
+                             "device_join_chain.py:1158"),
         "chain_aggregate[fd]": (18, "chain_aggregate", chain_walk_vs_plain(
             execs[18], tctx, card, "Q18 SF10"),
             "datafusion_tpu/physical/plan/device_join_chain.py:1501")}
@@ -2107,6 +2226,9 @@ def full_lowering_phase(ctx, tables, card, add):
         out, counts, _ = run_path(ctx, TPCH[q], expect, card, f"Q{q} SF10",
                                   li.num_rows, TorchJoinChainAggregateExec)
         add(counts)
+        if q == 21:
+            launched_as_predicted("Q21 SF10", counts,
+                                  {"chain_build": builds21})
         for name, (vq, kernel, ent, replaces) in variants.items():
             if vq == q:
                 out_entries[name] = dict(
@@ -3017,6 +3139,7 @@ def main() -> int:
     chain = ["chain_build", "chain_aggregate"]
     tctx = ctx.task_context()
     stage = {}         # query -> the staging kernels its run launches
+    builds = {}        # query -> chain_build's launches a run
     for q in (5, 3, 4):
         ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
                        TorchJoinChainAggregateExec)
@@ -3024,7 +3147,7 @@ def main() -> int:
             raise AssertionError(f"Q{q} plans no TorchJoinChainAggregateExec")
         print(f"Q{q} SF10 plans {ex.display_line()}", flush=True)
         stage[q] = staging_kernels(ex, tctx, q)
-        kb = chain_builds_vs_plain(ex, tctx, card, f"Q{q} SF10")
+        kb, builds[q] = chain_builds_vs_plain(ex, tctx, card, f"Q{q} SF10")
         kw = chain_walk_vs_plain(ex, tctx, card, f"Q{q} SF10")
         if q == 5:
             report["chain_build"], report["chain_aggregate"] = kb, kw
@@ -3039,6 +3162,7 @@ def main() -> int:
                               "Q3 SF10", li.num_rows,
                               TorchJoinChainAggregateExec)
     add(counts)
+    launched_as_predicted("Q3 SF10", counts, {"chain_build": builds[3]})
     keys, revs, dates, n_groups = oracle_q3(tables)
     if not (np.array_equal(col(out, "l_orderkey"), keys) and
             np.array_equal(col(out, "revenue"), revs) and
@@ -3055,6 +3179,7 @@ def main() -> int:
                               tables["orders"].num_rows,
                               TorchJoinChainAggregateExec)
     add(counts)
+    launched_as_predicted("Q4 SF10", counts, {"chain_build": builds[4]})
     prios, want4 = oracle_q4(tables)
     got4 = out.to_pydict()
     if got4 != {"o_orderpriority": prios, "order_count": want4.tolist()}:
@@ -3067,6 +3192,7 @@ def main() -> int:
                               stage[5], card, "Q5 SF10",
                               li.num_rows, TorchJoinChainAggregateExec)
     add(counts)
+    launched_as_predicted("Q5 SF10", counts, {"chain_build": builds[5]})
     want5 = oracle_q5(tables)
     got5 = list(zip(out.columns[0].to_pylist(),
                     col(out, "revenue").tolist()))
@@ -3157,9 +3283,10 @@ def main() -> int:
     from datafusion_tpu_torch.physical.plan.window import WindowExec
     window = ["radix_sort", "gather_lanes", "window_scan"]
     n_li = li.num_rows
+    scans = {}
     for label, sql in (("W1", W1), ("W2", W2), ("W3", W3)):
-        (kg, ks), gathers = window_kernels_vs_plain(ctx, sql, card,
-                                                    f"{label} SF10")
+        (kg, ks), gathers, scans[label] = window_kernels_vs_plain(
+            ctx, sql, card, f"{label} SF10")
         if label == "W1":
             report["gather_lanes"], report["window_scan"] = kg, ks
             w1_gathers = gathers
@@ -3167,7 +3294,8 @@ def main() -> int:
     out, counts, _ = run_path(ctx, W1, window, card, "W1 SF10", n_li,
                               WindowExec, reps=WINDOW_REPS, warm=False)
     add(counts)
-    launched_as_predicted("W1 SF10", counts, {"gather_lanes": w1_gathers},
+    launched_as_predicted("W1 SF10", counts, {"gather_lanes": w1_gathers,
+                                              "window_scan": scans["W1"]},
                           runs=WINDOW_REPS)
     want = oracle_w1(li)
     got = [col(out, c).astype(np.int64) for c in (
@@ -3176,13 +3304,15 @@ def main() -> int:
         raise AssertionError("W1 SF10 disagrees with numpy")
     print(f"W1 SF10 equals numpy exactly: {out.num_rows} rows of rank <= 3 "
           f"over {len(np.unique(want[0]))} suppliers", flush=True)
-    breakdown(ctx, W1, card, "W1 SF10", WindowExec, main="eval_kernel",
+    breakdown(ctx, W1, card, "W1 SF10", WindowExec, main="window_pass",
               host="none (no filter below the window)")
     del out, got, want
 
     out, counts, _ = run_path(ctx, W2, window, card, "W2 SF10", n_li,
                               WindowExec, reps=WINDOW_REPS, warm=False)
     add(counts)
+    launched_as_predicted("W2 SF10", counts, {"window_scan": scans["W2"]},
+                          runs=WINDOW_REPS)
     order = window_order(li, ["l_shipdate", "l_orderkey"])
     price = col(li, "l_extendedprice")[order]
     prev = out.column_by_name("prev_price")
@@ -3197,13 +3327,15 @@ def main() -> int:
         raise AssertionError("W2 SF10 disagrees with numpy")
     print(f"W2 SF10 equals numpy exactly: {n_li} rows, row_number and lag "
           f"in (l_shipdate, l_orderkey) order", flush=True)
-    breakdown(ctx, W2, card, "W2 SF10", WindowExec, main="eval_kernel",
+    breakdown(ctx, W2, card, "W2 SF10", WindowExec, main="window_pass",
               host="none (no filter below the window)")
     del out, order, price, prev
 
     out, counts, _ = run_path(ctx, W3, window, card, "W3 SF10", n_li,
                               WindowExec, reps=WINDOW_REPS, warm=False)
     add(counts)
+    launched_as_predicted("W3 SF10", counts, {"window_scan": scans["W3"]},
+                          runs=WINDOW_REPS)
     order = window_order(li, ["l_returnflag", "l_shipdate", "l_orderkey"])
     flag = col(li, "l_returnflag")[order]
     sums = np.cumsum(col(li, "l_quantity")[order])
@@ -3220,7 +3352,7 @@ def main() -> int:
         raise AssertionError("W3 SF10 disagrees with numpy")
     print(f"W3 SF10 equals numpy exactly: {n_li} rows in "
           f"{len(np.unique(flag))} partition runs", flush=True)
-    breakdown(ctx, W3, card, "W3 SF10", WindowExec, main="eval_kernel",
+    breakdown(ctx, W3, card, "W3 SF10", WindowExec, main="window_pass",
               host="none (no filter below the window)")
     del ctx, tables, li, out, order, flag, sums, idx, lo, qty7
     torch.cuda.empty_cache()
@@ -3941,6 +4073,131 @@ def hash_tree(tree):
     print(json.dumps(out), flush=True)
 
 
+# ---- the window scan and the chain build across checkouts ----------------------
+
+SCAN_SYMBOLS = (r"flags_kernel|scan_(reduce|top|apply)_kernel|eval_kernel|"
+                r"window_pass_kernel|chain_build_\w+_kernel")
+SCAN_REPS = 5
+SCAN_BUILDS = (4, 21, 3, 5)
+SCAN_E2E = (4, 21)
+
+
+def scan_tree(tree):
+    """Row 20's window scan and rows 14-15's chain build with `tree`'s
+    package: on every window evaluation of W1, W2 and W3 (each partition
+    run of W3) over the SF10 lineitem, sorted and gathered by the tree's
+    kernels, `window_scan` against its plain version, its mean device ms
+    (CUDA events) beside the floor every design pays, `index_copy_` of one
+    int64 lane through the permutation; on every build side of TPC-H Q4,
+    Q21, Q3 and Q5 at SF10, `check_build`, the mean device ms of
+    `chain_build` and its `build_yardstick`; for each, the launches a call
+    and the device ms of each kernel in one profiled call (`kernel_ms`);
+    Q4, Q21 (warm median of REPS) and W1 (one run after a warm-up) end to
+    end; the registers and stack bytes of the kernels (`cuobjdump`).
+    Prints one JSON line."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    import datafusion_tpu_torch as dft
+    if not dft.__file__.startswith(tree + os.sep):
+        raise AssertionError(f"imported {dft.__file__}, not from {tree}")
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.groupby import reorder_rows
+    from datafusion_tpu_torch.device.join_chain import chain_build
+    from datafusion_tpu_torch.device.window import (
+        stage_window, window_scan, window_scan_plain)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainAggregateExec)
+    from datafusion_tpu_torch.physical.plan.device_sort import radix_sort
+    from datafusion_tpu_torch.physical.plan.window import (
+        _plan_window_evaluation, device_window_inputs)
+    from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
+    kernels.library()
+    dev = torch.device(DEVICE)
+    out = {"tree": tree, "scan": {}, "build": {}, "e2e_ms": {}}
+
+    def launches(name, fn):
+        before = dft.launch_counts()[name]
+        fn()
+        return dft.launch_counts()[name] - before
+
+    tables = tpch_tables(10, seed=0)
+    ctx = dft.SessionContext(dev)
+    for tname, b in tables.items():
+        ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
+    tctx = ctx.task_context()
+    for q in SCAN_BUILDS:
+        ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
+                       TorchJoinChainAggregateExec)
+        for h, bi in enumerate(ex.build_inputs(tctx)):
+            n = bi.batch.num_rows
+            label = f"Q{q} build {h}"
+            got = check_build(bi, label)
+
+            def call():
+                chain_build(bi.spec, bi.cols, bi.aux, n, bi.unique)
+            out["build"][label] = dict(
+                rows=n, live=got.live, slots=got.size,
+                kind=["direct", "hashed", "empty"][got.kind],
+                mmx=got.mn is not None, unique=bi.unique,
+                ms=cuda_ms(call, SCAN_REPS), launches=launches(
+                    "chain_build", call),
+                library=build_yardstick(bi, got, SCAN_REPS),
+                device_ms=kernel_ms(call))
+            del got
+            torch.cuda.empty_cache()
+    for q in SCAN_E2E:
+        out["e2e_ms"][f"Q{q}"] = warm_median(ctx, TPCH[q])
+    li = tables["lineitem"]
+    del ctx, tables, tctx
+    torch.cuda.empty_cache()
+    ctx = dft.SessionContext(dev)
+    ctx.register_table("lineitem", dft.MemTable(li.schema, [[li]]))
+    for qname, sql in (("W1", W1), ("W2", W2), ("W3", W3)):
+        ex, runs, _n = window_batches(ctx, sql, all_runs=True)
+        for r, batch in enumerate(runs):
+            n = batch.num_rows
+            for w in _plan_window_evaluation(ex.window_exprs,
+                                             ex.input.output_ordering()):
+                spec, pw, ow, lanes, _arg = device_window_inputs(w, batch)
+                words, lanes = stage_window(pw, ow, n, spec, **lanes,
+                                            device=dev)
+                perm = radix_sort(words)
+                extras = [x for x in lanes if x is not None]
+                moved = reorder_rows(perm, words + extras)
+                sw, rest = moved[:len(words)], iter(moved[len(words):])
+                sl = [None if x is None else next(rest) for x in lanes]
+                del moved, rest, extras, words, lanes
+                label = f"{qname}{f' run {r}' if len(runs) > 1 else ''} " \
+                    f"{spec}"
+                got = window_scan(sw, len(pw), perm, spec, *sl)
+                want = window_scan_plain(sw, len(pw), perm, spec, *sl)
+                if any(not torch.equal(got[k], want[k]) for k in want):
+                    raise AssertionError(f"{label}: window_scan differs")
+                del got, want
+
+                def call():
+                    window_scan(sw, len(pw), perm, spec, *sl)
+                x = torch.zeros(n, dtype=torch.int64, device=dev)
+                y = torch.empty_like(x)
+                out["scan"][label] = dict(
+                    rows=n, ms=cuda_ms(call, SCAN_REPS),
+                    floor_index_copy_ms=cuda_ms(
+                        lambda: y.index_copy_(0, perm, x), SCAN_REPS),
+                    launches=launches("window_scan", call),
+                    device_ms=kernel_ms(call))
+                del sw, sl, perm, x, y
+                torch.cuda.empty_cache()
+    ctx.sql(W1).collect_batch()
+    t0 = time.perf_counter()
+    ctx.sql(W1).collect_batch()
+    out["e2e_ms"]["W1"] = (time.perf_counter() - t0) * 1e3
+    out["resources"] = {kernel_label(k): v for k, v in
+                        kernel_resources(str(kernels.LIB),
+                                         SCAN_SYMBOLS).items()}
+    print(json.dumps(out), flush=True)
+
+
 def host_joins_main() -> int:
     """J1 and J2 at SF10 through the port's host plan (`datafusion.tpu.
     device_aggregate` off: a numpy HashJoinExec under an AggregateExec),
@@ -3990,6 +4247,10 @@ if __name__ == "__main__":
         sys.exit(ab_main("--hash-tree", sys.argv[2:]))
     if sys.argv[1:2] == ["--hash-tree"]:
         sys.exit(hash_tree(sys.argv[2]))
+    if sys.argv[1:2] == ["--scans"]:
+        sys.exit(ab_main("--scan-tree", sys.argv[2:]))
+    if sys.argv[1:2] == ["--scan-tree"]:
+        sys.exit(scan_tree(sys.argv[2]))
     if sys.argv[1:2] == ["--folds"]:
         sys.exit(ab_main("--fold-tree", sys.argv[2:]))
     if sys.argv[1:2] == ["--fold-tree"]:

@@ -25,19 +25,29 @@
 //   2. insert, once the host has read the ranges and laid the table out:
 //      the keys pack as sum((v_k - lo_k) << shift_k), then
 //      - a direct-address int32 table (row or -1) when the packed span is
-//        at most 16 x rows and 2^26: one atomicCAS from -1 per row; a CAS
+//        at most 16 x rows and 2^26: one atomicCAS from -1 a key; a CAS
 //        that finds another row marks a duplicate key;
 //      - otherwise an open-addressing table of (int64 key, int32 row) of 2 x
 //        next_pow2(rows) slots, claimed with atomicCAS as the hash group-by
 //        does; a key found already present marks a duplicate.
+//      A warp takes 32 consecutive rows a step and the rows of one packed
+//      key are peers: the lowest inserts for the set, and a set of two or
+//      more is a duplicate (chain_build_insert_kernel).
 //   An INNER build with a duplicate key has fanout > 1: the exec reads the
 //   flag once and runs its host plan. SEMI and ANTI builds need presence
-//   only and ignore it.
+//   only: they keep any one row of a key, stored without a CAS on a direct
+//   table, and have no flag.
 // A min/max build (the descriptor's one lane: the member column's program)
 // also needs the member valid for a row to count, and folds each live
 // row's member value into int64 min and max arrays aligned with the table
-// (INT64_MAX / INT64_MIN where empty) with atomicMin and atomicMax. Its
-// table is laid out by the same rule as every other build.
+// (INT64_MAX / INT64_MIN where empty): the peers' values reduce in the warp,
+// then one atomicMin and one atomicMax a set. Its table is laid out by the
+// same rule as every other build.
+//
+// TPC-H's lineitem is sorted by l_orderkey with about 4 rows an order, so a
+// warp's 32 rows of Q4's and Q21's builds over it meet about 8 keys: the
+// row-at-a-time insert made 4 serialised atomics of each kind on each, the
+// peers make one.
 //
 // Bounds. TPC-H orders at SF10 (15M rows, the largest build of Q3 and Q5)
 // read o_orderkey and the predicate's o_orderdate (12 bytes a row, 180 MB)
@@ -117,6 +127,51 @@ chain_build_range_kernel(const i64* __restrict__ meta_g, int meta_len,
   }
 }
 
+// The lowest peer's insert for a set of n_peers rows of one packed key
+// (lo and hi: the set's extremes of the member; row: the lowest's row).
+__device__ __forceinline__ void insert_set(int kind, i64 size, int* table,
+                                           i64* keys_tab, i64* mn, i64* mx,
+                                           int* dup, i64 row, i64 packed,
+                                           int n_peers, i64 lo, i64 hi) {
+  if (dup != nullptr && n_peers > 1) *dup = 1;
+  i64 slot = packed;
+  if (kind == TAB_DIRECT) {
+    if (dup == nullptr) {
+      table[packed] = (int)row;
+    } else if (atomicCAS(table + packed, -1, (int)row) != -1) {
+      *dup = 1;
+    }
+  } else {
+    bool fresh = false;
+    slot = claim_slot(keys_tab, size, packed, &fresh);
+    if (slot < 0) {   // cannot happen: the table has 2 x rows slots
+      if (dup != nullptr) *dup = 2;
+      return;
+    }
+    if (fresh) {
+      table[slot] = (int)row;
+    } else if (dup != nullptr) {
+      *dup = 1;
+    }
+  }
+  if (mn != nullptr) {
+    atomicMin((long long*)mn + slot, lo);
+    atomicMax((long long*)mx + slot, hi);
+  }
+}
+
+// The insert pass. A warp takes 32 consecutive build rows a step; the rows
+// that share a packed key are peers (__match_any_sync on the 64-bit key),
+// and the lowest peer inserts for all of them (`insert_set`): one
+// atomicCAS on a direct table or one claim of a hashed slot a key and
+// step. Two peers already prove a duplicate key (no atomic needed to find
+// it); a SEMI/ANTI build (dup null) needs any one row of a key, so on a
+// direct table the lowest peer stores its row with no CAS; a min/max build
+// reduces the peers' member values over the set (`reduce_peers`) before
+// one atomicMin and one atomicMax. Once a block's keys seldom meet in a
+// warp (kMatchGiveUp, as hash_fold_warps counts: a unique key, such as
+// TPC-H's orders, meets no peer), its warps stop matching and each row
+// inserts for itself, as before, with no warp-wide step to wait for.
 template <bool Full>
 __global__ void __launch_bounds__(kThreads)
 chain_build_insert_kernel(const i64* __restrict__ meta_g, int meta_len,
@@ -125,42 +180,63 @@ chain_build_insert_kernel(const i64* __restrict__ meta_g, int meta_len,
                           i64* __restrict__ keys_tab, i64* __restrict__ mn,
                           i64* __restrict__ mx, int* __restrict__ dup) {
   extern __shared__ i64 smem[];
+  __shared__ int unmatched;   // the block's match debt
+  if (threadIdx.x == 0) unmatched = 0;
   stage_meta(smem, meta_g, meta_len);
   const i64* meta = smem;
   const int n_keys = (int)meta[H_NKEYS];
   const i64* keys = meta + meta[H_OFF_KEYS];   // (prog, lo, shift) per key
   const PlainRows<Full> rows{meta, aux};
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
-       row += stride) {
+  const int lane = lane_id();
+  const i64 per_block = (blockDim.x + 31) >> 5;
+  const i64 width = __popc(warp_members());
+  const i64 stride = (i64)gridDim.x * per_block * width;
+  // solo: the block gave matching up (the same in every lane); each row
+  // then inserts for itself, with no warp-wide step to wait for
+  bool solo = false;
+  for (i64 row = ((i64)blockIdx.x * per_block + (threadIdx.x >> 5)) * width +
+                 lane;
+       row - lane < n_rows; row += stride) {
+    if (!solo) {   // the block's state as lane 0 reads it
+      solo = __shfl_sync(kWarp, *(volatile int*)&unmatched, 0) >=
+             kMatchGiveUp;
+    }
     RowColumns<Full> cols;
-    i64 v[kMaxHopKeys], member = 0;
-    if (!rows(row, &cols) || !build_keys(meta, aux, row, cols, v, &member)) {
+    i64 v[kMaxHopKeys], member = 0, packed = -1;
+    const bool adm = row < n_rows && rows(row, &cols) &&
+                     build_keys(meta, aux, row, cols, v, &member);
+    if (adm) {
+      packed = 0;
+      for (int k = 0; k < n_keys; ++k) {
+        packed |= (v[k] - keys[3 * k + 1]) << keys[3 * k + 2];
+      }
+    }
+    if (solo) {
+      if (adm) {
+        insert_set(kind, size, table, keys_tab, mn, mx, dup, row, packed, 1,
+                   member, member);
+      }
       continue;
     }
-    i64 packed = 0;
-    for (int k = 0; k < n_keys; ++k) {
-      packed |= (v[k] - keys[3 * k + 1]) << keys[3 * k + 2];
+    const unsigned admitted = __ballot_sync(kWarp, adm);
+    if (admitted == 0) continue;
+    // a row not admitted is a set of its own; with no row in another's
+    // set, peers is 0 in every lane and the step reduces nothing
+    const unsigned match = __match_any_sync(kWarp, (u64)packed);
+    unsigned peers = adm ? match : 1u << lane;
+    const int joined =
+        __popc(admitted) -
+        __popc(__ballot_sync(kWarp, adm && lane == __ffs(peers) - 1));
+    if (lane == 0) atomicAdd(&unmatched, 1 - 2 * joined);
+    if (joined == 0) peers = 0;
+    i64 lo = member, hi = member;
+    if (mn != nullptr && peers != 0) {
+      lo = reduce_peers(LANE_MIN_I64, peers, member);
+      hi = reduce_peers(LANE_MAX_I64, peers, member);
     }
-    i64 slot = packed;
-    if (kind == TAB_DIRECT) {
-      if (atomicCAS(table + packed, -1, (int)row) != -1) *dup = 1;
-    } else {
-      bool fresh = false;
-      slot = claim_slot(keys_tab, size, packed, &fresh);
-      if (slot < 0) {
-        *dup = 2;   // cannot happen: the table has 2 x rows slots
-        continue;
-      }
-      if (fresh) {
-        table[slot] = (int)row;
-      } else {
-        *dup = 1;
-      }
-    }
-    if (mn != nullptr) {
-      atomicMin((long long*)mn + slot, member);
-      atomicMax((long long*)mx + slot, member);
+    if (adm && (peers == 0 || lane == __ffs(peers) - 1)) {
+      insert_set(kind, size, table, keys_tab, mn, mx, dup, row, packed,
+                 peers == 0 ? 1 : __popc(peers), lo, hi);
     }
   }
 }
@@ -185,9 +261,11 @@ extern "C" int dft_chain_build_range(const void* meta, int meta_len,
 
 // kind: TAB_DIRECT (table: int32 [size], -1) or TAB_HASH (table: int32 rows
 // [size], keys: int64 [size], EMPTY); mn, mx: int64 [size] at INT64_MAX and
-// INT64_MIN for a min/max build, else null; dup: device int32 flag, set to
-// 1 when a key has two rows; full as in dft_chain_build_range. Launches on
-// `stream` and returns cudaGetLastError().
+// INT64_MIN for a min/max build, else null; dup: an INNER build's device
+// int32 flag, set to 1 when a key has two rows, or null for a SEMI/ANTI
+// build, which keeps any one row of a key; full as in
+// dft_chain_build_range. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int dft_chain_build_insert(const void* meta, int meta_len,
                                       const void* aux, long long n_rows,
                                       int kind, long long size, void* table,

@@ -326,7 +326,9 @@ def chain_build(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
             if mmx else None
         duplicate = False
         if kind != TAB_EMPTY:
-            dup = torch.zeros(1, dtype=torch.int32, device=dev)
+            # a SEMI or ANTI build keeps any one row of a key: no flag
+            dup = torch.zeros(1, dtype=torch.int32, device=dev) \
+                if unique else None
             meta = spec.packed_meta(los, shifts)
             meta_d = spec.device_meta(cols, dev, meta)
             kernels.check(lib.dft_chain_build_insert(
@@ -334,8 +336,9 @@ def chain_build(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
                 size, rows.data_ptr(),
                 None if keys is None else keys.data_ptr(),
                 None if mn is None else mn.data_ptr(),
-                None if mx is None else mx.data_ptr(), dup.data_ptr(),
-                int(spec.full), stream), chain_build_kernel)
+                None if mx is None else mx.data_ptr(),
+                None if dup is None else dup.data_ptr(), int(spec.full),
+                stream), chain_build_kernel)
             chain_build_kernel.launches += 1
             flag = int(dup.item()) if unique else 0
             if flag == 2:

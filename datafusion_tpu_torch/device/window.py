@@ -17,9 +17,11 @@ One evaluation is three kernels: `radix_sort` (csrc/radix_sort.cu) over
 the partition words then the order words, `reorder_rows`
 (csrc/gather_lanes.cu) carrying the words and the value, validity and
 default lanes into sorted order, and `window_scan` (csrc/window_scan.cu):
-partition and peer segmentation, the scans, each function's formula, and
-the scatter of each result back to its row's original position (the JAX
-program sorts a second time instead). Sizes are exact: there are no
+one forward pass that finds the partition and peer starts, scans the
+fields the function reads across tiles by decoupled look-back, and writes
+each result back to its row's original position (the JAX program sorts a
+second time instead); a function that needs a segment's end
+(`_pass_plan`) takes a second launch. Sizes are exact: there are no
 padding rows to mask.
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
@@ -37,6 +39,7 @@ from torch.profiler import record_function
 
 from .. import kernels
 from ..physical.plan.device_sort import radix_sort, to_word
+from . import groupby
 from .groupby import reorder_rows
 
 window_scan_kernel = kernels.register(kernels.Kernel(
@@ -44,7 +47,9 @@ window_scan_kernel = kernels.register(kernels.Kernel(
     "datafusion_tpu/device/window.py:122"))
 
 DEFAULT_MIN_ROWS = 1 << 17
-TILE = 2048              # rows a block of csrc/window_scan.cu's scan
+TILE = 2048              # rows a block of csrc/window_scan.cu's pass takes
+HALO = 64                # rows a tile reads past its edges
+RECORD = 7               # int64 words of a tile's look-back record
 MAX_WORDS = 32
 
 # spec codes (mirrored in csrc/window_scan.cu)
@@ -53,8 +58,8 @@ _RANKS = {"row_number": 0, "rank": 1, "dense_rank": 2, "percent_rank": 3,
 K_NTILE, K_SHIFT, K_AGG = 5, 6, 7
 _AGGS = {"sum_i": 0, "sum_f": 1, "cnt": 2}
 _BOUNDS = {"part": 0, "cur": 1, "peer": 2, "rows": 3}
-SUM_NONE, SUM_I64, SUM_F64 = 0, 1, 2
-CNT_NONE, CNT_VALID, CNT_PEER = 0, 1, 2
+# the fields the pass carries (csrc/window_scan.cu F_*)
+F_QS, F_DENSE, F_SUM_I, F_SUM_F, F_CNT = 1, 2, 4, 8, 16
 _RAW = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
 
 
@@ -84,14 +89,39 @@ def _spec_words(spec: Tuple) -> np.ndarray:
     return np.array(words + [0, 0, 0, 0], np.int64)
 
 
-def _modes(spec: Tuple) -> Tuple[int, int]:
-    """(what the scan sums, what it counts) for `spec`."""
-    if spec[0] == "agg":
-        return {"sum_i": SUM_I64, "sum_f": SUM_F64,
-                "cnt": SUM_NONE}[spec[1]], CNT_VALID
-    if spec == ("rank", "dense_rank"):
-        return SUM_NONE, CNT_PEER
-    return SUM_NONE, CNT_NONE
+def _pass_plan(spec: Tuple) -> Tuple[int, bool, int]:
+    """(the fields the pass carries, whether the function needs a segment's
+    end and so the second launch, the rows a one-pass frame reads behind
+    its tile or a lead past it). One pass: row_number, rank, dense_rank,
+    lag, a lead of at most HALO rows, and a frame whose upper bound is the
+    current row or behind it, whose lower bound is the partition start,
+    the current row or a ROWS offset, within HALO rows."""
+    kind = spec[0]
+    if kind == "rank":
+        return {"row_number": (0, False, 0), "rank": (F_QS, False, 0),
+                "dense_rank": (F_DENSE, False, 0)}.get(spec[1],
+                                                        (F_QS, True, 0))
+    if kind == "ntile":
+        return 0, True, 0
+    if kind == "shift":
+        off = int(spec[1])
+        return (0, True, 0) if off > HALO else (0, False, max(off, 0))
+    _, agg, lo_kind, lo_off, hi_kind, hi_off = spec
+    fields = F_CNT | {"sum_i": F_SUM_I, "sum_f": F_SUM_F, "cnt": 0}[agg]
+    if "peer" in (lo_kind, hi_kind):
+        return fields | F_QS, True, 0
+    halo = max(1, 1 - int(lo_off) if lo_kind == "rows" else 1,
+               -int(hi_off) if hi_kind == "rows" else 0)
+    behind = hi_kind == "cur" or (hi_kind == "rows" and int(hi_off) <= 0)
+    if not behind or halo > HALO:
+        return fields, True, 0
+    return fields, False, halo
+
+
+def scan_launches(spec: Tuple) -> int:
+    """`window_scan`'s launches for one evaluation of `spec`: the pass, and
+    the second launch where the function needs a segment's end."""
+    return 1 + _pass_plan(spec)[1]
 
 
 def _check(words: Sequence[torch.Tensor], n_part: int, perm: torch.Tensor,
@@ -144,66 +174,61 @@ def window_scan(words: Sequence[torch.Tensor], n_part: int,
     (int64 or float64, not for cnt), "cnt"}.
 
     On CPU tensors this runs `window_scan_plain`; on CUDA tensors it
-    launches the `window_scan` kernels (flags, three scan launches, eval)
-    or raises."""
+    launches the `window_scan` kernel (`scan_launches` launches) or
+    raises."""
     lanes = (arg, arg_valid, default, default_valid)
     _check(words, n_part, perm, spec, lanes)
-    if perm.device.type == "cpu":
+    if not groupby._cuda(perm):
         return window_scan_plain(words, n_part, perm, spec, *lanes)
-    if perm.device.type != "cuda":
-        raise ValueError(f"unsupported device {perm.device}")
     n, dev = perm.numel(), perm.device
     outs = _new_outputs(spec, n, arg, dev)
     if n == 0:
         return outs
-    sum_mode, cnt_mode = _modes(spec)
-    scan_lanes = spec[0] == "agg"
+    fields, arrays, halo = _pass_plan(spec)
+    tiles = -(-n // TILE)
+    shift = spec[0] == "shift"
     code = _spec_words(spec)
     lib = kernels.library()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
+
+    def ints(want):
+        return torch.empty(n, dtype=torch.int64, device=dev) if want else None
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        flags = torch.empty(n, dtype=torch.uint8, device=dev)
+        stream = groupby._stream(dev)
         ptrs = (ctypes.c_void_p * max(len(words), 1))(
             *[w.data_ptr() for w in words])
         widths = (ctypes.c_int * max(len(words), 1))(
             *[w.element_size() for w in words])
-        kernels.check(lib.dft_window_flags(ptrs, widths, len(words), n_part,
-                                           n, flags.data_ptr(), stream),
-                      window_scan_kernel)
-        window_scan_kernel.launches += 1
-        ints = [torch.empty(n, dtype=torch.int64, device=dev)
-                for _ in range(4)]
-        part_start, peer_start, part_end_at, peer_end_at = ints
-        sums = torch.empty(n, dtype=torch.int64, device=dev) \
-            if sum_mode != SUM_NONE else None
-        cnts = torch.empty(n, dtype=torch.int64, device=dev) \
-            if cnt_mode != CNT_NONE else None
-        tiles = torch.empty(4 * -(-n // TILE), dtype=torch.int64, device=dev)
-        kernels.check(lib.dft_window_scan(
-            flags.data_ptr(), n,
-            ptr(arg) if scan_lanes and sum_mode != SUM_NONE else None,
-            ptr(arg_valid) if scan_lanes else None, sum_mode, cnt_mode,
-            tiles.data_ptr(), part_start.data_ptr(), peer_start.data_ptr(),
-            ptr(sums), ptr(cnts), part_end_at.data_ptr(),
-            peer_end_at.data_ptr(), stream), window_scan_kernel)
-        window_scan_kernel.launches += 3
-        del flags, tiles
-        shift = spec[0] == "shift"
-        out0 = outs.get("data", outs.get("sum"))
-        out1 = outs.get("valid", outs.get("cnt"))
-        kernels.check(lib.dft_window_eval(
-            code.ctypes.data_as(ctypes.c_void_p), perm.data_ptr(), n,
-            part_start.data_ptr(), part_end_at.data_ptr(),
-            peer_start.data_ptr(), peer_end_at.data_ptr(), ptr(sums),
-            ptr(cnts), ptr(arg) if shift else None,
-            ptr(arg_valid) if shift else None,
+        # the tiles' status words and counter (zeroed), their records, and
+        # a one-pass frame's prefix sums of each tile's last rows
+        state = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
+        records = torch.empty(2 * tiles * RECORD, dtype=torch.int64,
+                              device=dev)
+        frame = bool(fields & F_CNT) and not arrays
+        halo_out = torch.empty(tiles * 2 * halo, dtype=torch.int64,
+                               device=dev) if frame and halo > 1 else None
+        # the second launch's inputs: only those its function reads
+        peers = bool(fields & F_QS)
+        inputs = [ints(arrays), ints(arrays and peers),
+                  ints(arrays and bool(fields & (F_SUM_I | F_SUM_F))),
+                  ints(arrays and bool(fields & F_CNT)), ints(arrays),
+                  ints(arrays and peers)]
+        evals = (ctypes.c_void_p * 6)(*[ptr(t) for t in inputs])
+        val = arg if shift or fields & (F_SUM_I | F_SUM_F) else None
+        kernels.check(lib.dft_window_pass(
+            ptrs, widths, len(words), n_part, n,
+            code.ctypes.data_as(ctypes.c_void_p), fields, halo, int(arrays),
+            perm.data_ptr(), ptr(val),
+            ptr(arg_valid) if shift or spec[0] == "agg" else None,
             ptr(default), ptr(default_valid),
-            arg.element_size() if shift else 8, ptr(out0), ptr(out1),
-            stream), window_scan_kernel)
-        window_scan_kernel.launches += 1
+            arg.element_size() if shift else 8,
+            ptr(outs.get("data", outs.get("sum"))),
+            ptr(outs.get("valid", outs.get("cnt"))), evals, state.data_ptr(),
+            records.data_ptr(), ptr(halo_out), tiles, stream),
+            window_scan_kernel)
+        window_scan_kernel.launches += 1 + arrays
     return outs
 
 

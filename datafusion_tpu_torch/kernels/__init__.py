@@ -65,11 +65,8 @@ _SIGNATURES = {
     "dft_gather_pack": [_LL, _I, _P, _P, _P, _I, _P, _P],
     "dft_gather_records": [_P, _LL, _P, _I, _I, _P, _P, _P, _P],
     "dft_gather_direct": [_P, _LL, _I, _P, _P, _P, _P, _P],
-    "dft_window_flags": [_P, _P, _I, _I, _LL, _P, _P],
-    "dft_window_scan": [_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                        _P],
-    "dft_window_eval": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _P, _P, _P],
+    "dft_window_pass": [_P, _P, _I, _I, _LL, _P, _I, _I, _I, _P, _P, _P, _P,
+                        _P, _I, _P, _P, _P, _P, _P, _P, _LL, _P],
     "dft_partition_hist": [_P, _P, _LL, _I, _I, _I, _LL, _LL, _P, _P, _P],
     "dft_partition_scatter": [_P, _P, _LL, _I, _I, _I, _LL, _LL, _P, _P, _P,
                               _LL, _I, _P, _P, _P, _P, _P],

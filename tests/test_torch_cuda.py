@@ -21,6 +21,7 @@ from datafusion_tpu_torch.common import dt
 from datafusion_tpu_torch.common.batch import Batch
 from datafusion_tpu_torch.common.column import Column, Dictionary
 from datafusion_tpu_torch.common.schema import Field, Schema
+from test_torch_window_pass import SPECS as WINDOW_SPECS_ALL
 
 pytestmark = pytest.mark.cuda
 
@@ -718,6 +719,57 @@ def test_min_max_build_matches_plain(cuda, sparse):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("build", ["inner", "inner-dup", "presence",
+                                   "minmax"])
+@pytest.mark.parametrize("case", ["sorted", "shuffled", "unique", "warps"])
+@pytest.mark.parametrize("wide", [False, True], ids=["direct", "hashed"])
+def test_build_peers_match_plain(cuda, build, case, wide):
+    """The insert's warp peers on every build kind: keys in runs of 1-7
+    rows (as lineitem's orders), the same keys shuffled, unique keys (the
+    blocks give matching up), and keys whose rows straddle two warps' steps
+    or sit inside one warp; INNER (the duplicate flag, and each key's row
+    where keys are unique), presence (any row of the key) and min/max (the
+    extremes), direct and hashed; two launches a build."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.join_chain import (
+        TAB_DIRECT, TAB_HASH, chain_build, chain_build_plain)
+    from test_torch_build_peers import _keys, _spec
+    n = 300_001
+    rng = np.random.default_rng(31)
+    if case == "warps":
+        keys = np.arange(n, dtype=np.int64) * 2
+        keys[30:34] = keys[30]           # rows 30-33: two warps' steps
+        keys[70:74] = keys[70]           # rows 70-73: one warp's step
+    else:
+        keys = _keys(case, n, rng)
+    if build == "inner-dup" and case == "unique":
+        keys[1::5] = keys[::5][:len(keys[1::5])]
+    member = rng.integers(-1000, 1000, n) if build == "minmax" else None
+    spec, cols, aux = _spec(n, keys, member, rng.random(n) > 0.05, wide)
+    cols = {i: (d.to(cuda), None if v is None else v.to(cuda))
+            for i, (d, v) in cols.items()}
+    aux = aux.to(cuda)
+    unique = build.startswith("inner")
+    before = dft.launch_counts()["chain_build"]
+    got = chain_build(spec, cols, aux, n, unique)
+    assert dft.launch_counts()["chain_build"] == before + 2
+    want = chain_build_plain(spec, cols, aux, n, unique)
+    assert got.kind == want.kind == (TAB_HASH if wide else TAB_DIRECT)
+    assert (got.los, got.his, got.live, got.duplicate) == \
+        (want.los, want.his, want.live, want.duplicate)
+    gk, gr = got.entries()
+    wk, wr = want.entries()
+    np.testing.assert_array_equal(gk, wk)
+    if unique and not want.duplicate:
+        np.testing.assert_array_equal(gr, wr)
+    # every kept row is a row of its key
+    packed = (cols[0][0].cpu().numpy() - got.los[0]) << got.shifts[0]
+    np.testing.assert_array_equal(packed[gr], gk)
+    if build == "minmax":
+        for a, b in zip(got.extremes(), want.extremes()):
+            np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("q", [7, 8, 9, 10, 12, 14, 18, 21])
 def test_cuda_full_lowering_end_to_end_matches_cpu(cuda, q):
     from datafusion_tpu_torch.tpch.queries import QUERIES
@@ -920,6 +972,39 @@ def test_window_matches_plain(cuda, spec, with_default):
             np.testing.assert_array_equal(got[key][m], want[key][m])
         else:
             np.testing.assert_array_equal(got[key], want[key])
+
+
+@pytest.mark.parametrize("layout", ["runs", "single", "whole"])
+@pytest.mark.parametrize("spec", WINDOW_SPECS_ALL, ids=str)
+def test_window_pass_edges_match_plain(cuda, spec, layout):
+    """Kernel 20 alone over sorted rows: every function kind and frame
+    bound, with partitions of one row each, one partition of the whole
+    input, and runs of up to 40 rows, over 2048 x 97 + 1 rows (tiles of
+    2,048 rows, the last of one row), against its plain version on the
+    same card; its launches as `scan_launches` predicts. Exact, but float64
+    frame sums (the tiles' prefix sums add in another order) within rel
+    1e-9 of the prefix magnitude."""
+    import datafusion_tpu_torch as dft
+    from test_torch_window_pass import _lanes, _words
+    from datafusion_tpu_torch.device.window import (
+        scan_launches, window_scan, window_scan_plain)
+    n = 2048 * 97 + 1
+    rng = np.random.default_rng(len(layout))
+    words = [w.to(cuda) for w in _words(n, layout, rng)]
+    perm = torch.from_numpy(rng.permutation(n)).to(cuda)
+    lanes = [None if x is None else x.to(cuda) for x in _lanes(spec, n, rng)]
+    before = dft.launch_counts()["window_scan"]
+    got = window_scan(words, 2, perm, spec, *lanes)
+    assert dft.launch_counts()["window_scan"] - before == scan_launches(spec)
+    want = window_scan_plain(words, 2, perm, spec, *lanes)
+    assert set(got) == set(want)
+    for key in want:
+        g, w = got[key].cpu().numpy(), want[key].cpu().numpy()
+        if key == "sum" and spec[1] == "sum_f":
+            scale = np.abs(np.cumsum(lanes[0].cpu().numpy())).max()
+            np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-9 * scale)
+        else:
+            np.testing.assert_array_equal(g, w)
 
 
 def test_cuda_sort_and_window_end_to_end_matches_cpu(cuda):
