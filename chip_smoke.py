@@ -55,9 +55,11 @@ query is held against a numpy oracle on the same data.
      on Q21's builds (its two lineitem min/max tables equal;
      `scatter_reduce_` amin and amax on the packed keys as the yardstick,
      `index_put_` of the rows beside every other direct table) and
-     `chain_aggregate` on Q21's, Q18's reduced, Q9's (date_part keys)
-     and Q12's (CASE) walks, then Q7, Q8, Q9, Q10, Q12, Q14, Q18 and Q21
-     end to end against numpy, with 0 fallbacks and a breakdown each;
+     `chain_aggregate` on every walk of Q7-Q10, Q12, Q14, Q18 (reduced)
+     and Q21, then Q7, Q8, Q9, Q10, Q12, Q14, Q18 and Q21 end to end
+     against numpy, with 0 fallbacks and a breakdown each; every walk of
+     steps 4 and 5 is held to one launch a pass of lanes in its call and
+     in its query's run;
    - the fanout-N join-aggregate and the chain's distinct lane:
      `join_build` and `join_aggregate` against their plain versions on J1
      (lineitem x partsupp on the part key: every lineitem meets its
@@ -73,8 +75,10 @@ query is held against a numpy oracle on the same data.
      against numpy, each with 0 fallbacks, its route, one cold and two
      warm runs and a breakdown; `partition_rows` (K1) against its plain
      version and a stable `torch.argsort` of the owners on MJ1's probe
-     rows of shard 0, and `merge_partials` (K2) against its plain version
-     on shard 0's share of MQ15's partial tables; then MQ1 once more
+     rows of shard 0 (two launches a call: the count and one sweep; MQ15
+     and MJ1 held to a call a shard an exchange), and `merge_partials`
+     (K2) against its plain version on shard 0's share of MQ15's partial
+     tables; then MQ1 once more
      through a one-rank NCCL `ProcessGroupMesh`, against the 4-shard rows;
    - window functions over the SF10 lineitem (with `l_returnflag`):
      W1 (top 3 by price per supplier beside each order's quantity, a
@@ -186,23 +190,30 @@ end; and the registers and stack bytes of both kernels' variants.
 
     python3 chip_smoke.py --walks TREE [TREE ...]
 
-compares the `chain_aggregate` walks of TPC-H Q3, Q5, Q7, Q8, Q9, Q12,
-Q14, Q18 and Q21 and the `chain_rows` walks of Q2 and Q20 at SF10 across
-checkouts of
-the repository (for example the parent
-commit unpacked with `git archive`, then this tree, then both again in
-reverse order). Each TREE runs in a process of its own that imports that
-tree's `datafusion_tpu_torch` and builds its kernels, makes the same
-SF10 tables with this script's `tpch_tables`, and prints one JSON line:
-the mean device ms of each walk over WALK_REPS calls (null where the
-tree does not plan the query's chain on the card; a `chain_rows` call's
-time spans its read-back of the row count) and the registers and
-stack-frame bytes (spills included) `cuobjdump --dump-resource-usage`
-gives each walk kernel (and `chain_compose_kernel`) of that tree's
-library. A walk is timed as the tree stages it: composed and folded where
-the tree composes, and then, in such a tree, staged without composition
-or folding too (`walk_ms_uncomposed`). Q5, Q12 and Q14 are also timed end
-to end (`e2e_ms`, warm median of REPS).
+compares the `chain_aggregate` walks of TPC-H Q3, Q5, Q7, Q8, Q9, Q10, Q12,
+Q14, Q18 and Q21 and the `chain_rows` walks of Q2 and Q20 at SF10, and the
+mesh's row partition (K1, `partition_rows`) on MJ1's and MQ15's calls,
+across checkouts of the repository (for example the parent commit
+unpacked with `git archive`, then this tree, then both again in reverse
+order). Each TREE runs in a process of its own that imports that tree's
+`datafusion_tpu_torch` and builds its kernels, makes the same SF10 tables
+with this script's `tpch_tables`, and prints one JSON line: the mean
+device ms of each walk over WALK_REPS calls (null where the tree does not
+plan the query's chain on the card; a `chain_rows` call's time spans its
+read-back of the row count), staged as the tree stages it and, in a tree
+that composes, staged without composition or folding too
+(`walk_ms_uncomposed`); each walk's split (`walk_split`: the walk cut at
+each hop by an empty INNER table, `cut_spec`, so that cut 0 is the probe
+predicate alone; the walk without its fold where its last hop is INNER;
+the rows reaching and surviving each hop, from the plain walk on the
+card; the launches a call; the live groups; the bound); each K1 call one
+run of MJ1 and of MQ15 makes on 4 shards of the card (`k1_calls`: its
+rows, destinations, cap, lanes, mean device ms and launches, and the
+largest call's device ms by kernel beside a stable `torch.argsort` of its
+owners); Q5, Q12, Q14, Q21, MJ1 and MQ15 end to end (`e2e_ms`, warm median
+of REPS); and the registers and stack-frame bytes (spills included) that
+`cuobjdump --dump-resource-usage` gives each walk kernel, `chain_compose`
+and K1's kernels in the tree's library.
 """
 import datetime
 import json
@@ -1221,14 +1232,20 @@ def chain_builds_vs_plain(ex, tctx, card, label, mmx_only=False):
     return best[1], predicted
 
 
+# label -> the walk's launches a run of its query: one a pass of lanes
+WALK_LAUNCHES = {}
+
+
 def chain_walk_vs_plain(ex, tctx, card, label):
     """`chain_aggregate` against its plain version on the chain's staged
     builds and spine (equal group tables, compacted and ordered by key;
-    every lane of Q3 and Q5 is an exact decimal sum or a count). The bound
-    is `walk_bytes` and the live groups written once. Returns the kernel's
-    report entry."""
+    every lane of Q3 and Q5 is an exact decimal sum or a count), its call
+    held to one launch a pass of lanes (WALK_LAUNCHES[label], which the
+    query's main-path run is held to). The bound is `walk_bytes` and the
+    live groups written once. Returns the kernel's report entry."""
     import numpy as np
     import torch
+    from datafusion_tpu_torch import kernels
     from datafusion_tpu_torch.device.groupby import (
         AggregateSpec, compact_groups_plain, dense_group_table)
     from datafusion_tpu_torch.device.join_chain import (
@@ -1243,9 +1260,15 @@ def chain_walk_vs_plain(ex, tctx, card, label):
         table = spec.new_table(dev)
         overflow = torch.zeros(1, dtype=torch.int32, device=dev)
         kw = {"hop_rows": hop_rows} if fold is chain_aggregate_plain else {}
+        before = kernels.launch_counts()["chain_aggregate"]
         fold(spec, cols, aux, n, table, overflow,
              dset=spec.distinct_set(n, dev), **kw)
         torch.cuda.synchronize()
+        launched = kernels.launch_counts()["chain_aggregate"] - before
+        if fold is chain_aggregate and launched != len(spec.metas):
+            raise AssertionError(f"{label}: chain_aggregate counted "
+                                 f"{launched} launches, not one a pass of "
+                                 f"lanes ({len(spec.metas)})")
         if int(overflow.item()):
             raise AssertionError(f"{label}: {fold.__name__} overflowed")
         tables.append(dense_group_table(table) if dense else table)
@@ -1275,9 +1298,10 @@ def chain_walk_vs_plain(ex, tctx, card, label):
     bnd = bound(nbytes, prog_ops(spec, n))
     fd = f", keys reduced to {[ex.group_exprs[p][1] for p in plan.kept]}" \
         if plan.dropped else ""
+    WALK_LAUNCHES[label] = len(spec.metas)
     print(f"chain_aggregate {label}: {n} spine rows, {len(spec.chain.hops)} "
           f"hops ({routes(spec)}), rows reaching/surviving each hop "
-          f"{hop_rows}, "
+          f"{hop_rows}, {len(spec.metas)} launch(es) a call, "
           f"{'dense' if dense else 'hash'} fold{fd}, {got.shape[1]} groups: "
           f"kernel {ms:.6f} ms, plain {plain:.6f} ms, bound "
           f"{bnd['bound_ms']:.6f} ms ({bnd['bytes']} bytes), max_abs_err 0 "
@@ -2179,14 +2203,16 @@ def full_lowering_phase(ctx, tables, card, add):
     dependence key reduction (Q10, Q18) or the SEMI/ANTI min/max
     membership (Q21): `chain_build` against its plain version on Q21's
     builds (the two lineitem min/max tables), `chain_aggregate` against
-    its plain version on Q21's walk, Q18's reduced walk (the
-    representative-row lane too), Q9's (date_part keys, a decimal
-    `amount`) and Q12's (CASE sums); then each query end to end against
-    numpy with 0 fallbacks, its kernels launched, and a breakdown. Returns
-    the kernels line's entries of the two new parts of rows 15 and 16:
-    `chain_build[mmx]`, Q21's largest min/max build, with chain_build's
-    launches in Q21's main-path run, and `chain_aggregate[fd]`, Q18's
-    reduced walk, with chain_aggregate's launches in Q18's."""
+    its plain version on every one of their walks (Q18's reduced walk with
+    its representative-row lane, Q9's date_part keys, Q12's and Q14's CASE
+    sums, Q21's min/max hops); then each query end to end against numpy
+    with 0 fallbacks, its kernels launched (the walk one launch a pass of
+    lanes), and a breakdown. Returns the kernels line's entries of the
+    parts of rows 15 and 16 that Q5's entries leave out, each with its
+    kernel's launches in its query's main-path run: `chain_build[mmx]`,
+    Q21's largest min/max build, `chain_aggregate[fd]`, Q18's reduced
+    walk, and `chain_aggregate[Q9]` and `chain_aggregate[Q12]`, the walks
+    bound by their hops and hash fold and by their predicate."""
     from datafusion_tpu_torch import kernels
     from datafusion_tpu_torch.physical.plan.device_join_chain import (
         TorchJoinChainAggregateExec)
@@ -2202,6 +2228,7 @@ def full_lowering_phase(ctx, tables, card, add):
         stage[q] = staging_kernels(ex, tctx, q)
     kb21, builds21 = chain_builds_vs_plain(execs[21], tctx, card, "Q21 SF10",
                                            mmx_only=True)
+    walk = "datafusion_tpu/physical/plan/device_join_chain.py:1597"
     variants = {
         "chain_build[mmx]": (21, "chain_build", kb21,
                              "datafusion_tpu/physical/plan/"
@@ -2209,10 +2236,15 @@ def full_lowering_phase(ctx, tables, card, add):
         "chain_aggregate[fd]": (18, "chain_aggregate", chain_walk_vs_plain(
             execs[18], tctx, card, "Q18 SF10"),
             "datafusion_tpu/physical/plan/device_join_chain.py:1501")}
-    chain_walk_vs_plain(execs[21], tctx, card, "Q21 SF10")
+    # the walks bound by their predicate (Q12) and by their hops and hash
+    # fold (Q9), beside Q5's in the kernels line
+    for q in FULL_LOWERING:
+        if q != 18:
+            ent = chain_walk_vs_plain(execs[q], tctx, card, f"Q{q} SF10")
+            if q in (9, 12):
+                variants[f"chain_aggregate[Q{q}]"] = (
+                    q, "chain_aggregate", ent, walk)
     compose_vs_plain(execs[21], tctx, card, "Q21 SF10")
-    chain_walk_vs_plain(execs[9], tctx, card, "Q9 SF10")
-    chain_walk_vs_plain(execs[12], tctx, card, "Q12 SF10 (CASE)")
     del execs
     import torch
     torch.cuda.empty_cache()
@@ -2226,6 +2258,8 @@ def full_lowering_phase(ctx, tables, card, add):
         out, counts, _ = run_path(ctx, TPCH[q], expect, card, f"Q{q} SF10",
                                   li.num_rows, TorchJoinChainAggregateExec)
         add(counts)
+        launched_as_predicted(f"Q{q} SF10", counts, {
+            "chain_aggregate": WALK_LAUNCHES[f"Q{q} SF10"]})
         if q == 21:
             launched_as_predicted("Q21 SF10", counts,
                                   {"chain_build": builds21})
@@ -2703,6 +2737,7 @@ def partition_vs_plain(ex, ctx, card):
     and flags; timed against the plain version and `torch.argsort` of the
     owners (stable), the library's yardstick."""
     import torch
+    from datafusion_tpu_torch import kernels
     from datafusion_tpu_torch.device.exchange import (
         partition_rows, partition_rows_plain, shard_owner)
     from datafusion_tpu_torch.parallel.distributed import row_ranges
@@ -2722,7 +2757,10 @@ def partition_vs_plain(ex, ctx, card):
     lanes = [x[lo:hi] for x in _lanes_of(pcols)[0]]
     keys, pend0 = pkey[lo:hi], pvalid[lo:hi]
     cap = hi - lo
+    before = kernels.launch_counts()["partition_rows"]
     got = partition_rows(keys, pend0.clone(), MESH_SHARDS, cap, lanes)
+    if kernels.launch_counts()["partition_rows"] - before != 2:
+        raise AssertionError("partition_rows: not the count and one sweep")
     want = partition_rows_plain(keys, pend0.clone(), MESH_SHARDS, cap, lanes)
     torch.cuda.synchronize()
     if got.splits != want.splits or not torch.equal(got.keys, want.keys) or \
@@ -2833,6 +2871,9 @@ def mesh_phase(sf10, tables, card, add, report):
                               agg + ["hash_group_aggregate",
                                      "partition_rows"], card, li.num_rows)
     add(counts)
+    # K1: the count and one sweep a call, a call a shard
+    launched_as_predicted("MQ15 SF10", counts,
+                          {"partition_rows": 2 * MESH_SHARDS}, MESH_RUNS)
     check_q15(out, tables, "MQ15 SF10")
     mesh_breakdown(ctx, Q15_SUB, card, "MQ15 SF10", Agg, "aggregate_kernel")
     report["merge_partials"] = merge_vs_plain(
@@ -2848,6 +2889,9 @@ def mesh_phase(sf10, tables, card, add, report):
                                      "hash_group_aggregate"], card,
                               li.num_rows)
     add(counts)
+    # K1 a shard for the build, the probe and the partial tables
+    launched_as_predicted("MJ1 SF10", counts,
+                          {"partition_rows": 2 * 3 * MESH_SHARDS}, MESH_RUNS)
     want = oracle_mj1(tables)
     got = [c.data_host() for c in out.columns]
     if not all(np.array_equal(a, b) for a, b in zip(got, want)):
@@ -3162,7 +3206,9 @@ def main() -> int:
                               "Q3 SF10", li.num_rows,
                               TorchJoinChainAggregateExec)
     add(counts)
-    launched_as_predicted("Q3 SF10", counts, {"chain_build": builds[3]})
+    launched_as_predicted("Q3 SF10", counts, {
+        "chain_build": builds[3],
+        "chain_aggregate": WALK_LAUNCHES["Q3 SF10"]})
     keys, revs, dates, n_groups = oracle_q3(tables)
     if not (np.array_equal(col(out, "l_orderkey"), keys) and
             np.array_equal(col(out, "revenue"), revs) and
@@ -3179,7 +3225,9 @@ def main() -> int:
                               tables["orders"].num_rows,
                               TorchJoinChainAggregateExec)
     add(counts)
-    launched_as_predicted("Q4 SF10", counts, {"chain_build": builds[4]})
+    launched_as_predicted("Q4 SF10", counts, {
+        "chain_build": builds[4],
+        "chain_aggregate": WALK_LAUNCHES["Q4 SF10"]})
     prios, want4 = oracle_q4(tables)
     got4 = out.to_pydict()
     if got4 != {"o_orderpriority": prios, "order_count": want4.tolist()}:
@@ -3192,7 +3240,9 @@ def main() -> int:
                               stage[5], card, "Q5 SF10",
                               li.num_rows, TorchJoinChainAggregateExec)
     add(counts)
-    launched_as_predicted("Q5 SF10", counts, {"chain_build": builds[5]})
+    launched_as_predicted("Q5 SF10", counts, {
+        "chain_build": builds[5],
+        "chain_aggregate": WALK_LAUNCHES["Q5 SF10"]})
     want5 = oracle_q5(tables)
     got5 = list(zip(out.columns[0].to_pylist(),
                     col(out, "revenue").tolist()))
@@ -3506,10 +3556,13 @@ def top_counts_agree(label, got_keys, got_counts, all_keys, all_counts):
 
 # ---- walks across checkouts ------------------------------------------------
 
-WALK_QUERIES = (3, 5, 7, 8, 9, 12, 14, 18, 21)
+WALK_QUERIES = (3, 5, 7, 8, 9, 10, 12, 14, 18, 21)
 ROWS_QUERIES = (2, 20)
 WALK_REPS = 20
-E2E_WALKS = (5, 12, 14)
+E2E_WALKS = (5, 12, 14, 21)
+K1_REPS = 10
+WALK_SYMBOLS = (r"chain_(dense|hash|compose)_kernel|rows_(mark|emit)_kernel|"
+                r"partition_\w+_kernel")
 
 
 def warm_median(ctx, sql, reps=REPS):
@@ -3527,10 +3580,9 @@ def warm_median(ctx, sql, reps=REPS):
 def walk_resources(lib_path):
     """{kernel symbol: (registers, stack bytes)} of the walk kernels
     (`chain_dense_kernel`, `chain_hash_kernel`, `rows_mark_kernel`,
-    `rows_emit_kernel`) and of `chain_compose_kernel` in the library at
-    `lib_path`, from `cuobjdump --dump-resource-usage`."""
-    return kernel_resources(
-        lib_path, r"chain_(dense|hash|compose)_kernel|rows_(mark|emit)_kernel")
+    `rows_emit_kernel`), of `chain_compose_kernel` and of K1's kernels in
+    the library at `lib_path`, from `cuobjdump --dump-resource-usage`."""
+    return kernel_resources(lib_path, WALK_SYMBOLS)
 
 
 def kernel_resources(lib_path, pattern):
@@ -3555,11 +3607,92 @@ def kernel_resources(lib_path, pattern):
     return res
 
 
-def time_walks(ctx, queries, compose=None):
+def cut_spec(spec, hop, flip=False):
+    """A copy of the walk `spec` whose hop `hop` finds nothing: an empty
+    INNER hop, so that the walk runs its probe predicate and the hops
+    before `hop` and drops every row there (the time of that much of the
+    walk); with `flip`, hop `hop` keeps its table and becomes ANTI (an
+    INNER hop that every row matches then drops every row after its
+    lookup: the walk without its fold)."""
+    import copy
+    from datafusion_tpu_torch.device import join_chain as J
+    from datafusion_tpu_torch.device.groupby import H_OFF_CHAIN
+    out = copy.copy(spec)
+    metas = []
+    for meta in spec.metas:
+        meta = meta.copy()
+        at = int(meta[H_OFF_CHAIN]) + J.C_HOPS + hop * J.HOP_WORDS
+        if flip:
+            meta[at + J.HOP_JTYPE] = J.JT_ANTI
+        else:
+            meta[at + J.HOP_KIND] = J.TAB_EMPTY
+            meta[at + J.HOP_JTYPE] = J.JT_INNER
+        metas.append(meta)
+    out.metas = metas
+    out.meta = metas[0]
+    return out
+
+
+def walk_split(spec, cols, aux, n, walk):
+    """What the card spends on each part of one walk: the probe predicate
+    alone (`cut_spec` at hop 0), the walk cut at each later hop, the walk
+    without its fold (the last hop flipped to ANTI, where it is an INNER
+    hop), the rows reaching and surviving each hop (the plain walk on the
+    card), the launches a call, the live groups and the bound
+    (`walk_bytes`, the live groups written once)."""
+    import numpy as np
+    import torch
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.groupby import (
+        AggregateSpec, compact_groups_plain, dense_group_table)
+    from datafusion_tpu_torch.device.join_chain import (
+        JT_INNER, _walk_plain, chain_aggregate)
+    dev = aux.device
+    out = {}
+    hop_rows = []
+    _walk_plain(spec, cols, aux, n, hop_rows)
+    out["hop_rows"] = hop_rows
+    table = spec.new_table(dev)
+    pristine = table.clone()
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    cuts = []
+    for h in range(len(spec.chain.hops)):
+        cut = cut_spec(spec, h)
+        cuts.append(cuda_ms(lambda: chain_aggregate(cut, cols, aux, n, table,
+                                                    overflow), WALK_REPS,
+                            setup=lambda: table.copy_(pristine)))
+    out["cut_ms"] = cuts
+    last = len(spec.chain.hops) - 1
+    out["nofold_ms"] = None
+    if spec.chain.hops[last].jtype == JT_INNER and hop_rows[last][1] > 0:
+        flip = cut_spec(spec, last, flip=True)
+        out["nofold_ms"] = cuda_ms(
+            lambda: chain_aggregate(flip, cols, aux, n, table, overflow),
+            WALK_REPS, setup=lambda: table.copy_(pristine))
+    table.copy_(pristine)
+    before = kernels.launch_counts()["chain_aggregate"]
+    walk()
+    out["launches"] = kernels.launch_counts()["chain_aggregate"] - before
+    table.copy_(pristine)
+    chain_aggregate(spec, cols, aux, n, table, overflow,
+                    spec.distinct_set(n, dev))
+    t = dense_group_table(table) if isinstance(spec, AggregateSpec) \
+        else table
+    live = compact_groups_plain(t)
+    out["groups"] = int(live.shape[1])
+    nbytes = walk_bytes(spec, cols, n, hop_rows) + live.numel() * 8
+    out["bound"] = bound(nbytes, 0)
+    out["n"] = int(n)
+    del table, pristine, t, live
+    return out
+
+
+def time_walks(ctx, queries, compose=None, splits=None):
     """{query: the mean device ms of its `chain_aggregate` walk over
     WALK_REPS calls}, staged as the imported tree stages it (with
     `compose` given, `prepare(ctx, compose)`); None where the tree plans
-    no chain of the query on the card."""
+    no chain of the query on the card. With `splits` (a dict), each
+    walk's `walk_split` goes into it too."""
     import torch
     from datafusion_tpu_torch.device.join_chain import chain_aggregate
     from datafusion_tpu_torch.physical.plan.device_aggregate import (
@@ -3586,17 +3719,93 @@ def time_walks(ctx, queries, compose=None):
         table = spec.new_table(aux.device)
         pristine = table.clone()
         overflow = torch.zeros(1, dtype=torch.int32, device=aux.device)
-        walks[q] = cuda_ms(lambda: chain_aggregate(spec, cols, aux, n, table,
-                                                   overflow), WALK_REPS,
+
+        def walk():
+            chain_aggregate(spec, cols, aux, n, table, overflow)
+        walks[q] = cuda_ms(walk, WALK_REPS,
                            setup=lambda: table.copy_(pristine))
+        if splits is not None:
+            splits[q] = walk_split(spec, cols, aux, n, walk)
+            splits[q]["full_ms"] = walks[q]
         del spec, inputs, _staged, cols, aux, table, pristine
         torch.cuda.empty_cache()
     return walks
 
 
+def record_partitions(mod):
+    """Replace `partition_rows` in the module `mod` by a recorder that
+    keeps each call's inputs (the pending flags as they were) and then
+    makes the call; returns (the list of recorded calls, a function that
+    puts the original back)."""
+    orig = mod.partition_rows
+    calls = []
+
+    def recorder(keys, pending, n_dest, cap, lanes=(), salt=1,
+                 salt_mode=1, salt_r=0):
+        calls.append((keys, pending.clone(), n_dest, cap, list(lanes), salt,
+                      salt_mode, salt_r))
+        return orig(keys, pending, n_dest, cap, lanes, salt, salt_mode,
+                    salt_r)
+    mod.partition_rows = recorder
+    return calls, lambda: setattr(mod, "partition_rows", orig)
+
+
+def k1_calls(ctx, label, sql):
+    """K1 (`partition_rows`) on every call one run of the mesh query `sql`
+    makes: each call's rows, destinations, cap and lanes, its mean device
+    ms over K1_REPS calls (the pending flags restored before each) and its
+    launches; the largest call split by kernel (torch.profiler) beside a
+    stable `torch.argsort` of its owners."""
+    import torch
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.exchange import (partition_rows,
+                                                      shard_owner)
+    from datafusion_tpu_torch.parallel import exchange as X
+    ctx.sql(sql).collect_batch()
+    calls, restore = record_partitions(X)
+    try:
+        ctx.sql(sql).collect_batch()
+    finally:
+        restore()
+    if not calls:
+        raise AssertionError(f"{label} made no K1 call")
+    out = []
+    for keys, pend0, n_dest, cap, lanes, salt, mode, salt_r in calls:
+        pend = pend0.clone()
+
+        def call():
+            partition_rows(keys, pend, n_dest, cap, lanes, salt, mode,
+                           salt_r)
+        ms = cuda_ms(call, K1_REPS, setup=lambda: pend.copy_(pend0))
+        pend.copy_(pend0)
+        before = kernels.launch_counts()["partition_rows"]
+        call()
+        out.append({"rows": int(keys.numel()),
+                    "pending": int(pend0.sum()), "n_dest": n_dest,
+                    "cap": int(cap), "lanes": len(lanes), "salt": salt,
+                    "ms": ms, "launches":
+                    kernels.launch_counts()["partition_rows"] - before})
+    big = max(range(len(calls)), key=lambda i: out[i]["pending"])
+    keys, pend0, n_dest, cap, lanes, salt, mode, salt_r = calls[big]
+    pend = pend0.clone()
+
+    def call():
+        pend.copy_(pend0)
+        partition_rows(keys, pend, n_dest, cap, lanes, salt, mode, salt_r)
+    split = kernel_ms(call)
+    owner = shard_owner(keys, n_dest)
+    argsort = cuda_ms(lambda: torch.argsort(owner, stable=True), K1_REPS)
+    print(f"{label}: {len(calls)} K1 calls, "
+          f"{sum(c['ms'] for c in out):.6f} ms in all", flush=True)
+    return {"calls": out, "total_ms": sum(c["ms"] for c in out),
+            "largest": big, "largest_split": split,
+            "largest_argsort_ms": argsort}
+
+
 def walk_tree(tree):
-    """The walks of WALK_QUERIES with `tree`'s package; prints one JSON
-    line."""
+    """The walks of WALK_QUERIES and ROWS_QUERIES, K1 on MJ1's and MQ15's
+    calls and Q5, Q12, Q14, Q21, MJ1 and MQ15 end to end, with `tree`'s
+    package; prints one JSON line."""
     import inspect
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -3611,19 +3820,21 @@ def walk_tree(tree):
     from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
     kernels.library()
     tables = tpch_tables(10, seed=0)
-    ctx = dft.SessionContext(torch.device(DEVICE))
+    dev = torch.device(DEVICE)
+    ctx = dft.SessionContext(dev)
     for tname, b in tables.items():
         ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
     tctx = ctx.task_context()
     # a tree whose staging composes also times each walk staged without
     # (`prepare(ctx, compose=False)`), in the same process
+    splits, splits_unstaged = {}, {}
     if "compose" in inspect.signature(
             TorchJoinChainAggregateExec.prepare).parameters:
-        walks = time_walks(ctx, WALK_QUERIES, True)
-        unstaged = time_walks(ctx, WALK_QUERIES, False)
+        walks = time_walks(ctx, WALK_QUERIES, True, splits)
+        unstaged = time_walks(ctx, WALK_QUERIES, False, splits_unstaged)
     else:
-        walks, unstaged = time_walks(ctx, WALK_QUERIES), {}
-    rows = {}
+        walks, unstaged = time_walks(ctx, WALK_QUERIES, None, splits), {}
+    rows, rows_launches = {}, {}
     for q in ROWS_QUERIES:
         ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
                        TorchJoinChainRowsExec)
@@ -3633,12 +3844,28 @@ def walk_tree(tree):
         spec, inputs, _staged = ex.prepare_rows(tctx)
         ((cols, aux, n, _view),) = inputs
         rows[q] = cuda_ms(lambda: chain_rows(spec, cols, aux, n), WALK_REPS)
+        before = kernels.launch_counts()["chain_rows"]
+        chain_rows(spec, cols, aux, n)
+        rows_launches[q] = kernels.launch_counts()["chain_rows"] - before
         del spec, inputs, _staged, cols, aux
         torch.cuda.empty_cache()
     e2e = {f"Q{q}": warm_median(ctx, TPCH[q]) for q in E2E_WALKS}
+    del ctx, tctx
+    torch.cuda.empty_cache()
+    mesh = dft.SessionContext(dev)
+    mesh.config.set("datafusion.tpu.mesh_devices", MESH_SHARDS)
+    for tname, b in tables.items():
+        mesh.register_table(tname, dft.MemTable(b.schema, [[b]]))
+    k1 = {"MJ1": k1_calls(mesh, "MJ1 SF10", MJ1),
+          "MQ15": k1_calls(mesh, "MQ15 SF10", Q15_SUB)}
+    e2e["MJ1"] = warm_median(mesh, MJ1)
+    e2e["MQ15"] = warm_median(mesh, Q15_SUB)
     print(json.dumps({"tree": tree, "walk_ms": walks,
                       "walk_ms_uncomposed": unstaged, "rows_ms": rows,
-                      "e2e_ms": e2e,
+                      "rows_launches": rows_launches,
+                      "walk_split": splits,
+                      "walk_split_uncomposed": splits_unstaged,
+                      "k1": k1, "e2e_ms": e2e,
                       "resources": {kernel_label(k): v for k, v in
                                     walk_resources(str(kernels.LIB)).items()}}),
           flush=True)

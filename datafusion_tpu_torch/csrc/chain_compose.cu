@@ -71,7 +71,7 @@ chain_compose_kernel(const i64* __restrict__ meta_g, int meta_len,
       const i64* prior = ch + C_HOPS + h * kHopWords;
       if (prior[HOP_KIND] == TAB_COMPOSED && prior[HOP_OWNER] == owner) {
         i64 at;
-        cols.brow[h] = composed_row(prior, cols.brow, &at);
+        cols.brow[h] = composed_row(prior, cols.brow[prior[HOP_OWNER]], &at);
       }
     }
     i64 slot = 0;

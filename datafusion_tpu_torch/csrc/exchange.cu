@@ -7,24 +7,34 @@
 // `_all_to_all_rows` (:96-139) and of `_all_to_all_chained`'s `round_ship`
 // (:158-198): a stable argsort on the destination, searchsorted starts and
 // gathers into fixed [n_shards, cap] blocks, shipped whole. Here the sizes
-// are exact, three steps over the shard's rows in tiles:
-//   1. hist: each pending row's owner, splitmix64(key) mod n_dest taken as
-//      unsigned 64-bit values (salted: of key * 0x100000001B3 + s, in
-//      wraparound, before the finalizer), counted per (destination, tile)
-//      in shared memory, one shared atomic per destination a warp
-//      (__match_any_sync); each destination's total goes to `totals`.
-//   2. the exclusive scan of scan.cuh over the (destination, tile) counts,
-//      destination-major: where each tile's rows of a destination start.
-//   3. scatter: each tile's pending rows ranked within their destination
-//      in row order (a warp ranks with __match_any_sync, the block's warps
-//      through a shared table, blockDim rows at a time). A row whose rank
-//      is below `cap` goes to its destination's block of the send buffer,
-//      which starts at the sum of min(total, cap) of the destinations
-//      before it; every lane is copied at its width (1, 2, 4 or 8 bytes),
-//      the key too (salted: as key * salt + s, the key the receiver joins
-//      on), and the row's pending flag is cleared. Rows past the cap stay
-//      pending for the next round, so a skewed destination costs rounds,
-//      never a larger buffer.
+// are exact, in two launches over the shard's rows:
+//   1. count: each pending row's owner, splitmix64(key) mod n_dest taken
+//      as unsigned 64-bit values (salted: of key * 0x100000001B3 + s, in
+//      wraparound, before the finalizer), counted per destination in
+//      shared memory, one shared atomic per destination a warp (its rows'
+//      peers), then one global atomic per destination a block, into
+//      `totals`. The caller reads the totals back to size the buffer.
+//   2. sweep: one pass in tiles of kXTile rows, taken in order by a ticket
+//      so that every earlier tile's block has started. A tile computes each
+//      row's owner once and ranks its rows within their destination in row
+//      order: each warp takes a contiguous run of the tile, 32 rows a step,
+//      and finds a row's peers by ballots on the owner's bits where n_dest
+//      is a power of two of at most 32 (by __match_any_sync otherwise),
+//      its running count a destination in shared memory. The warps' counts
+//      give the tile's count a destination, published at once as an
+//      aggregate; a decoupled look-back over the tiles before
+//      (lookback.cuh, one status word a tile and destination) gives where
+//      the tile's rows of each destination start among all of them. The
+//      tile then stages its rows in shared memory in destination order, so
+//      that each destination's run leaves as contiguous lines. A row whose
+//      rank is below `cap` goes to its destination's block of the send
+//      buffer, which starts at the sum of min(total, cap) of the
+//      destinations before it; every lane is copied at its width (1, 2, 4
+//      or 8 bytes), the key too (salted: as key * salt + s, the key the
+//      receiver joins on), and the row's pending flag is cleared. Rows past
+//      the cap stay pending for the next round, so a skewed destination
+//      costs rounds, never a larger buffer. More than 32 lanes take a sweep
+//      a pass of 32, each with its own ticket and epoch.
 // Order: stable. A destination's rows leave in row order, the first `cap`
 // of them this round; so the plain version, a stable sort, gives the same
 // send buffer.
@@ -44,25 +54,30 @@
 // `limit` distinct keys (the caller's final_groups_per_shard) the
 // overflow flag is set, as it is when the table is full.
 //
-// Bounds. K1 reads each pending row's key (and flag) twice and its lanes
-// once and writes each lane once: TPC-H SF10's lineitem probe of the
-// partitioned join (60M rows, a packed key and one int64 lane) moves about
-// 1.9 GB, 0.57 ms at the 3.35 TB/s of an NVIDIA H100 80GB HBM3 (700 W
-// data sheet). K2 reads each entry once and writes each owned group's
-// cells once.
+// Bounds. K1 must read each row's key, flag and lanes once and write each
+// sent row's key, lanes and flag once: TPC-H SF10's lineitem probe of the
+// partitioned join on 4 shards (a shard of 14,999,417 rows, a packed key
+// and one int64 lane) moves about 0.51 GB, 0.15 ms at the 3.35 TB/s of an
+// NVIDIA H100 80GB HBM3 (700 W data sheet); the count reads the keys and
+// flags a second time (0.14 GB). K2 reads each entry once and writes each
+// owned group's cells once.
 
 #include <stdint.h>
 
+#include "lookback.cuh"
 #include "program.cuh"
-#include "scan.cuh"
 
 namespace {
 
 constexpr int kXThreads = 256;
 constexpr int kXWarps = kXThreads / 32;
+constexpr int kXTile = 2048;           // rows a tile of the sweep
 constexpr int kMaxDest = 256;          // shards of a mesh
-constexpr int kMaxXLanes = 32;         // lanes one scatter pass moves
+constexpr int kMaxXLanes = 32;         // lanes one sweep moves
 constexpr u64 kSaltMul = 0x100000001B3ull;
+constexpr unsigned kNoRow = 0xffffffffu;
+constexpr int kUnroll = 4;             // rows a thread has in flight
+constexpr int kSweepBlocks = 6;        // blocks an SM: 40 registers at most
 
 struct XLanes {
   const void* src[kMaxXLanes];
@@ -71,56 +86,119 @@ struct XLanes {
   int n_lanes;
 };
 
-// The destination of `key` at local row `row`, and the key it travels as.
-// salt_mode 1: s = row % salt (a probe row); 2: s = salt_r (a replica of
-// the build side).
-__device__ __forceinline__ int owner_of(i64 key, i64 row, int n_dest,
-                                        int salt, int salt_mode, i64 salt_r,
-                                        i64* out_key) {
-  if (salt <= 1) {
-    *out_key = key;
-    return (int)(splitmix64((u64)key) % (u64)n_dest);
-  }
+// The key row `row` travels as: salt_mode 1: s = row % salt (a probe
+// row); 2: s = salt_r (a replica of the build side).
+__device__ __forceinline__ i64 travel_key(i64 key, i64 row, int salt,
+                                          int salt_mode, i64 salt_r) {
+  if (salt <= 1) return key;
   const u64 s = salt_mode == 1 ? (u64)(row % salt) : (u64)salt_r;
-  *out_key = (i64)((u64)key * (u64)salt + s);
-  return (int)(splitmix64((u64)key * kSaltMul + s) % (u64)n_dest);
+  return (i64)((u64)key * (u64)salt + s);
+}
+
+// The destination of `key` at local row `row` (a power of two of
+// destinations by a mask, the same remainder).
+__device__ __forceinline__ int owner_of(i64 key, i64 row, int n_dest,
+                                        int salt, int salt_mode, i64 salt_r) {
+  u64 h;
+  if (salt <= 1) {
+    h = splitmix64((u64)key);
+  } else {
+    const u64 s = salt_mode == 1 ? (u64)(row % salt) : (u64)salt_r;
+    h = splitmix64((u64)key * kSaltMul + s);
+  }
+  return (int)((n_dest & (n_dest - 1)) == 0 ? h & (u64)(n_dest - 1)
+                                            : h % (u64)n_dest);
 }
 
 __device__ __forceinline__ unsigned lanes_below() {
   return (1u << (threadIdx.x & 31)) - 1u;
 }
 
-// counts[d * n_tiles + t] = the pending rows of tile t owned by d; totals[d]
-// += the same over the tile
+// The lanes of the calling warp whose rows go where this lane's row goes
+// (0 for a lane without a row): ballots on the destination's bits where
+// n_dest is a power of two of at most 32, __match_any_sync otherwise.
+// Every lane of the warp calls it.
+__device__ __forceinline__ unsigned dest_peers(int d, bool ok, int n_dest) {
+  unsigned peers;
+  if (n_dest <= 32 && (n_dest & (n_dest - 1)) == 0) {
+    peers = __ballot_sync(kWarp, ok);
+    for (int b = 1; b < n_dest; b <<= 1) {
+      const unsigned set = __ballot_sync(kWarp, (d & b) != 0);
+      peers &= (d & b) ? set : ~set;
+    }
+  } else {
+    peers = __match_any_sync(kWarp, ok ? d : -1);
+  }
+  return ok ? peers : 0u;
+}
+
+// Step 1 (see the top): totals[d] += the pending rows owned by d.
 __global__ void __launch_bounds__(kXThreads)
-partition_hist_kernel(const i64* __restrict__ keys,
-                      const uint8_t* __restrict__ pending, i64 n, int n_dest,
-                      int salt, int salt_mode, i64 salt_r, i64 tile,
-                      i64 n_tiles, i64* __restrict__ counts,
-                      u64* __restrict__ totals) {
+partition_count_kernel(const i64* __restrict__ keys,
+                       const uint8_t* __restrict__ pending, i64 n,
+                       int n_dest, int salt, int salt_mode, i64 salt_r,
+                       u64* __restrict__ totals) {
   __shared__ unsigned h[kMaxDest];
-  for (i64 t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    for (int d = threadIdx.x; d < n_dest; d += blockDim.x) h[d] = 0;
-    __syncthreads();
-    const i64 lo = t * tile, hi = lo + tile < n ? lo + tile : n;
-    for (i64 base = lo; base < hi; base += blockDim.x) {
-      const i64 i = base + threadIdx.x;
-      int d = n_dest;                     // no row: a group of its own
-      if (i < hi && pending[i]) {
-        i64 k;
-        d = owner_of(keys[i], i, n_dest, salt, salt_mode, salt_r, &k);
-      }
-      const unsigned peers = __match_any_sync(0xffffffffu, d);
-      if (d < n_dest && (peers & lanes_below()) == 0) {
+  for (int d = threadIdx.x; d < n_dest; d += blockDim.x) h[d] = 0;
+  __syncthreads();
+  // kUnroll rows a thread a round, their loads out together
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  for (i64 i0 = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+       i0 - (threadIdx.x & 31) < n; i0 += stride * kUnroll) {
+    i64 k[kUnroll];
+    bool ok[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const i64 i = i0 + u * stride;
+      ok[u] = i < n && pending[i];
+      k[u] = ok[u] ? keys[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const i64 i = i0 + u * stride;
+      const int d = ok[u] ? owner_of(k[u], i, n_dest, salt, salt_mode, salt_r)
+                          : 0;
+      const unsigned peers = dest_peers(d, ok[u], n_dest);
+      if (ok[u] && (peers & lanes_below()) == 0) {
         atomicAdd(&h[d], (unsigned)__popc(peers));
       }
     }
-    __syncthreads();
-    for (int d = threadIdx.x; d < n_dest; d += blockDim.x) {
-      counts[(i64)d * n_tiles + t] = h[d];
-      if (h[d]) atomicAdd(&totals[d], (u64)h[d]);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < n_dest; d += blockDim.x) {
+    if (h[d]) atomicAdd(&totals[d], (u64)h[d]);
+  }
+}
+
+// The sum of the counts of tiles 0..tile-1 (tile > 0) whose status words
+// are at[t * stride], taken by the calling warp's lanes together (every
+// lane calls it and gets it): lane l reads tile t - l, a warp's width of
+// tiles a round trip, up to the nearest inclusive word once every word
+// before it is published (lookback.cuh's word and walk, for a warp of any
+// width).
+__device__ __forceinline__ i64 lanes_look_back(const u64* at, i64 tile,
+                                               i64 stride, u64 epoch) {
+  const unsigned members = warp_members();
+  const int width = __popc(members);
+  const int lane = lane_id();
+  i64 excl = 0;
+  for (i64 t = tile - 1;; t -= width) {
+    const i64 mine = t - lane;
+    u64 st;
+    unsigned ready, incl;
+    for (;;) {
+      st = mine >= 0 ? load_status(at + mine * stride)
+                     : status_word(kInclusive, epoch, 0);
+      const bool ok = (st >> kCountBits & kEpochMask) == epoch;
+      ready = __ballot_sync(kWarp, ok);
+      incl = __ballot_sync(kWarp, ok && st >> 62 == kInclusive);
+      const unsigned need = incl ? (incl & (0u - incl)) * 2u - 1u : members;
+      if ((ready & need) == need) break;
     }
-    __syncthreads();
+    const int stop = incl ? __ffs(incl) - 1 : width - 1;
+    excl += warp_reduce(LANE_ROWS, members,
+                        lane <= stop ? (i64)(st & kCountMask) : 0);
+    if (incl) return excl;
   }
 }
 
@@ -130,22 +208,30 @@ __device__ __forceinline__ void move(const XLanes& x, int l, i64 to,
   ((T*)x.dst[l])[to] = ((const T*)x.src[l])[from];
 }
 
-// Step 3 (see the top): offsets are the scanned counts, totals the
-// destinations' totals. The flags are cleared only when `clear` (the last
-// pass of a partition whose lanes take several).
-__global__ void __launch_bounds__(kXThreads)
-partition_scatter_kernel(const i64* __restrict__ keys,
-                         uint8_t* __restrict__ pending, i64 n, int n_dest,
-                         int salt, int salt_mode, i64 salt_r, i64 tile,
-                         i64 n_tiles, const i64* __restrict__ offsets,
-                         const u64* __restrict__ totals, i64 cap,
-                         const XLanes x, i64* __restrict__ key_out,
-                         int clear) {
-  __shared__ unsigned warp_count[kXWarps][kMaxDest];
-  __shared__ i64 running[kMaxDest];
+// Step 2 (see the top): totals from step 1; status: n_tiles * n_dest words
+// and *ticket, zeroed before the first pass, `epoch` the pass's (1, 2,
+// ...). The flags are cleared only when `clear` (the last pass of a
+// partition whose lanes take several).
+__global__ void __launch_bounds__(kXThreads, kSweepBlocks)
+partition_sweep_kernel(const i64* __restrict__ keys,
+                       uint8_t* __restrict__ pending, i64 n, int n_dest,
+                       int salt, int salt_mode, i64 salt_r,
+                       const u64* __restrict__ totals, i64 cap,
+                       const XLanes x, i64* __restrict__ key_out, int clear,
+                       u64* __restrict__ status, u64* __restrict__ ticket,
+                       u64 epoch) {
+  // per tile row: its destination << 16 | its rank in its warp's run, then
+  // in destination order: destination << 16 | the tile row
+  __shared__ unsigned info[kXTile];
+  __shared__ unsigned stage[kXTile];
+  // per warp and destination: the warp's rows, then those of the warps
+  // before it in the tile
+  __shared__ unsigned short wcount[kXWarps][kMaxDest];
+  __shared__ unsigned count[kMaxDest];
+  __shared__ unsigned start[kMaxDest + 1];   // a destination's stage run
+  __shared__ i64 prefix[kMaxDest];           // its rows in earlier tiles
   __shared__ i64 send_off[kMaxDest];
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5;
+  __shared__ i64 tile_s;
   if (threadIdx.x == 0) {
     i64 s = 0;
     for (int d = 0; d < n_dest; ++d) {
@@ -153,55 +239,140 @@ partition_scatter_kernel(const i64* __restrict__ keys,
       s += (i64)totals[d] < cap ? (i64)totals[d] : cap;
     }
   }
-  for (int d = threadIdx.x; d < n_dest; d += blockDim.x) {
-    for (int w = 0; w < n_warps; ++w) warp_count[w][d] = 0;
-  }
-  __syncthreads();
-  for (i64 t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    for (int d = threadIdx.x; d < n_dest; d += blockDim.x) {
-      running[d] = offsets[(i64)d * n_tiles + t] -
-                   offsets[(i64)d * n_tiles];
+  const int warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  const int per_warp = kXTile / nw;
+  const int width = __popc(warp_members());
+  const i64 n_tiles = (n + kXTile - 1) / kXTile;
+  for (;;) {
+    if (threadIdx.x == 0) tile_s = (i64)atomicAdd(ticket, 1ull);
+    __syncthreads();
+    const i64 t = tile_s;
+    if (t >= n_tiles) break;
+    const i64 base = t * kXTile;
+    for (int k = threadIdx.x; k < nw * n_dest; k += blockDim.x) {
+      wcount[k / n_dest][k % n_dest] = 0;
     }
     __syncthreads();
-    const i64 lo = t * tile, hi = lo + tile < n ? lo + tile : n;
-    for (i64 base = lo; base < hi; base += blockDim.x) {
-      const i64 i = base + threadIdx.x;
-      const bool ok = i < hi && pending[i];
-      int d = n_dest;
-      i64 k = 0;
-      if (ok) d = owner_of(keys[i], i, n_dest, salt, salt_mode, salt_r, &k);
-      const unsigned peers = __match_any_sync(0xffffffffu, d);
-      const unsigned rank = __popc(peers & lanes_below());
-      if (ok && rank == 0) warp_count[warp][d] = __popc(peers);
-      __syncthreads();
-      if (ok) {
-        i64 r = running[d] + rank;
-        for (int w = 0; w < warp; ++w) r += warp_count[w][d];
-        if (r < cap) {
-          const i64 pos = send_off[d] + r;
-          for (int l = 0; l < x.n_lanes; ++l) {
-            switch (x.width[l]) {
-              case 1: move<uint8_t>(x, l, pos, i); break;
-              case 2: move<uint16_t>(x, l, pos, i); break;
-              case 4: move<uint32_t>(x, l, pos, i); break;
-              default: move<u64>(x, l, pos, i); break;
-            }
-          }
-          if (key_out != nullptr) key_out[pos] = k;
-          if (clear) pending[i] = 0;
-        }
+    // each row's owner once, kUnroll steps' loads out together
+    for (int s0 = 0; s0 < per_warp; s0 += width * kUnroll) {
+      i64 k[kUnroll];
+      bool ok[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const i64 i = base + warp * per_warp + s0 + u * width + lane_id();
+        ok[u] = i < n && pending[i];
+        k[u] = ok[u] ? keys[i] : 0;
       }
-      __syncthreads();
-      for (int dd = threadIdx.x; dd < n_dest; dd += blockDim.x) {
-        i64 s = 0;
-        for (int w = 0; w < n_warps; ++w) {
-          s += warp_count[w][dd];
-          warp_count[w][dd] = 0;
-        }
-        running[dd] += s;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = warp * per_warp + s0 + u * width + lane_id();
+        info[r] = ok[u] ? (unsigned)owner_of(k[u], base + r, n_dest, salt,
+                                             salt_mode, salt_r)
+                        : kNoRow;
       }
-      __syncthreads();
     }
+    __syncwarp();
+    // each row's rank in its warp's run of its destination
+    for (int s = 0; s < per_warp; s += width) {
+      const int r = warp * per_warp + s + lane_id();
+      const unsigned v = info[r];
+      const bool ok = v != kNoRow;
+      const int d = ok ? (int)v : 0;
+      const unsigned peers = dest_peers(d, ok, n_dest);
+      const unsigned below = peers & lanes_below();
+      const unsigned rank = ok ? wcount[warp][d] + __popc(below) : 0;
+      __syncwarp();
+      if (ok && below == 0) wcount[warp][d] += __popc(peers);
+      __syncwarp();
+      if (ok) info[r] = (unsigned)d << 16 | rank;
+    }
+    __syncthreads();
+    // each destination's count in the tile, published at once, and the
+    // warps' offsets within it
+    for (int d = threadIdx.x; d < n_dest; d += blockDim.x) {
+      unsigned c = 0;
+      for (int w = 0; w < nw; ++w) {
+        const unsigned k = wcount[w][d];
+        wcount[w][d] = (unsigned short)c;
+        c += k;
+      }
+      store_status(status + t * n_dest + d,
+                   status_word(t == 0 ? kInclusive : kAggregate, epoch, c));
+      count[d] = c;
+      prefix[d] = 0;
+    }
+    __syncthreads();
+    // where the tile's rows of each destination start: a warp's look-back
+    // a destination
+    if (t > 0) {
+      for (int d = warp; d < n_dest; d += nw) {
+        const i64 before = lanes_look_back(status + d, t, n_dest, epoch);
+        if (lane_id() == 0) {
+          prefix[d] = before;
+          store_status(status + t * n_dest + d,
+                       status_word(kInclusive, epoch, (u64)before + count[d]));
+        }
+      }
+    }
+    if (threadIdx.x == 0) {
+      unsigned s = 0;
+      for (int d = 0; d < n_dest; ++d) {
+        start[d] = s;
+        s += count[d];
+      }
+      start[n_dest] = s;
+    }
+    __syncthreads();
+    // rows in destination order; a sent row's flag cleared in row order
+    for (int r = threadIdx.x; r < kXTile; r += blockDim.x) {
+      const unsigned v = info[r];
+      if (v == kNoRow) continue;
+      const int d = (int)(v >> 16);
+      const unsigned at = wcount[r / per_warp][d] + (v & 0xffffu);
+      stage[start[d] + at] = (unsigned)d << 16 | (unsigned)r;
+      if (clear && prefix[d] + at < cap) pending[base + r] = 0;
+    }
+    __syncthreads();
+    const int total = (int)start[n_dest];
+    for (int p0 = 0; p0 < total; p0 += blockDim.x * kUnroll) {
+      // kUnroll rows a thread, their reads out together
+      i64 i[kUnroll], pos[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = p0 + u * blockDim.x + threadIdx.x;
+        pos[u] = -1;
+        if (p < total) {
+          const unsigned v = stage[p];
+          const int d = (int)(v >> 16);
+          const i64 g = prefix[d] + (p - (int)start[d]);
+          i[u] = base + (v & 0xffffu);
+          if (g < cap) pos[u] = send_off[d] + g;
+        }
+      }
+      for (int l = 0; l < x.n_lanes; ++l) {
+        const int w = x.width[l];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (pos[u] < 0) continue;
+          switch (w) {
+            case 1: move<uint8_t>(x, l, pos[u], i[u]); break;
+            case 2: move<uint16_t>(x, l, pos[u], i[u]); break;
+            case 4: move<uint32_t>(x, l, pos[u], i[u]); break;
+            default: move<u64>(x, l, pos[u], i[u]); break;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (pos[u] < 0) continue;
+        if (key_out != nullptr) {
+          key_out[pos[u]] = travel_key(keys[i[u]], i[u], salt, salt_mode,
+                                       salt_r);
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -236,54 +407,45 @@ merge_partials_kernel(const i64* __restrict__ entries, i64 m, int rows,
   }
 }
 
-inline i64 n_tiles_of(i64 n, i64 tile) {
-  const i64 t = (n + tile - 1) / tile;
-  return t > 0 ? t : 1;
-}
-
 }  // namespace
 
-// Step 1 of K1 over n rows in tiles of `tile` rows. counts: device int64
-// [n_dest * n_tiles]; totals: device int64 [n_dest] zeroed by the caller.
-// One launch; returns cudaGetLastError().
-extern "C" int dft_partition_hist(const void* keys, const void* pending,
-                                  long long n, int n_dest, int salt,
-                                  int salt_mode, long long salt_r,
-                                  long long tile, void* counts,
-                                  void* totals, void* stream) {
-  const i64 nt = n_tiles_of(n, tile);
-  partition_hist_kernel<<<grid_for(nt * tile, kXThreads) < nt
-                              ? grid_for(nt * tile, kXThreads)
-                              : (unsigned)nt,
-                          kXThreads, 0, (cudaStream_t)stream>>>(
+// Step 1 of K1: totals device int64 [n_dest], zeroed by the caller. One
+// launch; returns cudaGetLastError().
+extern "C" int dft_partition_count(const void* keys, const void* pending,
+                                   long long n, int n_dest, int salt,
+                                   int salt_mode, long long salt_r,
+                                   void* totals, void* stream) {
+  partition_count_kernel<<<grid_blocks(n, kXThreads), kXThreads, 0,
+                           (cudaStream_t)stream>>>(
       (const i64*)keys, (const uint8_t*)pending, n, n_dest, salt, salt_mode,
-      salt_r, tile, nt, (i64*)counts, (u64*)totals);
+      salt_r, (u64*)totals);
   return (int)cudaGetLastError();
 }
 
-// Steps 2 and 3 of K1: the scan of counts (sums: scratch of
-// scan_tiles(n_dest * n_tiles) words), then one scatter launch a pass of
-// at most 32 lanes (src, dst: device pointers; width: bytes a row);
-// key_out: device int64, or null. The last pass clears the sent rows'
-// flags. Returns the first error.
-extern "C" int dft_partition_scatter(const void* keys, void* pending,
-                                     long long n, int n_dest, int salt,
-                                     int salt_mode, long long salt_r,
-                                     long long tile, void* counts,
-                                     void* sums, const void* totals,
-                                     long long cap, int n_lanes,
-                                     const void* const* src,
-                                     void* const* dst, const int* width,
-                                     void* key_out, void* stream) {
+// Step 2 of K1: one sweep launch a pass of at most 32 lanes (src, dst:
+// device pointers; width: bytes a row); totals: step 1's; key_out: device
+// int64, or null; status: device int64 [ceil(n / kXTile) * n_dest] and
+// tickets: device int64 [passes], both zeroed by the caller. The last pass
+// clears the sent rows' flags. Returns the first error.
+extern "C" int dft_partition_sweep(const void* keys, void* pending,
+                                   long long n, int n_dest, int salt,
+                                   int salt_mode, long long salt_r,
+                                   const void* totals, long long cap,
+                                   int n_lanes, const void* const* src,
+                                   void* const* dst, const int* width,
+                                   void* key_out, void* status,
+                                   void* tickets, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const i64 nt = n_tiles_of(n, tile);
-  cudaError_t err = exclusive_scan((i64*)counts, (i64)n_dest * nt,
-                                   (i64*)sums, st);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = grid_for(nt * tile, kXThreads) < nt
-                            ? grid_for(nt * tile, kXThreads)
-                            : (unsigned)nt;
-  int at = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, partition_sweep_kernel, kXThreads, 0);
+  const i64 n_tiles = (n + kXTile - 1) / kXTile;
+  i64 grid = (i64)(sms > 0 ? sms : 132) * (per_sm > 0 ? per_sm : 1);
+  if (grid > n_tiles) grid = n_tiles;
+  if (grid < 1) grid = 1;
+  int at = 0, pass = 0;
   do {
     XLanes x;
     x.n_lanes = n_lanes - at < kMaxXLanes ? n_lanes - at : kMaxXLanes;
@@ -293,13 +455,15 @@ extern "C" int dft_partition_scatter(const void* keys, void* pending,
       x.width[l] = width[at + l];
     }
     const bool last = at + x.n_lanes >= n_lanes;
-    partition_scatter_kernel<<<grid, kXThreads, 0, st>>>(
+    partition_sweep_kernel<<<(unsigned)grid, kXThreads, 0, st>>>(
         (const i64*)keys, (uint8_t*)pending, n, n_dest, salt, salt_mode,
-        salt_r, tile, nt, (const i64*)counts, (const u64*)totals, cap, x,
-        at == 0 ? (i64*)key_out : nullptr, last ? 1 : 0);
-    err = cudaGetLastError();
+        salt_r, (const u64*)totals, cap, x,
+        at == 0 ? (i64*)key_out : nullptr, last ? 1 : 0, (u64*)status,
+        (u64*)tickets + pass, (u64)(pass + 1));
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     at += x.n_lanes;
+    ++pass;
   } while (at < n_lanes);
   return 0;
 }

@@ -12,16 +12,17 @@
 // row, build payloads at the row each hop found, a folded hop's payloads
 // in its records at the record's first word).
 //
-// The row bodies `dense_fold` and `hash_fold` (a dense shared-memory
+// The row bodies `dense_fold` and `hash_fold_warps` (a dense shared-memory
 // table of <= 64 slots, a global hash table) are templates on the row
-// source: `PlainRows` admits the rows that pass an aggregate's predicate,
-// `ChainRows` those that also survive the join chain's walk, so the
-// grouped aggregate and the join-chain aggregate share one fold (the
-// walks' dense fold, `dense_fold_rows`, folds a row at a time). The
-// per-row step `hash_fold_row` and the per-warp step `dense_fold_warp` are
-// also called once a matching pair by the fanout-N join-aggregate
-// (join_aggregate.cu), whose loader `PairColumns` reads build columns in
-// the pair's entry record.
+// source: `PlainRows` admits the rows that pass an aggregate's predicate.
+// Their warp steps, `dense_fold_warp` and `hash_fold_step`, are also what
+// the join-chain aggregate's tile walk (chain_aggregate.cu) folds its
+// surviving rows with, so the grouped aggregate and the join-chain
+// aggregate share one fold; `ChainRows` is the row-returning walk's row
+// source (chain_rows.cu). The per-row step `hash_fold_row` and the
+// per-warp step `dense_fold_warp` are also called once a matching pair by
+// the fanout-N join-aggregate (join_aggregate.cu), whose loader
+// `PairColumns` reads build columns in the pair's entry record.
 //
 // The dense fold reduces before any atomic. A warp takes 32 consecutive
 // rows a step; each row's admitted bit and slot are found once; then each
@@ -47,8 +48,9 @@
 // (`cache_entry`, merged into the table at the block's end by
 // `cache_merge`), then in the table; identity mode writes a group's key
 // word once, from the count update that finds the count 0. The join-chain
-// walks keep the row-at-a-time `hash_fold`, and the fanout-N join its
-// per-pair `hash_fold_row`: their registers are the tighter limit there.
+// walk folds its tile's survivors by the same warp step
+// (`hash_fold_step`, without a cache); the fanout-N join keeps its
+// per-pair `hash_fold_row`: its registers are the tighter limit there.
 //
 // Lanes run in passes of at most 32 (groupby.py MAX_LANES): a descriptor
 // holds one pass's lanes, and H_LANE0 says where they start among the
@@ -122,8 +124,25 @@ enum { H_NCOLS, H_NLANES, H_G, H_NKEYS, H_PRED, H_OFF_COLS, H_OFF_PROGS,
        H_OFF_CHAIN, H_LANE0, H_DSET, H_DMASK };
 
 // join-chain section (datafusion_tpu_torch/device/join_chain.py): a head,
-// one record per hop, then the hop of every pair-space column (-1: spine)
-enum { C_NSPINE, C_NHOPS, C_PPRED, C_OFF_HOPOF, C_HOPS };
+// one record per hop, the hop of every pair-space column (-1: spine), then
+// the probe predicate's conjuncts (C_NCONJ records of kConjWords at
+// C_OFF_CONJ from the section's start). The host splits the predicate's
+// top-level AND into its conjuncts; a conjunct that is one column tested
+// against a constant or a column (CJ_CMP_*: (form, column, comparison
+// code, the constant's int64 or float64 bits); CJ_CMPC_*: the same with
+// the other column), an IN list (CJ_IN_*: (form, column, first constant in
+// the pool, count)), a dictionary table (CJ_LUT: (form, column, aux slot))
+// or a string comparison on codes (CJ_STRCMP: (form, column, comparison
+// code, aux slot)) is evaluated directly, by the interpreter's rules; any
+// other is a program of its own (CJ_PROG: (form, program)). A row passes
+// when every conjunct is valid and true, as the Kleene AND of them all
+// would leave it (the tile walk of chain_aggregate.cu). C_PPRED, the whole
+// predicate, is what the row walk (`ChainRows`) runs.
+enum { C_NSPINE, C_NHOPS, C_PPRED, C_OFF_HOPOF, C_NCONJ, C_OFF_CONJ,
+       C_HOPS };
+enum { CJ_PROG, CJ_CMP_I, CJ_CMP_F, CJ_CMPC_I, CJ_CMPC_F, CJ_IN_I, CJ_IN_F,
+       CJ_LUT, CJ_STRCMP };
+constexpr int kConjWords = 4;
 // HOP_MOP: the comparison code of a SEMI/ANTI min/max membership test
 // (-1: none), HOP_MPROG its probe program, HOP_MN/HOP_MX the int64 min and
 // max of the member column, slot-aligned with the table. HOP_TABLE holds
@@ -132,7 +151,9 @@ enum { C_NSPINE, C_NHOPS, C_PPRED, C_OFF_HOPOF, C_HOPS };
 // first (its row handle is then slot x HOP_FOLD). A composed hop
 // (TAB_COMPOSED) reads its int64 words at (const i64*)HOP_TABLE +
 // brow[HOP_OWNER] x HOP_STRIDE: its row, then a min/max hop's min and max
-// (HOP_MN, HOP_MX: the same words at handle 0).
+// (HOP_MN, HOP_MX: the same words at handle 0). A probe key's program is
+// -2 - c when it is column c alone, which the walk loads without the
+// interpreter.
 enum { HOP_KIND, HOP_JTYPE, HOP_TABLE, HOP_KEYS, HOP_SIZE, HOP_NKEYS,
        HOP_MOP, HOP_MPROG, HOP_MN, HOP_MX, HOP_STRIDE, HOP_OWNER, HOP_FOLD,
        HOP_KEY0 };
@@ -920,22 +941,6 @@ __device__ __forceinline__ void dense_fold_warp(const i64* meta,
   }
 }
 
-// One admitted row folded into the dense table `tab` on its own: one
-// shared-memory atomic a lane (`fold_lanes`), for the join-chain walks
-// (`dense_fold_rows`).
-template <class Columns>
-__device__ __forceinline__ void dense_fold_row(const i64* meta, const i64* aux,
-                                               i64 row, const Columns& cols,
-                                               u64* tab) {
-  const int groups = (int)meta[H_G];
-  i64 slot = pack_key(meta, aux, meta + meta[H_OFF_KEYS], (int)meta[H_NKEYS],
-                      row, cols);
-  slot = slot < 0 ? 0 : (slot >= groups ? groups - 1 : slot);
-  atomicAdd(&tab[slot], 1ull);
-  fold_lanes(meta, aux, meta + meta[H_OFF_LANES], (int)meta[H_NLANES], row,
-             cols, slot, [&](int l) { return &tab[(l + 1) * groups + slot]; });
-}
-
 // The block's dense table merged into the global table `table_g` ([all
 // lanes + 1][G]) with atomics: the counts by the first pass only, this
 // pass's lanes into their rows from H_LANE0 on.
@@ -1030,26 +1035,6 @@ __device__ void dense_fold(const i64* meta, const i64* aux, i64 n_rows,
   dense_merge(meta, tab, table_g);
 }
 
-// Every admitted row folded into the dense table one row at a time
-// (`dense_fold_row`), merged as `dense_fold` merges: the join-chain walks'
-// fold. Their hops admit few rows, so their atomics are few, and the warp
-// reduction's registers cost them more than it saves under their
-// 64-register cap (measured on an NVIDIA H100: 48 more stack bytes, TPC-H
-// Q12's walk 22% and Q14's 8% slower with it).
-template <class Rows>
-__device__ void dense_fold_rows(const i64* meta, const i64* aux, i64 n_rows,
-                                u64* tab, u64* table_g, const Rows& rows) {
-  dense_init(meta, tab);
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
-       row += stride) {
-    typename Rows::Columns cols;
-    if (!rows(row, &cols)) continue;
-    dense_fold_row(meta, aux, row, cols, tab);
-  }
-  dense_merge(meta, tab, table_g);
-}
-
 // One admitted row (or pair) folded into the global hash table `table` of
 // [all lanes + 2][cap] (row 0 keys, EMPTY = -1; row 1 counts; then the
 // lanes): the packed key is the slot when `identity_slots`, else a probed
@@ -1078,21 +1063,6 @@ __device__ __forceinline__ void hash_fold_row(const i64* meta, const i64* aux,
   fold_lanes(meta, aux, meta + meta[H_OFF_LANES], (int)meta[H_NLANES], row,
              cols, slot,
              [&](int l) { return &counts[(l + 1 + lane0) * cap + slot]; });
-}
-
-// Every admitted row folded into the global hash table (`hash_fold_row`).
-template <class Rows>
-__device__ void hash_fold(const i64* meta, const i64* aux, i64 n_rows,
-                          i64 cap, int identity_slots, i64* table,
-                          int* overflow, const Rows& rows) {
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
-       row += stride) {
-    typename Rows::Columns cols;
-    if (!rows(row, &cols)) continue;
-    hash_fold_row(meta, aux, row, cols, cap, identity_slots, table,
-                  overflow);
-  }
 }
 
 // ---- the aggregate's hash fold: warp peers, then a block cache ---------------
@@ -1213,24 +1183,136 @@ __device__ __forceinline__ void cache_merge(const i64* meta, i64* cache,
   }
 }
 
+// The block's state of the warp-peer hash fold: the cache debt
+// (kCacheGiveUp: off from the start without a cache) and the match debt,
+// in shared memory.
+struct HashFoldState {
+  int debt;
+  int unmatched;
+};
+
+__device__ __forceinline__ void hash_fold_begin(HashFoldState* st,
+                                                int entries) {
+  if (threadIdx.x == 0) {
+    st->debt = entries > 0 ? 0 : kCacheGiveUp;
+    st->unmatched = 0;
+  }
+  __syncthreads();
+}
+
+// One warp step of the warp-peer hash fold: a row a lane, `adm` whether it
+// is admitted, its loads through `cols`. Every lane of the warp calls it.
+// The rows of one packed key are peers (__match_any_sync on the 64-bit
+// key): the lowest counts them by a popcount and finds the group once, in
+// the block's cache of hot keys (`cache_entry`: shared atomics, merged
+// into the table at the block's end by `cache_merge`), or, on a miss or
+// without a cache (`entries` = 0), in the table (`group_slot`,
+// `count_rows`). Each lane reduces over the peers before the lowest makes
+// one atomic: counts by a ballot (a distinct lane's 1s, one set insert a
+// row, are the pairs its rows created), the others by `reduce_peers`, so
+// a float min or max runs its CAS loop once a peer set. A row whose key
+// finds no slot, or lies outside an identity table, sets *overflow and is
+// dropped. A pass with a distinct lane must run without a cache (the set's
+// pair needs the table slot in every row, which the lowest peer shares). A
+// block stops matching, or probing its cache, where its keys show it
+// saves nothing (kMatchGiveUp, kCacheGiveUp); with no row in another's
+// set, the step reduces nothing.
+template <class Columns>
+__device__ __forceinline__ void hash_fold_step(const i64* meta,
+                                               const i64* aux, bool adm,
+                                               i64 row, const Columns& cols,
+                                               i64 cap, int identity_slots,
+                                               i64* table, int* overflow,
+                                               i64* cache, int entries,
+                                               HashFoldState* st) {
+  i64 key = kEmpty;
+  if (adm) {
+    key = pack_key(meta, aux, meta + meta[H_OFF_KEYS], (int)meta[H_NKEYS],
+                   row, cols);
+    if (key < 0 || (identity_slots && key >= cap)) {
+      *overflow = 1;
+      adm = false;
+      key = kEmpty;
+    }
+  }
+  const unsigned admitted = __ballot_sync(kWarp, adm);
+  if (admitted == 0) return;
+  // a row not admitted is a set of its own, which no lane reduces over;
+  // peers is 0 in every lane when every row is (no row joined another's
+  // set, or the block stopped matching): the step then reduces nothing
+  unsigned peers = 0;
+  // the block's state as lane 0 reads it, the same in every lane
+  if (__shfl_sync(kWarp, *(volatile int*)&st->unmatched, 0) < kMatchGiveUp) {
+    const unsigned match = __match_any_sync(kWarp, (u64)key);
+    peers = adm ? match : 1u << lane_id();
+    const int joined =
+        __popc(admitted) -
+        __popc(__ballot_sync(kWarp, adm && lane_id() == __ffs(peers) - 1));
+    if (lane_id() == 0) atomicAdd(&st->unmatched, 1 - 2 * joined);
+    if (joined == 0) peers = 0;
+  }
+  const i64 lane0 = meta[H_LANE0];
+  const bool cached =
+      __shfl_sync(kWarp, *(volatile int*)&st->debt, 0) < kCacheGiveUp;
+  // where the lowest peer folds, in one word: the table slot (>= 0), the
+  // cache entry e as -2 - e, or -1 for nowhere (a row not admitted, or no
+  // slot); and what its set adds to the block's debt
+  i64 at = -1;
+  int owes = 0;
+  if (adm && (peers == 0 || lane_id() == __ffs(peers) - 1)) {
+    const i64 n = peers == 0 ? 1 : __popc(peers);
+    bool fresh = true;
+    const int e = cached ? cache_entry(cache, entries, key, &fresh) : -1;
+    owes = fresh ? 1 : -kCacheHitCredit;
+    if (e >= 0) {
+      if (lane0 == 0) atomicAdd((u64*)&cache[entries + e], (u64)n);
+      at = -2 - e;
+    } else {
+      at = group_slot(table, cap, identity_slots, key);
+      if (at < 0) {
+        *overflow = 1;
+      } else {
+        count_rows(table, cap, identity_slots, lane0, at, key, n);
+      }
+    }
+  }
+  // every peer learns where its set went (a distinct lane's set insert
+  // takes the slot)
+  if (peers != 0) at = __shfl_sync(kWarp, at, __ffs(peers) - 1);
+  if (cached) {
+    owes = __reduce_add_sync(kWarp, owes);
+    if (lane_id() == 0 && owes != 0) atomicAdd(&st->debt, owes);
+  }
+  for (int l = 0; l < (int)meta[H_NLANES]; ++l) {
+    const i64* lanes = meta + meta[H_OFF_LANES];
+    const int prog = (int)lanes[2 * l];
+    const int kind = (int)lanes[2 * l + 1];
+    i64 x;
+    if (!(at != -1 &&
+          lane_value(meta, aux, prog, kind, l, row, cols, at, &x))) {
+      x = identity(kind);
+    }
+    i64 r = x;
+    if (peers != 0) {
+      r = counts_kind(kind)
+              ? (i64)__popc(__ballot_sync(kWarp, x != 0) & peers)
+              : reduce_peers(kind, peers, x);
+    }
+    const bool lead =
+        at != -1 && (peers == 0 || lane_id() == __ffs(peers) - 1);
+    if (!lead || r == identity(kind)) continue;
+    if (at < -1) {
+      fold(kind, (u64*)&cache[(l + 2) * entries + (-2 - at)], r);
+    } else {
+      fold(kind, (u64*)&table[(l + 2 + meta[H_LANE0]) * cap + at], r);
+    }
+  }
+}
+
 // Every admitted row folded into the global hash table `table` of [all
-// lanes + 2][cap], the aggregate kernel's fold. A warp takes 32 consecutive
-// rows a step, so its column loads are coalesced; each row's admitted bit
-// and packed key are found once, and the rows of one key are its peers
-// (__match_any_sync on the 64-bit key). The lowest peer counts them by a
-// popcount and finds the group once: in the block's cache (`cache_entry`:
-// shared atomics, merged into the table at the block's end by
-// `cache_merge`), or, on a miss or without a cache (`entries` = 0), in the
-// table (`group_slot`, `count_rows`). Each lane reduces over the peers
-// before the lowest makes one atomic: counts by a ballot (a distinct lane's
-// 1s, one set insert a row, are the pairs its rows created), the others by
-// `reduce_peers`, so a float min or max runs its CAS loop once a peer set.
-// A row whose key finds no slot, or lies outside an identity table, sets
-// *overflow and is dropped. A pass with a distinct lane must run without a
-// cache (`entries` = 0: the set's pair needs the table slot in every row,
-// which the lowest peer shares). A block stops matching, or probing its
-// cache, where its keys show it saves nothing (kMatchGiveUp,
-// kCacheGiveUp); with no row in another's set, the step reduces nothing.
+// lanes + 2][cap], the aggregate kernel's fold: a warp takes 32
+// consecutive rows a step, so its column loads are coalesced, and each
+// row's admitted bit and packed key are found once (`hash_fold_step`).
 // Little lives across the interpreter's calls, so that the fold keeps the
 // row-at-a-time fold's stack (144 B lean, 192 B full on an NVIDIA H100): a
 // peer set's destination is one word, the block's statistics sit in
@@ -1240,14 +1322,8 @@ __device__ void hash_fold_warps(const i64* meta, const i64* aux, i64 n_rows,
                                 i64 cap, int identity_slots, i64* table,
                                 int* overflow, i64* cache, int entries,
                                 const Rows& rows) {
-  // the block's cache debt (kCacheGiveUp: off from the start without a
-  // cache) and match debt
-  __shared__ int debt, unmatched;
-  if (threadIdx.x == 0) {
-    debt = entries > 0 ? 0 : kCacheGiveUp;
-    unmatched = 0;
-  }
-  __syncthreads();
+  __shared__ HashFoldState st;
+  hash_fold_begin(&st, entries);
   if (entries > 0) cache_init(meta, cache, entries);
   const i64 per_block = (blockDim.x + 31) >> 5;
   const i64 width = __popc(warp_members());
@@ -1256,89 +1332,9 @@ __device__ void hash_fold_warps(const i64* meta, const i64* aux, i64 n_rows,
   for (i64 row = first_row; row - lane_id() < n_rows;
        row += (i64)gridDim.x * per_block * width) {
     typename Rows::Columns cols;
-    bool adm = row < n_rows && rows(row, &cols);
-    i64 key = kEmpty;
-    if (adm) {
-      key = pack_key(meta, aux, meta + meta[H_OFF_KEYS], (int)meta[H_NKEYS],
-                     row, cols);
-      if (key < 0 || (identity_slots && key >= cap)) {
-        *overflow = 1;
-        adm = false;
-        key = kEmpty;
-      }
-    }
-    const unsigned admitted = __ballot_sync(kWarp, adm);
-    if (admitted == 0) continue;
-    // a row not admitted is a set of its own, which no lane reduces over;
-    // peers is 0 in every lane when every row is (no row joined another's
-    // set, or the block stopped matching): the step then reduces nothing
-    unsigned peers = 0;
-    // the block's state as lane 0 reads it, the same in every lane
-    if (__shfl_sync(kWarp, *(volatile int*)&unmatched, 0) < kMatchGiveUp) {
-      const unsigned match = __match_any_sync(kWarp, (u64)key);
-      peers = adm ? match : 1u << lane_id();
-      const int joined =
-          __popc(admitted) -
-          __popc(__ballot_sync(kWarp, adm && lane_id() == __ffs(peers) - 1));
-      if (lane_id() == 0) atomicAdd(&unmatched, 1 - 2 * joined);
-      if (joined == 0) peers = 0;
-    }
-    const i64 lane0 = meta[H_LANE0];
-    const bool cached =
-        __shfl_sync(kWarp, *(volatile int*)&debt, 0) < kCacheGiveUp;
-    // where the lowest peer folds, in one word: the table slot (>= 0), the
-    // cache entry e as -2 - e, or -1 for nowhere (a row not admitted, or
-    // no slot); and what its set adds to the block's debt
-    i64 at = -1;
-    int owes = 0;
-    if (adm && (peers == 0 || lane_id() == __ffs(peers) - 1)) {
-      const i64 n = peers == 0 ? 1 : __popc(peers);
-      bool fresh = true;
-      const int e = cached ? cache_entry(cache, entries, key, &fresh) : -1;
-      owes = fresh ? 1 : -kCacheHitCredit;
-      if (e >= 0) {
-        if (lane0 == 0) atomicAdd((u64*)&cache[entries + e], (u64)n);
-        at = -2 - e;
-      } else {
-        at = group_slot(table, cap, identity_slots, key);
-        if (at < 0) {
-          *overflow = 1;
-        } else {
-          count_rows(table, cap, identity_slots, lane0, at, key, n);
-        }
-      }
-    }
-    // every peer learns where its set went (a distinct lane's set insert
-    // takes the slot)
-    if (peers != 0) at = __shfl_sync(kWarp, at, __ffs(peers) - 1);
-    if (cached) {
-      owes = __reduce_add_sync(kWarp, owes);
-      if (lane_id() == 0 && owes != 0) atomicAdd(&debt, owes);
-    }
-    for (int l = 0; l < (int)meta[H_NLANES]; ++l) {
-      const i64* lanes = meta + meta[H_OFF_LANES];
-      const int prog = (int)lanes[2 * l];
-      const int kind = (int)lanes[2 * l + 1];
-      i64 x;
-      if (!(at != -1 &&
-            lane_value(meta, aux, prog, kind, l, row, cols, at, &x))) {
-        x = identity(kind);
-      }
-      i64 r = x;
-      if (peers != 0) {
-        r = counts_kind(kind)
-                ? (i64)__popc(__ballot_sync(kWarp, x != 0) & peers)
-                : reduce_peers(kind, peers, x);
-      }
-      const bool lead =
-          at != -1 && (peers == 0 || lane_id() == __ffs(peers) - 1);
-      if (!lead || r == identity(kind)) continue;
-      if (at < -1) {
-        fold(kind, (u64*)&cache[(l + 2) * entries + (-2 - at)], r);
-      } else {
-        fold(kind, (u64*)&table[(l + 2 + meta[H_LANE0]) * cap + at], r);
-      }
-    }
+    const bool adm = row < n_rows && rows(row, &cols);
+    hash_fold_step(meta, aux, adm, row, cols, cap, identity_slots, table,
+                   overflow, cache, entries, &st);
   }
   if (entries > 0) cache_merge(meta, cache, entries, cap, identity_slots,
                                table, overflow);
@@ -1382,10 +1378,11 @@ __device__ __forceinline__ i64 join_hash(const i64* w, int n) {
 
 // The build row that hop `hop` (a record of the chain section) finds for
 // the current row, -1 for none, and its table slot to *slot: each
-// probe-key program evaluated over the pair space so far, NULL or outside
-// the build's [lo, hi] never matching, packed as the build packed its
-// keys, looked up in the build's table. `Staged`: the rows lie HOP_STRIDE
-// bytes apart (a folded hop's records); else the table is int32 rows.
+// probe-key program evaluated over the pair space so far (a key that is
+// one column loaded directly), NULL or outside the build's [lo, hi] never
+// matching, packed as the build packed its keys, looked up in the build's
+// table. `Staged`: the rows lie HOP_STRIDE bytes apart (a folded hop's
+// records); else the table is int32 rows.
 template <bool Staged, class Columns>
 __device__ __forceinline__ i64 hop_lookup(const i64* meta, const i64* aux,
                                           const i64* hop, i64 row,
@@ -1396,8 +1393,12 @@ __device__ __forceinline__ i64 hop_lookup(const i64* meta, const i64* aux,
   const int n_keys = (int)hop[HOP_NKEYS];
   for (int k = 0; k < n_keys; ++k) {
     const i64* kr = hop + HOP_KEY0 + 4 * k;
+    const int prog = (int)kr[0];
     i64 v;
-    if (!run(meta, aux, (int)kr[0], row, cols, &v)) return -1;
+    if (!(prog < 0 ? cols(-2 - prog, row, &v)
+                   : run(meta, aux, prog, row, cols, &v))) {
+      return -1;
+    }
     if (v < kr[1] || v > kr[2]) return -1;
     packed |= (v - kr[1]) << kr[3];
   }
@@ -1422,16 +1423,64 @@ __device__ __forceinline__ i64 hop_lookup(const i64* meta, const i64* aux,
   return -1;
 }
 
-// The build row a composed hop finds through its owner's row handle
-// (brow[HOP_OWNER]), -1 for none, and the int64 index of its words from
-// HOP_TABLE to *slot: the owner's composed words (a build row's), or the
-// owner's records when it is folded.
-__device__ __forceinline__ i64 composed_row(const i64* hop, const i64* brow,
+// The build row a composed hop finds through its owner's row handle `ob`
+// (-1: the owner found none), -1 for none, and the int64 index of its
+// words from HOP_TABLE to *slot: the owner's composed words (a build
+// row's), or the owner's records when it is folded.
+__device__ __forceinline__ i64 composed_row(const i64* hop, i64 ob,
                                             i64* slot) {
-  const i64 ob = brow[hop[HOP_OWNER]];
   if (ob < 0) return -1;
   *slot = ob * hop[HOP_STRIDE];
   return __ldg((const long long*)hop[HOP_TABLE] + *slot);
+}
+
+// Whether direct conjunct `cj` (not CJ_PROG) holds for the row whose first
+// column's valid value is x: the test of the interpreter's opcode (`cmp`
+// keeps its rules for NaN and -0.0; a NULL second column fails).
+template <class Columns>
+__device__ __forceinline__ bool conjunct_test(const i64* meta,
+                                              const i64* aux, const i64* cj,
+                                              i64 x, i64 row,
+                                              const Columns& cols) {
+  const int form = (int)cj[0];
+  const int code = (int)cj[2];
+  switch (form) {
+    case CJ_CMP_I: return cmp<i64>(code, x, cj[3]);
+    case CJ_CMP_F: return cmp<double>(code, as_f(x), as_f(cj[3]));
+    case CJ_CMPC_I: case CJ_CMPC_F: {
+      i64 y;
+      if (!cols(cj[3], row, &y)) return false;
+      return form == CJ_CMPC_I ? cmp<i64>(code, x, y)
+                               : cmp<double>(code, as_f(x), as_f(y));
+    }
+    case CJ_IN_I: case CJ_IN_F: {
+      const i64* pool = meta + meta[form == CJ_IN_I ? H_OFF_ICONST
+                                                    : H_OFF_FCONST];
+      bool hit = false;
+      for (i64 k = 0; k < cj[3]; ++k) {
+        hit |= form == CJ_IN_I ? x == pool[cj[2] + k]
+                               : as_f(x) == as_f(pool[cj[2] + k]);
+      }
+      return hit;
+    }
+    case CJ_LUT: {
+      const i64 n = aux[2 * cj[2] + 1];
+      x = x < 0 ? 0 : (x > n - 1 ? n - 1 : x);
+      return (aux + aux[2 * cj[2]])[x] != 0;
+    }
+    default: {  // CJ_STRCMP
+      const i64* s = aux + aux[2 * cj[3]];
+      const i64 pos = s[0], exact = s[1];
+      switch (code) {
+        case CMP_EQ: return x == exact;
+        case CMP_NE: return x != exact;
+        case CMP_LT: return x < pos;
+        case CMP_LE: return x < pos || x == exact;
+        case CMP_GT: return x >= pos && x != exact;
+        default: return x >= pos;
+      }
+    }
+  }
 }
 
 // The min/max membership test of a filtered SEMI/ANTI hop
@@ -1490,7 +1539,7 @@ struct ChainRows {
       i64 b;
       if constexpr (Staged) {
         b = hop[HOP_KIND] == TAB_COMPOSED
-                ? composed_row(hop, cols->brow, &slot)
+                ? composed_row(hop, cols->brow[hop[HOP_OWNER]], &slot)
                 : hop_lookup<true>(meta, aux, hop, row, *cols, &slot);
       } else {
         b = hop_lookup<false>(meta, aux, hop, row, *cols, &slot);

@@ -16,7 +16,11 @@ K1 (`partition_rows`, `csrc/exchange.cu`): the pending rows of one shard
 bucketed by destination into one send buffer, at most `cap` rows a
 destination; the rows past the cap stay pending for the next round. A
 destination's rows leave in row order (a stable partition), so the send
-buffer is the plain version's exactly. It stands for `_owner`, the
+buffer is the plain version's exactly. Two launches: a count of each
+destination's rows, read back to size the buffer, then one sweep in tiles
+taken by a ticket, each ranking its rows within their destination and
+finding where they start by a decoupled look-back over the tiles before
+(a sweep a pass of 32 lanes). It stands for `_owner`, the
 argsort, searchsorted and gathers of `_all_to_all_rows` (`:96`) and of
 `_all_to_all_chained`'s rounds (`:158-198`). Its plain version: a stable
 `torch.sort` on the destination and an `index_select` a lane.
@@ -48,7 +52,6 @@ import torch
 
 from .. import kernels
 from ..physical.hashing import _splitmix64
-from .join_agg import SCAN_TILE
 from .groupby import (_DISTINCT_LANES, _IDENTITY, EMPTY, LANE_MAX_F64,
                       LANE_MAX_I64, LANE_MIN_F64, LANE_MIN_I64, LANE_SUM_F32,
                       LANE_SUM_F64, _cuda, _i64, _next_pow2, _stream,
@@ -64,8 +67,8 @@ merge_partials_kernel = kernels.register(kernels.Kernel(
 SALT_MUL = 0x100000001B3
 SALT_ROW, SALT_REPLICA = 1, 2    # s = local row % salt; s = the replica
 MAX_SHARDS = 256                 # destinations of one partition
-TILE = 4096                      # rows a tile of K1's histogram
-SCATTER_LANES = 32               # lanes a launch of K1's scatter moves
+TILE = 2048                      # rows a tile of K1's sweep
+SCATTER_LANES = 32               # lanes a launch of K1's sweep moves
 _U64 = 1 << 64
 
 
@@ -148,9 +151,10 @@ def partition_rows(keys: torch.Tensor, pending: torch.Tensor, n_dest: int,
     With a salt the keys travel as `key * salt + s`.
 
     On CPU tensors this runs `partition_rows_plain`; on CUDA tensors it
-    launches the K1 kernels (hist, the scan's three, a scatter a pass of
-    32 lanes) or raises. It reads the destinations' totals back to size
-    the buffer: one synchronisation."""
+    launches the K1 kernels (the count, then a sweep a pass of 32 lanes;
+    one zero fill of the totals, the tickets and the look-back's status
+    words before them) or raises. It reads the destinations' totals back
+    to size the buffer: one synchronisation."""
     lanes = list(lanes)
     _check_partition(keys, pending, n_dest, cap, lanes)
     if not _cuda(keys):
@@ -158,16 +162,19 @@ def partition_rows(keys: torch.Tensor, pending: torch.Tensor, n_dest: int,
                                     salt_mode, salt_r)
     dev, n = keys.device, keys.numel()
     lib = kernels.library()
-    nt = max(-(-n // TILE), 1)
+    passes = max(-(-len(lanes) // SCATTER_LANES), 1)
+    n_tiles = max(-(-n // TILE), 1)
     with torch.cuda.device(dev):
         stream = _stream(dev)
-        counts = torch.empty(n_dest * nt, dtype=torch.int64, device=dev)
-        totals = torch.zeros(n_dest, dtype=torch.int64, device=dev)
+        # the totals, a ticket a pass, a status word a tile and destination
+        scratch = torch.zeros(n_dest + passes + n_tiles * n_dest,
+                              dtype=torch.int64, device=dev)
+        totals = scratch[:n_dest]
         flags = pending.view(torch.uint8)
-        kernels.check(lib.dft_partition_hist(
+        kernels.check(lib.dft_partition_count(
             keys.data_ptr(), flags.data_ptr(), n, n_dest, int(salt),
-            int(salt_mode), int(salt_r), TILE, counts.data_ptr(),
-            totals.data_ptr(), stream), partition_rows_kernel)
+            int(salt_mode), int(salt_r), totals.data_ptr(), stream),
+            partition_rows_kernel)
         partition_rows_kernel.launches += 1
         tot = totals.tolist()
         splits = [min(int(t), int(cap)) for t in tot]
@@ -175,20 +182,17 @@ def partition_rows(keys: torch.Tensor, pending: torch.Tensor, n_dest: int,
         key_out = torch.empty(m, dtype=torch.int64, device=dev)
         outs = [torch.empty(m, dtype=lane.dtype, device=dev)
                 for lane in lanes]
-        sums = torch.empty(max(-(-n_dest * nt // SCAN_TILE), 1),
-                           dtype=torch.int64, device=dev)
         k = max(len(lanes), 1)
         src = (ctypes.c_void_p * k)(*[x.data_ptr() for x in lanes])
         dst = (ctypes.c_void_p * k)(*[x.data_ptr() for x in outs])
         width = (ctypes.c_int * k)(*[x.element_size() for x in lanes])
-        kernels.check(lib.dft_partition_scatter(
+        kernels.check(lib.dft_partition_sweep(
             keys.data_ptr(), flags.data_ptr(), n, n_dest, int(salt),
-            int(salt_mode), int(salt_r), TILE, counts.data_ptr(),
-            sums.data_ptr(), totals.data_ptr(), int(cap), len(lanes), src,
-            dst, width, key_out.data_ptr(), stream), partition_rows_kernel)
-        # the scan's three, then a scatter a pass of 32 lanes (at least one)
-        partition_rows_kernel.launches += 3 + max(
-            -(-len(lanes) // SCATTER_LANES), 1)
+            int(salt_mode), int(salt_r), totals.data_ptr(), int(cap),
+            len(lanes), src, dst, width, key_out.data_ptr(),
+            scratch[n_dest + passes:].data_ptr(),
+            scratch[n_dest:].data_ptr(), stream), partition_rows_kernel)
+        partition_rows_kernel.launches += passes
     return Partition(key_out, outs, splits, any(t > cap for t in tot))
 
 

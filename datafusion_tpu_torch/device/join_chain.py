@@ -33,9 +33,13 @@ of `_chain_walk` (`:1597`), `_chain_core` (`:1783`), `_make_chain_step`
 the lane arguments) reads the pair space: spine columns first, then each
 INNER hop's payload columns in chain order (`ChainBuild`'s docstring,
 `:228-236`). A payload column reads its build column at the row its hop
-found, so no joined column is materialised. The walk feeds the grouped
-fold of `device/groupby.py` (dense slots or a hash table), whose output
-table `compact_groups` and the host emit take as they are.
+found, so no joined column is materialised. The kernel walks a warp's
+tile of admitted spine rows at a time (`LIST_CAP` entries), compacting
+the survivors between hops; the probe predicate reaches it split into
+conjuncts (`Chain.conjuncts`), its one-column tests and one-column hop
+keys read without the interpreter. The walk feeds the grouped fold of
+`device/groupby.py` (dense slots or a hash table), whose output table
+`compact_groups` and the host emit take as they are.
 
 The row-returning walk (`chain_rows`, kernel `csrc/chain_rows.cu`).
 Counterpart of `DeviceJoinChainRowsExec`'s mask program (`:2312`, jit
@@ -87,8 +91,9 @@ from .groupby import (_DTYPE_CODE, _NP_TO_TORCH, EMPTY, H_OFF_COLS,
                       _next_pow2, _ProgramSpec, _stream,
                       dense_group_aggregate_plain, hash_group_aggregate_plain,
                       splitmix64)
-from .lower import (CMP_EQ, CMP_GE, CMP_GT, CMP_LE, CMP_LT, CMP_NE,
-                    LoweringError, Pools, Program, evaluate)
+from .lower import (CJ_PROG, CMP_EQ, CMP_GE, CMP_GT, CMP_LE, CMP_LT, CMP_NE,
+                    OP_COL, LoweringError, Pools, Program, conjunct_form,
+                    evaluate, split_conjuncts)
 
 chain_build_kernel = kernels.register(kernels.Kernel(
     "chain_build", "datafusion_tpu_torch/csrc/chain_build.cu",
@@ -112,12 +117,16 @@ TAB_DIRECT, TAB_HASH, TAB_EMPTY, TAB_COMPOSED = range(4)
 JT_INNER, JT_SEMI, JT_ANTI = range(3)
 JOIN_TYPES = {"INNER": JT_INNER, "LEFTSEMI": JT_SEMI, "LEFTANTI": JT_ANTI}
 
-# the chain section of a descriptor: a head, a record per hop, then the
-# hop of every pair-space column (-1: spine). HOP_TABLE is read at byte
-# HOP_STRIDE a slot (4: an int32 table; a folded hop's record size); a
-# composed hop's HOP_TABLE is its first word at the owner's row handle 0,
-# HOP_STRIDE the bytes a unit of that handle moves, HOP_OWNER the owner
-C_NSPINE, C_NHOPS, C_PPRED, C_OFF_HOPOF, C_HOPS = range(5)
+# the chain section of a descriptor: a head, a record per hop, the hop of
+# every pair-space column (-1: spine), then the probe predicate's
+# conjuncts (four words each: a direct form of `lower.conjunct_form`, or
+# (CJ_PROG, program)). HOP_TABLE is read at byte HOP_STRIDE a slot (4: an
+# int32 table; a folded hop's record size); a composed hop's HOP_TABLE is
+# its first word at the owner's row handle 0, HOP_STRIDE the bytes a unit
+# of that handle moves, HOP_OWNER the owner. A probe key's program is
+# -2 - c when it is column c alone (loaded without the interpreter).
+C_NSPINE, C_NHOPS, C_PPRED, C_OFF_HOPOF, C_NCONJ, C_OFF_CONJ, C_HOPS = \
+    range(7)
 (HOP_KIND, HOP_JTYPE, HOP_TABLE, HOP_KEYS, HOP_SIZE, HOP_NKEYS, HOP_MOP,
  HOP_MPROG, HOP_MN, HOP_MX, HOP_STRIDE, HOP_OWNER, HOP_FOLD,
  HOP_KEY0) = range(14)
@@ -126,6 +135,7 @@ MAX_HOP_KEYS = 4
 HOP_WORDS = HOP_KEY0 + 4 * MAX_HOP_KEYS    # (prog, lo, hi, shift) per key
 
 SCAN_TILE = 8192          # words a block of csrc/scan.cuh scans
+LIST_CAP = 128            # entries of a warp's lists (chain_aggregate.cu)
 DIRECT_FILL = 16          # a direct table spans at most 16 x its rows
 DIRECT_MAX = 1 << 26      # and at most 2^26 slots (256 MB of int32)
 
@@ -536,7 +546,12 @@ class Hop:
 
 
 class Chain:
-    """The walk of one chain: spine width, probe predicate and hops."""
+    """The walk of one chain: spine width, probe predicate and hops. The
+    predicate's top-level AND is split into its conjuncts
+    (`split_conjuncts`): `conjuncts` holds each as (direct form or None,
+    its program), the direct ones first, which the kernels test straight
+    from their columns (`lower.conjunct_form`); the others run as programs
+    of their own."""
 
     def __init__(self, n_spine: int, ppred: Optional[Program],
                  hops: Sequence[Hop]):
@@ -544,6 +559,10 @@ class Chain:
             raise LoweringError(f"{len(hops)} hops > {MAX_HOPS}")
         self.n_spine = n_spine
         self.ppred = ppred
+        parts = [] if ppred is None else [
+            (conjunct_form(c), c) for c in split_conjuncts(ppred)]
+        self.conjuncts = [p for p in parts if p[0] is not None] + \
+            [p for p in parts if p[0] is None]
         self.hops = list(hops)
         self.hop_of: Dict[int, int] = {}
         for h, hop in enumerate(self.hops):
@@ -552,6 +571,7 @@ class Chain:
 
     def programs(self) -> List[Program]:
         out = [self.ppred] if self.ppred is not None else []
+        out += [c for form, c in self.conjuncts if form is None]
         for hop in self.hops:
             if hop.compose is None:
                 out += hop.probe_keys
@@ -587,18 +607,24 @@ class Chain:
             0 if t.mx is None else t.mx.data_ptr(),
             4 if f is None else 8 * f.words, 0 if f is None else f.words]
         for k, prog in enumerate(hop.probe_keys):
+            direct = len(prog.code) == 1 and prog.code[0][0] == OP_COL
             rec[HOP_KEY0 + 4 * k:HOP_KEY0 + 4 * k + 4] = [
-                index[id(prog)], t.los[k], t.his[k], t.shifts[k]]
+                -2 - prog.code[0][1] if direct else index[id(prog)],
+                t.los[k], t.his[k], t.shifts[k]]
         return rec
 
     def section(self, index: Dict[int, int], ncols: int) -> np.ndarray:
+        off_hopof = C_HOPS + HOP_WORDS * len(self.hops)
         head = [self.n_spine, len(self.hops),
                 -1 if self.ppred is None else index[id(self.ppred)],
-                C_HOPS + HOP_WORDS * len(self.hops)]
+                off_hopof, len(self.conjuncts), off_hopof + ncols]
         recs = [self._record(hop, index) for hop in self.hops]
         hop_of = [self.hop_of.get(i, -1) for i in range(ncols)]
+        conj = [form if form is not None else (CJ_PROG, index[id(c)], 0, 0)
+                for form, c in self.conjuncts]
         return np.concatenate([np.asarray(head, np.int64), *recs,
-                               np.asarray(hop_of, np.int64)])
+                               np.asarray(hop_of, np.int64),
+                               np.asarray(conj, np.int64).reshape(-1)])
 
     def record_columns(self) -> Dict[int, Tuple[int, int]]:
         """{pair index: (its word's address in record 0, its validity
@@ -714,9 +740,11 @@ def chain_aggregate(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
     build batches. The distinct lanes' pairs go to `dset`.
 
     On CPU tensors this runs `chain_aggregate_plain`; on CUDA tensors it
-    launches the `chain_aggregate` kernel once a pass of lanes, or
-    raises."""
+    launches the `chain_aggregate` kernel (the tile walk) once a pass of
+    lanes, or raises."""
     _check_chain(spec, cols, aux, n_rows, table)
+    if n_rows >= 1 << 31:
+        raise ValueError("a spine batch holds at most 2^31 - 1 rows")
     _check_dset(spec, dset, table.device)
     dense = isinstance(spec, AggregateSpec)
     if not dense and (overflow is None or overflow.device != table.device):
@@ -736,7 +764,8 @@ def chain_aggregate(spec, cols: Columns, aux: torch.Tensor, n_rows: int,
                 0 if dense else spec.cap,
                 0 if dense else (1 if spec.identity_slots else 2),
                 table.data_ptr(), None if dense else overflow.data_ptr(),
-                spec.variant, _stream(table.device))
+                spec.variant, len(spec.chain.hops), LIST_CAP,
+                _stream(table.device))
             kernels.check(rc, chain_aggregate_kernel)
             chain_aggregate_kernel.launches += 1
     return table

@@ -212,13 +212,86 @@ _BINARY = {OP_ADD_I, OP_SUB_I, OP_MUL_I, OP_ADD_F, OP_SUB_F, OP_MUL_F,
            OP_MOD_F}
 
 
+def _pops(op: int) -> int:
+    """Stack entries an opcode takes (each pushes one)."""
+    if op in _PUSH:
+        return 0
+    return 2 if op in _BINARY else (3 if op == OP_SELECT else 1)
+
+
 def _max_depth(code) -> int:
     sp = depth = 0
     for op, _a, _b in code:
-        sp += 1 if op in _PUSH else (-1 if op in _BINARY else
-                                     (-2 if op == OP_SELECT else 0))
+        sp += 1 - _pops(op)
         depth = max(depth, sp)
     return depth
+
+
+def split_conjuncts(prog: Program) -> List[Program]:
+    """The conjuncts of `prog`'s top-level AND tree, left to right, each a
+    program of its own over the same pools (a slice of `prog`'s code). A
+    row passes `prog` (valid and true) exactly when it passes every one:
+    under the Kleene AND, NULL or false anywhere leaves the whole NULL or
+    false."""
+    out: List[Program] = []
+
+    def split(code):
+        if not code or code[-1][0] != OP_AND:
+            out.append(Program(list(code), prog.pools, np.dtype(np.bool_)))
+            return
+        # the left operand ends where the stack, short of the AND, last
+        # holds one entry
+        depth = cut = 0
+        for i, (op, _a, _b) in enumerate(code[:-1]):
+            depth += 1 - _pops(op)
+            if depth == 1:
+                cut = i + 1
+        split(code[:cut])
+        split(code[cut:-1])
+    split(prog.code)
+    return out
+
+
+# the probe predicate's conjunct forms (csrc/program.cuh CJ_*)
+(CJ_PROG, CJ_CMP_I, CJ_CMP_F, CJ_CMPC_I, CJ_CMPC_F, CJ_IN_I, CJ_IN_F,
+ CJ_LUT, CJ_STRCMP) = range(9)
+_FLIP_CODE = {CMP_EQ: CMP_EQ, CMP_NE: CMP_NE, CMP_LT: CMP_GT, CMP_LE: CMP_GE,
+              CMP_GT: CMP_LT, CMP_GE: CMP_LE}
+
+
+def conjunct_form(c: Program) -> Optional[Tuple[int, int, int, int]]:
+    """The direct form of a conjunct, (form, column, a, b) as
+    `csrc/program.cuh` lays it out, when it is one column tested against a
+    constant or a column (`OP_CMP_I`, `OP_CMP_F`; a constant on the left
+    flips the comparison), an IN list, a dictionary table or a string
+    comparison on codes; None for any other program."""
+    code, pools = c.code, c.pools
+    if len(code) == 2 and code[0][0] == OP_COL:
+        col, (op, a, b) = code[0][1], code[1]
+        if op in (OP_IN_I, OP_IN_F):
+            return (CJ_IN_I if op == OP_IN_I else CJ_IN_F), col, a, b
+        if op == OP_LUT:
+            return CJ_LUT, col, a, 0
+        if op == OP_STRCMP:
+            return CJ_STRCMP, col, a, b
+        return None
+    if len(code) != 3 or code[2][0] not in (OP_CMP_I, OP_CMP_F):
+        return None
+    (o0, a0, _b0), (o1, a1, _b1), (op, cc, _b) = code
+    is_f = op == OP_CMP_F
+    const = OP_FCONST if is_f else OP_ICONST
+
+    def value(k):
+        if is_f:
+            return int(np.float64(pools.fconst[k]).view(np.int64))
+        return int(pools.iconst[k])
+    if o0 == OP_COL and o1 == OP_COL:
+        return (CJ_CMPC_F if is_f else CJ_CMPC_I), a0, cc, a1
+    if o0 == OP_COL and o1 == const:
+        return (CJ_CMP_F if is_f else CJ_CMP_I), a0, cc, value(a1)
+    if o0 == const and o1 == OP_COL:
+        return (CJ_CMP_F if is_f else CJ_CMP_I), a1, _FLIP_CODE[cc], value(a0)
+    return None
 
 
 def compile_key(e: PE.PhysicalExpr, pools: Pools) -> Program:

@@ -48,7 +48,7 @@ _SIGNATURES = {
     "dft_chain_build_insert": [_P, _I, _P, _LL, _I, _LL, _P, _P, _P, _P, _P,
                                _I, _P],
     "dft_chain_aggregate": [_P, _I, _I, _I, _P, _LL, _LL, _I, _P, _P, _I,
-                            _P],
+                            _I, _I, _P],
     "dft_chain_rows_mark": [_P, _I, _P, _LL, _P, _P, _I, _P],
     "dft_chain_rows_emit": [_P, _I, _P, _LL, _P, _P, _I, _P],
     "dft_chain_compose": [_P, _I, _P, _LL, _I, _P, _LL, _I, _I, _P],
@@ -67,9 +67,9 @@ _SIGNATURES = {
     "dft_gather_direct": [_P, _LL, _I, _P, _P, _P, _P, _P],
     "dft_window_pass": [_P, _P, _I, _I, _LL, _P, _I, _I, _I, _P, _P, _P, _P,
                         _P, _I, _P, _P, _P, _P, _P, _P, _LL, _P],
-    "dft_partition_hist": [_P, _P, _LL, _I, _I, _I, _LL, _LL, _P, _P, _P],
-    "dft_partition_scatter": [_P, _P, _LL, _I, _I, _I, _LL, _LL, _P, _P, _P,
-                              _LL, _I, _P, _P, _P, _P, _P],
+    "dft_partition_count": [_P, _P, _LL, _I, _I, _I, _LL, _P, _P],
+    "dft_partition_sweep": [_P, _P, _LL, _I, _I, _I, _LL, _P, _LL, _I, _P,
+                            _P, _P, _P, _P, _P, _P],
     "dft_merge_partials": [_P, _LL, _I, _P, _I, _I, _P, _LL, _P, _LL, _P,
                            _P],
 }

@@ -129,20 +129,19 @@ namespace xc {
 #include "exchange_k.cu"
 }
 extern "C" {
-void h_part_hist(const long long* keys, const unsigned char* pending,
-                 long long n, int n_dest, int salt, int mode, long long r,
-                 long long tile, long long n_tiles, long long* counts,
-                 unsigned long long* totals) {
-  xc::partition_hist_kernel(keys, pending, n, n_dest, salt, mode, r, tile,
-                            n_tiles, counts, totals);
+void h_part_count(const long long* keys, const unsigned char* pending,
+                  long long n, int n_dest, int salt, int mode, long long r,
+                  unsigned long long* totals) {
+  xc::partition_count_kernel(keys, pending, n, n_dest, salt, mode, r,
+                             totals);
 }
-void h_part_scatter(const long long* keys, unsigned char* pending,
-                    long long n, int n_dest, int salt, int mode, long long r,
-                    long long tile, long long n_tiles,
-                    const long long* offsets,
-                    const unsigned long long* totals, long long cap,
-                    int n_lanes, void* const* src, void* const* dst,
-                    const int* width, long long* key_out) {
+void h_part_sweep(const long long* keys, unsigned char* pending,
+                  long long n, int n_dest, int salt, int mode, long long r,
+                  const unsigned long long* totals, long long cap,
+                  int n_lanes, void* const* src, void* const* dst,
+                  const int* width, long long* key_out,
+                  unsigned long long* status, unsigned long long* ticket,
+                  unsigned long long epoch, int clear) {
   xc::XLanes x;
   x.n_lanes = n_lanes;
   for (int l = 0; l < n_lanes; ++l) {
@@ -150,8 +149,8 @@ void h_part_scatter(const long long* keys, unsigned char* pending,
     x.dst[l] = dst[l];
     x.width[l] = width[l];
   }
-  xc::partition_scatter_kernel(keys, pending, n, n_dest, salt, mode, r, tile,
-                               n_tiles, offsets, totals, cap, x, key_out, 1);
+  xc::partition_sweep_kernel(keys, pending, n, n_dest, salt, mode, r, totals,
+                             cap, x, key_out, clear, status, ticket, epoch);
 }
 void h_merge(const long long* entries, long long m, int rows,
              const long long* kinds, int my, int n_owner, long long* table,
@@ -181,13 +180,27 @@ void h_insert(const long long* meta, int len, const long long* aux,
 }
 void h_chain_hash(const long long* meta, int len, const long long* aux,
                   long long n, long long cap, int ident, long long* table,
-                  int* overflow, int variant) {
+                  int* overflow, int variant, int list_cap) {
   DFT_WALK_VARIANT(ca::chain_hash_kernel, variant)(
-      meta, len, aux, n, cap, ident, table, overflow);
+      meta, len, aux, n, list_cap, cap, ident, table, overflow);
 }
 void h_chain_dense(const long long* meta, int len, const long long* aux,
-                   long long n, unsigned long long* table, int variant) {
-  DFT_WALK_VARIANT(ca::chain_dense_kernel, variant)(meta, len, aux, n, table);
+                   long long n, unsigned long long* table, int variant,
+                   int list_cap) {
+  DFT_WALK_VARIANT(ca::chain_dense_kernel, variant)(meta, len, aux, n,
+                                                    list_cap, table);
+}
+void h_admit_rows(const long long* meta, const long long* aux, long long n,
+                    unsigned char* out) {
+  const long long* ch = meta + meta[H_OFF_CHAIN];
+  ca::TileColumns<true, false> cols{meta, nullptr, 0, 0};
+  for (long long r = 0; r < n; r += 2) {
+    long long row[2] = {r, r + 1};
+    bool alive[2] = {true, r + 1 < n};
+    ca::admit_rows(meta, aux, ch, row, alive, cols);
+    out[r] = alive[0];
+    if (r + 1 < n) out[r + 1] = alive[1];
+  }
 }
 void h_rows_mark(const long long* meta, int len, const long long* aux,
                  long long n, long long* pos, int variant) {
@@ -263,7 +276,8 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_cpu")
     (d / "cuda_runtime.h").write_text(SHIM)
     (d / "harness.cpp").write_text(HARNESS)
-    shutil.copy(os.path.join(CSRC, "program.cuh"), d / "program.cuh")
+    for header in ("program.cuh", "lookback.cuh"):
+        shutil.copy(os.path.join(CSRC, header), d / header)
     (d / "scan.cuh").write_text("#pragma once\n")
     for name in ("fused_dense_aggregate", "chain_build", "chain_aggregate",
                  "chain_rows", "chain_compose", "hash_group_aggregate",
@@ -279,8 +293,9 @@ def lib(tmp_path_factory):
     out.h_run.argtypes = [P, P, I, LL, P, P]
     out.h_dense.argtypes = [P, I, P, LL, P, I]
     out.h_insert.argtypes = [P, I, P, LL, I, LL, P, P, P, P, P, I]
-    out.h_chain_hash.argtypes = [P, I, P, LL, LL, I, P, P, I]
-    out.h_chain_dense.argtypes = [P, I, P, LL, P, I]
+    out.h_chain_hash.argtypes = [P, I, P, LL, LL, I, P, P, I, I]
+    out.h_chain_dense.argtypes = [P, I, P, LL, P, I, I]
+    out.h_admit_rows.argtypes = [P, P, LL, P]
     out.h_rows_mark.argtypes = [P, I, P, LL, P, I]
     out.h_rows_emit.argtypes = [P, I, P, LL, P, P, I]
     out.h_compose.argtypes = [P, I, P, LL, I, P, LL, I, I]
@@ -290,9 +305,9 @@ def lib(tmp_path_factory):
     out.h_jb_count.argtypes = [P, LL, LL, P]
     out.h_jb_scatter.argtypes = [P, P, I, LL, LL, P, P, P, I, I, P, P, P]
     out.h_join.argtypes = [P, I, P, LL, LL, I, P, P, I]
-    out.h_part_hist.argtypes = [P, P, LL, I, I, I, LL, LL, LL, P, P]
-    out.h_part_scatter.argtypes = [P, P, LL, I, I, I, LL, LL, LL, P, P, LL,
-                                   I, P, P, P, P]
+    out.h_part_count.argtypes = [P, P, LL, I, I, I, LL, P]
+    out.h_part_sweep.argtypes = [P, P, LL, I, I, I, LL, P, LL, I, P, P, P, P,
+                                 P, P, LL, I]
     out.h_merge.argtypes = [P, LL, I, P, I, I, P, LL, P, LL, P]
     return out
 
@@ -423,21 +438,24 @@ def _pairs_by_key(dset, table, dense):
     return set(zip(key.tolist(), lane.tolist(), pairs[:, 1].tolist()))
 
 
-def _check_chain(lib, ctx, sql):
+def _check_chain(lib, ctx, sql, list_cap=None, compose=True):
     """Every build side's insert pass and the walk of the query's first
-    chain aggregate, against the plain versions."""
+    chain aggregate (its tile lists of `list_cap` entries, the launch
+    wrapper's by default; staged as the exec stages it, or with `compose`
+    false without composition or folding), against the plain versions."""
     from datafusion_tpu_torch.device.groupby import (
         EMPTY, LANE_SUM_F64, AggregateSpec)
     from datafusion_tpu_torch.device.join_chain import (
-        TAB_EMPTY, TAB_HASH, chain_aggregate_plain)
+        LIST_CAP, TAB_EMPTY, TAB_HASH, chain_aggregate_plain)
     from datafusion_tpu_torch.physical.plan.device_join_chain import (
         TorchJoinChainAggregateExec)
+    list_cap = LIST_CAP if list_cap is None else list_cap
     todo = [ctx.sql(sql).create_physical_plan()]
     while not isinstance(todo[-1], TorchJoinChainAggregateExec):
         node = todo.pop()
         todo += node.children()[::-1]
     spec, _plan, _n, _s, inputs, staged = todo[-1].prepare(
-        ctx.task_context())
+        ctx.task_context(), compose)
     for bi in staged:
         t = bi.table
         if t.kind == TAB_EMPTY:
@@ -467,11 +485,12 @@ def _check_chain(lib, ctx, sql):
             m = spec.device_meta(cols, CPU, meta, dg)
             if dense:
                 lib.h_chain_dense(_ptr(m), len(meta), _ptr(aux), n,
-                                  _ptr(got), spec.variant)
+                                  _ptr(got), spec.variant, list_cap)
             else:
                 lib.h_chain_hash(_ptr(m), len(meta), _ptr(aux), n,
                                  spec.cap, int(spec.identity_slots),
-                                 _ptr(got), _ptr(ovf), spec.variant)
+                                 _ptr(got), _ptr(ovf), spec.variant,
+                                 list_cap)
         chain_aggregate_plain(spec, cols, aux, n, want,
                               torch.zeros(1, dtype=torch.int32), dset=dw)
     g, w = _groups(got, dense), _groups(want, dense)
@@ -518,6 +537,86 @@ def test_min_max_membership_kernels_match_plain(lib, op, anti, wide):
            "AND m.w > 0) GROUP BY d.name")
     staged = _check_chain(lib, port, sql)
     assert any(s.table.mn is not None for s in staged)
+
+
+# the tile walk's lists of 2 (a step of the one-thread build: every step
+# walks), 5 and 64 entries, staged as the exec stages it and not
+@pytest.mark.parametrize("list_cap", [2, 5, 64])
+@pytest.mark.parametrize("compose", [True, False], ids=["staged", "unstaged"])
+@pytest.mark.parametrize("q", [3, 5, 7, 9, 12, 14, 18, 21])
+def test_tpch_tile_walk_tiles_match_plain(lib, tpch, q, compose, list_cap):
+    _check_chain(lib, tpch, QUERIES_TPCH()[q], list_cap, compose)
+
+
+def QUERIES_TPCH():
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    return QUERIES
+
+
+@pytest.mark.parametrize("list_cap", [2, 1024])
+@pytest.mark.parametrize("op", ["<>", ">="])
+def test_min_max_membership_tiles_match_plain(lib, op, list_cap):
+    """A SEMI and an ANTI min/max hop over a hashed table, unstaged, at
+    lists of 2 and 1024 entries."""
+    import test_torch_join_chain as J
+    port, _ref = J._mmx_pair(J._mmx_data(True))
+    for anti in (False, True):
+        sql = ("SELECT d.name, count(*) c, sum(f.v) s FROM f "
+               "JOIN d ON f.g = d.id WHERE " + ("NOT " if anti else "") +
+               f"EXISTS (SELECT 1 FROM m WHERE m.k = f.k AND m.s {op} f.s "
+               "AND m.w > 0) GROUP BY d.name")
+        _check_chain(lib, port, sql, list_cap, compose=False)
+
+
+def test_eight_hop_tile_walk_matches_plain(lib):
+    """A chain of eight INNER hops, two over filtered dimensions, with a
+    probe predicate, at lists of 2, 3 and 1024 entries."""
+    from test_torch_tile_walk import EIGHT_HOP_SQL, eight_hop_ctx
+    ctx = eight_hop_ctx(CPU, 6_000)
+    for list_cap in (2, 3, 1024):
+        _check_chain(lib, ctx, EIGHT_HOP_SQL, list_cap)
+
+
+def test_chain_lanes_past_32_match_plain(lib, tpch):
+    """A walk of more than 32 lanes (passes of at most 32, one launch
+    each, each re-walking the chain) and a distinct lane, over lineitem
+    JOIN orders, at lists of 5 entries."""
+    sums = ", ".join(f"sum(l_quantity + {i}) s{i}" for i in range(38))
+    sql = ("SELECT o_orderpriority, count(*) c, count(DISTINCT o_custkey) "
+           f"u, {sums} FROM lineitem JOIN orders ON l_orderkey = o_orderkey "
+           "WHERE l_shipdate > DATE '1995-03-15' GROUP BY o_orderpriority")
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainAggregateExec)
+    _check_chain(lib, tpch, sql, 5)
+    ex = next(iter(_chain_execs(tpch, sql)))
+    assert isinstance(ex, TorchJoinChainAggregateExec)
+    spec = ex.prepare(tpch.task_context())[0]
+    assert len(spec.metas) >= 2 and spec.distinct_lanes
+
+
+@pytest.mark.parametrize("pred", [p for p, _f in __import__(
+    "test_torch_tile_walk").PREDICATES])
+def test_admit_rows_matches_run(lib, pred):
+    """The tile walk's probe predicate through its conjuncts
+    (`admit_rows`, two rows at once: one-column tests straight from their
+    columns, the rest through `run`) passes exactly the rows `run` of the
+    whole predicate passes: NULLs, NaN, -0.0, decimals and dictionary
+    codes."""
+    from test_torch_tile_walk import _conj_ctx, conj_chain
+    from datafusion_tpu_torch.device.groupby import H_OFF_PROGS
+    spec, cols, aux, n = conj_chain(_conj_ctx(), pred)
+    meta = spec.device_meta(cols, CPU)
+    got = torch.zeros(n, dtype=torch.uint8)
+    lib.h_admit_rows(_ptr(meta), _ptr(aux), n, _ptr(got))
+    index = spec.chain.programs().index(spec.chain.ppred)
+    progs = spec._pass_programs(spec.lanes)
+    prog = next(i for i, p in enumerate(progs) if p is spec.chain.ppred)
+    assert index >= 0 and int(meta[H_OFF_PROGS]) > 0
+    x = torch.zeros(n, dtype=torch.int64)
+    valid = torch.zeros(n, dtype=torch.uint8)
+    lib.h_run(_ptr(meta), _ptr(aux), prog, n, _ptr(x), _ptr(valid))
+    want = (valid.bool() & (x != 0)).to(torch.uint8)
+    assert torch.equal(got, want) and 0 < int(want.sum())
 
 
 # --- staging-time composition and folding --------------------------------------
@@ -951,11 +1050,15 @@ def test_join_kernels_match_plain(lib, tpch, q):
 
 @pytest.mark.parametrize("n,n_dest,cap,salt,mode", [
     (1, 4, 1, 1, 1), (5000, 8, 300, 1, 1), (5000, 3, 5000, 4, 1),
-    (3000, 5, 2000, 3, 2), (9000, 256, 20, 1, 1)])
+    (3000, 5, 2000, 3, 2), (9000, 256, 20, 1, 1), (10000, 32, 150, 1, 1),
+    (0, 4, 10, 1, 1)])
 def test_partition_rows_matches_plain(lib, n, n_dest, cap, salt, mode):
-    """K1 run as one thread (a tile of 4096 rows at a time) gives the plain
-    version's send buffer, splits and pending flags in every round, for
-    keys with bit 63 set, a hot key, salted rows and build replicas."""
+    """K1 run as one thread (the count, then the sweep over tiles of 2048
+    rows taken by ticket, each tile's offsets by the look-back) gives the
+    plain version's send buffer, splits and pending flags in every round,
+    for keys with bit 63 set, a hot key, salted rows and build replicas;
+    the lanes in two sweeps (epochs 1 and 2, the second clearing the
+    flags) as a partition of more than 32 lanes takes them."""
     import ctypes
     from datafusion_tpu_torch.device.exchange import (TILE,
                                                       partition_rows_plain)
@@ -965,30 +1068,35 @@ def test_partition_rows_matches_plain(lib, n, n_dest, cap, salt, mode):
     keys[torch.from_numpy(rng.random(n) < 0.3)] = 42
     lanes = [torch.from_numpy(rng.integers(0, 2**40, n)),
              torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32)),
-             torch.from_numpy(rng.random(n) < 0.5)]
+             torch.from_numpy(rng.random(n) < 0.5),
+             torch.from_numpy(rng.integers(0, 99, n).astype(np.int16))]
     pend = torch.from_numpy(rng.random(n) < 0.9)
     mine = pend.clone()
     nt = max(-(-n // TILE), 1)
     for _round in range(1000):
         want = partition_rows_plain(keys, pend, n_dest, cap, lanes, salt,
                                     mode, 2)
-        counts = torch.zeros(n_dest * nt, dtype=torch.int64)
         totals = torch.zeros(n_dest, dtype=torch.int64)
         flags = mine.view(torch.uint8)
-        lib.h_part_hist(_ptr(keys), _ptr(flags), n, n_dest, salt, mode, 2,
-                        TILE, nt, _ptr(counts), _ptr(totals))
+        lib.h_part_count(_ptr(keys), _ptr(flags), n, n_dest, salt, mode, 2,
+                         _ptr(totals))
         splits = [min(int(t), cap) for t in totals]
         assert splits == want.splits
-        offsets = torch.cumsum(counts, 0) - counts
         m = sum(splits)
         key_out = torch.empty(m, dtype=torch.int64)
         outs = [torch.empty(m, dtype=x.dtype) for x in lanes]
-        src = (ctypes.c_void_p * 3)(*[x.data_ptr() for x in lanes])
-        dst = (ctypes.c_void_p * 3)(*[x.data_ptr() for x in outs])
-        width = (ctypes.c_int * 3)(*[x.element_size() for x in lanes])
-        lib.h_part_scatter(_ptr(keys), _ptr(flags), n, n_dest, salt, mode, 2,
-                           TILE, nt, _ptr(offsets), _ptr(totals), cap, 3,
-                           src, dst, width, _ptr(key_out))
+        status = torch.zeros(nt * n_dest, dtype=torch.int64)
+        tickets = torch.zeros(2, dtype=torch.int64)
+        for p, (lo, hi) in enumerate(((0, 2), (2, 4))):
+            src = (ctypes.c_void_p * 2)(*[x.data_ptr() for x in lanes[lo:hi]])
+            dst = (ctypes.c_void_p * 2)(*[x.data_ptr() for x in outs[lo:hi]])
+            width = (ctypes.c_int * 2)(*[x.element_size()
+                                         for x in lanes[lo:hi]])
+            lib.h_part_sweep(_ptr(keys), _ptr(flags), n, n_dest, salt, mode,
+                             2, _ptr(totals), cap, 2, src, dst, width,
+                             _ptr(key_out) if p == 0 else None,
+                             _ptr(status), tickets.data_ptr() + 8 * p,
+                             p + 1, p)
         assert torch.equal(key_out, want.keys)
         for a, b in zip(outs, want.lanes):
             assert torch.equal(a, b)

@@ -1789,8 +1789,7 @@ def test_partition_rows_matches_plain(cuda, n, n_dest, cap, salt):
     """K1 against its plain version (a stable sort on the destination):
     the same send buffer, splits and pending flags, round after round,
     keys with bit 63 set among them; lanes of 1, 4 and 8 bytes. A call
-    counts its five launches: the histogram, the scan's three and one
-    scatter pass."""
+    counts its two launches: the count and one sweep."""
     from datafusion_tpu_torch.device.exchange import (
         partition_rows, partition_rows_kernel, partition_rows_plain)
     rng = np.random.default_rng(n + n_dest)
@@ -1806,7 +1805,7 @@ def test_partition_rows_matches_plain(cuda, n, n_dest, cap, salt):
     for _round in range(4):
         before = partition_rows_kernel.launches
         a = partition_rows(*state[0][:2], n_dest, cap, state[0][2], salt)
-        assert partition_rows_kernel.launches - before == 5
+        assert partition_rows_kernel.launches - before == 2
         b = partition_rows_plain(*state[1][:2], n_dest, cap, state[1][2],
                                  salt)
         assert a.splits == b.splits and a.left == b.left
@@ -1934,3 +1933,154 @@ def test_cuda_mesh_end_to_end_matches_cpu(cuda):
                                               nan_ok=True)
                 else:
                     assert a == b
+
+
+# ---- the tile walk (chain_aggregate) and K1's sweep on shapes ----------------
+
+def _walk_vs_plain(spec, cols, aux, rows, device):
+    """`chain_aggregate` (one launch a pass of lanes) against its plain
+    version: equal groups, counts and integer lanes, float sums within rel
+    1e-9 (atomics add in another order)."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (
+        LANE_SUM_F32, LANE_SUM_F64, AggregateSpec, compact_groups,
+        dense_group_table)
+    from datafusion_tpu_torch.device.join_chain import (
+        chain_aggregate, chain_aggregate_plain)
+    tables = []
+    for fold in (chain_aggregate, chain_aggregate_plain):
+        table = spec.new_table(device)
+        overflow = torch.zeros(1, dtype=torch.int32, device=device)
+        dset = spec.distinct_set(rows, device)
+        before = dft.launch_counts()["chain_aggregate"]
+        fold(spec, cols, aux, rows, table, overflow, dset=dset)
+        assert dft.launch_counts()["chain_aggregate"] - before == \
+            (len(spec.metas) if fold is chain_aggregate else 0)
+        torch.cuda.synchronize()
+        assert int(overflow.item()) == 0
+        if isinstance(spec, AggregateSpec):
+            table = dense_group_table(table)
+        tables.append(compact_groups(table).cpu().numpy())
+    got, want = (t[:, np.argsort(t[0], kind="stable")] for t in tables)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got[:2], want[:2])
+    for (_p, kind), a, b in zip(spec.lanes, spec.lane_arrays(got, first=2),
+                                spec.lane_arrays(want, first=2)):
+        if kind in (LANE_SUM_F64, LANE_SUM_F32):
+            np.testing.assert_allclose(a, b, rtol=1e-9)
+        else:
+            np.testing.assert_array_equal(a, b)
+    return got.shape[1]
+
+
+@pytest.mark.parametrize("compose", [True, False], ids=["staged", "unstaged"])
+@pytest.mark.parametrize("q", [2, 3, 4, 5, 7, 8, 9, 10, 11, 12, 14, 16, 17,
+                               18, 19, 21])
+def test_tile_walk_tpch_matches_plain(cuda, q, compose):
+    """Every TPC-H walk at SF 0.01, staged as the exec stages it and
+    without composition or folding: the tile walk against its plain
+    version."""
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainAggregateExec)
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    ctx = _tpch_ctx(cuda, 0.01)
+    todo, walked = [ctx.sql(QUERIES[q]).create_physical_plan()], 0
+    while todo:
+        node = todo.pop()
+        todo += node.children()
+        if not isinstance(node, TorchJoinChainAggregateExec):
+            continue
+        spec, _p, _n, _s, inputs, _staged = node.prepare(
+            ctx.task_context(), compose)
+        for cols, aux, rows in inputs:
+            _walk_vs_plain(spec, cols, aux, rows, cuda)
+            walked += 1
+    assert walked >= 1
+
+
+def _run_ctx(device, n):
+    """A spine whose rows 1,000 to 60,000 pass its predicate, a run of
+    survivors across many tiles, each through an INNER hop and a SEMI
+    hop."""
+    import datafusion_tpu_torch as dft
+    rng = np.random.default_rng(4)
+    ctx = dft.SessionContext(device)
+    ctx.register_arrays("f", {"r": np.arange(n), "k": rng.integers(0, 64, n),
+                              "v": rng.integers(0, 1000, n)})
+    ctx.register_arrays("d", {"id": np.arange(60), "w": rng.integers(0, 9,
+                                                                     60)})
+    ctx.register_arrays("m", {"k": np.arange(0, 64, 2)})
+    return ctx
+
+
+RUN_SQL = ("SELECT d.w, count(*) c, sum(f.v) s FROM f JOIN d ON f.k = d.id "
+           "WHERE f.r >= 1000 AND f.r < 60000 AND f.k IN (SELECT k FROM m) "
+           "GROUP BY d.w")
+
+
+@pytest.mark.parametrize("list_cap", [64, 100, 128, 512])
+def test_tile_walk_across_tile_boundaries(cuda, monkeypatch, list_cap):
+    """A run of 59,000 surviving rows crosses the tiles of a warp's lists
+    of 64 entries (a step of 64 rows: the list is walked before every
+    step), 100, 128 and 512: the walk against its plain version."""
+    from datafusion_tpu_torch.device import join_chain
+    monkeypatch.setattr(join_chain, "LIST_CAP", list_cap)
+    ctx = _run_ctx(cuda, 100_003)
+    ex = _chain_exec(ctx, RUN_SQL)
+    spec, _p, _n, _s, inputs, _staged = ex.prepare(ctx.task_context())
+    ((cols, aux, rows),) = inputs
+    assert _walk_vs_plain(spec, cols, aux, rows, cuda) > 0
+
+
+def test_tile_walk_eight_hops(cuda):
+    """A chain of eight hops: the walk against its plain version, and the
+    query against the CPU's."""
+    from test_torch_tile_walk import EIGHT_HOP_SQL, eight_hop_ctx
+    ctx = eight_hop_ctx(cuda, 300_000)
+    ex = _chain_exec(ctx, EIGHT_HOP_SQL)
+    spec, _p, _n, _s, inputs, _staged = ex.prepare(ctx.task_context())
+    assert len(spec.chain.hops) == 8
+    ((cols, aux, rows),) = inputs
+    assert _walk_vs_plain(spec, cols, aux, rows, cuda) == 5
+    assert ctx.sql(EIGHT_HOP_SQL).to_pydict() == eight_hop_ctx(
+        torch.device("cpu"), 300_000).sql(EIGHT_HOP_SQL).to_pydict()
+
+
+@pytest.mark.parametrize("shape", ["skewed", "uniform", "empty", "none"])
+@pytest.mark.parametrize("n_dest", [1, 3, 4, 5, 32, 256])
+def test_partition_sweep_shapes_match_plain(cuda, shape, n_dest):
+    """K1 against its plain version on a partition whose rows all share
+    one key (skewed), on uniform keys, on no rows and on rows none of
+    which is pending, with n_dest a power of two (ballots on the owner's
+    bits) and not (matching), 34 lanes (two sweeps), round after round
+    under a cap of a third of the rows."""
+    from datafusion_tpu_torch.device.exchange import (
+        partition_rows, partition_rows_kernel, partition_rows_plain)
+    rng = np.random.default_rng(n_dest)
+    n = 0 if shape == "empty" else 123_457
+    keys = np.full(n, 99, np.int64) if shape == "skewed" else \
+        rng.integers(-2**62, 2**62, n)
+    pend = np.ones(n, bool) if shape != "none" else np.zeros(n, bool)
+    lanes = [torch.from_numpy(rng.integers(0, 1 << 40, n))
+             for _ in range(30)] + [
+        torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 99, n).astype(np.int16)),
+        torch.from_numpy(rng.random(n) < 0.5),
+        torch.from_numpy(rng.integers(0, 99, n).astype(np.uint8))]
+    cap = max(n // 3, 1)
+    k = torch.from_numpy(keys)
+    state = [(k.to(cuda), torch.from_numpy(pend).to(cuda),
+              [x.to(cuda) for x in lanes]) for _ in range(2)]
+    for _round in range(8):
+        before = partition_rows_kernel.launches
+        a = partition_rows(*state[0][:2], n_dest, cap, state[0][2])
+        assert partition_rows_kernel.launches - before == 3
+        b = partition_rows_plain(*state[1][:2], n_dest, cap, state[1][2])
+        assert a.splits == b.splits and a.left == b.left
+        assert torch.equal(a.keys, b.keys)
+        for x, y in zip(a.lanes, b.lanes):
+            assert torch.equal(x, y)
+        assert torch.equal(state[0][1], state[1][1])
+        if not a.left:
+            break
+    assert not bool(state[0][1].any())
