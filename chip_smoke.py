@@ -36,13 +36,16 @@ query is held against a numpy oracle on the same data.
      chain query of this step and the next two, which hops its staging
      composes (hop: owner, tag) and folds (hop: the reference's span and
      width), against the SF10 expectation (supplier's hops in Q2, Q5,
-     Q7-Q9 and Q21, part's fold in Q14); `chain_compose` and `chain_fold`
-     against their plain versions on Q5's staged builds (nation and
+     Q7-Q9 and Q21, part's fold in Q14), held to one `chain_compose` and
+     one `chain_fold` launch a chain, with the staging's host ms and
+     synchronisations (`staging_cost`); `chain_compose` and `chain_fold`
+     against their plain versions on Q5's staged chain (nation and
      region composed into supplier, supplier folded) and Q21's (a member
      composition), exactly, each run expecting its staging kernels
      launched;
-   - row-returning join chains: `chain_rows` against its plain version on
-     Q2's chain over partsupp (five INNER hops, the subquery's min as a
+   - row-returning join chains: `chain_rows` against its plain version
+     (held to its two launches, the walk and the emit) on Q2's chain over
+     partsupp (five INNER hops, the subquery's min as a
      build, a decimal residual equality) and on Q20's inner chain (an
      INNER hop on (partkey, suppkey) into the 1994 sum(l_quantity)
      aggregate, a SEMI hop into the 'forest' parts, a residual), and
@@ -210,10 +213,18 @@ card; the launches a call; the live groups; the bound); each K1 call one
 run of MJ1 and of MQ15 makes on 4 shards of the card (`k1_calls`: its
 rows, destinations, cap, lanes, mean device ms and launches, and the
 largest call's device ms by kernel beside a stable `torch.argsort` of its
-owners); Q5, Q12, Q14, Q21, MJ1 and MQ15 end to end (`e2e_ms`, warm median
-of REPS); and the registers and stack-frame bytes (spills included) that
-`cuobjdump --dump-resource-usage` gives each walk kernel, `chain_compose`
-and K1's kernels in the tree's library.
+owners); each rows walk's device ms by kernel in one profiled call
+(`rows_split`); each chain's staging as the tree stages it (`staging`, from
+`staging_cost`: the host ms that composition and folding add to its
+`prepare`, the `stage_builds` ms with and without them, the
+`chain_compose` and `chain_fold` launches and the synchronisations they
+add); in a tree that stages a
+chain in one call, each walk staged with its compositions and without
+its folds (`walk_ms_composed_only`); Q2, Q5, Q7, Q8, Q9, Q12, Q14, Q20,
+Q21, MJ1 and MQ15 end to end (`e2e_ms`, warm median of REPS); and the
+registers and stack-frame bytes (spills included) that `cuobjdump
+--dump-resource-usage` gives each walk kernel, `chain_compose`,
+`chain_fold` and K1's kernels in the tree's library.
 """
 import datetime
 import json
@@ -1318,9 +1329,13 @@ def rows_vs_plain(ex, tctx, card, label):
     import torch
     from datafusion_tpu_torch.device.join_chain import (
         _walk_plain, chain_rows, chain_rows_plain)
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.join_chain import rows_scratch
     spec, inputs, _staged = ex.prepare_rows(tctx)
     ((cols, aux, n, _view),) = inputs
+    before = kernels.launch_counts()["chain_rows"]
     got = chain_rows(spec, cols, aux, n)
+    launched = kernels.launch_counts()["chain_rows"] - before
     want = chain_rows_plain(spec, cols, aux, n)
     torch.cuda.synchronize()
     for i, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
@@ -1328,6 +1343,11 @@ def rows_vs_plain(ex, tctx, card, label):
             raise AssertionError(f"{label}: chain_rows output {i} differs "
                                  f"from its plain version")
     kept = got[0][0].numel()
+    # the walk and the emit; the walk again only past the scratch
+    predicted = 1 + (kept > 0) + (kept > rows_scratch(n))
+    if launched != predicted or launched > 3:
+        raise AssertionError(f"{label}: chain_rows counted {launched} "
+                             f"launches, not {predicted} (at most 3)")
     ms = cuda_ms(lambda: chain_rows(spec, cols, aux, n), 5)
     plain = cuda_ms(lambda: chain_rows_plain(spec, cols, aux, n), 2)
     hop_rows = []
@@ -1337,7 +1357,7 @@ def rows_vs_plain(ex, tctx, card, label):
     bnd = bound(nbytes, prog_ops(spec, n))
     print(f"chain_rows {label}: {n} spine rows, {len(spec.chain.hops)} hops "
           f"({routes(spec)}), rows reaching/surviving each hop {hop_rows}, "
-          f"{kept} rows kept, "
+          f"{kept} rows kept, {launched} launches a call, "
           f"{len(got)} output columns: kernel {ms:.6f} ms, plain "
           f"{plain:.6f} ms, bound {bnd['bound_ms']:.6f} ms ({bnd['bytes']} "
           f"bytes), max_abs_err 0 [{card}]", flush=True)
@@ -1377,83 +1397,182 @@ def staging_kernels(ex, tctx, q):
     composed, folded = ex.compose_plan(ex.stage_builds(tctx, compose=False))
     said = "as expected" if bool(composed or folded) == \
         COMPOSE_SF10.get(q, False) else "NOT as expected"
+    cost = staging_cost(ex, tctx, reps=0)
+    want = {"chain_compose": int(bool(composed)),
+            "chain_fold": int(bool(folded))}
+    if cost["launches"] != want:
+        raise AssertionError(f"Q{q} SF10: staging launched "
+                             f"{cost['launches']}, not {want} (one compose "
+                             f"and one fold a chain)")
     print(f"Q{q} SF10 staging: composed (hop: owner, tag) {composed}, "
-          f"folded (hop: span, width) {folded}, {said}", flush=True)
+          f"folded (hop: span, width) {folded}, {said}; {cost}", flush=True)
     return ["chain_compose"] * bool(composed) + ["chain_fold"] * bool(folded)
+
+
+STAGE_REPS = 7
+
+
+def staging_cost(ex, tctx, reps=STAGE_REPS):
+    """What staging costs the chain exec `ex` of a tree: the
+    `chain_compose` and `chain_fold` launches and the synchronising CUDA
+    calls (torch's sync debug mode) that composition and folding add to
+    one `prepare` (or `prepare_rows`). With `reps`, also host ms, each the
+    least of `reps` runs after a warm-up, each run ending in a
+    synchronisation (host noise only adds): `prepare` with composition
+    and folding (`prepare_ms`) and without (`prepare_plain_ms`), their
+    difference (`ms`), and `stage_builds` without them (`tables_ms`, the
+    tables alone); and the mean host ms of the `dft.build` and
+    `dft.compile` spans of `prepare` with them over `reps` profiled runs
+    (a tree may fold in either span)."""
+    import warnings
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from datafusion_tpu_torch import kernels
+    rows = hasattr(ex, "prepare_rows")
+    prep = ex.prepare_rows if rows else ex.prepare
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    def syncs(compose):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                prep(tctx, compose)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum(str(w.message).startswith("called a synchronizing")
+                   for w in seen)
+    names = ("chain_compose", "chain_fold")
+    before = {k: kernels.launch_counts()[k] for k in names}
+    prep(tctx, True)
+    launches = {k: kernels.launch_counts()[k] - before[k] for k in names}
+    out = {"launches": launches, "syncs": syncs(True) - syncs(False)}
+    if reps:
+        out["prepare_ms"] = timed(lambda: prep(tctx, True))
+        out["prepare_plain_ms"] = timed(lambda: prep(tctx, False))
+        out["ms"] = out["prepare_ms"] - out["prepare_plain_ms"]
+        out["tables_ms"] = timed(lambda: ex.stage_builds(tctx, False))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(reps):
+                prep(tctx, True)
+                torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.key in ("dft.build", "dft.compile") and \
+                    ev.device_type == DeviceType.CPU:
+                out[ev.key[4:] + "_span_ms"] = ev.cpu_time_total / 1e3 / reps
+    torch.cuda.empty_cache()
+    return out
 
 
 def compose_vs_plain(ex, tctx, card, label):
     """`chain_compose` and `chain_fold` against their plain versions on the
-    chain exec `ex`'s staged builds: each composition into a copy of its
-    owner's words, each fold into fresh records, all exact. The bound of a
-    composition is the owner's key columns and the composed hop's table
-    read once and its words written once; of a fold the table's rows, the
-    owner's composed words and the payload columns read once and the
-    records written once. Returns (the entry of the last composition, of
-    the last fold)."""
+    chain exec `ex`'s staged builds: the chain's staging (`stage_spec`,
+    every payload column of a folded hop held) into fresh outputs through
+    the kernels (one descriptor, one launch each) and through
+    `chain_stage_plain`, all exact. The bound of the compositions is the
+    owners' key columns and the composed hops' tables read once and the
+    words written once; of the folds the tables' rows, the owners'
+    composed words and the payload columns read once and the records
+    written once. Each kernel is timed alone on the uploaded descriptor;
+    its plain time is `chain_stage_plain` of that half. Returns (the
+    compose entry, the fold entry)."""
+    import copy
     import torch
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.groupby import _stream
     from datafusion_tpu_torch.device.join_chain import (
-        chain_compose, chain_compose_plain, chain_fold, chain_fold_plain)
-    spec, _p, _n, _s, inputs, staged = ex.prepare(tctx)
-    cols = inputs[0][0]
-    ent_c = ent_f = None
-    for bi, s in enumerate(staged):
+        chain_stage, chain_stage_plain, new_stage_outputs, upload)
+    staged = ex.stage_builds(tctx)
+    spec, cols, aux = ex.stage_spec(staged)
+    dev = aux.device
+    got_w, got_f = new_stage_outputs(spec, dev)
+    for t in list(got_w.values()) + [t for f in got_f for t in f
+                                     if t is not None]:
+        t.fill_(-7 if t.dtype == torch.int64 else 0x5A)
+    names = ("chain_compose", "chain_fold")
+    before = {k: kernels.launch_counts()[k] for k in names}
+    chain_stage(spec, cols, aux, got_w, got_f)
+    launched = {k: kernels.launch_counts()[k] - before[k] for k in names}
+    want_w, want_f = new_stage_outputs(spec, dev)
+    chain_stage_plain(spec, cols, aux, want_w, want_f)
+    torch.cuda.synchronize()
+    if launched != {"chain_compose": int(bool(spec.composed)),
+                    "chain_fold": int(bool(spec.folds))}:
+        raise AssertionError(f"{label}: staging launched {launched}")
+    if not all(torch.equal(got_w[o], want_w[o]) for o in want_w) or \
+            not all(a is b or torch.equal(a, b)
+                    for fa, fb in zip(got_f, want_f)
+                    for a, b in zip(fa, fb)):
+        raise AssertionError(f"{label}: chain_compose or chain_fold differs "
+                             f"from its plain version")
+    for s in staged:
         c = s.compose
-        if c is None:
-            continue
-        cspec, ccols, aux, n = ex.compose_input(staged, bi, c.owner)
-        got, want = c.words.clone(), c.words.clone()
-        chain_compose(cspec, ccols, aux, n, got, c.word)
-        chain_compose_plain(cspec, ccols, aux, n, want, c.word)
-        torch.cuda.synchronize()
-        if not (torch.equal(got, want) and torch.equal(got, c.words)):
-            raise AssertionError(f"{label} hop {bi}: chain_compose differs "
-                                 f"from its plain version")
-        ms = cuda_ms(lambda: chain_compose(cspec, ccols, aux, n, got,
-                                           c.word), 20)
-        plain = cuda_ms(lambda: chain_compose_plain(cspec, ccols, aux, n,
-                                                    want, c.word), 3)
-        t = s.table
-        nbytes = col_bytes(ccols, cspec.pools.columns, n) + \
-            t.size * entry_bytes(t) + n * 8 * c.width
-        bnd = bound(nbytes, prog_ops(cspec, n))
-        print(f"chain_compose {label} hop {bi} into {c.owner} ({c.tag}): "
-              f"{n} owner rows, {int((c.words[:, c.word] >= 0).sum())} "
-              f"found, a table of {t.size} slots: kernel {ms:.6f} ms, plain "
-              f"{plain:.6f} ms, bound {bnd['bound_ms']:.6f} ms, max_abs_err "
-              f"0 [{card}]", flush=True)
+        if c is not None and not torch.equal(c.words, got_w[c.owner]):
+            raise AssertionError(f"{label}: the staged words differ")
+    lib = kernels.library()
+    desc = upload(spec.host_words(cols, got_w, got_f), dev)
+    stream = _stream(dev)
+    ent_c = ent_f = None
+    if spec.composed:
+        halves = copy.copy(spec)
+        halves.folds = []
+        ms = cuda_ms(lambda: kernels.check(lib.dft_chain_compose(
+            desc.data_ptr(), len(spec.meta), aux.data_ptr(),
+            spec.compose_threads, int(spec.full), stream),
+            kernels.KERNELS["chain_compose"]), 20)
+        plain = cuda_ms(lambda: chain_stage_plain(halves, cols, aux, want_w,
+                                                  []), 3)
+        nbytes = col_bytes(cols, spec.pools.columns, spec.compose_threads) + \
+            sum(spec.chain.hops[h].table.size *
+                entry_bytes(spec.chain.hops[h].table)
+                for h in spec.composed) + \
+            sum(w.numel() * 8 for w in got_w.values())
+        bnd = bound(nbytes, prog_ops(spec, spec.compose_threads))
+        print(f"chain_compose {label}: hops {dict(spec.composed)} (hop: "
+              f"owner, word, tag) into {spec.rows} owner rows, one launch: "
+              f"kernel {ms:.6f} ms, plain {plain:.6f} ms, bound "
+              f"{bnd['bound_ms']:.6f} ms, max_abs_err 0 [{card}]",
+              flush=True)
         ent_c = entry(0.0, ms, plain, bnd)
-    for h, hop in enumerate(spec.chain.hops):
-        f = hop.fold
-        if f is None:
-            continue
-        comp = next((o.compose.words for o in spec.chain.hops
-                     if o.compose is not None and o.compose.owner == h), None)
-        columns = [cols[p] for p in f.columns]
-        got = chain_fold(hop.table, comp, columns, f)
-        want = chain_fold_plain(hop.table, comp, columns, f)
-        torch.cuda.synchronize()
-        if not all(a is b or (a is not None and b is not None and
-                              torch.equal(a, b))
-                   for a, b in zip(got + want, want + (f.records, f.valid))):
-            raise AssertionError(f"{label} hop {h}: chain_fold differs from "
-                                 f"its plain version")
-        ms = cuda_ms(lambda: chain_fold(hop.table, comp, columns, f), 20)
-        plain = cuda_ms(lambda: chain_fold_plain(hop.table, comp, columns,
-                                                 f), 3)
-        rows = staged[h].batch.num_rows
-        nbytes = hop.table.size * (4 + (8 + f.nullable) * f.words) + \
-            (0 if comp is None else comp.numel() * 8) + \
-            sum(rows * (d.element_size() + (v is not None))
-                for d, v in columns)
+    if spec.folds:
+        halves = copy.copy(spec)
+        halves.composed = {}
+        ms = cuda_ms(lambda: kernels.check(lib.dft_chain_fold(
+            desc.data_ptr() + 8 * len(spec.meta), spec.fold_threads,
+            stream), kernels.KERNELS["chain_fold"]), 20)
+        plain = cuda_ms(lambda: chain_stage_plain(halves, cols, aux, got_w,
+                                                  want_f), 3)
+        nbytes = 0
+        for (h, t, f), (rec, valid) in zip(spec.folds, got_f):
+            rows = staged[h].batch.num_rows
+            comp = got_w.get(h)
+            nbytes += t.size * 4 + rec.numel() * 8 + \
+                (0 if valid is None else valid.numel()) + \
+                (0 if comp is None else comp.numel() * 8) + \
+                sum(rows * (cols[i][0].element_size() +
+                            (cols[i][1] is not None)) for i in f.columns)
         bnd = bound(nbytes, 0)
-        print(f"chain_fold {label} hop {h}: {hop.table.size} slots of "
-              f"{f.words} words ({f.n_comp} composed, {len(f.columns)} "
-              f"payload columns; the reference's budget span {f.span} x "
-              f"width {f.width}): kernel {ms:.6f} ms, plain {plain:.6f} ms, "
-              f"bound {bnd['bound_ms']:.6f} ms, max_abs_err 0 [{card}]",
+        shapes = [(h, t.size, f.words, f.n_comp, len(f.columns))
+                  for h, t, f in spec.folds]
+        print(f"chain_fold {label}: folds (hop, slots, record words, "
+              f"composed, payload columns) {shapes}, one launch: kernel "
+              f"{ms:.6f} ms, plain {plain:.6f} ms, bound "
+              f"{bnd['bound_ms']:.6f} ms, max_abs_err 0 [{card}]",
               flush=True)
         ent_f = entry(0.0, ms, plain, bnd)
+    del desc, got_w, got_f, want_w, want_f
     return ent_c, ent_f
 
 
@@ -3288,7 +3407,7 @@ def main() -> int:
           f"EUROPE cost, the first {len(want2['s_name'])} by balance "
           f"{want2['s_acctbal'][:3]}... (scale 2)", flush=True)
     breakdown(ctx, TPCH[2], card, "Q2 SF10", TorchJoinChainRowsExec,
-              main="rows_mark")
+              main="rows_walk")
 
     out, counts, _ = run_path(ctx, TPCH[20], [
         "hash_group_aggregate", "compact_groups", "group_emit",
@@ -3310,7 +3429,7 @@ def main() -> int:
           f"suppliers; the aggregate's {groups20} groups stayed on the card "
           f"({agg.resident_emits} resident emits)", flush=True)
     breakdown(ctx, TPCH[20], card, "Q20 SF10", TorchJoinChainRowsExec,
-              main="rows_mark")
+              main="rows_walk")
     del tctx, out, agg
     torch.cuda.empty_cache()
 
@@ -3559,10 +3678,10 @@ def top_counts_agree(label, got_keys, got_counts, all_keys, all_counts):
 WALK_QUERIES = (3, 5, 7, 8, 9, 10, 12, 14, 18, 21)
 ROWS_QUERIES = (2, 20)
 WALK_REPS = 20
-E2E_WALKS = (5, 12, 14, 21)
+E2E_WALKS = (2, 5, 7, 8, 9, 12, 14, 20, 21)
 K1_REPS = 10
-WALK_SYMBOLS = (r"chain_(dense|hash|compose)_kernel|rows_(mark|emit)_kernel|"
-                r"partition_\w+_kernel")
+WALK_SYMBOLS = (r"chain_(dense|hash|compose|fold)_kernel|"
+                r"rows_(mark|walk|emit)_kernel|partition_\w+_kernel")
 
 
 def warm_median(ctx, sql, reps=REPS):
@@ -3579,9 +3698,11 @@ def warm_median(ctx, sql, reps=REPS):
 
 def walk_resources(lib_path):
     """{kernel symbol: (registers, stack bytes)} of the walk kernels
-    (`chain_dense_kernel`, `chain_hash_kernel`, `rows_mark_kernel`,
-    `rows_emit_kernel`), of `chain_compose_kernel` and of K1's kernels in
-    the library at `lib_path`, from `cuobjdump --dump-resource-usage`."""
+    (`chain_dense_kernel`, `chain_hash_kernel`, the row walk's
+    `rows_walk_kernel` or, in an older tree, `rows_mark_kernel`, and
+    `rows_emit_kernel`), of `chain_compose_kernel`, `chain_fold_kernel`
+    and of K1's kernels in the library at `lib_path`, from `cuobjdump
+    --dump-resource-usage`."""
     return kernel_resources(lib_path, WALK_SYMBOLS)
 
 
@@ -3834,7 +3955,20 @@ def walk_tree(tree):
         unstaged = time_walks(ctx, WALK_QUERIES, False, splits_unstaged)
     else:
         walks, unstaged = time_walks(ctx, WALK_QUERIES, None, splits), {}
-    rows, rows_launches = {}, {}
+    # a tree that stages a chain in one call (`stage_spec`) also times each
+    # walk staged with its compositions and without its folds
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchChainExec)
+    composed_only = {}
+    if hasattr(TorchChainExec, "stage_spec"):
+        plan = TorchChainExec.compose_plan
+        TorchChainExec.compose_plan = lambda self, staged: (
+            plan(self, staged)[0], {})
+        try:
+            composed_only = time_walks(ctx, WALK_QUERIES, True)
+        finally:
+            TorchChainExec.compose_plan = plan
+    rows, rows_launches, rows_split = {}, {}, {}
     for q in ROWS_QUERIES:
         ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
                        TorchJoinChainRowsExec)
@@ -3847,8 +3981,17 @@ def walk_tree(tree):
         before = kernels.launch_counts()["chain_rows"]
         chain_rows(spec, cols, aux, n)
         rows_launches[q] = kernels.launch_counts()["chain_rows"] - before
+        rows_split[q] = kernel_ms(lambda: chain_rows(spec, cols, aux, n))
         del spec, inputs, _staged, cols, aux
         torch.cuda.empty_cache()
+    # each chain's staging as the tree stages it (compositions and folds)
+    staging = {}
+    for q in WALK_QUERIES + ROWS_QUERIES:
+        cls = TorchJoinChainRowsExec if q in ROWS_QUERIES else \
+            TorchJoinChainAggregateExec
+        ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(), cls)
+        staging[q] = None if ex is None else staging_cost(ex, tctx)
+        del ex
     e2e = {f"Q{q}": warm_median(ctx, TPCH[q]) for q in E2E_WALKS}
     del ctx, tctx
     torch.cuda.empty_cache()
@@ -3861,8 +4004,12 @@ def walk_tree(tree):
     e2e["MJ1"] = warm_median(mesh, MJ1)
     e2e["MQ15"] = warm_median(mesh, Q15_SUB)
     print(json.dumps({"tree": tree, "walk_ms": walks,
-                      "walk_ms_uncomposed": unstaged, "rows_ms": rows,
+                      "walk_ms_uncomposed": unstaged,
+                      "walk_ms_composed_only": composed_only,
+                      "rows_ms": rows,
                       "rows_launches": rows_launches,
+                      "rows_split": rows_split,
+                      "staging": staging,
                       "walk_split": splits,
                       "walk_split_uncomposed": splits_unstaged,
                       "k1": k1, "e2e_ms": e2e,

@@ -9,52 +9,179 @@
 // survivors by cumsum + searchsorted, walks the chain again over them and
 // evaluates the output expressions.
 //
-// Design. Two entry points on the caller's stream:
-//   1. dft_chain_rows_mark: one thread per spine row runs `ChainRows`
-//      (program.cuh: the probe predicate, each hop's lookup in chain order,
-//      the residual) and writes its keep flag into pos[row] (int64), with
-//      pos[n] = 0; then the three-launch exclusive scan of scan.cuh turns
-//      pos[0..n] into each kept row's output slot, and pos[n] into the
-//      number of kept rows. The caller reads pos[n] to size the outputs.
-//   2. dft_chain_rows_emit: one thread per spine row again; a row is kept
-//      where pos[row + 1] != pos[row]. A kept row walks the chain once more
-//      to find each hop's build row (nothing is kept between the passes),
-//      then runs every output program over the pair space and writes its
-//      value, at the output column's width, and its valid bit at slot
-//      pos[row]. Data under a NULL is 0.
-// Outputs are at slots given by the scan, so they are in spine order and
-// the same from run to run.
+// Design. Two launches on the caller's stream, a third only on overflow:
+//   1. dft_chain_rows_walk: the aggregate walk's tile walk (tile_walk.cuh).
+//      A block takes a tile of spine rows at a time, in spine order, from a
+//      ticket, and each of its warps walks `cap` rows of it on its own: it
+//      admits them to its list in shared memory (the probe predicate's
+//      conjuncts), walks the list through the hops (each hop over the
+//      compacted survivors, handles in shared memory; staged hops read
+//      composed words and folded records), then runs the residual over
+//      what is left and compacts once more. The tile's survivor count goes
+//      out at once through the decoupled look-back of lookback.cuh, taken
+//      by one warp (a status word a tile; every earlier tile's block has
+//      started, as tickets are taken in order), which gives the tile's
+//      first output slot; each survivor then writes its spine row and its
+//      handle at every hop to the survivor scratch at its slot (hop-major),
+//      when the slot is below the scratch's capacity. The last tile writes
+//      the total. Nothing of the spine is written: the keep flags, the scan
+//      and its three launches of the old design are gone. A block's tile,
+//      not a warp's: with a warp's, thousands of tiles are in flight, and
+//      a look-back walks past the aggregates of all that have not yet
+//      found their first slot (PERF.md).
+//   2. dft_chain_rows_emit: one thread a survivor, grid-stride over the
+//      total: the output programs run over the pair space through the
+//      stored handles (`TileColumns` over the scratch, no chain walk), and
+//      each value is written at the output column's width with its valid
+//      bit. Data under a NULL is 0.
+// The caller reads the total back once (one synchronisation a call) and
+// sizes the outputs. The scratch holds a capacity the caller guesses
+// (join_chain.py ROWS_SCRATCH: max(2^14, n / 16) survivors, (1 + hops) x 4
+// bytes each: 12 MB for TPC-H Q2's 8M-row spine at SF10); a total above it
+// re-runs the walk once into a scratch of the total, with no further
+// read-back. Outputs are at slots given by the tiles' order, so they are
+// in spine order and the same from run to run.
 //
 // Bounds. TPC-H Q2 at SF10 reads partsupp's ps_partkey, ps_suppkey and
 // ps_supplycost (24 bytes a row, 8.0M rows, 192 MB) and writes a few
 // thousand rows: about 0.06 ms at the 3.35 TB/s of an NVIDIA H100 80GB
-// HBM3 at 700 W. This simple version moves more: the keep flags and the
-// scan write and read pos (8 bytes a row, about 4 passes), and pass 2
-// reads pos twice a row, about 40 bytes a row beyond the spine's own; the
-// hop lookups are random reads of 32-byte sectors.
+// HBM3 at 700 W. The walk reads the spine's predicate and key columns once
+// and the hop tables at the rows that reach each hop (random 32-byte
+// sectors); beyond that it writes 8 bytes a tile of status and
+// (1 + hops) x 4 bytes a survivor, and the emit reads them back.
+
+#include <cstring>
 
 #include "program.cuh"
-#include "scan.cuh"
+#include "lookback.cuh"
+#include "tile_walk.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// As the aggregate walk: four blocks an SM, at most 64 registers a thread.
+constexpr int kMinBlocks = 4;
+constexpr u64 kEpoch = 1;      // the status words are zeroed every call
+constexpr int kMaxOutputs = 32;   // join_chain.py MAX_LANES
 
+// Each output's (data pointer, validity pointer), passed by value so the
+// emit needs no upload.
+struct Outputs {
+  i64 ptr[2 * kMaxOutputs];
+};
+
+// state: [ticket, total, status of each tile]; rows_out [scap] and
+// handles_out [hops][scap] the survivor scratch. A tile is a block's: each
+// warp walks `cap` rows of it.
 template <bool Full, bool Staged>
-__global__ void __launch_bounds__(kThreads)
-rows_mark_kernel(const i64* __restrict__ meta_g, int meta_len,
-                 const i64* __restrict__ aux, i64 n_rows,
-                 i64* __restrict__ pos) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rows_walk_kernel(const i64* __restrict__ meta_g, int meta_len,
+                 const i64* __restrict__ aux, i64 n_rows, int cap,
+                 u64* __restrict__ state, int* __restrict__ rows_out,
+                 int* __restrict__ handles_out, i64 scap) {
   extern __shared__ i64 smem[];
+  __shared__ i64 tile_s;
+  __shared__ i64 first_s;                  // the tile's first output slot
+  __shared__ i64 before_s[kThreads / 32];  // a warp's first within the tile
+  __shared__ int count_s[kThreads / 32];   // a warp's survivors
   stage_meta(smem, meta_g, meta_len);
-  const ChainRows<Full, Staged> rows{smem, aux};
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
-       row += stride) {
-    ChainColumns<Full> cols;
-    pos[row] = rows(row, &cols) ? 1 : 0;
+  const i64* meta = smem;
+  const i64* ch = meta + meta[H_OFF_CHAIN];
+  const int n_hops = (int)ch[C_NHOPS];
+  const int warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  int* rows = (int*)(smem + meta_len) + warp * (2 + n_hops) * cap;
+  int* list = rows + cap;
+  int* handles = rows + 2 * cap;
+  TileColumns<Full, Staged> cols{meta, handles, cap, 0};
+  const int width = __popc(warp_members());
+  const int lane = lane_id();
+  const i64 step = (i64)width * kRowsPerStep;
+  const i64 tile_rows = (i64)nw * cap;
+  const i64 n_tiles = (n_rows + tile_rows - 1) / tile_rows;
+  u64* status = state + 2;
+  for (;;) {
+    if (threadIdx.x == 0) tile_s = (i64)atomicAdd(state, 1ull);
+    __syncthreads();
+    const i64 t = tile_s;
+    if (t >= n_tiles) break;
+    const i64 base = t * tile_rows + (i64)warp * cap;
+    const i64 end = base + cap < n_rows ? base + cap : n_rows;
+    int n = 0;
+    for (i64 at = base; at < end; at += step) {
+      i64 row[kRowsPerStep];
+      bool keep[kRowsPerStep];
+#pragma unroll
+      for (int r = 0; r < kRowsPerStep; ++r) {
+        row[r] = at + r * width + lane;
+        keep[r] = row[r] < end;
+      }
+      admit_rows(meta, aux, ch, row, keep, cols);
+#pragma unroll
+      for (int r = 0; r < kRowsPerStep; ++r) {
+        n = warp_append(keep[r], (int)row[r], rows, n);
+      }
+    }
+    __syncwarp();
+    bool dense;
+    const int m = walk_hops(meta, aux, rows, n, list, handles, cols, &dense);
+    int k = m;
+    if (meta[H_PRED] >= 0) {   // the residual, compacted in place
+      k = 0;
+      for (int i0 = 0; i0 < m; i0 += width) {
+        const int i = i0 + lane;
+        const int e = i < m ? (dense ? i : list[i]) : 0;
+        bool keep = false;
+        if (i < m) {
+          cols.e = e;
+          i64 x;
+          keep = run(meta, aux, (int)meta[H_PRED], (i64)rows[e], cols, &x) &&
+                 x != 0;
+        }
+        __syncwarp();
+        k = warp_append(keep, e, list, k);
+      }
+      __syncwarp();
+      dense = false;
+    }
+    if (lane == 0) count_s[warp] = k;
+    __syncthreads();
+    // the tile's count out at once, then its first slot by look-back
+    if (warp == 0) {
+      i64 total = 0;
+      if (lane == 0) {
+        for (int w = 0; w < nw; ++w) {
+          before_s[w] = total;
+          total += count_s[w];
+        }
+        store_status(status + t, status_word(
+            t == 0 ? kInclusive : kAggregate, kEpoch, (u64)total));
+      }
+      const i64 first = t > 0 ? warp_look_back(status, t, 1, kEpoch) : 0;
+      if (lane == 0) {
+        if (t > 0) {
+          store_status(status + t,
+                       status_word(kInclusive, kEpoch, (u64)(first + total)));
+        }
+        if (t == n_tiles - 1) state[1] = (u64)(first + total);
+        first_s = first;
+      }
+    }
+    __syncthreads();
+    const i64 first = first_s + before_s[warp];
+    for (int i0 = 0; i0 < k; i0 += width) {
+      const int i = i0 + lane;
+      const i64 slot = first + i;
+      if (i < k && slot < scap) {
+        const int e = dense ? i : list[i];
+        rows_out[slot] = rows[e];
+        for (int h = 0; h < n_hops; ++h) {
+          handles_out[h * scap + slot] = handles[h * cap + e];
+        }
+      }
+    }
+    __syncthreads();   // the lists and shared words are free again
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) pos[n_rows] = 0;
 }
 
 // one output value at the output column's width
@@ -71,63 +198,97 @@ __device__ __forceinline__ void store(void* data, int dtype, i64 slot,
 template <bool Full, bool Staged>
 __global__ void __launch_bounds__(kThreads)
 rows_emit_kernel(const i64* __restrict__ meta_g, int meta_len,
-                 const i64* __restrict__ aux, i64 n_rows,
-                 const i64* __restrict__ pos, const i64* __restrict__ outs) {
+                 const i64* __restrict__ aux, i64 total,
+                 const int* __restrict__ rows_in,
+                 const int* __restrict__ handles_in, i64 scap,
+                 const Outputs outs) {
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
-  const ChainRows<Full, Staged> rows{smem, aux};
   const int n_out = (int)smem[H_NLANES];
   const i64* progs = smem + smem[H_OFF_LANES];   // (program, dtype code)
+  TileColumns<Full, Staged> cols{smem, handles_in, (int)scap, 0};
   const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x; row < n_rows;
-       row += stride) {
-    const i64 slot = pos[row];
-    if (pos[row + 1] == slot) continue;
-    ChainColumns<Full> cols;
-    rows(row, &cols);  // true: the walk of pass 1, for the build rows
+  for (i64 s = (i64)blockIdx.x * blockDim.x + threadIdx.x; s < total;
+       s += stride) {
+    cols.e = (int)s;
+    const i64 row = __ldg(rows_in + s);
     for (int o = 0; o < n_out; ++o) {
       i64 x;
       const bool valid = run(smem, aux, (int)progs[2 * o], row, cols, &x);
-      store((void*)outs[2 * o], (int)progs[2 * o + 1], slot, valid ? x : 0);
-      ((unsigned char*)outs[2 * o + 1])[slot] = valid;
+      store((void*)outs.ptr[2 * o], (int)progs[2 * o + 1], s,
+            valid ? x : 0);
+      ((unsigned char*)outs.ptr[2 * o + 1])[s] = valid;
     }
   }
+}
+
+// The blocks of the walk: as many as the card holds at once (tiles are
+// taken by ticket), at most one a tile.
+template <class Kernel>
+unsigned walk_blocks(Kernel kernel, size_t smem, long long n_tiles) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kThreads, smem) != cudaSuccess || per_sm < 1) {
+    per_sm = 1;
+  }
+  long long blocks = (long long)(sms > 0 ? sms : 132) * per_sm;
+  if (blocks > n_tiles) blocks = n_tiles;
+  return (unsigned)(blocks < 1 ? 1 : blocks);
 }
 
 }  // namespace
 
 // meta: device int64 descriptor of meta_len words (join_chain.py
-// ChainRowsSpec); aux: device int64 per-batch inputs; pos: device int64
-// [n_rows + 1]; sums: device int64 scratch of ceil((n_rows + 1) / 8192)
-// words; variant: bit 0 the programs or a min/max hop need the
-// interpreter's full variant, bit 1 the chain has composed or folded hops.
-// Four launches on `stream` (the mark, then exclusive_scan's three);
-// returns the first cudaError_t.
-extern "C" int dft_chain_rows_mark(const void* meta, int meta_len,
+// ChainRowsSpec); aux: device int64 per-batch inputs; cap: the spine rows
+// a warp walks of a tile, the entries of its lists (a tile is a block's
+// warps' rows); state: device int64 [2 + ceil(n_rows / cap)], zeroed (the
+// ticket, the total, a status word a tile, the last of them unused);
+// rows_out: int32 [scap], handles_out: int32 [n_hops][scap];
+// variant: bit 0 the programs or a min/max hop need the interpreter's full
+// variant, bit 1 the chain has composed or folded hops. One launch on
+// `stream`; returns cudaGetLastError() (or the shared-memory attribute's
+// error). The total lands in state[1].
+extern "C" int dft_chain_rows_walk(const void* meta, int meta_len,
                                    const void* aux, long long n_rows,
-                                   void* pos, void* sums, int variant,
+                                   int n_hops, int cap, void* state,
+                                   void* rows_out, void* handles_out,
+                                   long long scap, int variant,
                                    void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const auto kernel = DFT_WALK_VARIANT(rows_mark_kernel, variant);
-  kernel<<<grid_blocks(n_rows, kThreads), kThreads, (size_t)meta_len * 8,
-           st>>>(
-      (const i64*)meta, meta_len, (const i64*)aux, n_rows, (i64*)pos);
-  const cudaError_t err = cudaGetLastError();
+  const long long tile_rows = (long long)(kThreads / 32) * cap;
+  const long long n_tiles = (n_rows + tile_rows - 1) / tile_rows;
+  const size_t smem = (size_t)meta_len * 8 +
+                      (size_t)(kThreads / 32) * (2 + n_hops) * cap * 4;
+  const auto kernel = DFT_WALK_VARIANT(rows_walk_kernel, variant);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  return (int)exclusive_scan((i64*)pos, n_rows + 1, (i64*)sums, st);
+  kernel<<<walk_blocks(kernel, smem, n_tiles), kThreads, smem,
+           (cudaStream_t)stream>>>(
+      (const i64*)meta, meta_len, (const i64*)aux, n_rows, cap,
+      (u64*)state, (int*)rows_out, (int*)handles_out, scap);
+  return (int)cudaGetLastError();
 }
 
-// pos: the scanned slots of dft_chain_rows_mark; outs: device int64
-// [2 * outputs], each output's (data pointer, validity pointer), data at
-// the width of its dtype code in the descriptor; variant as in the mark.
+// rows_in, handles_in: the walk's survivor scratch of scap entries, its
+// first `total` filled; outs: host int64 [2 * n_out], each output's device
+// (data pointer, validity pointer), data at the width of its dtype code in
+// the descriptor; variant as in the walk. One launch on `stream`; returns
+// cudaGetLastError().
 extern "C" int dft_chain_rows_emit(const void* meta, int meta_len,
-                                   const void* aux, long long n_rows,
-                                   const void* pos, const void* outs,
-                                   int variant, void* stream) {
+                                   const void* aux, long long total,
+                                   const void* rows_in,
+                                   const void* handles_in, long long scap,
+                                   const void* outs, int n_out, int variant,
+                                   void* stream) {
+  if (n_out > kMaxOutputs) return (int)cudaErrorInvalidValue;
+  Outputs o;
+  memcpy(o.ptr, outs, sizeof(i64) * 2 * n_out);
   const auto kernel = DFT_WALK_VARIANT(rows_emit_kernel, variant);
-  kernel<<<grid_blocks(n_rows, kThreads), kThreads, (size_t)meta_len * 8,
+  kernel<<<grid_blocks(total, kThreads), kThreads, (size_t)meta_len * 8,
            (cudaStream_t)stream>>>(
-      (const i64*)meta, meta_len, (const i64*)aux, n_rows, (const i64*)pos,
-      (const i64*)outs);
+      (const i64*)meta, meta_len, (const i64*)aux, total,
+      (const int*)rows_in, (const int*)handles_in, scap, o);
   return (int)cudaGetLastError();
 }

@@ -170,38 +170,6 @@ partition_count_kernel(const i64* __restrict__ keys,
   }
 }
 
-// The sum of the counts of tiles 0..tile-1 (tile > 0) whose status words
-// are at[t * stride], taken by the calling warp's lanes together (every
-// lane calls it and gets it): lane l reads tile t - l, a warp's width of
-// tiles a round trip, up to the nearest inclusive word once every word
-// before it is published (lookback.cuh's word and walk, for a warp of any
-// width).
-__device__ __forceinline__ i64 lanes_look_back(const u64* at, i64 tile,
-                                               i64 stride, u64 epoch) {
-  const unsigned members = warp_members();
-  const int width = __popc(members);
-  const int lane = lane_id();
-  i64 excl = 0;
-  for (i64 t = tile - 1;; t -= width) {
-    const i64 mine = t - lane;
-    u64 st;
-    unsigned ready, incl;
-    for (;;) {
-      st = mine >= 0 ? load_status(at + mine * stride)
-                     : status_word(kInclusive, epoch, 0);
-      const bool ok = (st >> kCountBits & kEpochMask) == epoch;
-      ready = __ballot_sync(kWarp, ok);
-      incl = __ballot_sync(kWarp, ok && st >> 62 == kInclusive);
-      const unsigned need = incl ? (incl & (0u - incl)) * 2u - 1u : members;
-      if ((ready & need) == need) break;
-    }
-    const int stop = incl ? __ffs(incl) - 1 : width - 1;
-    excl += warp_reduce(LANE_ROWS, members,
-                        lane <= stop ? (i64)(st & kCountMask) : 0);
-    if (incl) return excl;
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ void move(const XLanes& x, int l, i64 to,
                                      i64 from) {
@@ -307,7 +275,7 @@ partition_sweep_kernel(const i64* __restrict__ keys,
     // a destination
     if (t > 0) {
       for (int d = warp; d < n_dest; d += nw) {
-        const i64 before = lanes_look_back(status + d, t, n_dest, epoch);
+        const i64 before = warp_look_back(status + d, t, n_dest, epoch);
         if (lane_id() == 0) {
           prefix[d] = before;
           store_status(status + t * n_dest + d,

@@ -1,6 +1,6 @@
 // lookback.cuh: the decoupled look-back of a single-pass scan across tiles
 // (Merrill and Garland, 2016), shared by radix_sort.cu (one count a digit
-// and tile) and compact_groups.cu (one count a tile).
+// and tile), compact_groups.cu and chain_rows.cu (one count a tile).
 //
 // Tiles are taken in order from an atomic counter, so every earlier tile's
 // block has started and the walk back always ends. A tile publishes its own
@@ -70,15 +70,18 @@ __device__ __forceinline__ i64 look_back(const u64* at, i64 tile, i64 stride,
 }
 
 // The same sum, taken by a whole warp (every lane calls it and gets it):
-// lane l reads the status word of tile t - l, 32 tiles a round trip, and
-// the walk stops at the nearest inclusive word once every word before it
-// is published. A tile that does nothing else while it waits spends one
-// warp on the walk, not one thread.
+// lane l reads the status word of tile t - l, a warp's width of tiles a
+// round trip (32 on the card; one where the sources run as one thread),
+// and the walk stops at the nearest inclusive word once every word before
+// it is published. A tile that does nothing else while it waits spends
+// one warp on the walk, not one thread.
 __device__ __forceinline__ i64 warp_look_back(const u64* at, i64 tile,
                                               i64 stride, u64 epoch) {
+  const unsigned members = __ballot_sync(0xffffffffu, 1);
+  const int width = __popc(members);
   const int lane = threadIdx.x & 31;
   i64 excl = 0;
-  for (i64 t = tile - 1;; t -= 32) {
+  for (i64 t = tile - 1;; t -= width) {
     const i64 mine = t - lane;
     u64 st;
     unsigned ready, incl;
@@ -87,17 +90,15 @@ __device__ __forceinline__ i64 warp_look_back(const u64* at, i64 tile,
       st = mine >= 0 ? load_status(at + mine * stride)
                      : status_word(kInclusive, epoch, 0);
       const bool ok = (st >> kCountBits & kEpochMask) == epoch;
-      ready = __ballot_sync(0xffffffffu, ok);
-      incl = __ballot_sync(0xffffffffu, ok && st >> 62 == kInclusive);
-      // the lanes up to the nearest inclusive word (all 32 without one)
-      const unsigned need = incl ? (incl & (0u - incl)) * 2u - 1u
-                                 : 0xffffffffu;
+      ready = __ballot_sync(members, ok);
+      incl = __ballot_sync(members, ok && st >> 62 == kInclusive);
+      // the lanes up to the nearest inclusive word (all without one)
+      const unsigned need = incl ? (incl & (0u - incl)) * 2u - 1u : members;
       if ((ready & need) == need) break;
     }
-    const int stop = incl ? __ffs(incl) - 1 : 31;
+    const int stop = incl ? __ffs(incl) - 1 : width - 1;
     i64 c = lane <= stop ? (i64)(st & kCountMask) : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+    for (int o = 1; o < width; o <<= 1) c += __shfl_xor_sync(members, c, o);
     excl += c;
     if (incl) return excl;
   }

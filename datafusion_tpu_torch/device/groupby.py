@@ -345,6 +345,11 @@ class _ProgramSpec:
                     dset: Optional["DistinctSet"] = None) -> torch.Tensor:
         """The descriptor (`self.meta`, or `meta` of the same layout) with
         the batch's column pointers and the distinct set, on `device`."""
+        return torch.from_numpy(self.host_meta(cols, meta, dset)).to(device)
+
+    def host_meta(self, cols: Columns, meta: Optional[np.ndarray] = None,
+                  dset: Optional["DistinctSet"] = None) -> np.ndarray:
+        """`device_meta`'s words, on the host."""
         meta = (self.meta if meta is None else meta).copy()
         if dset is not None:
             meta[H_DSET] = dset.words.data_ptr()
@@ -356,7 +361,7 @@ class _ProgramSpec:
                 meta[base + 3 * idx + 1] = 0 if valid is None else valid.data_ptr()
                 meta[base + 3 * idx + 2] = _DTYPE_CODE[data.dtype]
         self._patch_columns(meta)
-        return torch.from_numpy(meta).to(device)
+        return meta
 
     def _patch_columns(self, meta: np.ndarray) -> None:
         """Column descriptors that read elsewhere than the given columns

@@ -43,29 +43,33 @@ keys read without the interpreter. The walk feeds the grouped fold of
 
 The row-returning walk (`chain_rows`, kernel `csrc/chain_rows.cu`).
 Counterpart of `DeviceJoinChainRowsExec`'s mask program (`:2312`, jit
-`:2339`) and emit program (`:2352`, jit `:2377`). The same walk, with no
-fold: a first pass marks the spine rows that survive the probe
-predicate, the hops and the residual, an exclusive scan gives each kept
-row its output slot, the wrapper reads the count (one synchronisation a
-spine batch, as `:2347`), and a second pass re-walks the kept rows and
-writes every output program's value and validity at the row's slot. The
-output is in spine order, as the reference's `searchsorted` compaction
-gives it.
+`:2339`) and emit program (`:2352`, jit `:2377`). The aggregate walk's
+tile walk with no fold: a warp takes tiles of ROWS_TILE spine rows in
+spine order by ticket, walks each through the probe predicate, the hops
+and the residual, takes its survivors' output slots by a decoupled
+look-back over the tiles, and leaves each survivor's spine row and hop
+handles in a scratch; the wrapper reads the count (one synchronisation a
+spine batch, as `:2347`), and the emit runs every output program over
+the survivors through their stored handles and writes its value and
+validity at the survivor's slot. The output is in spine order, as the
+reference's `searchsorted` compaction gives it.
 
-Staging-time composition and folding (`chain_compose` and `chain_fold`,
-kernels in `csrc/chain_compose.cu`). Counterpart of
-`_compose_staged_hops` (`:786`, its program `_make_compose_prog` `:926`,
-jit `:887`) and `_fold_lut_pmat` (`:719`, jit `:756`). A hop whose probe
-keys are all payload columns of one earlier INNER hop, its owner (or of
-hops already composed into it), is probed once for each of the owner's
-build rows when the chain is staged; the results sit in the owner's
-composed words (`Compose`), and the walk reads them at the row it found
-for the owner (`TAB_COMPOSED`) and runs no probe-key program for the hop.
-A folded hop (`Fold`) has one record a table slot: the build row, the
-composed words of its own composed hops at that row and the payload words
-the walk's programs read, so a spine row resolves the hop and all that
-hangs on it from adjacent words; its payload columns then load from the
-record as int64 columns whose row is the record's first word.
+Staging-time composition and folding (`chain_stage`, kernels
+`chain_compose` and `chain_fold` in `csrc/chain_compose.cu`).
+Counterpart of `_compose_staged_hops` (`:786`, its program
+`_make_compose_prog` `:926`, jit `:887`) and `_fold_lut_pmat` (`:719`,
+jit `:756`). A hop whose probe keys are all payload columns of one
+earlier INNER hop, its owner (or of hops already composed into it), is
+probed once for each of the owner's build rows when the chain is staged;
+the results sit in the owner's composed words (`Compose`), and the walk
+reads them at the row it found for the owner (`TAB_COMPOSED`) and runs
+no probe-key program for the hop. A folded hop (`Fold`) has one record a
+table slot: the build row, the composed words of its own composed hops
+at that row and the payload words the walk's programs read, so a spine
+row resolves the hop and all that hangs on it from adjacent words; its
+payload columns then load from the record as int64 columns whose row is
+the record's first word. A chain stages all its compositions in one
+launch and all its folds in another, from one descriptor (`StageSpec`).
 
 A filtered SEMI/ANTI hop keeps a row when some member row of its key
 satisfies `member OP x` (`_mmx_exists`, `:1325-1347`): `<>` when the min
@@ -85,8 +89,9 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .groupby import (_DTYPE_CODE, _NP_TO_TORCH, EMPTY, H_OFF_COLS,
-                      H_OFF_KEYS, LANE_MIN_I64, MAX_LANES, SMEM_BYTES, AggregateSpec,
+from .groupby import (_DTYPE_CODE, _NP_TO_TORCH, EMPTY, H_OFF_CHAIN,
+                      H_OFF_COLS, H_OFF_KEYS, LANE_MIN_I64, MAX_LANES,
+                      SMEM_BYTES, AggregateSpec,
                       Columns, DistinctSet, HashSpec, _check_dset, _cuda,
                       _next_pow2, _ProgramSpec, _stream,
                       dense_group_aggregate_plain, hash_group_aggregate_plain,
@@ -134,8 +139,10 @@ MAX_HOPS = 8
 MAX_HOP_KEYS = 4
 HOP_WORDS = HOP_KEY0 + 4 * MAX_HOP_KEYS    # (prog, lo, hi, shift) per key
 
-SCAN_TILE = 8192          # words a block of csrc/scan.cuh scans
 LIST_CAP = 128            # entries of a warp's lists (chain_aggregate.cu)
+ROWS_TILE = 256           # spine rows of a warp's tile (chain_rows.cu)
+ROWS_SCRATCH_MIN = 1 << 14    # survivors the first row walk has room for:
+ROWS_SCRATCH_SHARE = 16       # at least this, and a 1/16 of the spine
 DIRECT_FILL = 16          # a direct table spans at most 16 x its rows
 DIRECT_MAX = 1 << 26      # and at most 2^26 slots (256 MB of int32)
 
@@ -802,6 +809,24 @@ class ChainRowsSpec(_ChainSpec, _ProgramSpec):
         return [_NP_TO_TORCH[p.out_dtype] for p in self.outputs]
 
 
+def rows_scratch(n_rows: int) -> int:
+    """The survivors `chain_rows`' first walk has room for: at least
+    ROWS_SCRATCH_MIN and a 1/ROWS_SCRATCH_SHARE of the spine, at most the
+    spine."""
+    return max(min(n_rows, max(ROWS_SCRATCH_MIN,
+                               -(-n_rows // ROWS_SCRATCH_SHARE))), 1)
+
+
+def upload(words: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """int64 `words` on the card by one copy from pinned memory that does
+    not wait for the stream. The buffer is fresh from PyTorch's caching
+    host allocator, which records the copy on the stream and reuses the
+    block only once the copy has finished, so nothing rewrites it early."""
+    host = torch.empty(len(words), dtype=torch.int64, pin_memory=True)
+    host.numpy()[:] = words
+    return host.to(dev, non_blocking=True)
+
+
 def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
                n_rows: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Walk the chain for the first `n_rows` spine rows and return, for
@@ -811,12 +836,16 @@ def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
     Data under a NULL is 0.
 
     On CPU tensors this runs `chain_rows_plain`; on CUDA tensors it
-    launches the `chain_rows` kernel's two passes or raises: the mark
-    pass with the three launches of its scan (four), then the emit (one)
-    when any row survives. It reads the number of surviving rows back
-    between them: one synchronisation."""
+    launches the `chain_rows` kernel's tile walk, which leaves each
+    survivor's spine row and hop handles in a scratch of `rows_scratch`
+    entries, then its emit over the survivors when any survive: two
+    launches, a third (the walk again, into a scratch of the total) only
+    when more survive than the scratch holds. It reads the number of
+    survivors back between them: one synchronisation."""
     dev = aux.device
     _check_pair(spec, cols, aux, n_rows, dev)
+    if n_rows >= 1 << 31:
+        raise ValueError("a spine batch holds at most 2^31 - 1 rows")
     if not _cuda(aux):
         return chain_rows_plain(spec, cols, aux, n_rows)
     dtypes = spec.output_dtypes()
@@ -825,31 +854,44 @@ def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
                  torch.empty(0, dtype=torch.bool, device=dev))
                 for d in dtypes]
     lib = kernels.library()
+    n_hops = len(spec.chain.hops)
     with torch.cuda.device(dev):
         stream = _stream(dev)
-        meta_d = spec.device_meta(cols, dev)
-        # pos[i]: 1 where spine row i survives, then its exclusive prefix
-        # sum, the row's output slot; pos[n_rows] ends as the total
-        pos = torch.empty(n_rows + 1, dtype=torch.int64, device=dev)
-        sums = torch.empty(-(-(n_rows + 1) // SCAN_TILE), dtype=torch.int64,
-                           device=dev)
-        kernels.check(lib.dft_chain_rows_mark(
-            meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
-            pos.data_ptr(), sums.data_ptr(), spec.variant, stream),
-            chain_rows_kernel)
-        chain_rows_kernel.launches += 4   # the mark, the scan's three
-        total = int(pos[n_rows].item())
+        meta_d = upload(spec.host_meta(cols), dev)
+        tiles = -(-n_rows // ROWS_TILE)
+
+        def walk(scap):
+            # the ticket, the total, then a look-back status word a tile
+            state = torch.zeros(2 + tiles, dtype=torch.int64, device=dev)
+            rows = torch.empty(scap, dtype=torch.int32, device=dev)
+            handles = torch.empty(n_hops * scap, dtype=torch.int32,
+                                  device=dev)
+            kernels.check(lib.dft_chain_rows_walk(
+                meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
+                n_hops, ROWS_TILE, state.data_ptr(), rows.data_ptr(),
+                handles.data_ptr(), scap, spec.variant, stream),
+                chain_rows_kernel)
+            chain_rows_kernel.launches += 1
+            return state, rows, handles
+
+        scap = rows_scratch(n_rows)
+        state, rows, handles = walk(scap)
+        total = int(state[1].item())
+        if total > scap:
+            scap = total
+            state, rows, handles = walk(scap)
         outs = [(torch.empty(total, dtype=d, device=dev),
                  torch.empty(total, dtype=torch.bool, device=dev))
                 for d in dtypes]
         if total:
-            ptrs = torch.tensor([p for d, v in outs
-                                 for p in (d.data_ptr(), v.data_ptr())],
-                                dtype=torch.int64).to(dev)
+            # the outputs' pointers go by value, in the launch itself
+            ptrs = np.asarray([p for d, v in outs
+                               for p in (d.data_ptr(), v.data_ptr())],
+                              np.int64)
             kernels.check(lib.dft_chain_rows_emit(
-                meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
-                pos.data_ptr(), ptrs.data_ptr(), spec.variant, stream),
-                chain_rows_kernel)
+                meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), total,
+                rows.data_ptr(), handles.data_ptr(), scap, ptrs.ctypes.data,
+                len(outs), spec.variant, stream), chain_rows_kernel)
             chain_rows_kernel.launches += 1
     return outs
 
@@ -1024,86 +1066,217 @@ def chain_aggregate_plain(spec, cols: Columns, aux: torch.Tensor,
 
 # --- staging-time composition and folding -------------------------------------
 
-class ComposeSpec(_ProgramSpec):
-    """One composition's descriptor: the composed hop's probe-key programs
-    over the pair space, and a chain section whose last hop is the composed
-    hop with its own table, earlier ones the hops composed into the same
-    owner (`TAB_COMPOSED`, whose payload may be a key) or stubs. `owner`
-    is the owner's index in the chain."""
+# the compose table (csrc/chain_compose.cu): 3 words an owner, 5 a
+# composed hop; the fold table: 10 words a folded table, 4 a column
+COMPOSE_OWNER_WORDS, COMPOSE_HOP_WORDS = 3, 5
+FOLD_WORDS, FOLD_COL_WORDS = 10, 4
 
-    def __init__(self, pools: Pools, chain: Chain, owner: int):
+
+class StageSpec(_ProgramSpec):
+    """The staging of one chain: its compositions and its folds, in one
+    descriptor.
+
+    `chain` holds every hop of the chain: each composed hop with its own
+    table and probe-key programs (over the pair space, on `pools`), every
+    other hop a stub that names its payload columns (`stub_hop`).
+    `composed` maps each composed hop, in chain order, to (owner, its first
+    word in the owner's words, its `Compose` tag: a min/max hop, "mmx",
+    writes three words, any other one);
+    `rows` maps each owner to its build rows. `folds` lists each folded
+    hop as (hop, its table, its `Fold`, whose `columns` name the payload
+    columns its records hold). The descriptor is the programs' with the
+    chain section, the compose table after it; the fold table follows the
+    descriptor. Owners' words and folds' records are given at the call
+    (`chain_stage`)."""
+
+    def __init__(self, pools: Pools, chain: Chain,
+                 composed: Dict[int, Tuple[int, int, str]],
+                 rows: Dict[int, int],
+                 folds: Sequence[Tuple[int, BuildTable, "Fold"]]):
         self.chain = chain
-        self.owner = owner
+        self.composed = dict(composed)
+        self.rows = dict(rows)
+        self.folds = list(folds)
         super().__init__(pools, None, [], [])
         self.meta = self._layout(0)
-
-    @property
-    def hop(self) -> Hop:
-        return self.chain.hops[-1]
-
-    @property
-    def width(self) -> int:
-        """The words a composition writes: the row, then a min/max hop's
-        min and max."""
-        return 3 if self.hop.table.mn is not None else 1
+        if len(self.meta) * 8 > SMEM_BYTES:
+            raise LoweringError("compose program too large for the kernel")
 
     def _pass_programs(self, lanes) -> List[Program]:
-        return list(self.hop.probe_keys)
+        return [p for h in self.composed
+                for p in self.chain.hops[h].probe_keys]
 
     def _chain_section(self, index: Dict[int, int]) -> np.ndarray:
-        return self.chain.section(index, self.ncols)
+        owners = list(self.rows)
+        first = np.cumsum([0] + [self.rows[o] for o in owners])[:-1]
+        table = [len(owners)]
+        for o, f in zip(owners, first):
+            table += [o, self.rows[o], int(f)]
+        table.append(len(self.composed))
+        for h, (owner, _word, tag) in self.composed.items():
+            table += [h, owner, 0, 0, int(tag == "mmx")]  # out, stride later
+        return np.concatenate([self.chain.section(index, self.ncols),
+                               np.asarray(table, np.int64)])
+
+    @property
+    def compose_threads(self) -> int:
+        return sum(self.rows.values()) if self.composed else 0
+
+    @property
+    def fold_threads(self) -> int:
+        return sum(t.size for _h, t, _f in self.folds)
+
+    def host_words(self, cols: Columns, words: Dict[int, torch.Tensor],
+                   folds: Sequence[Tuple[torch.Tensor,
+                                         Optional[torch.Tensor]]]
+                   ) -> np.ndarray:
+        """The descriptor with the column pointers, each composed hop's
+        output address and row stride in its owner's `words`, then the fold
+        table over the records and validity bytes `folds` (one pair a
+        folded hop, in `self.folds` order)."""
+        meta = self.host_meta(cols)
+        ch = int(meta[H_OFF_CHAIN])
+        ct = ch + int(meta[ch + C_OFF_CONJ])
+        at = ct + 1 + COMPOSE_OWNER_WORDS * len(self.rows) + 1
+        for k, (h, (owner, word, _w)) in enumerate(self.composed.items()):
+            w = words[owner]
+            meta[at + COMPOSE_HOP_WORDS * k + 2] = w.data_ptr() + 8 * word
+            meta[at + COMPOSE_HOP_WORDS * k + 3] = w.shape[1]
+        head, col_words, first = [len(self.folds)], [], 0
+        off = 1 + FOLD_WORDS * len(self.folds)
+        for (h, table, fold), (rec, valid) in zip(self.folds, folds):
+            comp = words.get(h)
+            head += [first, table.size, table.rows.data_ptr(),
+                     0 if comp is None else comp.data_ptr(), fold.n_comp,
+                     rec.data_ptr(), 0 if valid is None else valid.data_ptr(),
+                     fold.words, len(fold.columns),
+                     off + len(col_words)]
+            for idx, (word, _nullable) in fold.columns.items():
+                data, v = cols[idx]
+                col_words += [data.data_ptr(),
+                              0 if v is None else v.data_ptr(),
+                              _DTYPE_CODE[data.dtype], word]
+            first += table.size
+        return np.concatenate([meta, np.asarray(head + col_words, np.int64)])
 
 
 def stub_hop(payload: Sequence[int], rows: torch.Tensor) -> Hop:
-    """A hop of a composition's chain that the kernel never probes (an
-    empty table over `rows`, any int32 tensor on the device, never read):
-    it names the hop of its payload columns."""
+    """A hop of a staging chain that the kernel never probes (an empty
+    table over `rows`, any int32 tensor on the device, never read): it
+    names the hop of its payload columns."""
     return Hop(BuildTable(TAB_EMPTY, [], [], [], 1, rows, None, 0, False),
                "INNER", [], payload)
 
 
-def chain_compose(spec: ComposeSpec, cols: Columns, aux: torch.Tensor,
-                  n_rows: int, words: torch.Tensor, word: int) -> None:
-    """Probe `spec.hop` once for each of the first `n_rows` build rows of
-    its owner: the probe keys over the owner's columns at the row (and the
-    columns of hops composed into the owner before it, at the rows they
-    found there), NULL or outside [lo, hi] finding nothing. Writes the
-    build row found (-1: none) to column `word` of `words` (int64
-    [n_rows, width]) and, for a min/max hop, the key's member min and max
-    to `word + 1` and `word + 2` (0 where none). `cols` maps the programs'
-    pair-space indices to whole build columns.
+def new_stage_outputs(spec: StageSpec, device: torch.device):
+    """Outputs for `chain_stage`, left uninitialised: each owner's words
+    (int64 [build rows, words]) and each fold's (records, validity bytes or
+    None)."""
+    width: Dict[int, int] = {}
+    for owner, word, tag in spec.composed.values():
+        width[owner] = max(width.get(owner, 0),
+                           word + (3 if tag == "mmx" else 1))
+    words = {o: torch.empty((spec.rows[o], w), dtype=torch.int64,
+                            device=device) for o, w in width.items()}
+    folds = [(torch.empty((t.size, f.words), dtype=torch.int64,
+                          device=device),
+              torch.empty((t.size, f.words), dtype=torch.uint8,
+                          device=device) if f.nullable else None)
+             for _h, t, f in spec.folds]
+    return words, folds
 
-    On CPU tensors this runs `chain_compose_plain`; on CUDA tensors it
-    launches the `chain_compose` kernel once, or raises."""
-    dev = words.device
-    _check_compose(spec, cols, aux, n_rows, words, word)
-    if not _cuda(words):
-        return chain_compose_plain(spec, cols, aux, n_rows, words, word)
-    if n_rows == 0:
+
+def chain_stage(spec: StageSpec, cols: Columns, aux: torch.Tensor,
+                words: Dict[int, torch.Tensor],
+                folds: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
+                ) -> None:
+    """Stage a chain's compositions and folds.
+
+    For each composed hop, each of its owner's build rows is probed once:
+    the probe keys over the owner's columns at the row (and the columns of
+    hops composed into the owner before it, at the rows they found there),
+    NULL or outside [lo, hi] finding nothing. The build row found (-1:
+    none) goes to the hop's first word in `words[owner]` (int64 [rows,
+    width]) and, for a min/max hop, the key's member min and max to the
+    next two (0 where none). Then each folded hop's records (int64 [table
+    slots, fold.words]) get, for each slot, the build row it holds, the
+    owner's composed words at that row and each payload column the fold
+    holds at that row, and their validity bytes (uint8, the same shape, or
+    None): a slot with no row holds -1 and zeros. `cols` maps the pair-space
+    indices that the programs and the folds read to whole build columns.
+    Every word of the outputs is written; none needs zeroing first.
+
+    On CPU tensors this runs `chain_stage_plain`; on CUDA tensors it
+    uploads one descriptor (pinned, without a wait) and launches the
+    `chain_compose` kernel once (when a hop composes) and the `chain_fold`
+    kernel once (when a hop folds), or raises."""
+    dev = aux.device
+    _check_stage(spec, cols, aux, words, folds)
+    if not _cuda(aux):
+        return chain_stage_plain(spec, cols, aux, words, folds)
+    n_comp, n_fold = spec.compose_threads, spec.fold_threads
+    if not n_comp and not n_fold:
         return None
     lib = kernels.library()
     with torch.cuda.device(dev):
-        meta_d = spec.device_meta(cols, dev)
-        kernels.check(lib.dft_chain_compose(
-            meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
-            spec.owner, words.data_ptr() + 8 * word, words.shape[1],
-            int(spec.hop.table.mn is not None), int(spec.full),
-            _stream(dev)), chain_compose_kernel)
-        chain_compose_kernel.launches += 1
+        stream = _stream(dev)
+        desc = upload(spec.host_words(cols, words, folds), dev)
+        if n_comp:
+            kernels.check(lib.dft_chain_compose(
+                desc.data_ptr(), len(spec.meta), aux.data_ptr(), n_comp,
+                int(spec.full), stream), chain_compose_kernel)
+            chain_compose_kernel.launches += 1
+        if n_fold:
+            kernels.check(lib.dft_chain_fold(
+                desc.data_ptr() + 8 * len(spec.meta), n_fold, stream),
+                chain_fold_kernel)
+            chain_fold_kernel.launches += 1
     return None
 
 
-def _check_compose(spec: ComposeSpec, cols: Columns, aux: torch.Tensor,
-                   n_rows: int, words: torch.Tensor, word: int) -> None:
-    dev = words.device
-    if words.dtype != torch.int64 or not words.is_contiguous() or \
-            words.dim() != 2 or words.shape[0] < n_rows or \
-            not 0 <= word <= words.shape[1] - spec.width:
-        raise ValueError("words must be a contiguous int64 [rows, width] "
-                         "with the hop's columns inside")
-    if aux.device != dev or aux.dtype != torch.int64 or \
-            not aux.is_contiguous():
+def _check_stage(spec: StageSpec, cols: Columns, aux: torch.Tensor,
+                 words: Dict[int, torch.Tensor],
+                 folds: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
+                 ) -> None:
+    dev = aux.device
+    if aux.dtype != torch.int64 or not aux.is_contiguous():
         raise ValueError("aux must be a contiguous int64 tensor")
+    for owner, word, tag in spec.composed.values():
+        width = 3 if tag == "mmx" else 1
+        w = words.get(owner)
+        if w is None or w.device != dev or w.dtype != torch.int64 or \
+                not w.is_contiguous() or w.dim() != 2 or \
+                w.shape[0] != spec.rows[owner] or \
+                not 0 <= word <= w.shape[1] - width:
+            raise ValueError("words must be a contiguous int64 [owner rows, "
+                             "width] on the device with each hop inside")
+    if len(folds) != len(spec.folds):
+        raise ValueError("one (records, validity) a folded hop")
+    for (h, table, fold), (rec, valid) in zip(spec.folds, folds):
+        comp = words.get(h)
+        shape = (table.size, fold.words)
+        if rec.device != dev or rec.dtype != torch.int64 or \
+                not rec.is_contiguous() or tuple(rec.shape) != shape or \
+                (valid is None) != (not fold.nullable) or \
+                (valid is not None and (
+                    valid.device != dev or valid.dtype != torch.uint8 or
+                    not valid.is_contiguous() or
+                    tuple(valid.shape) != shape)) or \
+                (comp is None) != (fold.n_comp == 0) or \
+                (comp is not None and comp.shape[1] != fold.n_comp):
+            raise ValueError("records, validity and composed words must "
+                             "match the fold's layout")
+        if table.rows.device != dev:
+            raise ValueError("a build table lies on another device")
+        for idx, (_word, nullable) in fold.columns.items():
+            data, v = cols[idx]
+            if data.device != dev or not data.is_contiguous() or \
+                    data.dtype not in _DTYPE_CODE or \
+                    (v is not None) != nullable or \
+                    (v is not None and v.device != dev):
+                raise ValueError("fold columns: contiguous 1-D tensors on "
+                                 "the table's device, NULLs as the layout "
+                                 "says")
     for hop in spec.chain.hops:
         for t in hop.tensors():
             if t.device != dev:
@@ -1122,96 +1295,50 @@ def _check_compose(spec: ComposeSpec, cols: Columns, aux: torch.Tensor,
             raise ValueError(f"column {idx}: bad validity")
 
 
-def chain_compose_plain(spec: ComposeSpec, cols: Columns, aux: torch.Tensor,
-                        n_rows: int, words: torch.Tensor, word: int) -> None:
-    """The plain PyTorch version: the owner's rows as a whole tensor, each
-    earlier composed hop's row gathered from its words, then the hop's
-    lookup (`_lookup_plain`) over the pair space at those rows."""
-    dev = words.device
-    n = n_rows
-    found = {spec.owner: torch.arange(n, device=dev)}
-    for h, hop in enumerate(spec.chain.hops[:-1]):
-        c = hop.compose
-        if c is not None and c.owner == spec.owner:
-            ob = found[c.owner]
-            found[h] = torch.where(ob >= 0, c.words[ob.clamp(min=0), c.word],
-                                   -1)
-    pair = {}
-    for idx in spec.pools.columns:
-        at = found[spec.chain.hop_of[idx]]
-        data, valid = cols[idx]
-        ok = at >= 0
-        at = at.clamp(min=0)
-        pair[idx] = (data[at], ok if valid is None else ok & valid[at])
-    brow, slot = _lookup_plain(spec.hop, pair, aux, n)
-    words[:n, word] = brow
-    t = spec.hop.table
-    if t.mn is not None:
-        words[:n, word + 1] = torch.where(brow >= 0, t.mn[slot], 0)
-        words[:n, word + 2] = torch.where(brow >= 0, t.mx[slot], 0)
+def chain_stage_plain(spec: StageSpec, cols: Columns, aux: torch.Tensor,
+                      words: Dict[int, torch.Tensor],
+                      folds: Sequence[Tuple[torch.Tensor,
+                                            Optional[torch.Tensor]]]
+                      ) -> None:
+    """The plain PyTorch version: for each composed hop in chain order, the
+    owner's rows as a whole tensor, each earlier hop composed into the same
+    owner at the rows it found, the hop's lookup (`_lookup_plain`) over the
+    pair space at those rows; then each fold's records by indexing
+    (`chain_fold_plain`)."""
+    dev = aux.device
+    found: Dict[int, torch.Tensor] = {}
+    for h, (owner, word, tag) in spec.composed.items():
+        n = spec.rows[owner]
+        if owner not in found:
+            found[owner] = torch.arange(n, device=dev)
+        hop = spec.chain.hops[h]
+        pair = {}
+        for idx in {i for p in hop.probe_keys for op, i, _b in p.code
+                    if op == OP_COL}:
+            at = found[spec.chain.hop_of[idx]]
+            data, valid = cols[idx]
+            ok = at >= 0
+            at = at.clamp(min=0)
+            if data.numel() == 0:
+                pair[idx] = (torch.zeros(n, dtype=data.dtype, device=dev),
+                             torch.zeros(n, dtype=torch.bool, device=dev))
+                continue
+            pair[idx] = (data[at], ok if valid is None else ok & valid[at])
+        brow, slot = _lookup_plain(hop, pair, aux, n)
+        out = words[owner]
+        out[:, word] = brow
+        if tag == "mmx":
+            t = hop.table
+            out[:, word + 1] = torch.where(brow >= 0, t.mn[slot], 0)
+            out[:, word + 2] = torch.where(brow >= 0, t.mx[slot], 0)
+        found[h] = brow
+    for (h, table, fold), (rec, valid) in zip(spec.folds, folds):
+        r, v = chain_fold_plain(table, words.get(h),
+                                [cols[i] for i in fold.columns], fold)
+        rec.copy_(r)
+        if valid is not None:
+            valid.copy_(v)
     return None
-
-
-def chain_fold(table: BuildTable, comp: Optional[torch.Tensor],
-               columns: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
-               fold: Fold) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The records of a folded hop (int64 [table.size, fold.words], laid out
-    by `fold`) and their validity bytes (uint8, the same shape, or None):
-    for each slot of `table`, the build row it holds, the owner's composed
-    words `comp` (int64 [build rows, fold.n_comp], or None) at that row
-    and, in the order of `fold.columns`, each of `columns` ((data,
-    validity) of a whole build column) at that row. A slot with no row
-    holds -1 and zeros.
-
-    On CPU tensors this runs `chain_fold_plain`; on CUDA tensors it
-    launches the `chain_fold` kernel once, or raises."""
-    dev = table.rows.device
-    if len(columns) != len(fold.columns) or \
-            (comp is None) != (fold.n_comp == 0) or \
-            (comp is not None and (comp.dtype != torch.int64 or
-                                   not comp.is_contiguous() or
-                                   comp.shape[1] != fold.n_comp or
-                                   comp.device != dev)):
-        raise ValueError("the columns and composed words must match the "
-                         "fold's layout")
-    for (data, valid), (_w, nullable) in zip(columns, fold.columns.values()):
-        if data.device != dev or not data.is_contiguous() or \
-                data.dtype not in _DTYPE_CODE or \
-                (valid is not None) != nullable or \
-                (valid is not None and valid.device != dev):
-            raise ValueError("fold columns: contiguous 1-D tensors on the "
-                             "table's device, NULLs as the layout says")
-    if not _cuda(table.rows):
-        return chain_fold_plain(table, comp, columns, fold)
-    records = torch.zeros((table.size, fold.words), dtype=torch.int64,
-                          device=dev)
-    valid = torch.zeros((table.size, fold.words), dtype=torch.uint8,
-                        device=dev) if fold.nullable else None
-    desc = fold_columns(columns, fold).to(dev)
-    lib = kernels.library()
-    with torch.cuda.device(dev):
-        kernels.check(lib.dft_chain_fold(
-            table.rows.data_ptr(), table.size,
-            None if comp is None else comp.data_ptr(), fold.n_comp,
-            desc.data_ptr() if len(columns) else None, len(columns),
-            records.data_ptr(), None if valid is None else valid.data_ptr(),
-            fold.words, _stream(dev)), chain_fold_kernel)
-        chain_fold_kernel.launches += 1
-    return records, valid
-
-
-def fold_columns(columns: Sequence[Tuple[torch.Tensor,
-                                         Optional[torch.Tensor]]],
-                 fold: Fold) -> torch.Tensor:
-    """The fold kernel's column descriptors (host int64, four words a
-    column): data and validity addresses (0: none), dtype code, and the
-    column's word in a record."""
-    return torch.tensor([w for (data, valid), (word, _n) in
-                         zip(columns, fold.columns.values())
-                         for w in (data.data_ptr(),
-                                   0 if valid is None else valid.data_ptr(),
-                                   _DTYPE_CODE[data.dtype], word)],
-                        dtype=torch.int64)
 
 
 def chain_fold_plain(table: BuildTable, comp: Optional[torch.Tensor],
@@ -1219,7 +1346,13 @@ def chain_fold_plain(table: BuildTable, comp: Optional[torch.Tensor],
                                              Optional[torch.Tensor]]],
                      fold: Fold) -> Tuple[torch.Tensor,
                                           Optional[torch.Tensor]]:
-    """The plain PyTorch version: the records' words filled by indexing."""
+    """The records of a folded hop (int64 [table.size, fold.words], laid out
+    by `fold`) and their validity bytes (uint8, the same shape, or None),
+    by indexing: for each slot of `table`, the build row it holds, the
+    owner's composed words `comp` (int64 [build rows, fold.n_comp], or
+    None) at that row and, in the order of `fold.columns`, each of
+    `columns` ((data, validity) of a whole build column) at that row. A
+    slot with no row holds -1 and zeros."""
     dev = table.rows.device
     shape = (table.size, fold.words)
     records = torch.zeros(shape, dtype=torch.int64, device=dev)

@@ -25,14 +25,16 @@ Staging-time composition and folding (`compose_builds`; the reference's
 them in chain order: a hop whose probe keys are all integer payload
 columns of one earlier INNER hop (or of hops already composed into it) is
 composed into that owner when the owner has a payload and at most 2^22
-build rows (`chain_compose`, one launch a composed hop), and an INNER hop
-the reference would stage as a direct-address table is folded when its
-span x (1 + its lanes, composed ones included) is at most 2^24
-(`chain_fold` in `chain()`, over the payload columns the walk reads).
+build rows, and an INNER hop the reference would stage as a
+direct-address table is folded when its span x (1 + its lanes, composed
+ones included) is at most 2^24, over the payload columns the walk reads.
 Spans and lanes are counted as the reference counts them, so both
-packages compose and fold the same hops at every scale. Tables, composed
-words and records are built per execution; the reference's cross-query
-cache of them (`_CMP_CACHE`) is not ported.
+packages compose and fold the same hops at every scale; the extremes of
+the build columns that the count needs come from the staged tables or
+from one fold on the card a chain. A chain's compositions and folds are
+then staged by one `chain_stage` call: one compose launch and one fold
+launch. Tables, composed words and records are built per execution; the
+reference's cross-query cache of them (`_CMP_CACHE`) is not ported.
 
 Functional dependence (`_fd_reduce` `:1501`, `_fd_finalize` `:1359`). A
 group key that is a payload column of a unique-key INNER build leaves the
@@ -60,8 +62,8 @@ TorchJoinChainRowsExec is the row-returning sibling
 for a join tree with no aggregate above it. Both extend TorchChainExec,
 which holds what they share: the builds and their staging, and the pair
 space. In the rows exec one `chain_rows` call per spine batch returns
-the surviving rows' output columns, which leave as device-born columns (one `Batch` a
-spine batch that keeps any row). A build side whose columns are
+the surviving rows' output columns, which leave as device-born columns
+(one `Batch` a spine batch that keeps any row). A build side whose columns are
 device-born (a large aggregate's resident emit, TPC-H Q20) stages from
 them with no host round trip.
 """
@@ -78,9 +80,9 @@ from ...common.column import Column, DeviceColumnCache
 from ...device.groupby import _NP_TO_TORCH, AggregateSpec, dense_group_table
 from ...device.join_chain import (ChainDenseSpec, ChainHashSpec,
                                   ChainRowsSpec, Chain, BuildSpec, Compose,
-                                  ComposeSpec, Fold, Hop, chain_aggregate,
-                                  chain_build, chain_compose, chain_fold,
-                                  chain_rows, stub_hop)
+                                  Fold, Hop, StageSpec, chain_aggregate,
+                                  chain_build, chain_rows, chain_stage,
+                                  new_stage_outputs, stub_hop)
 from ...device.lower import (_CMP, OP_COL, OP_NULL, OP_ROWID, LoweringError,
                              Pools, Program, compile_expr, compile_key)
 from ...runtime import BaselineMetrics, TaskContext
@@ -163,6 +165,51 @@ class _PoolColumns:
 
     def column_dtype(self, idx: int) -> torch.dtype:
         return _NP_TO_TORCH[self.pools.columns[idx]]
+
+
+class _ColumnDtypes:
+    """The device dtype of each payload column a fold holds: its type's
+    own, as a program reading it would load it."""
+
+    def __init__(self):
+        self.dtypes = {}
+
+    def add(self, idx: int, col: Column) -> None:
+        """Take column `idx`, unless its type has no device lane (no
+        program can read it then)."""
+        try:
+            d = np.dtype(col.dtype.device_dtype())
+        except NotImplementedError:
+            return
+        if d in _NP_TO_TORCH:
+            self.dtypes[idx] = _NP_TO_TORCH[d]
+
+    def column_dtype(self, idx: int) -> torch.dtype:
+        return self.dtypes[idx]
+
+
+def _program_columns(progs) -> set:
+    """The pair-space columns the programs `progs` (None skipped) read."""
+    return {a for prog in progs if prog is not None
+            for op, a, _b in prog.code if op == OP_COL}
+
+
+def _any_duplicate(vals: List[torch.Tensor]) -> torch.Tensor:
+    """Whether two rows hold the same tuple of `vals` (equal-length int64
+    tensors), as a bool tensor on their device: the rows sorted by the
+    tuple (stable sorts from the last key to the first), then neighbours
+    compared."""
+    order = None
+    for v in reversed(vals):
+        key = v if order is None else v[order]
+        idx = torch.sort(key, stable=True).indices
+        order = idx if order is None else order[idx]
+    same = torch.ones(max(len(order) - 1, 0), dtype=torch.bool,
+                      device=vals[0].device)
+    for v in vals:
+        w = v[order]
+        same &= w[1:] == w[:-1]
+    return same.any()
 
 
 def _lanes(col: Column) -> Tuple[int, bool, bool]:
@@ -262,34 +309,20 @@ class TorchChainExec(TorchDeviceExec):
               mfilters, pools: Pools, reads) -> Chain:
         """The walk over the staged builds: one hop a build, with its
         lowered probe keys, its payload's pair-space indices, its min/max
-        test and its composition; then each folding hop's records
-        (`chain_fold`) over the payload columns that the chain's programs
-        and `reads` (the walk's other programs) read."""
-        hops = [Hop(s.table, b.join_type, pk, payload, mf, s.compose)
+        test, its composition and its fold. A folded hop's records must
+        hold every payload column that the chain's programs and `reads`
+        (the walk's other programs) read."""
+        hops = [Hop(s.table, b.join_type, pk, payload, mf, s.compose, s.fold)
                 for b, s, pk, payload, mf in zip(
                     self.builds, staged, probe_keys, self.payload_ranges(),
                     mfilters)]
         chain = Chain(self.n_spine, ppred, hops)
-        read = {a for prog in list(reads) + chain.programs()
-                if prog is not None for op, a, _b in prog.code
-                if op == OP_COL}
-        dtypes = _PoolColumns(pools)
-        for h, (hop, s) in enumerate(zip(hops, staged)):
-            if s.fold is None:
-                continue
-            idxs = [p for p in hop.payload if p in read]
-            cols = {}
-            for p in idxs:
-                cols.update(self._to_device(
-                    dtypes, {p: self._pair_column(staged, p)}, s.keep))
-            comp = next((o.compose.words for o in hops
-                         if o.compose is not None and o.compose.owner == h),
-                        None)
-            fold = Fold(0 if comp is None else comp.shape[1],
-                        [(p, cols[p][1] is not None) for p in idxs], *s.fold)
-            fold.records, fold.valid = chain_fold(
-                s.table, comp, [cols[p] for p in idxs], fold)
-            hop.fold = fold
+        read = _program_columns(list(reads) + chain.programs())
+        for h, hop in enumerate(hops):
+            if hop.fold is not None and \
+                    not read & set(hop.payload) <= set(hop.fold.columns):
+                raise ValueError(f"hop {h}'s records lack a column the "
+                                 f"walk reads")
         return chain
 
     def _pair_column(self, staged: List[_BuildInput], idx: int) -> Column:
@@ -341,11 +374,12 @@ class TorchChainExec(TorchDeviceExec):
                                    bb, col_map, keep))
         return out
 
-    def stage_builds(self, ctx: TaskContext,
-                     compose: bool = True) -> List[_BuildInput]:
+    def stage_builds(self, ctx: TaskContext, compose: bool = True,
+                     reads: Optional[set] = None) -> List[_BuildInput]:
         """Every build side staged on the card as a table (`chain_build`),
-        then, unless `compose` is false, the hops composed and the folds
-        chosen (`compose_builds`). An INNER build with a duplicate key, a
+        then, unless `compose` is false, the hops composed and folded
+        (`compose_builds`; a fold holds the payload columns in `reads`,
+        every one when it is None). An INNER build with a duplicate key, a
         build of 2^31 rows or more, or packed keys wider than 62 bits raise
         DeviceLoweringUnsupported (`:700`)."""
         out = self.build_inputs(ctx)
@@ -362,7 +396,7 @@ class TorchChainExec(TorchDeviceExec):
                 raise DeviceLoweringUnsupported(
                     "chain build keys not unique (fanout > 1)")
         if compose:
-            self.compose_builds(out)
+            self.compose_builds(out, reads)
         return out
 
     def compose_plan(self, staged: List[_BuildInput]):
@@ -372,7 +406,10 @@ class TorchChainExec(TorchDeviceExec):
         pair-space payload column to the hop whose lanes hold it (an
         uncomposed INNER hop, or the owner of a composed one) and whether
         it is an integer lane; `lanes` counts each such hop's int32 lanes
-        as the reference's payload matrix does, composed ones included."""
+        as the reference's payload matrix does, composed ones included.
+        The extremes the reference reads from the build columns of a
+        composed min/max hop and of a hop that may fold come from the
+        staged tables or from the card, in one read-back (`_plan_stats`)."""
         n_spine = self.n_spine
         ranges = self.payload_ranges()
         registry, lanes, has_matrix = {}, {}, set()
@@ -405,7 +442,7 @@ class TorchChainExec(TorchDeviceExec):
                         has_matrix.add(bi)
                 continue
             if b.sfilter is not None:
-                tag, new = "mmx", 1 + 2 * self._mmx_lanes(b, s)
+                tag, new = "mmx", 0      # its lanes once the stats are in
             elif inner and pcols:
                 tag, new = "inner", 1 + sum(n for n, _i, _f in pcols)
                 for p, (_n, key_ok, _f) in zip(ranges[bi], pcols):
@@ -414,129 +451,212 @@ class TorchChainExec(TorchDeviceExec):
                 tag, new = "member", 1
             composed[bi] = (owner, tag)
             lanes[owner] += new
+        mmx = [bi for bi, (_o, tag) in composed.items() if tag == "mmx"]
+        stats = self._plan_stats(staged, mmx, has_matrix - set(composed))
+        for bi in mmx:
+            lanes[composed[bi][0]] += \
+                1 + 2 * self._mmx_lanes(staged[bi], stats.get(bi))
         folded = {}
         for bi, (b, s) in enumerate(zip(self.builds, staged)):
             if bi in composed or bi not in has_matrix:
                 continue
-            span = self._lut_span(b, s, lanes[bi])
+            span = self._lut_span(b, s, lanes[bi], stats.get(bi))
             if span is not None:
                 folded[bi] = (span, 1 + lanes[bi])
         return composed, folded
 
+    def _plan_stats(self, staged: List[_BuildInput], mmx, folds) -> dict:
+        """{build: (key ranges, member range, duplicate)} of what
+        `compose_plan` reads of a build's unfiltered rows (`[:n]`, as the
+        reference reads them) and the staged table cannot give: the ranges
+        of the keys, and the uniqueness of the key tuples, of each build of
+        `folds` the reference might stage as a direct-address table
+        (`_lut_span`), and the ranges of the keys and the member column of
+        each composed min/max build of `mmx` (`_mmx_lanes`). A table whose
+        every row is live knows its keys' ranges (and, for an INNER build,
+        their uniqueness) already; a filtered one covers only its live
+        rows, so the ranges come from the columns. All of it is folded on
+        the card and read back together: one synchronisation a chain, none
+        when no build needs it."""
+        queued, parts = [], {}
+        for bi, (b, s) in enumerate(zip(self.builds, staged)):
+            n = s.batch.num_rows
+            whole = s.table.live == n
+            if n == 0:
+                continue
+            if bi in mmx:
+                cols = [] if whole else [s.col_map[k.index]
+                                         for k in b.build_keys]
+                cols.append(s.col_map[b.sfilter[1].index])
+            elif bi in folds and not whole and self._lut_candidate(b, s):
+                cols = [s.col_map[k.index] for k in b.build_keys]
+            else:
+                continue
+            vals = [s.cols[c][0][:n].to(torch.int64) for c in cols]
+            at = len(queued)
+            queued += [x for v in vals for x in (v.min(), v.max())]
+            dup = bi not in mmx
+            if dup:
+                queued.append(_any_duplicate(vals).to(torch.int64))
+            parts[bi] = (at, len(cols), dup)
+        if not queued:
+            return {}
+        host = torch.stack(queued).tolist()
+        out = {}
+        for bi, (at, k, dup) in parts.items():
+            ext = [tuple(host[at + 2 * j:at + 2 * j + 2]) for j in range(k)]
+            if dup:
+                out[bi] = (ext, None, bool(host[at + 2 * k]))
+            else:
+                out[bi] = (ext[:-1], ext[-1], False)
+        return out
+
     @staticmethod
-    def _mmx_lanes(b: ChainBuild, s: _BuildInput) -> int:
+    def _mmx_lanes(s: _BuildInput, stats) -> int:
         """The int32 lanes the reference gives each of a composed min/max
         hop's min and max (`:858-863`): one when its table is
         direct-address (unfiltered key bits at most 26, `:1245`) and the
         member column fits int32 (`:1211-1215`), else two."""
-        n = s.batch.num_rows
-        if n == 0:
+        if s.batch.num_rows == 0:
             return 2
-        bits = 0
-        for k in b.build_keys:
-            a = s.batch.columns[s.col_map[k.index]].data_host()[:n]
-            bits += max(int(np.ceil(np.log2(int(a.max()) - int(a.min())
-                                            + 2))), 1)
+        ranges, (flo, fhi), _dup = stats
+        if s.table.live == s.batch.num_rows:
+            ranges = list(zip(s.table.los, s.table.his))
+        bits = sum(max(int(np.ceil(np.log2(hi - lo + 2))), 1)
+                   for lo, hi in ranges)
         if bits > 26:
             return 2
-        fa = s.batch.columns[s.col_map[b.sfilter[1].index]].data_host()[:n]
-        fit32 = int(fa.min()) > np.iinfo(np.int32).min + 1 and \
-            int(fa.max()) < np.iinfo(np.int32).max
+        fit32 = flo > np.iinfo(np.int32).min + 1 and \
+            fhi < np.iinfo(np.int32).max
         return 1 if fit32 else 2
 
     @staticmethod
-    def _lut_span(b: ChainBuild, s: _BuildInput,
-                  lanes: int) -> Optional[int]:
-        """The span of the direct-address table the reference stages for
-        the INNER build `b` (`_unfiltered_lut`, `:177`): 1 << the bits of
-        its unfiltered keys' ranges, when they are unique non-null integers
-        spanning at most 2^24 and 16 x its rows, and it is not a build the
-        reference stages from device-born columns (`_stage_build_device`,
-        `:1069`: 4 MB or more and no predicate); and only when the fold's
-        budget, span x (1 + `lanes`) <= 2^24, holds. Else None. A build
-        whose every row is live (no predicate, no NULL key) has its key
-        ranges and uniqueness in its table already; another takes them on
-        the card."""
+    def _lut_candidate(b: ChainBuild, s: _BuildInput) -> bool:
+        """Whether the INNER build `b` may be one the reference stages as a
+        direct-address table (`_unfiltered_lut`, `:177`), as far as its
+        columns' kinds and the filtered table show: unique non-null integer
+        keys, not a build the reference stages from device-born columns
+        (`_stage_build_device`, `:1069`: 4 MB or more and no predicate),
+        at most 2^24 rows (unique keys span at least their rows), and a
+        live span that already fits (the unfiltered one is no narrower)."""
         bb = s.batch
         n = bb.num_rows
         keys = [bb.columns[s.col_map[k.index]] for k in b.build_keys]
-        if n == 0 or any(c.has_nulls or not c.dtype.is_integer
-                         for c in keys):
-            return None
+        if n == 0 or n > (1 << 24) or any(
+                c.has_nulls or not c.dtype.is_integer for c in keys):
+            return False
         if s.spec.pred is None and bb.nbytes() >= (4 << 20) and all(
                 c.device_born and getattr(c, "_host_cache", None) is None
                 for c in keys):
+            return False
+        t = s.table
+        if t.live:
+            span = 1 << sum(max(int(np.ceil(np.log2(hi - lo + 2))), 1)
+                            for lo, hi in zip(t.los, t.his))
+            if span > min(1 << 24, 16 * n):
+                return False
+        return True
+
+    def _lut_span(self, b: ChainBuild, s: _BuildInput, lanes: int,
+                  stats) -> Optional[int]:
+        """The span of the direct-address table the reference stages for
+        the INNER build of `s` (`_unfiltered_lut`, `:177`): 1 << the bits
+        of its unfiltered keys' ranges, when they are unique non-null
+        integers spanning at most 2^24 and 16 x its rows; and only when the
+        fold's budget, span x (1 + `lanes`) <= 2^24, holds. Else None. A
+        build whose every row is live (no predicate, no NULL key) has its
+        key ranges and uniqueness in its table already; another's come
+        from `_plan_stats`."""
+        n = s.batch.num_rows
+        if not self._lut_candidate(b, s):
             return None
-        whole = s.table.live == n      # the table knows the unfiltered keys
-        vals = [s.cols[s.col_map[k.index]][0][:n].to(torch.int64)
-                for k in b.build_keys]
-        ext = list(zip(s.table.los, s.table.his)) if whole else \
-            torch.stack([torch.stack([v.min(), v.max()])
-                         for v in vals]).cpu().tolist()
+        if s.table.live == n:        # an INNER table has no duplicate
+            ext, dup = list(zip(s.table.los, s.table.his)), False
+        else:
+            ext, _m, dup = stats
         bits = [max(int(np.ceil(np.log2(hi - lo + 2))), 1) for lo, hi in ext]
         span = 1 << sum(bits)
         if span > min(1 << 24, 16 * n) or span * (1 + lanes) > (1 << 24):
             return None
-        if whole:                      # an INNER table has no duplicate
-            return span
-        packed, shift = torch.zeros_like(vals[0]), 0
-        for v, (lo, _hi), w in zip(vals, ext, bits):
-            packed |= (v - lo) << shift
-            shift += w
-        return span if torch.unique(packed).numel() == n else None
+        return None if dup else span
 
-    def compose_builds(self, staged: List[_BuildInput]) -> None:
-        """Compose and mark for folding the hops `compose_plan` picks: each
-        owner's composed words (int64 [its build rows, words]: one a hop,
-        three for a min/max hop), filled by one `chain_compose` a composed
-        hop in chain order, so a later one reads an earlier one's rows."""
+    def stage_spec(self, staged: List[_BuildInput],
+                   reads: Optional[set] = None):
+        """What `chain_stage` takes to compose and fold the hops
+        `compose_plan` picks: (its StageSpec, the pair-space columns its
+        programs and folds read, aux), or None when no hop composes or
+        folds. The owners' words hold one word a composed hop, three for a
+        min/max hop, in chain order; a fold holds the payload columns in
+        `reads` and those the probe keys of the hops the walk probes read
+        (every payload column with a device lane when `reads` is None)."""
+        from ..physical_optimizer import _collect_cols
         composed, folded = self.compose_plan(staged)
-        width = {}
-        for owner, tag in composed.values():
-            width[owner] = width.get(owner, 0) + (3 if tag == "mmx" else 1)
-        words = {o: torch.zeros((staged[o].batch.num_rows, w),
-                                dtype=torch.int64, device=self.device)
-                 for o, w in width.items()}
-        used = {o: 0 for o in width}
-        for bi, (owner, tag) in composed.items():
-            spec, cols, aux, n = self.compose_input(staged, bi, owner)
-            chain_compose(spec, cols, aux, n, words[owner], used[owner])
-            staged[bi].compose = Compose(owner, tag, words[owner],
-                                         used[owner])
-            used[owner] += 3 if tag == "mmx" else 1
-        for bi, budget in folded.items():
-            staged[bi].fold = budget
-
-    def compose_input(self, staged: List[_BuildInput], bi: int, owner: int):
-        """What `chain_compose` takes to compose hop `bi` into `owner`: (its
-        ComposeSpec, the pair-space columns its probe keys read, aux, the
-        owner's build rows). The hops composed into `owner` before `bi`
-        enter the spec's chain as they are staged (their payload may be a
-        key); every other earlier hop is a stub."""
-        b, s = self.builds[bi], staged[bi]
+        if not composed and not folded:
+            return None
         ranges = self.payload_ranges()
+        at, width = {}, {}
+        for bi, (owner, tag) in composed.items():
+            at[bi] = width.get(owner, 0)
+            width[owner] = at[bi] + (3 if tag == "mmx" else 1)
+        if reads is not None:
+            reads = set(reads)
+            for bi, b in enumerate(self.builds):
+                if bi not in composed:
+                    for k in b.probe_keys:
+                        _collect_cols(k, reads)
         pools = Pools()
+        hops = []
         try:
-            keys = [compile_expr(k, pools) for k in b.probe_keys]
+            for h, (b, s) in enumerate(zip(self.builds, staged)):
+                if h in composed:
+                    keys = [compile_expr(k, pools) for k in b.probe_keys]
+                    hops.append(Hop(s.table, b.join_type, keys, ranges[h]))
+                else:
+                    hops.append(stub_hop(ranges[h], s.table.rows))
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
-        hops = []
-        for h in range(bi):
-            c = staged[h].compose
-            if c is not None and c.owner == owner and ranges[h]:
-                hops.append(Hop(staged[h].table, "INNER", [], ranges[h],
-                                compose=c))
-            else:
-                hops.append(stub_hop(ranges[h], staged[h].table.rows))
-        hops.append(Hop(s.table, b.join_type, keys, ranges[bi]))
-        spec = ComposeSpec(pools, Chain(self.n_spine, None, hops), owner)
-        cols = {}
-        for p in pools.columns:
-            h = spec.chain.hop_of[p]
+        chain = Chain(self.n_spine, None, hops)
+        folds, cols = [], {}
+        for bi, budget in folded.items():
+            s = staged[bi]
+            dtypes = _ColumnDtypes()
+            for p in ranges[bi]:
+                if reads is None or p in reads:
+                    dtypes.add(p, self._pair_column(staged, p))
             cols.update(self._to_device(
-                spec, {p: self._pair_column(staged, p)}, staged[h].keep))
-        aux = torch.zeros(0, dtype=torch.int64, device=self.device)
-        return spec, cols, aux, staged[owner].batch.num_rows
+                dtypes, {p: self._pair_column(staged, p)
+                         for p in dtypes.dtypes}, s.keep))
+            fold = Fold(width.get(bi, 0),
+                        [(p, cols[p][1] is not None) for p in dtypes.dtypes],
+                        *budget)
+            folds.append((bi, s.table, fold))
+        spec = StageSpec(pools, chain,
+                         {bi: (o, at[bi], tag)
+                          for bi, (o, tag) in composed.items()},
+                         {o: staged[o].batch.num_rows for o in width}, folds)
+        for p in pools.columns:
+            cols.update(self._to_device(
+                spec, {p: self._pair_column(staged, p)},
+                staged[chain.hop_of[p]].keep))
+        return spec, cols, torch.zeros(0, dtype=torch.int64,
+                                       device=self.device)
+
+    def compose_builds(self, staged: List[_BuildInput],
+                       reads: Optional[set] = None) -> None:
+        """Compose and fold the hops `compose_plan` picks (`stage_spec`), in
+        one `chain_stage` call: one compose launch and one fold launch a
+        chain on the card, into outputs that need no zeroing."""
+        made = self.stage_spec(staged, reads)
+        if made is None:
+            return
+        spec, cols, aux = made
+        words, outs = new_stage_outputs(spec, self.device)
+        chain_stage(spec, cols, aux, words, outs)
+        for bi, (owner, word, tag) in spec.composed.items():
+            staged[bi].compose = Compose(owner, tag, words[owner], word)
+        for (bi, _t, fold), (rec, valid) in zip(spec.folds, outs):
+            fold.records, fold.valid = rec, valid
+            staged[bi].fold = fold
 
     def pair_view(self, spine_batch, staged: List[_BuildInput]) -> _PairView:
         cols = list(spine_batch.columns)
@@ -662,9 +782,10 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
                 lowered = self.lower()
             except LoweringError as e:
                 raise DeviceLoweringUnsupported(str(e))
-        with record_function("dft.build"):
-            staged = self.stage_builds(ctx, compose)
         spine = [b for b in execute_stream(self.source, ctx) if b.num_rows]
+        with record_function("dft.build"):
+            staged = self.stage_builds(ctx, compose,
+                                       self._walk_reads(lowered, len(spine)))
         views = [self.pair_view(b, staged) for b in spine]
         with record_function("dft.compile"):
             spec, plan, names, slot_map = self.compile(lowered, staged, views)
@@ -675,6 +796,20 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
         inputs = [self.stage(spec, b, view, staged, keep_spine) + (b.num_rows,)
                   for b, view in zip(spine, views)]
         return spec, plan, names, slot_map, inputs, staged
+
+    def _walk_reads(self, lowered, n_batches: int) -> set:
+        """The pair-space columns the walk's programs other than its probe
+        keys read (what `compile` will give `chain`): the probe predicate,
+        the residual, the group keys left after the functional-dependence
+        reduction (which one spine batch allows), the lanes' arguments and
+        the min/max tests."""
+        (_pools, ppred, pred, keys, slot_defs, _slot_map, _probe_keys,
+         mfilters) = lowered
+        kept = self._fd_reduce()[0] if n_batches == 1 else range(len(keys))
+        return _program_columns(
+            [ppred, pred] + [keys[p] for p in kept] +
+            [p for _cat, p in slot_defs.values()] +
+            [mf[1] for mf in mfilters if mf is not None])
 
     def _execute_port(self, partition: int, ctx: TaskContext):
         m = BaselineMetrics(self.metrics, partition)
@@ -826,8 +961,8 @@ class TorchJoinChainRowsExec(TorchChainExec):
 
     Counterpart of `DeviceJoinChainRowsExec` (`device_join_chain.py:
     2142-2397`). Builds stage as the aggregate chain's do
-    (`stage_builds`); each spine batch is one `chain_rows` call (the mark
-    pass with its scan, one read of the row count, the emit). A dictionary-coded
+    (`stage_builds`); each spine batch is one `chain_rows` call (the tile
+    walk, one read of the row count, the emit). A dictionary-coded
     output column takes the dictionary of the pair-space column it reads
     (`:2386-2390`): a build column's, for a payload. A shape the lowering
     does not cover raises DeviceLoweringUnsupported, which runs the host
@@ -905,8 +1040,10 @@ class TorchJoinChainRowsExec(TorchChainExec):
                  mfilters) = self.lower_rows()
             except LoweringError as e:
                 raise DeviceLoweringUnsupported(str(e))
+        reads = _program_columns([ppred, pred] + outs +
+                                 [mf[1] for mf in mfilters if mf is not None])
         with record_function("dft.build"):
-            staged = self.stage_builds(ctx, compose)
+            staged = self.stage_builds(ctx, compose, reads)
         spine = [b for b in execute_stream(self.source, ctx) if b.num_rows]
         try:
             spec = ChainRowsSpec(pools, pred, outs,

@@ -137,6 +137,26 @@ def test_same_hops_compose_and_fold(tpch, spy, q):
             ex.compose_plan(staged)[0]
 
 
+@pytest.mark.parametrize("q", sorted(EXPECTED))
+def test_compose_plan_reads_no_host_column(tpch, monkeypatch, q):
+    """`compose_plan` takes what it reads of the build columns from the
+    staged tables and the card, never from a host copy: with
+    `Column.data_host` raising, it still picks the reference's hops (the
+    table in `EXPECTED`) for every TPC-H chain."""
+    from datafusion_tpu_torch.common.column import Column
+    port, _ref = tpch
+    port.sql(TPCH[q]).to_pydict()
+    execs = [ex for ex in _port_execs(port, TPCH[q]) if not ex.fallbacks]
+    staged = [ex.stage_builds(port.task_context(), compose=False)
+              for ex in execs]
+
+    def no_host(self):
+        raise AssertionError("compose_plan read a build column on the host")
+    monkeypatch.setattr(Column, "data_host", no_host)
+    got = [ex.compose_plan(st) for ex, st in zip(execs, staged)]
+    assert sorted(got, key=_key) == sorted(EXPECTED[q], key=_key)
+
+
 def _lane_values(pm, lane, kind):
     """A payload column's values from the reference's int32 lanes, decoded
     as `_chain_walk` decodes them (`:1618-1632`)."""
@@ -389,6 +409,22 @@ def test_edge_case_matches_jax_package(edge, spy, case):
         spec = ex.prepare(port.task_context())[0]
         fold = spec.chain.hops[0].fold
         assert len(fold.columns) == 4 and fold.valid is not None
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_SQL))
+def test_edge_compose_plan_reads_no_host_column(edge, monkeypatch, case):
+    """The edge cases' choice with `Column.data_host` raising: a filtered
+    owner and a min/max hop take their extremes from the card, and the
+    hops are still the reference's (`EDGE_EXPECTED`)."""
+    from datafusion_tpu_torch.common.column import Column
+    port, _ref = edge
+    (ex,) = _port_execs(port, EDGE_SQL[case])
+    staged = ex.stage_builds(port.task_context(), compose=False)
+
+    def no_host(self):
+        raise AssertionError("compose_plan read a build column on the host")
+    monkeypatch.setattr(Column, "data_host", no_host)
+    assert ex.compose_plan(staged) == EDGE_EXPECTED[case]
 
 
 def test_reduced_chain_replays_on_the_host_with_composition(tpch):

@@ -22,8 +22,9 @@ keys, block caches of 0, 1 and 64 entries, a table that overflows),
 every build table (the insert pass; the range pass needs a warp) and
 every chain walk of TPC-H at SF 0.01 and of the min/max membership cases
 (with their staging-time compositions and folds, as the exec stages them;
-every composition and fold itself, and the row-returning walk's mark and
-emit passes over Q2's composed and folded chain),
+a chain's compositions and folds from its one descriptor, and the
+row-returning walk and its emit over TPC-H's row chains in tiles of 2 to
+256 rows, a survivor scratch that overflows, and min/max hops),
 the count(DISTINCT x) lane's set inserts (dense, hash and chain folds,
 lanes past 32 in passes), the fanout-N join's build (the multiset of
 entry records a bucket) and probe-and-fold, and the mesh's row partition (K1:
@@ -101,6 +102,8 @@ inline int cudaGetLastError() { return 0; }
 
 HARNESS = r"""
 #include "program.cuh"
+#include "lookback.cuh"
+#include "tile_walk.cuh"
 namespace fd { namespace { long long smem[1 << 16]; }
 #include "fused_dense_aggregate_k.cu"
 }
@@ -193,36 +196,37 @@ void h_chain_dense(const long long* meta, int len, const long long* aux,
 void h_admit_rows(const long long* meta, const long long* aux, long long n,
                     unsigned char* out) {
   const long long* ch = meta + meta[H_OFF_CHAIN];
-  ca::TileColumns<true, false> cols{meta, nullptr, 0, 0};
+  TileColumns<true, false> cols{meta, nullptr, 0, 0};
   for (long long r = 0; r < n; r += 2) {
     long long row[2] = {r, r + 1};
     bool alive[2] = {true, r + 1 < n};
-    ca::admit_rows(meta, aux, ch, row, alive, cols);
+    admit_rows(meta, aux, ch, row, alive, cols);
     out[r] = alive[0];
     if (r + 1 < n) out[r + 1] = alive[1];
   }
 }
-void h_rows_mark(const long long* meta, int len, const long long* aux,
-                 long long n, long long* pos, int variant) {
-  DFT_WALK_VARIANT(cr::rows_mark_kernel, variant)(meta, len, aux, n, pos);
+void h_rows_walk(const long long* meta, int len, const long long* aux,
+                 long long n, int cap, unsigned long long* state, int* rows,
+                 int* handles, long long scap, int variant) {
+  DFT_WALK_VARIANT(cr::rows_walk_kernel, variant)(
+      meta, len, aux, n, cap, state, rows, handles, scap);
 }
 void h_rows_emit(const long long* meta, int len, const long long* aux,
-                 long long n, const long long* pos, const long long* outs,
+                 long long total, const int* rows, const int* handles,
+                 long long scap, const long long* outs, int n_out,
                  int variant) {
-  DFT_WALK_VARIANT(cr::rows_emit_kernel, variant)(meta, len, aux, n, pos,
-                                                  outs);
+  cr::Outputs o;
+  memcpy(o.ptr, outs, sizeof(long long) * 2 * n_out);
+  DFT_WALK_VARIANT(cr::rows_emit_kernel, variant)(meta, len, aux, total,
+                                                  rows, handles, scap, o);
 }
 void h_compose(const long long* meta, int len, const long long* aux,
-               long long n, int owner, long long* out, long long words,
-               int mmx, int full) {
+               long long n, int full) {
   (full ? cc::chain_compose_kernel<true> : cc::chain_compose_kernel<false>)(
-      meta, len, aux, n, owner, out, words, mmx);
+      meta, len, aux, n);
 }
-void h_fold(const int* rows, long long size, const long long* comp,
-            int comp_words, const long long* cols, int n_cols,
-            long long* rec, unsigned char* valid, int rec_words) {
-  cc::chain_fold_kernel(rows, size, comp, comp_words, cols, n_cols, rec,
-                        valid, rec_words);
+void h_fold(const long long* table, long long n) {
+  cc::chain_fold_kernel(table, n);
 }
 void h_hash(const long long* meta, int len, const long long* aux,
             long long n, long long cap, int ident, long long* table,
@@ -276,7 +280,7 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_cpu")
     (d / "cuda_runtime.h").write_text(SHIM)
     (d / "harness.cpp").write_text(HARNESS)
-    for header in ("program.cuh", "lookback.cuh"):
+    for header in ("program.cuh", "lookback.cuh", "tile_walk.cuh"):
         shutil.copy(os.path.join(CSRC, header), d / header)
     (d / "scan.cuh").write_text("#pragma once\n")
     for name in ("fused_dense_aggregate", "chain_build", "chain_aggregate",
@@ -296,10 +300,10 @@ def lib(tmp_path_factory):
     out.h_chain_hash.argtypes = [P, I, P, LL, LL, I, P, P, I, I]
     out.h_chain_dense.argtypes = [P, I, P, LL, P, I, I]
     out.h_admit_rows.argtypes = [P, P, LL, P]
-    out.h_rows_mark.argtypes = [P, I, P, LL, P, I]
-    out.h_rows_emit.argtypes = [P, I, P, LL, P, P, I]
-    out.h_compose.argtypes = [P, I, P, LL, I, P, LL, I, I]
-    out.h_fold.argtypes = [P, LL, P, I, P, I, P, P, I]
+    out.h_rows_walk.argtypes = [P, I, P, LL, I, P, P, P, LL, I]
+    out.h_rows_emit.argtypes = [P, I, P, LL, P, P, LL, P, I, I]
+    out.h_compose.argtypes = [P, I, P, LL, I]
+    out.h_fold.argtypes = [P, LL]
     out.h_hash.argtypes = [P, I, P, LL, LL, I, P, P, I, I]
     out.h_jb_hash.argtypes = [P, I, P, LL, P, P, P, I]
     out.h_jb_count.argtypes = [P, LL, LL, P]
@@ -622,49 +626,40 @@ def test_admit_rows_matches_run(lib, pred):
 # --- staging-time composition and folding --------------------------------------
 
 def _check_compose_and_fold(lib, ex, tctx):
-    """Every composition of the chain exec `ex`, run again through the
-    kernel into a copy of its owner's words, and every fold, through the
-    kernel into fresh records, against what the plain versions staged.
-    Returns (compositions, folds) checked."""
-    from datafusion_tpu_torch.device.join_chain import fold_columns
-    from datafusion_tpu_torch.physical.plan.device_join_chain import (
-        TorchJoinChainRowsExec)
-    if isinstance(ex, TorchJoinChainRowsExec):
-        spec, inputs, staged = ex.prepare_rows(tctx)
-    else:
-        spec, _p, _n, _s, inputs, staged = ex.prepare(tctx)
-    cols = inputs[0][0]
-    n_comp = n_fold = 0
+    """The chain exec `ex`'s staging (`stage_spec` over its builds, every
+    payload column of a folded hop held) through the compose kernel once
+    and the fold kernel once, from one descriptor, into outputs filled
+    with garbage, against `chain_stage_plain`; the composed words also
+    against those the exec staged. Returns (compositions, folds)
+    checked."""
+    from datafusion_tpu_torch.device.join_chain import (chain_stage_plain,
+                                                        new_stage_outputs)
+    staged = ex.stage_builds(tctx)
+    made = ex.stage_spec(staged)
+    if made is None:
+        return 0, 0
+    spec, cols, aux = made
+    words, folds = new_stage_outputs(spec, CPU)
+    for t in list(words.values()) + [t for f in folds for t in f
+                                     if t is not None]:
+        t.fill_(-7 if t.dtype == torch.int64 else 0x5A)
+    desc = torch.from_numpy(spec.host_words(cols, words, folds))
+    if spec.compose_threads:
+        lib.h_compose(_ptr(desc), len(spec.meta), _ptr(aux),
+                      spec.compose_threads, int(spec.full))
+    if spec.fold_threads:
+        lib.h_fold(desc.data_ptr() + 8 * len(spec.meta), spec.fold_threads)
+    want_w, want_f = new_stage_outputs(spec, CPU)
+    chain_stage_plain(spec, cols, aux, want_w, want_f)
+    for o, w in words.items():
+        assert torch.equal(w, want_w[o]), o
+    for (h, _t, _f), got, want in zip(spec.folds, folds, want_f):
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b), h
     for bi, s in enumerate(staged):
-        c = s.compose
-        if c is None:
-            continue
-        cspec, ccols, aux, n = ex.compose_input(staged, bi, c.owner)
-        got = c.words.clone()
-        got[:, c.word:c.word + c.width] = -7
-        meta = cspec.device_meta(ccols, CPU)
-        lib.h_compose(_ptr(meta), len(cspec.meta), _ptr(aux), n, c.owner,
-                      got.data_ptr() + 8 * c.word, got.shape[1],
-                      int(c.tag == "mmx"), int(cspec.full))
-        assert torch.equal(got, c.words), bi
-        n_comp += 1
-    for h, hop in enumerate(spec.chain.hops):
-        f = hop.fold
-        if f is None:
-            continue
-        comp = next((o.compose.words for o in spec.chain.hops
-                     if o.compose is not None and o.compose.owner == h), None)
-        columns = [cols[p] for p in f.columns]
-        desc = fold_columns(columns, f)
-        rec = torch.zeros_like(f.records)
-        valid = None if f.valid is None else torch.zeros_like(f.valid)
-        lib.h_fold(_ptr(hop.table.rows), hop.table.size, _ptr(comp), f.n_comp,
-                   _ptr(desc) if columns else None, len(columns), _ptr(rec),
-                   _ptr(valid), f.words)
-        assert torch.equal(rec, f.records), h
-        assert valid is None or torch.equal(valid, f.valid), h
-        n_fold += 1
-    return n_comp, n_fold
+        if s.compose is not None:
+            assert torch.equal(words[s.compose.owner], s.compose.words), bi
+    return len(spec.composed), len(spec.folds)
 
 
 def _chain_execs(ctx, sql):
@@ -703,50 +698,148 @@ def test_edge_case_compose_and_fold_kernels_match_plain(lib):
     assert checked[0] >= 6 and checked[1] >= 1
 
 
-def test_q2_rows_walk_with_composed_and_folded_hops_matches_plain(lib):
-    """`chain_rows`' mark and emit passes (the scan as `torch.cumsum`) over
-    TPC-H Q2's row-returning chain, whose nation and region hops compose
-    into supplier and whose supplier hop folds: the outputs equal
-    `chain_rows_plain`'s in spine order."""
-    import datafusion_tpu_torch as dft
-    from datafusion_tpu_torch.device.join_chain import (_DTYPE_CODE,
-                                                        chain_rows_plain)
-    from datafusion_tpu_torch.physical.plan.device_join_chain import (
-        TorchJoinChainRowsExec)
-    from datafusion_tpu_torch.tpch.datagen import register_tpch
-    from datafusion_tpu_torch.tpch.queries import QUERIES
-    ctx = dft.SessionContext(CPU)
-    ctx.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
-    register_tpch(ctx, sf=0.01, seed=1)
-    (ex,) = [e for e in _chain_execs(ctx, QUERIES[2])
-             if isinstance(e, TorchJoinChainRowsExec)]
-    spec, inputs, _staged = ex.prepare_rows(ctx.task_context())
-    assert any(h.compose is not None for h in spec.chain.hops)
-    assert any(h.fold is not None for h in spec.chain.hops)
-    ((cols, aux, n, _view),) = inputs
+def _rows_kernels(lib, spec, cols, aux, n, cap, scap=None):
+    """`chain_rows` through the one-thread build, as its wrapper runs it:
+    the walk in tiles of `cap` spine rows into a survivor scratch of `scap`
+    entries (the wrapper's guess by default), once more into a scratch of
+    the total when more survive, then the emit. Every tile's ticket is
+    taken once and its status word ends inclusive. Returns (the outputs,
+    the walks launched)."""
+    from datafusion_tpu_torch.device.join_chain import rows_scratch
     meta = spec.device_meta(cols, CPU)
-    pos = torch.full((n + 1,), -1, dtype=torch.int64)
-    lib.h_rows_mark(_ptr(meta), len(spec.meta), _ptr(aux), n, _ptr(pos),
-                    spec.variant)
-    assert int(pos[n]) == 0
-    keep = pos[:n].clone()
-    pos[1:] = torch.cumsum(keep, 0)
-    pos[0] = 0
-    total = int(pos[n])
-    want = chain_rows_plain(spec, cols, aux, n)
-    assert total == want[0][0].numel() > 0
-    outs = [(torch.zeros(total, dtype=d.dtype), torch.zeros(total,
-                                                            dtype=torch.bool))
-            for d, _v in want]
+    n_hops = len(spec.chain.hops)
+    tiles = -(-n // cap)
+    scap = rows_scratch(n) if scap is None else scap
+    walks = 0
+    while True:
+        state = torch.zeros(2 + tiles, dtype=torch.int64)
+        rows = torch.full((scap,), -9, dtype=torch.int32)
+        handles = torch.full((n_hops * scap,), -9, dtype=torch.int32)
+        lib.h_rows_walk(_ptr(meta), len(spec.meta), _ptr(aux), n, cap,
+                        _ptr(state), _ptr(rows), _ptr(handles), scap,
+                        spec.variant)
+        walks += 1
+        assert int(state[0]) == tiles + 1
+        assert all((int(w) & (1 << 64) - 1) >> 62 == 2 for w in state[2:])
+        total = int(state[1])
+        if total <= scap:
+            break
+        assert walks == 1
+        scap = total
+    outs = [(torch.zeros(total, dtype=d), torch.zeros(total, dtype=torch.bool))
+            for d in spec.output_dtypes()]
     ptrs = torch.tensor([p for d, v in outs for p in (d.data_ptr(),
                                                       v.data_ptr())],
                         dtype=torch.int64)
-    assert all(d.dtype in _DTYPE_CODE for d, _v in outs)
-    lib.h_rows_emit(_ptr(meta), len(spec.meta), _ptr(aux), n, _ptr(pos),
-                    _ptr(ptrs), spec.variant)
+    if total:
+        lib.h_rows_emit(_ptr(meta), len(spec.meta), _ptr(aux), total,
+                        _ptr(rows), _ptr(handles), scap, _ptr(ptrs),
+                        len(outs), spec.variant)
+    return outs, walks
+
+
+def _rows_ctx():
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.tpch.datagen import register_tpch
+    ctx = dft.SessionContext(CPU)
+    ctx.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
+    register_tpch(ctx, sf=0.01, seed=1)
+    return ctx
+
+
+@pytest.fixture(scope="module")
+def tpch_rows():
+    return _rows_ctx()
+
+
+def _check_rows(lib, ctx, sql, cap, compose=True, scap=None):
+    """The row-returning walk of every rows chain of `sql` through the
+    kernels (`_rows_kernels`) against `chain_rows_plain`: the same rows in
+    spine order, every output and its validity. Returns (chains, the rows
+    each call kept, walks launched)."""
+    from datafusion_tpu_torch.device.join_chain import chain_rows_plain
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainRowsExec)
+    execs = [e for e in _chain_execs(ctx, sql)
+             if isinstance(e, TorchJoinChainRowsExec)]
+    kept, walks = [], 0
+    for ex in execs:
+        spec, inputs, _staged = ex.prepare_rows(ctx.task_context(), compose)
+        for cols, aux, n, _view in inputs:
+            got, w = _rows_kernels(lib, spec, cols, aux, n, cap, scap)
+            want = chain_rows_plain(spec, cols, aux, n)
+            for (gd, gv), (wd, wv) in zip(got, want):
+                assert torch.equal(gv, wv) and torch.equal(gd, wd)
+            kept.append(want[0][0].numel())
+            walks += w
+    return len(execs), kept, walks
+
+
+def test_q2_rows_walk_with_composed_and_folded_hops_matches_plain(lib):
+    """`chain_rows`' tile walk and emit over TPC-H Q2's row-returning
+    chain, whose nation and region hops compose into supplier and whose
+    supplier hop folds: the outputs equal `chain_rows_plain`'s in spine
+    order."""
+    from datafusion_tpu_torch.device.join_chain import ROWS_TILE
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainRowsExec)
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    ctx = _rows_ctx()
+    (ex,) = [e for e in _chain_execs(ctx, QUERIES[2])
+             if isinstance(e, TorchJoinChainRowsExec)]
+    spec, _inputs, _staged = ex.prepare_rows(ctx.task_context())
+    assert any(h.compose is not None for h in spec.chain.hops)
+    assert any(h.fold is not None for h in spec.chain.hops)
     assert spec.variant & 2
-    for (gd, gv), (wd, wv) in zip(outs, want):
-        assert torch.equal(gv, wv) and torch.equal(gd, wd)
+    chains, kept, walks = _check_rows(lib, ctx, QUERIES[2], ROWS_TILE)
+    assert chains == 1 and kept[0] > 0 and walks == 1
+
+
+# TPC-H's row-returning chains at SF 0.01 with the threshold at 1 (Q13's
+# LEFT count plans no rows chain)
+ROWS_TPCH = (2, 20)
+
+
+@pytest.mark.parametrize("cap", [2, 5, 64, 256])
+@pytest.mark.parametrize("compose", [True, False], ids=["staged", "unstaged"])
+@pytest.mark.parametrize("q", ROWS_TPCH)
+def test_tpch_rows_walk_tiles_match_plain(lib, tpch_rows, q, compose, cap):
+    """The row walk in tiles of 2, 5, 64 and 256 spine rows (many tiles,
+    each placed by the look-back), staged and unstaged: the rows equal the
+    plain version's in spine order."""
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    chains, kept, _walks = _check_rows(lib, tpch_rows, QUERIES[q], cap,
+                                       compose)
+    assert chains >= 1 and sum(kept) > 0
+
+
+@pytest.mark.parametrize("q", ROWS_TPCH)
+def test_rows_walk_scratch_overflow_walks_again(lib, tpch_rows, q):
+    """A survivor scratch of one entry: the walk counts every survivor,
+    writes what fits, and the wrapper's second walk into a scratch of the
+    total gives the plain version's rows."""
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    chains, kept, walks = _check_rows(lib, tpch_rows, QUERIES[q], 64,
+                                      scap=1)
+    assert max(kept) > 1
+    assert walks == sum(1 + (k > 1) for k in kept)
+
+
+@pytest.mark.parametrize("op", ["<>", "<", ">="])
+@pytest.mark.parametrize("anti", [False, True], ids=["semi", "anti"])
+def test_min_max_rows_walk_matches_plain(lib, op, anti):
+    """A row-returning chain with a SEMI or ANTI min/max hop over a hashed
+    table (the interpreter's full variant), at tiles of 3 and 64 rows."""
+    import test_torch_join_chain as J
+    port, _ref = J._mmx_pair(J._mmx_data(True))
+    port.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
+    sql = ("SELECT f.v, d.name FROM f JOIN d ON f.g = d.id WHERE " +
+           ("NOT " if anti else "") +
+           f"EXISTS (SELECT 1 FROM m WHERE m.k = f.k AND m.s {op} f.s "
+           "AND m.w > 0)")
+    for cap in (3, 64):
+        chains, kept, _w = _check_rows(lib, port, sql, cap, compose=False)
+        assert chains == 1 and kept[0] > 0
 
 
 # --- count(DISTINCT x) and lanes past 32 in the grouped folds ------------------

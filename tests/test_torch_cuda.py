@@ -1033,53 +1033,41 @@ def test_cuda_sort_and_window_end_to_end_matches_cpu(cuda):
 # --- staging-time composition and folding: chain_compose, chain_fold -------
 
 def _compose_and_fold_vs_plain(ex, tctx):
-    """Every composition of the chain exec `ex` through `chain_compose` and
-    `chain_compose_plain` (into copies of the owner's words) and every fold
-    through `chain_fold` and `chain_fold_plain`, each equal to what the
-    exec staged; one launch a call. Returns the calls checked."""
+    """The chain exec `ex`'s staging (`stage_spec`, every payload column of
+    a folded hop held) through `chain_stage` (one compose launch and one
+    fold launch, into outputs filled with garbage) and through
+    `chain_stage_plain`, equal, and the exec's staged words equal to them.
+    Returns the compositions and folds checked."""
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch.device.join_chain import (
-        chain_compose, chain_compose_plain, chain_fold, chain_fold_plain)
-    from datafusion_tpu_torch.physical.plan.device_join_chain import (
-        TorchJoinChainRowsExec)
-    if isinstance(ex, TorchJoinChainRowsExec):
-        spec, inputs, staged = ex.prepare_rows(tctx)
-    else:
-        spec, _p, _n, _s, inputs, staged = ex.prepare(tctx)
-    cols = inputs[0][0]
-    checked = 0
-    for bi, s in enumerate(staged):
-        c = s.compose
-        if c is None:
-            continue
-        cspec, ccols, aux, rows = ex.compose_input(staged, bi, c.owner)
-        for fn in (chain_compose, chain_compose_plain):
-            got = c.words.clone()
-            got[:, c.word:c.word + c.width] = -7
-            before = dft.launch_counts()["chain_compose"]
-            fn(cspec, ccols, aux, rows, got, c.word)
-            assert dft.launch_counts()["chain_compose"] == \
-                before + (fn is chain_compose)
-            torch.cuda.synchronize()
-            assert torch.equal(got, c.words)
-        checked += 1
-    for h, hop in enumerate(spec.chain.hops):
-        f = hop.fold
-        if f is None:
-            continue
-        comp = next((o.compose.words for o in spec.chain.hops
-                     if o.compose is not None and o.compose.owner == h), None)
-        columns = [cols[p] for p in f.columns]
-        before = dft.launch_counts()["chain_fold"]
-        got = chain_fold(hop.table, comp, columns, f)
-        assert dft.launch_counts()["chain_fold"] == before + 1
-        want = chain_fold_plain(hop.table, comp, columns, f)
-        torch.cuda.synchronize()
-        for a, b, c in zip(got, want, (f.records, f.valid)):
-            assert (a is None and b is None and c is None) or \
-                (torch.equal(a, b) and torch.equal(a, c))
-        checked += 1
-    return checked
+        chain_stage, chain_stage_plain, new_stage_outputs)
+    staged = ex.stage_builds(tctx)
+    made = ex.stage_spec(staged)
+    if made is None:
+        return 0
+    spec, cols, aux = made
+    words, folds = new_stage_outputs(spec, aux.device)
+    for t in list(words.values()) + [t for f in folds for t in f
+                                     if t is not None]:
+        t.fill_(-7 if t.dtype == torch.int64 else 0x5A)
+    names = ("chain_compose", "chain_fold")
+    before = {k: dft.launch_counts()[k] for k in names}
+    chain_stage(spec, cols, aux, words, folds)
+    assert {k: dft.launch_counts()[k] - before[k] for k in names} == {
+        "chain_compose": int(bool(spec.composed)),
+        "chain_fold": int(bool(spec.folds))}
+    want_w, want_f = new_stage_outputs(spec, aux.device)
+    chain_stage_plain(spec, cols, aux, want_w, want_f)
+    torch.cuda.synchronize()
+    for o, w in want_w.items():
+        assert torch.equal(words[o], w)
+    for got, want in zip(folds, want_f):
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+    for s in staged:
+        if s.compose is not None:
+            assert torch.equal(s.compose.words, words[s.compose.owner])
+    return len(spec.composed) + len(spec.folds)
 
 
 @pytest.mark.parametrize("q", [2, 5, 7, 8, 9, 10, 14, 18, 21])
@@ -1224,22 +1212,117 @@ def test_chain_rows_matches_plain(cuda, n):
     dictionary output: the kernel's columns equal its plain version's, at
     a spine that is not a multiple of the block."""
     import datafusion_tpu_torch as dft
-    from datafusion_tpu_torch.device.join_chain import (chain_rows,
-                                                        chain_rows_plain)
+    from datafusion_tpu_torch.device.join_chain import (
+        chain_rows, chain_rows_plain, rows_scratch)
     ctx = _star_ctx(cuda, n)
     (ex,) = _rows_exec(ctx, ROWS_SQL)
     spec, inputs, _staged = ex.prepare_rows(ctx.task_context())
     ((cols, aux, rows, _view),) = inputs
     before = dft.launch_counts()["chain_rows"]
     got = chain_rows(spec, cols, aux, rows)
-    # the mark and its three-launch scan, then the emit
-    assert dft.launch_counts()["chain_rows"] == before + 5
+    # the tile walk, then the emit; the walk again past the scratch
+    assert dft.launch_counts()["chain_rows"] == before + 2 + \
+        (got[0][0].numel() > rows_scratch(rows))
     want = chain_rows_plain(spec, cols, aux, rows)
     torch.cuda.synchronize()
     assert got[0][0].numel() > 0
     for (gd, gv), (wd, wv) in zip(got, want):
         assert gd.dtype == wd.dtype and gd.device.type == "cuda"
         assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("scratch", [1, 100, 1 << 14])
+@pytest.mark.parametrize("n", [31, 311, 4097, 300_001])
+def test_chain_rows_scratch_and_tiles(cuda, monkeypatch, n, scratch):
+    """Spines of one tile, of two (311 rows: tiles of 256), of 17 (more
+    than a block's warps take at once) and of many blocks' tiles; a
+    survivor scratch of 1, 100 or 2^14 entries (at least): where more
+    rows survive than it holds, the walk runs again into a scratch of the
+    total (three launches), else two; the rows equal the plain version's
+    in spine order."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device import join_chain
+    monkeypatch.setattr(join_chain, "ROWS_SCRATCH_MIN", scratch)
+    monkeypatch.setattr(join_chain, "ROWS_SCRATCH_SHARE", 1 << 40)
+    ctx = _star_ctx(cuda, n)
+    (ex,) = _rows_exec(ctx, ROWS_SQL)
+    spec, inputs, _staged = ex.prepare_rows(ctx.task_context())
+    ((cols, aux, rows, _view),) = inputs
+    before = dft.launch_counts()["chain_rows"]
+    got = join_chain.chain_rows(spec, cols, aux, rows)
+    launched = dft.launch_counts()["chain_rows"] - before
+    want = join_chain.chain_rows_plain(spec, cols, aux, rows)
+    torch.cuda.synchronize()
+    kept = want[0][0].numel()
+    assert kept > 0
+    assert launched == 2 + (kept > join_chain.rows_scratch(rows))
+    for (gd, gv), (wd, wv) in zip(got, want):
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+def test_chain_rows_all_and_none_survive(cuda):
+    """Every spine row surviving (one hop that all rows find) and none
+    (a predicate nothing passes): one walk and the emit, or the walk
+    alone, equal to the plain version."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.join_chain import (
+        chain_rows, chain_rows_plain, rows_scratch)
+    rng = np.random.default_rng(3)
+    n = 70_001
+    ctx = dft.SessionContext(cuda)
+    ctx.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
+    ctx.register_arrays("f", {"k": rng.integers(0, 50, n),
+                              "v": rng.integers(0, 100, n)})
+    ctx.register_arrays("d", {"id": np.arange(50),
+                              "w": rng.integers(0, 9, 50)})
+    for pred, survive in (("f.v >= 0", n), ("f.v < 0", 0)):
+        (ex,) = _rows_exec(ctx, "SELECT f.v, d.w FROM f JOIN d ON "
+                                f"f.k = d.id WHERE {pred}")
+        spec, inputs, _staged = ex.prepare_rows(ctx.task_context())
+        ((cols, aux, rows, _view),) = inputs
+        before = dft.launch_counts()["chain_rows"]
+        got = chain_rows(spec, cols, aux, rows)
+        assert dft.launch_counts()["chain_rows"] - before == \
+            1 + (survive > 0) + (survive > rows_scratch(rows))
+        want = chain_rows_plain(spec, cols, aux, rows)
+        assert want[0][0].numel() == survive
+        for (gd, gv), (wd, wv) in zip(got, want):
+            assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+def test_staging_one_launch_each_one_sync(cuda):
+    """Staging a chain with composed hops and a fold (`stage_builds`, its
+    tables already cached on the card): at most one compose launch, one
+    fold launch and one synchronisation (torch's sync debug mode) beyond
+    the tables' own staging."""
+    import warnings
+    import datafusion_tpu_torch as dft
+    ctx = _compose_ctx(cuda)
+    ex = _chain_exec(ctx, COMPOSE_SQL[0])
+    tctx = ctx.task_context()
+    staged = ex.stage_builds(tctx)
+    assert any(s.compose is not None for s in staged)
+    assert any(s.fold is not None for s in staged)
+
+    def count(compose):
+        names = ("chain_compose", "chain_fold")
+        before = {k: dft.launch_counts()[k] for k in names}
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ex.stage_builds(tctx, compose)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return ({k: dft.launch_counts()[k] - before[k] for k in names},
+                sum(str(w.message).startswith("called a synchronizing")
+                    for w in seen))
+    launches, syncs = count(True)
+    plain_launches, plain_syncs = count(False)
+    assert launches == {"chain_compose": 1, "chain_fold": 1}
+    assert plain_launches == {"chain_compose": 0, "chain_fold": 0}
+    assert syncs - plain_syncs <= 1
 
 
 @pytest.mark.parametrize("q", [2, 20])

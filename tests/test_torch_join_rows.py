@@ -272,6 +272,83 @@ def test_chain_rows_outputs_in_spine_order_with_dictionaries():
         list(d2["name"][0][names_idx])
 
 
+def _spread_data(seed=11):
+    """fact in three batches of 5,000, 7,000 and 9,000 rows (the probe key
+    a 10% NULL in the last), a dimension d1 of 400 rows keyed 0..399 and
+    d2 of 40: survivors spread over the spine batches and over many of the
+    row walk's tiles."""
+    rng = np.random.default_rng(seed)
+    facts = [{"k1": (rng.integers(0, 400, n),
+                     rng.random(n) > 0.1 if nulls else None),
+              "q": (rng.integers(0, 1000, n), None),
+              "v": (rng.normal(size=n).round(3), None)}
+             for n, nulls in ((5000, False), (7000, False), (9000, True))]
+    d1 = {"id": (np.arange(400), None),
+          "k2": (rng.integers(0, 40, 400), None),
+          "w": (rng.integers(1, 100, 400), None)}
+    d2 = {"id": (np.arange(40), None),
+          "name": (np.array([f"g{i % 7}" for i in range(40)], object), None)}
+    return facts, d1, d2
+
+
+def _spread_pair():
+    port, ref = _sessions()
+    facts, d1, d2 = _spread_data()
+    fb = [_ref_batch(f) for f in facts]
+    ref.register_table("fact", df.MemTable(fb[0].schema, [fb]))
+    pb = [twin(b) for b in fb]
+    port.register_table("fact", dft.MemTable(pb[0].schema, [pb]))
+    register_both(port, ref, "d1", _ref_batch(d1))
+    register_both(port, ref, "d2", _ref_batch(d2))
+    return port, ref
+
+
+SPREAD_ROWS = {
+    # about a third of every batch, in runs and gaps across its tiles
+    "spread": ("SELECT f.q, f.v, d1.w, d2.name FROM fact f "
+               "JOIN d1 ON f.k1 = d1.id JOIN d2 ON d1.k2 = d2.id "
+               "WHERE f.q % 3 = 0 AND d1.w > 20", None),
+    # every spine row (but the NULL keys of the last batch)
+    "all": ("SELECT f.q, d1.w FROM fact f JOIN d1 ON f.k1 = d1.id",
+            5000 + 7000),
+    "none": ("SELECT f.q, d2.name FROM fact f JOIN d1 ON f.k1 = d1.id "
+             "JOIN d2 ON d1.k2 = d2.id WHERE f.q > 5000", 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPREAD_ROWS))
+def test_rows_over_tiles_and_batches_match_jax_package(case):
+    """A row-returning chain over three spine batches whose survivors
+    spread over many tiles of the row walk, none survive, or every row
+    with a valid key survives: the JAX package's rows in the same order
+    (spine order, batch after batch), and each batch's rows in spine order
+    by numpy."""
+    sql, count = SPREAD_ROWS[case]
+    port, ref = _spread_pair()
+    assert _execs(ref, sql, DeviceJoinChainRowsExec)
+    got, want = port.sql(sql).to_pydict(), ref.sql(sql).to_pydict()
+    _same_rows(got, want, ordered=True)
+    (ex,) = _execs(port, sql, TorchJoinChainRowsExec)
+    assert ex.fallbacks == 0
+    n = len(got["q"])
+    if count is not None:
+        assert n >= count and (count == 0) == (n == 0)
+    else:
+        spec, inputs, _staged = ex.prepare_rows(port.task_context())
+        assert len(inputs) == 3
+        kept = [chain_rows(spec, c, a, r)[0][0].numpy()
+                for c, a, r, _v in inputs]
+        assert all(len(k) > 100 for k in kept)
+        assert np.concatenate(kept).tolist() == got["q"]
+        facts, d1, _d2 = _spread_data()
+        for k, f in zip(kept, facts):
+            (k1, k1v), (q, _n) = f["k1"], f["q"]
+            keep = (q % 3 == 0) & (d1["w"][0][k1] > 20)
+            if k1v is not None:
+                keep &= k1v
+            np.testing.assert_array_equal(k, q[keep])
+
+
 def test_with_children_keeps_the_chain():
     port, _ref = _star_pair()
     (ex,) = _execs(port, STAR_ROWS["semi"], TorchJoinChainRowsExec)
@@ -349,6 +426,40 @@ def test_resident_emit_matches_jax_package(monkeypatch):
     assert ex.resident_emits == 1 and ex.fallbacks == 0
     (batch,) = port.sql(WIDE_AGG).collect()
     assert all(c.device_born for c in batch.columns)
+
+
+RESIDENT_FILTER = ("SELECT count(*), sum(s) FROM (SELECT g, h, count(*) "
+                   "AS c, sum(v) AS s FROM t GROUP BY g, h) WHERE c > 1")
+
+
+@pytest.mark.parametrize("sql", [
+    RESIDENT_FILTER,
+    "SELECT g, h FROM (SELECT g, h, count(*) AS c FROM t GROUP BY g, h) "
+    "UNION SELECT g, h FROM (SELECT g, h, count(*) AS c FROM t "
+    "GROUP BY g, h)"], ids=["filter", "union"])
+def test_resident_emit_under_a_filter_and_a_union(sql):
+    """An aggregate of more than 2^18 groups under a filter and under a
+    UNION (1,200,000 rows; g in [0, 600,000), h in [0, 3), v in [-5, 5),
+    int64 from `default_rng(1)`): the port's resident emit gives its host
+    path's rows. The JAX package's `_emit_device_resident` returns `ng`
+    rows whose columns hold `out_cap` padded entries, and raises here."""
+    rng = np.random.default_rng(1)
+    n = 1_200_000
+    cols = {"g": rng.integers(0, 600_000, n), "h": rng.integers(0, 3, n),
+            "v": rng.integers(-5, 5, n)}
+    port, ref = _sessions()
+    host = dft.SessionContext(CPU)
+    host.sql("SET datafusion.tpu.device_aggregate = false")
+    for c in (port, ref, host):
+        c.register_arrays("t", cols)
+    got = port.sql(sql).to_pydict()
+    _same_rows(got, host.sql(sql).to_pydict(), ordered=False)
+    (agg, *_rest) = _execs(port, sql, TorchGroupAggregateExec)
+    assert agg.fallbacks == 0
+    if sql == RESIDENT_FILTER:
+        assert got == {"count(*)": [259_736], "sum(s)": [-294_413]}
+    with pytest.raises(ValueError, match="could not be broadcast"):
+        ref.sql(sql).to_pydict()
 
 
 def test_group_emit_fields_unpack_the_packed_key():
