@@ -9,10 +9,12 @@
 // survivors by cumsum + searchsorted, walks the chain again over them and
 // evaluates the output expressions.
 //
-// Design. Two launches on the caller's stream, a third only on overflow:
+// Design. Two launches on the caller's stream, after a zero fill of the
+// walk's state words (ticket, total, a status word a tile):
 //   1. dft_chain_rows_walk: the aggregate walk's tile walk (tile_walk.cuh).
-//      A block takes a tile of spine rows at a time, in spine order, from a
-//      ticket, and each of its warps walks `cap` rows of it on its own: it
+//      A block takes a tile of kWarps x `cap` spine rows at a time, in spine
+//      order, from a ticket, and each of its warps walks `cap` rows of it on
+//      its own: it
 //      admits them to its list in shared memory (the probe predicate's
 //      conjuncts), walks the list through the hops (each hop over the
 //      compacted survivors, handles in shared memory; staged hops read
@@ -22,8 +24,8 @@
 //      by one warp (a status word a tile; every earlier tile's block has
 //      started, as tickets are taken in order), which gives the tile's
 //      first output slot; each survivor then writes its spine row and its
-//      handle at every hop to the survivor scratch at its slot (hop-major),
-//      when the slot is below the scratch's capacity. The last tile writes
+//      handle at every hop to the survivor scratch at its slot (hop-major).
+//      The last tile writes
 //      the total. Nothing of the spine is written: the keep flags, the scan
 //      and its three launches of the old design are gone. A block's tile,
 //      not a warp's: with a warp's, thousands of tiles are in flight, and
@@ -35,12 +37,12 @@
 //      each value is written at the output column's width with its valid
 //      bit. Data under a NULL is 0.
 // The caller reads the total back once (one synchronisation a call) and
-// sizes the outputs. The scratch holds a capacity the caller guesses
-// (join_chain.py ROWS_SCRATCH: max(2^14, n / 16) survivors, (1 + hops) x 4
-// bytes each: 12 MB for TPC-H Q2's 8M-row spine at SF10); a total above it
-// re-runs the walk once into a scratch of the total, with no further
-// read-back. Outputs are at slots given by the tiles' order, so they are
-// in spine order and the same from run to run.
+// sizes the outputs. The scratch is the upper bound, an entry a spine row
+// ((1 + hops) x 4 bytes a row, not filled: 192 MB for TPC-H Q2's 8M-row,
+// 5-hop spine at SF10, 1.9 GB for an 80M-row spine of 5 hops, of the card's
+// 80 GB), so no survivor count can overflow it and the walk runs once.
+// Outputs are at slots given by the tiles' order, so they are in spine
+// order and the same from run to run.
 //
 // Bounds. TPC-H Q2 at SF10 reads partsupp's ps_partkey, ps_suppkey and
 // ps_supplycost (24 bytes a row, 8.0M rows, 192 MB) and writes a few
@@ -59,6 +61,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;   // join_chain.py ROWS_WARPS
 // As the aggregate walk: four blocks an SM, at most 64 registers a thread.
 constexpr int kMinBlocks = 4;
 constexpr u64 kEpoch = 1;      // the status words are zeroed every call
@@ -70,20 +73,20 @@ struct Outputs {
   i64 ptr[2 * kMaxOutputs];
 };
 
-// state: [ticket, total, status of each tile]; rows_out [scap] and
-// handles_out [hops][scap] the survivor scratch. A tile is a block's: each
-// warp walks `cap` rows of it.
+// state: [ticket, total, status of each tile]; rows_out [n_rows] and
+// handles_out [hops][n_rows] the survivor scratch. A tile is a block's:
+// each warp walks `cap` rows of it.
 template <bool Full, bool Staged>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 rows_walk_kernel(const i64* __restrict__ meta_g, int meta_len,
                  const i64* __restrict__ aux, i64 n_rows, int cap,
                  u64* __restrict__ state, int* __restrict__ rows_out,
-                 int* __restrict__ handles_out, i64 scap) {
+                 int* __restrict__ handles_out) {
   extern __shared__ i64 smem[];
   __shared__ i64 tile_s;
   __shared__ i64 first_s;                  // the tile's first output slot
-  __shared__ i64 before_s[kThreads / 32];  // a warp's first within the tile
-  __shared__ int count_s[kThreads / 32];   // a warp's survivors
+  __shared__ i64 before_s[kWarps];   // a warp's first within the tile
+  __shared__ int count_s[kWarps];    // a warp's survivors
   stage_meta(smem, meta_g, meta_len);
   const i64* meta = smem;
   const i64* ch = meta + meta[H_OFF_CHAIN];
@@ -172,11 +175,11 @@ rows_walk_kernel(const i64* __restrict__ meta_g, int meta_len,
     for (int i0 = 0; i0 < k; i0 += width) {
       const int i = i0 + lane;
       const i64 slot = first + i;
-      if (i < k && slot < scap) {
+      if (i < k) {
         const int e = dense ? i : list[i];
         rows_out[slot] = rows[e];
         for (int h = 0; h < n_hops; ++h) {
-          handles_out[h * scap + slot] = handles[h * cap + e];
+          handles_out[h * n_rows + slot] = handles[h * cap + e];
         }
       }
     }
@@ -200,13 +203,13 @@ __global__ void __launch_bounds__(kThreads)
 rows_emit_kernel(const i64* __restrict__ meta_g, int meta_len,
                  const i64* __restrict__ aux, i64 total,
                  const int* __restrict__ rows_in,
-                 const int* __restrict__ handles_in, i64 scap,
+                 const int* __restrict__ handles_in, i64 hop_stride,
                  const Outputs outs) {
   extern __shared__ i64 smem[];
   stage_meta(smem, meta_g, meta_len);
   const int n_out = (int)smem[H_NLANES];
   const i64* progs = smem + smem[H_OFF_LANES];   // (program, dtype code)
-  TileColumns<Full, Staged> cols{smem, handles_in, (int)scap, 0};
+  TileColumns<Full, Staged> cols{smem, handles_in, (int)hop_stride, 0};
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 s = (i64)blockIdx.x * blockDim.x + threadIdx.x; s < total;
        s += stride) {
@@ -243,9 +246,9 @@ unsigned walk_blocks(Kernel kernel, size_t smem, long long n_tiles) {
 // meta: device int64 descriptor of meta_len words (join_chain.py
 // ChainRowsSpec); aux: device int64 per-batch inputs; cap: the spine rows
 // a warp walks of a tile, the entries of its lists (a tile is a block's
-// warps' rows); state: device int64 [2 + ceil(n_rows / cap)], zeroed (the
-// ticket, the total, a status word a tile, the last of them unused);
-// rows_out: int32 [scap], handles_out: int32 [n_hops][scap];
+// kWarps warps' rows); state: device int64 [2 + ceil(n_rows / (kWarps x
+// cap))], zeroed (the ticket, the total, a status word a tile);
+// rows_out: int32 [n_rows], handles_out: int32 [n_hops][n_rows];
 // variant: bit 0 the programs or a min/max hop need the interpreter's full
 // variant, bit 1 the chain has composed or folded hops. One launch on
 // `stream`; returns cudaGetLastError() (or the shared-memory attribute's
@@ -254,12 +257,11 @@ extern "C" int dft_chain_rows_walk(const void* meta, int meta_len,
                                    const void* aux, long long n_rows,
                                    int n_hops, int cap, void* state,
                                    void* rows_out, void* handles_out,
-                                   long long scap, int variant,
-                                   void* stream) {
-  const long long tile_rows = (long long)(kThreads / 32) * cap;
+                                   int variant, void* stream) {
+  const long long tile_rows = (long long)kWarps * cap;
   const long long n_tiles = (n_rows + tile_rows - 1) / tile_rows;
   const size_t smem = (size_t)meta_len * 8 +
-                      (size_t)(kThreads / 32) * (2 + n_hops) * cap * 4;
+                      (size_t)kWarps * (2 + n_hops) * cap * 4;
   const auto kernel = DFT_WALK_VARIANT(rows_walk_kernel, variant);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -267,19 +269,20 @@ extern "C" int dft_chain_rows_walk(const void* meta, int meta_len,
   kernel<<<walk_blocks(kernel, smem, n_tiles), kThreads, smem,
            (cudaStream_t)stream>>>(
       (const i64*)meta, meta_len, (const i64*)aux, n_rows, cap,
-      (u64*)state, (int*)rows_out, (int*)handles_out, scap);
+      (u64*)state, (int*)rows_out, (int*)handles_out);
   return (int)cudaGetLastError();
 }
 
-// rows_in, handles_in: the walk's survivor scratch of scap entries, its
-// first `total` filled; outs: host int64 [2 * n_out], each output's device
-// (data pointer, validity pointer), data at the width of its dtype code in
-// the descriptor; variant as in the walk. One launch on `stream`; returns
-// cudaGetLastError().
+// rows_in, handles_in: the walk's survivor scratch, `hop_stride` entries
+// a hop (the spine rows), its first `total` filled; outs: host int64
+// [2 * n_out], each output's device (data pointer, validity pointer), data
+// at the width of its dtype code in the descriptor; variant as in the
+// walk. One launch on `stream`; returns cudaGetLastError().
 extern "C" int dft_chain_rows_emit(const void* meta, int meta_len,
                                    const void* aux, long long total,
                                    const void* rows_in,
-                                   const void* handles_in, long long scap,
+                                   const void* handles_in,
+                                   long long hop_stride,
                                    const void* outs, int n_out, int variant,
                                    void* stream) {
   if (n_out > kMaxOutputs) return (int)cudaErrorInvalidValue;
@@ -289,6 +292,6 @@ extern "C" int dft_chain_rows_emit(const void* meta, int meta_len,
   kernel<<<grid_blocks(total, kThreads), kThreads, (size_t)meta_len * 8,
            (cudaStream_t)stream>>>(
       (const i64*)meta, meta_len, (const i64*)aux, total,
-      (const int*)rows_in, (const int*)handles_in, scap, o);
+      (const int*)rows_in, (const int*)handles_in, hop_stride, o);
   return (int)cudaGetLastError();
 }

@@ -44,12 +44,13 @@ keys read without the interpreter. The walk feeds the grouped fold of
 The row-returning walk (`chain_rows`, kernel `csrc/chain_rows.cu`).
 Counterpart of `DeviceJoinChainRowsExec`'s mask program (`:2312`, jit
 `:2339`) and emit program (`:2352`, jit `:2377`). The aggregate walk's
-tile walk with no fold: a warp takes tiles of ROWS_TILE spine rows in
-spine order by ticket, walks each through the probe predicate, the hops
-and the residual, takes its survivors' output slots by a decoupled
-look-back over the tiles, and leaves each survivor's spine row and hop
-handles in a scratch; the wrapper reads the count (one synchronisation a
-spine batch, as `:2347`), and the emit runs every output program over
+tile walk with no fold: a block takes tiles of ROWS_WARPS x ROWS_TILE
+spine rows in spine order by ticket, walks each through the probe
+predicate, the hops and the residual, takes its survivors' output slots
+by a decoupled look-back over the tiles, and leaves each survivor's spine
+row and hop handles in a scratch of an entry a spine row; the wrapper
+reads the count (one synchronisation a spine batch, as `:2347`), and the
+emit runs every output program over
 the survivors through their stored handles and writes its value and
 validity at the survivor's slot. The output is in spine order, as the
 reference's `searchsorted` compaction gives it.
@@ -87,6 +88,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import kernels
 from .groupby import (_DTYPE_CODE, _NP_TO_TORCH, EMPTY, H_OFF_CHAIN,
@@ -140,9 +142,8 @@ MAX_HOP_KEYS = 4
 HOP_WORDS = HOP_KEY0 + 4 * MAX_HOP_KEYS    # (prog, lo, hi, shift) per key
 
 LIST_CAP = 128            # entries of a warp's lists (chain_aggregate.cu)
-ROWS_TILE = 256           # spine rows of a warp's tile (chain_rows.cu)
-ROWS_SCRATCH_MIN = 1 << 14    # survivors the first row walk has room for:
-ROWS_SCRATCH_SHARE = 16       # at least this, and a 1/16 of the spine
+ROWS_TILE = 256           # spine rows a warp walks of a block's tile,
+ROWS_WARPS = 8            # of this many warps (chain_rows.cu kWarps)
 DIRECT_FILL = 16          # a direct table spans at most 16 x its rows
 DIRECT_MAX = 1 << 26      # and at most 2^26 slots (256 MB of int32)
 
@@ -809,14 +810,6 @@ class ChainRowsSpec(_ChainSpec, _ProgramSpec):
         return [_NP_TO_TORCH[p.out_dtype] for p in self.outputs]
 
 
-def rows_scratch(n_rows: int) -> int:
-    """The survivors `chain_rows`' first walk has room for: at least
-    ROWS_SCRATCH_MIN and a 1/ROWS_SCRATCH_SHARE of the spine, at most the
-    spine."""
-    return max(min(n_rows, max(ROWS_SCRATCH_MIN,
-                               -(-n_rows // ROWS_SCRATCH_SHARE))), 1)
-
-
 def upload(words: np.ndarray, dev: torch.device) -> torch.Tensor:
     """int64 `words` on the card by one copy from pinned memory that does
     not wait for the stream. The buffer is fresh from PyTorch's caching
@@ -835,12 +828,12 @@ def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
     spine columns of the batch, payload columns of whole build batches.
     Data under a NULL is 0.
 
-    On CPU tensors this runs `chain_rows_plain`; on CUDA tensors it
-    launches the `chain_rows` kernel's tile walk, which leaves each
-    survivor's spine row and hop handles in a scratch of `rows_scratch`
-    entries, then its emit over the survivors when any survive: two
-    launches, a third (the walk again, into a scratch of the total) only
-    when more survive than the scratch holds. It reads the number of
+    On CPU tensors this runs `chain_rows_plain`; on CUDA tensors it zero
+    fills the walk's state words (a ticket, the total, a status word a
+    tile), launches the `chain_rows` kernel's tile walk, which leaves each
+    survivor's spine row and hop handles in a scratch of an entry a spine
+    row (no count overflows it), then its emit over the survivors when
+    any survive: two kernel launches and the fill. It reads the number of
     survivors back between them: one synchronisation."""
     dev = aux.device
     _check_pair(spec, cols, aux, n_rows, dev)
@@ -858,28 +851,17 @@ def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
     with torch.cuda.device(dev):
         stream = _stream(dev)
         meta_d = upload(spec.host_meta(cols), dev)
-        tiles = -(-n_rows // ROWS_TILE)
-
-        def walk(scap):
-            # the ticket, the total, then a look-back status word a tile
-            state = torch.zeros(2 + tiles, dtype=torch.int64, device=dev)
-            rows = torch.empty(scap, dtype=torch.int32, device=dev)
-            handles = torch.empty(n_hops * scap, dtype=torch.int32,
-                                  device=dev)
-            kernels.check(lib.dft_chain_rows_walk(
-                meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
-                n_hops, ROWS_TILE, state.data_ptr(), rows.data_ptr(),
-                handles.data_ptr(), scap, spec.variant, stream),
-                chain_rows_kernel)
-            chain_rows_kernel.launches += 1
-            return state, rows, handles
-
-        scap = rows_scratch(n_rows)
-        state, rows, handles = walk(scap)
+        tiles = -(-n_rows // (ROWS_WARPS * ROWS_TILE))
+        # the ticket, the total, then a look-back status word a tile
+        state = torch.zeros(2 + tiles, dtype=torch.int64, device=dev)
+        rows = torch.empty(n_rows, dtype=torch.int32, device=dev)
+        handles = torch.empty(n_hops * n_rows, dtype=torch.int32, device=dev)
+        kernels.check(lib.dft_chain_rows_walk(
+            meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), n_rows,
+            n_hops, ROWS_TILE, state.data_ptr(), rows.data_ptr(),
+            handles.data_ptr(), spec.variant, stream), chain_rows_kernel)
+        chain_rows_kernel.launches += 1
         total = int(state[1].item())
-        if total > scap:
-            scap = total
-            state, rows, handles = walk(scap)
         outs = [(torch.empty(total, dtype=d, device=dev),
                  torch.empty(total, dtype=torch.bool, device=dev))
                 for d in dtypes]
@@ -890,7 +872,7 @@ def chain_rows(spec: ChainRowsSpec, cols: Columns, aux: torch.Tensor,
                               np.int64)
             kernels.check(lib.dft_chain_rows_emit(
                 meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), total,
-                rows.data_ptr(), handles.data_ptr(), scap, ptrs.ctypes.data,
+                rows.data_ptr(), handles.data_ptr(), n_rows, ptrs.ctypes.data,
                 len(outs), spec.variant, stream), chain_rows_kernel)
             chain_rows_kernel.launches += 1
     return outs
@@ -1207,7 +1189,8 @@ def chain_stage(spec: StageSpec, cols: Columns, aux: torch.Tensor,
     Every word of the outputs is written; none needs zeroing first.
 
     On CPU tensors this runs `chain_stage_plain`; on CUDA tensors it
-    uploads one descriptor (pinned, without a wait) and launches the
+    uploads one descriptor (pinned, without a wait; span
+    `dft.stage.upload`) and launches the
     `chain_compose` kernel once (when a hop composes) and the `chain_fold`
     kernel once (when a hop folds), or raises."""
     dev = aux.device
@@ -1220,7 +1203,8 @@ def chain_stage(spec: StageSpec, cols: Columns, aux: torch.Tensor,
     lib = kernels.library()
     with torch.cuda.device(dev):
         stream = _stream(dev)
-        desc = upload(spec.host_words(cols, words, folds), dev)
+        with record_function("dft.stage.upload"):
+            desc = upload(spec.host_words(cols, words, folds), dev)
         if n_comp:
             kernels.check(lib.dft_chain_compose(
                 desc.data_ptr(), len(spec.meta), aux.data_ptr(), n_comp,

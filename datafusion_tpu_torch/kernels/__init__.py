@@ -49,8 +49,7 @@ _SIGNATURES = {
                                _I, _P],
     "dft_chain_aggregate": [_P, _I, _I, _I, _P, _LL, _LL, _I, _P, _P, _I,
                             _I, _I, _P],
-    "dft_chain_rows_walk": [_P, _I, _P, _LL, _I, _I, _P, _P, _P, _LL, _I,
-                            _P],
+    "dft_chain_rows_walk": [_P, _I, _P, _LL, _I, _I, _P, _P, _P, _I, _P],
     "dft_chain_rows_emit": [_P, _I, _P, _LL, _P, _P, _LL, _P, _I, _I, _P],
     "dft_chain_compose": [_P, _I, _P, _LL, _I, _P],
     "dft_chain_fold": [_P, _LL, _P],

@@ -32,7 +32,8 @@ Spans and lanes are counted as the reference counts them, so both
 packages compose and fold the same hops at every scale; the extremes of
 the build columns that the count needs come from the staged tables or
 from one fold on the card a chain. A chain's compositions and folds are
-then staged by one `chain_stage` call: one compose launch and one fold
+staged when its walk is assembled (`chain`), which knows the columns the
+walk reads, by one `chain_stage` call: one compose launch and one fold
 launch. Tables, composed words and records are built per execution; the
 reference's cross-query cache of them (`_CMP_CACHE`) is not ported.
 
@@ -306,24 +307,22 @@ class TorchChainExec(TorchDeviceExec):
         return out
 
     def chain(self, ppred, staged: List[_BuildInput], probe_keys,
-              mfilters, pools: Pools, reads) -> Chain:
+              mfilters, pools: Pools, reads, compose: bool) -> Chain:
         """The walk over the staged builds: one hop a build, with its
         lowered probe keys, its payload's pair-space indices, its min/max
-        test, its composition and its fold. A folded hop's records must
-        hold every payload column that the chain's programs and `reads`
-        (the walk's other programs) read."""
+        test, its composition and its fold. With `compose`, the hops are
+        composed and folded first (`compose_builds`), a folded hop's records
+        holding the payload columns that `reads` (the walk's programs other
+        than the chain's own) and the chain's programs read."""
+        if compose:
+            self.compose_builds(staged, _program_columns(
+                list(reads) + [ppred] +
+                [mf[1] for mf in mfilters if mf is not None]))
         hops = [Hop(s.table, b.join_type, pk, payload, mf, s.compose, s.fold)
                 for b, s, pk, payload, mf in zip(
                     self.builds, staged, probe_keys, self.payload_ranges(),
                     mfilters)]
-        chain = Chain(self.n_spine, ppred, hops)
-        read = _program_columns(list(reads) + chain.programs())
-        for h, hop in enumerate(hops):
-            if hop.fold is not None and \
-                    not read & set(hop.payload) <= set(hop.fold.columns):
-                raise ValueError(f"hop {h}'s records lack a column the "
-                                 f"walk reads")
-        return chain
+        return Chain(self.n_spine, ppred, hops)
 
     def _pair_column(self, staged: List[_BuildInput], idx: int) -> Column:
         """The build column behind pair-space payload column `idx`."""
@@ -374,14 +373,15 @@ class TorchChainExec(TorchDeviceExec):
                                    bb, col_map, keep))
         return out
 
-    def stage_builds(self, ctx: TaskContext, compose: bool = True,
-                     reads: Optional[set] = None) -> List[_BuildInput]:
+    def stage_builds(self, ctx: TaskContext,
+                     compose: bool = True) -> List[_BuildInput]:
         """Every build side staged on the card as a table (`chain_build`),
         then, unless `compose` is false, the hops composed and folded
-        (`compose_builds`; a fold holds the payload columns in `reads`,
-        every one when it is None). An INNER build with a duplicate key, a
-        build of 2^31 rows or more, or packed keys wider than 62 bits raise
-        DeviceLoweringUnsupported (`:700`)."""
+        (`compose_builds`, a fold holding every payload column; a run
+        composes and folds in `chain`, which knows what the walk reads). An
+        INNER build with a duplicate key, a build of 2^31 rows or more, or
+        packed keys wider than 62 bits raise DeviceLoweringUnsupported
+        (`:700`)."""
         out = self.build_inputs(ctx)
         for bi in out:
             if bi.batch.num_rows >= 1 << 31:
@@ -396,7 +396,7 @@ class TorchChainExec(TorchDeviceExec):
                 raise DeviceLoweringUnsupported(
                     "chain build keys not unique (fanout > 1)")
         if compose:
-            self.compose_builds(out, reads)
+            self.compose_builds(out)
         return out
 
     def compose_plan(self, staged: List[_BuildInput]):
@@ -452,7 +452,8 @@ class TorchChainExec(TorchDeviceExec):
             composed[bi] = (owner, tag)
             lanes[owner] += new
         mmx = [bi for bi, (_o, tag) in composed.items() if tag == "mmx"]
-        stats = self._plan_stats(staged, mmx, has_matrix - set(composed))
+        with record_function("dft.stage.stats"):
+            stats = self._plan_stats(staged, mmx, has_matrix - set(composed))
         for bi in mmx:
             lanes[composed[bi][0]] += \
                 1 + 2 * self._mmx_lanes(staged[bi], stats.get(bi))
@@ -589,10 +590,18 @@ class TorchChainExec(TorchDeviceExec):
         min/max hop, in chain order; a fold holds the payload columns in
         `reads` and those the probe keys of the hops the walk probes read
         (every payload column with a device lane when `reads` is None)."""
-        from ..physical_optimizer import _collect_cols
-        composed, folded = self.compose_plan(staged)
+        with record_function("dft.stage.plan"):
+            composed, folded = self.compose_plan(staged)
         if not composed and not folded:
             return None
+        with record_function("dft.stage.spec"):
+            return self._stage_spec(staged, composed, folded, reads)
+
+    def _stage_spec(self, staged: List[_BuildInput], composed, folded,
+                    reads: Optional[set]):
+        """`stage_spec` past the choice: the hops lowered, the folds' and
+        the probe keys' columns on the card."""
+        from ..physical_optimizer import _collect_cols
         ranges = self.payload_ranges()
         at, width = {}, {}
         for bi, (owner, tag) in composed.items():
@@ -645,13 +654,20 @@ class TorchChainExec(TorchDeviceExec):
                        reads: Optional[set] = None) -> None:
         """Compose and fold the hops `compose_plan` picks (`stage_spec`), in
         one `chain_stage` call: one compose launch and one fold launch a
-        chain on the card, into outputs that need no zeroing."""
-        made = self.stage_spec(staged, reads)
-        if made is None:
-            return
-        spec, cols, aux = made
-        words, outs = new_stage_outputs(spec, self.device)
-        chain_stage(spec, cols, aux, words, outs)
+        chain on the card, into outputs that need no zeroing. Spans:
+        `dft.stage` the whole, `dft.stage.plan` the choice (with
+        `dft.stage.stats`, its fold of build columns and one read-back),
+        `dft.stage.spec` the descriptor's hops and columns, and
+        `dft.stage.launch` the outputs' allocation, the descriptor's upload
+        and the launches."""
+        with record_function("dft.stage"):
+            made = self.stage_spec(staged, reads)
+            if made is None:
+                return
+            spec, cols, aux = made
+            with record_function("dft.stage.launch"):
+                words, outs = new_stage_outputs(spec, self.device)
+                chain_stage(spec, cols, aux, words, outs)
         for bi, (owner, word, tag) in spec.composed.items():
             staged[bi].compose = Compose(owner, tag, words[owner], word)
         for (bi, _t, fold), (rec, valid) in zip(spec.folds, outs):
@@ -735,9 +751,11 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
         return (pools, ppred, pred, keys, slot_defs, slot_map, probe_keys,
                 self.lower_mfilters(pools))
 
-    def compile(self, lowered, staged: List[_BuildInput], views):
+    def compile(self, lowered, staged: List[_BuildInput], views,
+                compose: bool = True):
         """(spec, pack plan, lane names, slot map) of the chain over the
-        staged builds and the spine batches' pair views. With one spine
+        staged builds (composed and folded here unless `compose` is false,
+        `chain`) and the spine batches' pair views. With one spine
         batch the group keys are reduced by functional dependence
         (`_fd_reduce`, wired as `:395-420`): the plan's `kept` and
         `dropped` key positions, and a `__rep#x` lane of the
@@ -759,7 +777,7 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
             key_progs, lanes, dense = _fold_inputs(keys, plan, slot_defs)
             chain = self.chain(ppred, staged, probe_keys, mfilters, pools,
                                [pred] + [k for k, _o, _b in key_progs] +
-                               [p for p, _k in lanes])
+                               [p for p, _k in lanes], compose)
             rows = sum(v.num_rows for v in views)
             if dense:
                 spec = ChainDenseSpec(pools, pred, key_progs, lanes, chain)
@@ -784,11 +802,11 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
                 raise DeviceLoweringUnsupported(str(e))
         spine = [b for b in execute_stream(self.source, ctx) if b.num_rows]
         with record_function("dft.build"):
-            staged = self.stage_builds(ctx, compose,
-                                       self._walk_reads(lowered, len(spine)))
+            staged = self.stage_builds(ctx, compose=False)
         views = [self.pair_view(b, staged) for b in spine]
         with record_function("dft.compile"):
-            spec, plan, names, slot_map = self.compile(lowered, staged, views)
+            spec, plan, names, slot_map = self.compile(lowered, staged, views,
+                                                       compose)
         if plan.dropped:
             plan.finalize = self._fd_finalize(plan.kept, plan.dropped,
                                               spine[0], staged)
@@ -796,20 +814,6 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
         inputs = [self.stage(spec, b, view, staged, keep_spine) + (b.num_rows,)
                   for b, view in zip(spine, views)]
         return spec, plan, names, slot_map, inputs, staged
-
-    def _walk_reads(self, lowered, n_batches: int) -> set:
-        """The pair-space columns the walk's programs other than its probe
-        keys read (what `compile` will give `chain`): the probe predicate,
-        the residual, the group keys left after the functional-dependence
-        reduction (which one spine batch allows), the lanes' arguments and
-        the min/max tests."""
-        (_pools, ppred, pred, keys, slot_defs, _slot_map, _probe_keys,
-         mfilters) = lowered
-        kept = self._fd_reduce()[0] if n_batches == 1 else range(len(keys))
-        return _program_columns(
-            [ppred, pred] + [keys[p] for p in kept] +
-            [p for _cat, p in slot_defs.values()] +
-            [mf[1] for mf in mfilters if mf is not None])
 
     def _execute_port(self, partition: int, ctx: TaskContext):
         m = BaselineMetrics(self.metrics, partition)
@@ -1040,15 +1044,14 @@ class TorchJoinChainRowsExec(TorchChainExec):
                  mfilters) = self.lower_rows()
             except LoweringError as e:
                 raise DeviceLoweringUnsupported(str(e))
-        reads = _program_columns([ppred, pred] + outs +
-                                 [mf[1] for mf in mfilters if mf is not None])
         with record_function("dft.build"):
-            staged = self.stage_builds(ctx, compose, reads)
+            staged = self.stage_builds(ctx, compose=False)
         spine = [b for b in execute_stream(self.source, ctx) if b.num_rows]
         try:
             spec = ChainRowsSpec(pools, pred, outs,
                                  self.chain(ppred, staged, probe_keys,
-                                            mfilters, pools, [pred] + outs))
+                                            mfilters, pools, [pred] + outs,
+                                            compose))
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
         keep_spine = self._source_is_scan()

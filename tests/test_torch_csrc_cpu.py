@@ -23,8 +23,9 @@ every build table (the insert pass; the range pass needs a warp) and
 every chain walk of TPC-H at SF 0.01 and of the min/max membership cases
 (with their staging-time compositions and folds, as the exec stages them;
 a chain's compositions and folds from its one descriptor, and the
-row-returning walk and its emit over TPC-H's row chains in tiles of 2 to
-256 rows, a survivor scratch that overflows, and min/max hops),
+row-returning walk and its emit over TPC-H's row chains in tiles of 1 to
+256 rows, writing nothing past its state words or its survivor scratch of
+an entry a spine row, and min/max hops),
 the count(DISTINCT x) lane's set inserts (dense, hash and chain folds,
 lanes past 32 in passes), the fanout-N join's build (the multiset of
 entry records a bucket) and probe-and-fold, and the mesh's row partition (K1:
@@ -207,18 +208,18 @@ void h_admit_rows(const long long* meta, const long long* aux, long long n,
 }
 void h_rows_walk(const long long* meta, int len, const long long* aux,
                  long long n, int cap, unsigned long long* state, int* rows,
-                 int* handles, long long scap, int variant) {
+                 int* handles, int variant) {
   DFT_WALK_VARIANT(cr::rows_walk_kernel, variant)(
-      meta, len, aux, n, cap, state, rows, handles, scap);
+      meta, len, aux, n, cap, state, rows, handles);
 }
 void h_rows_emit(const long long* meta, int len, const long long* aux,
                  long long total, const int* rows, const int* handles,
-                 long long scap, const long long* outs, int n_out,
+                 long long stride, const long long* outs, int n_out,
                  int variant) {
   cr::Outputs o;
   memcpy(o.ptr, outs, sizeof(long long) * 2 * n_out);
   DFT_WALK_VARIANT(cr::rows_emit_kernel, variant)(meta, len, aux, total,
-                                                  rows, handles, scap, o);
+                                                  rows, handles, stride, o);
 }
 void h_compose(const long long* meta, int len, const long long* aux,
                long long n, int full) {
@@ -300,7 +301,7 @@ def lib(tmp_path_factory):
     out.h_chain_hash.argtypes = [P, I, P, LL, LL, I, P, P, I, I]
     out.h_chain_dense.argtypes = [P, I, P, LL, P, I, I]
     out.h_admit_rows.argtypes = [P, P, LL, P]
-    out.h_rows_walk.argtypes = [P, I, P, LL, I, P, P, P, LL, I]
+    out.h_rows_walk.argtypes = [P, I, P, LL, I, P, P, P, I]
     out.h_rows_emit.argtypes = [P, I, P, LL, P, P, LL, P, I, I]
     out.h_compose.argtypes = [P, I, P, LL, I]
     out.h_fold.argtypes = [P, LL]
@@ -698,34 +699,31 @@ def test_edge_case_compose_and_fold_kernels_match_plain(lib):
     assert checked[0] >= 6 and checked[1] >= 1
 
 
-def _rows_kernels(lib, spec, cols, aux, n, cap, scap=None):
+GUARD = 7   # words past each of the walk's arrays that it must not touch
+
+
+def _rows_kernels(lib, spec, cols, aux, n, cap):
     """`chain_rows` through the one-thread build, as its wrapper runs it:
-    the walk in tiles of `cap` spine rows into a survivor scratch of `scap`
-    entries (the wrapper's guess by default), once more into a scratch of
-    the total when more survive, then the emit. Every tile's ticket is
-    taken once and its status word ends inclusive. Returns (the outputs,
-    the walks launched)."""
-    from datafusion_tpu_torch.device.join_chain import rows_scratch
+    the walk in tiles of `cap` spine rows (a one-warp block's tile) into a
+    survivor scratch of an entry a spine row, then the emit. Every tile's
+    ticket is taken once, its status word ends inclusive, and nothing is
+    written past the state words or the scratch. Returns (the outputs,
+    the survivor count)."""
     meta = spec.device_meta(cols, CPU)
     n_hops = len(spec.chain.hops)
     tiles = -(-n // cap)
-    scap = rows_scratch(n) if scap is None else scap
-    walks = 0
-    while True:
-        state = torch.zeros(2 + tiles, dtype=torch.int64)
-        rows = torch.full((scap,), -9, dtype=torch.int32)
-        handles = torch.full((n_hops * scap,), -9, dtype=torch.int32)
-        lib.h_rows_walk(_ptr(meta), len(spec.meta), _ptr(aux), n, cap,
-                        _ptr(state), _ptr(rows), _ptr(handles), scap,
-                        spec.variant)
-        walks += 1
-        assert int(state[0]) == tiles + 1
-        assert all((int(w) & (1 << 64) - 1) >> 62 == 2 for w in state[2:])
-        total = int(state[1])
-        if total <= scap:
-            break
-        assert walks == 1
-        scap = total
+    state = torch.zeros(2 + tiles + GUARD, dtype=torch.int64)
+    rows = torch.full((n + GUARD,), -9, dtype=torch.int32)
+    handles = torch.full((n_hops * n + GUARD,), -9, dtype=torch.int32)
+    lib.h_rows_walk(_ptr(meta), len(spec.meta), _ptr(aux), n, cap,
+                    _ptr(state), _ptr(rows), _ptr(handles), spec.variant)
+    assert int(state[0]) == tiles + 1
+    assert all((int(w) & (1 << 64) - 1) >> 62 == 2
+               for w in state[2:2 + tiles])
+    assert not state[2 + tiles:].any()
+    assert (rows[n:] == -9).all() and (handles[n_hops * n:] == -9).all()
+    total = int(state[1])
+    assert 0 <= total <= n
     outs = [(torch.zeros(total, dtype=d), torch.zeros(total, dtype=torch.bool))
             for d in spec.output_dtypes()]
     ptrs = torch.tensor([p for d, v in outs for p in (d.data_ptr(),
@@ -733,9 +731,9 @@ def _rows_kernels(lib, spec, cols, aux, n, cap, scap=None):
                         dtype=torch.int64)
     if total:
         lib.h_rows_emit(_ptr(meta), len(spec.meta), _ptr(aux), total,
-                        _ptr(rows), _ptr(handles), scap, _ptr(ptrs),
+                        _ptr(rows), _ptr(handles), n, _ptr(ptrs),
                         len(outs), spec.variant)
-    return outs, walks
+    return outs, total
 
 
 def _rows_ctx():
@@ -752,27 +750,28 @@ def tpch_rows():
     return _rows_ctx()
 
 
-def _check_rows(lib, ctx, sql, cap, compose=True, scap=None):
+def _check_rows(lib, ctx, sql, cap, compose=True):
     """The row-returning walk of every rows chain of `sql` through the
     kernels (`_rows_kernels`) against `chain_rows_plain`: the same rows in
     spine order, every output and its validity. Returns (chains, the rows
-    each call kept, walks launched)."""
+    each call kept, the spine rows of each call)."""
     from datafusion_tpu_torch.device.join_chain import chain_rows_plain
     from datafusion_tpu_torch.physical.plan.device_join_chain import (
         TorchJoinChainRowsExec)
     execs = [e for e in _chain_execs(ctx, sql)
              if isinstance(e, TorchJoinChainRowsExec)]
-    kept, walks = [], 0
+    kept, spine = [], []
     for ex in execs:
         spec, inputs, _staged = ex.prepare_rows(ctx.task_context(), compose)
         for cols, aux, n, _view in inputs:
-            got, w = _rows_kernels(lib, spec, cols, aux, n, cap, scap)
+            got, total = _rows_kernels(lib, spec, cols, aux, n, cap)
             want = chain_rows_plain(spec, cols, aux, n)
             for (gd, gv), (wd, wv) in zip(got, want):
                 assert torch.equal(gv, wv) and torch.equal(gd, wd)
-            kept.append(want[0][0].numel())
-            walks += w
-    return len(execs), kept, walks
+            assert total == want[0][0].numel()
+            kept.append(total)
+            spine.append(n)
+    return len(execs), kept, spine
 
 
 def test_q2_rows_walk_with_composed_and_folded_hops_matches_plain(lib):
@@ -791,8 +790,8 @@ def test_q2_rows_walk_with_composed_and_folded_hops_matches_plain(lib):
     assert any(h.compose is not None for h in spec.chain.hops)
     assert any(h.fold is not None for h in spec.chain.hops)
     assert spec.variant & 2
-    chains, kept, walks = _check_rows(lib, ctx, QUERIES[2], ROWS_TILE)
-    assert chains == 1 and kept[0] > 0 and walks == 1
+    chains, kept, _spine = _check_rows(lib, ctx, QUERIES[2], ROWS_TILE)
+    assert chains == 1 and kept[0] > 0
 
 
 # TPC-H's row-returning chains at SF 0.01 with the threshold at 1 (Q13's
@@ -808,21 +807,23 @@ def test_tpch_rows_walk_tiles_match_plain(lib, tpch_rows, q, compose, cap):
     each placed by the look-back), staged and unstaged: the rows equal the
     plain version's in spine order."""
     from datafusion_tpu_torch.tpch.queries import QUERIES
-    chains, kept, _walks = _check_rows(lib, tpch_rows, QUERIES[q], cap,
+    chains, kept, _spine = _check_rows(lib, tpch_rows, QUERIES[q], cap,
                                        compose)
     assert chains >= 1 and sum(kept) > 0
 
 
+@pytest.mark.parametrize("compose", [True, False], ids=["staged", "unstaged"])
 @pytest.mark.parametrize("q", ROWS_TPCH)
-def test_rows_walk_scratch_overflow_walks_again(lib, tpch_rows, q):
-    """A survivor scratch of one entry: the walk counts every survivor,
-    writes what fits, and the wrapper's second walk into a scratch of the
-    total gives the plain version's rows."""
+def test_rows_walk_writes_within_its_state_and_scratch(lib, tpch_rows, q,
+                                                       compose):
+    """In tiles of one row, as many status words as spine rows: the walk
+    writes a status word a tile and the survivors' rows and handles into
+    a scratch of an entry a spine row, and nothing past either
+    (`_rows_kernels`' guard words)."""
     from datafusion_tpu_torch.tpch.queries import QUERIES
-    chains, kept, walks = _check_rows(lib, tpch_rows, QUERIES[q], 64,
-                                      scap=1)
-    assert max(kept) > 1
-    assert walks == sum(1 + (k > 1) for k in kept)
+    chains, kept, spine = _check_rows(lib, tpch_rows, QUERIES[q], 1,
+                                      compose)
+    assert chains >= 1 and all(0 < k < n for k, n in zip(kept, spine))
 
 
 @pytest.mark.parametrize("op", ["<>", "<", ">="])

@@ -1212,17 +1212,16 @@ def test_chain_rows_matches_plain(cuda, n):
     dictionary output: the kernel's columns equal its plain version's, at
     a spine that is not a multiple of the block."""
     import datafusion_tpu_torch as dft
-    from datafusion_tpu_torch.device.join_chain import (
-        chain_rows, chain_rows_plain, rows_scratch)
+    from datafusion_tpu_torch.device.join_chain import (chain_rows,
+                                                        chain_rows_plain)
     ctx = _star_ctx(cuda, n)
     (ex,) = _rows_exec(ctx, ROWS_SQL)
     spec, inputs, _staged = ex.prepare_rows(ctx.task_context())
     ((cols, aux, rows, _view),) = inputs
     before = dft.launch_counts()["chain_rows"]
     got = chain_rows(spec, cols, aux, rows)
-    # the tile walk, then the emit; the walk again past the scratch
-    assert dft.launch_counts()["chain_rows"] == before + 2 + \
-        (got[0][0].numel() > rows_scratch(rows))
+    # the tile walk, then the emit
+    assert dft.launch_counts()["chain_rows"] == before + 2
     want = chain_rows_plain(spec, cols, aux, rows)
     torch.cuda.synchronize()
     assert got[0][0].numel() > 0
@@ -1231,19 +1230,16 @@ def test_chain_rows_matches_plain(cuda, n):
         assert torch.equal(gd, wd) and torch.equal(gv, wv)
 
 
-@pytest.mark.parametrize("scratch", [1, 100, 1 << 14])
-@pytest.mark.parametrize("n", [31, 311, 4097, 300_001])
-def test_chain_rows_scratch_and_tiles(cuda, monkeypatch, n, scratch):
-    """Spines of one tile, of two (311 rows: tiles of 256), of 17 (more
-    than a block's warps take at once) and of many blocks' tiles; a
-    survivor scratch of 1, 100 or 2^14 entries (at least): where more
-    rows survive than it holds, the walk runs again into a scratch of the
-    total (three launches), else two; the rows equal the plain version's
-    in spine order."""
+@pytest.mark.parametrize("n", [31, 311, 2049, 4097, 300_001, 3_000_001])
+def test_chain_rows_scratch_and_tiles(cuda, n):
+    """Spines within one warp's rows, within one block's tile (311 rows: two
+    warps' of 256), of two and three tiles (a block's tile is 8 x 256
+    rows), of 147 tiles and of 1,465 (more than the card's blocks take at
+    once, so blocks take several tiles by ticket): two launches, into a
+    survivor scratch of an entry a spine row; the rows equal the plain
+    version's in spine order."""
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch.device import join_chain
-    monkeypatch.setattr(join_chain, "ROWS_SCRATCH_MIN", scratch)
-    monkeypatch.setattr(join_chain, "ROWS_SCRATCH_SHARE", 1 << 40)
     ctx = _star_ctx(cuda, n)
     (ex,) = _rows_exec(ctx, ROWS_SQL)
     spec, inputs, _staged = ex.prepare_rows(ctx.task_context())
@@ -1255,7 +1251,7 @@ def test_chain_rows_scratch_and_tiles(cuda, monkeypatch, n, scratch):
     torch.cuda.synchronize()
     kept = want[0][0].numel()
     assert kept > 0
-    assert launched == 2 + (kept > join_chain.rows_scratch(rows))
+    assert launched == 2
     for (gd, gv), (wd, wv) in zip(got, want):
         assert torch.equal(gd, wd) and torch.equal(gv, wv)
 
@@ -1265,8 +1261,8 @@ def test_chain_rows_all_and_none_survive(cuda):
     (a predicate nothing passes): one walk and the emit, or the walk
     alone, equal to the plain version."""
     import datafusion_tpu_torch as dft
-    from datafusion_tpu_torch.device.join_chain import (
-        chain_rows, chain_rows_plain, rows_scratch)
+    from datafusion_tpu_torch.device.join_chain import (chain_rows,
+                                                        chain_rows_plain)
     rng = np.random.default_rng(3)
     n = 70_001
     ctx = dft.SessionContext(cuda)
@@ -1283,7 +1279,7 @@ def test_chain_rows_all_and_none_survive(cuda):
         before = dft.launch_counts()["chain_rows"]
         got = chain_rows(spec, cols, aux, rows)
         assert dft.launch_counts()["chain_rows"] - before == \
-            1 + (survive > 0) + (survive > rows_scratch(rows))
+            1 + (survive > 0)
         want = chain_rows_plain(spec, cols, aux, rows)
         assert want[0][0].numel() == survive
         for (gd, gv), (wd, wv) in zip(got, want):
