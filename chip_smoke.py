@@ -24,8 +24,9 @@ query is held against a numpy oracle on the same data.
    - hash path: `hash_group_aggregate` against its plain version on Q18's
      and Q15's subqueries (equal group tables), `compact_groups` with and
      without Q18's HAVING against its plain version (equal; boolean-mask
-     indexing as the yardstick), then both subqueries end to end against
-     numpy;
+     indexing as the yardstick; the HAVING's conjunct forms, which must
+     all be direct, and the mark pass's device ms with and without it on
+     the same table), then both subqueries end to end against numpy;
    - join chains: `chain_build` against its plain version on every build
      side of Q5 (equal tables; two launches a build side, the range pass
      and the insert, as Q3's, Q4's, Q5's and Q21's runs are held to) and
@@ -80,8 +81,10 @@ query is held against a numpy oracle on the same data.
      version and a stable `torch.argsort` of the owners on MJ1's probe
      rows of shard 0 (two launches a call: the count and one sweep; MQ15
      and MJ1 held to a call a shard an exchange), and `merge_partials`
-     (K2) against its plain version on shard 0's share of MQ15's partial
-     tables; then MQ1 once more
+     (K2) against its plain version on every call of one run of MQ1,
+     MQ15, MJ1 and MB (recorded from the main path: one launch for the 4
+     local shards a merge step, as each query's runs are held to); then
+     MQ1 once more
      through a one-rank NCCL `ProcessGroupMesh`, against the 4-shard rows;
    - window functions over the SF10 lineitem (with `l_returnflag`):
      W1 (top 3 by price per supplier beside each order's quantity, a
@@ -147,6 +150,22 @@ library (`torch.sort` of the first value word, `index_select` a lane,
 `torch.topk`, boolean-mask indexing) and bound ms, launches a call, each
 kernel's registers and stack bytes and its device ms in one profiled
 call.
+
+    python3 chip_smoke.py --marks TREE [TREE ...]
+
+compares kernel rows 11 and 21 across checkouts, as `--walks` does the
+walks: one process a tree, each building its own kernels and making the
+SF10 `tpch_tables` and `make_lineitem` rows with the same seeds, prints
+one JSON line (`mark_tree`) with, on Q18's subquery, `compact_groups`
+with its HAVING and without (mean device ms by CUDA events, the mark and
+copy passes' profiled device ms, launches, the HAVING's conjunct forms
+where the tree has them) and the query end to end; with K2 on every call
+one run of MQ1, MQ15, MJ1 and MB makes on 4 shards of the card, recorded
+from the tree's own entry points and replayed on fresh tables (ms a
+call and a query by CUDA events, and profiled device ms; launches a run;
+the host ms of one merge step's tables), each query end to end (warm
+median of REPS); and the registers
+and stack bytes of the compaction's and K2's kernels.
 
     python3 chip_smoke.py --folds TREE [TREE ...]
 
@@ -1001,7 +1020,11 @@ def hash_kernel_vs_plain(ctx, sql, label, card, having=False, library=False):
     kc, _launches = compaction_vs_plain(table, None, label, card)
     k3 = None
     if having:
+        from datafusion_tpu_torch.device.groupby import HAVING_DIRECT
         hv = ex.having(spec, plan, names, slot_map)
+        if hv.mode != HAVING_DIRECT:
+            raise AssertionError(f"{label}: its HAVING runs the interpreter: "
+                                 f"{hv.forms}")
         k3, _launches = compaction_vs_plain(table, hv, label, card,
                                             groups * len(hv.prog.code))
     return entry(err2, ms2, plain2, b2, lib2), k3, kc, table, spec, names
@@ -1038,15 +1061,76 @@ def compaction_vs_plain(table, having, label, card, ops=None,
     library = None
     if having is None:
         library = cuda_ms(lambda: table[:, table[0] != -1], 10)
-    bnd = bound(cap * 8 + groups * (rows - 1) * 8 + kept * rows * 8,
-                cap if ops is None else ops)
+    # the key row; what a HAVING must read; the rest of the kept groups'
+    # rows; the output
+    hbytes, read = (0, 0) if having is None else having_reads(table, having)
+    bnd = bound(cap * 8 + hbytes + kept * (rows - 1 - read) * 8 +
+                kept * rows * 8, cap if ops is None else ops)
     what = "no HAVING" if having is None else "with HAVING"
+    if having is not None:
+        split = kernel_ms(lambda: compact_groups(table, having), 10)
+        floor = kernel_ms(lambda: compact_groups(table), 10)
+        mark, mark0 = (sum(v for k, v in d.items() if "compact_mark" in k)
+                       for d in (split, floor))
+        mode = {1: "direct, inline", 2: "a slot at a time"}[having.mode]
+        print(f"compact_groups {label}: HAVING conjuncts {having.forms} "
+              f"({mode}): the mark pass {mark:.6f} ms with the HAVING, "
+              f"{mark0:.6f} ms without it on the same table (device ms, "
+              f"profiled, mean of 10) [{card}]", flush=True)
     print(f"compact_groups {label}, {what}: {kept} kept of {groups} groups "
           f"in {cap} slots, {launches} launches a call: kernel {ms:.6f} ms, "
           f"plain {plain:.6f} ms, boolean-mask indexing "
           f"{'-' if library is None else f'{library:.6f}'} ms, bound "
           f"{bnd['bound_ms']:.6f} ms, max_abs_err 0.0 [{card}]", flush=True)
     return entry(0.0, ms, plain, bnd, library), launches
+
+
+def having_reads(table, having):
+    """(bytes, rows): what `having` must read of `table` beside the key
+    row, and how many of the table's rows that touches. Its conjuncts run
+    in the descriptor's order, each on the groups that passed those before
+    it. A count, a sum, or a min or max without a NaN count, tested against
+    a constant or an IN list, reads its value row there and its count row
+    only at the groups that pass it; any other conjunct reads every row of
+    its columns there. A row is counted where it is first read: the groups
+    a later conjunct reads are among those."""
+    import copy
+    from datafusion_tpu_torch.device.groupby import (
+        FIN_COUNT, FIN_KEY, FIN_MAX, FIN_MIN, FIN_SUM)
+    from datafusion_tpu_torch.device.lower import (
+        CJ_CMP_F, CJ_CMP_I, CJ_CMPC_F, CJ_CMPC_I, CJ_IN_F, CJ_IN_I, OP_COL)
+    alive = table[0] != -1
+    nbytes, rows = 0, set()
+    for form, c in having.conjuncts:
+        one = copy.copy(having)
+        one.conjuncts = [(form, c)]
+        ok = alive & one.mask(table)
+        n_alive, n_ok = int(alive.sum()), int(ok.sum())
+        if form is None:
+            idxs = {a for op, a, _b in c.code if op == OP_COL}
+        else:
+            idxs = {form[1]} | ({form[3]} if form[0] in (CJ_CMPC_I,
+                                                         CJ_CMPC_F) else set())
+        lean = form is not None and form[0] in (CJ_CMP_I, CJ_CMP_F, CJ_IN_I,
+                                                CJ_IN_F)
+        for i in idxs:
+            f = having.fins[i]
+            w = f.words
+            if f.kind == FIN_KEY:
+                continue
+            if f.kind == FIN_COUNT:
+                at = {w[0]: n_alive}
+            elif lean and (f.kind == FIN_SUM or
+                           f.kind in (FIN_MIN, FIN_MAX) and w[3] < 0):
+                at = {w[0]: n_alive, w[1]: n_ok}
+            else:
+                at = {r: n_alive for r in (w[0], w[1], *w[3:4]) if r > 0}
+            for r, n in at.items():
+                if r not in rows:
+                    rows.add(r)
+                    nbytes += 8 * n
+        alive = ok
+    return nbytes, len(rows)
 
 
 def gather_vs_plain(perm, lanes, card, label):
@@ -1674,9 +1758,15 @@ def emit_vs_plain(ctx, sql, card, label):
     nbytes = ng * (8 * len(rows) + sum(
         d.element_size() + (v is not None) for d, v in got))
     bnd = bound(nbytes, ng * len(fields))
+    device = sum(v for k, v in kernel_ms(
+        lambda: group_emit_columns(groups, fields), 10).items()
+        if "emit" in k)
     print(f"group_emit {label}: {ng} groups, {len(fields)} columns: kernel "
-          f"{ms:.6f} ms, plain {plain:.6f} ms, bound {bnd['bound_ms']:.6f} "
-          f"ms ({bnd['bytes']} bytes), max_abs_err 0 [{card}]", flush=True)
+          f"{ms:.6f} ms (events, the call), {device:.6f} ms (device, "
+          f"profiled, mean of 10: {bnd['bound_ms'] / max(device, 1e-9):.3f} "
+          f"of the bound's rate), plain {plain:.6f} ms, bound "
+          f"{bnd['bound_ms']:.6f} ms ({bnd['bytes']} bytes), max_abs_err 0 "
+          f"[{card}]", flush=True)
     return entry(0.0, ms, plain, bnd), ng
 
 
@@ -2968,46 +3058,140 @@ def partition_vs_plain(ex, ctx, card):
     return entry(0, ms, plain_ms, bnd, lib_ms)
 
 
-def merge_vs_plain(ex, ctx, card):
-    """K2 (`merge_partials`) against its plain version on what shard 0
-    owns of MQ15's four partial tables (the entries the shuffle brings
-    it): equal groups, counts and sums; timed."""
+def record_merges(mods):
+    """Replace `merge_partials` in each module of `mods` by a recorder that
+    keeps each call (the function, its arguments and a copy of the tensors
+    of its tables as they were before it), then makes the call; returns
+    (the list of recorded calls, a function that puts the originals
+    back). It takes any tree's signature: the tables come second."""
+    import torch
+    calls, origs = [], [(m, m.merge_partials) for m in mods]
+
+    def recorder(orig):
+        def call(*args, **kwargs):
+            snap = {k: v.clone() for k, v in vars(args[1]).items()
+                    if isinstance(v, torch.Tensor)}
+            calls.append((orig, args, kwargs, snap))
+            return orig(*args, **kwargs)
+        return call
+    for m, orig in origs:
+        m.merge_partials = recorder(orig)
+    return calls, lambda: [setattr(m, "merge_partials", o) for m, o in origs]
+
+
+def merge_calls(ctx, sql, label):
+    """The K2 calls of one warm run of the mesh query `sql` (its main
+    path, recorded) and the launches that run made."""
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.parallel import distributed as D
+    from datafusion_tpu_torch.parallel import exchange as X
+    ctx.sql(sql).collect_batch()
+    calls, restore = record_merges((D, X))
+    try:
+        before = kernels.launch_counts()["merge_partials"]
+        ctx.sql(sql).collect_batch()
+        launches = kernels.launch_counts()["merge_partials"] - before
+    finally:
+        restore()
+    if not calls:
+        raise AssertionError(f"{label} made no K2 call")
+    return calls, launches
+
+
+_L2_FLUSH = []
+
+
+def flush_l2():
+    """Evict the card's L2 (50 MB on the H100): 128 MiB written."""
+    import torch
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(1 << 24, dtype=torch.int64,
+                                     device=DEVICE))
+    _L2_FLUSH[0].zero_()
+
+
+def replay(call, fn=None):
+    """(a function that makes the recorded call, or the same call of `fn`,
+    on the current copy of its tables; a setup that makes a fresh copy as
+    they were before the call, then flushes the L2, so a call finds its
+    tables in HBM whatever their size; the list holding that copy)."""
+    import copy
+    orig, args, kwargs, snap = call
+    held = []
+
+    def setup():
+        obj = copy.copy(args[1])
+        for k, v in snap.items():
+            setattr(obj, k, v.clone())
+        held[:] = [obj]
+        flush_l2()
+
+    def run():
+        return (fn or orig)(args[0], held[0], *args[2:], **kwargs)
+    setup()
+    return run, setup, held
+
+
+def merge_vs_plain(calls, label, card):
+    """K2 against its plain version on each recorded call of a query's
+    main path (`merge_calls`): equal distinct-key counts, overflow flags
+    and groups (compacted, by key) in every local table; each call timed
+    (CUDA events, fresh tables each time, the L2 flushed) beside its plain
+    version. Bound:
+    each entry read once, each group's cells written once. Returns the
+    query's entry, its calls' ms summed."""
     import numpy as np
     import torch
-    from datafusion_tpu_torch.device.exchange import (
-        MergeTable, merge_partials, merge_partials_plain, shard_owner)
+    from datafusion_tpu_torch.device.exchange import merge_partials_plain
     from datafusion_tpu_torch.device.groupby import compact_groups
-    from datafusion_tpu_torch.parallel import LocalMesh
-    from datafusion_tpu_torch.parallel.distributed import lane_kinds
-    batches = ex.input_batches(ctx.task_context())
-    n = sum(b.num_rows for b in batches)
-    spec, _plan, _names, _sm = ex.compile_mesh(batches, -(-n // MESH_SHARDS),
-                                               True)
-    staged = [(b.num_rows, *ex.stage(spec, b, True)) for b in batches]
-    parts = ex.shard_partials(spec, staged, LocalMesh(MESH_SHARDS, ctx.device))
-    every = torch.cat(parts, 1)
-    entries = every[:, shard_owner(every[0], MESH_SHARDS) == 0].contiguous()
-    kinds = lane_kinds(spec)
-    limit = entries.shape[1]
-    got = merge_partials(entries, MergeTable(kinds, limit, ctx.device))
-    want = merge_partials_plain(entries, MergeTable(kinds, limit, ctx.device))
-    a, b = (compact_groups(t.table).cpu().numpy() for t in (got, want))
-    a, b = a[:, np.argsort(a[0])], b[:, np.argsort(b[0])]
-    if not np.array_equal(a, b):
-        raise AssertionError("merge_partials differs from its plain version")
-    tables = []
-
-    def fresh():
-        tables[:] = [MergeTable(kinds, limit, ctx.device)]
-    ms = cuda_ms(lambda: merge_partials(entries, tables[0]), 20, fresh)
-    plain_ms = cuda_ms(lambda: merge_partials_plain(entries, tables[0]), 3,
-                       fresh)
-    bnd = bound(entries.numel() * 8 + a.size * 8, 0)
-    print(f"merge_partials MQ15 SF10, shard 0's share of the partial tables: "
-          f"{entries.shape[1]} entries of {entries.shape[0]} words into "
-          f"{a.shape[1]} groups: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-          f"bound {bnd['bound_ms']:.6f} ms, equal [{card}]", flush=True)
+    ms = plain_ms = 0.0
+    nbytes = entries = 0
+    parts = []
+    for call in calls:
+        run, setup, held = replay(call)
+        run()
+        got = held[0]
+        prun, psetup, pheld = replay(call, merge_partials_plain)
+        prun()
+        want = pheld[0]
+        torch.cuda.synchronize()
+        if not (torch.equal(got.groups, want.groups) and
+                torch.equal(got.overflow, want.overflow)):
+            raise AssertionError(f"{label}: merge_partials counts differ")
+        for a, b in zip(got.tables, want.tables):
+            a, b = (compact_groups(t).cpu().numpy() for t in (a, b))
+            a, b = a[:, np.argsort(a[0])], b[:, np.argsort(b[0])]
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{label}: merge_partials differs "
+                                     f"from its plain version")
+            nbytes += a.size * 8
+        t = cuda_ms(run, 20, setup)
+        ms += t
+        plain_ms += cuda_ms(prun, 3, psetup)
+        srcs = call[1][0]
+        nbytes += sum(e.numel() * 8 for e in srcs)
+        entries += sum(e.shape[1] for e in srcs)
+        parts.append(f"{len(srcs)} source(s) of {[e.shape[1] for e in srcs]}"
+                     f" entries into {got.n} tables: {t:.6f} ms")
+    bnd = bound(nbytes, 0)
+    print(f"merge_partials {label}: {len(calls)} calls ({'; '.join(parts)})"
+          f": kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+          f"{bnd['bound_ms']:.6f} ms, {entries} entries, equal [{card}]",
+          flush=True)
     return entry(0, ms, plain_ms, bnd)
+
+
+def merge_variant(label, ctx, sql, counts, card) -> dict:
+    """The kernels line's entry of K2 on the mesh query `label`: its
+    recorded calls held to the plain version and timed, the launches of
+    its main path's runs (`counts`)."""
+    from datafusion_tpu_torch.device.exchange import merge_partials_kernel
+    k = merge_partials_kernel
+    calls, _n = merge_calls(ctx, sql, f"{label} SF10")
+    return dict(name=f"merge_partials[{label}]", route="cuda",
+                source=k.source, replaces=k.replaces,
+                launches=counts["merge_partials"],
+                **merge_vs_plain(calls, f"{label} SF10", card))
 
 
 def mesh_phase(sf10, tables, card, add, report):
@@ -3019,7 +3203,8 @@ def mesh_phase(sf10, tables, card, add, report):
     fallbacks, its route, cold and warm times and a breakdown; K1 and K2
     against their plain versions (report["partition_rows"],
     report["merge_partials"]); then MQ1 once more through a one-rank NCCL
-    ProcessGroupMesh, against the 4-shard rows."""
+    ProcessGroupMesh, against the 4-shard rows. Returns the kernels
+    line's entries of K2 on MQ1, MJ1 and MB."""
     import copy
     import numpy as np
     import torch
@@ -3027,6 +3212,7 @@ def mesh_phase(sf10, tables, card, add, report):
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch import kernels
     from datafusion_tpu_torch.parallel import ProcessGroupMesh
+    from datafusion_tpu_torch.parallel import exchange as X
     from datafusion_tpu_torch.physical.plan.distributed_aggregate import (
         TorchDistributedAggregateExec as Agg,
         TorchDistributedJoinAggregateExec as Join)
@@ -3045,25 +3231,33 @@ def mesh_phase(sf10, tables, card, add, report):
                               agg + ["fused_dense_aggregate"], card,
                               sf10.num_rows)
     add(counts)
+    # K2: one launch for the 4 local shards of each merge step
+    launched_as_predicted("MQ1 SF10", counts, {"merge_partials": 1},
+                          MESH_RUNS)
     check_q1(out, sf10, "MQ1 SF10")
     mesh_breakdown(q1ctx, Q1, card, "MQ1 SF10", Agg, "aggregate_kernel")
+    variants = [merge_variant("MQ1", q1ctx, Q1, counts, card)]
 
+    X.ROUNDS.clear()
     out, counts, _ = mesh_run(ctx, Q15_SUB, "MQ15 SF10", Agg,
                               "distributed_shuffle_group_aggregate",
                               agg + ["hash_group_aggregate",
                                      "partition_rows"], card, li.num_rows)
     add(counts)
-    # K1: the count and one sweep a call, a call a shard
+    # K1: the count and one sweep a call, a call a shard; K2 a round
     launched_as_predicted("MQ15 SF10", counts,
-                          {"partition_rows": 2 * MESH_SHARDS}, MESH_RUNS)
+                          {"partition_rows": 2 * MESH_SHARDS,
+                           "merge_partials": X.ROUNDS["shuffle"]},
+                          MESH_RUNS)
     check_q15(out, tables, "MQ15 SF10")
     mesh_breakdown(ctx, Q15_SUB, card, "MQ15 SF10", Agg, "aggregate_kernel")
-    report["merge_partials"] = merge_vs_plain(
-        find_exec(ctx.sql(Q15_SUB).create_physical_plan(), Agg), ctx, card)
+    calls, _n = merge_calls(ctx, Q15_SUB, "MQ15 SF10")
+    report["merge_partials"] = merge_vs_plain(calls, "MQ15 SF10", card)
 
     ex = find_exec(ctx.sql(MJ1).create_physical_plan(), Join)
     if "ps_partkey" not in [f.name for f in ex.build_source.schema()]:
         raise AssertionError(f"MJ1 builds {ex.display_line()}")
+    X.ROUNDS.clear()
     out, counts, _ = mesh_run(ctx, MJ1, "MJ1 SF10", Join,
                               "distributed_partitioned_join_aggregate",
                               agg + ["partition_rows", "join_build",
@@ -3071,9 +3265,12 @@ def mesh_phase(sf10, tables, card, add, report):
                                      "hash_group_aggregate"], card,
                               li.num_rows)
     add(counts)
-    # K1 a shard for the build, the probe and the partial tables
+    # K1 a shard for the build, the probe and the partial tables; K2 a
+    # round of the partial tables' shuffle (or their one all_gather)
     launched_as_predicted("MJ1 SF10", counts,
-                          {"partition_rows": 2 * 3 * MESH_SHARDS}, MESH_RUNS)
+                          {"partition_rows": 2 * 3 * MESH_SHARDS,
+                           "merge_partials": X.ROUNDS.get("shuffle", 1)},
+                          MESH_RUNS)
     want = oracle_mj1(tables)
     got = [c.data_host() for c in out.columns]
     if not all(np.array_equal(a, b) for a, b in zip(got, want)):
@@ -3083,6 +3280,7 @@ def mesh_phase(sf10, tables, card, add, report):
     mesh_breakdown(ctx, MJ1, card, "MJ1 SF10", Join, "join_aggregate")
     report["partition_rows"] = partition_vs_plain(ex, ctx, card)
     del ex
+    variants.append(merge_variant("MJ1", ctx, MJ1, counts, card))
 
     mb = MB
     ex = find_exec(ctx.sql(mb).create_physical_plan(), Join)
@@ -3094,6 +3292,8 @@ def mesh_phase(sf10, tables, card, add, report):
                               agg + ["join_build", "join_aggregate"], card,
                               li.num_rows)
     add(counts)
+    launched_as_predicted("MB SF10", counts, {"merge_partials": 1},
+                          MESH_RUNS)
     want = oracle_mb(tables)
     got = [c.data_host() for c in out.columns]
     if not all(np.array_equal(a, b) for a, b in zip(got, want)):
@@ -3101,6 +3301,7 @@ def mesh_phase(sf10, tables, card, add, report):
     print(f"MB SF10 equals numpy exactly: {len(want[0])} nations, "
           f"{int(want[1].sum())} lines", flush=True)
     mesh_breakdown(ctx, mb, card, "MB SF10", Join, "join_aggregate")
+    variants.append(merge_variant("MB", ctx, mb, counts, card))
 
     # MQ1 through a one-rank NCCL process group: the collectives of a
     # ProcessGroupMesh launch on the card
@@ -3142,6 +3343,7 @@ def mesh_phase(sf10, tables, card, add, report):
         if os.path.exists(rendezvous):
             os.remove(rendezvous)
     del q1ctx, ctx
+    return variants
 
 
 def clickbench_q10_q30(ctx, hb, card, add):
@@ -3327,7 +3529,7 @@ def main() -> int:
     ctx = dft.SessionContext(dev)
     for tname, b in tables.items():
         ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
-    k2, _k3, kc, table, _s, _n = hash_kernel_vs_plain(
+    k2, k3, kc, table, _s, _n = hash_kernel_vs_plain(
         ctx, Q18_SUB, "Q18 sub SF10", card, having=True)
     del table
     report["hash_group_aggregate"] = k2
@@ -3343,6 +3545,11 @@ def main() -> int:
     add(counts)
     # the mark pass and the copy of the 676 groups kept
     launched_as_predicted("Q18 sub SF10", counts, {"compact_groups": 2})
+    having_row = dict(name="compact_groups[Q18 sub HAVING]", route="cuda",
+                      source="datafusion_tpu_torch/csrc/compact_groups.cu",
+                      replaces="datafusion_tpu/physical/plan/"
+                               "device_aggregate.py:1279",
+                      launches=counts["compact_groups"], **k3)
     starts = np.flatnonzero(np.r_[True, ok_[1:] != ok_[:-1]])
     sums = np.add.reduceat(qty, starts)
     want18 = ok_[starts][sums > 300 * 100]
@@ -3498,7 +3705,7 @@ def main() -> int:
 
     # == TPC-H SF10: Q7-Q10, Q12, Q14, Q18, Q21 ===============================
     phase("TPC-H SF10: Q7-Q10, Q12, Q14, Q18, Q21")
-    variants = full_lowering_phase(ctx, tables, card, add)
+    variants = [having_row] + full_lowering_phase(ctx, tables, card, add)
 
     # == TPC-H SF10: the fanout-N join-aggregate (J1, J2), Q5D ===============
     phase("TPC-H SF10: the fanout-N join-aggregate (J1, J2), Q5D")
@@ -3506,7 +3713,7 @@ def main() -> int:
 
     # == mesh: 4 shards on one H100 ==========================================
     phase("mesh: 4 shards on one H100 (MQ1, MQ15, MJ1, MB; MQ1 over NCCL)")
-    mesh_phase(sf10, tables, card, add, report)
+    variants += mesh_phase(sf10, tables, card, add, report)
     del sf10
     torch.cuda.empty_cache()
 
@@ -4081,9 +4288,135 @@ def walk_tree(tree):
           flush=True)
 
 
+MARK_REPS = 20
+MARK_SYMBOLS = r"compact_(mark|copy)_kernel|merge_partials_kernel"
+
+
+def mark_tree(tree):
+    """Kernel rows 11 and 21 with `tree`'s package, through its own entry
+    points: on Q18's subquery at SF10 (its group table folded once),
+    `compact_groups` with its HAVING and without (CUDA events, mean of
+    MARK_REPS; the mark and copy passes' device ms, profiled, mean of 10;
+    launches a call; the HAVING's conjunct forms where the tree has them)
+    and as a run of the query makes it, its HAVING lowered anew (the
+    parent uploads the descriptor each call), and the query end to end;
+    K2 on every call of one run of MQ1, MQ15, MJ1 and MB on 4 shards of
+    the card (each recorded from the tree's own path and replayed on fresh
+    tables, the L2 flushed: ms a call and their sum by CUDA events and
+    profiled device ms; K2's profiled device ms in a warm run of the whole
+    query, mean of 3; launches a run, the host ms of one merge step's
+    local tables as the tree makes them) and each query end to end (warm
+    median of REPS); and the
+    kernels' registers and stack bytes. Prints one JSON line."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    import datafusion_tpu_torch as dft
+    if not dft.__file__.startswith(tree + os.sep):
+        raise AssertionError(f"imported {dft.__file__}, not from {tree}")
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.device.groupby import compact_groups
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        TorchGroupAggregateExec)
+    from datafusion_tpu_torch.physical.plan.distributed_aggregate import (
+        TorchDistributedJoinAggregateExec)
+    kernels.library()
+    dev = torch.device(DEVICE)
+    tables = tpch_tables(10, seed=0)
+    ctx = dft.SessionContext(dev)
+    for tname, b in tables.items():
+        ctx.register_table(tname, dft.MemTable(b.schema, [[b]]))
+    ex = find_exec(ctx.sql(Q18_SUB).create_physical_plan(),
+                   TorchGroupAggregateExec)
+    batches = ex.input_batches(ctx.task_context())
+    spec, plan, names, slot_map = ex.compile(batches)
+    table = ex.group_table(spec, batches, True)
+    hv = ex.having(spec, plan, names, slot_map)
+    out = {"tree": tree, "forms": getattr(hv, "forms", None),
+           "slots": int(table.shape[1]),
+           "groups": int((table[0] != -1).sum())}
+    for label, h in (("with HAVING", hv), ("no HAVING", None)):
+        before = kernels.launch_counts()["compact_groups"]
+        kept = int(compact_groups(table, h).shape[1])
+        launches = kernels.launch_counts()["compact_groups"] - before
+        out[f"Q18 sub {label}"] = dict(
+            kept=kept, launches=launches,
+            ms=cuda_ms(lambda: compact_groups(table, h), MARK_REPS),
+            device_ms=kernel_ms(lambda: compact_groups(table, h), 10))
+    # as a run of the query makes the call: its HAVING lowered anew
+    out["Q18 sub with HAVING"]["main_ms"] = cuda_ms(
+        lambda: compact_groups(table, ex.having(spec, plan, names, slot_map)),
+        MARK_REPS)
+    del table, batches, ex
+    torch.cuda.empty_cache()
+    e2e = {"Q18 sub": warm_median(ctx, Q18_SUB)}
+    del ctx
+    q1ctx, mesh = dft.SessionContext(dev), dft.SessionContext(dev)
+    for c in (q1ctx, mesh):
+        c.config.set("datafusion.tpu.mesh_devices", MESH_SHARDS)
+    sf10 = make_lineitem(SF10_ROWS, seed=0)
+    q1ctx.register_table("lineitem", dft.MemTable(sf10.schema, [[sf10]]))
+    for tname, b in tables.items():
+        mesh.register_table(tname, dft.MemTable(b.schema, [[b]]))
+    mb = MB
+    jex = find_exec(mesh.sql(mb).create_physical_plan(),
+                    TorchDistributedJoinAggregateExec)
+    if "s_suppkey" not in [f.name for f in jex.build_source.schema()]:
+        mb = mb.replace("FROM lineitem JOIN supplier",
+                        "FROM supplier JOIN lineitem")
+    del jex
+    merges = {}
+    for label, c, sql in (("MQ1", q1ctx, Q1), ("MQ15", mesh, Q15_SUB),
+                          ("MJ1", mesh, MJ1), ("MB", mesh, mb)):
+        calls, launches = merge_calls(c, sql, label)
+        query = kernel_ms(lambda: c.sql(sql).collect_batch(), 3)
+        per, device = [], []
+        for call in calls:
+            run, setup, _held = replay(call)
+            per.append(cuda_ms(run, MARK_REPS, setup))
+
+            def fresh_run():
+                setup()
+                run()
+            device.append(sum(v for k, v in kernel_ms(fresh_run, 10).items()
+                              if "merge_partials" in k))
+        into = calls[0][1][1]
+
+        def tables_step():
+            if hasattr(into, "tables"):      # one object, all local tables
+                type(into)(into.kinds, into.limit, MESH_SHARDS, dev)
+            else:                            # a table a shard
+                for _ in range(MESH_SHARDS):
+                    type(into)(into.kinds, into.limit, dev)
+            torch.cuda.synchronize()
+        tables_step()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            tables_step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        merges[label] = dict(
+            calls=len(calls), launches=launches, ms=sum(per), call_ms=per,
+            device_ms=sum(device), call_device_ms=device,
+            query_device_ms=sum(v for k, v in query.items()
+                                if "merge_partials" in k),
+            entries=[[e.shape[1] for e in (call[1][0] if isinstance(
+                call[1][0], (list, tuple)) else [call[1][0]])]
+                for call in calls],
+            tables_host_ms=statistics.median(times))
+        e2e[label] = warm_median(c, sql)
+        del calls
+    out["merge"] = merges
+    out["e2e_ms"] = e2e
+    out["resources"] = {kernel_label(k): v for k, v in kernel_resources(
+        str(kernels.LIB), MARK_SYMBOLS).items()}
+    print(json.dumps(out), flush=True)
+
+
 def ab_main(flag, trees, inputs=None) -> int:
     """An A/B run on one card: each tree's `flag` child (`--walk-tree`,
-    `--sort-tree`, `--fold-tree`, `--hash-tree`) in a process of its own, in the order
+    `--sort-tree`, `--fold-tree`, `--hash-tree`, `--scan-tree`,
+    `--mark-tree`) in a process of its own, in the order
     given, between two lines of the card's name and power limit. With
     `inputs`, the inputs are made once first, with this checkout's
     package, in a directory that each child gets as its second argument
@@ -4202,9 +4535,9 @@ def sort_inputs(data):
                              else np.uint8) for t in words])
 
 
-def kernel_ms(fn) -> dict:
-    """Device ms by kernel of one call of `fn` (after a warm-up), from
-    torch.profiler."""
+def kernel_ms(fn, reps: int = 1) -> dict:
+    """Device ms by kernel of a call of `fn` (after a warm-up), from
+    torch.profiler: the mean over `reps` calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4212,16 +4545,16 @@ def kernel_ms(fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) == DeviceType.CUDA:
             key = ev.key.replace("(anonymous namespace)::", "")
             key = key.split("(")[0][-40:]
-            out[key] = round(out.get(key, 0.0) +
-                             getattr(ev, "self_device_time_total", 0) / 1e3,
-                             4)
+            out[key] = round(out.get(key, 0.0) + getattr(
+                ev, "self_device_time_total", 0) / 1e3 / reps, 4)
     return out
 
 
@@ -4688,6 +5021,10 @@ if __name__ == "__main__":
         sys.exit(ab_main("--scan-tree", sys.argv[2:]))
     if sys.argv[1:2] == ["--scan-tree"]:
         sys.exit(scan_tree(sys.argv[2]))
+    if sys.argv[1:2] == ["--marks"]:
+        sys.exit(ab_main("--mark-tree", sys.argv[2:]))
+    if sys.argv[1:2] == ["--mark-tree"]:
+        sys.exit(mark_tree(sys.argv[2]))
     if sys.argv[1:2] == ["--folds"]:
         sys.exit(ab_main("--fold-tree", sys.argv[2:]))
     if sys.argv[1:2] == ["--fold-tree"]:

@@ -23,8 +23,7 @@
 //      at a time (few registers, so 8 blocks an SM hide the tile counter)
 //      when the table is 16-byte aligned (entries base + 32 i + l
 //      otherwise, and through the list in slot-list mode). The keep test
-//      (occupied, and the HAVING program through program.cuh with the
-//      `GroupColumns` loader) runs once an entry; __ballot_sync turns it
+//      (occupied, and the HAVING) runs once an entry; __ballot_sync turns it
 //      into one 32-bit keep word per 32 entries, in entry order, written
 //      to a bitmask scratch (cap / 8 bytes). __popc and a block sum give
 //      the tile's count, and the decoupled look-back of lookback.cuh turns
@@ -41,12 +40,29 @@
 //      table[r * cap + slot_j]. The writes are coalesced and the reads go
 //      in rising slot order. The key row is read again only at the kept
 //      slots.
+// The HAVING. The host splits it into its top-level conjuncts
+// (groupby.py `HavingSpec`) and lays each out in the join walk's record
+// form (program.cuh CJ_*): a column tested against a constant (its
+// constant folded, so Q18's rescaled `sum(l_quantity) > 300` is one
+// CJ_CMP_I), a column or an IN list. When every conjunct tests a count,
+// a sum, or a min or max without a NaN count against a constant or an IN
+// list (HAVING_DIRECT), the 16-byte layout tests them inline for the
+// lane's pairs of slots (`having_pairs`: the value row's loads in flight
+// together behind the key row's, `conjunct_test`, the count row only
+// where the test passed), with no call, no interpreter and no stack
+// array, 4 blocks an SM (kDirectBlocks). Any other HAVING
+// (HAVING_PROGRAM), and any HAVING over a slot list, takes a slot at a
+// time through `passes`, one block an SM: a direct conjunct finalises its
+// column whole and tests it without the interpreter, a program conjunct
+// runs through program.cuh's interpreter. A slot is kept when every
+// conjunct is valid and true: the Kleene AND of the whole HAVING.
 // The caller reads ng between 1 and 2 to size the output (its one
 // synchronisation) and skips 2 when ng is 0. The output is the same from
 // run to run: entry order.
 //
 // Bounds. The key row is read once (8 bytes a slot) with, for occupied
-// slots, the rows a HAVING reads; the kept groups' rows are read and
+// slots, the rows a HAVING reads (a sum's count row only where its test
+// passed); the kept groups' rows are read and
 // written once. ClickBench Q17 (4.1M groups in 2^28 slots, 3 rows) must
 // move its 2.15 GB key row and about 0.1 GB of kept rows: 0.69 ms at 3.35
 // TB/s (NVIDIA H100 80GB HBM3, 700 W data sheet). The bitmask (32 MiB at
@@ -66,6 +82,11 @@ constexpr int kWarpWords = kWords / kWarps;   // 16 a warp: 512 entries
 constexpr int kLoads = 4;        // 16-byte loads a lane issues at once
 constexpr int kMarkBlocks = 8;   // resident mark blocks an SM (no HAVING)
 constexpr int kCopyRows = 4;     // rows a copy thread loads at once
+// HAVING_DIRECT: resident mark blocks an SM. Measured on Q18's subquery
+// (H100, `chip_smoke.py --marks`): 4 blocks of 63 registers and no stack,
+// 0.43 ms; the no-HAVING mark's 8 blocks cap a thread at 32 registers and
+// spill (72 B of stack; 40 B testing 2 pairs at a time, not 4), 0.50-0.57.
+constexpr int kDirectBlocks = 4;
 constexpr u64 kEpoch = 1;                  // one pass; status zeroed a call
 
 // finaliser kinds: datafusion_tpu_torch/device/groupby.py
@@ -139,24 +160,122 @@ struct GroupColumns {
   }
 };
 
-// The HAVING test of an occupied slot s: the program over its finalised
-// output columns, valid and nonzero. Not inlined: the mark pass calls it
-// at 16 sites, one interpreter serves them all.
-__device__ __noinline__ bool passes(const i64* meta, const i64* table,
-                                       i64 cap, i64 s) {
+// HAVING modes (groupby.py HavingSpec.mode): none; every conjunct a lean
+// direct one (`having_pairs`); any other (a slot at a time through
+// `passes`)
+enum { HAVING_NONE = 0, HAVING_DIRECT = 1, HAVING_PROGRAM = 2 };
+
+// The second column of a lean conjunct: none (conjunct_test reads one only
+// for CJ_CMPC_*, which is not lean)
+struct NoColumns {
+  static constexpr bool kFull = false;
+  __device__ __forceinline__ bool operator()(i64, i64, i64*) const {
+    return false;
+  }
+};
+
+// Direct conjunct `cj` at slot s, its column finalised whole. Not inlined:
+// `passes` calls it for each direct conjunct.
+__device__ __noinline__ bool conjunct_at(const i64* meta, const i64* cj,
+                                         const i64* table, i64 cap, i64 s) {
   const GroupColumns cols{meta + meta[H_OFF_COLS], table, cap};
   i64 x;
-  const bool valid = run(meta, nullptr, (int)meta[H_PRED], s, cols, &x);
-  return valid && x != 0;
+  return cols(cj[1], s, &x) && conjunct_test(meta, nullptr, cj, x, s, cols);
 }
 
-// keep test of entry j whose slot is s (s < 0: a skipped list entry) and
-// key k
-template <bool Having>
-__device__ __forceinline__ bool keep(const i64* meta, const i64* table,
-                                     i64 cap, i64 s, i64 k) {
-  if (s < 0 || k == kEmpty) return false;
-  return !Having || passes(meta, table, cap, s);
+// The HAVING of an occupied slot s: every conjunct in the descriptor's
+// order, a program through the interpreter. Not inlined: the mark pass
+// calls it at 8 sites, one body serves them all.
+__device__ __noinline__ bool passes(const i64* meta, const i64* table,
+                                    i64 cap, i64 s) {
+  const GroupColumns cols{meta + meta[H_OFF_COLS], table, cap};
+  const i64* hv = meta + meta[H_OFF_CHAIN];
+  const i64* cj = hv + 1;
+  for (int c = 0; c < (int)hv[0]; ++c, cj += kConjWords) {
+    if ((int)cj[0] == CJ_PROG) {
+      i64 x;
+      if (!(run(meta, nullptr, (int)cj[1], s, cols, &x) && x != 0)) {
+        return false;
+      }
+    } else if (!conjunct_at(meta, cj, table, cap, s)) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// Entry e of a lane whose round starts at slot j0 in the 16-byte layout:
+// pairs of slots 64 apart
+__device__ __forceinline__ i64 pair_slot(i64 j0, int e) {
+  return j0 + 64 * (e >> 1) + (e & 1);
+}
+
+// HAVING_DIRECT over the lane's 2 P entries at pair_slot(j0, e), those
+// whose bit is set in `alive` (occupied); returns the bits that pass.
+// Every conjunct is lean: a count, a sum, or a min or max without a NaN
+// count tested against a constant or an IN list (the host's
+// `HavingSpec.mode`). Each loads its value row at every live entry at
+// once, tests it with `conjunct_test`, and loads the count row (the
+// validity) only where the test passed: a slot passes when its column is
+// valid and the test true, so the order changes nothing, and a selective
+// HAVING (Q18's sum > 300) reads one row, not two. No call and no stack
+// array.
+template <int P>
+__device__ __forceinline__ unsigned having_pairs(const i64* meta,
+                                                 const i64* table, i64 cap,
+                                                 i64 j0, unsigned alive) {
+  const i64* fin = meta + meta[H_OFF_COLS];
+  const i64* hv = meta + meta[H_OFF_CHAIN];
+  const i64* cj = hv + 1;
+  for (int c = 0; c < (int)hv[0] && alive != 0; ++c, cj += kConjWords) {
+    const i64* f = fin + kFinWords * cj[1];
+    const int kind = (int)f[0];
+    const i64* row = table + f[1] * cap + j0;
+    i64 x[2 * P];
+#pragma unroll
+    for (int e = 0; e < 2 * P; ++e) {
+      if (alive >> e & 1) x[e] = row[64 * (e >> 1) + (e & 1)];
+    }
+    const bool f32 = kind == FIN_SUM && f[3] == LANE_SUM_F32;
+#pragma unroll
+    for (int e = 0; e < 2 * P; ++e) {
+      if (!(alive >> e & 1)) continue;
+      const i64 v = f32 ? as_i(sum_value(LANE_SUM_F32, x[e])) : x[e];
+      if (!conjunct_test(meta, nullptr, cj, v, 0, NoColumns{})) {
+        alive &= ~(1u << e);
+      }
+    }
+    if (kind == FIN_COUNT) continue;
+    const i64* count = table + f[2] * cap + j0;
+#pragma unroll
+    for (int e = 0; e < 2 * P; ++e) {
+      if ((alive >> e & 1) && count[64 * (e >> 1) + (e & 1)] <= 0) {
+        alive &= ~(1u << e);
+      }
+    }
+  }
+  return alive;
+}
+
+// A 16-byte round's keep bits (2 kLoads entries from slot j0, `alive` the
+// occupied ones) after the HAVING of `Mode`
+template <int Mode>
+__device__ __forceinline__ unsigned keep_pairs(const i64* meta,
+                                               const i64* table, i64 cap,
+                                               i64 j0, unsigned alive) {
+  if constexpr (Mode == HAVING_DIRECT) {
+    return having_pairs<kLoads>(meta, table, cap, j0, alive);
+  }
+  if constexpr (Mode == HAVING_PROGRAM) {
+#pragma unroll
+    for (int e = 0; e < 2 * kLoads; ++e) {
+      if ((alive >> e & 1) &&
+          !passes(meta, table, cap, pair_slot(j0, e))) {
+        alive &= ~(1u << e);
+      }
+    }
+  }
+  return alive;
 }
 
 // 16 bits spread to the even bits of a word
@@ -170,21 +289,26 @@ __device__ __forceinline__ unsigned spread16(unsigned x) {
 
 // Launch 1. Vec: the whole table (n = cap), 16-byte aligned, read two
 // slots a lane a load; otherwise one entry a lane a load, through `slots`
-// when it is not null.
-template <bool Having, bool Vec>
-__global__ void __launch_bounds__(kThreads, Having ? 1 : kMarkBlocks)
+// when it is not null. A HAVING's warp loops over its loads' rounds
+// without unrolling them: its keep test is large.
+template <int Mode, bool Vec>
+__global__ void __launch_bounds__(kThreads, Mode == HAVING_PROGRAM ? 1
+                                   : Mode == HAVING_DIRECT ? kDirectBlocks
+                                                           : kMarkBlocks)
 compact_mark_kernel(const i64* __restrict__ meta_g, int meta_len,
                     const i64* __restrict__ table, i64 cap,
                     const i64* __restrict__ slots, i64 n,
                     unsigned* __restrict__ keep_words, u64* status,
                     u64* __restrict__ tile_counter, i64 n_tiles,
                     i64* __restrict__ ng) {
+  constexpr int kRounds = Vec ? kWarpWords / 2 / kLoads
+                              : kWarpWords / (2 * kLoads);
   extern __shared__ i64 smem[];      // the HAVING descriptor
   __shared__ i64 tile_sh;
   __shared__ unsigned warp_count[kWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == 0) tile_sh = (i64)atomicAdd(tile_counter, 1ull);
-  if (Having) {
+  if (Mode != HAVING_NONE) {
     stage_meta(smem, meta_g, meta_len);   // ends in __syncthreads
   } else {
     __syncthreads();
@@ -194,8 +318,9 @@ compact_mark_kernel(const i64* __restrict__ meta_g, int meta_len,
   unsigned word = 0;   // lane w < 16 keeps the warp's keep word w
   if (Vec) {
     // kLoads 16-byte loads at a time: two entries a lane a load
-#pragma unroll
-    for (int h = 0; h < kWarpWords / 2; h += kLoads) {
+#pragma unroll (Mode == HAVING_NONE ? kRounds : 1)
+    for (int r = 0; r < kRounds; ++r) {
+      const int h = r * kLoads;
       longlong2 k[kLoads];
 #pragma unroll
       for (int u = 0; u < kLoads; ++u) {
@@ -207,14 +332,22 @@ compact_mark_kernel(const i64* __restrict__ meta_g, int meta_len,
           k[u].y = kEmpty;
         }
       }
+      // entry 2 u (+ 1) is slot base + 64 (h + u) + 2 lane (+ 1)
+      unsigned kept = 0;
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        kept |= (unsigned)(k[u].x != kEmpty) << (2 * u) |
+                (unsigned)(k[u].y != kEmpty) << (2 * u + 1);
+      }
+      kept = keep_pairs<Mode>(smem, table, cap, base + 64 * h + 2 * lane,
+                              kept);
 #pragma unroll
       for (int u = 0; u < kLoads; ++u) {
         const int i = h + u;
-        const i64 j = base + 64 * i + 2 * lane;
-        const unsigned even = __ballot_sync(
-            0xffffffffu, keep<Having>(smem, table, cap, j, k[u].x));
-        const unsigned odd = __ballot_sync(
-            0xffffffffu, keep<Having>(smem, table, cap, j + 1, k[u].y));
+        const unsigned even = __ballot_sync(0xffffffffu,
+                                            kept >> (2 * u) & 1);
+        const unsigned odd = __ballot_sync(0xffffffffu,
+                                           kept >> (2 * u + 1) & 1);
         // bit l of even (odd) is entry 64 i + 2 l (+ 1): interleaved,
         // words 2 i and 2 i + 1 of the warp in entry order
         const unsigned lo = spread16(even) | spread16(odd) << 1;
@@ -225,8 +358,9 @@ compact_mark_kernel(const i64* __restrict__ meta_g, int meta_len,
     }
   } else {
     // one entry a lane a load, 2 kLoads at a time
-#pragma unroll
-    for (int h = 0; h < kWarpWords; h += 2 * kLoads) {
+#pragma unroll (Mode == HAVING_NONE ? kRounds : 1)
+    for (int r = 0; r < kRounds; ++r) {
+      const int h = r * 2 * kLoads;
       i64 s[2 * kLoads], k[2 * kLoads];
 #pragma unroll
       for (int u = 0; u < 2 * kLoads; ++u) {
@@ -239,8 +373,13 @@ compact_mark_kernel(const i64* __restrict__ meta_g, int meta_len,
       }
 #pragma unroll
       for (int u = 0; u < 2 * kLoads; ++u) {
-        const unsigned w = __ballot_sync(
-            0xffffffffu, keep<Having>(smem, table, cap, s[u], k[u]));
+        bool kept = s[u] >= 0 && k[u] != kEmpty;
+        if constexpr (Mode != HAVING_NONE) {
+          if (kept) {
+            kept = passes(smem, table, cap, s[u]);
+          }
+        }
+        const unsigned w = __ballot_sync(0xffffffffu, kept);
         if (lane == h + u) word = w;
       }
     }
@@ -342,24 +481,6 @@ compact_copy_kernel(const i64* __restrict__ table, i64 cap, int nrows,
   }
 }
 
-template <bool Having>
-cudaError_t launch_mark(bool vec, unsigned blocks, size_t smem,
-                        cudaStream_t st, const i64* meta, int meta_len,
-                        const i64* table, i64 cap, const i64* slots, i64 n,
-                        unsigned* words, u64* status, u64* counter,
-                        i64 n_tiles, i64* ng) {
-  if (vec) {
-    compact_mark_kernel<Having, true><<<blocks, kThreads, smem, st>>>(
-        meta, meta_len, table, cap, slots, n, words, status, counter,
-        n_tiles, ng);
-  } else {
-    compact_mark_kernel<Having, false><<<blocks, kThreads, smem, st>>>(
-        meta, meta_len, table, cap, slots, n, words, status, counter,
-        n_tiles, ng);
-  }
-  return cudaGetLastError();
-}
-
 inline i64 tiles(i64 n) {
   const i64 nt = (n + kTile - 1) / kTile;
   return nt > 0 ? nt : 1;
@@ -382,17 +503,20 @@ extern "C" int dft_compact_mark(const void* meta, int meta_len, int having,
   u64* status = (u64*)state;
   const bool vec = slots == nullptr && ((uintptr_t)table & 15) == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = having ? (size_t)meta_len * 8 : 0;
-  const cudaError_t err = having
-      ? launch_mark<true>(vec, (unsigned)nt, smem, st, (const i64*)meta,
-                          meta_len, (const i64*)table, cap,
-                          (const i64*)slots, n, (unsigned*)words, status,
-                          status + nt, nt, (i64*)(status + nt + 1))
-      : launch_mark<false>(vec, (unsigned)nt, smem, st, (const i64*)meta,
-                           meta_len, (const i64*)table, cap,
-                           (const i64*)slots, n, (unsigned*)words, status,
-                           status + nt, nt, (i64*)(status + nt + 1));
-  return (int)err;
+  const size_t smem = having != HAVING_NONE ? (size_t)meta_len * 8 : 0;
+  // a slot list takes the HAVING a slot at a time
+  const auto kernel =
+      having == HAVING_DIRECT && vec
+          ? compact_mark_kernel<HAVING_DIRECT, true>
+      : having != HAVING_NONE
+          ? (vec ? compact_mark_kernel<HAVING_PROGRAM, true>
+                 : compact_mark_kernel<HAVING_PROGRAM, false>)
+          : (vec ? compact_mark_kernel<HAVING_NONE, true>
+                 : compact_mark_kernel<HAVING_NONE, false>);
+  kernel<<<(unsigned)nt, kThreads, smem, st>>>(
+      (const i64*)meta, meta_len, (const i64*)table, cap, (const i64*)slots,
+      n, (unsigned*)words, status, status + nt, nt, (i64*)(status + nt + 1));
+  return (int)cudaGetLastError();
 }
 
 // The copy pass after dft_compact_mark on the same words and state: out

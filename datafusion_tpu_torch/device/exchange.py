@@ -26,18 +26,22 @@ argsort, searchsorted and gathers of `_all_to_all_rows` (`:96`) and of
 `torch.sort` on the destination and an `index_select` a lane.
 
 K2 (`merge_partials`, `csrc/exchange.cu`): (key, count, lanes) entries of
-partial group tables folded into an owner's table in the hash layout of
-`device/groupby.py` (row 0 keys, EMPTY = -1; row 1 counts; then the
-lanes), each lane by its kind's merge: counts and sums add, min and max
-take the least and greatest. With `n_owner` > 0 only the entries whose
-owner is `my` fold (the all_gather route's ownership test, inline). It
-counts the distinct keys it claims and raises the overflow flag past
-`limit`. It stands for `_merge_fold` (`exchange.py:218`) and the final
-`device_group_aggregate` of `distributed.py`'s steps (`:99-114`,
-`:183-189`, `:267-276`). Its plain version: `torch.unique` against the
-keys already in the table, the new keys at the lowest free slots, then
-`index_add_` and `scatter_reduce_` a lane. Both count only the keys
-that found a slot, so a full table stops the count.
+partial group tables folded into the local shards' tables (`MergeTables`,
+the hash layout of `device/groupby.py`: row 0 keys, EMPTY = -1; row 1
+counts; then the lanes), each lane by its kind's merge: counts and sums
+add, min and max take the least and greatest. One launch serves every
+local table: on the all_gather route (`n_owner` > 0) it reads the
+gathered entries once and sends each to its owner's table, skipping the
+entries other processes own; on the shuffle route each local shard's
+arrivals fold into its own table. It counts the distinct keys each table
+claims (a warp's fresh claims by ballot, one atomic a table) and raises
+the table's overflow flag past `limit`. It stands for `_merge_fold`
+(`exchange.py:218`) and the final `device_group_aggregate` of
+`distributed.py`'s steps (`:99-114`, `:183-189`, `:267-276`). Its plain
+version, a table at a time: `torch.unique` against the keys already in
+the table, the new keys at the lowest free slots, then `index_add_` and
+`scatter_reduce_` a lane. Both count only the keys that found a slot, so
+a full table stops the count.
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its CUDA kernel on CUDA tensors, or raises.
@@ -238,78 +242,140 @@ def partition_rows_plain(keys: torch.Tensor, pending: torch.Tensor,
 
 # --- K2 -------------------------------------------------------------------
 
+# csrc/exchange.cu: the local tables one K2 launch serves, and the lane
+# kinds its parameters hold (4 bits each)
+MERGE_TABLES = 16
+MERGE_LANES = 4096
+
+
+class _MergeArgs(ctypes.Structure):
+    _fields_ = [("entries", ctypes.c_void_p * MERGE_TABLES),
+                ("m", ctypes.c_longlong * MERGE_TABLES),
+                ("n_tables", ctypes.c_int), ("n_owner", ctypes.c_int),
+                ("first", ctypes.c_int), ("rows", ctypes.c_int),
+                ("kinds", ctypes.c_ubyte * (MERGE_LANES // 2))]
+
+
+class MergeTables:
+    """The local shards' group tables for `merge_partials`: `n` tables of
+    [rows, cap] (`tables`, one tensor [n, rows, cap]), cap a power of two
+    at least twice `limit` + 1 (so a table cannot fill before the limit
+    is passed), the distinct keys each claimed (`groups`, int64 [n]) and
+    its overflow flag (`overflow`, int64 [n]). Made on the device: one
+    fill a row whose identity is not 0 and one zero fill of the counts,
+    no upload."""
+
+    def __init__(self, kinds: Sequence[int], limit: int, n: int,
+                 device: torch.device):
+        check_merge_kinds(kinds)
+        self.kinds = list(kinds)
+        self.limit = int(limit)
+        self.n = int(n)
+        self.cap = _next_pow2(2 * (self.limit + 1))
+        head = [EMPTY, 0] + [_IDENTITY.get(k, 0) for k in self.kinds]
+        self.tables = torch.zeros((self.n, len(head), self.cap),
+                                  dtype=torch.int64, device=device)
+        for r, v in enumerate(head):
+            if v:
+                self.tables[:, r].fill_(v)
+        state = torch.zeros((2, self.n), dtype=torch.int64, device=device)
+        self.groups, self.overflow = state[0], state[1]
+        # the launch parameters, their lane kinds and rows set once
+        self._launch = _MergeArgs()
+        self._launch.rows = len(head)
+        for lane, k in enumerate(self.kinds):
+            self._launch.kinds[lane // 2] |= k << (4 * (lane % 2))
+
+    def _args(self, sources: Sequence[torch.Tensor], n_owner: int,
+              first: int, at: int, n: int) -> _MergeArgs:
+        """The parameters of the launch for tables [at, at + n)."""
+        a = self._launch
+        src = sources if n_owner > 0 else sources[at:at + n]
+        for y, e in enumerate(src):
+            a.entries[y], a.m[y] = e.data_ptr(), e.shape[1]
+        a.n_tables, a.n_owner, a.first = n, n_owner, first + at
+        return a
+
+
 def check_merge_kinds(kinds: Sequence[int]) -> None:
     """Raise ValueError for a lane kind that partial tables cannot merge:
     a float32 sum (the mesh sums float32 in float64) or a distinct lane."""
+    if len(kinds) > MERGE_LANES:
+        raise ValueError(f"{len(kinds)} lanes do not merge")
     for k in kinds:
         if k == LANE_SUM_F32 or k in _DISTINCT_LANES:
             raise ValueError(f"lane kind {k} does not merge")
 
 
-class MergeTable:
-    """An owner's group table for `merge_partials`: [rows, cap] with cap a
-    power of two at least twice `limit` + 1 (so it cannot fill before the
-    limit is passed), the distinct keys claimed (`groups`) and the
-    overflow flag."""
-
-    def __init__(self, kinds: Sequence[int], limit: int,
-                 device: torch.device):
-        check_merge_kinds(kinds)
-        self.kinds = list(kinds)
-        self.limit = int(limit)
-        self.cap = _next_pow2(2 * (self.limit + 1))
-        head = [EMPTY, 0] + [_IDENTITY.get(k, 0) for k in self.kinds]
-        self.table = torch.tensor(head, dtype=torch.int64).to(device)[
-            :, None].repeat(1, self.cap)
-        self.groups = torch.zeros(1, dtype=torch.int64, device=device)
-        self.overflow = torch.zeros(1, dtype=torch.int32, device=device)
-        self.kinds_d = torch.tensor(self.kinds + [0],
-                                    dtype=torch.int64).to(device)
+def _check_sources(sources: Sequence[torch.Tensor], into: MergeTables,
+                   n_owner: int) -> None:
+    t = into.tables
+    if len(sources) != (1 if n_owner > 0 else into.n):
+        raise ValueError(f"{len(sources)} sources for {into.n} tables "
+                         f"({'by owner' if n_owner > 0 else 'one each'})")
+    for e in sources:
+        if e.dtype != torch.int64 or e.dim() != 2 or \
+                not e.is_contiguous() or e.device != t.device or \
+                e.shape[0] != t.shape[1]:
+            raise ValueError(f"entries must be a contiguous int64 "
+                             f"[{t.shape[1]}, m] on the tables' device")
 
 
-def merge_partials(entries: torch.Tensor, into: MergeTable, my: int = 0,
-                   n_owner: int = 0) -> MergeTable:
-    """Fold the entries (`[rows, m]` int64: keys, counts, then a lane of
-    each of `into.kinds`) into `into`; with `n_owner` > 0 only those whose
-    `shard_owner(key, n_owner)` is `my`.
+def merge_partials(sources: Sequence[torch.Tensor], into: MergeTables,
+                   n_owner: int = 0, first: int = 0) -> MergeTables:
+    """Fold partial entries (each `[rows, m]` int64: keys, counts, then a
+    lane of each of `into.kinds`) into the local tables `into`. With
+    `n_owner` > 0 (the all_gather route) `sources` is one tensor, each
+    entry going to table `shard_owner(key, n_owner) - first` and skipped
+    where that is not a local table; otherwise (the shuffle route) source
+    i folds into table i.
 
     On CPU tensors this runs `merge_partials_plain`; on CUDA tensors it
-    launches the K2 kernel or raises."""
-    t = into.table
-    if entries.dtype != torch.int64 or entries.dim() != 2 or \
-            not entries.is_contiguous() or entries.device != t.device or \
-            entries.shape[0] != t.shape[0]:
-        raise ValueError(f"entries must be a contiguous int64 "
-                         f"[{t.shape[0]}, m] on the table's device")
-    if not _cuda(t):
-        return merge_partials_plain(entries, into, my, n_owner)
-    m = entries.shape[1]
-    if m:
-        lib = kernels.library()
-        with torch.cuda.device(t.device):
+    launches the K2 kernel, once for every MERGE_TABLES tables that have
+    an entry to fold, or raises."""
+    _check_sources(sources, into, n_owner)
+    if not _cuda(into.tables):
+        return merge_partials_plain(sources, into, n_owner, first)
+    lib = kernels.library()
+    t = into.tables
+    ptrs = t.data_ptr(), into.groups.data_ptr(), into.overflow.data_ptr()
+    with torch.cuda.device(t.device):
+        for at in range(0, into.n, MERGE_TABLES):
+            n = min(MERGE_TABLES, into.n - at)
+            src = sources if n_owner > 0 else sources[at:at + n]
+            if not any(e.shape[1] for e in src):
+                continue
+            args = into._args(sources, n_owner, first, at, n)
             kernels.check(lib.dft_merge_partials(
-                entries.data_ptr(), m, entries.shape[0],
-                into.kinds_d.data_ptr(), int(my), int(n_owner), t.data_ptr(),
-                into.cap, into.groups.data_ptr(), into.limit,
-                into.overflow.data_ptr(), _stream(t.device)),
-                merge_partials_kernel)
-        merge_partials_kernel.launches += 1
+                ctypes.byref(args), ptrs[0] + 8 * at * t.stride(0),
+                into.cap, ptrs[1] + 8 * at, into.limit, ptrs[2] + 8 * at,
+                _stream(t.device)), merge_partials_kernel)
+            merge_partials_kernel.launches += 1
     return into
 
 
-def merge_partials_plain(entries: torch.Tensor, into: MergeTable,
-                         my: int = 0, n_owner: int = 0) -> MergeTable:
-    """The plain PyTorch version: the owned entries' keys interned with
-    `torch.unique` against the table's keys (new keys at the lowest free
-    slots, in key order), then `index_add_` / `scatter_reduce_` a row."""
-    t = into.table
-    keys = entries[0]
-    sel = keys != EMPTY
+def merge_partials_plain(sources: Sequence[torch.Tensor],
+                         into: MergeTables, n_owner: int = 0,
+                         first: int = 0) -> MergeTables:
+    """The plain PyTorch version, a table at a time: its entries (by owner,
+    or its own source) interned with `torch.unique` against the table's
+    keys (new keys at the lowest free slots, in key order), then
+    `index_add_` / `scatter_reduce_` a row."""
     if n_owner > 0:
-        sel &= shard_owner(keys, n_owner) == my
-    e = entries[:, sel]
+        keys = sources[0][0]
+        own = torch.where(keys != EMPTY, shard_owner(keys, n_owner), -1)
+        picked = [sources[0][:, own == first + i] for i in range(into.n)]
+    else:
+        picked = [e[:, e[0] != EMPTY] for e in sources]
+    for i, e in enumerate(picked):
+        _merge_plain(e, into, i)
+    return into
+
+
+def _merge_plain(e: torch.Tensor, into: MergeTables, i: int) -> None:
+    t = into.tables[i]
     if e.shape[1] == 0:
-        return into
+        return
     uk, inv = torch.unique(e[0], return_inverse=True)
     live = (t[0] != EMPTY).nonzero().squeeze(1)
     lkeys, order = t[0][live].sort()
@@ -322,15 +388,15 @@ def merge_partials_plain(entries: torch.Tensor, into: MergeTable,
     free = (t[0] == EMPTY).nonzero().squeeze(1)[:new.numel()]
     uslot[new[:free.numel()]] = free
     t[0][free] = uk[new[:free.numel()]]
-    into.groups += free.numel()     # the keys claimed, as the kernel counts
-    if free.numel() < new.numel() or int(into.groups.item()) > into.limit:
-        into.overflow.fill_(1)
+    into.groups[i] += free.numel()   # the keys claimed, as the kernel counts
+    if free.numel() < new.numel() or int(into.groups[i].item()) > into.limit:
+        into.overflow[i] = 1
     slot = uslot[inv]
     ok = slot >= 0
     slot, e = slot[ok], e[:, ok]
     t[1].index_add_(0, slot, e[1])
-    for i, kind in enumerate(into.kinds):
-        row, x = t[2 + i], e[2 + i]
+    for lane, kind in enumerate(into.kinds):
+        row, x = t[2 + lane], e[2 + lane]
         if kind in (LANE_MIN_I64, LANE_MAX_I64):
             row.scatter_reduce_(0, slot, x,
                                 "amin" if kind == LANE_MIN_I64 else "amax")
@@ -343,4 +409,3 @@ def merge_partials_plain(entries: torch.Tensor, into: MergeTable,
                                                x.view(torch.float64))
         else:
             row.index_add_(0, slot, x)
-    return into

@@ -44,8 +44,9 @@ NULL marker, `device_aggregate.py:732-743`). The plain version finds the
 new pairs with `torch.unique` against the pairs already in the set.
 
 Emit. `compact_groups` keeps the occupied slots of a `[lanes + 2, cap]`
-table, optionally those that pass a HAVING program over the finalised
-output columns (`_apply_post_filter`, `device_aggregate.py:1279`), or the
+table, optionally those that pass a HAVING over the finalised output
+columns (`_apply_post_filter`, `device_aggregate.py:1279`; `HavingSpec`
+tests its one-column conjuncts without the interpreter), or the
 slots of a list that `group_topk` chose (`_emit_topk`, `:1127`). One
 `.cpu()` of its `[lanes + 2, ng]` output brings the groups to the host.
 
@@ -75,7 +76,9 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .lower import FULL_OPS_FROM, LoweringError, Pools, Program, evaluate
+from .lower import (CJ_CMP_F, CJ_CMP_I, CJ_CMPC_F, CJ_CMPC_I, CJ_IN_F, CJ_IN_I,
+                    CJ_PROG, FULL_OPS_FROM, LoweringError, Pools, Program,
+                    conjunct_form, evaluate, fold_constants, split_conjuncts)
 
 fused_dense_aggregate = kernels.register(kernels.Kernel(
     "fused_dense_aggregate", "datafusion_tpu_torch/csrc/fused_dense_aggregate.cu",
@@ -845,32 +848,121 @@ def finalise(table: torch.Tensor, fins: Dict[int, Finaliser]):
     return out
 
 
+# HavingSpec.mode: what compact_groups.cu's mark pass runs a slot
+HAVING_NONE, HAVING_DIRECT, HAVING_PROGRAM = range(3)
+# the direct forms the mark tests inline, and its finalisers there (a min
+# or max only without a NaN count)
+_LEAN_FORMS = (CJ_CMP_I, CJ_CMP_F, CJ_IN_I, CJ_IN_F)
+_LEAN_FINS = (FIN_COUNT, FIN_SUM, FIN_MIN, FIN_MAX)
+
+
+def _cmp(code: int, x: torch.Tensor, y) -> torch.Tensor:
+    return (x == y, x != y, x < y, x <= y, x > y, x >= y)[code]
+
+
+def _as_operand(x: torch.Tensor) -> torch.Tensor:
+    """A finalised column as the interpreter's stack holds it."""
+    return x.to(torch.float64) if x.is_floating_point() else x.to(torch.int64)
+
+
 class HavingSpec:
     """A HAVING program over an aggregate's output columns, each read from
     the group table through a `Finaliser`, laid out as the descriptor of
-    `csrc/compact_groups.cu`."""
+    `csrc/compact_groups.cu`.
+
+    The program's top-level AND is split into its conjuncts
+    (`lower.split_conjuncts`). A conjunct that, its constants folded
+    (`lower.fold_constants`), is one column tested against a constant, a
+    column or an IN list takes the join walk's record form
+    (`lower.conjunct_form`: CJ_CMP_*, CJ_CMPC_*, CJ_IN_*; a HAVING has no
+    aux inputs, so no CJ_LUT or CJ_STRCMP) and is tested straight from
+    its finalised column; any other conjunct runs as a program of its
+    own. A slot passes when every conjunct is valid and true, which is
+    the Kleene AND of the whole program. `conjuncts` holds (form or None,
+    program), the direct ones first. `mode`: HAVING_DIRECT when every
+    conjunct tests a count, a sum, or a min or max without a NaN count
+    against a constant or an IN list (the mark tests them inline), else
+    HAVING_PROGRAM (a slot at a time: each direct conjunct's column
+    finalised whole, a program conjunct through the interpreter). Descriptor:
+    the finalisers at H_OFF_COLS, the program conjuncts' programs, then
+    at H_OFF_CHAIN the number of conjuncts and their records of 4 words
+    (CJ_PROG: (CJ_PROG, program))."""
 
     def __init__(self, prog: Program, fins: Dict[int, Finaliser]):
         self.prog = prog
         self.fins = fins
+        parts = [(conjunct_form(fold_constants(c)), c)
+                 for c in split_conjuncts(prog)]
+        self.conjuncts = [p for p in parts if p[0] is not None] + \
+            [p for p in parts if p[0] is None]
+        progs = [c for form, c in self.conjuncts if form is None]
+
+        def lean(form):
+            f = fins[form[1]]
+            return form[0] in _LEAN_FORMS and f.kind in _LEAN_FINS and (
+                f.kind not in (FIN_MIN, FIN_MAX) or f.words[3] < 0)
+        self.mode = HAVING_DIRECT if not progs and all(
+            lean(form) for form, _c in self.conjuncts) else HAVING_PROGRAM
         ncols = max(fins, default=-1) + 1
         words = np.zeros((ncols, FIN_WORDS), np.int64)
         for idx, f in fins.items():
             words[idx] = f.descriptor()
-        self.meta = _descriptor({H_NCOLS: ncols, H_PRED: 0}, [
-            words, *_program_sections([prog], prog.pools)])
+        records, at = [len(self.conjuncts)], 0
+        for form, _c in self.conjuncts:
+            if form is None:
+                form, at = (CJ_PROG, at, 0, 0), at + 1
+            records.extend(form)
+        self.meta = _descriptor({H_NCOLS: ncols, H_PRED: -1}, [
+            words, *_program_sections(progs, prog.pools), [], [], records])
         if len(self.meta) * 8 > SMEM_BYTES:
             raise LoweringError("HAVING program too large for the kernel")
+        self._uploaded: Dict[torch.device, torch.Tensor] = {}
+
+    @property
+    def forms(self) -> List[str]:
+        """Each conjunct's form by name, in the descriptor's order."""
+        names = ("PROG", "CMP_I", "CMP_F", "CMPC_I", "CMPC_F", "IN_I",
+                 "IN_F")
+        return ["PROG" if f is None else f"{names[f[0]]}(column {f[1]})"
+                for f, _c in self.conjuncts]
+
+    def device_meta(self, device: torch.device) -> torch.Tensor:
+        """The descriptor on `device`, uploaded at its first use there."""
+        meta = self._uploaded.get(device)
+        if meta is None:
+            meta = self._uploaded[device] = torch.from_numpy(
+                self.meta).to(device)
+        return meta
 
     def mask(self, table: torch.Tensor) -> torch.Tensor:
-        """The plain version: the program over every slot of `table`."""
+        """The plain version: the conjuncts over every slot of `table`,
+        each direct one by its form, the others by `evaluate`."""
         n = table.shape[1]
+        cols = finalise(table, self.fins)
         empty = torch.zeros(0, dtype=torch.int64, device=table.device)
-        d, v = evaluate(self.prog, finalise(table, self.fins), empty, n)
-        return (d != 0) & v
-
-
-_NO_HAVING = _descriptor({H_PRED: -1}, [])
+        keep = torch.ones(n, dtype=torch.bool, device=table.device)
+        for form, c in self.conjuncts:
+            if form is None:
+                d, v = evaluate(c, cols, empty, n)
+                keep &= v & (d != 0)
+                continue
+            kind, idx, a, b = form
+            x, v = cols[idx]
+            x = _as_operand(x)
+            if kind == CJ_CMP_I:
+                keep &= v & _cmp(a, x, b)
+            elif kind == CJ_CMP_F:
+                keep &= v & _cmp(a, x, float(np.int64(b).view(np.float64)))
+            elif kind in (CJ_CMPC_I, CJ_CMPC_F):
+                y, w = cols[b]
+                keep &= v & w & _cmp(a, x, _as_operand(y))
+            else:
+                pool = c.pools.iconst if kind == CJ_IN_I else c.pools.fconst
+                hit = torch.zeros_like(v)
+                for k in range(b):
+                    hit |= x == pool[a + k]
+                keep &= v & hit
+        return keep
 
 
 def _check_group_table(table: torch.Tensor) -> None:
@@ -908,17 +1000,18 @@ def compact_groups(table: torch.Tensor, having: Optional[HavingSpec] = None,
     rows, cap = table.shape
     n = cap if slots is None else slots.numel()
     nt = max(-(-n // COMPACT_TILE), 1)
-    meta = _NO_HAVING if having is None else having.meta
     slots_ptr = None if slots is None else slots.data_ptr()
     with torch.cuda.device(dev):
-        meta_d = torch.from_numpy(meta).to(dev)
+        meta = None if having is None else having.device_meta(dev)
         # the tiles' status words, the tile counter, ng
         state = torch.zeros(nt + 2, dtype=torch.int64, device=dev)
         words = torch.empty(nt * COMPACT_WORDS, dtype=torch.int32,
                             device=dev)
         stream = _stream(dev)
         kernels.check(lib.dft_compact_mark(
-            meta_d.data_ptr(), len(meta), int(having is not None),
+            None if meta is None else meta.data_ptr(),
+            0 if meta is None else meta.numel(),
+            HAVING_NONE if having is None else having.mode,
             table.data_ptr(), cap, slots_ptr, n, words.data_ptr(),
             state.data_ptr(), stream), compact_groups_kernel)
         compact_groups_kernel.launches += 1

@@ -294,6 +294,56 @@ def conjunct_form(c: Program) -> Optional[Tuple[int, int, int, int]]:
     return None
 
 
+def _wrap64(v: int) -> int:
+    return (int(v) + (1 << 63)) % (1 << 64) - (1 << 63)
+
+
+def _fold_unary(pools: Pools, push, op: int, a: int):
+    """The constant push `push` followed by the unary `op` as one push, or
+    None: the value the interpreter's step gives, bit for bit (`wmul`'s
+    wraparound, C's int64 -> float64 and float64 -> float32 rounding,
+    IEEE negation and division)."""
+    kind, k, _b = push
+    if kind == OP_ICONST:
+        v = pools.iconst[k]
+        if op == OP_MULC_I:
+            return OP_ICONST, pools.i(_wrap64(v * pools.iconst[a])), 0
+        if op == OP_NEG_I:
+            return OP_ICONST, pools.i(_wrap64(-v)), 0
+        if op == OP_WRAP32:
+            return OP_ICONST, pools.i(np.int64(v).astype(np.int32)), 0
+        if op == OP_I2F:
+            return OP_FCONST, pools.f(np.float64(np.int64(v))), 0
+        return None
+    v = np.float64(pools.fconst[k])
+    if op == OP_NEG_F:
+        return OP_FCONST, pools.f(-v), 0
+    if op == OP_F32:
+        return OP_FCONST, pools.f(np.float64(np.float32(v))), 0
+    if op == OP_DIVC_F:
+        return OP_FCONST, pools.f(v / np.float64(pools.fconst[a])), 0
+    return None
+
+
+def fold_constants(prog: Program) -> Program:
+    """`prog` with every constant that only unary constant arithmetic
+    follows folded into one constant, added to its pools (`_fold_unary`):
+    a HAVING's `sum(l_quantity) > 300` over a decimal rescales 300 by an
+    `OP_MULC_I`, and an integer literal against a float column takes an
+    `OP_I2F`; folded, each is one column tested against one constant
+    (`conjunct_form`)."""
+    out: List[Tuple[int, int, int]] = []
+    with np.errstate(all="ignore"):
+        for op, a, b in prog.code:
+            if out and out[-1][0] in (OP_ICONST, OP_FCONST):
+                folded = _fold_unary(prog.pools, out[-1], op, a)
+                if folded is not None:
+                    out[-1] = folded
+                    continue
+            out.append((op, a, b))
+    return Program(out, prog.pools, prog.out_dtype)
+
+
 def compile_key(e: PE.PhysicalExpr, pools: Pools) -> Program:
     """A group-key program: its value packs as an int64, so a float key
     (date_part's whole-number Float64, `_phys_int_bounds`) is truncated to

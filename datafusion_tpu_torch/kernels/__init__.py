@@ -70,8 +70,7 @@ _SIGNATURES = {
     "dft_partition_count": [_P, _P, _LL, _I, _I, _I, _LL, _P, _P],
     "dft_partition_sweep": [_P, _P, _LL, _I, _I, _I, _LL, _P, _LL, _I, _P,
                             _P, _P, _P, _P, _P, _P],
-    "dft_merge_partials": [_P, _LL, _I, _P, _I, _I, _P, _LL, _P, _LL, _P,
-                           _P],
+    "dft_merge_partials": [_P, _P, _LL, _P, _LL, _P, _P],
 }
 
 

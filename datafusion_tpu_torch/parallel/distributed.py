@@ -10,8 +10,9 @@ each shard this process holds (`parallel/mesh.py`):
     per shard: a partial group table (the aggregate's own fold kernels,
                or the join's probe-and-fold against a build table)
     exchange:  mesh.all_gather of the compacted partial tables
-    final:     K2 `merge_partials` folds the entries each shard owns,
-               the ownership test inline, into its own table
+    final:     K2 `merge_partials` folds the entries each local shard
+               owns, the ownership test inline, into its own table (one
+               launch for every local shard)
     result:    mesh.all_gather of the compacted owned tables
 
 A partial or final table is the hash layout of `device/groupby.py`
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from ..common import dt
-from ..device.exchange import MergeTable, merge_partials
+from ..device.exchange import MergeTables, merge_partials
 from ..device.groupby import (LANE_MAX_F64, LANE_MIN_F64, LANE_SUM_F64,
                               AggregateSpec, HashSpec, compact_groups,
                               dense_group_aggregate, dense_group_table,
@@ -129,18 +130,17 @@ def key_stats(spec: HashSpec, cols: Columns, aux: torch.Tensor, n: int,
 def merge_allgather(mesh, partials: Sequence[torch.Tensor],
                     kinds: Sequence[int], limit: int):
     """Row 21's exchange: every shard's compacted partial table gathered,
-    each shard's owned entries merged (K2, the ownership test inline),
-    the owned tables gathered. Returns (the replicated final table, the
-    overflow flags of the local shards, device int32)."""
+    the local shards' owned entries merged by one K2 launch (the
+    ownership test inline), the owned tables gathered. Returns (the
+    replicated final table, the overflow flags of the local shards,
+    device int64)."""
     every = mesh.all_gather(partials)
-    owned, flags = [], []
-    for s in mesh.local:
-        t = merge_partials(every, MergeTable(kinds, limit, mesh.device),
-                           my=s, n_owner=mesh.n)
-        owned.append(compact_groups(t.table))
-        flags.append(t.overflow)
+    tables = merge_partials(
+        [every], MergeTables(kinds, limit, len(mesh.local), mesh.device),
+        n_owner=mesh.n, first=mesh.local[0])
     del every
-    return mesh.all_gather(owned), flags
+    owned = [compact_groups(t) for t in tables.tables]
+    return mesh.all_gather(owned), list(tables.overflow)
 
 
 def overflowed(mesh, flags) -> bool:

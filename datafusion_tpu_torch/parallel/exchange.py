@@ -12,10 +12,10 @@ shapes are static; `build_cap`, `probe_cap`, `fanout_cap` and the
   bound: a skewed destination costs rounds, not a bigger buffer), and
   `mesh.all_to_all` ships them; a `mesh.any` of the "rows left" flags
   decides another round;
-- the owner folds what arrived at once: K2 `merge_partials` into its group
-  table (`shuffle_merge`), or `join_aggregate` against its build partition
-  into its partial table, which persists across the rounds
-  (`partitioned_join_partials`);
+- the owners fold what arrived at once: one K2 `merge_partials` launch
+  into every local shard's group table (`shuffle_merge`), or
+  `join_aggregate` against its build partition into its partial table,
+  which persists across the rounds (`partitioned_join_partials`);
 - the build partition ships once (salted: S replicas keyed (key, s)),
   sized by K1's histogram, and `join_build` stages it; the probe walks
   each row's whole bucket, so there is no fanout cap and no expansion.
@@ -32,7 +32,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device.exchange import (SALT_REPLICA, SALT_ROW, MergeTable,
+from ..device.exchange import (SALT_REPLICA, SALT_ROW, MergeTables,
                                host_owner, merge_partials, partition_rows,
                                shard_owner)
 from ..device.groupby import EMPTY, HashSpec, compact_groups
@@ -76,13 +76,13 @@ def shuffle_merge(mesh, partials: Sequence[torch.Tensor],
                   slot_cap: int):
     """Row 22's owned-slot exchange of compacted partial tables: K1
     buckets each shard's entries by owner, at most `slot_cap` a
-    destination a round, `mesh.all_to_all` ships them, each owner merges
-    its arrivals (K2) into its table of at most `final_groups_per_shard`
-    groups; rounds until no shard has entries left, then the owned tables
-    are gathered. Returns (the replicated final table, the local
-    overflow flags)."""
-    tables = [MergeTable(kinds, final_groups_per_shard, mesh.device)
-              for _ in mesh.local]
+    destination a round, `mesh.all_to_all` ships them, the local owners
+    merge their arrivals (one K2 launch) each into its table of at most
+    `final_groups_per_shard` groups; rounds until no shard has entries
+    left, then the owned tables are gathered. Returns (the replicated
+    final table, the local overflow flags)."""
+    tables = MergeTables(kinds, final_groups_per_shard, len(mesh.local),
+                         mesh.device)
     pending = [p[0] != EMPTY for p in partials]
     rounds = 0
     while True:
@@ -95,14 +95,13 @@ def shuffle_merge(mesh, partials: Sequence[torch.Tensor],
             left.append(part.left)
         recv = mesh.all_to_all(sends, splits)
         del sends
-        for t, lanes in zip(tables, recv):
-            merge_partials(torch.stack(lanes), t)
+        merge_partials([torch.stack(lanes) for lanes in recv], tables)
         rounds += 1
         if not mesh.any(left):
             break
     ROUNDS["shuffle"] = rounds
-    owned = [compact_groups(t.table) for t in tables]
-    return mesh.all_gather(owned), [t.overflow for t in tables]
+    owned = [compact_groups(t) for t in tables.tables]
+    return mesh.all_gather(owned), list(tables.overflow)
 
 
 def partitioned_join_partials(mesh, bkey: torch.Tensor, bvalid: torch.Tensor,

@@ -631,6 +631,9 @@ class TorchAggregate(TorchDeviceExec):
 
 class TorchGroupAggregateExec(TorchAggregate):
 
+    # the last HAVING compiled (`having`)
+    _having_spec: Optional[HavingSpec] = None
+
     def __init__(self, source, predicate, group_exprs, aggs, schema,
                  fallback, device: torch.device,
                  cache: Optional[DeviceColumnCache] = None,
@@ -690,7 +693,9 @@ class TorchGroupAggregateExec(TorchAggregate):
     def having(self, spec, plan, names, slot_map) -> Optional[HavingSpec]:
         """The fused HAVING as a compaction program: each output column it
         reads is finalised from its row of the group table, as
-        `_apply_post_filter` (`device_aggregate.py:1301-1352`) does."""
+        `_apply_post_filter` (`device_aggregate.py:1301-1352`) does. A run
+        whose HAVING lays out as the last one's gets that spec back, so
+        the descriptor goes to the card once, not once a run."""
         if self.post_filter is None:
             return None
         row = {n: 2 + i for i, n in enumerate(names)}
@@ -724,9 +729,14 @@ class TorchGroupAggregateExec(TorchAggregate):
             prog = check_having(self.post_filter,
                                 [e.out_type for e, _ in self.group_exprs],
                                 self.aggs)
-            return HavingSpec(prog, {i: fins[i] for i in prog.pools.columns})
+            hv = HavingSpec(prog, {i: fins[i] for i in prog.pools.columns})
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
+        last = self._having_spec
+        if last is not None and np.array_equal(last.meta, hv.meta):
+            return last
+        self._having_spec = hv
+        return hv
 
     def stage(self, spec, batch, cache: bool = True):
         """The batch's columns that the programs read, on the device, and

@@ -344,7 +344,10 @@ class _MaskHaving:
     """A stand-in HavingSpec: a fixed mask over the slots."""
 
     def __init__(self, mask):
-        self.keep, self.meta = mask, gb._NO_HAVING
+        self.keep, self.mode = mask, gb.HAVING_DIRECT
+
+    def device_meta(self, device):
+        return torch.zeros(1, dtype=torch.int64)
 
     def mask(self, table):
         return torch.from_numpy(self.keep)

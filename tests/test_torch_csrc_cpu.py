@@ -2,8 +2,8 @@
 
 `g++` builds `csrc/program.cuh` and the kernel bodies of
 `fused_dense_aggregate.cu`, `hash_group_aggregate.cu`, `chain_build.cu`,
-`chain_aggregate.cu`, `chain_rows.cu`, `chain_compose.cu`, `join_build.cu`
-and `join_aggregate.cu` (each file
+`chain_aggregate.cu`, `chain_rows.cu`, `chain_compose.cu`, `join_build.cu`,
+`join_aggregate.cu`, `exchange.cu` and `compact_groups.cu` (each file
 above its `extern "C"` launch wrappers; `scan.cuh`, whose device-wide scan
 launches kernels, is left out and the join build's scan runs as
 `torch.cumsum`) through `SHIM`, a
@@ -28,9 +28,13 @@ row-returning walk and its emit over TPC-H's row chains in tiles of 1 to
 an entry a spine row, and min/max hops),
 the count(DISTINCT x) lane's set inserts (dense, hash and chain folds,
 lanes past 32 in passes), the fanout-N join's build (the multiset of
-entry records a bucket) and probe-and-fold, and the mesh's row partition (K1:
+entry records a bucket) and probe-and-fold, the mesh's row partition (K1:
 histogram, the scan as `torch.cumsum`, the stable scatter, round after
-round) and partial-table merge (K2).
+round) and partial-table merge (K2: several local tables a call, by owner
+or a source a table, with its launch parameters from the wrapper), and
+the compaction mark's HAVING test (`keep_entries` of `compact_groups.cu`,
+its direct conjuncts and its interpreter mode) against `HavingSpec.mask`,
+with the constant fold against `run`.
 Each kernel runs in the interpreter variant (lean or full) that its spec's
 `full` flag picks, and a walk in the staged variant when its chain has
 composed or folded hops (`spec.variant`), as the launch wrappers do, so a
@@ -65,6 +69,7 @@ SHIM = r"""
 #define __shared__
 typedef void* cudaStream_t;
 typedef int cudaError_t;
+struct longlong2 { long long x, y; };
 enum { cudaSuccess = 0, cudaDevAttrMultiProcessorCount = 16 };
 struct Dim3S { unsigned x = 0, y = 0, z = 0; };
 static Dim3S threadIdx, blockIdx, blockDim = {1, 1, 1}, gridDim = {1, 1, 1};
@@ -132,6 +137,9 @@ namespace ja { namespace { long long smem[1 << 16]; }
 namespace xc {
 #include "exchange_k.cu"
 }
+namespace cg { namespace { long long smem[1 << 16]; }
+#include "compact_groups_k.cu"
+}
 extern "C" {
 void h_part_count(const long long* keys, const unsigned char* pending,
                   long long n, int n_dest, int salt, int mode, long long r,
@@ -156,12 +164,46 @@ void h_part_sweep(const long long* keys, unsigned char* pending,
   xc::partition_sweep_kernel(keys, pending, n, n_dest, salt, mode, r, totals,
                              cap, x, key_out, clear, status, ticket, epoch);
 }
-void h_merge(const long long* entries, long long m, int rows,
-             const long long* kinds, int my, int n_owner, long long* table,
-             long long cap, unsigned long long* groups, long long limit,
-             int* overflow) {
-  xc::merge_partials_kernel(entries, m, rows, kinds, my, n_owner, table, cap,
-                            groups, limit, overflow);
+void h_merge(const void* args, long long* tables, long long cap,
+             unsigned long long* groups, long long limit,
+             unsigned long long* overflow) {
+  const xc::MergeArgs& a = *(const xc::MergeArgs*)args;
+  for (int y = 0; y < (a.n_owner > 0 ? 1 : a.n_tables); ++y) {
+    blockIdx.y = y;   // the launch's block row of source y
+    xc::merge_partials_kernel(a, tables, cap, groups, limit, overflow);
+  }
+  blockIdx.y = 0;
+}
+void h_keep(const long long* meta, const long long* table, long long cap,
+            long long n, int mode, int pairs, unsigned char* out) {
+  // pairs: a lane's 16-byte rounds (keep_pairs) over windows of 64 kLoads
+  // slots, lane l's round at window + 2 l; else each slot by `passes`
+  if (pairs) {
+    const long long span = 64 * cg::kLoads;
+    for (long long w = 0; w < n; w += span) {
+      for (int l = 0; l < 32; ++l) {
+        const long long j0 = w + 2 * l;
+        unsigned alive = 0;
+        for (int e = 0; e < 2 * cg::kLoads; ++e) {
+          const long long s = cg::pair_slot(j0, e);
+          alive |= (unsigned)(s < n && table[s] != -1) << e;
+        }
+        const unsigned kept =
+            mode == 1 ? cg::keep_pairs<1>(meta, table, cap, j0, alive)
+          : mode == 2 ? cg::keep_pairs<2>(meta, table, cap, j0, alive)
+                      : cg::keep_pairs<0>(meta, table, cap, j0, alive);
+        for (int e = 0; e < 2 * cg::kLoads; ++e) {
+          const long long s = cg::pair_slot(j0, e);
+          if (s < n) out[s] = kept >> e & 1;
+        }
+      }
+    }
+    return;
+  }
+  for (long long s = 0; s < n; ++s) {
+    out[s] = table[s] != -1 &&
+             (mode == 0 || cg::passes(meta, table, cap, s));
+  }
 }
 void h_run(const long long* meta, const long long* aux, int prog,
            long long n, long long* out, unsigned char* valid) {
@@ -286,7 +328,8 @@ def lib(tmp_path_factory):
     (d / "scan.cuh").write_text("#pragma once\n")
     for name in ("fused_dense_aggregate", "chain_build", "chain_aggregate",
                  "chain_rows", "chain_compose", "hash_group_aggregate",
-                 "join_build", "join_aggregate", "exchange"):
+                 "join_build", "join_aggregate", "exchange",
+                 "compact_groups"):
         with open(os.path.join(CSRC, name + ".cu")) as f:
             src = f.read()
         (d / f"{name}_k.cu").write_text(src[:src.index('extern "C"')])
@@ -313,7 +356,8 @@ def lib(tmp_path_factory):
     out.h_part_count.argtypes = [P, P, LL, I, I, I, LL, P]
     out.h_part_sweep.argtypes = [P, P, LL, I, I, I, LL, P, LL, I, P, P, P, P,
                                  P, P, LL, I]
-    out.h_merge.argtypes = [P, LL, I, P, I, I, P, LL, P, LL, P]
+    out.h_merge.argtypes = [P, P, LL, P, LL, P]
+    out.h_keep.argtypes = [P, P, LL, LL, I, I, P]
     return out
 
 
@@ -1200,35 +1244,101 @@ def test_partition_rows_matches_plain(lib, n, n_dest, cap, salt, mode):
     assert not bool(pend.any())
 
 
-@pytest.mark.parametrize("m,n_keys,n_owner", [
-    (1, 3, 0), (4000, 300, 0), (6000, 5000, 4), (6000, 40, 7)])
-def test_merge_partials_matches_plain(lib, m, n_keys, n_owner):
+@pytest.mark.parametrize("m,n_keys,n_owner,first,n_tables,limit,over", [
+    (1, 3, 0, 0, 1, 3, False), (4000, 300, 0, 0, 1, 300, False),
+    (6000, 5000, 4, 1, 1, 5000, False), (6000, 40, 7, 1, 1, 40, False),
+    (6000, 300, 4, 0, 4, 300, False), (6000, 300, 7, 2, 3, 300, False),
+    (6000, 300, 0, 0, 4, 300, False), (3000, 100, 1, 0, 1, 99, True),
+    (3000, 100, 0, 0, 3, 100, False), (3000, 100, 0, 0, 3, 99, True)])
+def test_merge_partials_matches_plain(lib, m, n_keys, n_owner, first,
+                                      n_tables, limit, over):
     """K2 run as one thread folds the plain version's groups (every lane
     kind's merge; integer lanes exactly, float sums within rel 1e-12),
-    across three calls into one table, with the ownership test."""
+    across three calls into one set of local tables, through the
+    wrapper's own launch parameters: on the all_gather route (`n_owner` >
+    0) one source whose entries go to their owners' tables, the tables of
+    shards `first` .. of the mesh (entries owned elsewhere skipped); on
+    the shuffle route a source a table. The same distinct-key counts and
+    overflow flags: `over` cases give every table `limit` + 1 keys, the
+    case before each of them `limit`."""
+    import ctypes
     import test_torch_cuda as C
-    from datafusion_tpu_torch.device.exchange import (MergeTable,
+    from datafusion_tpu_torch.device.exchange import (MergeTables,
                                                       merge_partials_plain)
     from datafusion_tpu_torch.device.groupby import (LANE_SUM_F64,
                                                      compact_groups)
-    rng = np.random.default_rng(m)
+    rng = np.random.default_rng(m + n_tables)
     kinds, e = C._merge_entries(rng, m, n_keys)
-    got, want = MergeTable(kinds, n_keys, CPU), MergeTable(kinds, n_keys, CPU)
+    got, want = (MergeTables(kinds, limit, n_tables, CPU) for _ in range(2))
     for part in torch.chunk(e, 3, dim=1):
-        part = part.contiguous()
-        lib.h_merge(_ptr(part), part.shape[1], part.shape[0],
-                    _ptr(got.kinds_d), 1, n_owner, _ptr(got.table), got.cap,
+        srcs = [part.contiguous()] if n_owner > 0 else \
+            [x.contiguous() for x in torch.chunk(part, n_tables, dim=1)]
+        srcs += [srcs[0][:, :0]] * (n_tables - len(srcs)) * (n_owner == 0)
+        args = got._args(srcs, n_owner, first, 0, n_tables)
+        lib.h_merge(ctypes.byref(args), _ptr(got.tables), got.cap,
                     _ptr(got.groups), got.limit, _ptr(got.overflow))
-        merge_partials_plain(part, want, my=1, n_owner=n_owner)
-    assert int(got.groups) == int(want.groups)
-    assert int(got.overflow) == int(want.overflow) == 0
-    a, b = compact_groups(got.table), compact_groups(want.table)
-    a, b = a[:, torch.argsort(a[0])], b[:, torch.argsort(b[0])]
-    assert a.shape == b.shape
-    for r in range(a.shape[0]):
-        if r >= 2 and kinds[r - 2] == LANE_SUM_F64:
-            np.testing.assert_allclose(a[r].view(torch.float64).numpy(),
-                                       b[r].view(torch.float64).numpy(),
-                                       rtol=1e-12)
-        else:
-            assert torch.equal(a[r], b[r])
+        merge_partials_plain(srcs, want, n_owner, first)
+    assert torch.equal(got.groups, want.groups)
+    assert torch.equal(got.overflow, want.overflow)
+    assert int(want.groups.sum()) > 0
+    assert want.overflow.tolist() == [int(over)] * n_tables
+    if over:
+        assert want.groups.tolist() == [limit + 1] * n_tables
+    for t in range(n_tables):
+        a, b = compact_groups(got.tables[t]), compact_groups(want.tables[t])
+        a, b = a[:, torch.argsort(a[0])], b[:, torch.argsort(b[0])]
+        assert a.shape == b.shape
+        for r in range(a.shape[0]):
+            if r >= 2 and kinds[r - 2] == LANE_SUM_F64:
+                np.testing.assert_allclose(a[r].view(torch.float64).numpy(),
+                                           b[r].view(torch.float64).numpy(),
+                                           rtol=1e-12)
+            else:
+                assert torch.equal(a[r], b[r])
+
+
+# --- the compaction's HAVING ----------------------------------------------------
+
+@pytest.mark.parametrize("case", [c for c, _f, _m in __import__(
+    "test_torch_cuda").HAVING_CASES])
+def test_mark_having_matches_mask(lib, case):
+    """The mark pass's keep test (a slot occupied and passing every
+    conjunct) against `HavingSpec.mask` on every slot of the group table,
+    for every case of `test_torch_having.py`: the 16-byte layout's rounds
+    (`keep_pairs`: HAVING_DIRECT's inline path over the lane's pairs, or
+    `passes` an entry) in the spec's own mode and in the more general
+    ones, and `passes` slot by slot (the slot-list layout)."""
+    import test_torch_having as T
+    from datafusion_tpu_torch.device.groupby import EMPTY, HAVING_PROGRAM
+    _ex, hv, table, *_ = T.port_having(T.having_batch(), T.having_sql(case))
+    want = ((table[0] != EMPTY) & hv.mask(table)).to(torch.uint8)
+    meta = torch.from_numpy(hv.meta)
+    n = table.shape[1]
+    # a spec runs in its own mode and in the more general ones
+    for mode in range(hv.mode, HAVING_PROGRAM + 1):
+        for pairs in (0, 1):
+            got = torch.zeros(n, dtype=torch.uint8)
+            lib.h_keep(_ptr(meta), _ptr(table), n, n, mode, pairs,
+                       _ptr(got))
+            assert torch.equal(got, want), (mode, pairs)
+    assert 0 < int(want.sum()) < int((table[0] != EMPTY).sum())
+
+
+@pytest.mark.parametrize("name", __import__("test_torch_having").FOLDS)
+def test_fold_matches_run(lib, name):
+    """A folded constant holds the value the interpreter's `run` computes
+    from the steps it replaces, bit for bit."""
+    import test_torch_having as T
+    from datafusion_tpu_torch.device.groupby import LANE_SUM_I64, _ProgramSpec
+    from datafusion_tpu_torch.device.lower import OP_ICONST
+    prog, folded = T.fold_case(name)
+    ((op, k, _b),) = folded.code
+    want = prog.pools.iconst[k] if op == OP_ICONST else \
+        int(np.float64(prog.pools.fconst[k]).view(np.int64))
+    spec = _ProgramSpec(prog.pools, None, [], [(prog, LANE_SUM_I64)])
+    meta = spec.device_meta({}, CPU, spec._layout(0))
+    aux = torch.zeros(1, dtype=torch.int64)
+    got = torch.zeros(1, dtype=torch.int64)
+    valid = torch.zeros(1, dtype=torch.uint8)
+    lib.h_run(_ptr(meta), _ptr(aux), 0, 1, _ptr(got), _ptr(valid))
+    assert int(valid) == 1 and int(got) == want

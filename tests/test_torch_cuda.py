@@ -376,6 +376,116 @@ def test_having_compaction_matches_plain(cuda):
     assert 0 < got.shape[1] < int((table[0] != -1).sum())
 
 
+def having_columns(n: int = 6_000, seed: int = 5):
+    """(name, type of a `dt` module, data, validity or None) of the HAVING
+    cases' table: k an int key with NULLs; b a bool; d a date; x an int
+    lane NULL on every row of a key divisible by 7 (its groups' sum and
+    count of x are NULL and 0); v a float lane with NaNs and NULLs; f a
+    float32 lane; q a decimal(15, 2) lane, as TPC-H's l_quantity; w a
+    float lane of halves, -0.0 among them."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, n // 6, n)
+    v = rng.normal(size=n) * 100
+    v[rng.random(n) < 0.05] = np.nan
+    w = rng.integers(-6, 7, n) / 2.0
+    w[(w == 0) & (rng.random(n) < 0.5)] = -0.0
+    return [
+        ("k", lambda t: t.INT64, k, rng.random(n) > 0.03),
+        ("b", lambda t: t.BOOL, rng.random(n) < 0.5, None),
+        ("d", lambda t: t.DATE,
+         rng.integers(8000, 11000, n).astype(np.int32), None),
+        ("x", lambda t: t.INT64, rng.integers(-1000, 1000, n), k % 7 != 0),
+        ("v", lambda t: t.FLOAT64, v, rng.random(n) > 0.1),
+        ("f", lambda t: t.FLOAT32,
+         (rng.normal(size=n) * 10).astype(np.float32), None),
+        ("q", lambda t: t.decimal(15, 2), rng.integers(100, 5000, n), None),
+        ("w", lambda t: t.FLOAT64, w, None)]
+
+
+# (GROUP BY and HAVING, the conjuncts' forms in the descriptor's order,
+# the mark's mode): every finaliser kind, a NULL aggregate, IN lists, two
+# direct conjuncts, a direct conjunct beside a program conjunct, Q18's
+# decimal rescale
+HAVING_CASES = [
+    ("k HAVING sum(q) > 300", ["CMP_I"], "direct"),        # Q18's rescale
+    ("k HAVING count(*) >= 8", ["CMP_I"], "direct"),
+    ("k HAVING sum(x) > 500", ["CMP_I"], "direct"),
+    ("k HAVING sum(x) IS NULL", ["PROG"], "program"),      # count(x) = 0
+    ("k HAVING count(x) = 0", ["CMP_I"], "direct"),
+    ("k HAVING sum(v) > 150.5", ["CMP_F"], "direct"),
+    ("k HAVING sum(f) < -4", ["CMP_F"], "direct"),
+    ("k HAVING avg(v) > 10", ["CMP_F"], "program"),
+    ("k HAVING avg(x) <= -100", ["CMP_F"], "program"),
+    ("k HAVING min(v) < -50", ["CMP_F"], "program"),       # NaN restored
+    ("k HAVING min(v) <> max(v)", ["CMPC_F"], "program"),  # NaN passes <>
+    ("k HAVING min(x) > -900 AND max(x) < 900", ["CMP_I", "CMP_I"],
+     "direct"),
+    ("k HAVING max(x) IN (10, 11, 12, 13, 990, 998)", ["IN_I"], "direct"),
+    ("k HAVING sum(w) IN (-1.0, -0.5, 0.0, 0.5, 1.0)", ["IN_F"], "direct"),
+    ("k HAVING min(w) IN (-0.0, -1.5, 2.5)", ["IN_F"], "program"),
+    ("k HAVING count(*) > 6 AND (min(v) < 0 OR max(v) IS NULL)",
+     ["CMP_I", "PROG"], "program"),
+    ("k HAVING k < sum(x)", ["CMPC_I"], "program"),        # an int key
+    ("k HAVING max(v) > k", ["PROG"], "program"),          # k as a float
+    ("b HAVING sum(x) < 0 AND b <> (count(*) > 3100)", ["CMP_I", "PROG"],
+     "program"),
+    ("date_part('year', d) HAVING date_part('year', d) < avg(x) + 2000",
+     ["PROG"], "program"),
+    ("date_part('day', d) HAVING max(w) > date_part('day', d) AND "
+     "count(*) > 10", ["CMPC_F", "CMP_I"], "program"),
+]
+HAVING_MODES = {"direct": 1, "program": 2}
+
+
+def having_sql(case: str) -> str:
+    group, having = case.split(" HAVING ")
+    return (f"SELECT {group} g, count(*) c, count(x) cx, sum(x) sx, "
+            f"sum(v) sv, sum(f) sf, sum(q) sq, avg(v) av, avg(x) ax, "
+            f"min(v) mnv, max(v) mxv, min(x) mnx, max(x) mxx, min(w) mnw, "
+            f"max(w) mxw FROM t GROUP BY {group} HAVING {having}")
+
+
+@pytest.mark.parametrize("listed", [False, True], ids=["table", "listed"])
+@pytest.mark.parametrize("case,forms,mode", HAVING_CASES,
+                         ids=[c for c, _f, _m in HAVING_CASES])
+def test_having_conjuncts_match_plain(cuda, case, forms, mode, listed):
+    """Kernel row 11 on every HAVING case of `test_torch_having.py` at
+    300,000 rows (50,000 keys, several tiles): the mark in the spec's mode
+    (HAVING_DIRECT inline, without the interpreter; HAVING_PROGRAM a slot
+    at a time, a program conjunct through the interpreter), equal column
+    for column to
+    `compact_groups_plain`, over the whole table and over a slot list
+    with -1 entries, in 2 launches."""
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.groupby import (compact_groups,
+                                                     compact_groups_plain)
+    n = 300_000
+    cols = having_columns(n, 5)
+    batch = Batch(Schema([Field(name, t(dt)) for name, t, _a, _v in cols]),
+                  [Column(t(dt), a, v) for _n, t, a, v in cols], n)
+    ctx = dft.SessionContext(cuda)
+    ctx.register_table("t", dft.MemTable(batch.schema, [[batch]]))
+    node = _exec(ctx, having_sql(case))
+    batches = node.input_batches(ctx.task_context())
+    spec, plan, names, slot_map = node.compile(batches)
+    having = node.having(spec, plan, names, slot_map)
+    assert [f.split("(")[0] for f in having.forms] == forms
+    assert having.mode == HAVING_MODES[mode]
+    table = node.group_table(spec, batches, True)
+    slots = None
+    if listed:
+        g = torch.Generator(device=cuda).manual_seed(3)
+        cap = table.shape[1]
+        slots = torch.randperm(cap, generator=g, device=cuda)[:cap // 2]
+        slots[torch.rand(cap // 2, generator=g, device=cuda) < 0.1] = -1
+    before = dft.launch_counts()["compact_groups"]
+    got = compact_groups(table, having, slots)
+    launches = dft.launch_counts()["compact_groups"] - before
+    want = compact_groups_plain(table, having, slots)
+    assert torch.equal(got, want)
+    assert launches == (2 if want.shape[1] else 1)
+
+
 _TILE = 4096
 _CAP = 3 * _TILE + 77
 
@@ -1913,50 +2023,81 @@ def _merge_entries(rng, m, n_keys):
     return kinds, torch.from_numpy(np.stack(rows).astype(np.int64))
 
 
-@pytest.mark.parametrize("m,n_keys,n_owner,limit", [
-    (1, 5, 0, 16), (5000, 300, 0, 300), (300_000, 200_000, 4, 200_000),
-    (300_000, 50, 8, 50), (20_000, 20_000, 0, 100)])
-def test_merge_partials_matches_plain(cuda, m, n_keys, n_owner, limit):
-    """K2 against its plain version: the same distinct-key count and
-    overflow flag (the last case passes its limit and fills the table, and
-    both count only the keys that found a slot); below the limit, the same
-    groups (compacted, by key), counts, integer lanes and min/max exactly,
-    float sums within rel 1e-12 (atomic adds change the order). Which keys
-    win a full table's slots depends on the threads' order, so the groups
-    of the overflow case are not compared."""
+def _first_of_each(keys: torch.Tensor) -> torch.Tensor:
+    """The index of each distinct key's first entry, in entry order."""
+    _u, inv = torch.unique(keys, return_inverse=True)
+    first = torch.full((int(inv.max()) + 1 if inv.numel() else 0,),
+                       keys.numel(), dtype=torch.int64)
+    first.scatter_reduce_(0, inv, torch.arange(keys.numel()), "amin")
+    return first.sort().values
+
+
+@pytest.mark.parametrize("m,n_keys,n_owner,n_tables,limit", [
+    (1, 5, 0, 1, 16), (5000, 300, 0, 1, 300), (300_000, 200_000, 4, 1,
+                                                 200_000),
+    (300_000, 50, 8, 1, 50), (20_000, 20_000, 0, 1, 100),
+    (300_000, 200_000, 4, 4, 200_000), (300_000, 3000, 7, 3, 3000),
+    (300_000, 200_000, 0, 4, 200_000), (60_000, 1000, 1, 1, 999),
+    (60_000, 1000, 0, 4, 999), (60_000, 1000, 0, 4, 1000)])
+def test_merge_partials_matches_plain(cuda, m, n_keys, n_owner, n_tables,
+                                      limit):
+    """K2 against its plain version, one launch for all local tables: on
+    the all_gather route one source whose entries go to their owners'
+    tables (shards 0 .. n_tables - 1 of n_owner; the others' entries
+    skipped), on the shuffle route a source a table. The same
+    distinct-key counts and overflow flags (a table whose keys are one
+    past its limit raises it; the fourth case passes its limit and fills
+    the table, and both count only the keys that found a slot); below the
+    limit, the same groups (compacted, by key), counts, integer lanes and
+    min/max exactly, float sums within rel 1e-12 (atomic adds change the
+    order). Which keys win a full table's slots depends on the threads'
+    order, so the groups of a full table are not compared. In the cases of
+    1,000 keys a source holds a key once a call (its first entry), so
+    that a table adds one value a key a call and its float sums are the
+    plain version's whatever the order of the atomics."""
     from datafusion_tpu_torch.device.exchange import (
-        MergeTable, merge_partials, merge_partials_kernel,
+        MergeTables, merge_partials, merge_partials_kernel,
         merge_partials_plain)
     from datafusion_tpu_torch.device.groupby import (
         LANE_SUM_F64, compact_groups)
-    rng = np.random.default_rng(m + n_keys)
+    rng = np.random.default_rng(m + n_keys + n_tables)
     kinds, e = _merge_entries(rng, m, n_keys)
-    t = MergeTable(kinds, limit, cuda)
+
+    def sources(part, dev):
+        srcs = [part] if n_owner > 0 else \
+            list(torch.tensor_split(part, n_tables, dim=1))
+        if n_keys == 1000:                           # a key once a call
+            srcs = [x[:, _first_of_each(x[0])] for x in srcs]
+        return [x.contiguous().to(dev) for x in srcs]
+    t = MergeTables(kinds, limit, n_tables, cuda)
     before = merge_partials_kernel.launches
-    merge_partials(e[:, :0].contiguous().to(cuda), t)   # no entries: none
-    merge_partials(e.to(cuda), t)
+    merge_partials(sources(e[:, :0], cuda), t, n_owner)   # none: no launch
+    merge_partials(sources(e, cuda), t, n_owner)
     assert merge_partials_kernel.launches - before == 1
     out = []
-    for dev, fn in ((cuda, merge_partials), (cuda, merge_partials_plain)):
-        t = MergeTable(kinds, limit, dev)
+    for fn in (merge_partials, merge_partials_plain):
+        t = MergeTables(kinds, limit, n_tables, cuda)
         for part in torch.chunk(e, 3, dim=1):        # three rounds
-            fn(part.contiguous().to(dev), t, my=1, n_owner=n_owner)
-        g = compact_groups(t.table).cpu()
-        g = g[:, torch.argsort(g[0])]
-        out.append((g, int(t.groups.item()), int(t.overflow.item())))
-    (a, ga, oa), (b, gb, ob) = out
-    assert oa == ob
-    assert ga == gb
-    if oa:
-        return
-    assert a.shape == b.shape
-    for r in range(a.shape[0]):
-        if r >= 2 and kinds[r - 2] == LANE_SUM_F64:
-            np.testing.assert_allclose(a[r].view(torch.float64).numpy(),
-                                       b[r].view(torch.float64).numpy(),
-                                       rtol=1e-12)
-        else:
-            assert torch.equal(a[r], b[r])
+            fn(sources(part, cuda), t, n_owner)
+        out.append((t, t.groups.cpu(), t.overflow.cpu()))
+    (ta, ga, oa), (tb, gb, ob) = out
+    assert torch.equal(oa, ob)
+    assert torch.equal(ga, gb)
+    if limit < n_keys and m >= 60_000:
+        assert bool(oa.all()) == (limit + 1 == n_keys)
+    for i in range(n_tables):
+        if int(ga[i]) > 2 * limit:                   # a full table
+            continue
+        a, b = (compact_groups(x.tables[i]).cpu() for x in (ta, tb))
+        a, b = a[:, torch.argsort(a[0])], b[:, torch.argsort(b[0])]
+        assert a.shape == b.shape
+        for r in range(a.shape[0]):
+            if r >= 2 and kinds[r - 2] == LANE_SUM_F64:
+                np.testing.assert_allclose(
+                    a[r].view(torch.float64).numpy(),
+                    b[r].view(torch.float64).numpy(), rtol=1e-12)
+            else:
+                assert torch.equal(a[r], b[r])
 
 
 MESH_QUERIES = [
