@@ -97,7 +97,7 @@ query is held against a numpy oracle on the same data.
      a lane as its yardstick; the scan's launches as `scan_launches`
      predicts, `index_copy_` of one int64 lane as its floor), then each
      query end to end against numpy, with its scan launches as predicted
-     and a breakdown;
+     (no breakdown: one would run each query twice more, 30-40 s);
 5. ClickBench's `UserID`, `SearchPhrase` and `EventTime` at 99,997,497
    rows (the public `hits` row count), drawn as `generate_hits` draws
    them, then `RegionID`, `AdvEngineID` and `ResolutionWidth` by its
@@ -122,7 +122,24 @@ query is held against a numpy oracle on the same data.
    varying byte and a gather a later word a sort
    (`device_sort.sort_launch_count`); 2 a compaction that keeps a group
    (Q18's subquery, CB Q17), 1 one that keeps none; and 2 a packed record
-   group, 1 a direct one, of `groupby.gather_plan` (W1).
+   group, 1 a direct one, of `groupby.gather_plan` (W1);
+6. the entry points a user starts the port with (`entry_points_phase`):
+   `python -m datafusion_tpu_torch --format csv` in a process of its own
+   (`CREATE TABLE t AS` 10,000,000 rows of `generate_series`, their
+   grouped count and sum against the closed form, and an EXPLAIN that must
+   show `TorchGroupAggregateExec ... device=cuda`), `python -m
+   datafusion_tpu_torch.bench_runner tpch --sf 0.1 --iterations 1` in
+   another (its JSON line must list q1-q22), both started first; in this
+   process TPC-H's 22 queries at SF 0.1 (`register_tpch`) on the card
+   against a CPU session over the same tables (floats within rel 1e-9,
+   some kernel launched); TPC-H Q1, Q3, Q5, Q6, Q10 and Q18 through their
+   logical JSON, Substrait and physical dict and back, on the card, with
+   the direct run's rows (Q18's IN subquery and the physical joins raise
+   where the JAX package raises; the dict holds no device exec); and
+   `LocalPod(2)`, whose workers open sessions on the card, over the
+   sharded SF 0.1 `lineitem` (Q1) and `tests/test_pod.py`'s two SQL texts,
+   against this process (floats within rel 1e-12). It prints each part's
+   seconds.
 
 ClickBench Q25-Q27 take a warm median of SORT_REPS runs (each spends
 seconds in the host filter). Each end-to-end path sets the launch counts
@@ -254,6 +271,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 SF10_ROWS = 60_012_150       # TPC-H SF10 lineitem, DataFusion's `bench.sh tpch10`
@@ -3422,6 +3440,266 @@ def clickbench_q10_q30(ctx, hb, card, add):
                  launches=counts30["fused_dense_aggregate"], **k30)]
 
 
+# The entry points a user starts the port with: the command line (a table
+# made by SQL, since the GPU machine has no pyarrow to read a file), the
+# bench runner at its own default SF 0.1, TPC-H's 22 queries on the card
+# against the CPU, plan interchange and the multi-process pod
+ENTRY_ROWS = 10_000_000
+ENTRY_SF = 0.1
+ENTRY_SELECT = ("SELECT g, count(*) AS c, sum(v) AS s FROM t GROUP BY g "
+                "ORDER BY g")
+ROUND_TRIPS = (1, 3, 5, 6, 10, 18)
+# where the port raises as the JAX package does (`tests/test_torch_proto.py`
+# and `test_torch_substrait.py` hold it there): Q18's IN subquery has no
+# Substrait form and no logical JSON (its optimized plan, a semi join, is
+# shipped instead), and a physical plan ships no join
+IN_SUBQUERY = {18}
+PHYSICAL_RAISES = {3, 5, 10, 18}
+# tests/test_pod.py:50-55, over its 5,000-row table (seed 3)
+POD_SQL = ("SELECT g, sum(v) sv, count(*) c, avg(f) af FROM t GROUP BY g "
+           "ORDER BY g",
+           "SELECT s, min(v) mn, max(v) mx FROM t WHERE v % 2 = 0 GROUP BY s "
+           "ORDER BY s")
+
+
+def same_result(got, want, ordered, label, rel=1e-9):
+    """Equal rows (in order when `ordered`): floats within `rel`, every
+    other value exactly."""
+    import math
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: columns {list(got)} != {list(want)}")
+    g, w = list(zip(*got.values())), list(zip(*want.values()))
+    if not ordered:
+        def key(r):
+            return tuple((x is None, str(x)) for x in r)
+        g, w = sorted(g, key=key), sorted(w, key=key)
+
+    def same(a, b):
+        if isinstance(a, float) and isinstance(b, float):
+            return math.isclose(a, b, rel_tol=rel, abs_tol=1e-12) or (
+                math.isnan(a) and math.isnan(b))
+        return a == b and type(a) is type(b)
+    if len(g) != len(w) or not all(
+            all(same(a, b) for a, b in zip(rg, rw)) for rg, rw in zip(g, w)):
+        raise AssertionError(f"{label} disagrees:\n{got}\n{want}")
+
+
+def device_args(dev):
+    """The port's commands take the card by default; only another device
+    is named."""
+    return [] if dev.type == "cuda" else ["--device", dev.type]
+
+
+def entry_points_phase(dev, card, rows=ENTRY_ROWS, sf=ENTRY_SF):
+    """The command line and the bench runner, each in a process of its own
+    started first, then in this process TPC-H's 22 queries on `dev` against
+    the CPU, the logical JSON, Substrait and physical round trips, and the
+    2-worker pod; each part's seconds."""
+    import numpy as np
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch import kernels
+    from datafusion_tpu_torch.api.dataframe import DataFrame
+    from datafusion_tpu_torch.common.errors import NotImplementedError_
+    from datafusion_tpu_torch.common.errors import PlanError
+    from datafusion_tpu_torch.parallel.pod import LocalPod
+    from datafusion_tpu_torch.physical.plan.base import collect_batch
+    from datafusion_tpu_torch.physical.plan.device_aggregate import (
+        TorchDeviceExec)
+    from datafusion_tpu_torch.proto import plan_from_json, plan_to_json
+    from datafusion_tpu_torch.proto.physical import (phys_from_dict,
+                                                     phys_to_dict)
+    from datafusion_tpu_torch.substrait import (plan_to_substrait,
+                                                substrait_to_plan)
+    from datafusion_tpu_torch.tpch import QUERIES, register_tpch
+    root = os.path.dirname(os.path.abspath(__file__))
+    if rows % 8:
+        raise ValueError("the CLI's table needs a multiple of 8 rows")
+    create = ("CREATE TABLE t AS SELECT value % 8 AS g, value AS v FROM "
+              f"generate_series(1, {rows})")
+    commands = {
+        "the CLI": [sys.executable, "-m", "datafusion_tpu_torch", "--format",
+                    "csv"] + device_args(dev) + [
+                        "-c", create, "-c", ENTRY_SELECT,
+                        "-c", "EXPLAIN " + ENTRY_SELECT],
+        "the bench runner": [
+            sys.executable, "-m", "datafusion_tpu_torch.bench_runner",
+            "tpch", "--sf", str(sf), "--iterations", "1"] + device_args(dev)}
+    procs, seconds, done, waiters = {}, {}, {}, []
+
+    def finish(label, proc, t0):
+        # a thread a command: its output read as it comes, its end timed
+        out, err = proc.communicate()
+        done[label] = (time.perf_counter() - t0, out, err)
+
+    try:
+        for label, argv in commands.items():
+            procs[label] = subprocess.Popen(
+                argv, cwd=root, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            waiters.append(threading.Thread(
+                target=finish, args=(label, procs[label],
+                                     time.perf_counter()), daemon=True))
+            waiters[-1].start()
+
+        # -- TPC-H's 22 queries on the card against the CPU ---------------
+        t0 = time.perf_counter()
+        ctx = dft.SessionContext(dev)
+        register_tpch(ctx, sf=sf)
+        host = dft.SessionContext("cpu")
+        for name in ctx.tables:
+            host.register_table(name, ctx.get_table(name))
+        kernels.reset_launch_counts()
+        ran, fell = [], []
+        for q in sorted(QUERIES):
+            sql = QUERIES[q]
+            same_result(ctx.sql(sql).to_pydict(), host.sql(sql).to_pydict(),
+                        "order by" in sql.lower(), f"TPC-H Q{q} SF {sf}")
+            execs = [n for n in walk_execs(ctx.sql(sql).create_physical_plan())
+                     if isinstance(n, TorchDeviceExec)]
+            (fell if any(n.fallbacks for n in execs) else
+             ran if execs else []).append(q)
+        launched = {k: v for k, v in kernels.launch_counts().items() if v}
+        if dev.type == "cuda" and not launched:
+            raise AssertionError(f"TPC-H SF {sf} launched no kernel")
+        seconds["TPC-H"] = time.perf_counter() - t0
+        print(f"TPC-H Q1-Q22 SF {sf}: {dev.type} equals cpu (floats within "
+              f"rel 1e-9); device execs with no fallback in Q{ran}, the "
+              f"host plan taken (fallbacks) in Q{fell}; kernels launched "
+              f"{launched}", flush=True)
+
+        # -- plan interchange on the card ---------------------------------
+        t0 = time.perf_counter()
+        names = LocalPod._table_names(ctx)
+        for q in ROUND_TRIPS:
+            sql, label = QUERIES[q], f"Q{q} SF {sf}"
+            frame = ctx.sql(sql)
+            want = frame.to_pydict()
+            ordered = "order by" in sql.lower()
+            try:
+                js, kind = plan_to_json(frame.plan), "plan"
+            except PlanError:
+                if q not in IN_SUBQUERY:
+                    raise
+                js, kind = plan_to_json(frame.optimized_plan()), "optimized"
+            same_result(DataFrame(ctx, plan_from_json(js, ctx)).to_pydict(),
+                        want, ordered, f"{label} logical JSON")
+            try:
+                proto = json.loads(json.dumps(
+                    plan_to_substrait(frame.logical_plan())))
+            except NotImplementedError_ as e:
+                if q not in IN_SUBQUERY:
+                    raise
+                sub = f"raises NotImplementedError_ ({e})"
+            else:
+                if q in IN_SUBQUERY:
+                    raise AssertionError(f"{label}: Substrait did not raise")
+                same_result(DataFrame(ctx, substrait_to_plan(proto, ctx))
+                            .to_pydict(), want, ordered,
+                            f"{label} Substrait")
+                sub = "same rows"
+            plan = frame.create_physical_plan()
+            fused = sorted({type(n).__name__ for n in walk_execs(plan)
+                            if isinstance(n, TorchDeviceExec)})
+            try:
+                d = json.loads(json.dumps(phys_to_dict(plan, names)))
+            except NotImplementedError as e:
+                if q not in PHYSICAL_RAISES:
+                    raise
+                phys = f"raises NotImplementedError ({e})"
+            else:
+                if q in PHYSICAL_RAISES:
+                    raise AssertionError(f"{label}: the physical plan "
+                                         f"shipped")
+                back = phys_from_dict(d, ctx)
+                if "Torch" in json.dumps(d) or any(
+                        isinstance(n, TorchDeviceExec)
+                        for n in walk_execs(back)):
+                    raise AssertionError(f"{label}: a device exec shipped")
+                same_result(collect_batch(back, ctx.task_context())
+                            .to_pydict(), want, ordered,
+                            f"{label} physical dict")
+                phys = "same rows; the dict holds no device exec"
+            print(f"{label} ({', '.join(fused)} on {dev.type}): logical JSON "
+                  f"({kind}) same rows; Substrait {sub}; physical {phys}",
+                  flush=True)
+        seconds["proto and Substrait"] = time.perf_counter() - t0
+
+        # -- the pod: 2 worker processes on the card ----------------------
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(3)
+        n = 5000
+        ctx.register_arrays("t", {
+            "g": rng.integers(0, 7, n),
+            "s": np.array([f"k{i % 3}" for i in range(n)]),
+            "v": rng.integers(0, 100, n).astype(np.int64),
+            "f": rng.random(n)})
+        lineitem = ctx.sql("SELECT * FROM lineitem").collect_batch()
+        pod_kwargs = {} if dev.type == "cuda" else {"device": dev.type}
+        with LocalPod(2, **pod_kwargs) as pod:
+            pod.register_sharded("lineitem", lineitem)
+            pod.register_sharded("t", ctx.sql("SELECT * FROM t")
+                                 .collect_batch())
+            for label, sql in (("Q1", QUERIES[1]), ("pod SQL 1", POD_SQL[0]),
+                               ("pod SQL 2", POD_SQL[1])):
+                same_result(pod.sql_distributed(ctx, sql).to_pydict(),
+                            ctx.sql(sql).to_pydict(), True,
+                            f"the pod's {label}", rel=1e-12)
+        seconds["the pod"] = time.perf_counter() - t0
+        print(f"the pod (2 workers on {dev.type}, lineitem SF {sf} "
+              f"{lineitem.num_rows} rows sharded): Q1 and test_pod.py's two "
+              f"SQL texts equal the single process (floats within rel "
+              f"1e-12)", flush=True)
+        del ctx, host, lineitem
+
+        # -- the two commands ---------------------------------------------
+        outs = {}
+        for waiter in waiters:
+            waiter.join(timeout=900)
+        for label, proc in procs.items():
+            if label not in done:
+                raise AssertionError(f"{label} did not end in 900 s")
+            seconds[label], outs[label], err = done[label]
+            if proc.returncode:
+                raise AssertionError(f"{label} exited {proc.returncode}:\n"
+                                     f"{err[-4000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    m = rows // 8
+    want = ["g,c,s"] + [f"{g},{m},{8 * m * (m + 1) // 2}" if g == 0 else
+                        f"{g},{m},{8 * m * (m - 1) // 2 + g * m}"
+                        for g in range(8)]
+    lines = outs["the CLI"].splitlines()
+    if "g,c,s" not in lines or \
+            lines[lines.index("g,c,s"):][:9] != want:
+        raise AssertionError(f"the CLI's CSV is not the closed form:\n"
+                             f"{outs['the CLI']}")
+    shown = f"TorchGroupAggregateExec: gby=[g], aggr=[count(*), sum(t.v)], " \
+            f"device={dev.type}"
+    if shown not in outs["the CLI"]:
+        raise AssertionError(f"the CLI's plan does not show {shown}:\n"
+                             f"{outs['the CLI']}")
+    print(f"the CLI (python -m datafusion_tpu_torch --format csv): "
+          f"{rows} rows made by CREATE TABLE ... AS, the grouped count and "
+          f"sum equal the closed form, EXPLAIN shows {shown}", flush=True)
+    summary = json.loads(outs["the bench runner"].strip().splitlines()[-1])
+    if summary.get("suite") != "tpch" or \
+            list(summary["ms"]) != [f"q{i}" for i in range(1, 23)]:
+        raise AssertionError(f"the bench runner's line: {summary}")
+    print(f"the bench runner (tpch --sf {sf} --iterations 1) ms: "
+          f"{json.dumps(summary['ms'])}", flush=True)
+    for label, secs in seconds.items():
+        print(f"entry points: {label} {secs:.1f} s [{card}]", flush=True)
+
+
+def walk_execs(plan):
+    yield plan
+    for c in plan.children():
+        yield from walk_execs(c)
+
+
 def main() -> int:
     for blocked in ("jax", "datafusion_tpu", "bench"):
         sys.modules[blocked] = None     # the port stands alone
@@ -3743,8 +4021,6 @@ def main() -> int:
         raise AssertionError("W1 SF10 disagrees with numpy")
     print(f"W1 SF10 equals numpy exactly: {out.num_rows} rows of rank <= 3 "
           f"over {len(np.unique(want[0]))} suppliers", flush=True)
-    breakdown(ctx, W1, card, "W1 SF10", WindowExec, main="window_pass",
-              host="none (no filter below the window)")
     del out, got, want
 
     out, counts, _ = run_path(ctx, W2, window, card, "W2 SF10", n_li,
@@ -3766,8 +4042,6 @@ def main() -> int:
         raise AssertionError("W2 SF10 disagrees with numpy")
     print(f"W2 SF10 equals numpy exactly: {n_li} rows, row_number and lag "
           f"in (l_shipdate, l_orderkey) order", flush=True)
-    breakdown(ctx, W2, card, "W2 SF10", WindowExec, main="window_pass",
-              host="none (no filter below the window)")
     del out, order, price, prev
 
     out, counts, _ = run_path(ctx, W3, window, card, "W3 SF10", n_li,
@@ -3791,8 +4065,6 @@ def main() -> int:
         raise AssertionError("W3 SF10 disagrees with numpy")
     print(f"W3 SF10 equals numpy exactly: {n_li} rows in "
           f"{len(np.unique(flag))} partition runs", flush=True)
-    breakdown(ctx, W3, card, "W3 SF10", WindowExec, main="window_pass",
-              host="none (no filter below the window)")
     del ctx, tables, li, out, order, flag, sums, idx, lo, qty7
     torch.cuda.empty_cache()
 
@@ -3910,6 +4182,12 @@ def main() -> int:
                   main="onesweep_kernel",
                   host=f"filter and projection {host_ms[q]:.3f} ms run alone")
     del ctx, hb, user, code, event, rows, oracle_keys
+    torch.cuda.empty_cache()
+
+    # == entry points: the CLI, the bench runner, TPC-H, proto, the pod =====
+    phase("entry points: the CLI, the bench runner, TPC-H SF 0.1 on the card "
+          "against the CPU, proto and Substrait, the pod")
+    entry_points_phase(dev, card)
 
     loaded = [m for m, v in sys.modules.items()
               if m.split(".")[0] in ("jax", "datafusion_tpu", "bench")

@@ -13,7 +13,7 @@ import torch
 
 import datafusion_tpu as df
 import datafusion_tpu_torch as dft
-from datafusion_tpu.clickbench.workload import QUERIES as CB
+from datafusion_tpu_torch.clickbench.workload import QUERIES as CB
 from test_torch_distinct import execs, same, table
 from torch_twin import register_both, register_hits_both
 

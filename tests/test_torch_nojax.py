@@ -11,28 +11,33 @@ Q21 (SEMI and ANTI min/max membership), an ORDER BY ... LIMIT over lineitem (the
 query (the device window evaluation), with the sort, window and
 row-returning join thresholds at 1, and, in a second session on a
 4-shard mesh, TPC-H Q1 (the all_gather aggregate) and lineitem x
-partsupp (the partitioned join).
+partsupp (the partitioned join); then the command line's `-c` run and
+Q1's logical plan through its JSON and back (`proto/`).
 It prints the rows as JSON, and this process holds them against the JAX
-package on the same seeded data. A second interpreter blocks nothing and
+package on the same seeded data (ClickBench's `UserID` drawn by each
+package's own `generate_hits`). A second interpreter blocks nothing and
 checks that running the port loads neither JAX nor the JAX package. The
 last two tests read the port's sources: no import of `jax`,
 `datafusion_tpu` or `bench` anywhere in `datafusion_tpu_torch/` or
 `chip_smoke.py`.
 """
 import ast
+import contextlib
+import io
 import json
 import pathlib
 import re
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 
 import datafusion_tpu as df
-from datafusion_tpu.clickbench.workload import QUERIES as CB, generate_hits
+from datafusion_tpu.cli import main as cli_main
+from datafusion_tpu.clickbench.workload import generate_hits
 from datafusion_tpu.tpch.datagen import register_tpch
 from datafusion_tpu.tpch.queries import QUERIES as TPCH
+from datafusion_tpu_torch.clickbench.workload import QUERIES as CB
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "datafusion_tpu", "bench")
@@ -98,14 +103,25 @@ class _Refuse:
 sys.meta_path.insert(0, _Refuse())
 """ % (BLOCKED,)
 
+CLI = ["--format", "csv", "-c",
+       "CREATE TABLE t AS SELECT value % 8 AS g, value AS v "
+       "FROM generate_series(1, 1000)",
+       "-c", "SELECT g, count(*) AS c, sum(v) AS s FROM t GROUP BY g "
+       "ORDER BY g"]
+
 SCRIPT = r"""
+import contextlib
+import io
 import json
 import sys
 
-import numpy as np
 import torch
 
 import datafusion_tpu_torch as dft
+from datafusion_tpu_torch.api.dataframe import DataFrame
+from datafusion_tpu_torch.cli import main as cli_main
+from datafusion_tpu_torch.clickbench.workload import generate_hits
+from datafusion_tpu_torch.proto import plan_from_json, plan_to_json
 from datafusion_tpu_torch.tpch.datagen import register_tpch
 
 queries, plans = json.loads(sys.argv[1]), json.loads(sys.argv[2])
@@ -114,7 +130,8 @@ port.sql("SET datafusion.tpu.device_sort_min_rows = 1")
 port.sql("SET datafusion.tpu.device_window_min_rows = 1")
 port.sql("SET datafusion.tpu.device_join_rows_min_spine = 1")
 register_tpch(port, sf=0.01, seed=1)
-port.register_arrays("hits", {"UserID": np.load(sys.argv[3])})
+port.register_arrays("hits", {
+    "UserID": generate_hits(int(sys.argv[3]), 0)["UserID"]})
 # the mesh: 4 shards of a LocalMesh, the partitioned join past 64 rows
 meshed = dft.SessionContext(torch.device("cpu"))
 meshed.sql("SET datafusion.tpu.mesh_devices = 4")
@@ -142,6 +159,14 @@ for label, sql in queries.items():
     assert all(getattr(n, "device", port.device) == port.device
                for n in found), label
     assert all(getattr(n, "routes", [1]) for n in found), label
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli_main(["--device", "cpu"] + json.loads(sys.argv[4])) == 0
+rows["cli"] = out.getvalue()
+q1 = port.sql(queries["q1"])
+q1_back = DataFrame(port, plan_from_json(plan_to_json(q1.plan), port))
+assert q1_back.plan.display() == q1.plan.display()
+rows["proto_q1"] = q1_back.to_pydict()
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and
                 m.split(".")[0] in ("jax", "datafusion_tpu", "bench"))
 assert not loaded, loaded
@@ -156,29 +181,28 @@ print(json.dumps(rows, default=str))
 """
 
 
-@pytest.fixture(scope="module")
-def hits_file(tmp_path_factory):
-    path = tmp_path_factory.mktemp("hits") / "user_id.npy"
-    np.save(path, generate_hits(HITS_ROWS, 0)["UserID"])
-    return path
-
-
-def _run(script, hits_file):
+def _run(script):
     proc = subprocess.run(
         [sys.executable, "-c", script, json.dumps(QUERIES),
-         json.dumps(PLANS), str(hits_file)],
+         json.dumps(PLANS), str(HITS_ROWS), json.dumps(CLI)],
         cwd=ROOT, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def _reference(hits_file):
+def _reference():
     host = df.SessionContext()
     register_tpch(host, sf=0.01, seed=1)
-    host.register_arrays("hits", {"UserID": np.load(hits_file)})
-    return {label: json.loads(json.dumps(host.sql(sql).to_pydict(),
+    host.register_arrays("hits", {
+        "UserID": generate_hits(HITS_ROWS, 0)["UserID"]})
+    want = {label: json.loads(json.dumps(host.sql(sql).to_pydict(),
                                          default=str))
             for label, sql in QUERIES.items()}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli_main(CLI) == 0
+    want["cli"] = out.getvalue()
+    return want
 
 
 def _same(got, want):
@@ -195,9 +219,11 @@ def _same(got, want):
                 assert a == b, (name, a, b)
 
 
-def test_port_runs_without_jax_or_the_jax_package(hits_file):
-    got = _run(BLOCK + SCRIPT, hits_file)
-    want = _reference(hits_file)
+def test_port_runs_without_jax_or_the_jax_package():
+    got = _run(BLOCK + SCRIPT)
+    want = _reference()
+    assert got["cli"] == want["cli"]
+    _same(got["proto_q1"], want["q1"])
     for label in QUERIES:
         if label == "cb_q16":
             # ties at the 10th count may pick other users: counts only
@@ -211,10 +237,10 @@ def test_port_runs_without_jax_or_the_jax_package(hits_file):
     assert len(got["window"]["rk"]) == 50
 
 
-def test_port_does_not_load_jax_where_it_is_installed(hits_file):
+def test_port_does_not_load_jax_where_it_is_installed():
     """Without blocking anything: running the port leaves JAX and the JAX
     package unloaded (the script asserts it)."""
-    got = _run(SCRIPT, hits_file)
+    got = _run(SCRIPT)
     assert len(got["q4"]["o_orderpriority"]) == 5
 
 
@@ -247,9 +273,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     """Every import, at any depth (inside functions too), of every module
     of the port and of `chip_smoke.py`: none names `jax`, `datafusion_tpu`
     (bare or dotted) or `bench`, and no relative import climbs out of the
-    port's package."""
+    port's package. The walk covers a counterpart of every module of the
+    JAX package."""
     files = sorted((ROOT / "datafusion_tpu_torch").rglob("*.py"))
-    assert len(files) > 80
+    port = {p.relative_to(ROOT / "datafusion_tpu_torch") for p in files}
+    ref = {p.relative_to(ROOT / "datafusion_tpu")
+           for p in (ROOT / "datafusion_tpu").rglob("*.py")}
+    assert ref <= port, sorted(map(str, ref - port))
     offenders = []
     for path in files + [ROOT / "chip_smoke.py"]:
         for line, mod, relative in _imports(path):

@@ -16,7 +16,7 @@ import torch
 
 import datafusion_tpu as df
 import datafusion_tpu_torch as dft
-from datafusion_tpu.clickbench.workload import QUERIES as CB
+from datafusion_tpu_torch.clickbench.workload import QUERIES as CB
 from datafusion_tpu.common import dt
 from datafusion_tpu.common.batch import Batch
 from datafusion_tpu.common.column import Column

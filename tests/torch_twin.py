@@ -10,8 +10,6 @@ and the same fields, built with the port's classes.
 import enum
 import importlib
 
-import numpy as np
-
 import datafusion_tpu as df
 import datafusion_tpu_torch as dft
 
@@ -70,41 +68,14 @@ def register_both(port, ref, name, batch):
     port.register_table(name, dft.MemTable(pb.schema, [[pb]]))
 
 
-def hits_batch(pkg, n, seed=0):
-    """ClickBench `hits` as `register_hits` registers it
-    (`datafusion_tpu/clickbench/workload.py:126`), built with the classes
-    of `pkg` (`datafusion_tpu` or `datafusion_tpu_torch`)."""
-    from datafusion_tpu.clickbench.workload import generate_hits
-    dt, Column = pkg.dt, pkg.Column
-    Dictionary = importlib.import_module(pkg.__name__ + ".common.column") \
-        .Dictionary
-    cols, fields = [], []
-    for name, v in generate_hits(n, seed).items():
-        if isinstance(v, tuple) and v[0] == "dict":
-            _tag, values, codes = v
-            order = np.argsort(values.astype(str), kind="stable")
-            rank = np.empty(len(order), np.int32)
-            rank[order] = np.arange(len(order), dtype=np.int32)
-            cols.append(Column(dt.STRING, rank[codes], None,
-                               Dictionary(values[order])))
-            fields.append(pkg.Field(name, dt.STRING, False))
-        elif v.dtype == object:
-            uniq, inv = np.unique(v.astype(str), return_inverse=True)
-            cols.append(Column(dt.STRING, inv.astype(np.int32), None,
-                               Dictionary(uniq.astype(object))))
-            fields.append(pkg.Field(name, dt.STRING, False))
-        else:
-            t = dt.INT64 if v.dtype == np.int64 else \
-                dt.INT32 if v.dtype == np.int32 else dt.FLOAT64
-            cols.append(Column(t, v, None))
-            fields.append(pkg.Field(name, t, False))
-    return pkg.Batch(pkg.Schema(fields), cols, n)
-
-
 def register_hits_both(port, ref, n, seed=0):
-    for pkg, ctx in ((df, ref), (dft, port)):
-        b = hits_batch(pkg, n, seed)
-        ctx.register_table("hits", pkg.MemTable(b.schema, [[b]]))
+    """ClickBench `hits` through each package's own `register_hits`, from
+    one seed."""
+    from datafusion_tpu.clickbench.workload import register_hits as ref_hits
+    from datafusion_tpu_torch.clickbench.workload import (
+        register_hits as port_hits)
+    ref_hits(ref, n=n, seed=seed)
+    port_hits(port, n=n, seed=seed)
 
 
 def register_tpch_both(port, ref, sf=0.01, seed=0):
