@@ -29,7 +29,7 @@ query is held against a numpy oracle on the same data.
      the same table), then both subqueries end to end against numpy;
    - join chains: `chain_build` against its plain version on every build
      side of Q5 (equal tables; two launches a build side, the range pass
-     and the insert, as Q3's, Q4's, Q5's and Q21's runs are held to) and
+     and the insert, as the cold runs of Q3, Q4 and Q5 are held to) and
      `chain_aggregate` against its plain
      version on Q5's walk (equal group tables), the same on Q3 (the hash
      fold) and Q4 (the SEMI build over lineitem), then Q3, Q4 and Q5 end
@@ -39,7 +39,15 @@ query is held against a numpy oracle on the same data.
      width), against the SF10 expectation (supplier's hops in Q2, Q5,
      Q7-Q9 and Q21, part's fold in Q14), held to one `chain_compose` and
      one `chain_fold` launch and at most one synchronisation a chain
-     (`staging_cost`); `chain_compose` and `chain_fold`
+     staged from emptied caches (`staging_cost`). Every chain query's
+     main-path run starts cold, its session's chain caches emptied: its
+     first run is held to those launches and to every build side's
+     (`cold_staging`; a side that comes twice in a query and is found
+     staged the second time is listed in SHARED_BUILDS), and each timed
+     warm run to the constant `chain_build`, `chain_compose` and
+     `chain_fold` launches of WARM_STAGING (none but where a build is fed
+     by a subquery or a cache cap evicts); `chain_compose` and
+     `chain_fold`
      against their plain versions on Q5's staged chain (nation and
      region composed into supplier, supplier folded) and Q21's (a member
      composition), exactly, each run expecting its staging kernels
@@ -71,6 +79,19 @@ query is held against a numpy oracle on the same data.
      through (part, supplier)), `chain_aggregate` with its distinct lane
      on Q5D (Q5 with count(DISTINCT o_custkey)); then J1, J2 and Q5D end
      to end against numpy, with 0 fallbacks and a breakdown each;
+   - the chain's cross-query caches and the MemoryPool (`cache_phase`):
+     Q5, Q2 and Q21 each run cold after the caches are emptied, then 3
+     times warm, held to WARM_STAGING (none of `chain_build`,
+     `chain_compose` and `chain_fold` for Q5; for Q2 only its subquery's
+     build, made anew each run; for Q21 its two min/max tables, each over
+     the SEMI part's cap; the walk launched every run), each run against
+     numpy, with the cold and warm ms and the caches' bytes by part; Q5
+     with its dates a year later after its warm runs (only the orders
+     build misses) and then Q5 again, each timed; Q5 under a
+     GreedyMemoryPool of its build
+     batches and half the caches' bytes (equal rows, the caches evicted to
+     at most half), and pools one byte short of Q5's and of J1's build
+     batches (ResourcesExhausted, no fallback);
    - the mesh, 4 shards of the one card (`SET datafusion.tpu.mesh_devices
      = 4`, a LocalMesh): MQ1 (Q1 over the SF10 rows of step 3: the
      all_gather aggregate), MQ15 (Q15's revenue0: the owned-slot
@@ -801,20 +822,171 @@ def col(batch, name):
 
 # ---- the main path ----------------------------------------------------------
 
+def clear_chain_caches(ex, staged=()):
+    """Empties the chain caches of the chain exec `ex` and the stats kept
+    with the staged builds `staged`, so that what is timed next stages as
+    a cold query does (nothing in a tree without the caches)."""
+    caches = getattr(ex, "chain_caches", None)
+    if caches is not None:
+        caches.clear()
+    for s in staged:
+        if hasattr(s, "stats"):
+            s.stats = {}
+
+
+def cache_bytes(caches) -> dict:
+    """The caches' device bytes by part, and their total."""
+    out = {k: p.nbytes for k, p in caches.parts.items()}
+    out["total"] = caches.device_cache_bytes()
+    return out
+
+
+def chain_execs(ctx, sql):
+    """Every join chain exec of the query's plan."""
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchChainExec)
+
+    def walk(node):
+        yield node
+        for c in node.children():
+            yield from walk(c)
+    return [n for n in walk(ctx.sql(sql).create_physical_plan())
+            if isinstance(n, TorchChainExec)]
+
+
+STAGING = ("chain_build", "chain_compose", "chain_fold")
+
+# label -> the build sides of the query that its first run after the chain
+# caches are emptied finds there, because an earlier side of the same run
+# staged the same table: (join type, key columns, predicate text), as
+# `side_name` names them. Q7 and Q8 join nation twice; Q2's subquery and
+# its outer chain both join supplier, nation and region (r_name = EUROPE).
+SHARED_BUILDS = {
+    "Q2 SF10": {("INNER", "s_suppkey", "None"),
+                ("INNER", "n_nationkey", "None"),
+                ("INNER", "r_regionkey", '(r_name = Utf8("EUROPE"))')},
+    "Q7 SF10": {("INNER", "n_nationkey", "None")},
+    "Q8 SF10": {("INNER", "n_nationkey", "None")},
+}
+
+# label -> the `chain_build`, `chain_compose` and `chain_fold` launches of
+# each warm run (the caches filled by the run before); a chain query not
+# named here launches none of them
+WARM_STAGING = {
+    # the build fed by the subquery's aggregate has new columns every run,
+    # and the composition into it and its fold are staged again with it
+    "Q2 SF10": {"chain_build": 2, "chain_compose": 1, "chain_fold": 1},
+    # the SEMI build fed by the HAVING subquery's aggregate, made anew
+    "Q18 SF10": {"chain_build": 2, "chain_compose": 0, "chain_fold": 0},
+    # the INNER build fed by the subquery's aggregate, made anew
+    "Q20 SF10": {"chain_build": 2, "chain_compose": 0, "chain_fold": 0},
+    # orders' unfiltered table (240,000,000 bytes) and partsupp's
+    # (201,326,592) do not fit the INNER part's 256 MiB together: each
+    # insert evicts from the oldest end, so every run rebuilds all five
+    # tables and stages the words and records read from them again
+    "Q9 SF10": {"chain_build": 10, "chain_compose": 1, "chain_fold": 1},
+    # lineitem's two min/max tables, 1,199,999,940 bytes each, are each
+    # over the SEMI part's 1 GiB: each insert evicts the other
+    "Q21 SF10": {"chain_build": 4, "chain_compose": 0, "chain_fold": 0},
+}
+
+
+def side_name(b):
+    """A build side by its join type, its key columns and its predicate's
+    text, columns by name (not by their position in the side)."""
+    import re
+    from datafusion_tpu_torch.physical.physical_optimizer import _unwrap_side
+    un = _unwrap_side(b.source)
+    pred = None if un is None else un[1]
+    return (b.join_type,
+            ", ".join(re.sub(r"@\d+", "", str(k)) for k in b.build_keys),
+            re.sub(r"@\d+", "", str(pred)))
+
+
+def build_sides(ex, tctx):
+    """([(side_name, `chain_build` launches)] of each build side of the
+    chain exec `ex`, staged from emptied caches: the range pass, and the
+    insert unless the table is empty; {hop: (owner, tag)} of the hops its
+    staging composes; {hop: budget} of those it folds)."""
+    from datafusion_tpu_torch.device.join_chain import TAB_EMPTY
+    clear_chain_caches(ex)
+    staged = ex.stage_builds(tctx, compose=False)
+    composed, folded = ex.compose_plan(staged)
+    sides = [(side_name(b), (s.batch.num_rows > 0) +
+              (s.table.kind != TAB_EMPTY))
+             for b, s in zip(ex.builds, staged)]
+    clear_chain_caches(ex, staged)
+    return sides, composed, folded
+
+
+def cold_staging(ctx, sql, tctx, label, builds=None):
+    """{kernel: launches} of `chain_build`, `chain_compose` and
+    `chain_fold` in a run of `sql` after its session's chain caches are
+    emptied: every build side's (`build_sides`), a side whose (join type,
+    keys, predicate) came earlier in the run counted only if SHARED_BUILDS
+    does not list it as found staged (a repeat it does not list fails);
+    one compose and one fold launch a chain that composes and folds. With
+    `builds` (`chain_builds_vs_plain`'s count of the launches of each
+    build side, one by one), fails unless the `chain_build` count is
+    that."""
+    out = dict.fromkeys(STAGING, 0)
+    seen = set()
+    shared = SHARED_BUILDS.get(label, set())
+    for ex in chain_execs(ctx, sql):
+        sides, composed, folded = build_sides(ex, tctx)
+        for name, n in sides:
+            if name in seen:
+                if name not in shared:
+                    raise AssertionError(f"{label}: build side {name} comes "
+                                         f"twice; SHARED_BUILDS lists "
+                                         f"{sorted(shared)}")
+                continue
+            seen.add(name)
+            out["chain_build"] += n
+        out["chain_compose"] += bool(composed)
+        out["chain_fold"] += bool(folded)
+    if shared - seen:
+        raise AssertionError(f"{label}: SHARED_BUILDS names {shared - seen}, "
+                             f"which no build side is")
+    if builds is not None and out["chain_build"] != builds:
+        raise AssertionError(f"{label}: {out['chain_build']} build launches "
+                             f"from empty caches, not the {builds} counted "
+                             f"side by side")
+    return out
+
+
+def warm_staging(label):
+    """WARM_STAGING[label], or no staging launch."""
+    return WARM_STAGING.get(label, dict.fromkeys(STAGING, 0))
+
+
 def run_path(ctx, sql, expect, card, label, rows, cls=None, reps=REPS,
-             warm=True):
+             warm=True, cold=None):
     """The main path: launch counts set to 0, a warm-up (unless not
     `warm`) and `reps` timed runs, counts read. Fails unless every kernel
     of `expect` launched and no exec of `cls` (by default
-    TorchGroupAggregateExec) fell back. Returns (result batch, launches,
-    ms)."""
+    TorchGroupAggregateExec) fell back. With `cold` (a query with join
+    chains: its `chain_build`, `chain_compose` and `chain_fold` launches
+    from empty caches, `cold_staging`), the warm-up is a cold run: the
+    session's chain caches are emptied before it and it is held to
+    `cold`; each timed run is held to `warm_staging(label)`. Returns
+    (result batch, launches, ms)."""
     from datafusion_tpu_torch import kernels
     from datafusion_tpu_torch.physical.plan.device_aggregate import (
         TorchGroupAggregateExec)
     cls = cls or TorchGroupAggregateExec
     kernels.reset_launch_counts()
+    if cold is not None:
+        ctx.chain_caches.clear()
     if warm:
+        t0 = time.perf_counter()
         out = ctx.sql(sql).collect_batch()            # warm-up
+        cold_ms = (time.perf_counter() - t0) * 1e3
+    if cold is not None:
+        got_cold = {k: kernels.launch_counts()[k] for k in STAGING}
+        if got_cold != cold:
+            raise AssertionError(f"{label}: the cold run launched "
+                                 f"{got_cold}, not {cold}")
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -833,10 +1005,20 @@ def run_path(ctx, sql, expect, card, label, rows, cls=None, reps=REPS,
         raise AssertionError(f"{label} did not launch {missing}")
     med = statistics.median(times) * 1e3
     per_query = {k: launches[k] / (reps + warm) for k in expect}
+    cached = ""
+    if cold is not None:
+        got = {k: launches[k] - cold[k] for k in STAGING}
+        want = {k: n * reps for k, n in warm_staging(label).items()}
+        if got != want:
+            raise AssertionError(f"{label}: {reps} warm runs launched {got}, "
+                                 f"not {want}")
+        cached = (f"; cold run {cold_ms:.3f} ms launching {cold}, warm "
+                  f"runs {got} as held, chain caches "
+                  f"{cache_bytes(ctx.chain_caches)} bytes")
     print(f"{label} end to end: {'warm ' if warm else ''}median of {reps} "
           f"{med:.3f} ms, "
           f"{rows / (med / 1e3):.1f} rows/s, launches per query "
-          f"{per_query}, fallbacks {fallbacks} [{card}]", flush=True)
+          f"{per_query}, fallbacks {fallbacks}{cached} [{card}]", flush=True)
     return out, launches, med
 
 
@@ -1533,7 +1715,9 @@ def stage_call(ex, tctx):
     programs in both trees: the probe predicate and the min/max tests,
     and as `reads` the residual with the outputs (a row chain) or with
     every group key and lane argument (an aggregate chain, before the
-    functional-dependence reduction)."""
+    functional-dependence reduction). Each call empties the session's
+    chain caches and the stats kept with the staged builds first, so it
+    stages as a cold query does."""
     import inspect
     import torch
     if hasattr(ex, "lower_rows"):
@@ -1548,6 +1732,7 @@ def stage_call(ex, tctx):
     args = (ppred, staged, probe_keys, mfilters, pools, reads)
     if "compose" in inspect.signature(ex.chain).parameters:
         def call():
+            clear_chain_caches(ex, staged)
             ex.chain(*args, True)
             torch.cuda.synchronize()
     else:
@@ -1572,7 +1757,9 @@ def staging_cost(ex, tctx, reps=STAGE_REPS):
     each run ending in a synchronisation (`spans_ms`: median, least, most
     of a run's total of the span; the tables' `chain_build` sits in
     `dft.build`), with the device ms of `chain_build`, `chain_compose` and
-    `chain_fold` in the last of those runs (`spans_device_ms`)."""
+    `chain_fold` in the last of those runs (`spans_device_ms`). Every
+    staging here starts from emptied chain caches (`clear_chain_caches`),
+    as a cold query's does."""
     import warnings
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1580,6 +1767,7 @@ def staging_cost(ex, tctx, reps=STAGE_REPS):
     prep = ex.prepare_rows if hasattr(ex, "prepare_rows") else ex.prepare
 
     def syncs(compose):
+        clear_chain_caches(ex)
         torch.cuda.synchronize()
         with warnings.catch_warnings(record=True) as seen:
             warnings.simplefilter("always")
@@ -1600,6 +1788,7 @@ def staging_cost(ex, tctx, reps=STAGE_REPS):
                 for k in ("chain_build", "chain_compose", "chain_fold")}
     names = ("chain_compose", "chain_fold")
     before = {k: kernels.launch_counts()[k] for k in names}
+    clear_chain_caches(ex)
     prep(tctx, True)
     launches = {k: kernels.launch_counts()[k] - before[k] for k in names}
     out = {"launches": launches, "syncs": syncs(True) - syncs(False)}
@@ -1618,6 +1807,7 @@ def staging_cost(ex, tctx, reps=STAGE_REPS):
         for i in range(SPAN_REPS):
             acts = [ProfilerActivity.CPU] + \
                 [ProfilerActivity.CUDA] * (i == SPAN_REPS - 1)
+            clear_chain_caches(ex)
             with profile(activities=acts) as prof:
                 prep(tctx, True)
                 torch.cuda.synchronize()
@@ -2106,8 +2296,9 @@ def oracle_q4(t):
     return list(prio.dictionary.values[counts > 0]), counts[counts > 0]
 
 
-def oracle_q5(t):
-    """Q5's (nation name, revenue at scale 4), by revenue descending."""
+def oracle_q5(t, year=1994):
+    """Q5's (nation name, revenue at scale 4), by revenue descending, of
+    the orders of `year` (Q5's 1994 unless given)."""
     import numpy as np
     cust, orders, li = t["customer"], t["orders"], t["lineitem"]
     nation, region, supp = t["nation"], t["region"], t["supplier"]
@@ -2115,7 +2306,7 @@ def oracle_q5(t):
     r_asia = col(region, "r_regionkey")[col(region, "r_name") == asia]
     n_in = np.isin(col(nation, "n_regionkey"), r_asia)
     o_date = col(orders, "o_orderdate")
-    o_ok = (o_date >= days(1994, 1, 1)) & (o_date < days(1995, 1, 1))
+    o_ok = (o_date >= days(year, 1, 1)) & (o_date < days(year + 1, 1, 1))
     oi = (col(li, "l_orderkey") + 3) // 4 - 1
     s_nat = col(supp, "s_nationkey")[col(li, "l_suppkey") - 1]
     c_nat = col(cust, "c_nationkey")[col(orders, "o_custkey")[oi] - 1]
@@ -2545,14 +2736,14 @@ def full_lowering_phase(ctx, tables, card, add):
             stage[q]
         if q == 18:
             expect.append("hash_group_aggregate")
+        cold = cold_staging(ctx, TPCH[q], tctx, f"Q{q} SF10",
+                            builds21 if q == 21 else None)
         out, counts, _ = run_path(ctx, TPCH[q], expect, card, f"Q{q} SF10",
-                                  li.num_rows, TorchJoinChainAggregateExec)
+                                  li.num_rows, TorchJoinChainAggregateExec,
+                                  cold=cold)
         add(counts)
         launched_as_predicted(f"Q{q} SF10", counts, {
             "chain_aggregate": WALK_LAUNCHES[f"Q{q} SF10"]})
-        if q == 21:
-            launched_as_predicted("Q21 SF10", counts,
-                                  {"chain_build": builds21})
         for name, (vq, kernel, ent, replaces) in variants.items():
             if vq == q:
                 out_entries[name] = dict(
@@ -2878,7 +3069,9 @@ def join_agg_phase(ctx, tables, card, add, report):
     out, counts, _ = run_path(ctx, Q5D, ["chain_build", "chain_aggregate",
                                          "compact_groups"],
                               card, "Q5D SF10", li.num_rows,
-                              TorchJoinChainAggregateExec)
+                              TorchJoinChainAggregateExec,
+                              cold=cold_staging(ctx, Q5D, ctx.task_context(),
+                                                "Q5D SF10"))
     add(counts)
     launched_as_predicted("Q5D SF10", counts, {"chain_aggregate": 1})
     no_fallbacks(ctx, Q5D, "Q5D SF10")
@@ -2895,6 +3088,196 @@ def join_agg_phase(ctx, tables, card, add, report):
                  replaces="datafusion_tpu/physical/plan/"
                           "device_join_chain.py:1459",
                  launches=counts["chain_aggregate"], **k5)]
+
+
+CACHE_WARM_RUNS = 3
+
+
+def check_q5(out, tables, label, year=1994):
+    want = oracle_q5(tables, year)
+    got = list(zip(out.columns[0].to_pylist(), col(out, "revenue").tolist()))
+    if got != want:
+        raise AssertionError(f"{label} disagrees with numpy: {got} {want}")
+    return f"equals numpy exactly: {got}"
+
+
+def check_q2(out, tables, label):
+    want, n = oracle_q2(tables)
+    got = {c: out.column_by_name(c).to_pylist()
+           if out.column_by_name(c).dictionary is not None
+           else col(out, c).tolist() for c in want}
+    if got != want:
+        raise AssertionError(f"{label} disagrees with numpy:\n{got}\n{want}")
+    return f"equals numpy exactly: {n} rows at their part's least cost"
+
+
+def timed_run(ctx, sql):
+    """(result batch, ms, {kernel: launches} of `chain_build`,
+    `chain_compose` and `chain_fold`) of one run of `sql`."""
+    from datafusion_tpu_torch import kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ctx.sql(sql).collect_batch()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    return out, ms, {k: counts[k] for k in STAGING}
+
+
+def cold_then_warm(ctx, q, sql, check, walk, tables, card):
+    """TPC-H query `q` at SF10 run cold, after the session's chain caches
+    are emptied (held to `cold_staging`), then CACHE_WARM_RUNS times warm,
+    each run held to `warm_staging` and to the cold run's rows, the walk
+    launched every run. Returns the cold run's rows."""
+    from datafusion_tpu_torch import kernels
+    label = f"Q{q} SF10 caches"
+    caches = ctx.chain_caches
+    want = cold_staging(ctx, sql, ctx.task_context(), f"Q{q} SF10")
+    caches.clear()
+    out, cold_ms, cold = timed_run(ctx, sql)
+    if cold != want or not cold["chain_build"]:
+        raise AssertionError(f"{label}: the cold run launched {cold}, not "
+                             f"{want}")
+    say = check(out, tables, label)
+    rows = out.to_pydict()
+    cold_bytes = cache_bytes(caches)
+    warm_ms, walks = [], 0
+    want = warm_staging(f"Q{q} SF10")
+    for _ in range(CACHE_WARM_RUNS):
+        out, ms, warm = timed_run(ctx, sql)
+        warm_ms.append(ms)
+        walks += kernels.launch_counts()[walk]
+        if warm != want:
+            raise AssertionError(f"{label}: a warm run launched {warm}, not "
+                                 f"{want}")
+        if out.to_pydict() != rows:
+            raise AssertionError(f"{label}: a warm run's rows differ from "
+                                 f"the cold run's")
+    if walks < CACHE_WARM_RUNS:
+        raise AssertionError(f"{label}: the warm runs launched {walk} "
+                             f"{walks} times")
+    no_fallbacks(ctx, sql, label)
+    print(f"{label}: cold {cold_ms:.3f} ms (launches {cold}), warm "
+          f"{[round(x, 3) for x in warm_ms]} ms (launches {want} each, "
+          f"{walk} {walks}); chain caches after the cold run {cold_bytes} "
+          f"bytes, after the warm runs {cache_bytes(caches)}; {say} [{card}]",
+          flush=True)
+    return rows
+
+
+def cache_phase(ctx, tables, card):
+    """The join chain's cross-query caches and the MemoryPool on the card.
+    TPC-H Q5, Q2 and Q21 at SF10 each run cold, then warm
+    (`cold_then_warm`): Q5's warm runs launch no `chain_build`,
+    `chain_compose` or `chain_fold`, Q2's only those of its
+    subquery-fed build (WARM_STAGING), Q21's those of its two min/max
+    tables. Between Q5 and Q2, Q5 with its dates a year later (a new
+    literal in its orders build: the orders side alone builds, and only
+    a composition or a fold that reads it is staged; the rows equal
+    numpy's), then Q5 as before once more, each timed. Then
+    Q5 under a GreedyMemoryPool of its build batches' bytes and half the
+    caches' bytes gives the cold run's rows with the caches at or below
+    half, and pools one byte short of Q5's build batches and of J1's
+    build batch raise ResourcesExhausted with no fallback. Prints each
+    query's cold and warm ms and the caches' bytes by part."""
+    from datafusion_tpu_torch.common.errors import ResourcesExhausted
+    from datafusion_tpu_torch.physical.plan.base import collect_batch
+    from datafusion_tpu_torch.physical.plan.device_join_agg import (
+        TorchJoinAggregateExec)
+    from datafusion_tpu_torch.physical.plan.device_join_chain import (
+        TorchJoinChainAggregateExec)
+    from datafusion_tpu_torch.runtime.memory import GreedyMemoryPool
+    from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
+    caches = ctx.chain_caches
+    tctx = ctx.task_context()
+    sql5 = TPCH[5]
+    sql95 = sql5.replace("1995-01-01", "1996-01-01").replace(
+        "1994-01-01", "1995-01-01")
+    old = {name for ex in chain_execs(ctx, sql5)
+           for name, _n in build_sides(ex, tctx)[0]}
+    (ex95,) = chain_execs(ctx, sql95)
+    sides, composed, folded = build_sides(ex95, tctx)
+    fresh = [(name, n) for name, n in sides if name not in old]
+    # the hops whose table or composed words are new: a composition or a
+    # fold that reads one is staged again
+    new = {h for h, (name, _n) in enumerate(sides) if name not in old}
+    new |= {o for h, (o, _t) in composed.items() if h in new or o in new}
+    want = {"chain_build": sum(n for _name, n in fresh),
+            "chain_compose": int(any(h in new for h in composed)
+                                 or any(o in new
+                                        for o, _t in composed.values())),
+            "chain_fold": int(any(h in new for h in folded))}
+    rows = {5: cold_then_warm(ctx, 5, sql5, check_q5, "chain_aggregate",
+                              tables, card)}
+
+    # == a new literal ========================================================
+    warm_bytes = cache_bytes(caches)
+    out, ms95, got = timed_run(ctx, sql95)
+    if got != want:
+        raise AssertionError(f"Q5 SF10 in 1995: launched {got}, not {want} "
+                             f"(the build sides {fresh} are new)")
+    say = check_q5(out, tables, "Q5 SF10 in 1995", 1995)
+    new_bytes = cache_bytes(caches)
+    out, ms94, back = timed_run(ctx, sql5)
+    if out.to_pydict() != rows[5]:
+        raise AssertionError("Q5 SF10 after the 1995 run: its rows differ")
+    print(f"Q5 SF10 with o_orderdate in 1995 after the warm 1994 runs: "
+          f"{ms95:.3f} ms, launches {got} (new build sides {fresh}), chain "
+          f"caches {warm_bytes} -> {new_bytes} bytes, {say}; Q5 in 1994 "
+          f"again: {ms94:.3f} ms, launches {back}, the cold run's rows, "
+          f"caches {cache_bytes(caches)} [{card}]", flush=True)
+
+    rows[2] = cold_then_warm(ctx, 2, TPCH[2], check_q2, "chain_rows",
+                             tables, card)
+    rows[21] = cold_then_warm(
+        ctx, 21, TPCH[21], lambda out, t, _l: check_full_lowering(21, out, t),
+        "chain_aggregate", tables, card)
+
+    # == the MemoryPool =======================================================
+    sql5 = TPCH[5]
+    ex5 = find_exec(ctx.sql(sql5).create_physical_plan(),
+                    TorchJoinChainAggregateExec)
+    builds = sum(bi.batch.nbytes() for bi in ex5.build_inputs(tctx))
+    ctx.sql(sql5).collect_batch()                  # the caches warm
+    held = caches.device_cache_bytes()
+    runtime, fell = ctx.runtime, ex5.fallbacks
+    base = runtime.memory_pool
+    try:
+        runtime.memory_pool = GreedyMemoryPool(builds + held // 2)
+        out = ctx.sql(sql5).collect_batch()
+        left = caches.device_cache_bytes()
+        if out.to_pydict() != rows[5]:
+            raise AssertionError("Q5 SF10 under a pool: its rows differ")
+        if left > held // 2 or ex5.fallbacks != fell:
+            raise AssertionError(f"Q5 SF10 under a pool of {builds} + "
+                                 f"{held // 2} bytes: caches hold {left}, "
+                                 f"fallbacks {ex5.fallbacks - fell}")
+        print(f"Q5 SF10 under GreedyMemoryPool({builds} build bytes + "
+              f"{held // 2}, half of the caches' {held}): the cold run's "
+              f"rows; the caches "
+              f"evicted to {left} bytes {cache_bytes(caches)} [{card}]",
+              flush=True)
+        exj = find_exec(ctx.sql(J1).create_physical_plan(),
+                        TorchJoinAggregateExec)
+        j1 = collect_batch(exj.build_source, tctx).nbytes()
+        for label, sql, ex, need in (("Q5 SF10", sql5, ex5, builds),
+                                     ("J1 SF10", J1, exj, j1)):
+            before = getattr(ex, "fallbacks", 0)
+            runtime.memory_pool = GreedyMemoryPool(need - 1)
+            try:
+                ctx.sql(sql).collect_batch()
+            except ResourcesExhausted as e:
+                raised = str(e)
+            else:
+                raise AssertionError(f"{label}: a pool of {need - 1} "
+                                     f"bytes did not stop it")
+            if getattr(ex, "fallbacks", 0) != before:
+                raise AssertionError(f"{label}: ResourcesExhausted became a "
+                                     f"fallback")
+            print(f"{label} under GreedyMemoryPool({need - 1}), one byte "
+                  f"short of its build batches' {need}: ResourcesExhausted "
+                  f"({raised[:120]}), no fallback", flush=True)
+    finally:
+        runtime.memory_pool = base
 
 
 def oracle_q1(li):
@@ -3850,7 +4233,7 @@ def main() -> int:
     chain = ["chain_build", "chain_aggregate"]
     tctx = ctx.task_context()
     stage = {}         # query -> the staging kernels its run launches
-    builds = {}        # query -> chain_build's launches a run
+    builds = {}        # query -> chain_build's launches a cold run
     for q in (5, 3, 4):
         ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
                        TorchJoinChainAggregateExec)
@@ -3871,10 +4254,10 @@ def main() -> int:
     out, counts, _ = run_path(ctx, TPCH[3], chain + ["compact_groups"] +
                               stage[3], card,
                               "Q3 SF10", li.num_rows,
-                              TorchJoinChainAggregateExec)
+                              TorchJoinChainAggregateExec, cold=cold_staging(
+                                  ctx, TPCH[3], tctx, "Q3 SF10", builds[3]))
     add(counts)
     launched_as_predicted("Q3 SF10", counts, {
-        "chain_build": builds[3],
         "chain_aggregate": WALK_LAUNCHES["Q3 SF10"]})
     keys, revs, dates, n_groups = oracle_q3(tables)
     if not (np.array_equal(col(out, "l_orderkey"), keys) and
@@ -3890,10 +4273,10 @@ def main() -> int:
     out, counts, _ = run_path(ctx, TPCH[4], chain + ["compact_groups"] +
                               stage[4], card, "Q4 SF10",
                               tables["orders"].num_rows,
-                              TorchJoinChainAggregateExec)
+                              TorchJoinChainAggregateExec, cold=cold_staging(
+                                  ctx, TPCH[4], tctx, "Q4 SF10", builds[4]))
     add(counts)
     launched_as_predicted("Q4 SF10", counts, {
-        "chain_build": builds[4],
         "chain_aggregate": WALK_LAUNCHES["Q4 SF10"]})
     prios, want4 = oracle_q4(tables)
     got4 = out.to_pydict()
@@ -3905,10 +4288,11 @@ def main() -> int:
 
     out, counts, _ = run_path(ctx, TPCH[5], chain + ["compact_groups"] +
                               stage[5], card, "Q5 SF10",
-                              li.num_rows, TorchJoinChainAggregateExec)
+                              li.num_rows, TorchJoinChainAggregateExec,
+                              cold=cold_staging(
+                                  ctx, TPCH[5], tctx, "Q5 SF10", builds[5]))
     add(counts)
     launched_as_predicted("Q5 SF10", counts, {
-        "chain_build": builds[5],
         "chain_aggregate": WALK_LAUNCHES["Q5 SF10"]})
     want5 = oracle_q5(tables)
     got5 = list(zip(out.columns[0].to_pylist(),
@@ -3941,7 +4325,8 @@ def main() -> int:
     out, counts, _ = run_path(ctx, TPCH[2], chain + stage[2] + [
                                   "compact_groups", "chain_rows"],
                               card, "Q2 SF10", tables["partsupp"].num_rows,
-                              TorchJoinChainRowsExec)
+                              TorchJoinChainRowsExec,
+                              cold=cold_staging(ctx, TPCH[2], tctx, "Q2 SF10"))
     add(counts)
     no_fallbacks(ctx, TPCH[2], "Q2 SF10")
     want2, n2 = oracle_q2(tables)
@@ -3960,8 +4345,8 @@ def main() -> int:
     out, counts, _ = run_path(ctx, TPCH[20], [
         "hash_group_aggregate", "compact_groups", "group_emit",
         "chain_build", "chain_rows"] + stage[20], card, "Q20 SF10",
-        li.num_rows,
-        TorchJoinChainRowsExec)
+        li.num_rows, TorchJoinChainRowsExec,
+        cold=cold_staging(ctx, TPCH[20], tctx, "Q20 SF10"))
     add(counts)
     no_fallbacks(ctx, TPCH[20], "Q20 SF10")
     agg = find_exec(ctx.sql(TPCH[20]).create_physical_plan(),
@@ -3988,6 +4373,12 @@ def main() -> int:
     # == TPC-H SF10: the fanout-N join-aggregate (J1, J2), Q5D ===============
     phase("TPC-H SF10: the fanout-N join-aggregate (J1, J2), Q5D")
     variants += join_agg_phase(ctx, tables, card, add, report)
+
+    # == the chain's cross-query caches and the MemoryPool ====================
+    phase("TPC-H SF10: the chain's caches and the MemoryPool (Q5, Q2, Q21, "
+          "J1)")
+    cache_phase(ctx, tables, card)
+    torch.cuda.empty_cache()
 
     # == mesh: 4 shards on one H100 ==========================================
     phase("mesh: 4 shards on one H100 (MQ1, MQ15, MJ1, MB; MQ1 over NCCL)")

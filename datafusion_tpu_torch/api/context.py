@@ -24,6 +24,7 @@ from ..datasource.memory import MemTable
 from ..datasource.provider import TableProvider
 from ..expr import plan as L
 from ..optimizer import Optimizer
+from ..physical.plan.device_join_chain import ChainCaches
 from ..physical.planner import PhysicalPlanner
 from ..runtime import RuntimeEnv, TaskContext
 from ..sql import ast as A
@@ -130,6 +131,9 @@ class SessionContext:
         # device copies of registered tables' columns, dropped with the
         # cached plans on any catalog or data change
         self.device_cache = DeviceColumnCache()
+        # the join chain's staged tables, words and records across queries,
+        # dropped with them
+        self.chain_caches = ChainCaches()
         self.config = config or SessionConfig()
         self.runtime = runtime or RuntimeEnv()
         # Catalog hierarchy (reference: CatalogProvider list in
@@ -144,7 +148,8 @@ class SessionContext:
         self.prepared: Dict[str, A.Statement] = {}
         self.optimizer = Optimizer()
         self.planner = PhysicalPlanner(self.config.options, device,
-                                       self.device_cache, mesh)
+                                       self.device_cache, mesh,
+                                       self.chain_caches)
         # physical-plan cache per SQL text (reference contrast: DataFusion
         # replans in single-digit ms; our planning+fusion passes cost more,
         # and warm TPC-H queries repeat the same text). Invalidated by
@@ -563,6 +568,7 @@ class SessionContext:
         self._plan_generation += 1
         self._physical_cache.clear()
         self.device_cache.clear()
+        self.chain_caches.clear()
 
     # statement kinds that cannot invalidate cached plans
     _READONLY_STMTS = (A.QueryStatement, A.Explain, A.ShowVariable,

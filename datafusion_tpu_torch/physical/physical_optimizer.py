@@ -54,11 +54,13 @@ class UseTorchAggregate:
     name = "use_torch_aggregate"
 
     def __init__(self, config, device: torch.device,
-                 cache: Optional[DeviceColumnCache] = None, mesh=None):
+                 cache: Optional[DeviceColumnCache] = None, mesh=None,
+                 chain_caches=None):
         self.config = config
         self.device = device
         self.cache = cache
         self.mesh = mesh
+        self.chain_caches = chain_caches
 
     def enabled(self) -> bool:
         if self.config is None:
@@ -132,7 +134,8 @@ class UseTorchAggregate:
             if fused is not None:
                 return fused
             fused = _try_fuse_join_chain(node, source, predicate, groups,
-                                         aggs, self.device, self.cache)
+                                         aggs, self.device, self.cache,
+                                         self.chain_caches)
             if fused is not None:
                 return fused
             fused = _try_fuse_join(node, source, predicate, groups, aggs,
@@ -817,7 +820,8 @@ def _pair_chain(parts, exprs):
 
 def _try_fuse_join_chain(agg_node, source, predicate, groups, aggs,
                          device: torch.device,
-                         cache: Optional[DeviceColumnCache] = None):
+                         cache: Optional[DeviceColumnCache] = None,
+                         chain_caches=None):
     """When the aggregate sits on a tree of >= 2 INNER hash joins (plus
     optional SEMI/ANTI), fuse the whole thing into one
     TorchJoinChainAggregateExec: the largest relation becomes the probe
@@ -856,7 +860,7 @@ def _try_fuse_join_chain(agg_node, source, predicate, groups, aggs,
     return TorchJoinChainAggregateExec(
         parts["spine_src"], parts["spine_pred"], chain, final_pred, groups_p,
         aggs_p, agg_node.schema(), fallback=agg_node, device=device,
-        cache=cache)
+        cache=cache, chain_caches=chain_caches)
 
 
 def _try_fuse_join(agg_node, source, predicate, groups, aggs,
@@ -918,7 +922,8 @@ def _try_fuse_join(agg_node, source, predicate, groups, aggs,
 
 
 def _try_fuse_join_rows(node, min_spine_rows: int, device: torch.device,
-                        cache: Optional[DeviceColumnCache] = None):
+                        cache: Optional[DeviceColumnCache] = None,
+                        chain_caches=None):
     """A join tree whose output is read as rows (by a sort, a limit, a
     projection or another join; no aggregate above it) as one
     TorchJoinChainRowsExec that returns the surviving rows as device-born
@@ -938,7 +943,8 @@ def _try_fuse_join_rows(node, min_spine_rows: int, device: torch.device,
         return None
     return TorchJoinChainRowsExec(
         parts["spine_src"], parts["spine_pred"], chain, final_pred, out_p,
-        node.schema(), fallback=node, device=device, cache=cache)
+        node.schema(), fallback=node, device=device, cache=cache,
+        chain_caches=chain_caches)
 
 
 class UseTorchJoinRows:
@@ -951,10 +957,12 @@ class UseTorchJoinRows:
     name = "use_torch_join_rows"
 
     def __init__(self, config, device: torch.device,
-                 cache: Optional[DeviceColumnCache] = None):
+                 cache: Optional[DeviceColumnCache] = None,
+                 chain_caches=None):
         self.config = config
         self.device = device
         self.cache = cache
+        self.chain_caches = chain_caches
 
     def rewrite(self, plan: ExecutionPlan) -> ExecutionPlan:
         min_rows = int(self.config.get(
@@ -963,7 +971,7 @@ class UseTorchJoinRows:
         def walk(node):
             if _reaches_join(node):
                 fused = _try_fuse_join_rows(node, min_rows, self.device,
-                                            self.cache)
+                                            self.cache, self.chain_caches)
                 if fused is not None:
                     node = fused
             kids = node.children()
@@ -1279,10 +1287,10 @@ class UseTorchSort:
 
 
 def optimize_physical(plan: ExecutionPlan, config, device: torch.device,
-                      cache: Optional[DeviceColumnCache] = None, mesh=None
-                      ) -> ExecutionPlan:
-    for rule in (UseTorchAggregate(config, device, cache, mesh),
-                 UseTorchJoinRows(config, device, cache),
+                      cache: Optional[DeviceColumnCache] = None, mesh=None,
+                      chain_caches=None) -> ExecutionPlan:
+    for rule in (UseTorchAggregate(config, device, cache, mesh, chain_caches),
+                 UseTorchJoinRows(config, device, cache, chain_caches),
                  RemoveRedundantSort(config), UseSymmetricHashJoin(config),
                  RepartitionFileScans(config),
                  FuseTopKIntoTorchAggregate(config),

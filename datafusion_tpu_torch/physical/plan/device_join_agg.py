@@ -46,7 +46,7 @@ from ...device.join_agg import (JK_CODE, MAX_JOIN_KEYS, Join, JoinBuildSpec,
                                 join_build, key_kind, payload_of)
 from ...device.lower import (OP_LUT, LoweringError, Pools, compile_expr,
                              compile_key)
-from ...runtime import BaselineMetrics, TaskContext
+from ...runtime import BaselineMetrics, MemoryReservation, TaskContext
 from ..expressions import ColumnExpr, PhysicalExpr, rewrite_columns
 from .base import ExecutionPlan, collect_batch, execute_stream
 from .device_aggregate import (DeviceLoweringUnsupported,
@@ -258,6 +258,16 @@ class TorchJoinAggregateExec(TorchGroupAggregateExec):
             except LoweringError as e:
                 raise DeviceLoweringUnsupported(str(e))
         build_batch = collect_batch(self.build_source, ctx)
+        reservation = MemoryReservation(f"{type(self).__name__}[build]",
+                                        ctx.memory_pool)
+        try:
+            reservation.try_grow(build_batch.nbytes())
+            return self._join(m, lowered, build_batch, ctx)
+        finally:
+            reservation.free()
+
+    def _join(self, m, lowered, build_batch, ctx: TaskContext):
+        """`_execute_port` past the build batch's reservation."""
         probe = [b for b in execute_stream(self.probe_source, ctx)
                  if b.num_rows]
         if len(probe) > 1:

@@ -34,8 +34,20 @@ the build columns that the count needs come from the staged tables or
 from one fold on the card a chain. A chain's compositions and folds are
 staged when its walk is assembled (`chain`), which knows the columns the
 walk reads, by one `chain_stage` call: one compose launch and one fold
-launch. Tables, composed words and records are built per execution; the
-reference's cross-query cache of them (`_CMP_CACHE`) is not ported.
+launch.
+
+Cross-query caches (`ChainCaches`, the reference's `_LUT_CACHE` `:67-70`,
+`_SEMI_LUT_CACHE` `:79-82` and `_CMP_CACHE` `:101-104`). A build side over a
+registered table's own columns keeps its staged table, and the stats
+`compose_plan` read of it, across queries; a composition or a fold whose
+hops all do keeps its words or records. A warm chain over such tables
+stages nothing. The caches are the session's (`SessionContext.
+chain_caches`, reaching the execs through the planner), not module
+globals, and go with its column cache on any catalog change.
+Each execution charges its build batches, and then the caches' bytes, to
+the query's MemoryPool (`:550-551`, `:585`, `_account_device_caches`
+`:147`): a build batch that does not fit raises ResourcesExhausted, while
+the caches evict down to what fits and never fail a query.
 
 Functional dependence (`_fd_reduce` `:1501`, `_fd_finalize` `:1359`). A
 group key that is a payload column of a unique-key INNER build leaves the
@@ -70,6 +82,8 @@ them with no host round trip.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+from itertools import count
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -78,6 +92,7 @@ from torch.profiler import record_function
 
 from ...common.batch import Batch, round_capacity
 from ...common.column import Column, DeviceColumnCache
+from ...common.errors import ResourcesExhausted
 from ...device.groupby import _NP_TO_TORCH, AggregateSpec, dense_group_table
 from ...device.join_chain import (ChainDenseSpec, ChainHashSpec,
                                   ChainRowsSpec, Chain, BuildSpec, Compose,
@@ -86,7 +101,7 @@ from ...device.join_chain import (ChainDenseSpec, ChainHashSpec,
                                   new_stage_outputs, stub_hop)
 from ...device.lower import (_CMP, OP_COL, OP_NULL, OP_ROWID, LoweringError,
                              Pools, Program, compile_expr, compile_key)
-from ...runtime import BaselineMetrics, TaskContext
+from ...runtime import BaselineMetrics, MemoryReservation, TaskContext
 from ..expressions import ColumnExpr, PhysicalExpr
 from .base import ExecutionPlan, collect_batch, execute_stream
 from .device_aggregate import (DeviceLoweringUnsupported, TorchAggregate,
@@ -141,11 +156,14 @@ class _BuildInput:
     aux inputs, whether it must be unique (INNER), its batch, the map from
     build output columns to batch columns, whether its columns stay
     resident, and once staged its `table`, its `compose` record when it
-    was composed into an earlier hop, and `fold`, the reference's (span,
-    width) of its fold when it folds."""
+    was composed into an earlier hop, and `fold`, its `Fold` when it
+    folds. `key` names its table in the session's caches (None: not
+    cached), `part` the caches' part, `serial` the table, and `stats`
+    holds what `_plan_stats` read of its columns (kept with a cached
+    table)."""
 
     def __init__(self, spec, cols, aux, unique: bool, batch, col_map,
-                 keep: bool):
+                 keep: bool, key=None):
         self.spec = spec
         self.cols = cols
         self.aux = aux
@@ -153,9 +171,16 @@ class _BuildInput:
         self.batch = batch
         self.col_map = col_map
         self.keep = keep
+        self.key = key
+        self.serial = None
+        self.stats: dict = {}
         self.table = None
         self.compose: Optional[Compose] = None
         self.fold = None
+
+    @property
+    def part(self) -> str:
+        return "inner" if self.unique else "semi"
 
 
 class _PoolColumns:
@@ -224,11 +249,139 @@ def _lanes(col: Column) -> Tuple[int, bool, bool]:
     return n + col.has_nulls, dt.kind in "iu", dt == np.float64
 
 
+# The caps of the cross-query caches' parts, the reference's: INNER tables
+# (`_LUT_CACHE`), SEMI/ANTI tables with the min/max ones (`_SEMI_LUT_CACHE`),
+# composed words and fold records (`_CMP_CACHE`).
+_LUT_CACHE_MAX = 16
+_LUT_CACHE_MAX_BYTES = 256 << 20
+_SEMI_LUT_CACHE_MAX = 12
+_SEMI_LUT_CACHE_MAX_BYTES = 1 << 30
+_CMP_CACHE_MAX = 24
+_CMP_CACHE_MAX_BYTES = 512 << 20
+
+
+class _LruPart:
+    """One part of the caches: key -> (value, bytes), oldest first, under
+    an entry cap and a byte cap."""
+
+    def __init__(self, max_entries: int, max_bytes: int):
+        self.max_entries = max_entries
+        self.max_bytes = max_bytes
+        self.entries: "OrderedDict" = OrderedDict()
+        self.nbytes = 0
+
+    def get(self, key):
+        hit = self.entries.get(key)
+        if hit is None:
+            return None
+        self.entries.move_to_end(key)
+        return hit[0]
+
+    def put(self, key, value, nbytes: int) -> None:
+        """Insert, after evicting from the oldest end one entry at a time
+        until the entry fits or the part is empty (`:218-224`): the newest
+        entry is always kept. `key` is not in the part."""
+        while self.entries and (len(self.entries) >= self.max_entries or
+                                self.nbytes + nbytes > self.max_bytes):
+            self.pop_oldest()
+        self.entries[key] = (value, nbytes)
+        self.nbytes += nbytes
+
+    def pop_oldest(self) -> int:
+        _key, (_value, nbytes) = self.entries.popitem(last=False)
+        self.nbytes -= nbytes
+        return nbytes
+
+
+class ChainCaches:
+    """A session's cross-query device caches of the join chain, in three
+    LRU parts: "inner" (INNER build tables with their stats), "semi"
+    (SEMI/ANTI tables, min/max ones included) and "cmp" (owners' composed
+    words and folds' records). An entry's bytes are its device tensors'.
+    No cached tensor is written after its insert."""
+
+    def __init__(self):
+        self.parts = {
+            "inner": _LruPart(_LUT_CACHE_MAX, _LUT_CACHE_MAX_BYTES),
+            "semi": _LruPart(_SEMI_LUT_CACHE_MAX, _SEMI_LUT_CACHE_MAX_BYTES),
+            "cmp": _LruPart(_CMP_CACHE_MAX, _CMP_CACHE_MAX_BYTES)}
+        self._serials = count()
+
+    def get(self, part: str, key):
+        return self.parts[part].get(key)
+
+    def put(self, part: str, key, value, tensors) -> None:
+        nbytes = sum(int(t.nbytes) for t in tensors if t is not None)
+        self.parts[part].put(key, value, nbytes)
+
+    def serial(self) -> int:
+        """A number no other table of this session had: a cached table's
+        words and records are keyed by it, as they are laid out by its
+        slots."""
+        return next(self._serials)
+
+    def device_cache_bytes(self) -> int:
+        """The device bytes the caches hold (`device_cache_bytes`, `:115`)."""
+        return sum(p.nbytes for p in self.parts.values())
+
+    def evict_device_caches(self, max_bytes: int) -> int:
+        """Evict the oldest entries, from the largest part first, until the
+        caches hold at most `max_bytes` (`:122-144`). Returns the bytes
+        freed."""
+        freed = 0
+        while self.device_cache_bytes() > max_bytes:
+            part = max(self.parts.values(), key=lambda p: p.nbytes)
+            if not part.entries:
+                break
+            freed += part.pop_oldest()
+        return freed
+
+    def clear(self) -> None:
+        for p in self.parts.values():
+            p.entries.clear()
+            p.nbytes = 0
+
+
+def _account_device_caches(reservation: MemoryReservation,
+                           caches: Optional[ChainCaches]) -> None:
+    """Charge the caches' bytes to the query's reservation (`:147-165`).
+    Under ResourcesExhausted, evict down to half of them and retry, up to
+    32 times; when nothing is left to evict, run unaccounted: the caches
+    never fail a query."""
+    if caches is None:
+        return
+    total = caches.device_cache_bytes()
+    if total <= 0:
+        return
+    for _ in range(32):
+        try:
+            reservation.try_grow(total)
+            return
+        except ResourcesExhausted:
+            if caches.evict_device_caches(total // 2) <= 0:
+                return
+            total = caches.device_cache_bytes()
+            if total <= 0:
+                return
+
+
+def _resident(src, bb: Batch) -> bool:
+    """Whether every column of `bb`, collected from the MemoryExec `src`,
+    is a column of the table it scans (one batch, taken as it is): its
+    uids then name the same data in every query."""
+    own = {id(c) for part in src.table.partitions for b in part
+           for c in b.columns}
+    return all(id(c) in own for c in bb.columns)
+
+
 class TorchChainExec(TorchDeviceExec):
     """The chain layer both chain execs share: the spine source and its
     probe predicate, the builds and the residual; the builds staged on
     the card (`chain_build`), the pair space of a spine batch and its
-    columns staged on the card. Subclasses implement `_execute_port`; a
+    columns staged on the card. A build over a registered table's own
+    columns is served from the session's caches (`chain_caches`; None
+    caches nothing) when an earlier execution staged the same table; any
+    other is staged on every execution. Subclasses implement `_execute_port`; a
     DeviceLoweringUnsupported from it adds one to `fallbacks`."""
 
     def __init__(self, probe_source: ExecutionPlan,
@@ -236,7 +389,8 @@ class TorchChainExec(TorchDeviceExec):
                  builds: List[ChainBuild],
                  predicate: Optional[PhysicalExpr], schema,
                  fallback: ExecutionPlan, device: torch.device,
-                 cache: Optional[DeviceColumnCache] = None):
+                 cache: Optional[DeviceColumnCache] = None,
+                 chain_caches: Optional[ChainCaches] = None):
         super().__init__()
         self.source = probe_source
         self.probe_predicate = probe_predicate
@@ -246,10 +400,15 @@ class TorchChainExec(TorchDeviceExec):
         self.fallback = fallback
         self.device = device
         self.cache = cache
+        self.chain_caches = chain_caches
         self.fallbacks = 0
 
     def children(self):
         return [self.source] + [b.source for b in self.builds]
+
+    def _build_reservation(self, ctx: TaskContext) -> MemoryReservation:
+        return MemoryReservation(f"{type(self).__name__}[build]",
+                                 ctx.memory_pool)
 
     def _builds_over(self, sources) -> List[ChainBuild]:
         """The chain's builds over new build sources (`with_children`)."""
@@ -331,16 +490,23 @@ class TorchChainExec(TorchDeviceExec):
                 return s.batch.columns[s.col_map[b.payload[r.index(idx)]]]
         raise KeyError(idx)
 
-    def build_inputs(self, ctx: TaskContext) -> List[_BuildInput]:
+    def build_inputs(self, ctx: TaskContext,
+                     reservation: Optional[MemoryReservation] = None
+                     ) -> List[_BuildInput]:
         """What `chain_build` takes for every build side. A Filter/Projection
         over a table scan stages from the table's own columns, which stay
         resident across queries, with the filter as the build predicate
         (evaluated on the card); any other build side runs on the host
-        first (`_stage_chain_builds`, `:558-585`)."""
+        first (`_stage_chain_builds`, `:558-585`). Each build batch is
+        charged to `reservation` as it is collected (`:585`). A build over
+        a table's own columns gets its key in the caches: the device, the
+        uids of the columns it reads, its predicate's text and aux bytes,
+        its key columns, join type, uniqueness and min/max member."""
         from ..physical_optimizer import _unwrap_side
+        caches = self.chain_caches
         out = []
         for b in self.builds:
-            bb, col_map, pred, keep = None, None, None, False
+            bb, col_map, pred, keep, stable = None, None, None, False, False
             un = _unwrap_side(b.source)
             if un is not None:
                 src, pred_u, exprs = un
@@ -349,9 +515,12 @@ class TorchChainExec(TorchDeviceExec):
                     col_map = [e.index for e in exprs]
                     pred = pred_u
                     keep = isinstance(src, MemoryExec)
+                    stable = keep and _resident(src, bb)
             if bb is None:
                 bb = collect_batch(b.source, ctx)
                 col_map = list(range(len(bb.columns)))
+            if reservation is not None:
+                reservation.try_grow(bb.nbytes())
             pools = Pools()
             try:
                 bpred = compile_expr(pred, pools) if pred is not None else None
@@ -368,25 +537,47 @@ class TorchChainExec(TorchDeviceExec):
                 raise DeviceLoweringUnsupported(str(e))
             cols = self._to_device(spec, {i: bb.columns[i]
                                           for i in pools.columns}, keep)
-            aux = torch.from_numpy(pools.aux_buffer(bb)).to(self.device)
-            out.append(_BuildInput(spec, cols, aux, b.join_type == "INNER",
-                                   bb, col_map, keep))
+            aux_np = pools.aux_buffer(bb)
+            aux = torch.from_numpy(aux_np).to(self.device)
+            unique = b.join_type == "INNER"
+            key = None
+            if stable and caches is not None:
+                uid = [c._uid for c in bb.columns]
+                key = (str(self.device),
+                       tuple(uid[i] for i in sorted(pools.columns)),
+                       str(pred), aux_np.tobytes(),
+                       tuple(uid[col_map[k.index]] for k in b.build_keys),
+                       b.join_type, unique,
+                       None if b.sfilter is None
+                       else uid[col_map[b.sfilter[1].index]])
+            out.append(_BuildInput(spec, cols, aux, unique, bb, col_map, keep,
+                                   key))
         return out
 
-    def stage_builds(self, ctx: TaskContext,
-                     compose: bool = True) -> List[_BuildInput]:
+    def stage_builds(self, ctx: TaskContext, compose: bool = True,
+                     reservation: Optional[MemoryReservation] = None
+                     ) -> List[_BuildInput]:
         """Every build side staged on the card as a table (`chain_build`),
         then, unless `compose` is false, the hops composed and folded
         (`compose_builds`, a fold holding every payload column; a run
-        composes and folds in `chain`, which knows what the walk reads). An
-        INNER build with a duplicate key, a build of 2^31 rows or more, or
-        packed keys wider than 62 bits raise DeviceLoweringUnsupported
-        (`:700`)."""
-        out = self.build_inputs(ctx)
+        composes and folds in `chain`, which knows what the walk reads). A
+        build whose key is in the session's caches takes the table an
+        earlier execution staged, with no launch; a table staged here is
+        cached when it has a key and is accepted. An INNER build with a
+        duplicate key, a build of 2^31 rows or more, or packed keys wider
+        than 62 bits raise DeviceLoweringUnsupported (`:700`). The build
+        batches are charged to `reservation` (`build_inputs`)."""
+        out = self.build_inputs(ctx, reservation)
+        caches = self.chain_caches
         for bi in out:
             if bi.batch.num_rows >= 1 << 31:
                 raise DeviceLoweringUnsupported(
                     "a chain build side holds at most 2^31 - 1 rows")
+            if bi.key is not None:
+                hit = caches.get(bi.part, bi.key)
+                if hit is not None:
+                    bi.table, bi.stats, bi.serial = hit
+                    continue
             try:
                 bi.table = chain_build(bi.spec, bi.cols, bi.aux,
                                        bi.batch.num_rows, bi.unique)
@@ -395,6 +586,10 @@ class TorchChainExec(TorchDeviceExec):
             if bi.table.duplicate:
                 raise DeviceLoweringUnsupported(
                     "chain build keys not unique (fanout > 1)")
+            if bi.key is not None:
+                bi.serial = caches.serial()
+                caches.put(bi.part, bi.key, (bi.table, bi.stats, bi.serial),
+                           bi.table.tensors())
         if compose:
             self.compose_builds(out)
         return out
@@ -478,38 +673,43 @@ class TorchChainExec(TorchDeviceExec):
         their uniqueness) already; a filtered one covers only its live
         rows, so the ranges come from the columns. All of it is folded on
         the card and read back together: one synchronisation a chain, none
-        when no build needs it."""
-        queued, parts = [], {}
+        when no build needs it. A build's stats are kept in its `stats`,
+        with its cached table: a warm chain reads none back."""
+        queued, parts, out = [], {}, {}
         for bi, (b, s) in enumerate(zip(self.builds, staged)):
             n = s.batch.num_rows
             whole = s.table.live == n
             if n == 0:
                 continue
             if bi in mmx:
+                kind = "mmx"
                 cols = [] if whole else [s.col_map[k.index]
                                          for k in b.build_keys]
                 cols.append(s.col_map[b.sfilter[1].index])
             elif bi in folds and not whole and self._lut_candidate(b, s):
+                kind = "fold"
                 cols = [s.col_map[k.index] for k in b.build_keys]
             else:
+                continue
+            if kind in s.stats:
+                out[bi] = s.stats[kind]
                 continue
             vals = [s.cols[c][0][:n].to(torch.int64) for c in cols]
             at = len(queued)
             queued += [x for v in vals for x in (v.min(), v.max())]
-            dup = bi not in mmx
-            if dup:
+            if kind == "fold":
                 queued.append(_any_duplicate(vals).to(torch.int64))
-            parts[bi] = (at, len(cols), dup)
+            parts[bi] = (kind, at, len(cols))
         if not queued:
-            return {}
+            return out
         host = torch.stack(queued).tolist()
-        out = {}
-        for bi, (at, k, dup) in parts.items():
+        for bi, (kind, at, k) in parts.items():
             ext = [tuple(host[at + 2 * j:at + 2 * j + 2]) for j in range(k)]
-            if dup:
+            if kind == "fold":
                 out[bi] = (ext, None, bool(host[at + 2 * k]))
             else:
                 out[bi] = (ext[:-1], ext[-1], False)
+            staged[bi].stats[kind] = out[bi]
         return out
 
     @staticmethod
@@ -595,12 +795,15 @@ class TorchChainExec(TorchDeviceExec):
         if not composed and not folded:
             return None
         with record_function("dft.stage.spec"):
-            return self._stage_spec(staged, composed, folded, reads)
+            return self._stage_spec(staged, composed, folded, self._layout(
+                staged, composed, folded, reads))
 
-    def _stage_spec(self, staged: List[_BuildInput], composed, folded,
-                    reads: Optional[set]):
-        """`stage_spec` past the choice: the hops lowered, the folds' and
-        the probe keys' columns on the card."""
+    def _layout(self, staged: List[_BuildInput], composed, folded,
+                reads: Optional[set]):
+        """(each composed hop's first word in its owner's words, each
+        owner's words, each folded hop's payload columns as a
+        `_ColumnDtypes`): those in `reads` and in the probe keys of the
+        hops the walk probes, or all when `reads` is None."""
         from ..physical_optimizer import _collect_cols
         ranges = self.payload_ranges()
         at, width = {}, {}
@@ -613,6 +816,25 @@ class TorchChainExec(TorchDeviceExec):
                 if bi not in composed:
                     for k in b.probe_keys:
                         _collect_cols(k, reads)
+        fcols = {}
+        for bi in folded:
+            fcols[bi] = _ColumnDtypes()
+            for p in ranges[bi]:
+                if reads is None or p in reads:
+                    fcols[bi].add(p, self._pair_column(staged, p))
+        return at, width, fcols
+
+    def _stage_spec(self, staged: List[_BuildInput], composed, folded,
+                    layout, owners=None, folds=None):
+        """`stage_spec` past the choice: the hops lowered, the folds' and
+        the probe keys' columns on the card. `owners` and `folds`, when
+        given, limit it to the compositions into those owners and to those
+        folds (the others are in the caches)."""
+        at, width, fcols = layout
+        if owners is not None:
+            composed = {h: v for h, v in composed.items() if v[0] in owners}
+            folded = {h: v for h, v in folded.items() if h in folds}
+        ranges = self.payload_ranges()
         pools = Pools()
         hops = []
         try:
@@ -625,24 +847,23 @@ class TorchChainExec(TorchDeviceExec):
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
         chain = Chain(self.n_spine, None, hops)
-        folds, cols = [], {}
+        fold_list, cols = [], {}
         for bi, budget in folded.items():
             s = staged[bi]
-            dtypes = _ColumnDtypes()
-            for p in ranges[bi]:
-                if reads is None or p in reads:
-                    dtypes.add(p, self._pair_column(staged, p))
+            dtypes = fcols[bi]
             cols.update(self._to_device(
                 dtypes, {p: self._pair_column(staged, p)
                          for p in dtypes.dtypes}, s.keep))
             fold = Fold(width.get(bi, 0),
                         [(p, cols[p][1] is not None) for p in dtypes.dtypes],
                         *budget)
-            folds.append((bi, s.table, fold))
+            fold_list.append((bi, s.table, fold))
         spec = StageSpec(pools, chain,
                          {bi: (o, at[bi], tag)
                           for bi, (o, tag) in composed.items()},
-                         {o: staged[o].batch.num_rows for o in width}, folds)
+                         {o: staged[o].batch.num_rows
+                          for o in {o for o, _t in composed.values()}},
+                         fold_list)
         for p in pools.columns:
             cols.update(self._to_device(
                 spec, {p: self._pair_column(staged, p)},
@@ -650,28 +871,100 @@ class TorchChainExec(TorchDeviceExec):
         return spec, cols, torch.zeros(0, dtype=torch.int64,
                                        device=self.device)
 
+    def _hop_ident(self, staged: List[_BuildInput], h: int):
+        """What names hop `h` in a key of the caches' "cmp" part: its
+        table's key and serial, the uids of its build side's columns, its
+        payload and its payload's pair-space indices; None when its table
+        is not cached."""
+        s = staged[h]
+        if s.key is None:
+            return None
+        return (s.key, s.serial,
+                tuple(s.batch.columns[c]._uid for c in s.col_map),
+                tuple(self.builds[h].payload), tuple(self.payload_ranges()[h]))
+
+    def _stage_keys(self, staged: List[_BuildInput], composed, folded,
+                    fcols):
+        """({owner: key of its words}, {folded hop: key of its records}) in
+        the caches' "cmp" part, a key None when a hop it reads is not
+        cached. A composition's
+        key holds the owner's and every composed hop's identity, the
+        probe keys' text and the hops' tags; a fold's its hop's identity,
+        the key of its owner words, the columns it holds and its budget."""
+        ident = [self._hop_ident(staged, h) for h in range(len(staged))]
+        by_owner = {}
+        for h, (o, tag) in composed.items():
+            by_owner.setdefault(o, []).append((h, tag))
+        wkeys, fkeys = {}, {}
+        for o, hops in by_owner.items():
+            hs = [o] + [h for h, _t in hops]
+            if any(ident[h] is None for h in hs):
+                wkeys[o] = None
+                continue
+            wkeys[o] = ("compose", ident[o], tuple(
+                (ident[h], tuple(str(k) for k in self.builds[h].probe_keys),
+                 tag) for h, tag in hops))
+        for bi, budget in folded.items():
+            if ident[bi] is None or (bi in wkeys and wkeys[bi] is None):
+                fkeys[bi] = None
+                continue
+            fkeys[bi] = ("fold", ident[bi], wkeys.get(bi),
+                         tuple((p, str(d))
+                               for p, d in fcols[bi].dtypes.items()),
+                         tuple(budget))
+        return wkeys, fkeys
+
     def compose_builds(self, staged: List[_BuildInput],
                        reads: Optional[set] = None) -> None:
         """Compose and fold the hops `compose_plan` picks (`stage_spec`), in
         one `chain_stage` call: one compose launch and one fold launch a
-        chain on the card, into outputs that need no zeroing. Spans:
-        `dft.stage` the whole, `dft.stage.plan` the choice (with
+        chain on the card, into outputs that need no zeroing. An owner's
+        words or a fold's records whose hops all have cached tables are
+        served from the session's caches (`_stage_keys`), and what was
+        staged here is cached; a chain found whole there launches nothing.
+        Spans: `dft.stage` the whole, `dft.stage.plan` the choice (with
         `dft.stage.stats`, its fold of build columns and one read-back),
         `dft.stage.spec` the descriptor's hops and columns, and
         `dft.stage.launch` the outputs' allocation, the descriptor's upload
         and the launches."""
         with record_function("dft.stage"):
-            made = self.stage_spec(staged, reads)
-            if made is None:
+            with record_function("dft.stage.plan"):
+                composed, folded = self.compose_plan(staged)
+            if not composed and not folded:
                 return
-            spec, cols, aux = made
-            with record_function("dft.stage.launch"):
-                words, outs = new_stage_outputs(spec, self.device)
-                chain_stage(spec, cols, aux, words, outs)
-        for bi, (owner, word, tag) in spec.composed.items():
-            staged[bi].compose = Compose(owner, tag, words[owner], word)
-        for (bi, _t, fold), (rec, valid) in zip(spec.folds, outs):
-            fold.records, fold.valid = rec, valid
+            layout = self._layout(staged, composed, folded, reads)
+            at, _width, fcols = layout
+            caches = self.chain_caches
+            wkeys, fkeys = self._stage_keys(staged, composed, folded, fcols)
+            words, folds = {}, {}
+            if caches is not None:
+                for got, keys in ((words, wkeys), (folds, fkeys)):
+                    for h, k in keys.items():
+                        hit = None if k is None else caches.get("cmp", k)
+                        if hit is not None:
+                            got[h] = hit
+            owners = {o for o in wkeys if o not in words}
+            todo = {h for h in folded if h not in folds}
+            if owners or todo:
+                with record_function("dft.stage.spec"):
+                    spec, cols, aux = self._stage_spec(
+                        staged, composed, folded, layout, owners, todo)
+                with record_function("dft.stage.launch"):
+                    new_words, outs = new_stage_outputs(spec, self.device)
+                    chain_stage(spec, cols, aux, {**words, **new_words},
+                                outs)
+                for o, w in new_words.items():
+                    words[o] = w
+                    if caches is not None and wkeys[o] is not None:
+                        caches.put("cmp", wkeys[o], w, [w])
+                for (bi, _t, fold), (rec, valid) in zip(spec.folds, outs):
+                    fold.records, fold.valid = rec, valid
+                    folds[bi] = fold
+                    if caches is not None and fkeys[bi] is not None:
+                        caches.put("cmp", fkeys[bi], fold, [rec, valid])
+        for bi, (owner, tag) in composed.items():
+            staged[bi].compose = Compose(owner, tag, words[owner], at[bi])
+        for bi, fold in folds.items():
             staged[bi].fold = fold
 
     def pair_view(self, spine_batch, staged: List[_BuildInput]) -> _PairView:
@@ -715,9 +1008,10 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
                  group_exprs, aggs, schema, fallback: ExecutionPlan,
                  device: torch.device,
                  cache: Optional[DeviceColumnCache] = None,
-                 max_groups: int = 1 << 22):
+                 max_groups: int = 1 << 22,
+                 chain_caches: Optional[ChainCaches] = None):
         super().__init__(probe_source, probe_predicate, builds, predicate,
-                         schema, fallback, device, cache)
+                         schema, fallback, device, cache, chain_caches)
         self.group_exprs = group_exprs
         self.aggs = aggs
         self.max_groups = max_groups
@@ -726,7 +1020,8 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
         return TorchJoinChainAggregateExec(
             c[0], self.probe_predicate, self._builds_over(c[1:]),
             self.predicate, self.group_exprs, self.aggs, self._schema,
-            self.fallback, self.device, self.cache, self.max_groups)
+            self.fallback, self.device, self.cache, self.max_groups,
+            self.chain_caches)
 
     def display_line(self):
         gb = ", ".join(n for _, n in self.group_exprs)
@@ -789,10 +1084,13 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
             raise DeviceLoweringUnsupported(str(e))
         return spec, plan, list(slot_defs), slot_map
 
-    def prepare(self, ctx: TaskContext, compose: bool = True):
+    def prepare(self, ctx: TaskContext, compose: bool = True,
+                reservation: Optional[MemoryReservation] = None):
         """Everything a run needs before the walk: the builds staged on the
         card (composed and folded unless `compose` is false), the chain
-        compiled, each spine batch's columns staged. Returns (spec, pack
+        compiled, each spine batch's columns staged. With `reservation`,
+        the build batches and then the caches' bytes are charged to it
+        (`_account_device_caches`, once staging ends). Returns (spec, pack
         plan, lane names, slot map, [(cols, aux, rows) per spine batch],
         staged builds)."""
         with record_function("dft.compile"):
@@ -802,11 +1100,14 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
                 raise DeviceLoweringUnsupported(str(e))
         spine = [b for b in execute_stream(self.source, ctx) if b.num_rows]
         with record_function("dft.build"):
-            staged = self.stage_builds(ctx, compose=False)
+            staged = self.stage_builds(ctx, compose=False,
+                                       reservation=reservation)
         views = [self.pair_view(b, staged) for b in spine]
         with record_function("dft.compile"):
             spec, plan, names, slot_map = self.compile(lowered, staged, views,
                                                        compose)
+        if reservation is not None:
+            _account_device_caches(reservation, self.chain_caches)
         if plan.dropped:
             plan.finalize = self._fd_finalize(plan.kept, plan.dropped,
                                               spine[0], staged)
@@ -816,9 +1117,18 @@ class TorchJoinChainAggregateExec(TorchChainExec, TorchAggregate):
         return spec, plan, names, slot_map, inputs, staged
 
     def _execute_port(self, partition: int, ctx: TaskContext):
+        reservation = self._build_reservation(ctx)
+        try:
+            return self._run(partition, ctx, reservation)
+        finally:
+            reservation.free()
+
+    def _run(self, partition: int, ctx: TaskContext,
+             reservation: MemoryReservation):
         m = BaselineMetrics(self.metrics, partition)
         with m.elapsed_compute:
-            spec, plan, names, slot_map, inputs, staged = self.prepare(ctx)
+            spec, plan, names, slot_map, inputs, staged = self.prepare(
+                ctx, reservation=reservation)
             with record_function("dft.aggregate"):
                 table = spec.new_table(self.device)
                 overflow = torch.zeros(1, dtype=torch.int32,
@@ -979,16 +1289,18 @@ class TorchJoinChainRowsExec(TorchChainExec):
                  predicate: Optional[PhysicalExpr],
                  out_exprs: List[PhysicalExpr], schema,
                  fallback: ExecutionPlan, device: torch.device,
-                 cache: Optional[DeviceColumnCache] = None):
+                 cache: Optional[DeviceColumnCache] = None,
+                 chain_caches: Optional[ChainCaches] = None):
         super().__init__(probe_source, probe_predicate, builds, predicate,
-                         schema, fallback, device, cache)
+                         schema, fallback, device, cache, chain_caches)
         self.out_exprs = out_exprs
+        self._held: Optional[MemoryReservation] = None
 
     def with_children(self, c):
         return TorchJoinChainRowsExec(
             c[0], self.probe_predicate, self._builds_over(c[1:]),
             self.predicate, self.out_exprs, self._schema, self.fallback,
-            self.device, self.cache)
+            self.device, self.cache, self.chain_caches)
 
     def display_line(self):
         out = ", ".join(str(e) for e in self.out_exprs)
@@ -1033,11 +1345,13 @@ class TorchJoinChainRowsExec(TorchChainExec):
         return pools, ppred, pred, outs, probe_keys, \
             self.lower_mfilters(pools)
 
-    def prepare_rows(self, ctx: TaskContext, compose: bool = True):
+    def prepare_rows(self, ctx: TaskContext, compose: bool = True,
+                     reservation: Optional[MemoryReservation] = None):
         """Everything a run needs before the walk: the builds staged on the
         card (composed and folded unless `compose` is false), the walk's
-        spec, and each spine batch's staged columns. Returns (spec, [(cols,
-        aux, rows, pair view) per spine batch], staged builds)."""
+        spec, and each spine batch's staged columns; with `reservation`
+        charged as `prepare` charges it. Returns (spec, [(cols, aux, rows,
+        pair view) per spine batch], staged builds)."""
         with record_function("dft.compile"):
             try:
                 (pools, ppred, pred, outs, probe_keys,
@@ -1045,7 +1359,8 @@ class TorchJoinChainRowsExec(TorchChainExec):
             except LoweringError as e:
                 raise DeviceLoweringUnsupported(str(e))
         with record_function("dft.build"):
-            staged = self.stage_builds(ctx, compose=False)
+            staged = self.stage_builds(ctx, compose=False,
+                                       reservation=reservation)
         spine = [b for b in execute_stream(self.source, ctx) if b.num_rows]
         try:
             spec = ChainRowsSpec(pools, pred, outs,
@@ -1054,6 +1369,8 @@ class TorchJoinChainRowsExec(TorchChainExec):
                                             compose))
         except LoweringError as e:
             raise DeviceLoweringUnsupported(str(e))
+        if reservation is not None:
+            _account_device_caches(reservation, self.chain_caches)
         keep_spine = self._source_is_scan()
         inputs = []
         for b in spine:
@@ -1063,9 +1380,27 @@ class TorchJoinChainRowsExec(TorchChainExec):
         return spec, inputs, staged
 
     def _execute_port(self, partition: int, ctx: TaskContext):
+        """The rows of every spine batch. The build reservation is held on
+        the exec until the next execution, past the batches' making
+        (`:2395-2396`)."""
+        if self._held is not None:
+            self._held.free()
+            self._held = None
+        reservation = self._build_reservation(ctx)
+        try:
+            batches = self._rows(partition, ctx, reservation)
+        except BaseException:
+            reservation.free()
+            raise
+        self._held = reservation
+        return batches
+
+    def _rows(self, partition: int, ctx: TaskContext,
+              reservation: MemoryReservation):
         m = BaselineMetrics(self.metrics, partition)
         with m.elapsed_compute:
-            spec, inputs, staged = self.prepare_rows(ctx)
+            spec, inputs, staged = self.prepare_rows(
+                ctx, reservation=reservation)
             batches = []
             for cols, aux, rows, view in inputs:
                 with record_function("dft.rows"):

@@ -32,10 +32,12 @@ from .plan.window import PhysWindowExpr, WindowExec
 class PhysicalPlanner:
     """The reference's planner, whose physical optimizer is the port's:
     its device rules plan the port's execs on `device`, caching resident
-    columns in `cache`; a mesh branch runs over `mesh` when it has the
-    shards asked for."""
+    columns in `cache` and the join chains' staged builds in
+    `chain_caches`; a mesh branch runs over `mesh` when it has the shards
+    asked for."""
 
-    def __init__(self, config=None, device=None, cache=None, mesh=None):
+    def __init__(self, config=None, device=None, cache=None, mesh=None,
+                 chain_caches=None):
         from ..common.config import ConfigOptions
         self.config = config or ConfigOptions()
         if device is None:
@@ -43,13 +45,14 @@ class PhysicalPlanner:
         self.device = device
         self.cache = cache
         self.mesh = mesh
+        self.chain_caches = chain_caches
 
     # ------------------------------------------------------------------
     def create_physical_plan(self, plan: L.LogicalPlan) -> ExecutionPlan:
         phys = self._plan(plan)
         from .physical_optimizer import optimize_physical
         return optimize_physical(phys, self.config, self.device, self.cache,
-                                 self.mesh)
+                                 self.mesh, self.chain_caches)
 
     def _plan(self, node: L.LogicalPlan) -> ExecutionPlan:
         if isinstance(node, L.TableScan):
@@ -142,7 +145,8 @@ class PhysicalPlanner:
             rows = []
             from .physical_optimizer import optimize_physical
             phys = optimize_physical(self._plan(inner), self.config,
-                                     self.device, self.cache, self.mesh)
+                                     self.device, self.cache, self.mesh,
+                                     self.chain_caches)
             if node.analyze:
                 return AnalyzeExec(phys, node.verbose)
             fmt = getattr(node, "format", "indent")

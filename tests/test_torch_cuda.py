@@ -1398,9 +1398,12 @@ def test_chain_rows_all_and_none_survive(cuda):
 
 def test_staging_one_launch_each_one_sync(cuda):
     """Staging a chain with composed hops and a fold (`stage_builds`, its
-    tables already cached on the card): at most one compose launch, one
-    fold launch and one synchronisation (torch's sync debug mode) beyond
-    the tables' own staging."""
+    columns already resident on the card) after the session's chain
+    caches are cleared: at most one compose launch, one fold launch and
+    one synchronisation (torch's sync debug mode) beyond the tables' own
+    staging. Staged again with the caches warm: no `chain_build`,
+    compose or fold launch and no synchronisation beyond the tables'
+    staging without composition."""
     import warnings
     import datafusion_tpu_torch as dft
     ctx = _compose_ctx(cuda)
@@ -1410,8 +1413,10 @@ def test_staging_one_launch_each_one_sync(cuda):
     assert any(s.compose is not None for s in staged)
     assert any(s.fold is not None for s in staged)
 
-    def count(compose):
-        names = ("chain_compose", "chain_fold")
+    def count(compose, cold=True):
+        if cold:
+            ctx.chain_caches.clear()
+        names = ("chain_build", "chain_compose", "chain_fold")
         before = {k: dft.launch_counts()[k] for k in names}
         torch.cuda.synchronize()
         with warnings.catch_warnings(record=True) as seen:
@@ -1421,14 +1426,20 @@ def test_staging_one_launch_each_one_sync(cuda):
                 ex.stage_builds(tctx, compose)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-        return ({k: dft.launch_counts()[k] - before[k] for k in names},
+        launched = {k: dft.launch_counts()[k] - before[k] for k in names}
+        return (launched.pop("chain_build"), launched,
                 sum(str(w.message).startswith("called a synchronizing")
                     for w in seen))
-    launches, syncs = count(True)
-    plain_launches, plain_syncs = count(False)
+    plain_builds, plain_launches, plain_syncs = count(False)
+    builds, launches, syncs = count(True)
+    warm_builds, warm_launches, warm_syncs = count(True, cold=False)
+    assert builds == plain_builds > 0
     assert launches == {"chain_compose": 1, "chain_fold": 1}
     assert plain_launches == {"chain_compose": 0, "chain_fold": 0}
     assert syncs - plain_syncs <= 1
+    assert warm_builds == 0
+    assert warm_launches == {"chain_compose": 0, "chain_fold": 0}
+    assert warm_syncs <= plain_syncs
 
 
 @pytest.mark.parametrize("q", [2, 20])
