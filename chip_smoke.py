@@ -29,7 +29,11 @@ query is held against a numpy oracle on the same data.
      the same table), then both subqueries end to end against numpy;
    - join chains: `chain_build` against its plain version on every build
      side of Q5 (equal tables; two launches a build side, the range pass
-     and the insert, as the cold runs of Q3, Q4 and Q5 are held to) and
+     and the insert, as the cold runs of Q3, Q4 and Q5 are held to; a side
+     whose unfiltered table is fit stages that table, and its mask,
+     `chain_mask`, is held to its plain version; a filtered side whose
+     unfiltered table is unfit at SF10, orders, first runs a range pass
+     that finds it so) and
      `chain_aggregate` against its plain
      version on Q5's walk (equal group tables), the same on Q3 (the hash
      fold) and Q4 (the SEMI build over lineitem), then Q3, Q4 and Q5 end
@@ -84,11 +88,18 @@ query is held against a numpy oracle on the same data.
      times warm, held to WARM_STAGING (none of `chain_build`,
      `chain_compose` and `chain_fold` for Q5; for Q2 only its subquery's
      build, made anew each run; for Q21 its two min/max tables, each over
-     the SEMI part's cap; the walk launched every run), each run against
-     numpy, with the cold and warm ms and the caches' bytes by part; Q5
-     with its dates a year later after its warm runs (only the orders
-     build misses) and then Q5 again, each timed; Q5 under a
-     GreedyMemoryPool of its build
+     the SEMI part's cap; the walk launched every run; one `chain_mask` a
+     masked side every run), each run against numpy, with the cold and
+     warm ms and the caches' bytes by part; Q5 with its dates a year
+     later after its warm runs (only the orders build misses) and then Q5
+     again, each timed; Q3 through its five market segments twice (no
+     `chain_build` after the first run, one `chain_mask` a run, one
+     unfiltered customer table in the INNER part, each run against
+     numpy); Q5 with r_name ASIA, EUROPE, ASIA (each against numpy, the
+     second ASIA composing and folding nothing); `chain_mask` against its
+     plain version on Q3's customer and Q8's part (kernel, plain, bound
+     and a floor, `torch.where` over the precomputed slot mask); Q5 under
+     a GreedyMemoryPool of its build
      batches and half the caches' bytes (equal rows, the caches evicted to
      at most half), and pools one byte short of Q5's and of J1's build
      batches (ResourcesExhausted, no fallback);
@@ -854,13 +865,14 @@ def chain_execs(ctx, sql):
             if isinstance(n, TorchChainExec)]
 
 
-STAGING = ("chain_build", "chain_compose", "chain_fold")
+STAGING = ("chain_build", "chain_compose", "chain_fold", "chain_mask")
 
 # label -> the build sides of the query that its first run after the chain
 # caches are emptied finds there, because an earlier side of the same run
 # staged the same table: (join type, key columns, predicate text), as
 # `side_name` names them. Q7 and Q8 join nation twice; Q2's subquery and
-# its outer chain both join supplier, nation and region (r_name = EUROPE).
+# its outer chain both join supplier, nation and region (r_name = EUROPE:
+# one unfiltered table, masked at each of its two uses).
 SHARED_BUILDS = {
     "Q2 SF10": {("INNER", "s_suppkey", "None"),
                 ("INNER", "n_nationkey", "None"),
@@ -871,7 +883,8 @@ SHARED_BUILDS = {
 
 # label -> the `chain_build`, `chain_compose` and `chain_fold` launches of
 # each warm run (the caches filled by the run before); a chain query not
-# named here launches none of them
+# named here launches none of them. Every run, warm or cold, launches one
+# `chain_mask` for each eligible filtered build side (`build_sides`).
 WARM_STAGING = {
     # the build fed by the subquery's aggregate has new columns every run,
     # and the composition into it and its fold are staged again with it
@@ -883,7 +896,8 @@ WARM_STAGING = {
     # orders' unfiltered table (240,000,000 bytes) and partsupp's
     # (201,326,592) do not fit the INNER part's 256 MiB together: each
     # insert evicts from the oldest end, so every run rebuilds all five
-    # tables and stages the words and records read from them again
+    # tables (part's unfiltered one among them) and stages the words and
+    # records read from them again
     "Q9 SF10": {"chain_build": 10, "chain_compose": 1, "chain_fold": 1},
     # lineitem's two min/max tables, 1,199,999,940 bytes each, are each
     # over the SEMI part's 1 GiB: each insert evicts the other
@@ -903,29 +917,64 @@ def side_name(b):
             re.sub(r"@\d+", "", str(pred)))
 
 
-def build_sides(ex, tctx):
-    """([(side_name, `chain_build` launches)] of each build side of the
-    chain exec `ex`, staged from emptied caches: the range pass, and the
-    insert unless the table is empty; {hop: (owner, tag)} of the hops its
-    staging composes; {hop: budget} of those it folds)."""
+def masked(s) -> bool:
+    """Whether the staged build side `s` took an unfiltered table and
+    masked it by its predicate (`chain_mask`)."""
+    base = getattr(s, "base", None)
+    return base is not None and s.table is not base
+
+
+def side_launches(s, caches, seen, known=()):
+    """`chain_build` launches of staging the build side `s` from emptied
+    caches: the range pass, and the insert unless the table is empty, of
+    its unfiltered table when it took one (none when an earlier side of
+    the run, in `seen`, staged it), else of its own table, plus for a
+    filtered side whose unfiltered table was found unfit the attempt
+    (`caches.ineligible`: the range pass for too wide a span, both passes
+    for a duplicate key), unless an earlier side made it or its key is in
+    `known`. Adds the side's unfiltered key to `seen`."""
     from datafusion_tpu_torch.device.join_chain import TAB_EMPTY
+    n = s.batch.num_rows
+    key = getattr(s, "lut_key", None)
+    first = key is not None and key not in seen and key not in known
+    if key is not None:
+        seen.add(key)
+    base = getattr(s, "base", None)
+    if base is not None:
+        return ((n > 0) + (base.kind != TAB_EMPTY)) if first else 0
+    why = caches.ineligible.get(key) if first else None
+    extra = {"span": 1, "duplicate": 2}.get(why, 0) \
+        if s.spec.pred is not None else 0
+    return (n > 0) + (s.table.kind != TAB_EMPTY) + extra
+
+
+def build_sides(ex, tctx, known=(), found=None):
+    """([(side_name, `chain_build` launches, whether it is masked)] of each
+    build side of the chain exec `ex`, staged from emptied caches
+    (`side_launches`, `known` the unfiltered keys taken as found unfit
+    already); {hop: (owner, tag)} of the hops its staging composes; {hop:
+    budget} of those it folds). The unfiltered keys found unfit are added
+    to `found`, when given."""
     clear_chain_caches(ex)
     staged = ex.stage_builds(tctx, compose=False)
     composed, folded = ex.compose_plan(staged)
-    sides = [(side_name(b), (s.batch.num_rows > 0) +
-              (s.table.kind != TAB_EMPTY))
-             for b, s in zip(ex.builds, staged)]
+    if found is not None:
+        found.update(ex.chain_caches.ineligible)
+    seen = set()
+    sides = [(side_name(b), side_launches(s, ex.chain_caches, seen, known),
+              masked(s)) for b, s in zip(ex.builds, staged)]
     clear_chain_caches(ex, staged)
     return sides, composed, folded
 
 
 def cold_staging(ctx, sql, tctx, label, builds=None):
-    """{kernel: launches} of `chain_build`, `chain_compose` and
-    `chain_fold` in a run of `sql` after its session's chain caches are
-    emptied: every build side's (`build_sides`), a side whose (join type,
-    keys, predicate) came earlier in the run counted only if SHARED_BUILDS
-    does not list it as found staged (a repeat it does not list fails);
-    one compose and one fold launch a chain that composes and folds. With
+    """{kernel: launches} of `chain_build`, `chain_compose`, `chain_fold`
+    and `chain_mask` in a run of `sql` after its session's chain caches
+    are emptied: every build side's (`build_sides`), a side whose (join
+    type, keys, predicate) came earlier in the run counted only if
+    SHARED_BUILDS does not list it as found staged (a repeat it does not
+    list fails); one compose and one fold launch a chain that composes and
+    folds; one mask a masked side, repeats included. With
     `builds` (`chain_builds_vs_plain`'s count of the launches of each
     build side, one by one), fails unless the `chain_build` count is
     that."""
@@ -934,7 +983,8 @@ def cold_staging(ctx, sql, tctx, label, builds=None):
     shared = SHARED_BUILDS.get(label, set())
     for ex in chain_execs(ctx, sql):
         sides, composed, folded = build_sides(ex, tctx)
-        for name, n in sides:
+        for name, n, mask in sides:
+            out["chain_mask"] += mask
             if name in seen:
                 if name not in shared:
                     raise AssertionError(f"{label}: build side {name} comes "
@@ -955,9 +1005,13 @@ def cold_staging(ctx, sql, tctx, label, builds=None):
     return out
 
 
-def warm_staging(label):
-    """WARM_STAGING[label], or no staging launch."""
-    return WARM_STAGING.get(label, dict.fromkeys(STAGING, 0))
+def warm_staging(label, masks):
+    """WARM_STAGING[label], or no staging launch, with `masks` (the cold
+    run's) `chain_mask` launches."""
+    out = dict.fromkeys(STAGING, 0)
+    out.update(WARM_STAGING.get(label, {}))
+    out["chain_mask"] = masks
+    return out
 
 
 def run_path(ctx, sql, expect, card, label, rows, cls=None, reps=REPS,
@@ -1008,7 +1062,8 @@ def run_path(ctx, sql, expect, card, label, rows, cls=None, reps=REPS,
     cached = ""
     if cold is not None:
         got = {k: launches[k] - cold[k] for k in STAGING}
-        want = {k: n * reps for k, n in warm_staging(label).items()}
+        want = {k: n * reps for k, n in
+                warm_staging(label, cold["chain_mask"]).items()}
         if got != want:
             raise AssertionError(f"{label}: {reps} warm runs launched {got}, "
                                  f"not {want}")
@@ -1415,17 +1470,20 @@ def topk_vs_plain(table, lane, names, card, label, predicted=True):
     return entry(0.0, ms, plain, bnd, library), launches
 
 
-def check_build(bi, label):
-    """`chain_build` against its plain version on the build side `bi`
-    (the same kind, ranges, shifts, live rows and duplicate flag, the same
-    keys, for an INNER build the same row of each key, for a min/max build
-    the same extremes of each key). Returns the kernel's table."""
+def check_build(bi, label, spec=None):
+    """`chain_build` against its plain version on the build side `bi`,
+    staged by `spec` (by default its own; its unfiltered one for a side
+    that takes an unfiltered table): the same kind, ranges, shifts, live
+    rows and duplicate flag, the same keys, for an INNER build the same
+    row of each key, for a min/max build the same extremes of each key.
+    Returns the kernel's table."""
     import numpy as np
     from datafusion_tpu_torch.device.join_chain import (
         chain_build, chain_build_plain)
     n = bi.batch.num_rows
-    got = chain_build(bi.spec, bi.cols, bi.aux, n, bi.unique)
-    want = chain_build_plain(bi.spec, bi.cols, bi.aux, n, bi.unique)
+    spec = spec or bi.spec
+    got = chain_build(spec, bi.cols, bi.aux, n, bi.unique)
+    want = chain_build_plain(spec, bi.cols, bi.aux, n, bi.unique)
 
     def shape(t):
         return (t.kind, t.los, t.his, t.shifts, t.size, t.live, t.duplicate)
@@ -1444,7 +1502,7 @@ def check_build(bi, label):
     return got
 
 
-def build_yardstick(bi, table, reps=5):
+def build_yardstick(bi, table, reps=5, spec=None):
     """The one PyTorch call that computes a direct build table from the
     packed keys of its live rows (the programs left out, as
     `unique_yardstick` leaves out the key program): for a min/max build
@@ -1457,7 +1515,8 @@ def build_yardstick(bi, table, reps=5):
     from datafusion_tpu_torch.device.lower import evaluate
     if table.kind != TAB_DIRECT:
         return None
-    spec, cols, aux, n = bi.spec, bi.cols, bi.aux, bi.batch.num_rows
+    spec = spec or bi.spec
+    cols, aux, n = bi.cols, bi.aux, bi.batch.num_rows
     live = torch.ones(n, dtype=torch.bool, device=aux.device)
     if spec.pred is not None:
         d, v = evaluate(spec.pred, cols, aux, n)
@@ -1489,45 +1548,126 @@ def build_yardstick(bi, table, reps=5):
 
 
 def chain_builds_vs_plain(ex, tctx, card, label, mmx_only=False):
-    """`check_build` on every build side of the chain exec `ex`, each
-    timed beside its plain version and, for a direct table, its
-    `build_yardstick`, and held to the launches its design predicts: the
-    range pass and the insert, no insert for an empty table. Returns the
-    report entry of the largest build side (with `mmx_only`, of the largest
-    min/max build side) and the launches a run of the query predicts."""
+    """`check_build` on every build side of the chain exec `ex` as a cold
+    run stages it (of a side that takes an unfiltered table, that table,
+    and its mask by `check_mask`), each timed beside its plain version
+    and, for a direct table, its `build_yardstick`, and held to the
+    launches its design predicts: the range pass and the insert, no insert
+    for an empty table. Returns the report entry of the largest build side
+    (with `mmx_only`, of the largest min/max build side) and the launches
+    a cold run of the query predicts (`side_launches`)."""
     from datafusion_tpu_torch.device.join_chain import (
         TAB_EMPTY, chain_build, chain_build_kernel, chain_build_plain)
-    best, predicted = None, 0
-    for h, bi in enumerate(ex.build_inputs(tctx)):
+    from datafusion_tpu_torch.device.lower import OP_COL
+    best, predicted, seen = None, 0, set()
+    clear_chain_caches(ex)
+    staged = ex.stage_builds(tctx, compose=False)
+    for h, bi in enumerate(staged):
         n = bi.batch.num_rows
+        spec = bi.spec if getattr(bi, "base", None) is None \
+            else bi.spec.unfiltered()
         before = chain_build_kernel.launches
-        got = check_build(bi, f"{label} build {h}")
+        got = check_build(bi, f"{label} build {h}", spec)
         launches = chain_build_kernel.launches - before
         want = (n > 0) + (got.kind != TAB_EMPTY)
         if launches != want:
             raise AssertionError(f"{label} build {h}: chain_build counted "
                                  f"{launches} launches, not {want}")
-        predicted += want
+        predicted += side_launches(bi, ex.chain_caches, seen)
+        if masked(bi):
+            check_mask(bi, f"{label} build {h}")
         mmx = got.mn is not None
-        ms = cuda_ms(lambda: chain_build(bi.spec, bi.cols, bi.aux, n,
+        ms = cuda_ms(lambda: chain_build(spec, bi.cols, bi.aux, n,
                                          bi.unique), 5)
-        plain = cuda_ms(lambda: chain_build_plain(bi.spec, bi.cols, bi.aux,
+        plain = cuda_ms(lambda: chain_build_plain(spec, bi.cols, bi.aux,
                                                   n, bi.unique), 2)
-        lib = build_yardstick(bi, got)
+        lib = build_yardstick(bi, got, spec=spec)
         # inputs read once, the table written once
-        nbytes = col_bytes(bi.cols, bi.spec.pools.columns, n) + \
-            got.size * entry_bytes(got)
-        bnd = bound(nbytes, prog_ops(bi.spec, n))
+        read = {a for p in spec.programs() for op, a, _b in p.code
+                if op == OP_COL}
+        nbytes = col_bytes(bi.cols, read, n) + got.size * entry_bytes(got)
+        bnd = bound(nbytes, prog_ops(spec, n))
         kind = ["direct", "hashed", "empty"][got.kind]
         print(f"chain_build {label} build {h}: {n} rows, {got.live} live, "
-              f"{kind}{' min/max' if mmx else ''} table of {got.size} "
-              f"slots: kernel {ms:.6f} ms, plain {plain:.6f} ms, bound "
-              f"{bnd['bound_ms']:.6f} ms, library {lib}, max_abs_err 0 "
-              f"[{card}]", flush=True)
+              f"{kind}{' min/max' if mmx else ''}"
+              f"{' unfiltered' if spec is not bi.spec else ''} table of "
+              f"{got.size} slots: kernel {ms:.6f} ms, plain {plain:.6f} ms, "
+              f"bound {bnd['bound_ms']:.6f} ms, library {lib}, max_abs_err "
+              f"0 [{card}]", flush=True)
         if (mmx or not mmx_only) and (best is None or n > best[0]):
             best = (n, entry(0.0, ms, plain, bnd,
                              None if lib is None else lib["ms"]))
+        del got
+    clear_chain_caches(ex, staged)
     return best[1], predicted
+
+
+def check_mask(bi, label):
+    """`chain_mask` against its plain version on the masked build side
+    `bi`: the same rows, exactly, as the table the run masked, the
+    unfiltered table's layout. Returns (the mask's spec, the kernel's
+    table)."""
+    import torch
+    from datafusion_tpu_torch.device.join_chain import (
+        MaskSpec, chain_mask, chain_mask_plain)
+    spec = MaskSpec(bi.spec.pools, bi.spec.pred)
+    base, n = bi.base, bi.batch.num_rows
+    got = chain_mask(spec, bi.cols, bi.aux, n, base)
+    want = chain_mask_plain(spec, bi.cols, bi.aux, n, base)
+    layout = (base.kind, base.los, base.his, base.shifts, base.size)
+    if not (torch.equal(got.rows, want.rows) and
+            torch.equal(got.rows, bi.table.rows)) or \
+            (got.kind, got.los, got.his, got.shifts, got.size) != layout:
+        raise AssertionError(f"{label}: chain_mask differs from its plain "
+                             f"version")
+    return spec, got
+
+
+def mask_vs_plain(bi, card, label):
+    """`check_mask` on the masked build side `bi`, timed (CUDA events, and
+    the kernel alone by the profiler) beside its plain version and a
+    floor, `torch.where` over the slots'
+    mask precomputed (the predicate and its gather left out: no PyTorch
+    call evaluates a predicate). The bound: the unfiltered table's rows
+    read and the masked rows written once, the predicate's columns read
+    once over the build rows, its program run once a row. Returns the
+    kernels line's entry (the floor as `floor_ms`; no library call
+    computes the mask)."""
+    import torch
+    from datafusion_tpu_torch.device.join_chain import (
+        chain_mask, chain_mask_kernel, chain_mask_plain)
+    from datafusion_tpu_torch.device.lower import OP_COL, evaluate
+    spec, got = check_mask(bi, label)
+    base, n = bi.base, bi.batch.num_rows
+    before = chain_mask_kernel.launches
+    chain_mask(spec, bi.cols, bi.aux, n, base)
+    launches = chain_mask_kernel.launches - before
+    if launches != 1:
+        raise AssertionError(f"{label}: chain_mask launched {launches} "
+                             f"times a call, not once")
+    ms = cuda_ms(lambda: chain_mask(spec, bi.cols, bi.aux, n, base), 20)
+    plain = cuda_ms(lambda: chain_mask_plain(spec, bi.cols, bi.aux, n,
+                                             base), 5)
+    d, v = evaluate(spec.pred, bi.cols, bi.aux, n)
+    rows = base.rows
+    slot_keep = (rows >= 0) & ((d != 0) & v)[rows.clamp(min=0).long()]
+    none = torch.full_like(rows, -1)
+    floor = cuda_ms(lambda: torch.where(slot_keep, rows, none), 20)
+    device = kernel_ms(lambda: chain_mask(spec, bi.cols, bi.aux, n, base),
+                       10)
+    read = {a for op, a, _b in spec.pred.code if op == OP_COL}
+    nbytes = 8 * base.size + col_bytes(bi.cols, read, n)
+    bnd = bound(nbytes, n * len(spec.pred.code))
+    live = int((got.rows >= 0).sum())
+    forms = [None if f is None else f[0] for f, _c in spec.conjuncts]
+    print(f"chain_mask {label}: {n} build rows, {base.size} slots, {live} "
+          f"kept, conjunct forms {forms}: "
+          f"kernel {ms:.6f} ms (the call; profiled device ms {device}), "
+          f"plain {plain:.6f} ms, bound "
+          f"{bnd['bound_ms']:.6f} ms ({bnd['bytes']} bytes), floor "
+          f"(torch.where over the precomputed slot mask) {floor:.6f} ms, "
+          f"1 launch a call, max_abs_err 0 [{card}]", flush=True)
+    return dict(entry(0.0, ms, plain, bnd, None), floor_ms=floor)
 
 
 # label -> the walk's launches a run of its query: one a pass of lanes
@@ -2261,12 +2401,14 @@ def window_order(li, cols):
 
 # ---- numpy oracles of the join chains ---------------------------------------
 
-def oracle_q3(t):
-    """(l_orderkey, revenue at scale 4, o_orderdate) of Q3's top 10."""
+def oracle_q3(t, segment="BUILDING"):
+    """(l_orderkey, revenue at scale 4, o_orderdate) of Q3's top 10, of
+    the customers of market segment `segment` (Q3's BUILDING unless
+    given)."""
     import numpy as np
     cust, orders, li = t["customer"], t["orders"], t["lineitem"]
     seg = cust.column_by_name("c_mktsegment")
-    building = col(cust, "c_mktsegment") == seg.dictionary.lookup("BUILDING")
+    building = col(cust, "c_mktsegment") == seg.dictionary.lookup(segment)
     o_date = col(orders, "o_orderdate")
     o_ok = (o_date < days(1995, 3, 15)) & \
         building[col(orders, "o_custkey") - 1]
@@ -2296,13 +2438,14 @@ def oracle_q4(t):
     return list(prio.dictionary.values[counts > 0]), counts[counts > 0]
 
 
-def oracle_q5(t, year=1994):
+def oracle_q5(t, year=1994, region_name="ASIA"):
     """Q5's (nation name, revenue at scale 4), by revenue descending, of
-    the orders of `year` (Q5's 1994 unless given)."""
+    the orders of `year` in the region `region_name` (Q5's 1994 and ASIA
+    unless given)."""
     import numpy as np
     cust, orders, li = t["customer"], t["orders"], t["lineitem"]
     nation, region, supp = t["nation"], t["region"], t["supplier"]
-    asia = region.column_by_name("r_name").dictionary.lookup("ASIA")
+    asia = region.column_by_name("r_name").dictionary.lookup(region_name)
     r_asia = col(region, "r_regionkey")[col(region, "r_name") == asia]
     n_in = np.isin(col(nation, "n_regionkey"), r_asia)
     o_date = col(orders, "o_orderdate")
@@ -3093,8 +3236,23 @@ def join_agg_phase(ctx, tables, card, add, report):
 CACHE_WARM_RUNS = 3
 
 
-def check_q5(out, tables, label, year=1994):
-    want = oracle_q5(tables, year)
+def check_q3(out, tables, label, segment="BUILDING"):
+    """Fails unless Q3's output (of market segment `segment`) equals
+    `oracle_q3`'s."""
+    import numpy as np
+    keys, revs, dates, n_groups = oracle_q3(tables, segment)
+    if not (np.array_equal(col(out, "l_orderkey"), keys) and
+            np.array_equal(col(out, "revenue"), revs) and
+            np.array_equal(col(out, "o_orderdate"), dates) and
+            not col(out, "o_shippriority").any()):
+        raise AssertionError(f"{label} disagrees with numpy:\n"
+                             f"{out.to_pydict()}\n{keys} {revs} {dates}")
+    return (f"equals numpy exactly: {n_groups} groups, top revenue "
+            f"{revs[:3].tolist()} (scale 4)")
+
+
+def check_q5(out, tables, label, year=1994, region_name="ASIA"):
+    want = oracle_q5(tables, year, region_name)
     got = list(zip(out.columns[0].to_pylist(), col(out, "revenue").tolist()))
     if got != want:
         raise AssertionError(f"{label} disagrees with numpy: {got} {want}")
@@ -3141,7 +3299,7 @@ def cold_then_warm(ctx, q, sql, check, walk, tables, card):
     rows = out.to_pydict()
     cold_bytes = cache_bytes(caches)
     warm_ms, walks = [], 0
-    want = warm_staging(f"Q{q} SF10")
+    want = warm_staging(f"Q{q} SF10", cold["chain_mask"])
     for _ in range(CACHE_WARM_RUNS):
         out, ms, warm = timed_run(ctx, sql)
         warm_ms.append(ms)
@@ -3170,15 +3328,21 @@ def cache_phase(ctx, tables, card):
     (`cold_then_warm`): Q5's warm runs launch no `chain_build`,
     `chain_compose` or `chain_fold`, Q2's only those of its
     subquery-fed build (WARM_STAGING), Q21's those of its two min/max
-    tables. Between Q5 and Q2, Q5 with its dates a year later (a new
-    literal in its orders build: the orders side alone builds, and only
-    a composition or a fold that reads it is staged; the rows equal
-    numpy's), then Q5 as before once more, each timed. Then
-    Q5 under a GreedyMemoryPool of its build batches' bytes and half the
-    caches' bytes gives the cold run's rows with the caches at or below
-    half, and pools one byte short of Q5's build batches and of J1's
-    build batch raise ResourcesExhausted with no fallback. Prints each
-    query's cold and warm ms and the caches' bytes by part."""
+    tables; every run one `chain_mask` a masked side. Between Q5 and Q2,
+    Q5 with its dates a year later (a new literal in its orders build,
+    whose unfiltered table is unfit at SF10: the orders side alone builds,
+    its two launches, and only a composition or a fold that reads it is
+    staged; the rows equal numpy's), then Q5 as before once more, each
+    timed; Q3 through the five market segments twice (`q3_segments`); Q5
+    with r_name ASIA, EUROPE, ASIA (`q5_regions`); and `chain_mask`
+    against its plain version on Q3's customer and Q8's part
+    (`mask_vs_plain`). Then Q5 under a GreedyMemoryPool of its build
+    batches' bytes and half the caches' bytes gives the cold run's rows
+    with the caches at or below half, and pools one byte short of Q5's
+    build batches and of J1's build batch raise ResourcesExhausted with no
+    fallback. Prints each query's cold and warm ms and the caches' bytes
+    by part. Returns the kernels line's entry of `chain_mask` (Q3's
+    customer)."""
     from datafusion_tpu_torch.common.errors import ResourcesExhausted
     from datafusion_tpu_torch.physical.plan.base import collect_batch
     from datafusion_tpu_torch.physical.plan.device_join_agg import (
@@ -3192,20 +3356,24 @@ def cache_phase(ctx, tables, card):
     sql5 = TPCH[5]
     sql95 = sql5.replace("1995-01-01", "1996-01-01").replace(
         "1994-01-01", "1995-01-01")
-    old = {name for ex in chain_execs(ctx, sql5)
-           for name, _n in build_sides(ex, tctx)[0]}
+    old, unfit = set(), set()
+    for ex in chain_execs(ctx, sql5):
+        old |= {name for name, _n, _m in
+                build_sides(ex, tctx, found=unfit)[0]}
     (ex95,) = chain_execs(ctx, sql95)
-    sides, composed, folded = build_sides(ex95, tctx)
-    fresh = [(name, n) for name, n in sides if name not in old]
+    # the warm runs before it found the unfit unfiltered tables (orders')
+    sides, composed, folded = build_sides(ex95, tctx, known=unfit)
+    fresh = [(name, n) for name, n, _m in sides if name not in old]
     # the hops whose table or composed words are new: a composition or a
     # fold that reads one is staged again
-    new = {h for h, (name, _n) in enumerate(sides) if name not in old}
+    new = {h for h, (name, _n, _m) in enumerate(sides) if name not in old}
     new |= {o for h, (o, _t) in composed.items() if h in new or o in new}
     want = {"chain_build": sum(n for _name, n in fresh),
             "chain_compose": int(any(h in new for h in composed)
                                  or any(o in new
                                         for o, _t in composed.values())),
-            "chain_fold": int(any(h in new for h in folded))}
+            "chain_fold": int(any(h in new for h in folded)),
+            "chain_mask": sum(m for _name, _n, m in sides)}
     rows = {5: cold_then_warm(ctx, 5, sql5, check_q5, "chain_aggregate",
                               tables, card)}
 
@@ -3226,6 +3394,21 @@ def cache_phase(ctx, tables, card):
           f"again: {ms94:.3f} ms, launches {back}, the cold run's rows, "
           f"caches {cache_bytes(caches)} [{card}]", flush=True)
 
+    q3_segments(ctx, tables, card)
+    q5_regions(ctx, tables, card)
+    entry_mask = None
+    for q in (3, 8):
+        ex = find_exec(ctx.sql(TPCH[q]).create_physical_plan(),
+                       TorchJoinChainAggregateExec)
+        clear_chain_caches(ex)
+        staged = ex.stage_builds(tctx, compose=False)
+        bi = max((s for s in staged if masked(s)),
+                 key=lambda s: s.batch.num_rows)
+        ent = mask_vs_plain(bi, card, f"Q{q} SF10 ({bi.batch.num_rows} "
+                            f"rows)")
+        entry_mask = entry_mask or ent
+        clear_chain_caches(ex, staged)
+        del staged, bi
     rows[2] = cold_then_warm(ctx, 2, TPCH[2], check_q2, "chain_rows",
                              tables, card)
     rows[21] = cold_then_warm(
@@ -3278,6 +3461,78 @@ def cache_phase(ctx, tables, card):
                   f"({raised[:120]}), no fallback", flush=True)
     finally:
         runtime.memory_pool = base
+    return entry_mask
+
+
+SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
+
+
+def q3_segments(ctx, tables, card):
+    """TPC-H Q3 at SF10 through the five market segments, twice in turn,
+    from emptied caches: each run's rows equal numpy's (`check_q3`), each
+    launches one `chain_mask` (customer's unfiltered table masked by the
+    segment; orders' is unfit at SF10, 2^26 slots as the reference packs
+    it, so its side keeps its own table); the first run stages as
+    `cold_staging` says, and no later run launches `chain_build`,
+    `chain_compose` or `chain_fold`. The INNER part holds one unfiltered
+    customer entry throughout. Prints each run's ms and the INNER part's
+    bytes."""
+    from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
+    caches = ctx.chain_caches
+    cust = (tables["customer"].column_by_name("c_custkey")._uid,)
+    sqls = [TPCH[3].replace("'BUILDING'", f"'{s}'") for s in SEGMENTS]
+    first = cold_staging(ctx, sqls[0], ctx.task_context(), "Q3 SF10")
+    warm = dict(dict.fromkeys(STAGING, 0), chain_mask=1)
+    caches.clear()
+    log = []
+    for i, (seg, sql) in enumerate(zip(SEGMENTS * 2, sqls * 2)):
+        label = f"Q3 SF10 {seg} (run {i + 1})"
+        out, ms, got = timed_run(ctx, sql)
+        want = first if i == 0 else warm
+        if got != want or got["chain_mask"] != 1:
+            raise AssertionError(f"{label}: launched {got}, not {want}")
+        check_q3(out, tables, label, seg)
+        held = [k for k in caches.parts["inner"].entries
+                if k[0] == "unfiltered" and k[2] == cust]
+        if len(held) != 1:
+            raise AssertionError(f"{label}: the INNER part holds "
+                                 f"{len(held)} unfiltered customer tables")
+        log.append((seg, round(ms, 3), caches.parts["inner"].nbytes))
+    print(f"Q3 SF10 through {len(SEGMENTS)} segments twice, each equal to "
+          f"numpy: the first run launched {first}, each later one {warm}; "
+          f"one unfiltered customer table throughout; (segment, ms, INNER "
+          f"bytes) {log} [{card}]", flush=True)
+
+
+def q5_regions(ctx, tables, card):
+    """TPC-H Q5 at SF10 with r_name ASIA, EUROPE, ASIA after a run of
+    ASIA's that warms the caches: each run's rows equal numpy's
+    (`check_q5`), EUROPE's differ from ASIA's, every run launches one
+    `chain_mask` (region's table) and no `chain_build`; EUROPE composes
+    the words that read region anew (one `chain_compose`), and the second
+    ASIA launches no `chain_compose` or `chain_fold`: words and records
+    are keyed by the build predicate of every hop they read."""
+    from datafusion_tpu_torch.tpch.queries import QUERIES as TPCH
+    ctx.chain_caches.clear()
+    ctx.sql(TPCH[5]).collect_batch()
+    log, rows = [], {}
+    for r in ("ASIA", "EUROPE", "ASIA"):
+        label = f"Q5 SF10 r_name = {r}"
+        out, ms, got = timed_run(ctx, TPCH[5].replace("'ASIA'", f"'{r}'"))
+        check_q5(out, tables, label, 1994, r)
+        fresh = r not in rows
+        if got["chain_build"] or got["chain_mask"] != 1 or \
+                (got["chain_compose"] != 1 if fresh and rows else
+                 got["chain_compose"] or got["chain_fold"]):
+            raise AssertionError(f"{label}: launched {got}")
+        if not fresh and out.to_pydict() != rows[r]:
+            raise AssertionError(f"{label}: its rows changed")
+        rows[r] = out.to_pydict()
+        log.append((r, round(ms, 3), got))
+    if rows["ASIA"] == rows["EUROPE"]:
+        raise AssertionError("Q5 SF10: EUROPE gave ASIA's rows")
+    print(f"Q5 SF10 by region, each equal to numpy, EUROPE's rows not "
+          f"ASIA's: (r_name, ms, launches) {log} [{card}]", flush=True)
 
 
 def oracle_q1(li):
@@ -4251,7 +4506,8 @@ def main() -> int:
             report["chain_compose"], report["chain_fold"] = kc, kf
     torch.cuda.empty_cache()
 
-    out, counts, _ = run_path(ctx, TPCH[3], chain + ["compact_groups"] +
+    out, counts, _ = run_path(ctx, TPCH[3], chain + ["compact_groups",
+                                                     "chain_mask"] +
                               stage[3], card,
                               "Q3 SF10", li.num_rows,
                               TorchJoinChainAggregateExec, cold=cold_staging(
@@ -4259,15 +4515,7 @@ def main() -> int:
     add(counts)
     launched_as_predicted("Q3 SF10", counts, {
         "chain_aggregate": WALK_LAUNCHES["Q3 SF10"]})
-    keys, revs, dates, n_groups = oracle_q3(tables)
-    if not (np.array_equal(col(out, "l_orderkey"), keys) and
-            np.array_equal(col(out, "revenue"), revs) and
-            np.array_equal(col(out, "o_orderdate"), dates) and
-            not col(out, "o_shippriority").any()):
-        raise AssertionError(f"Q3 SF10 disagrees with numpy:\n"
-                             f"{out.to_pydict()}\n{keys} {revs} {dates}")
-    print(f"Q3 SF10 equals numpy exactly: {n_groups} groups, top revenue "
-          f"{revs[:3].tolist()} (scale 4)", flush=True)
+    print(f"Q3 SF10 {check_q3(out, tables, 'Q3 SF10')}", flush=True)
     breakdown(ctx, TPCH[3], card, "Q3 SF10", TorchJoinChainAggregateExec)
 
     out, counts, _ = run_path(ctx, TPCH[4], chain + ["compact_groups"] +
@@ -4375,9 +4623,9 @@ def main() -> int:
     variants += join_agg_phase(ctx, tables, card, add, report)
 
     # == the chain's cross-query caches and the MemoryPool ====================
-    phase("TPC-H SF10: the chain's caches and the MemoryPool (Q5, Q2, Q21, "
-          "J1)")
-    cache_phase(ctx, tables, card)
+    phase("TPC-H SF10: the chain's caches and the MemoryPool (Q5, Q3's "
+          "segments, Q5's regions, Q2, Q21, J1)")
+    report["chain_mask"] = cache_phase(ctx, tables, card)
     torch.cuda.empty_cache()
 
     # == mesh: 4 shards on one H100 ==========================================

@@ -109,6 +109,10 @@ _OPTIONS: List[Tuple[str, Any, type, str]] = [
      "Run filter/project/group-aggregate pipelines and fanout-1 join "
      "chains under them as CUDA kernels on the card (falls back to the "
      "host path per query when unsupported)."),
+    ("datafusion.tpu.device_join_rows", True, bool,
+     "Fuse row-returning join trees (no aggregate above) into device "
+     "chain programs that emit the surviving rows with device-resident "
+     "columns (DeviceJoinChainRowsExec)."),
     ("datafusion.tpu.device_join_rows_min_spine", 200000, int,
      "Minimum estimated spine rows before a row-returning join tree "
      "(no aggregate above) runs as one chain kernel on the card that "

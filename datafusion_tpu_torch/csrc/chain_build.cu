@@ -4,7 +4,9 @@
 // (datafusion_tpu/physical/plan/device_join_chain.py):
 //   - _unfiltered_lut (:177), the direct-address table lut[packed - base] =
 //     build row, -1 absent;
-//   - the per-query mask LUT (:638-650), which folds a build predicate in;
+//   - the per-query mask LUT `masklut` (:632-652, jit :643), which masks
+//     a cached unfiltered table by this query's build predicate
+//     (chain_mask_kernel);
 //   - the host sorted-key packing (:657-711) and its duplicate check;
 //   - _stage_build_device (:1069, jits :1110 min/max and :1144 sort);
 //   - _stage_semi_member_lut (:1158, jit :1297), the SEMI/ANTI presence
@@ -48,6 +50,17 @@
 // warp's 32 rows of Q4's and Q21's builds over it meet about 8 keys: the
 // row-at-a-time insert made 4 serialised atomics of each kind on each, the
 // peers make one.
+//
+// The mask (chain_mask_kernel). An INNER table staged once without its
+// build predicate (unique non-null integer keys of a bounded span, the
+// reference's `_unfiltered_lut`) is kept across queries; each use masks it
+// by the query's predicate into a new table of the same layout: one thread
+// a slot reads the slot's row r and, when r >= 0, tests the predicate at
+// build row r through its conjuncts (program.cuh `conjunct_test`, a
+// program conjunct through `run`), then writes r or -1. It reads nothing
+// back. About 8 bytes a slot plus the predicate's columns at the live
+// rows: TPC-H customer at SF10 (2^21 span, 1.5M rows) is about 13.5 MB,
+// 4 us at 3.35 TB/s, so at TPC-H's sizes its launch is the cost.
 //
 // Bounds. TPC-H orders at SF10 (15M rows, the largest build of Q3 and Q5)
 // read o_orderkey and the predicate's o_orderdate (12 bytes a row, 180 MB)
@@ -241,6 +254,50 @@ chain_build_insert_kernel(const i64* __restrict__ meta_g, int meta_len,
   }
 }
 
+// Whether build row `row` passes the n conjuncts at cj (four words each,
+// join_chain.py MaskSpec): every one valid and true, as the Kleene AND of
+// them all would leave it.
+template <class Columns>
+__device__ __forceinline__ bool mask_passes(const i64* meta, const i64* aux,
+                                            const i64* cj, int n, i64 row,
+                                            const Columns& cols) {
+  for (int c = 0; c < n; ++c, cj += kConjWords) {
+    i64 x;
+    if ((int)cj[0] == CJ_PROG) {
+      if (!(run(meta, aux, (int)cj[1], row, cols, &x) && x != 0)) {
+        return false;
+      }
+    } else if (!(cols(cj[1], row, &x) &&
+                 conjunct_test(meta, aux, cj, x, row, cols))) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// The mask: slot s of `out` is rows_in[s] where the predicate holds at
+// that build row, else -1 (a grid-stride loop over the slots).
+template <bool Full>
+__global__ void __launch_bounds__(kThreads)
+chain_mask_kernel(const i64* __restrict__ meta_g, int meta_len,
+                  const i64* __restrict__ aux, i64 size,
+                  const int* __restrict__ rows_in, int* __restrict__ out) {
+  extern __shared__ i64 smem[];
+  stage_meta(smem, meta_g, meta_len);
+  const i64* meta = smem;
+  const i64* conj = meta + meta[H_OFF_CHAIN];
+  const int n_conj = (int)conj[0];
+  const RowColumns<Full> cols{meta + meta[H_OFF_COLS]};
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  for (i64 s = (i64)blockIdx.x * blockDim.x + threadIdx.x; s < size;
+       s += stride) {
+    const int r = __ldg(rows_in + s);
+    out[s] = r >= 0 && mask_passes(meta, aux, conj + 1, n_conj, r, cols)
+                 ? r
+                 : -1;
+  }
+}
+
 }  // namespace
 
 // meta: device int64 descriptor of meta_len words (join_chain.py,
@@ -277,5 +334,23 @@ extern "C" int dft_chain_build_insert(const void* meta, int meta_len,
            (cudaStream_t)stream>>>(
       (const i64*)meta, meta_len, (const i64*)aux, n_rows, kind, size,
       (int*)table, (i64*)keys, (i64*)mn, (i64*)mx, (int*)dup);
+  return (int)cudaGetLastError();
+}
+
+// meta: device int64 descriptor of meta_len words (join_chain.py,
+// MaskSpec: the build predicate's conjuncts in its last section); aux:
+// device int64 per-batch inputs; rows_in: the unfiltered table's int32
+// rows of `size` slots (-1 absent), not written; out: int32 [size]; full
+// as in dft_chain_build_range. Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int dft_chain_mask(const void* meta, int meta_len, const void* aux,
+                              long long size, const void* rows_in, void* out,
+                              int full, void* stream) {
+  const auto kernel = full ? chain_mask_kernel<true>
+                           : chain_mask_kernel<false>;
+  kernel<<<grid_blocks(size, kThreads), kThreads, (size_t)meta_len * 8,
+           (cudaStream_t)stream>>>(
+      (const i64*)meta, meta_len, (const i64*)aux, size, (const int*)rows_in,
+      (int*)out);
   return (int)cudaGetLastError();
 }

@@ -8,9 +8,9 @@ side joined through a unique key (INNER) or a membership test (LEFTSEMI,
 LEFTANTI).
 
 Build staging (`chain_build`, kernel `csrc/chain_build.cu`). Counterpart
-of `_unfiltered_lut` (`:177`), the per-query mask LUT (`:638-650`), the host
-sorted-key packing (`:657-711`), `_stage_build_device` (`:1069`) and
-`_stage_semi_member_lut` (`:1158`) with its min/max branch (`:1170-1300`).
+of `_unfiltered_lut` (`:177`), the host sorted-key packing (`:657-711`),
+`_stage_build_device` (`:1069`) and `_stage_semi_member_lut` (`:1158`) with
+its min/max branch (`:1170-1300`).
 One pass over the build rows counts
 the rows that pass the build predicate with every key valid and takes each
 key's min and max; the host reads those few words and lays the table out
@@ -20,7 +20,11 @@ int32 table (row or -1) when the packed span is at most 16 x rows and
 2^26, else into an open-addressing table of (int64 key, int32 row) of
 2 x next_pow2(rows) slots. A second row for a key marks a duplicate: an
 INNER build with one has fanout > 1 and the exec runs its host plan.
-NULL keys are never inserted. A min/max build (a filtered SEMI or ANTI
+NULL keys are never inserted. A table staged without its build predicate
+(an unfiltered one, kept across queries) is masked by the predicate at
+each use (`chain_mask`, the reference's `masklut` `:632-652`): one thread a
+slot keeps the slot's row where the predicate holds at that row, else
+writes -1. A min/max build (a filtered SEMI or ANTI
 hop, `member_col OP probe_expr`, TPC-H Q21) counts a row only when its
 member value is valid too, and keeps the member's min and max over each
 key's rows in two int64 arrays aligned with the table, laid out by the same
@@ -84,7 +88,7 @@ its CUDA kernel on CUDA tensors, or raises.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -117,6 +121,9 @@ chain_compose_kernel = kernels.register(kernels.Kernel(
 chain_fold_kernel = kernels.register(kernels.Kernel(
     "chain_fold", "datafusion_tpu_torch/csrc/chain_compose.cu",
     "datafusion_tpu/physical/plan/device_join_chain.py:719"))
+chain_mask_kernel = kernels.register(kernels.Kernel(
+    "chain_mask", "datafusion_tpu_torch/csrc/chain_build.cu",
+    "datafusion_tpu/physical/plan/device_join_chain.py:643"))
 
 # build table kinds (a composed hop reads its owner's composed words) and
 # hop join types (mirrored in csrc/program.cuh)
@@ -179,6 +186,10 @@ class BuildSpec(_ProgramSpec):
     def key_programs(self) -> List[Program]:
         return [p for p, _o, _s in self.keys]
 
+    def unfiltered(self) -> "BuildSpec":
+        """The same build without its predicate."""
+        return BuildSpec(self.pools, None, self.key_programs(), self.member)
+
     def packed_meta(self, los: Sequence[int],
                     shifts: Sequence[int]) -> np.ndarray:
         meta = self.meta.copy()
@@ -194,7 +205,8 @@ class BuildTable:
     each key's range [lo, hi] among the live rows and its shift in the
     packed key, the table's `size`, `rows` (int32: the build row, -1
     absent; slot-aligned with `keys`, int64, for a hashed table), the
-    number of `live` rows and whether a key had two rows (`duplicate`).
+    number of `live` rows (-1 for a masked table, whose live rows were not
+    counted: `chain_mask`) and whether a key had two rows (`duplicate`).
     A min/max build also has `mn` and `mx`, int64 and slot-aligned: the
     member column's min and max over each key's rows."""
 
@@ -306,9 +318,12 @@ def _check_build(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
 
 
 def chain_build(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
-                n_rows: int, unique: bool) -> BuildTable:
+                n_rows: int, unique: bool,
+                accept: Optional[Callable] = None) -> Optional[BuildTable]:
     """Stage the first `n_rows` rows of `cols` as a build table; with
-    `unique` (an INNER build) a key with two rows sets `duplicate`.
+    `unique` (an INNER build) a key with two rows sets `duplicate`. With
+    `accept`, `accept(live, los, his)` sees the range pass's result first,
+    and when it is false nothing is inserted and the result is None.
 
     On CPU tensors this runs `chain_build_plain`; on CUDA tensors it
     launches the `chain_build` kernel's two passes or raises. It reads the
@@ -317,7 +332,7 @@ def chain_build(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
     _check_build(spec, cols, aux, n_rows)
     dev = aux.device
     if not _cuda(aux):
-        return chain_build_plain(spec, cols, aux, n_rows, unique)
+        return chain_build_plain(spec, cols, aux, n_rows, unique, accept)
     lib = kernels.library()
     n_keys = len(spec.keys)
     with torch.cuda.device(dev):
@@ -333,6 +348,8 @@ def chain_build(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
             chain_build_kernel.launches += 1
         host = stats.cpu().tolist()
         live, los, his = host[0], host[1::2], host[2::2]
+        if accept is not None and not accept(live, los, his):
+            return None
         mmx = spec.member is not None
         kind, shifts, size = table_layout(live, los, his)
         rows = torch.full((size,), -1, dtype=torch.int32, device=dev)
@@ -407,7 +424,9 @@ def _sorted_slots(keys: torch.Tensor, packed: torch.Tensor):
 
 
 def chain_build_plain(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
-                      n_rows: int, unique: bool) -> BuildTable:
+                      n_rows: int, unique: bool,
+                      accept: Optional[Callable] = None
+                      ) -> Optional[BuildTable]:
     """The plain PyTorch version: the programs interpreted over whole
     tensors, the ranges by `min`/`max`, duplicates by `torch.unique`, the
     rows placed by indexing (direct) or by rounds of linear probing, a
@@ -430,6 +449,8 @@ def chain_build_plain(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
     n_live = int(live.sum())
     los = [int(v[live].min()) if n_live else _I64_MAX for v in vals]
     his = [int(v[live].max()) if n_live else _I64_MIN for v in vals]
+    if accept is not None and not accept(n_live, los, his):
+        return None
     kind, shifts, size = table_layout(n_live, los, his)
     rows = torch.full((size,), -1, dtype=torch.int32, device=dev)
     mn = torch.full((size,), _I64_MAX, dtype=torch.int64, device=dev) \
@@ -456,6 +477,79 @@ def chain_build_plain(spec: BuildSpec, cols: Columns, aux: torch.Tensor,
         mx.scatter_reduce_(0, slot, member[live], "amax")
     return BuildTable(kind, los, his, shifts, size, rows, keys, n_live,
                       duplicate, mn, mx)
+
+
+class MaskSpec(_ProgramSpec):
+    """The build predicate of a side whose table was staged without it
+    (`chain_mask`), over the build batch's columns. Its top-level AND is
+    split into conjuncts (`split_conjuncts`), the direct forms of
+    `lower.conjunct_form` first, as a chain's probe predicate is; the
+    descriptor's last section holds their count, then four words each (a
+    direct form, or (CJ_PROG, program))."""
+
+    def __init__(self, pools: Pools, pred: Program):
+        parts = [(conjunct_form(c), c) for c in split_conjuncts(pred)]
+        self.conjuncts = [p for p in parts if p[0] is not None] + \
+            [p for p in parts if p[0] is None]
+        super().__init__(pools, pred, [], [])
+        self.meta = self._layout(0)
+
+    def _pass_programs(self, lanes) -> List[Program]:
+        return super()._pass_programs(lanes) + \
+            [c for form, c in self.conjuncts if form is None]
+
+    def _chain_section(self, index: Dict[int, int]) -> np.ndarray:
+        conj = [form if form is not None else (CJ_PROG, index[id(c)], 0, 0)
+                for form, c in self.conjuncts]
+        return np.concatenate([np.asarray([len(conj)], np.int64),
+                               np.asarray(conj, np.int64).reshape(-1)])
+
+
+def _masked(table: BuildTable, rows: torch.Tensor) -> BuildTable:
+    """`table`'s layout with `rows`, its live rows not counted."""
+    return BuildTable(table.kind, table.los, table.his, table.shifts,
+                      table.size, rows, table.keys, -1, False)
+
+
+def chain_mask(spec: MaskSpec, cols: Columns, aux: torch.Tensor,
+               n_rows: int, table: BuildTable) -> BuildTable:
+    """`table`, an INNER table staged from the first `n_rows` rows of
+    `cols` without their build predicate, masked by that predicate: a new
+    table that shares `table`'s layout (and a hashed table's keys) and
+    whose rows are `table`'s where the predicate holds at the row (NULL
+    counts as false), else -1. `table` is not written.
+
+    On CPU tensors this runs `chain_mask_plain`; on CUDA tensors it
+    launches the `chain_mask` kernel once (one thread a slot) or raises.
+    It reads nothing back and does not synchronise."""
+    _check_build(spec, cols, aux, n_rows)
+    if table.rows.device != aux.device:
+        raise ValueError("the table must lie on the columns' device")
+    if not _cuda(aux):
+        return chain_mask_plain(spec, cols, aux, n_rows, table)
+    lib = kernels.library()
+    dev = aux.device
+    with torch.cuda.device(dev):
+        rows = torch.empty_like(table.rows)
+        meta_d = upload(spec.host_meta(cols), dev)
+        kernels.check(lib.dft_chain_mask(
+            meta_d.data_ptr(), len(spec.meta), aux.data_ptr(), table.size,
+            table.rows.data_ptr(), rows.data_ptr(), int(spec.full),
+            _stream(dev)), chain_mask_kernel)
+        chain_mask_kernel.launches += 1
+    return _masked(table, rows)
+
+
+def chain_mask_plain(spec: MaskSpec, cols: Columns, aux: torch.Tensor,
+                     n_rows: int, table: BuildTable) -> BuildTable:
+    """The plain PyTorch version: the predicate evaluated over the build
+    rows (`evaluate`, as `chain_build_plain` takes its live rows), then
+    `torch.where` over the table's rows."""
+    rows = table.rows
+    d, v = evaluate(spec.pred, cols, aux, n_rows)
+    keep = (d != 0) & v
+    hit = (rows >= 0) & keep[rows.clamp(min=0).to(torch.int64)]
+    return _masked(table, torch.where(hit, rows, torch.full_like(rows, -1)))
 
 
 # --- the walk ------------------------------------------------------------------

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "dft_chain_build_range": [_P, _I, _P, _LL, _P, _I, _P],
     "dft_chain_build_insert": [_P, _I, _P, _LL, _I, _LL, _P, _P, _P, _P, _P,
                                _I, _P],
+    "dft_chain_mask": [_P, _I, _P, _LL, _P, _P, _I, _P],
     "dft_chain_aggregate": [_P, _I, _I, _I, _P, _LL, _LL, _I, _P, _P, _I,
                             _I, _I, _P],
     "dft_chain_rows_walk": [_P, _I, _P, _LL, _I, _I, _P, _P, _P, _I, _P],

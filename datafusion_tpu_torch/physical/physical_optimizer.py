@@ -953,7 +953,8 @@ class UseTorchJoinRows:
     UseTorchAggregate, so trees under an aggregate are fused already;
     walks top-down so the largest tree fuses whole, then recurses into the
     fused exec's build sources (a SEMI member that is itself a join tree
-    gets its own exec: TPC-H Q20)."""
+    gets its own exec: TPC-H Q20). `SET datafusion.tpu.device_join_rows =
+    false` turns it off (`UseDeviceJoinRows.enabled`, `:997-1003`)."""
     name = "use_torch_join_rows"
 
     def __init__(self, config, device: torch.device,
@@ -964,7 +965,17 @@ class UseTorchJoinRows:
         self.cache = cache
         self.chain_caches = chain_caches
 
+    def enabled(self) -> bool:
+        if self.config is None:
+            return True
+        try:
+            return bool(self.config.get("datafusion.tpu.device_join_rows"))
+        except Exception:  # noqa: BLE001
+            return True
+
     def rewrite(self, plan: ExecutionPlan) -> ExecutionPlan:
+        if not self.enabled():
+            return plan
         min_rows = int(self.config.get(
             "datafusion.tpu.device_join_rows_min_spine"))
 

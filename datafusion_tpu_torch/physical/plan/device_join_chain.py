@@ -41,9 +41,16 @@ Cross-query caches (`ChainCaches`, the reference's `_LUT_CACHE` `:67-70`,
 registered table's own columns keeps its staged table, and the stats
 `compose_plan` read of it, across queries; a composition or a fold whose
 hops all do keeps its words or records. A warm chain over such tables
-stages nothing. The caches are the session's (`SessionContext.
-chain_caches`, reaching the execs through the planner), not module
-globals, and go with its column cache on any catalog change.
+stages nothing. An INNER side the reference would stage as a
+direct-address table (`_unfiltered_lut` `:177-225`: unique non-null
+integer keys whose unfiltered packed span is at most 2^24 and 16 x its
+rows) is staged once without its build predicate and cached under its key
+columns alone; each execution masks it by the predicate (`chain_mask`, the
+reference's `masklut` `:632-652`), so another literal stages no table.
+The masked table is the execution's own, and a composition or fold over
+it is keyed by the predicate too. The caches are the session's
+(`SessionContext.chain_caches`, reaching the execs through the planner),
+not module globals, and go with its column cache on any catalog change.
 Each execution charges its build batches, and then the caches' bytes, to
 the query's MemoryPool (`:550-551`, `:585`, `_account_device_caches`
 `:147`): a build batch that does not fit raises ResourcesExhausted, while
@@ -96,8 +103,9 @@ from ...common.errors import ResourcesExhausted
 from ...device.groupby import _NP_TO_TORCH, AggregateSpec, dense_group_table
 from ...device.join_chain import (ChainDenseSpec, ChainHashSpec,
                                   ChainRowsSpec, Chain, BuildSpec, Compose,
-                                  Fold, Hop, StageSpec, chain_aggregate,
-                                  chain_build, chain_rows, chain_stage,
+                                  Fold, Hop, MaskSpec, StageSpec,
+                                  chain_aggregate, chain_build, chain_mask,
+                                  chain_rows, chain_stage,
                                   new_stage_outputs, stub_hop)
 from ...device.lower import (_CMP, OP_COL, OP_NULL, OP_ROWID, LoweringError,
                              Pools, Program, compile_expr, compile_key)
@@ -160,10 +168,13 @@ class _BuildInput:
     folds. `key` names its table in the session's caches (None: not
     cached), `part` the caches' part, `serial` the table, and `stats`
     holds what `_plan_stats` read of its columns (kept with a cached
-    table)."""
+    table). A side that may take an unfiltered table has its key in
+    `lut_key`; `mask` names its build predicate (text and aux bytes, None
+    without one), and `base` is the unfiltered table it took, `table` then
+    that table masked by the predicate (or `base` itself)."""
 
     def __init__(self, spec, cols, aux, unique: bool, batch, col_map,
-                 keep: bool, key=None):
+                 keep: bool, key=None, lut_key=None, mask=None):
         self.spec = spec
         self.cols = cols
         self.aux = aux
@@ -172,6 +183,9 @@ class _BuildInput:
         self.col_map = col_map
         self.keep = keep
         self.key = key
+        self.lut_key = lut_key
+        self.mask = mask
+        self.base = None
         self.serial = None
         self.stats: dict = {}
         self.table = None
@@ -238,6 +252,20 @@ def _any_duplicate(vals: List[torch.Tensor]) -> torch.Tensor:
     return same.any()
 
 
+def _ref_span(ranges) -> int:
+    """The span of the reference's direct-address table for keys of ranges
+    [lo, hi] (`_unfiltered_lut` `:196-202`): 1 << the sum of
+    ceil(log2(hi - lo + 2)), each at least one bit."""
+    return 1 << sum(max(int(np.ceil(np.log2(hi - lo + 2))), 1)
+                    for lo, hi in ranges)
+
+
+def _ref_fits(span: int, n: int) -> bool:
+    """Whether the reference stages `n` unique keys of span `span` as a
+    direct-address table (`:202`)."""
+    return span <= min(1 << 24, 16 * n)
+
+
 def _lanes(col: Column) -> Tuple[int, bool, bool]:
     """How the reference's payload matrix holds a column
     (`_stage_payload_matrix`, `:1007`): (its int32 lanes: two for int64,
@@ -295,16 +323,21 @@ class _LruPart:
 
 class ChainCaches:
     """A session's cross-query device caches of the join chain, in three
-    LRU parts: "inner" (INNER build tables with their stats), "semi"
-    (SEMI/ANTI tables, min/max ones included) and "cmp" (owners' composed
-    words and folds' records). An entry's bytes are its device tensors'.
-    No cached tensor is written after its insert."""
+    LRU parts: "inner" (INNER build tables with their stats, unfiltered
+    ones among them), "semi" (SEMI/ANTI tables, min/max ones included) and
+    "cmp" (owners' composed words and folds' records). An entry's bytes
+    are its device tensors'. No cached tensor is written after its insert.
+    `ineligible` maps each unfiltered key found unfit for an unfiltered
+    table to why: "span" (too wide; its range pass alone was run) or
+    "duplicate" (a key with two rows). Their sides stage with their
+    predicates."""
 
     def __init__(self):
         self.parts = {
             "inner": _LruPart(_LUT_CACHE_MAX, _LUT_CACHE_MAX_BYTES),
             "semi": _LruPart(_SEMI_LUT_CACHE_MAX, _SEMI_LUT_CACHE_MAX_BYTES),
             "cmp": _LruPart(_CMP_CACHE_MAX, _CMP_CACHE_MAX_BYTES)}
+        self.ineligible: dict = {}
         self._serials = count()
 
     def get(self, part: str, key):
@@ -340,6 +373,7 @@ class ChainCaches:
         for p in self.parts.values():
             p.entries.clear()
             p.nbytes = 0
+        self.ineligible.clear()
 
 
 def _account_device_caches(reservation: MemoryReservation,
@@ -501,7 +535,11 @@ class TorchChainExec(TorchDeviceExec):
         charged to `reservation` as it is collected (`:585`). A build over
         a table's own columns gets its key in the caches: the device, the
         uids of the columns it reads, its predicate's text and aux bytes,
-        its key columns, join type, uniqueness and min/max member."""
+        its key columns, join type, uniqueness and min/max member. Such an
+        INNER build whose key columns may hold an unfiltered table
+        (`_lut_columns`) also gets `lut_key`, the reference's `_LUT_CACHE`
+        key (`:182-183`): the device, the key columns' uids and the rows,
+        the join type and uniqueness."""
         from ..physical_optimizer import _unwrap_side
         caches = self.chain_caches
         out = []
@@ -540,18 +578,22 @@ class TorchChainExec(TorchDeviceExec):
             aux_np = pools.aux_buffer(bb)
             aux = torch.from_numpy(aux_np).to(self.device)
             unique = b.join_type == "INNER"
-            key = None
+            bi = _BuildInput(spec, cols, aux, unique, bb, col_map, keep,
+                             mask=None if pred is None
+                             else (str(pred), aux_np.tobytes()))
             if stable and caches is not None:
                 uid = [c._uid for c in bb.columns]
-                key = (str(self.device),
-                       tuple(uid[i] for i in sorted(pools.columns)),
-                       str(pred), aux_np.tobytes(),
-                       tuple(uid[col_map[k.index]] for k in b.build_keys),
-                       b.join_type, unique,
-                       None if b.sfilter is None
-                       else uid[col_map[b.sfilter[1].index]])
-            out.append(_BuildInput(spec, cols, aux, unique, bb, col_map, keep,
-                                   key))
+                kuid = tuple(uid[col_map[k.index]] for k in b.build_keys)
+                bi.key = (str(self.device),
+                          tuple(uid[i] for i in sorted(pools.columns)),
+                          str(pred), aux_np.tobytes(), kuid, b.join_type,
+                          unique, None if b.sfilter is None
+                          else uid[col_map[b.sfilter[1].index]])
+                if unique and b.sfilter is None and \
+                        self._lut_columns(b, bi):
+                    bi.lut_key = ("unfiltered", str(self.device), kuid,
+                                  bb.num_rows, b.join_type, unique)
+            out.append(bi)
         return out
 
     def stage_builds(self, ctx: TaskContext, compose: bool = True,
@@ -563,26 +605,27 @@ class TorchChainExec(TorchDeviceExec):
         composes and folds in `chain`, which knows what the walk reads). A
         build whose key is in the session's caches takes the table an
         earlier execution staged, with no launch; a table staged here is
-        cached when it has a key and is accepted. An INNER build with a
-        duplicate key, a build of 2^31 rows or more, or packed keys wider
-        than 62 bits raise DeviceLoweringUnsupported (`:700`). The build
-        batches are charged to `reservation` (`build_inputs`)."""
+        cached when it has a key and is accepted. A build with an
+        unfiltered key takes its unfiltered table where it is fit
+        (`_stage_unfiltered`). An INNER build with a duplicate key, a build
+        of 2^31 rows or more, or packed keys wider than 62 bits raise
+        DeviceLoweringUnsupported (`:700`). The build batches are charged
+        to `reservation` (`build_inputs`)."""
         out = self.build_inputs(ctx, reservation)
         caches = self.chain_caches
         for bi in out:
             if bi.batch.num_rows >= 1 << 31:
                 raise DeviceLoweringUnsupported(
                     "a chain build side holds at most 2^31 - 1 rows")
-            if bi.key is not None:
+            if bi.lut_key is not None and self._stage_unfiltered(bi):
+                continue
+            if bi.table is None and bi.key is not None:
                 hit = caches.get(bi.part, bi.key)
                 if hit is not None:
                     bi.table, bi.stats, bi.serial = hit
                     continue
-            try:
-                bi.table = chain_build(bi.spec, bi.cols, bi.aux,
-                                       bi.batch.num_rows, bi.unique)
-            except LoweringError as e:
-                raise DeviceLoweringUnsupported(str(e))
+            if bi.table is None:
+                bi.table = self._build(bi.spec, bi)
             if bi.table.duplicate:
                 raise DeviceLoweringUnsupported(
                     "chain build keys not unique (fanout > 1)")
@@ -593,6 +636,53 @@ class TorchChainExec(TorchDeviceExec):
         if compose:
             self.compose_builds(out)
         return out
+
+    @staticmethod
+    def _build(spec, bi: _BuildInput, accept=None):
+        try:
+            return chain_build(spec, bi.cols, bi.aux, bi.batch.num_rows,
+                               bi.unique, accept)
+        except LoweringError as e:
+            raise DeviceLoweringUnsupported(str(e))
+
+    def _stage_unfiltered(self, bi: _BuildInput) -> bool:
+        """Give `bi` its unfiltered table (`_unfiltered_lut`, `:177-225`):
+        from the caches under `lut_key`, or staged here without the build
+        predicate (`chain_build`, its range pass first) and cached when its
+        keys are unique and their span, as the reference packs it, is at
+        most 2^24 and 16 x the rows; then masked by the predicate
+        (`chain_mask`, `:632-652`), a table of this execution's. False when
+        the side is unfit (remembered in `ineligible`): it then stages with
+        its predicate, as the reference's does when `_unfiltered_lut`
+        returns None. A side with no predicate takes the table it staged
+        here whether or not it is fit (fit: under `lut_key`; else left in
+        `table`, for its own key)."""
+        caches = self.chain_caches
+        if bi.lut_key in caches.ineligible:
+            return False
+        hit = caches.get("inner", bi.lut_key)
+        if hit is None:
+            n = bi.batch.num_rows
+
+            def fit(_live, los, his):
+                return _ref_fits(_ref_span(zip(los, his)), n)
+            pred = bi.spec.pred
+            t = self._build(bi.spec.unfiltered(), bi,
+                            None if pred is None else fit)
+            if t is None or t.duplicate or not fit(t.live, t.los, t.his):
+                caches.ineligible[bi.lut_key] = \
+                    "duplicate" if t is not None and t.duplicate else "span"
+                if pred is None:
+                    bi.table = t
+                return False
+            hit = (t, {}, caches.serial())
+            caches.put("inner", bi.lut_key, hit, t.tensors())
+        bi.base, bi.stats, bi.serial = hit
+        bi.key = bi.lut_key
+        bi.table = bi.base if bi.spec.pred is None else chain_mask(
+            MaskSpec(bi.spec.pools, bi.spec.pred), bi.cols, bi.aux,
+            bi.batch.num_rows, bi.base)
+        return True
 
     def compose_plan(self, staged: List[_BuildInput]):
         """The reference's choice (`_compose_staged_hops` `:812-839`, then
@@ -673,8 +763,9 @@ class TorchChainExec(TorchDeviceExec):
         their uniqueness) already; a filtered one covers only its live
         rows, so the ranges come from the columns. All of it is folded on
         the card and read back together: one synchronisation a chain, none
-        when no build needs it. A build's stats are kept in its `stats`,
-        with its cached table: a warm chain reads none back."""
+        when no build needs it. A masked table's unfiltered table knows its
+        keys' ranges, which are unique. A build's stats are kept in its
+        `stats`, with its cached table: a warm chain reads none back."""
         queued, parts, out = [], {}, {}
         for bi, (b, s) in enumerate(zip(self.builds, staged)):
             n = s.batch.num_rows
@@ -687,6 +778,10 @@ class TorchChainExec(TorchDeviceExec):
                                          for k in b.build_keys]
                 cols.append(s.col_map[b.sfilter[1].index])
             elif bi in folds and not whole and self._lut_candidate(b, s):
+                if s.base is not None:     # the unfiltered table's own
+                    out[bi] = (list(zip(s.base.los, s.base.his)), None,
+                               False)
+                    continue
                 kind = "fold"
                 cols = [s.col_map[k.index] for k in b.build_keys]
             else:
@@ -723,40 +818,40 @@ class TorchChainExec(TorchDeviceExec):
         ranges, (flo, fhi), _dup = stats
         if s.table.live == s.batch.num_rows:
             ranges = list(zip(s.table.los, s.table.his))
-        bits = sum(max(int(np.ceil(np.log2(hi - lo + 2))), 1)
-                   for lo, hi in ranges)
-        if bits > 26:
+        if _ref_span(ranges) > 1 << 26:
             return 2
         fit32 = flo > np.iinfo(np.int32).min + 1 and \
             fhi < np.iinfo(np.int32).max
         return 1 if fit32 else 2
 
     @staticmethod
-    def _lut_candidate(b: ChainBuild, s: _BuildInput) -> bool:
+    def _lut_columns(b: ChainBuild, s: _BuildInput) -> bool:
         """Whether the INNER build `b` may be one the reference stages as a
         direct-address table (`_unfiltered_lut`, `:177`), as far as its
-        columns' kinds and the filtered table show: unique non-null integer
-        keys, not a build the reference stages from device-born columns
-        (`_stage_build_device`, `:1069`: 4 MB or more and no predicate),
-        at most 2^24 rows (unique keys span at least their rows), and a
-        live span that already fits (the unfiltered one is no narrower)."""
+        columns' kinds show: non-null integer keys, not a build the
+        reference stages from device-born columns (`_stage_build_device`,
+        `:1069`: 4 MB or more and no predicate), and at most 2^24 rows
+        (unique keys span at least their rows)."""
         bb = s.batch
         n = bb.num_rows
         keys = [bb.columns[s.col_map[k.index]] for k in b.build_keys]
         if n == 0 or n > (1 << 24) or any(
                 c.has_nulls or not c.dtype.is_integer for c in keys):
             return False
-        if s.spec.pred is None and bb.nbytes() >= (4 << 20) and all(
-                c.device_born and getattr(c, "_host_cache", None) is None
-                for c in keys):
+        return not (s.spec.pred is None and bb.nbytes() >= (4 << 20) and all(
+            c.device_born and getattr(c, "_host_cache", None) is None
+            for c in keys))
+
+    @classmethod
+    def _lut_candidate(cls, b: ChainBuild, s: _BuildInput) -> bool:
+        """`_lut_columns`, and a live span of the staged table that already
+        fits (the unfiltered one is no narrower; a masked table's ranges
+        are the unfiltered ones)."""
+        if not cls._lut_columns(b, s):
             return False
         t = s.table
-        if t.live:
-            span = 1 << sum(max(int(np.ceil(np.log2(hi - lo + 2))), 1)
-                            for lo, hi in zip(t.los, t.his))
-            if span > min(1 << 24, 16 * n):
-                return False
-        return True
+        return not t.live or _ref_fits(_ref_span(zip(t.los, t.his)),
+                                       s.batch.num_rows)
 
     def _lut_span(self, b: ChainBuild, s: _BuildInput, lanes: int,
                   stats) -> Optional[int]:
@@ -775,9 +870,8 @@ class TorchChainExec(TorchDeviceExec):
             ext, dup = list(zip(s.table.los, s.table.his)), False
         else:
             ext, _m, dup = stats
-        bits = [max(int(np.ceil(np.log2(hi - lo + 2))), 1) for lo, hi in ext]
-        span = 1 << sum(bits)
-        if span > min(1 << 24, 16 * n) or span * (1 + lanes) > (1 << 24):
+        span = _ref_span(ext)
+        if not _ref_fits(span, n) or span * (1 + lanes) > (1 << 24):
             return None
         return None if dup else span
 
@@ -873,13 +967,14 @@ class TorchChainExec(TorchDeviceExec):
 
     def _hop_ident(self, staged: List[_BuildInput], h: int):
         """What names hop `h` in a key of the caches' "cmp" part: its
-        table's key and serial, the uids of its build side's columns, its
-        payload and its payload's pair-space indices; None when its table
-        is not cached."""
+        table's key and serial, its build predicate (text and aux bytes: a
+        masked table's key names its unfiltered table only), the uids of
+        its build side's columns, its payload and its payload's pair-space
+        indices; None when its table is not cached."""
         s = staged[h]
         if s.key is None:
             return None
-        return (s.key, s.serial,
+        return (s.key, s.serial, s.mask,
                 tuple(s.batch.columns[c]._uid for c in s.col_map),
                 tuple(self.builds[h].payload), tuple(self.payload_ranges()[h]))
 

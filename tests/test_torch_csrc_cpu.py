@@ -32,7 +32,9 @@ entry records a bucket) and probe-and-fold, the mesh's row partition (K1:
 histogram, the scan as `torch.cumsum`, the stable scatter, round after
 round) and partial-table merge (K2: several local tables a call, by owner
 or a source a table, with its launch parameters from the wrapper), and
-the compaction mark's HAVING test (`keep_entries` of `compact_groups.cu`,
+the mask of an unfiltered build table by a build predicate (`chain_mask`,
+direct conjuncts and whole programs), the compaction mark's HAVING test
+(`keep_entries` of `compact_groups.cu`,
 its direct conjuncts and its interpreter mode) against `HavingSpec.mask`,
 with the constant fold against `run`.
 Each kernel runs in the interpreter variant (lean or full) that its spec's
@@ -224,6 +226,11 @@ void h_insert(const long long* meta, int len, const long long* aux,
         : cb::chain_build_insert_kernel<false>)(meta, len, aux, n, kind, size,
                                                 table, keys, mn, mx, dup);
 }
+void h_mask(const long long* meta, int len, const long long* aux,
+            long long size, const int* rows_in, int* out, int full) {
+  (full ? cb::chain_mask_kernel<true> : cb::chain_mask_kernel<false>)(
+      meta, len, aux, size, rows_in, out);
+}
 void h_chain_hash(const long long* meta, int len, const long long* aux,
                   long long n, long long cap, int ident, long long* table,
                   int* overflow, int variant, int list_cap) {
@@ -341,6 +348,7 @@ def lib(tmp_path_factory):
     out.h_run.argtypes = [P, P, I, LL, P, P]
     out.h_dense.argtypes = [P, I, P, LL, P, I]
     out.h_insert.argtypes = [P, I, P, LL, I, LL, P, P, P, P, P, I]
+    out.h_mask.argtypes = [P, I, P, LL, P, P, I]
     out.h_chain_hash.argtypes = [P, I, P, LL, LL, I, P, P, I, I]
     out.h_chain_dense.argtypes = [P, I, P, LL, P, I, I]
     out.h_admit_rows.argtypes = [P, P, LL, P]
@@ -506,9 +514,10 @@ def _check_chain(lib, ctx, sql, list_cap=None, compose=True):
     spec, _plan, _n, _s, inputs, staged = todo[-1].prepare(
         ctx.task_context(), compose)
     for bi in staged:
-        t = bi.table
+        t = bi.table if bi.base is None else bi.base   # the unfiltered one
         if t.kind == TAB_EMPTY:
             continue
+        bspec = bi.spec if bi.base is None else bi.spec.unfiltered()
         mmx = t.mn is not None
         rows = torch.full((t.size,), -1, dtype=torch.int32)
         keys = torch.full((t.size,), EMPTY, dtype=torch.int64) \
@@ -516,11 +525,11 @@ def _check_chain(lib, ctx, sql, list_cap=None, compose=True):
         mn = torch.full_like(t.mn, np.iinfo(np.int64).max) if mmx else None
         mx = torch.full_like(t.mx, np.iinfo(np.int64).min) if mmx else None
         dup = torch.zeros(1, dtype=torch.int32)
-        meta = bi.spec.device_meta(bi.cols, CPU,
-                                   bi.spec.packed_meta(t.los, t.shifts))
+        meta = bspec.device_meta(bi.cols, CPU,
+                                 bspec.packed_meta(t.los, t.shifts))
         lib.h_insert(_ptr(meta), len(meta), _ptr(bi.aux), bi.batch.num_rows,
                      t.kind, t.size, _ptr(rows), _ptr(keys), _ptr(mn),
-                     _ptr(mx), _ptr(dup), int(bi.spec.full))
+                     _ptr(mx), _ptr(dup), int(bspec.full))
         assert _entries(keys, rows, mn, mx, bi.unique) == \
             _entries(t.keys, t.rows, t.mn, t.mx, bi.unique)
         assert not bi.unique or int(dup) == int(t.duplicate)
@@ -792,6 +801,34 @@ def _rows_ctx():
 @pytest.fixture(scope="module")
 def tpch_rows():
     return _rows_ctx()
+
+
+@pytest.mark.parametrize("q", [2, 3, 5, 8, 9, 10, 11, 16, 17, 20, 21])
+def test_chain_mask_matches_plain(lib, tpch_rows, q):
+    """The mask kernel's body over every eligible filtered build side of
+    the query's chains at SF 0.01 (direct conjuncts of every form, and a
+    program conjunct in Q16), with the predicate split into conjuncts and
+    run whole through the interpreter, exactly equal to
+    `chain_mask_plain`."""
+    import test_torch_cuda as C
+    from datafusion_tpu_torch.device.join_chain import chain_mask_plain
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    sides = [bi for ex in _chain_execs(tpch_rows, QUERIES[q])
+             for bi in ex.stage_builds(tpch_rows.task_context(),
+                                       compose=False)
+             if bi.base is not None and bi.table is not bi.base]
+    assert sides
+    for bi in sides:
+        base = bi.base
+        for spec in C._mask_specs(bi):
+            got = torch.full_like(base.rows, 7)
+            meta = spec.device_meta(bi.cols, CPU)
+            lib.h_mask(_ptr(meta), len(meta), _ptr(bi.aux), base.size,
+                       _ptr(base.rows), _ptr(got), int(spec.full))
+            want = chain_mask_plain(spec, bi.cols, bi.aux,
+                                    bi.batch.num_rows, base)
+            assert torch.equal(got, want.rows)
+            assert torch.equal(got, bi.table.rows)
 
 
 def _check_rows(lib, ctx, sql, cap, compose=True):

@@ -784,6 +784,61 @@ def test_chain_aggregate_matches_plain(cuda, q):
             np.testing.assert_array_equal(a, b)
 
 
+def _mask_specs(bi):
+    """The mask spec of build side `bi` with its predicate split into
+    conjuncts, and one that runs the whole predicate as one program."""
+    from datafusion_tpu_torch.device.join_chain import MaskSpec
+    split = MaskSpec(bi.spec.pools, bi.spec.pred)
+    whole = MaskSpec(bi.spec.pools, bi.spec.pred)
+    whole.conjuncts = [(None, bi.spec.pred)]
+    whole.meta = whole._layout(0)
+    return split, whole
+
+
+@pytest.mark.parametrize("q", [3, 8])
+def test_chain_mask_matches_plain(cuda, q):
+    """The mask of every eligible filtered build side of TPC-H Q3
+    (customer by c_mktsegment, orders by o_orderdate) and Q8 (part by
+    p_type, region by r_name, orders by o_orderdate) at SF 0.1, with the
+    predicate split into conjuncts and run whole: one launch and no
+    synchronisation (torch's sync debug mode) a call, the rows exactly
+    the plain version's, the layout the unfiltered table's, and that table
+    unchanged."""
+    import warnings
+    import datafusion_tpu_torch as dft
+    from datafusion_tpu_torch.device.join_chain import (chain_mask,
+                                                        chain_mask_plain)
+    from datafusion_tpu_torch.tpch.queries import QUERIES
+    ctx = _tpch_ctx(cuda, 0.1)
+    ex = _chain_exec(ctx, QUERIES[q])
+    staged = ex.stage_builds(ctx.task_context(), compose=False)
+    sides = [bi for bi in staged
+             if bi.base is not None and bi.table is not bi.base]
+    assert sides
+    for bi in sides:
+        base, n = bi.base, bi.batch.num_rows
+        rows = base.rows.clone()
+        for spec in _mask_specs(bi):
+            torch.cuda.synchronize()
+            before = dft.launch_counts()["chain_mask"]
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    got = chain_mask(spec, bi.cols, bi.aux, n, base)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            assert dft.launch_counts()["chain_mask"] == before + 1
+            assert not any(str(w.message).startswith("called a synchron")
+                           for w in seen)
+            want = chain_mask_plain(spec, bi.cols, bi.aux, n, base)
+            assert torch.equal(got.rows, want.rows)
+            assert torch.equal(got.rows, bi.table.rows)
+            assert (got.kind, got.los, got.his, got.shifts, got.size) == \
+                (base.kind, base.los, base.his, base.shifts, base.size)
+            assert torch.equal(base.rows, rows)
+
+
 @pytest.mark.parametrize("sparse", [False, True])
 def test_min_max_build_matches_plain(cuda, sparse):
     """A filtered SEMI's build: presence and each key's min and max of a
@@ -2018,6 +2073,10 @@ def test_partition_rows_matches_plain(cuda, n, n_dest, cap, salt):
 
 
 def _merge_entries(rng, m, n_keys):
+    """`m` entries of partial tables over `n_keys` keys, a row a lane. The
+    float sums are multiples of 2^-20 under 8 in magnitude, so every
+    partial sum of them is exact in float64 and their order of addition
+    does not change it."""
     from datafusion_tpu_torch.device.groupby import (
         LANE_CNT, LANE_MAX_F64, LANE_MAX_I64, LANE_MIN_F64, LANE_MIN_I64,
         LANE_NANCNT, LANE_ROWS, LANE_SUM_F64, LANE_SUM_I64)
@@ -2027,7 +2086,8 @@ def _merge_entries(rng, m, n_keys):
     keys[rng.random(m) < 0.05] = -1                       # EMPTY
     rows = [keys, rng.integers(1, 5, m), rng.integers(0, 9, m),
             rng.integers(0, 9, m), rng.integers(-2**40, 2**40, m),
-            rng.normal(size=m).view(np.int64),
+            (np.round(np.clip(rng.normal(size=m), -7, 7) * 2**20) *
+             2.0**-20).view(np.int64),
             rng.integers(-2**62, 2**62, m), rng.integers(-2**62, 2**62, m),
             (rng.normal(size=m) * 1e3).view(np.int64),
             (rng.normal(size=m) * 1e3).view(np.int64), rng.integers(0, 3, m)]
@@ -2061,6 +2121,7 @@ def test_merge_partials_matches_plain(cuda, m, n_keys, n_owner, n_tables,
     the table, and both count only the keys that found a slot); below the
     limit, the same groups (compacted, by key), counts, integer lanes and
     min/max exactly, float sums within rel 1e-12 (atomic adds change the
+    order, and `_merge_entries` draws values whose sums are exact in any
     order). Which keys win a full table's slots depends on the threads'
     order, so the groups of a full table are not compared. In the cases of
     1,000 keys a source holds a key once a call (its first entry), so

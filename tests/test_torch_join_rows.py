@@ -374,6 +374,22 @@ def test_small_spine_stays_on_the_host():
     _same_rows(port.sql(sql).to_pydict(), ref.sql(sql).to_pydict(), False)
 
 
+@pytest.mark.parametrize("case", ["inner_dict_payload", "semi"])
+def test_device_join_rows_off_plans_no_rows_chain(case):
+    """`SET datafusion.tpu.device_join_rows = false` plans no row chain in
+    either package (`UseDeviceJoinRows.enabled`) and leaves the rows as the
+    JAX package gives them under the same setting."""
+    port, ref = _star_pair()
+    sql = STAR_ROWS[case]
+    for c in (port, ref):
+        c.sql("SET datafusion.tpu.device_join_rows = false")
+    assert not _execs(port, sql, TorchJoinChainRowsExec)
+    assert not _execs(ref, sql, DeviceJoinChainRowsExec)
+    _same_rows(port.sql(sql).to_pydict(), ref.sql(sql).to_pydict(), False)
+    on, _ref = _star_pair()
+    assert _execs(on, sql, TorchJoinChainRowsExec)
+
+
 # --- the resident emit ---------------------------------------------------------
 
 def _wide_agg_batch(n=420_000, seed=3):
